@@ -1,0 +1,316 @@
+"""Listen-Attend-Spell (counterpart of the JAX ``models/las.py``), inference.
+
+Parameters live in ``ListenAttendSpell``, an ``nn.Module`` whose parameter
+names mirror the JAX params tree's paths (``listener.base.0.fwd.w_ih``, ...,
+``speller.init_h1``) and which indexes like that tree (``params["speller"]
+["cell1"]["w_ih"]``), so the functions below read the same as their JAX
+counterparts. ``las_from_jax_params`` / ``las_to_jax_params`` carry the whole
+tree across, the trained ``init_h*/c*`` decoder states included (the
+reference ``state_dict`` naming of ``compat`` has no slot for them).
+
+Ported: the config dataclasses, ``las_config_from_dicts``, parameter init,
+``listener_apply`` and the free-running eval decode of ``speller_apply``.
+Training (dropout, teacher forcing, init_force) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
+    AttentionCache,
+    cross_attention_precompute,
+    cross_attention_step,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
+    locked_lstm_stack_apply,
+    lstm_cell_step,
+    pyramidal_lstm_stack_apply,
+)
+
+
+# ---------------------------------------------------------------------------
+# Configs: the same fields and defaults as the JAX package's
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ListenerConfig:
+    input_dim: int = 15
+    uniform_hid_dim: int = 256
+    lstm_layers: int = 1
+    plstm_layers: int = 3
+    bidirectional: bool = True
+    init_dropout: float = 0.2
+    mid_dropout: float = 0.3
+    final_dropout: float = 0.4
+    # "pallas": the hand-written CUDA kernels (ops/lstm_cuda.py); "scan": the
+    # plain PyTorch loops (ops/lstm.py)
+    lstm_impl: str = "scan"
+    remat: bool = False      # training knob of the JAX package; unused here
+
+    @property
+    def enc_out_dim(self) -> int:
+        return self.uniform_hid_dim * (2 if self.bidirectional else 1)
+
+    @property
+    def time_reduction(self) -> int:
+        """Total time downsampling: 2x per pyramidal layer."""
+        return 2 ** self.plstm_layers
+
+
+@dataclass(frozen=True)
+class SpellerConfig:
+    enc_out_dim: int = 512
+    att_proj_dim: int = 128
+    att_heads: int = 4
+    att_dropout: float = 0.2
+    dec_vocab_size: int = 30
+    dec_emb_dim: int = 256
+    dec_emb_dropout: float = 0.5
+    dec_lstm_hid_dim: int = 512
+    dec_lstm_out_dim: int = 128
+    dec_lstm_dropout: float = 0.2
+    CHR_MAX_STEPS: int = 600
+    CHR_PAD_IDX: int = 29
+    CHR_SOS_IDX: int = 0
+    USE_GREEDY: bool = True
+    legacy_scale: bool = False
+    decoder_impl: str = "scan"  # training-decode kernel of the JAX package; not ported yet
+
+    def __post_init__(self):
+        # weight tying: the classifier input is cat(projected query, context)
+        if self.dec_emb_dim != 2 * self.att_proj_dim:
+            raise ValueError(
+                f"weight tying requires dec_emb_dim == 2*att_proj_dim, got "
+                f"{self.dec_emb_dim} != 2*{self.att_proj_dim}"
+            )
+
+
+@dataclass(frozen=True)
+class LASConfig:
+    listener: ListenerConfig = field(default_factory=ListenerConfig)
+    speller: SpellerConfig = field(default_factory=SpellerConfig)
+
+
+def las_config_from_dicts(listener_configs: dict, speller_configs: dict) -> LASConfig:
+    """LASConfig from reference-style config dicts; ``enc_out_dim`` is
+    derived from the listener, as in the reference composition root."""
+    listener = ListenerConfig(**listener_configs)
+    speller_kwargs = dict(speller_configs)
+    speller_kwargs["enc_out_dim"] = listener.enc_out_dim
+    return LASConfig(listener=listener, speller=SpellerConfig(**speller_kwargs))
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """A module whose parameters mirror a nested dict/list tree of arrays:
+    ``tree["a"][0]["b"]`` becomes parameter ``a.0.b``, and the module
+    indexes the same way. Parameters are float32."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            elif isinstance(value, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(v) for v in value))
+            else:
+                self.register_parameter(key, nn.Parameter(
+                    torch.from_numpy(np.array(value, dtype=np.float32))))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules or key in self._parameters
+
+
+class ListenAttendSpell(ParamTree):
+    """The LAS parameter tree ({"listener": ..., "speller": ...})."""
+
+    def __init__(self, tree: dict):
+        if set(tree) != {"listener", "speller"}:
+            raise ValueError(f"LAS params need exactly listener and speller, "
+                             f"got {sorted(tree)}")
+        super().__init__(tree)
+
+
+def _tree_to_numpy(node):
+    if isinstance(node, nn.ModuleList):
+        return [_tree_to_numpy(m) for m in node]
+    out = {k: p.detach().cpu().numpy().astype(np.float32)
+           for k, p in node._parameters.items()}
+    out.update({k: _tree_to_numpy(m) for k, m in node._modules.items()})
+    return out
+
+
+def cast_params(tree, dtype: torch.dtype):
+    """The tree as plain dicts/lists of tensors in ``dtype``. A decode casts
+    the speller once up front, so the per-step ``.to(dtype)`` of each use
+    is a no-op instead of a cast kernel."""
+    if isinstance(tree, (list, nn.ModuleList)):
+        return [cast_params(v, dtype) for v in tree]
+    if isinstance(tree, ParamTree):
+        tree = {**tree._parameters, **tree._modules}
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def las_from_jax_params(tree: dict) -> ListenAttendSpell:
+    """JAX LAS params tree (nested dicts/lists of arrays) -> module."""
+    return ListenAttendSpell(tree)
+
+
+def las_to_jax_params(module: ListenAttendSpell) -> dict:
+    """Module -> JAX LAS params tree of float32 numpy arrays."""
+    return _tree_to_numpy(module)
+
+
+def las_init(cfg: LASConfig, generator: torch.Generator) -> ListenAttendSpell:
+    """Fresh parameters with the JAX ``las_init`` distributions (torch
+    defaults: uniform +-1/sqrt(fan) for LSTMs and linears, normal embedding
+    with a zero PAD row, uniform [0, 1) init query, zero initial states)."""
+
+    def uniform(shape, k):
+        return (torch.rand(shape, generator=generator) * 2 - 1) * k
+
+    def lstm(in_dim, hid):
+        k = 1.0 / math.sqrt(hid)
+        return {"w_ih": uniform((in_dim, 4 * hid), k),
+                "w_hh": uniform((hid, 4 * hid), k), "b": uniform((4 * hid,), k)}
+
+    def layer(in_dim, hid, bidirectional):
+        if bidirectional:
+            return {"fwd": lstm(in_dim, hid), "bwd": lstm(in_dim, hid)}
+        return lstm(in_dim, hid)
+
+    def linear(in_dim, out_dim):
+        k = 1.0 / math.sqrt(in_dim)
+        return {"w": uniform((in_dim, out_dim), k), "b": uniform((out_dim,), k)}
+
+    lc, sc = cfg.listener, cfg.speller
+    mult = 2 if lc.bidirectional else 1
+    hid = lc.uniform_hid_dim
+    emb = torch.randn((sc.dec_vocab_size, sc.dec_emb_dim), generator=generator)
+    emb[sc.CHR_PAD_IDX] = 0.0
+    tree = {
+        "listener": {
+            "base": [layer(lc.input_dim if i == 0 else hid * mult, hid, lc.bidirectional)
+                     for i in range(lc.lstm_layers)],
+            "pyramid": [layer(2 * lc.enc_out_dim, hid, lc.bidirectional)
+                        for _ in range(lc.plstm_layers)],
+        },
+        "speller": {
+            "attention": {
+                "key_map": linear(sc.enc_out_dim, sc.att_proj_dim),
+                "value_map": linear(sc.enc_out_dim, sc.att_proj_dim),
+                "query_map": linear(sc.dec_lstm_out_dim, sc.att_proj_dim),
+            },
+            "char_emb": emb,
+            "cell1": lstm(sc.dec_emb_dim + sc.att_proj_dim, sc.dec_lstm_hid_dim),
+            "cell2": lstm(sc.dec_lstm_hid_dim, sc.dec_lstm_out_dim),
+            "init_query": torch.rand((1, sc.dec_lstm_out_dim), generator=generator),
+            "init_h1": torch.zeros((1, sc.dec_lstm_hid_dim)),
+            "init_c1": torch.zeros((1, sc.dec_lstm_hid_dim)),
+            "init_h2": torch.zeros((1, sc.dec_lstm_out_dim)),
+            "init_c2": torch.zeros((1, sc.dec_lstm_out_dim)),
+            "cls_b": torch.zeros((sc.dec_vocab_size,)),
+        },
+    }
+    return ListenAttendSpell(tree)
+
+
+# ---------------------------------------------------------------------------
+# Listener
+# ---------------------------------------------------------------------------
+
+def listener_apply(params, cfg: ListenerConfig, x: torch.Tensor,
+                   lengths: torch.Tensor):
+    """(B, T, input_dim) -> ((B, T / 2**plstm_layers, enc_out_dim), lengths)."""
+    h, lengths = locked_lstm_stack_apply(params["base"], x, lengths,
+                                         cfg.bidirectional, impl=cfg.lstm_impl)
+    return pyramidal_lstm_stack_apply(params["pyramid"], h, lengths,
+                                      cfg.bidirectional, impl=cfg.lstm_impl)
+
+
+# ---------------------------------------------------------------------------
+# Speller
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    h1: torch.Tensor
+    c1: torch.Tensor
+    h2: torch.Tensor
+    c2: torch.Tensor
+    context: torch.Tensor
+
+
+def speller_start(params, cfg: SpellerConfig, enc_h: torch.Tensor,
+                  enc_l: torch.Tensor):
+    """Attention cache and the t = -1 decoder state (learned initial
+    states, context of the learned initial query); also the t = -1
+    attention weights."""
+    batch, dtype = enc_h.shape[0], enc_h.dtype
+    cache = cross_attention_precompute(params["attention"], enc_h, enc_l,
+                                       cfg.att_heads)
+
+    def init(name, width):
+        return params[name].to(dtype).expand(batch, width)
+
+    query = init("init_query", cfg.dec_lstm_out_dim)
+    context, wgts, _ = cross_attention_step(params["attention"], cache, query,
+                                            cfg.att_heads, cfg.legacy_scale)
+    state = DecodeState(init("init_h1", cfg.dec_lstm_hid_dim),
+                        init("init_c1", cfg.dec_lstm_hid_dim),
+                        init("init_h2", cfg.dec_lstm_out_dim),
+                        init("init_c2", cfg.dec_lstm_out_dim), context)
+    return cache, state, wgts
+
+
+def speller_step(params, cfg: SpellerConfig, cache: AttentionCache,
+                 char: torch.Tensor, state: DecodeState):
+    """One free-running decode step: previous char ids (B,) ->
+    (logits (B, V), attention weights (B, heads, T), next state)."""
+    emb = params["char_emb"].to(state.context.dtype)
+    cell_in = torch.cat([emb[char], state.context], dim=-1)
+    h1, c1 = lstm_cell_step(params["cell1"], cell_in, state.h1, state.c1)
+    h2, c2 = lstm_cell_step(params["cell2"], h1, state.h2, state.c2)
+    context, wgts, q_proj = cross_attention_step(
+        params["attention"], cache, h2, cfg.att_heads, cfg.legacy_scale)
+    dec_out = torch.cat([q_proj, context], dim=-1)
+    logits = dec_out @ emb.T + params["cls_b"].to(emb.dtype)
+    return logits, wgts, DecodeState(h1, c1, h2, c2, context)
+
+
+class SpellerOutput(NamedTuple):
+    logits: torch.Tensor   # (B, steps, vocab)
+    att_map: torch.Tensor  # (heads, enc_len, steps + 1) — sample 0, plot layout
+
+
+def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
+                  enc_l: torch.Tensor) -> SpellerOutput:
+    """Free-running greedy decode for ``CHR_MAX_STEPS`` steps (the JAX
+    ``speller_apply`` with ``dec_y=None, train=False``)."""
+    params = cast_params(params, enc_h.dtype)
+    cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l)
+    char = torch.full((enc_h.shape[0],), cfg.CHR_SOS_IDX, dtype=torch.long,
+                      device=enc_h.device)
+    logits_t, wgts_t = [], []
+    for _ in range(cfg.CHR_MAX_STEPS):
+        logits, wgts, state = speller_step(params, cfg, cache, char, state)
+        char = torch.argmax(logits, dim=-1)
+        logits_t.append(logits)
+        wgts_t.append(wgts[0])
+    att_map = torch.stack([wgts0[0]] + wgts_t, dim=1)  # (heads, steps+1, T)
+    return SpellerOutput(logits=torch.stack(logits_t, dim=1),
+                         att_map=att_map.transpose(-2, -1))

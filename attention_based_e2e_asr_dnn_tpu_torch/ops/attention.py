@@ -1,0 +1,68 @@
+"""Multi-head cross-attention for the decoder (counterpart of the JAX
+``ops/attention.py``): keys/values precomputed once per batch, one query per
+decode step.
+
+Scaling is the correct ``1/sqrt(d_head)`` unless ``legacy_scale`` (the
+reference multiplies by ``sqrt(d_head)``). Padded frames get the dtype's
+most negative value before the softmax and are re-zeroed after it. The
+init_force prior is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import pad_mask
+
+
+class AttentionCache(NamedTuple):
+    """Per-batch precomputed attention state."""
+
+    keys: torch.Tensor    # (B, heads, T, d_head)
+    values: torch.Tensor  # (B, heads, T, d_head)
+    mask: torch.Tensor    # (B, T) True where PADDED
+
+
+def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w + b in x's dtype; params {"w": (in, out), "b": (out,)}."""
+    return x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
+
+
+def cross_attention_precompute(params, enc_h: torch.Tensor,
+                               enc_l: torch.Tensor, heads: int) -> AttentionCache:
+    """Project encoder outputs (B, T, enc_out_dim) to keys/values once."""
+    batch, seq_len, _ = enc_h.shape
+    proj_dim = params["key_map"]["w"].shape[1]
+    d_head = proj_dim // heads
+    keys = linear_apply(params["key_map"], enc_h).reshape(batch, seq_len, heads, d_head)
+    values = linear_apply(params["value_map"], enc_h).reshape(batch, seq_len, heads, d_head)
+    return AttentionCache(keys=keys.transpose(1, 2), values=values.transpose(1, 2),
+                          mask=pad_mask(enc_l, seq_len))
+
+
+def cross_attention_step(params, cache: AttentionCache, dec_h: torch.Tensor,
+                         heads: int, legacy_scale: bool = False):
+    """One decode-step query: dec_h (B, dec_out_dim) ->
+    (context (B, proj_dim), weights (B, heads, T), q_proj (B, proj_dim))."""
+    batch = dec_h.shape[0]
+    proj_dim = params["query_map"]["w"].shape[1]
+    d_head = proj_dim // heads
+    dtype = dec_h.dtype
+
+    q_proj = linear_apply(params["query_map"], dec_h)
+    q = q_proj.reshape(batch, heads, d_head)
+    scale = math.sqrt(d_head) if legacy_scale else 1.0 / math.sqrt(d_head)
+    # the scale rounded to the compute dtype, as the JAX package multiplies
+    # by it; a Python number, so no host-to-device copy per step
+    scale = torch.tensor(scale, dtype=dtype).item()
+    scores = torch.einsum("bhd,bhtd->bht", q, cache.keys) * scale
+    mask = cache.mask[:, None, :]
+    scores = scores.masked_fill(mask, torch.finfo(dtype).min)
+    wgts = torch.softmax(scores, dim=-1).masked_fill(mask, 0.0)
+    context = torch.einsum("bht,bhtd->bhd", wgts, cache.values).reshape(batch, proj_dim)
+    if "final_map" in params:
+        context = linear_apply(params["final_map"], context)
+    return context, wgts, q_proj

@@ -1,0 +1,143 @@
+"""Masked LSTM layers and the listener's stacks (counterpart of the JAX
+``ops/lstm.py``), inference form.
+
+Semantics kept from the reference: gate order [i, f, g, o]; the (h, c)
+carry freezes where ``t >= length`` and h is zero at padded frames; the
+reverse direction of a BiLSTM walks time descending from a zero carry, so
+every row starts at its own last valid frame.
+
+Numerics follow the Pallas kernels that base-LAS runs (``lstm_impl:
+pallas``), not the JAX ``lax.scan`` path: h and c are carried in float32,
+h is rounded to the weight dtype only as the operand of the recurrent
+product, gates are float32, and outputs come back in the input dtype. In
+float32 the two JAX paths agree, and so does this one.
+
+``lstm_apply`` / ``bilstm_apply`` here are the plain versions: Python time
+loops in PyTorch, used on the CPU and as the reference on the card.
+``impl="pallas"`` in the stacks routes each layer to the CUDA kernels of
+``ops/lstm_cuda.py`` instead (whose wrappers take these same plain loops for
+CPU tensors).
+
+Dropout and training are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+
+def _gates(pre: torch.Tensor, c: torch.Tensor, hidden_dim: int):
+    """Fused LSTM gate math. pre: (..., 4H) pre-activation; c: (..., H)."""
+    i = torch.sigmoid(pre[..., 0 * hidden_dim: 1 * hidden_dim])
+    f = torch.sigmoid(pre[..., 1 * hidden_dim: 2 * hidden_dim])
+    g = torch.tanh(pre[..., 2 * hidden_dim: 3 * hidden_dim])
+    o = torch.sigmoid(pre[..., 3 * hidden_dim: 4 * hidden_dim])
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, c_new
+
+
+# widest input whose projection runs inside the recurrence (the Pallas
+# route's threshold, lstm_pallas.py:1024)
+FUSED_IN_MAX_DIM = 128
+
+
+def directions_apply(dirs: Sequence, x: torch.Tensor, lengths: torch.Tensor,
+                     reverse: Sequence[bool], fusedin_fn: Callable,
+                     scan_fn: Callable) -> torch.Tensor:
+    """Run LSTM directions ``dirs`` (each {"w_ih", "w_hh", "b"}) over one
+    input: (B, T, D) -> (B, T, len(dirs) * H), directions concatenated.
+
+    The route is the Pallas wrapper's (``lstm_apply_pallas``): an input no
+    wider than ``FUSED_IN_MAX_DIM`` is projected inside the recurrence
+    (``fusedin_fn``, float32 projection); a wider one takes ``x @ W_ih + b``
+    as one product in the compute dtype, all directions at once, then the
+    recurrence (``scan_fn``).
+    """
+    dtype = x.dtype
+    w_hh = torch.stack([p["w_hh"] for p in dirs]).to(dtype)
+    if dirs[0]["w_ih"].shape[0] <= FUSED_IN_MAX_DIM:
+        w_ih = torch.stack([p["w_ih"] for p in dirs]).to(dtype)
+        b = torch.stack([p["b"] for p in dirs]).to(dtype)
+        return fusedin_fn(x.contiguous(), w_ih, b, w_hh, lengths, tuple(reverse))
+    w_ih = torch.cat([p["w_ih"] for p in dirs], dim=1).to(dtype)
+    b = torch.cat([p["b"] for p in dirs]).to(dtype)
+    x_proj = torch.matmul(x, w_ih) + b
+    return scan_fn(x_proj, w_hh, lengths, tuple(reverse))
+
+
+def lstm_apply(params, x: torch.Tensor, lengths: torch.Tensor,
+               reverse: bool = False) -> torch.Tensor:
+    """One LSTM direction, plain: (B, T, D) -> (B, T, H), zero at pads."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
+        lstm_scan_fusedin_plain,
+        lstm_scan_plain,
+    )
+
+    return directions_apply([params], x, lengths, (reverse,),
+                            lstm_scan_fusedin_plain, lstm_scan_plain)
+
+
+def bilstm_apply(params, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Bidirectional LSTM, plain: (B, T, D) -> (B, T, 2H) = [fwd, bwd]."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
+        lstm_scan_fusedin_plain,
+        lstm_scan_plain,
+    )
+
+    return directions_apply([params["fwd"], params["bwd"]], x, lengths,
+                            (False, True), lstm_scan_fusedin_plain,
+                            lstm_scan_plain)
+
+
+def _layer_apply(layer, x, lengths, bidirectional: bool, impl: str):
+    """One (Bi)LSTM layer: the CUDA kernels ("pallas") or the plain loops."""
+    if impl == "pallas":
+        from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
+            bilstm_apply_kernel,
+            lstm_apply_kernel,
+        )
+
+        return (bilstm_apply_kernel(layer, x, lengths) if bidirectional
+                else lstm_apply_kernel(layer, x, lengths))
+    return (bilstm_apply(layer, x, lengths) if bidirectional
+            else lstm_apply(layer, x, lengths))
+
+
+def locked_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
+                            bidirectional: bool = True, impl: str = "scan"):
+    """LockedLSTM stack at inference (no dropout). Returns (y, lengths)."""
+    for layer in params:
+        x = _layer_apply(layer, x, lengths, bidirectional, impl)
+    return x, lengths
+
+
+def pyramidal_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
+                               bidirectional: bool = True, impl: str = "scan"):
+    """Pyramidal stack at inference: per layer, concatenate adjacent frames
+    ((B, T, D) -> (B, T/2, 2D)), halve lengths with floor division (an odd
+    valid length loses its last frame, as in the reference), run the layer.
+    Returns (y, lengths)."""
+    num_layers = len(params)
+    for i, layer in enumerate(params):
+        batch, seq_len, dim = x.shape
+        if seq_len % 2 != 0:
+            raise ValueError(
+                f"pyramidal layer {i}: time axis {seq_len} must be even; pad "
+                f"batches to a multiple of 2**{num_layers} frames"
+            )
+        lengths = lengths // 2
+        x = x.reshape(batch, seq_len // 2, 2 * dim)
+        x = _layer_apply(layer, x, lengths, bidirectional, impl)
+    return x, lengths
+
+
+def lstm_cell_step(params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One decoder cell step in the compute dtype: x (B, D), h/c (B, H)."""
+    dtype = x.dtype
+    hidden_dim = params["w_hh"].shape[0]
+    pre = (x @ params["w_ih"].to(dtype) + h @ params["w_hh"].to(dtype)
+           + params["b"].to(dtype))
+    return _gates(pre, c, hidden_dim)

@@ -1,0 +1,181 @@
+"""PyTorch port, checkpoints and serving: the .ckpt format across both
+packages, reference .pt import, and Transcriber transcripts against the JAX
+Transcriber on one experiment folder; the port serving without JAX."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from attention_based_e2e_asr_dnn_tpu import compat, constants
+from attention_based_e2e_asr_dnn_tpu.models.las import (
+    LASConfig,
+    ListenerConfig,
+    SpellerConfig,
+    las_init,
+)
+from attention_based_e2e_asr_dnn_tpu.serving import Transcriber as JaxTranscriber
+from attention_based_e2e_asr_dnn_tpu.training import checkpoints as jckpt
+from attention_based_e2e_asr_dnn_tpu_torch import serving as tserving
+from attention_based_e2e_asr_dnn_tpu_torch.training import checkpoints as tckpt
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+LISTENER = {"input_dim": 15, "uniform_hid_dim": 16, "lstm_layers": 1,
+            "plstm_layers": 1, "bidirectional": True, "init_dropout": 0.0,
+            "mid_dropout": 0.0, "final_dropout": 0.0, "lstm_impl": "pallas"}
+SPELLER = {"att_proj_dim": 8, "att_heads": 1, "att_dropout": 0.0,
+           "dec_emb_dim": 16, "dec_emb_dropout": 0.0, "dec_lstm_hid_dim": 16,
+           "dec_lstm_out_dim": 8, "dec_lstm_dropout": 0.0, "CHR_MAX_STEPS": 12,
+           "CHR_PAD_IDX": constants.PAD_IDX, "CHR_SOS_IDX": constants.SOS_IDX,
+           "USE_GREEDY": True}
+CFG = LASConfig(listener=ListenerConfig(**LISTENER),
+                speller=SpellerConfig(enc_out_dim=32, **SPELLER))
+
+
+def _params(seed):
+    params = jax.tree.map(np.asarray, las_init(jax.random.PRNGKey(seed), CFG))
+    rng = np.random.default_rng(seed)
+    for key in ("init_h1", "init_c1", "init_h2", "init_c2"):
+        params["speller"][key] = rng.uniform(-0.5, 0.5, params["speller"][key].shape
+                                             ).astype(np.float32)
+    return params
+
+
+def _make_experiment(root, epochs=(1,)):
+    os.makedirs(os.path.join(root, "ckpts"))
+    snap = {"compute_dtype": "float32", "VOCAB": list(constants.VOCAB),
+            "SOS_IDX": constants.SOS_IDX, "EOS_IDX": constants.EOS_IDX,
+            "model": {"configs": {"listener_configs": LISTENER,
+                                  "speller_configs": SPELLER}}}
+    with open(os.path.join(root, "config.json"), "w") as fh:
+        json.dump(snap, fh)
+    for e in epochs:
+        jckpt.save_checkpoint(os.path.join(root, "ckpts", f"min-loss-epoch[{e}].ckpt"),
+                              {"params": _params(e), "epoch": e})
+    return root
+
+
+def _assert_trees_equal(a, b):
+    flat_a, tree_a = jax.tree.flatten(a)
+    flat_b, tree_b = jax.tree.flatten(b)
+    assert tree_a == tree_b
+    for x, y in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_ckpt_written_by_jax_loads_in_port_and_back(tmp_path):
+    params = _params(0)
+    opt = [np.arange(3, dtype=np.float32), np.float32(2.0)]
+    path = jckpt.save_checkpoint(str(tmp_path / "a.ckpt"),
+                                 {"params": params, "opt_state": opt, "epoch": 4})
+    ours = tckpt.load_checkpoint(path)
+    _assert_trees_equal(ours["params"], params)
+    assert ours["epoch"] == 4
+    _assert_trees_equal(ours["opt_state"], opt)
+
+    back = tckpt.save_checkpoint(str(tmp_path / "b.ckpt"), ours)
+    theirs = jckpt.load_checkpoint(back)
+    _assert_trees_equal(theirs["params"], params)
+    _assert_trees_equal(theirs["opt_state"], opt)
+    assert theirs["epoch"] == 4
+
+
+def test_reference_pt_loads_like_jax(tmp_path):
+    # the reference format has no slot for learned initial states: keep them 0
+    params = jax.tree.map(np.asarray, las_init(jax.random.PRNGKey(1), CFG))
+    sd = compat.state_dict_from_las_params(params)
+    path = str(tmp_path / "min-loss-epoch[3].pt")
+    torch.save({"model_state_dict": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                "epoch": 3}, path)
+    ours, theirs = tckpt.load_checkpoint(path), jckpt.load_checkpoint(path)
+    _assert_trees_equal(ours["params"], theirs["params"])
+    assert ours["epoch"] == theirs["epoch"] == 3
+
+
+def test_best_listing_and_average_match_jax(tmp_path):
+    exp = _make_experiment(str(tmp_path / "exp"), epochs=(1, 2, 10))
+    ckpts = os.path.join(exp, "ckpts")
+    open(os.path.join(ckpts, "emergency-epoch[11].ckpt"), "w").close()
+    assert tckpt.list_best_checkpoints(ckpts) == jckpt.list_best_checkpoints(ckpts)
+    paths = [os.path.join(ckpts, f) for f in tckpt.list_best_checkpoints(ckpts)]
+    _assert_trees_equal(tckpt.average_checkpoints(paths)["params"],
+                        jckpt.average_checkpoints(paths)["params"])
+    # the latest best checkpoint by epoch number (10, not 2)
+    _, payload = tserving.load_experiment(exp)
+    assert payload["epoch"] == 10
+
+
+def _utterances(n=6, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((int(t), 15)).astype(np.float32)
+            for t in rng.integers(5, 40, n)]
+
+
+def test_transcriber_matches_jax_transcriber(tmp_path):
+    exp = _make_experiment(str(tmp_path / "exp"))
+    feats = _utterances()
+    ref = JaxTranscriber(exp, batch_size=4, pad_time_multiple=16).transcribe(feats)
+    port = tserving.Transcriber(exp, batch_size=4, pad_time_multiple=16, device="cpu")
+    assert port.transcribe(feats) == ref
+
+    stream = tserving.StreamingTranscriber(port, max_wait_ms=200.0)
+    try:
+        futs = [stream.submit(f) for f in feats[:3]]
+        assert [f.result(timeout=60) for f in futs] == port.transcribe(feats[:3])
+    finally:
+        stream.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        stream.submit(feats[0])
+
+
+@pytest.mark.parametrize("kwargs", [{"beam_size": 4}, {"corrector": object()},
+                                    {"data_parallel": 2}])
+def test_transcriber_rejects_unported_options(tmp_path, kwargs):
+    exp = _make_experiment(str(tmp_path / "exp"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserving.Transcriber(exp, device="cpu", **kwargs)
+
+
+def test_port_serves_without_jax(tmp_path):
+    """The port imports, writes an experiment and transcribes with no JAX
+    module loaded."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        import numpy as np, torch
+        from attention_based_e2e_asr_dnn_tpu_torch import EOS_IDX, SOS_IDX, VOCAB
+        from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+            las_config_from_dicts, las_init, las_to_jax_params)
+        from attention_based_e2e_asr_dnn_tpu_torch.serving import Transcriber
+        from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import save_checkpoint
+        torch.set_num_threads(1)
+        lis, spl = {LISTENER!r}, {SPELLER!r}
+        cfg = las_config_from_dicts(lis, spl)
+        root = {str(tmp_path / "exp")!r}
+        os.makedirs(os.path.join(root, "ckpts"))
+        with open(os.path.join(root, "config.json"), "w") as fh:
+            json.dump({{"VOCAB": VOCAB, "SOS_IDX": SOS_IDX, "EOS_IDX": EOS_IDX,
+                       "model": {{"configs": {{"listener_configs": lis,
+                                              "speller_configs": spl}}}}}}, fh)
+        params = las_to_jax_params(las_init(cfg, torch.Generator().manual_seed(0)))
+        save_checkpoint(os.path.join(root, "ckpts", "min-ld-epoch[0].ckpt"),
+                        {{"params": params}})
+        texts = Transcriber(root, batch_size=2, pad_time_multiple=16,
+                            device="cpu").transcribe([np.ones((20, 15), np.float32)] * 3)
+        assert len(texts) == 3 and all(isinstance(s, str) for s in texts)
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
