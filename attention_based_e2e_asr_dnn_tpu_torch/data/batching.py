@@ -1,0 +1,130 @@
+"""Length-bucketed batching (counterpart of the JAX ``data/batching.py``),
+numpy only.
+
+Examples are sorted by feature length (longest first) and chunked into
+batches of ``batch_size``; every batch pads time up to a multiple of
+``pad_time_multiple`` and labels up to a multiple of ``pad_label_multiple``;
+the final batch is filled by repeating its last example, with index -1.
+With ``shuffle``, examples shuffle within windows of ``shuffle_window``
+batches and the batch order shuffles per epoch, from ``seed + epoch``.
+Features pad with 0.0 and transcripts with the EOS/PAD id, as the reference
+collate does (src/utils.py:96). The batches equal the JAX package's.
+
+PyTorch runs eagerly, so the buckets bound padding, not compiled programs.
+The lazy datasets' native assembler (``data/lazy.py``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, List, Optional
+
+import numpy as np
+
+
+def pad_to_multiple(value: int, multiple: int) -> int:
+    return ((value + multiple - 1) // multiple) * multiple
+
+
+@dataclass
+class Batch:
+    """One padded batch. ``indices`` are original dataset positions."""
+
+    x: np.ndarray                    # (B, T, F) float32 or (B, T) int32 for LM
+    lx: np.ndarray                   # (B,)
+    y: Optional[np.ndarray] = None   # (B, L) int32
+    ly: Optional[np.ndarray] = None  # (B,)
+    indices: Optional[np.ndarray] = None
+
+
+class BucketBatcher:
+    """Length-bucketed batch planner over a dataset of variable-length
+    examples: feature datasets (x (T, F) float) and id datasets (x (T,)
+    int)."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        pad_time_multiple: int = 128,
+        pad_label_multiple: int = 32,
+        label_pad_id: int = 29,
+        has_labels: bool = True,
+        shuffle: bool = False,
+        shuffle_window: int = 4,
+        seed: int = 0,
+        drop_last: bool = False,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.pad_time_multiple = pad_time_multiple
+        self.pad_label_multiple = pad_label_multiple
+        self.label_pad_id = label_pad_id
+        self.has_labels = has_labels
+        self.shuffle = shuffle
+        self.shuffle_window = shuffle_window
+        self.seed = seed
+        self.drop_last = drop_last
+        if hasattr(dataset, "feature_lengths"):
+            self._lengths = np.asarray(dataset.feature_lengths, dtype=np.int64)
+        else:
+            self._lengths = np.array(
+                [len(dataset[i][0] if has_labels else dataset[i])
+                 for i in range(len(dataset))], dtype=np.int64)
+        self._sorted = np.argsort(-self._lengths, kind="stable")
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _batch_plan(self, epoch: int) -> List[np.ndarray]:
+        order = self._sorted.copy()
+        rng = np.random.default_rng(self.seed + epoch)
+        if self.shuffle and self.shuffle_window > 0:
+            window = self.shuffle_window * self.batch_size
+            for start in range(0, len(order), window):
+                seg = order[start: start + window]
+                rng.shuffle(seg)
+                order[start: start + window] = seg
+        batches = [order[i: i + self.batch_size]
+                   for i in range(0, len(order), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        if self.shuffle:
+            rng.shuffle(batches)
+        return batches
+
+    def _assemble(self, idx: np.ndarray) -> Batch:
+        take = list(idx)
+        n_real = len(take)
+        take += [take[-1]] * (self.batch_size - n_real)  # repeat-pad
+        items = [self.dataset[i] for i in take]
+        xs = [it[0] for it in items] if self.has_labels else items
+
+        lx = np.array([len(x) for x in xs], dtype=np.int32)
+        t_pad = pad_to_multiple(int(lx.max()), self.pad_time_multiple)
+        if xs[0].ndim == 2:
+            x = np.zeros((self.batch_size, t_pad, xs[0].shape[1]), dtype=np.float32)
+        else:
+            x = np.full((self.batch_size, t_pad), self.label_pad_id, dtype=np.int32)
+        for b, ex in enumerate(xs):
+            x[b, : len(ex)] = ex
+        indices = np.array(list(idx) + [-1] * (self.batch_size - n_real),
+                           dtype=np.int64)
+        if not self.has_labels:
+            return Batch(x=x, lx=lx, indices=indices)
+
+        ys = [it[1] for it in items]
+        ly = np.array([len(y) for y in ys], dtype=np.int32)
+        l_pad = pad_to_multiple(int(ly.max()), self.pad_label_multiple)
+        y = np.full((self.batch_size, l_pad), self.label_pad_id, dtype=np.int32)
+        for b, ey in enumerate(ys):
+            y[b, : len(ey)] = ey
+        return Batch(x=x, lx=lx, y=y, ly=ly, indices=indices)
+
+    def epoch(self, epoch: int = 0) -> Iterator[Batch]:
+        for idx in self._batch_plan(epoch):
+            yield self._assemble(idx)
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self.epoch(0)

@@ -9,8 +9,11 @@ tree across, the trained ``init_h*/c*`` decoder states included (the
 reference ``state_dict`` naming of ``compat`` has no slot for them).
 
 Ported: the config dataclasses, ``las_config_from_dicts``, parameter init,
-``listener_apply`` and the free-running eval decode of ``speller_apply``.
-Training (dropout, teacher forcing, init_force) is not ported yet.
+``listener_apply``, the free-running eval decode of ``speller_apply`` (on
+the fused decode kernel, ``ops/speller_cuda.py``, when ``decoder_impl:
+pallas``; as a loop of PyTorch ops otherwise), the decode-route report and
+the eval ``las_apply``. Training (dropout, teacher forcing, init_force) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
     lstm_cell_step,
     pyramidal_lstm_stack_apply,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.ops.speller_cuda import speller_apply_fused
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +85,9 @@ class SpellerConfig:
     CHR_SOS_IDX: int = 0
     USE_GREEDY: bool = True
     legacy_scale: bool = False
-    decoder_impl: str = "scan"  # training-decode kernel of the JAX package; not ported yet
+    # "pallas": the eval decode on the fused CUDA kernel (ops/speller_cuda.py);
+    # "scan": the step loop of PyTorch ops below
+    decoder_impl: str = "scan"
 
     def __post_init__(self):
         # weight tying: the classifier input is cat(projected query, context)
@@ -123,6 +129,8 @@ class ParamTree(nn.Module):
                 self.add_module(key, ParamTree(value))
             elif isinstance(value, (list, tuple)):
                 self.add_module(key, nn.ModuleList(ParamTree(v) for v in value))
+            elif torch.is_tensor(value):
+                self.register_parameter(key, nn.Parameter(value.detach().float().clone()))
             else:
                 self.register_parameter(key, nn.Parameter(
                     torch.from_numpy(np.array(value, dtype=np.float32))))
@@ -297,10 +305,39 @@ class SpellerOutput(NamedTuple):
     att_map: torch.Tensor  # (heads, enc_len, steps + 1) — sample 0, plot layout
 
 
+# Which decoder served each (decoder, batch, enc_len) shape: "cuda" (the
+# fused kernel), "plain" (its plain version, for CPU tensors) or "scan".
+_DECODE_ROUTES: dict = {}
+
+
+def _decoder_key(cfg) -> str:
+    """The decoder a route belongs to: two models in one process can decode
+    the same shape through different configs."""
+    return (f"p{cfg.att_proj_dim}h{cfg.att_heads}"
+            f"e{cfg.dec_emb_dim}d{cfg.dec_lstm_hid_dim}"
+            f"o{cfg.dec_lstm_out_dim}")
+
+
+def decode_route_report() -> dict:
+    """Which decoder implementation served each decoded (decoder, batch,
+    enc_len) shape, keyed as the JAX package keys it."""
+    many = len({k for (k, _, _) in _DECODE_ROUTES}) > 1
+    return {(f"[{k}]B={b},Te={t}" if many else f"B={b},Te={t}"): impl
+            for (k, b, t), impl in sorted(_DECODE_ROUTES.items())}
+
+
 def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
                   enc_l: torch.Tensor) -> SpellerOutput:
     """Free-running greedy decode for ``CHR_MAX_STEPS`` steps (the JAX
-    ``speller_apply`` with ``dec_y=None, train=False``)."""
+    ``speller_apply`` with ``dec_y=None, train=False``). ``decoder_impl:
+    pallas`` runs it in one launch of the fused kernel (its plain version
+    for CPU tensors); a shape the kernel cannot take raises."""
+    batch, enc_len, _ = enc_h.shape
+    key = (_decoder_key(cfg), batch, enc_len)
+    if cfg.decoder_impl == "pallas":
+        _DECODE_ROUTES[key] = "cuda" if enc_h.is_cuda else "plain"
+        return speller_apply_fused(params, cfg, enc_h, enc_l)
+    _DECODE_ROUTES[key] = "scan"
     params = cast_params(params, enc_h.dtype)
     cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l)
     char = torch.full((enc_h.shape[0],), cfg.CHR_SOS_IDX, dtype=torch.long,
@@ -314,3 +351,11 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
     att_map = torch.stack([wgts0[0]] + wgts_t, dim=1)  # (heads, steps+1, T)
     return SpellerOutput(logits=torch.stack(logits_t, dim=1),
                          att_map=att_map.transpose(-2, -1))
+
+
+def las_apply(params, cfg: LASConfig, x: torch.Tensor,
+              lx: torch.Tensor) -> SpellerOutput:
+    """listen -> spell, eval form (the JAX ``las_apply`` with ``train=False``):
+    (B, T, input_dim) features and lengths -> the free-running decode."""
+    enc_h, enc_l = listener_apply(params["listener"], cfg.listener, x, lx)
+    return speller_apply(params["speller"], cfg.speller, enc_h, enc_l)

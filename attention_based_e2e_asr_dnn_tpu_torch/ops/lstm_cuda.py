@@ -14,26 +14,27 @@ switch for the input projection:
                          projection (in_dim <= 128) done in the kernel.
 
 Each launch runs the whole time loop of one layer for one or both
-directions, with the carry on chip; the source's header says what bounds it
-and how it is laid out. Each wrapper runs its plain PyTorch version for a
-CPU tensor, launches the kernel for a CUDA tensor or raises, and counts its
-launches in ``LAUNCHES``.
+directions and at most 32 batch rows, with the carry on chip; the source's
+header says what bounds it and how it is laid out. A wider batch takes one
+launch per 32 rows (``row_chunks``): rows are independent, so the result is
+the per-chunk results stacked. Each wrapper runs its plain PyTorch version
+for a CPU tensor, launches the kernel for a CUDA tensor or raises, and
+counts its launches in ``LAUNCHES``.
 
-The library is built with ``nvcc`` at first use into ``_build/`` (named by
-the source's hash) and bound with ``ctypes``.
+The library is built with ``nvcc`` at first use into ``_build/``
+(``ops/cuda_build.py``) and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
+from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
     FUSED_IN_MAX_DIM,
     _gates,
@@ -41,9 +42,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import length_mask
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "lstm_scan.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan.cu")
 
 # the kernel's fixed geometry (csrc/lstm_scan.cu): hidden units per block,
 # batch rows per block (one per lane)
@@ -65,35 +64,14 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"liblstm_scan_{tag}.so")
+    return cuda_build.library_path(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Compile ``csrc/lstm_scan.cu`` for sm_90a (once per source version)
-    and bind its C entry point. ``nvcc``'s register/shared-memory report
-    goes to ``<library>.log`` beside the library."""
-    so = library_path()
-    if not os.path.exists(so):
-        from torch.utils.cpp_extension import CUDA_HOME
-
-        if CUDA_HOME is None:
-            raise RuntimeError("building the LSTM kernels needs the CUDA "
-                               "toolkit (nvcc); CUDA_HOME not found")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-               "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        with open(so + ".log", "w") as fh:
-            fh.write(res.stderr)
-        os.replace(tmp, so)
+    """Build ``csrc/lstm_scan.cu`` (once per source version) and bind its C
+    entry point."""
+    so = cuda_build.build_library(SOURCE)
     lib = ctypes.CDLL(so)
     fn = lib.lstm_scan_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -106,10 +84,16 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
+    """[start, end) row ranges of at most ``rows`` rows covering ``batch``."""
+    return [(r0, min(r0 + rows, batch)) for r0 in range(0, batch, rows)]
+
+
 def _launch(name: str, fused: bool, x: torch.Tensor, w_ih, b,
             w_hh: torch.Tensor, lengths: torch.Tensor,
             reverse: Tuple[bool, ...]) -> torch.Tensor:
-    """Check shapes, launch one kernel, return (B, T, ndir * H)."""
+    """Check shapes, launch the kernel once per 32 rows, return
+    (B, T, ndir * H)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: kernel needs CUDA tensors, got {x.device}")
     dtype = x.dtype
@@ -127,8 +111,8 @@ def _launch(name: str, fused: bool, x: torch.Tensor, w_ih, b,
     if four_h != 4 * hidden or len(reverse) != ndir:
         raise ValueError(f"{name}: w_hh {tuple(w_hh.shape)} must be "
                          f"(ndir, H, 4H) with one reverse flag per direction")
-    if not 1 <= batch <= _BMAX:
-        raise ValueError(f"{name}: batch {batch} outside 1..{_BMAX}")
+    if batch < 1:
+        raise ValueError(f"{name}: empty batch")
     if seq_len < 1:
         raise ValueError(f"{name}: empty time axis")
     if hidden % 32 != 0:
@@ -152,6 +136,10 @@ def _launch(name: str, fused: bool, x: torch.Tensor, w_ih, b,
         x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
     if lengths.shape != (batch,):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} != ({batch},)")
+    if batch > _BMAX:
+        return torch.cat([_launch(name, fused, x[r0:r1], w_ih, b, w_hh,
+                                  lengths[r0:r1], reverse)
+                          for r0, r1 in row_chunks(batch)])
 
     lib = load_library()
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()

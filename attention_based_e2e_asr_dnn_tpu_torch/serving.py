@@ -29,6 +29,7 @@ import torch
 
 from attention_based_e2e_asr_dnn_tpu import constants
 from attention_based_e2e_asr_dnn_tpu.utils.levenshtein import ids_to_str
+from attention_based_e2e_asr_dnn_tpu_torch.data.batching import pad_to_multiple
 from attention_based_e2e_asr_dnn_tpu_torch.decoding.greedy import make_las_greedy_step
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     las_config_from_dicts,
@@ -40,10 +41,6 @@ from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     list_best_checkpoints,
     load_checkpoint,
 )
-
-
-def pad_to_multiple(value: int, multiple: int) -> int:
-    return ((value + multiple - 1) // multiple) * multiple
 
 
 def _epoch_of(filename: str) -> int:

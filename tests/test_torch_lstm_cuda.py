@@ -47,10 +47,10 @@ def test_kernels_match_plain_on_card(cuda_device, fused, dtype, atol):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_shapes_on_card(cuda_device):
-    w_hh = torch.zeros(1, 32, 128, device=cuda_device)
-    with pytest.raises(ValueError, match="batch 33"):
-        lstm_cuda.lstm_scan(torch.zeros(33, 4, 128, device=cuda_device), w_hh,
-                            torch.ones(33, dtype=torch.int32), (False,))
+    with pytest.raises(ValueError, match="empty batch"):
+        lstm_cuda.lstm_scan(torch.zeros(0, 4, 128, device=cuda_device),
+                            torch.zeros(1, 32, 128, device=cuda_device),
+                            torch.ones(0, dtype=torch.int32), (False,))
     with pytest.raises(ValueError, match="multiple of 32"):
         lstm_cuda.lstm_scan(torch.zeros(2, 4, 80, device=cuda_device),
                             torch.zeros(1, 20, 80, device=cuda_device),
@@ -80,3 +80,35 @@ def test_kernel_rejects_float16_on_card(cuda_device):
         lstm_cuda.lstm_scan(torch.zeros(2, 4, 128, device=cuda_device, dtype=torch.float16),
                             torch.zeros(1, 32, 128, device=cuda_device, dtype=torch.float16),
                             torch.ones(2, dtype=torch.int32), (False,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [40, 64])
+@pytest.mark.parametrize("fused", [True, False])
+def test_kernels_take_batches_past_32_rows_on_card(cuda_device, batch, fused):
+    """A batch wider than one launch's 32 rows runs as one launch per 32 rows
+    and equals the plain version."""
+    gen = torch.Generator().manual_seed(batch)
+    seq_len, hidden = 23, 64
+    in_dim = 15 if fused else 2 * 4 * hidden
+    lengths = torch.randint(1, seq_len + 1, (batch,), generator=gen).to(torch.int32)
+    lengths[0] = seq_len
+    lengths = lengths.to(cuda_device)
+    k = hidden ** -0.5
+    w_hh = ((torch.rand(2, hidden, 4 * hidden, generator=gen) * 2 - 1) * k).to(cuda_device)
+    if fused:
+        x = torch.randn(batch, seq_len, in_dim, generator=gen).to(cuda_device)
+        w_ih = ((torch.rand(2, in_dim, 4 * hidden, generator=gen) * 2 - 1) * k).to(cuda_device)
+        b = ((torch.rand(2, 4 * hidden, generator=gen) * 2 - 1) * k).to(cuda_device)
+        args = (x, w_ih, b, w_hh, lengths, (False, True))
+        kern, plain = lstm_cuda.lstm_scan_fusedin, lstm_cuda.lstm_scan_fusedin_plain
+    else:
+        x = (torch.rand(batch, seq_len, in_dim, generator=gen) - 0.5).to(cuda_device)
+        args = (x, w_hh, lengths, (False, True))
+        kern, plain = lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_plain
+    lstm_cuda.reset_launch_counts()
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES[kern.__name__] == len(lstm_cuda.row_chunks(batch)) == 2
+    assert got.shape == (batch, seq_len, 2 * hidden)
+    torch.testing.assert_close(got, plain(*args), atol=1e-4, rtol=0)
