@@ -5,37 +5,50 @@ package keeps its module names so each counterpart is easy to find, imports
 ``torch`` and never ``jax``, and replaces every Pallas kernel on its path with
 a kernel written by hand for Hopper (``csrc/``).
 
-Ported so far: greedy serving of a trained LAS experiment, and the batch
-``infer`` CLI with the eval decode on the fused speller-decode kernel.
+It imports nothing of the JAX package, not even a module there that is free
+of JAX: what it needs of ``constants``, ``config``, ``utils/levenshtein`` and
+``compat`` it keeps as its own copies under the same names.
 
+Ported so far: greedy serving of a trained LAS experiment, the batch
+``infer`` CLI with the eval decode on the fused speller-decode kernel, and
+the base-LAS training step (``lstm_impl: pallas``, ``decoder_impl: scan``)
+with every listener layer forward and backward on hand-written kernels.
+
+  constants        the output vocabulary
+  config           YAML -> attribute tree with ``configs``-splat semantics
+  compat           reference ``.pt`` state_dict -> params tree
+  utils/levenshtein  edit distance, ``ids_to_str``
   ops/masking      length and pad masks
   ops/precision    compute-dtype policy (config name -> torch dtype)
+  ops/dropout      locked and elementwise dropout, masks injectable
   ops/lstm         plain LSTM directions and the listener's stacks
   ops/cuda_build   nvcc build of a ``csrc/`` source at first use
-  ops/lstm_cuda    the LSTM-recurrence CUDA kernels, their plain versions
-  ops/attention    cross-attention precompute and decode step
+  ops/lstm_cuda    the LSTM-recurrence CUDA kernels (forward, training
+                   forward, adjoint), their plain versions, the autograd
+                   Functions
+  ops/attention    cross-attention precompute and decode step, the
+                   init_force prior
   ops/speller_cuda the fused eval speller-decode CUDA kernel, its plain
                    version, and the eval ``speller_apply_fused``
   models/las       configs, the ListenAttendSpell parameter module, the
-                   weight bridge to the JAX params tree, listener/speller
-                   (routed on ``decoder_impl``), the eval ``las_apply``
+                   weight bridge to the JAX params tree, ``TrainDraws``,
+                   listener/speller (eval and teacher-forced training),
+                   ``las_apply``
   decoding/greedy  early-exit greedy decode
   data/batching    length-bucketed batches (numpy)
   data/datasets    the reference-layout and toy ASR datasets (numpy)
+  data/specaug     SpecAugment on the device, draws injectable
   training/loss    masked token-mean cross-entropy
-  training/steps   the eval and inference steps
+  training/optim   adam / adamw / sgd after optax, the schedulers
+  training/steps   the train, eval and inference steps
   training/checkpoints  the ``.ckpt`` npz format, reader and writer
   serving          Transcriber / StreamingTranscriber
   infer            the batch inference CLI
-
-Reused by import from the reference package (all free of JAX):
-``constants``, ``compat``, ``config`` (needs ``yaml``) and
-``utils.levenshtein``.
 """
 
 __version__ = "0.1.0"
 
-from attention_based_e2e_asr_dnn_tpu.constants import (  # noqa: F401
+from attention_based_e2e_asr_dnn_tpu_torch.constants import (  # noqa: F401
     EOS_IDX,
     SOS_IDX,
     VOCAB,

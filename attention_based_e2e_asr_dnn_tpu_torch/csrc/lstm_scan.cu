@@ -6,7 +6,14 @@
 //       _forward_pallas(with_cs=False) -- pre_t = x_proj[t] + h_{t-1} @ W_hh;
 //   FUSED_IN = true:  _lstm_scan_fusedin_kernel (:854), launched by
 //       _fusedin_call(train=False) -- pre_t = (x_t @ W_ih + b) + h_{t-1} @ W_hh,
-//       the narrow input projection computed in the kernel (in_dim <= 128).
+//       the narrow input projection computed in the kernel (in_dim <= 128);
+//   TRAIN = true: the training forward of either, _lstm_scan_train_kernel
+//       (:239, launched by _forward_pallas_train) and _fusedin_call(train=True)
+//       -- the same recurrence with two more output streams for the adjoint
+//       kernel (lstm_bwd.cu): cs, the carry c after each frame (at a padded
+//       frame the frozen carry, not zero), and the activated gates [i, f, g, o]
+//       rounded to the stream dtype (zero at padded frames, where the adjoint
+//       ignores them). hs is bit-identical to the TRAIN = false kernels'.
 //
 // Numerics follow the TPU kernels: h and c carried in fp32, h rounded to the
 // weight dtype only as the operand of the recurrent dot, fp32 accumulation,
@@ -41,16 +48,10 @@
 // Plain FMA on the CUDA cores; wgmma/TMA are later work.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
-
-constexpr int UNITS = 8;     // hidden units per block
-constexpr int NWARPS = 8;    // k-split of the recurrent dot
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int BMAX = 32;     // batch rows: one per lane
-constexpr int LOAD_BATCH = 8;  // 16-byte loads in flight per thread
 
 struct ScanArgs {
   const void* x;        // FUSED_IN: (B, T, D) input; else (B, T, ndir*4H) x_proj
@@ -62,32 +63,15 @@ struct ScanArgs {
   void* out;            // (B, T, ndir*H)
   long long o_sd, o_sb, o_st;
   void* hbuf;           // (2, ndir, B, H) exchange buffer, weight dtype
+  void* cs;             // TRAIN: (B, T, ndir*H), out's strides
+  void* gates;          // TRAIN: (B, T, ndir*4H)
+  long long g_sd, g_sb, g_st;
   int ndir, rev_bits, B, T, D, H;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-// 16 bytes of the exchange buffer -> 4 or 8 floats at a 16-byte aligned dst
-__device__ __forceinline__ void unpack16(uint4 v, float* dst, const float*) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&v);
-}
-__device__ __forceinline__ void unpack16(uint4 v, float* dst, const __nv_bfloat16*) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-  const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
-  const float2 c = __bfloat1622float2(p[2]), e = __bfloat1622float2(p[3]);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, e.x, e.y);
-}
-
 __device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-template <typename T, bool FUSED_IN>
+template <typename T, bool FUSED_IN, bool TRAIN>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.B, seq_len = a.T, D = a.D;
@@ -136,6 +120,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
 
   const T* x = static_cast<const T*>(a.x);
   T* out = static_cast<T*>(a.out);
+  T* cs = static_cast<T*>(a.cs);
+  T* gates = static_cast<T*>(a.gates);
   T* hbuf = static_cast<T*>(a.hbuf);
   const long long hbuf_half = (long long)a.ndir * B * H;
   const int k_chunk = H / NWARPS;
@@ -218,6 +204,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
         pre[g] = sum;
       }
       float out_v = 0.0f;
+      float gate_v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (t < len) {
         if (FUSED_IN) {
           const T* xrow = x + (long long)cb * a.x_sb + (long long)t * a.x_st;
@@ -241,9 +228,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
         c_carry = fg * c_carry + ig * gg;
         h_carry = og * tanhf(c_carry);
         out_v = h_carry;
+        if (TRAIN) {
+          gate_v[0] = ig, gate_v[1] = fg, gate_v[2] = gg, gate_v[3] = og;
+        }
       }
-      out[(long long)d * a.o_sd + (long long)cb * a.o_sb + (long long)t * a.o_st + u0 + cu] =
-          from_f<T>(out_v);
+      const long long o_idx =
+          (long long)d * a.o_sd + (long long)cb * a.o_sb + (long long)t * a.o_st + u0 + cu;
+      out[o_idx] = from_f<T>(out_v);
+      if (TRAIN) {
+        cs[o_idx] = from_f<T>(c_carry);
+        T* grow = gates + (long long)d * a.g_sd + (long long)cb * a.g_sb +
+                  (long long)t * a.g_st + u0 + cu;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) grow[g * H] = from_f<T>(gate_v[g]);
+      }
       T* h_next = hbuf + ((s + 1) & 1) * hbuf_half + (long long)d * B * H;
       h_next[(long long)cb * H + u0 + cu] = from_f<T>(h_carry);
     }
@@ -261,9 +259,9 @@ static size_t smem_bytes(int D, int H, bool fused) {
   return floats * sizeof(float);
 }
 
-template <typename T, bool FUSED_IN>
+template <typename T, bool FUSED_IN, bool TRAIN>
 static cudaError_t launch(ScanArgs a, cudaStream_t stream) {
-  auto kernel = lstm_scan_kernel<T, FUSED_IN>;
+  auto kernel = lstm_scan_kernel<T, FUSED_IN, TRAIN>;
   const size_t smem = smem_bytes(a.D, a.H, FUSED_IN);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -280,17 +278,25 @@ static cudaError_t launch(ScanArgs a, cudaStream_t stream) {
 // H % 32 == 0, ndir * H / 8 blocks no more than the card's SMs, D <= 128 for
 // the fused input. A grid that still cannot be co-resident (shared memory)
 // is refused by the cooperative launch and reported here.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
-extern "C" int lstm_scan_launch(int dtype, int fused, int ndir, int rev_bits, int B, int T,
-                                int D, int H, const void* x, long long x_sd, long long x_sb,
-                                long long x_st, const void* w_ih, const void* bias,
-                                const void* w_hh, const int* lengths, void* out, long long o_sd,
-                                long long o_sb, long long o_st, void* hbuf, void* stream) {
-  ScanArgs a{x,    x_sd,     x_sb, x_st, w_ih, bias, w_hh, lengths, out, o_sd, o_sb,
-             o_st, hbuf, ndir, rev_bits, B, T, D, H};
+// dtype: 0 = float32, 1 = bfloat16. train != 0 also writes cs and gates.
+// Returns a cudaError_t (0 on success).
+template <typename T>
+static cudaError_t dispatch(int fused, int train, ScanArgs a, cudaStream_t s) {
+  if (train) return fused ? launch<T, true, true>(a, s) : launch<T, false, true>(a, s);
+  return fused ? launch<T, true, false>(a, s) : launch<T, false, false>(a, s);
+}
+
+extern "C" int lstm_scan_launch(int dtype, int fused, int train, int ndir, int rev_bits, int B,
+                                int T, int D, int H, const void* x, long long x_sd,
+                                long long x_sb, long long x_st, const void* w_ih,
+                                const void* bias, const void* w_hh, const int* lengths,
+                                void* out, long long o_sd, long long o_sb, long long o_st,
+                                void* hbuf, void* cs, void* gates, long long g_sd,
+                                long long g_sb, long long g_st, void* stream) {
+  ScanArgs a{x,    x_sd, x_sb, x_st,  w_ih, bias, w_hh, lengths, out,      o_sd, o_sb, o_st,
+             hbuf, cs,   gates, g_sd, g_sb, g_st, ndir, rev_bits, B,       T,    D,    H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fused ? launch<float, true>(a, s) : launch<float, false>(a, s);
-  if (dtype == 1)
-    return fused ? launch<__nv_bfloat16, true>(a, s) : launch<__nv_bfloat16, false>(a, s);
+  if (dtype == 0) return dispatch<float>(fused, train, a, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(fused, train, a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,9 +27,9 @@ from typing import List
 
 import torch
 
-from attention_based_e2e_asr_dnn_tpu import constants
-from attention_based_e2e_asr_dnn_tpu.config import cfg_float, load_config
-from attention_based_e2e_asr_dnn_tpu.utils.levenshtein import ids_to_str
+from attention_based_e2e_asr_dnn_tpu_torch import constants
+from attention_based_e2e_asr_dnn_tpu_torch.config import cfg_float, load_config
+from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import ids_to_str
 from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
 from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import (
     AsrTestDataset,

@@ -9,18 +9,25 @@ tree across, the trained ``init_h*/c*`` decoder states included (the
 reference ``state_dict`` naming of ``compat`` has no slot for them).
 
 Ported: the config dataclasses, ``las_config_from_dicts``, parameter init,
-``listener_apply``, the free-running eval decode of ``speller_apply`` (on
-the fused decode kernel, ``ops/speller_cuda.py``, when ``decoder_impl:
-pallas``; as a loop of PyTorch ops otherwise), the decode-route report and
-the eval ``las_apply``. Training (dropout, teacher forcing, init_force) is
-not ported yet.
+``listener_apply`` (with locked dropout in training), ``speller_apply``
+(the free-running eval decode on the fused decode kernel,
+``ops/speller_cuda.py``, when ``decoder_impl: pallas``, as a loop of PyTorch
+ops otherwise; the teacher-forced training decode as that loop under
+autograd, with dropout, per-step batch-shared teacher-forcing coins and the
+``init_force`` prior), the decode-route report and ``las_apply``.
+``decoder_impl: pallas`` in training (the fused decoder's training form and
+its adjoint kernel) is not ported yet and raises.
+
+Randomness of a training pass is one ``TrainDraws`` record, either drawn
+from an explicit ``torch.Generator`` (``draw_train_noise``) or handed in, so
+a test can replay the JAX package's draws.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,9 +35,11 @@ from torch import nn
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
     AttentionCache,
+    block_diagonal_prior,
     cross_attention_precompute,
     cross_attention_step,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.ops.dropout import draw_keep_mask
 from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
     locked_lstm_stack_apply,
     lstm_cell_step,
@@ -56,7 +65,7 @@ class ListenerConfig:
     # "pallas": the hand-written CUDA kernels (ops/lstm_cuda.py); "scan": the
     # plain PyTorch loops (ops/lstm.py)
     lstm_impl: str = "scan"
-    remat: bool = False      # training knob of the JAX package; unused here
+    remat: bool = False      # not ported: raises in training (ops/lstm.py)
 
     @property
     def enc_out_dim(self) -> int:
@@ -239,16 +248,62 @@ def las_init(cfg: LASConfig, generator: torch.Generator) -> ListenAttendSpell:
 
 
 # ---------------------------------------------------------------------------
+# Randomness of one training pass
+# ---------------------------------------------------------------------------
+
+class TrainDraws(NamedTuple):
+    """Every random number of one training pass. Masks are keep masks (bool,
+    True = keep; or 0/1), None where the rate is 0."""
+
+    listener_masks: list                  # per listener layer, base then pyramid: (B, 1, D)
+    coins: torch.Tensor                   # (L,) uniform [0, 1): teacher forcing per step
+    m1: Optional[torch.Tensor]            # (L, B, dec_lstm_hid_dim) cell-1 output dropout
+    m2: Optional[torch.Tensor]            # (L, B, dec_lstm_out_dim) cell-2 output dropout
+    specaug: Optional[NamedTuple] = None  # data/specaug.SpecAugDraws, read by the train step
+
+
+def draw_train_noise(cfg: "LASConfig", batch: int, steps: int,
+                     generator: Optional[torch.Generator], device,
+                     specaug=None) -> TrainDraws:
+    """Draw one training pass's ``TrainDraws`` from ``generator`` on ``device``."""
+    lc, sc = cfg.listener, cfg.speller
+    out_dim = lc.enc_out_dim
+    rates = ([lc.mid_dropout if i else lc.init_dropout for i in range(lc.lstm_layers)]
+             + [lc.mid_dropout if i < lc.plstm_layers - 1 else lc.final_dropout
+                for i in range(lc.plstm_layers)])
+    masks = [draw_keep_mask((batch, 1, out_dim), r, generator, device) if r > 0.0 else None
+             for r in rates]
+    coins = torch.rand((steps,), generator=generator, device=device)
+    rate = sc.dec_lstm_dropout
+    m1 = m2 = None
+    if rate > 0.0:
+        m1 = draw_keep_mask((steps, batch, sc.dec_lstm_hid_dim), rate, generator, device)
+        m2 = draw_keep_mask((steps, batch, sc.dec_lstm_out_dim), rate, generator, device)
+    return TrainDraws(masks, coins, m1, m2, specaug)
+
+
+# ---------------------------------------------------------------------------
 # Listener
 # ---------------------------------------------------------------------------
 
 def listener_apply(params, cfg: ListenerConfig, x: torch.Tensor,
-                   lengths: torch.Tensor):
-    """(B, T, input_dim) -> ((B, T / 2**plstm_layers, enc_out_dim), lengths)."""
-    h, lengths = locked_lstm_stack_apply(params["base"], x, lengths,
-                                         cfg.bidirectional, impl=cfg.lstm_impl)
-    return pyramidal_lstm_stack_apply(params["pyramid"], h, lengths,
-                                      cfg.bidirectional, impl=cfg.lstm_impl)
+                   lengths: torch.Tensor, train: bool = False,
+                   masks: Optional[list] = None,
+                   generator: Optional[torch.Generator] = None):
+    """(B, T, input_dim) -> ((B, T / 2**plstm_layers, enc_out_dim), lengths).
+    In training, locked dropout after every layer from ``masks`` (one per
+    layer, base then pyramid) or drawn from ``generator``."""
+    n_base = cfg.lstm_layers
+    h, lengths = locked_lstm_stack_apply(
+        params["base"], x, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
+        init_dropout=cfg.init_dropout, mid_dropout=cfg.mid_dropout, train=train,
+        masks=None if masks is None else masks[:n_base], generator=generator,
+        remat=cfg.remat)
+    return pyramidal_lstm_stack_apply(
+        params["pyramid"], h, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
+        mid_dropout=cfg.mid_dropout, final_dropout=cfg.final_dropout, train=train,
+        masks=None if masks is None else masks[n_base:], generator=generator,
+        remat=cfg.remat)
 
 
 # ---------------------------------------------------------------------------
@@ -286,15 +341,27 @@ def speller_start(params, cfg: SpellerConfig, enc_h: torch.Tensor,
 
 
 def speller_step(params, cfg: SpellerConfig, cache: AttentionCache,
-                 char: torch.Tensor, state: DecodeState):
-    """One free-running decode step: previous char ids (B,) ->
-    (logits (B, V), attention weights (B, heads, T), next state)."""
+                 char: torch.Tensor, state: DecodeState, gold_prev=None,
+                 use_gold=None, keep1=None, keep2=None, prior_row=None):
+    """One decode step: previous char ids (B,) -> (logits (B, V), attention
+    weights (B, heads, T), next state). Training extras: where ``use_gold``
+    (a 0-d bool) the previous gold embedding ``gold_prev`` (B, E) replaces
+    the fed-back one; ``keep1`` / ``keep2`` are this step's dropout masks
+    already scaled by 1 / keep, and the dropped outputs are what the carry
+    keeps (reference parity); ``prior_row`` is the init_force prior's row."""
     emb = params["char_emb"].to(state.context.dtype)
-    cell_in = torch.cat([emb[char], state.context], dim=-1)
+    char_e = emb[char]
+    if use_gold is not None:
+        char_e = torch.where(use_gold, gold_prev, char_e)
+    cell_in = torch.cat([char_e, state.context], dim=-1)
     h1, c1 = lstm_cell_step(params["cell1"], cell_in, state.h1, state.c1)
+    if keep1 is not None:
+        h1 = h1 * keep1
     h2, c2 = lstm_cell_step(params["cell2"], h1, state.h2, state.c2)
+    if keep2 is not None:
+        h2 = h2 * keep2
     context, wgts, q_proj = cross_attention_step(
-        params["attention"], cache, h2, cfg.att_heads, cfg.legacy_scale)
+        params["attention"], cache, h2, cfg.att_heads, cfg.legacy_scale, prior_row)
     dec_out = torch.cat([q_proj, context], dim=-1)
     logits = dec_out @ emb.T + params["cls_b"].to(emb.dtype)
     return logits, wgts, DecodeState(h1, c1, h2, c2, context)
@@ -327,24 +394,75 @@ def decode_route_report() -> dict:
 
 
 def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
-                  enc_l: torch.Tensor) -> SpellerOutput:
-    """Free-running greedy decode for ``CHR_MAX_STEPS`` steps (the JAX
-    ``speller_apply`` with ``dec_y=None, train=False``). ``decoder_impl:
-    pallas`` runs it in one launch of the fused kernel (its plain version
-    for CPU tensors); a shape the kernel cannot take raises."""
+                  enc_l: torch.Tensor, dec_y: Optional[torch.Tensor] = None,
+                  tf_rate=1.0, init_force: bool = False, train: bool = False,
+                  draws: Optional[TrainDraws] = None) -> SpellerOutput:
+    """The autoregressive decode (the JAX ``speller_apply``).
+
+    Eval (``train=False``, ``dec_y=None``): free-running greedy for
+    ``CHR_MAX_STEPS`` steps; ``decoder_impl: pallas`` runs it in one launch
+    of the fused kernel (its plain version for CPU tensors); a shape the
+    kernel cannot take raises.
+
+    Training (``dec_y`` (B, L) given): L steps of the step loop under
+    autograd. Step t feeds the gold embedding of step t - 1 where
+    ``coins[t] <= tf_rate`` (one coin per step, shared by the batch; step 0
+    is never forced), else the embedding of its own previous argmax.
+    ``draws`` supplies the coins and the dropout masks; without it there is
+    neither forcing nor dropout, as in the JAX package without a key.
+    ``init_force`` biases every step's attention by the block-diagonal
+    prior."""
     batch, enc_len, _ = enc_h.shape
     key = (_decoder_key(cfg), batch, enc_len)
     if cfg.decoder_impl == "pallas":
+        if train:
+            raise NotImplementedError(
+                "decoder_impl: pallas in training needs the fused decoder's "
+                "training form and its adjoint (kernels #8-train and #9, "
+                "speller_pallas.py:90 and :223), which are not ported yet; "
+                "train with decoder_impl: scan")
+        if dec_y is not None or init_force:
+            raise ValueError("the fused decode kernel runs the free-running "
+                             "eval decode only (no dec_y, no init_force)")
         _DECODE_ROUTES[key] = "cuda" if enc_h.is_cuda else "plain"
         return speller_apply_fused(params, cfg, enc_h, enc_l)
     _DECODE_ROUTES[key] = "scan"
-    params = cast_params(params, enc_h.dtype)
+    dtype = enc_h.dtype
+    params = cast_params(params, dtype)
+    if train:
+        if dec_y is None:
+            raise ValueError("training decode requires dec_y")
+        steps = dec_y.shape[1]
+        gold_emb = params["char_emb"][dec_y.long()]
+        # gold_prev[:, t] is the gold embedding of step t - 1
+        gold_prev = torch.cat([gold_emb.new_zeros(batch, 1, cfg.dec_emb_dim),
+                               gold_emb[:, :-1]], dim=1)
+    else:
+        steps = cfg.CHR_MAX_STEPS
+    use_gold = keep1 = keep2 = None
+    if train and draws is not None:
+        coins = draws.coins.to(enc_h.device).clone()
+        coins[0] = 2.0  # step 0 is never teacher-forced
+        use_gold = coins <= tf_rate
+        if cfg.dec_lstm_dropout > 0.0:
+            keep = 1.0 - cfg.dec_lstm_dropout
+            keep1 = draws.m1.to(dtype) / keep
+            keep2 = draws.m2.to(dtype) / keep
+    prior_rows = (block_diagonal_prior(enc_len, steps, device=enc_h.device).T
+                  if init_force else None)
+
     cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l)
-    char = torch.full((enc_h.shape[0],), cfg.CHR_SOS_IDX, dtype=torch.long,
+    char = torch.full((batch,), cfg.CHR_SOS_IDX, dtype=torch.long,
                       device=enc_h.device)
     logits_t, wgts_t = [], []
-    for _ in range(cfg.CHR_MAX_STEPS):
-        logits, wgts, state = speller_step(params, cfg, cache, char, state)
+    for t in range(steps):
+        logits, wgts, state = speller_step(
+            params, cfg, cache, char, state,
+            gold_prev=None if use_gold is None else gold_prev[:, t],
+            use_gold=None if use_gold is None else use_gold[t],
+            keep1=None if keep1 is None else keep1[t],
+            keep2=None if keep2 is None else keep2[t],
+            prior_row=None if prior_rows is None else prior_rows[t])
         char = torch.argmax(logits, dim=-1)
         logits_t.append(logits)
         wgts_t.append(wgts[0])
@@ -353,9 +471,19 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
                          att_map=att_map.transpose(-2, -1))
 
 
-def las_apply(params, cfg: LASConfig, x: torch.Tensor,
-              lx: torch.Tensor) -> SpellerOutput:
-    """listen -> spell, eval form (the JAX ``las_apply`` with ``train=False``):
-    (B, T, input_dim) features and lengths -> the free-running decode."""
-    enc_h, enc_l = listener_apply(params["listener"], cfg.listener, x, lx)
-    return speller_apply(params["speller"], cfg.speller, enc_h, enc_l)
+def las_apply(params, cfg: LASConfig, x: torch.Tensor, lx: torch.Tensor,
+              dec_y: Optional[torch.Tensor] = None, tf_rate=1.0,
+              init_force: bool = False, train: bool = False,
+              draws: Optional[TrainDraws] = None,
+              generator: Optional[torch.Generator] = None) -> SpellerOutput:
+    """listen -> spell (the JAX ``las_apply``). Eval: (B, T, input_dim)
+    features and lengths -> the free-running decode. Training: the
+    teacher-forced decode over ``dec_y``, its randomness from ``draws`` or,
+    when only a ``generator`` is given, drawn from it."""
+    if train and draws is None and generator is not None:
+        draws = draw_train_noise(cfg, x.shape[0], dec_y.shape[1], generator, x.device)
+    enc_h, enc_l = listener_apply(
+        params["listener"], cfg.listener, x, lx, train,
+        masks=None if draws is None else draws.listener_masks)
+    return speller_apply(params["speller"], cfg.speller, enc_h, enc_l, dec_y,
+                         tf_rate, init_force, train, draws)

@@ -4,14 +4,17 @@ decode step.
 
 Scaling is the correct ``1/sqrt(d_head)`` unless ``legacy_scale`` (the
 reference multiplies by ``sqrt(d_head)``). Padded frames get the dtype's
-most negative value before the softmax and are re-zeroed after it. The
-init_force prior is not ported yet.
+most negative value before the softmax and are re-zeroed after it. With
+an ``init_wgts_row`` (the early-epoch alignment forcing) the weights are
+multiplied by the prior's row and renormalised by a second softmax, as the
+reference does; the weights recorded for the attention map stay the
+pre-forcing ones.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,9 +47,12 @@ def cross_attention_precompute(params, enc_h: torch.Tensor,
 
 
 def cross_attention_step(params, cache: AttentionCache, dec_h: torch.Tensor,
-                         heads: int, legacy_scale: bool = False):
+                         heads: int, legacy_scale: bool = False,
+                         init_wgts_row: Optional[torch.Tensor] = None):
     """One decode-step query: dec_h (B, dec_out_dim) ->
-    (context (B, proj_dim), weights (B, heads, T), q_proj (B, proj_dim))."""
+    (context (B, proj_dim), weights (B, heads, T), q_proj (B, proj_dim)).
+    ``init_wgts_row`` (T,): this step's row of the diagonal-forcing prior;
+    the returned weights are then the pre-forcing ones."""
     batch = dec_h.shape[0]
     proj_dim = params["query_map"]["w"].shape[1]
     d_head = proj_dim // heads
@@ -62,7 +68,23 @@ def cross_attention_step(params, cache: AttentionCache, dec_h: torch.Tensor,
     mask = cache.mask[:, None, :]
     scores = scores.masked_fill(mask, torch.finfo(dtype).min)
     wgts = torch.softmax(scores, dim=-1).masked_fill(mask, 0.0)
-    context = torch.einsum("bht,bhtd->bhd", wgts, cache.values).reshape(batch, proj_dim)
+    used = wgts
+    if init_wgts_row is not None:
+        # renormalised by another softmax, not by the sum (reference parity)
+        used = torch.softmax(wgts * init_wgts_row[None, None, :].to(dtype), dim=-1)
+    context = torch.einsum("bht,bhtd->bhd", used, cache.values).reshape(batch, proj_dim)
     if "final_map" in params:
         context = linear_apply(params["final_map"], context)
     return context, wgts, q_proj
+
+
+def block_diagonal_prior(enc_len: int, steps: int, blocks: int = 6,
+                         device=None) -> torch.Tensor:
+    """Block-diagonal attention prior for early-epoch alignment forcing:
+    entry (i, t) is 1 when encoder frame i and decode step t fall in the same
+    of ``blocks`` blocks. Returns (enc_len, steps) float32."""
+    a_side = enc_len // blocks + 1
+    b_side = steps // blocks + 1
+    rows = torch.arange(enc_len, device=device) // a_side
+    cols = torch.arange(steps, device=device) // b_side
+    return (rows[:, None] == cols[None, :]).float()

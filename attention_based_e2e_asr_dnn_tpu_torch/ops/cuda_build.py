@@ -1,10 +1,10 @@
 """Build a CUDA source of ``csrc/`` into a shared library at first use.
 
 Each source compiles with ``nvcc`` for sm_90a into ``_build/`` under a name
-that carries the source's hash, so an edited source builds anew and an
-unchanged one is reused. ``nvcc``'s register and shared-memory report
-(``-Xptxas -v``) goes to ``<library>.log`` beside the library. The kernels'
-modules bind the library with ``ctypes``.
+that carries the hash of the source and of the headers (``*.cuh``) beside it,
+so an edited source builds anew and an unchanged one is reused. ``nvcc``'s
+register and shared-memory report (``-Xptxas -v``) goes to ``<library>.log``
+beside the library. The kernels' modules bind the library with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -20,8 +20,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 def library_path(source: str) -> str:
     """Where ``source``'s library is (or will be) built."""
-    with open(source, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
+    src_dir = os.path.dirname(source)
+    headers = sorted(f for f in os.listdir(src_dir) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for path in [source] + [os.path.join(src_dir, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    tag = digest.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
 

@@ -13,19 +13,23 @@ product, gates are float32, and outputs come back in the input dtype. In
 float32 the two JAX paths agree, and so does this one.
 
 ``lstm_apply`` / ``bilstm_apply`` here are the plain versions: Python time
-loops in PyTorch, used on the CPU and as the reference on the card.
-``impl="pallas"`` in the stacks routes each layer to the CUDA kernels of
-``ops/lstm_cuda.py`` instead (whose wrappers take these same plain loops for
-CPU tensors).
+loops in PyTorch, used on the CPU and as the reference on the card; autograd
+differentiates through the loop. ``impl="pallas"`` in the stacks routes each
+layer to the CUDA kernels of ``ops/lstm_cuda.py`` instead (whose wrappers
+take these same plain loops for CPU tensors), forward and backward.
 
-Dropout and training are not ported yet.
+In training the stacks apply locked dropout after each layer, as the JAX
+stacks do. ``remat`` (recompute a layer's activations in the backward pass)
+is not ported: it raises in training.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+
+from attention_based_e2e_asr_dnn_tpu_torch.ops.dropout import locked_dropout
 
 
 def _gates(pre: torch.Tensor, c: torch.Tensor, hidden_dim: int):
@@ -106,21 +110,50 @@ def _layer_apply(layer, x, lengths, bidirectional: bool, impl: str):
             else lstm_apply(layer, x, lengths))
 
 
+def _check_train_args(train: bool, remat: bool, masks, n_layers: int):
+    """The per-layer dropout masks of a training pass (None = draw)."""
+    if train and remat:
+        raise NotImplementedError(
+            "remat=True (recompute listener activations in the backward pass) "
+            "is not ported; train with remat: false")
+    if masks is None:
+        return [None] * n_layers
+    if len(masks) != n_layers:
+        raise ValueError(f"{len(masks)} dropout masks for {n_layers} layers")
+    return list(masks)
+
+
 def locked_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
-                            bidirectional: bool = True, impl: str = "scan"):
-    """LockedLSTM stack at inference (no dropout). Returns (y, lengths)."""
-    for layer in params:
+                            bidirectional: bool = True, impl: str = "scan",
+                            init_dropout: float = 0.0, mid_dropout: float = 0.0,
+                            train: bool = False, masks: Optional[Sequence] = None,
+                            generator: Optional[torch.Generator] = None,
+                            remat: bool = False):
+    """LockedLSTM stack. Per layer: LSTM, then in training locked dropout
+    with rate ``init_dropout`` after layer 0 and ``mid_dropout`` after the
+    rest, from ``masks[i]`` ((B, 1, D), True = keep) or drawn from
+    ``generator``. Lengths are unchanged. Returns (y, lengths)."""
+    masks = _check_train_args(train, remat, masks, len(params))
+    for i, layer in enumerate(params):
         x = _layer_apply(layer, x, lengths, bidirectional, impl)
+        if train:
+            x = locked_dropout(x, mid_dropout if i else init_dropout, masks[i], generator)
     return x, lengths
 
 
 def pyramidal_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
-                               bidirectional: bool = True, impl: str = "scan"):
-    """Pyramidal stack at inference: per layer, concatenate adjacent frames
-    ((B, T, D) -> (B, T/2, 2D)), halve lengths with floor division (an odd
-    valid length loses its last frame, as in the reference), run the layer.
-    Returns (y, lengths)."""
+                               bidirectional: bool = True, impl: str = "scan",
+                               mid_dropout: float = 0.0, final_dropout: float = 0.0,
+                               train: bool = False, masks: Optional[Sequence] = None,
+                               generator: Optional[torch.Generator] = None,
+                               remat: bool = False):
+    """Pyramidal stack: per layer, concatenate adjacent frames ((B, T, D) ->
+    (B, T/2, 2D)), halve lengths with floor division (an odd valid length
+    loses its last frame, as in the reference), run the layer, and in
+    training apply locked dropout (``mid_dropout`` for inner layers,
+    ``final_dropout`` after the last). Returns (y, lengths)."""
     num_layers = len(params)
+    masks = _check_train_args(train, remat, masks, num_layers)
     for i, layer in enumerate(params):
         batch, seq_len, dim = x.shape
         if seq_len % 2 != 0:
@@ -131,6 +164,9 @@ def pyramidal_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
         lengths = lengths // 2
         x = x.reshape(batch, seq_len // 2, 2 * dim)
         x = _layer_apply(layer, x, lengths, bidirectional, impl)
+        if train:
+            rate = mid_dropout if i < num_layers - 1 else final_dropout
+            x = locked_dropout(x, rate, masks[i], generator)
     return x, lengths
 
 

@@ -1,8 +1,9 @@
 """LSTM-recurrence kernels for Hopper (counterpart of the JAX
-``ops/lstm_pallas.py``, inference form), with their plain versions.
+``ops/lstm_pallas.py``), with their plain versions and the autograd
+Functions that join them.
 
-Two kernels, one CUDA source (``csrc/lstm_scan.cu``) with a compile-time
-switch for the input projection:
+Two CUDA sources. ``csrc/lstm_scan.cu`` holds the forward recurrence with
+compile-time switches for the input projection and the training streams:
 
   ``lstm_scan``          replaces ``_lstm_scan_nocs_kernel``
                          (lstm_pallas.py:87, via ``_forward_pallas`` with
@@ -11,17 +12,35 @@ switch for the input projection:
   ``lstm_scan_fusedin``  replaces ``_lstm_scan_fusedin_kernel``
                          (lstm_pallas.py:854, via ``_fusedin_call`` with
                          ``train=False``): the same with the narrow input
-                         projection (in_dim <= 128) done in the kernel.
+                         projection (in_dim <= 128) done in the kernel;
+  ``lstm_scan_train``,   replace ``_lstm_scan_train_kernel`` (lstm_pallas.py
+  ``lstm_scan_fusedin_train``  :239, via ``_forward_pallas_train``) and
+                         ``_fusedin_call`` with ``train=True``: the two above
+                         with two more output streams, the carry ``cs`` (the
+                         frozen carry at padded frames) and the activated
+                         gates [i, f, g, o] in the stream dtype.
+
+``csrc/lstm_bwd.cu`` holds the adjoint:
+
+  ``lstm_bwd_dw``        replaces ``_lstm_bwd_dw_kernel`` (lstm_pallas.py:382,
+                         via ``_backward_pallas_dw``): the adjoint recurrence
+                         in the opposite time order, ``dh_prev = dpre @
+                         W_hh^T`` and the ``dW_hh`` sum inside the kernel.
 
 Each launch runs the whole time loop of one layer for one or both
-directions and at most 32 batch rows, with the carry on chip; the source's
-header says what bounds it and how it is laid out. A wider batch takes one
-launch per 32 rows (``row_chunks``): rows are independent, so the result is
-the per-chunk results stacked. Each wrapper runs its plain PyTorch version
-for a CPU tensor, launches the kernel for a CUDA tensor or raises, and
-counts its launches in ``LAUNCHES``.
+directions and at most 32 batch rows, with the carry on chip; the sources'
+headers say what bounds them and how they are laid out. A wider batch takes
+one launch per 32 rows (``row_chunks``) into one output: rows are
+independent, and the per-launch partial ``dW_hh`` are summed in launch order.
+Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
+kernel for a CUDA tensor or raises, and counts its launches in ``LAUNCHES``.
 
-The library is built with ``nvcc`` at first use into ``_build/``
+``lstm_scan`` and ``lstm_scan_fusedin`` are differentiable: where a gradient
+is wanted they go through a ``torch.autograd.Function`` whose forward is the
+training kernel and whose backward is ``lstm_bwd_dw``; otherwise they launch
+the lean kernels, which write neither ``cs`` nor the gates.
+
+The libraries are built with ``nvcc`` at first use into ``_build/``
 (``ops/cuda_build.py``) and bound with ``ctypes``.
 """
 
@@ -37,21 +56,28 @@ import torch
 from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
     FUSED_IN_MAX_DIM,
-    _gates,
     directions_apply,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import length_mask
 
 SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan.cu")
+BWD_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd.cu")
+SOURCES = (SOURCE, BWD_SOURCE)
 
-# the kernel's fixed geometry (csrc/lstm_scan.cu): hidden units per block,
+# the kernels' fixed geometry (csrc/lstm_common.cuh): hidden units per block,
 # batch rows per block (one per lane)
 _UNITS = 8
 _BMAX = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# widest hidden size of the adjoint kernel (the JAX package's in-kernel-dW
+# route ends there too, lstm_pallas.py:550) and the shared memory a block
+# may use on the card
+_BWD_MAX_HIDDEN = 512
+_SMEM_LIMIT = 232448
 
 # launches of each kernel since the last reset
-LAUNCHES = {"lstm_scan": 0, "lstm_scan_fusedin": 0}
+LAUNCHES = {"lstm_scan": 0, "lstm_scan_fusedin": 0, "lstm_scan_train": 0,
+            "lstm_scan_fusedin_train": 0, "lstm_bwd_dw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -63,23 +89,33 @@ def reset_launch_counts() -> None:
 # Build and bind
 # ---------------------------------------------------------------------------
 
-def library_path() -> str:
-    return cuda_build.library_path(SOURCE)
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build ``csrc/lstm_scan.cu`` (once per source version) and bind its C
     entry point."""
-    so = cuda_build.build_library(SOURCE)
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(cuda_build.build_library(SOURCE))
     fn = lib.lstm_scan_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i, i, i, i, i, i, i, i,   # dtype fused ndir rev B T D H
-                   p, ll, ll, ll,            # x and its strides
-                   p, p, p, p,               # w_ih bias w_hh lengths
-                   p, ll, ll, ll,            # out and its strides
-                   p, p]                     # exchange buffer, stream
+    fn.argtypes = [i, i, i, i, i, i, i, i, i,  # dtype fused train ndir rev B T D H
+                   p, ll, ll, ll,              # x and its strides
+                   p, p, p, p,                 # w_ih bias w_hh lengths
+                   p, ll, ll, ll,              # out and its strides
+                   p, p,                       # exchange buffer, cs
+                   p, ll, ll, ll,              # gates and its strides
+                   p]                          # stream
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_bwd_library() -> ctypes.CDLL:
+    """Build ``csrc/lstm_bwd.cu`` and bind its C entry point."""
+    lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
+    fn = lib.lstm_bwd_dw_launch
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, i, i, i, i, i,      # dtype ndir rev B T H
+                   p, p, p, p, p, p,      # gates cs hs dy w_hh lengths
+                   p, p, p]               # dpre dw stream
     fn.restype = ctypes.c_int
     return lib
 
@@ -89,39 +125,51 @@ def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
     return [(r0, min(r0 + rows, batch)) for r0 in range(0, batch, rows)]
 
 
-def _launch(name: str, fused: bool, x: torch.Tensor, w_ih, b,
-            w_hh: torch.Tensor, lengths: torch.Tensor,
-            reverse: Tuple[bool, ...]) -> torch.Tensor:
-    """Check shapes, launch the kernel once per 32 rows, return
-    (B, T, ndir * H)."""
-    if not x.is_cuda:
-        raise ValueError(f"{name}: kernel needs CUDA tensors, got {x.device}")
-    dtype = x.dtype
+def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
+                      lengths: torch.Tensor, reverse: Tuple[bool, ...]):
+    """The checks every kernel shares; returns (ndir, hidden)."""
+    if not ref.is_cuda:
+        raise ValueError(f"{name}: kernel needs CUDA tensors, got {ref.device}")
+    dtype = ref.dtype
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not supported "
                          f"(float32 or bfloat16)")
-    ndir, hidden, four_h = w_hh.shape
-    batch, seq_len = x.shape[0], x.shape[1]
-    in_dim = x.shape[2] if fused else 0
-    tensors = [x, w_hh] + ([w_ih, b] if fused else [])
     for t in tensors:
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+        if t.device != ref.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: all operands must be contiguous "
-                             f"{dtype} on {x.device}")
+                             f"{dtype} on {ref.device}")
+    ndir, hidden, four_h = w_hh.shape
     if four_h != 4 * hidden or len(reverse) != ndir:
         raise ValueError(f"{name}: w_hh {tuple(w_hh.shape)} must be "
                          f"(ndir, H, 4H) with one reverse flag per direction")
-    if batch < 1:
+    if ref.shape[0] < 1:
         raise ValueError(f"{name}: empty batch")
-    if seq_len < 1:
+    if ref.shape[1] < 1:
         raise ValueError(f"{name}: empty time axis")
     if hidden % 32 != 0:
         raise ValueError(f"{name}: hidden {hidden} must be a multiple of 32")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = torch.cuda.get_device_properties(ref.device).multi_processor_count
     if ndir * hidden // _UNITS > sms:
         raise ValueError(f"{name}: {ndir} x H={hidden} needs "
                          f"{ndir * hidden // _UNITS} co-resident blocks, the "
                          f"card has {sms} SMs")
+    if lengths.shape != (ref.shape[0],):
+        raise ValueError(f"{name}: lengths {tuple(lengths.shape)} != "
+                         f"({ref.shape[0]},)")
+    return ndir, hidden
+
+
+def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
+            w_hh: torch.Tensor, lengths: torch.Tensor,
+            reverse: Tuple[bool, ...]):
+    """Check shapes and launch the forward kernel once per 32 rows. Returns
+    hs (B, T, ndir * H), and with ``train`` also cs (same shape) and gates
+    (B, T, ndir * 4H)."""
+    ndir, hidden = _check_recurrence(
+        name, x, [x, w_hh] + ([w_ih, b] if fused else []), w_hh, lengths, reverse)
+    dtype, four_h = x.dtype, 4 * hidden
+    batch, seq_len = x.shape[0], x.shape[1]
+    in_dim = x.shape[2] if fused else 0
     if fused:
         if in_dim > FUSED_IN_MAX_DIM:
             raise ValueError(f"{name}: in_dim {in_dim} > {FUSED_IN_MAX_DIM}")
@@ -134,32 +182,82 @@ def _launch(name: str, fused: bool, x: torch.Tensor, w_ih, b,
             raise ValueError(f"{name}: x_proj width {x.shape[2]} != "
                              f"{ndir} x 4H")
         x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
-    if lengths.shape != (batch,):
-        raise ValueError(f"{name}: lengths {tuple(lengths.shape)} != ({batch},)")
-    if batch > _BMAX:
-        return torch.cat([_launch(name, fused, x[r0:r1], w_ih, b, w_hh,
-                                  lengths[r0:r1], reverse)
-                          for r0, r1 in row_chunks(batch)])
 
     lib = load_library()
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
-    hbuf = torch.empty(2, ndir, batch, hidden, dtype=dtype, device=x.device)
+    cs = torch.empty_like(out) if train else None
+    gates = (torch.empty(batch, seq_len, ndir * four_h, dtype=dtype, device=x.device)
+             if train else None)
     rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lstm_scan_launch(
-            _DTYPE_CODES[dtype], int(fused), ndir, rev_bits, batch, seq_len,
-            in_dim, hidden, x.data_ptr(), *x_strides,
-            w_ih.data_ptr() if fused else None,
-            b.data_ptr() if fused else None,
-            w_hh.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), hidden, seq_len * ndir * hidden, ndir * hidden,
-            hbuf.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-    LAUNCHES[name] += 1
-    return out
+        for r0, r1 in row_chunks(batch):
+            hbuf = torch.empty(2, ndir, r1 - r0, hidden, dtype=dtype, device=x.device)
+            err = lib.lstm_scan_launch(
+                _DTYPE_CODES[dtype], int(fused), int(train), ndir, rev_bits,
+                r1 - r0, seq_len, in_dim, hidden, x[r0:r1].data_ptr(), *x_strides,
+                w_ih.data_ptr() if fused else None,
+                b.data_ptr() if fused else None,
+                w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
+                out[r0:r1].data_ptr(), hidden, seq_len * ndir * hidden, ndir * hidden,
+                hbuf.data_ptr(),
+                cs[r0:r1].data_ptr() if train else None,
+                gates[r0:r1].data_ptr() if train else None,
+                four_h, seq_len * ndir * four_h, ndir * four_h, stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+            LAUNCHES[name] += 1
+    return (out, cs, gates) if train else out
+
+
+def _launch_bwd(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
+                dy: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+                reverse: Tuple[bool, ...]):
+    """Check shapes and launch the adjoint kernel once per 32 rows. Returns
+    dpre (B, T, ndir * 4H) and d_whh (ndir, H, 4H) float32."""
+    name = "lstm_bwd_dw"
+    ndir, hidden = _check_recurrence(name, gates, [gates, cs, hs, dy, w_hh],
+                                     w_hh, lengths, reverse)
+    batch, seq_len = gates.shape[0], gates.shape[1]
+    if hidden > _BWD_MAX_HIDDEN:
+        raise ValueError(
+            f"{name}: hidden {hidden} > {_BWD_MAX_HIDDEN}; a wider layer is the "
+            f"route of the adjoint without dW_hh (_lstm_bwd_kernel, "
+            f"lstm_pallas.py:311, kernel #6), which is not ported yet")
+    smem = 4 * (4 * hidden * _UNITS + _BMAX * (hidden + 4) + 8 * _UNITS * 32
+                + _BMAX * 4 * _UNITS)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: hidden {hidden} needs {smem} bytes of shared "
+                         f"memory a block, the card allows {_SMEM_LIMIT}")
+    if gates.shape != (batch, seq_len, ndir * 4 * hidden):
+        raise ValueError(f"{name}: gates {tuple(gates.shape)} != (B, T, {ndir} x 4H)")
+    for label, t in (("cs", cs), ("hs", hs), ("dy", dy)):
+        if t.shape != (batch, seq_len, ndir * hidden):
+            raise ValueError(f"{name}: {label} {tuple(t.shape)} != (B, T, {ndir} x H)")
+
+    lib = load_bwd_library()
+    lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
+    chunks = row_chunks(batch)
+    dpre = torch.empty_like(gates)
+    dw_parts = torch.empty(len(chunks), ndir, hidden, 4 * hidden, dtype=torch.float32,
+                           device=gates.device)
+    rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for n, (r0, r1) in enumerate(chunks):
+            err = lib.lstm_bwd_dw_launch(
+                _DTYPE_CODES[gates.dtype], ndir, rev_bits, r1 - r0, seq_len, hidden,
+                gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr(), hs[r0:r1].data_ptr(),
+                dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
+                dpre[r0:r1].data_ptr(), dw_parts[n].data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+            LAUNCHES[name] += 1
+    d_whh = dw_parts[0]
+    for n in range(1, len(chunks)):  # a fixed order: runs repeat bit for bit
+        d_whh = d_whh + dw_parts[n]
+    return dpre, d_whh
 
 
 # ---------------------------------------------------------------------------
@@ -167,24 +265,47 @@ def _launch(name: str, fused: bool, x: torch.Tensor, w_ih, b,
 # ---------------------------------------------------------------------------
 
 def _scan_plain(pre_x: torch.Tensor, w_hh: torch.Tensor, valid: torch.Tensor,
-                reverse: bool) -> torch.Tensor:
+                reverse: bool, train: bool = False):
     """One direction's recurrence in float32 over pre_x (B, T, 4H) float32;
-    w_hh (H, 4H) in the weight dtype. Returns (B, T, H) float32."""
+    w_hh (H, 4H) in the weight dtype. Returns hs (B, T, H) float32, and with
+    ``train`` also cs (B, T, H) and the activated gates (B, T, 4H), zero at
+    padded frames, both float32 (the caller rounds them to the stream dtype)."""
     batch, seq_len, _ = pre_x.shape
     hidden = w_hh.shape[0]
     w = w_hh.float()
     h = pre_x.new_zeros(batch, hidden)
     c = pre_x.new_zeros(batch, hidden)
-    out = pre_x.new_zeros(batch, seq_len, hidden)
+    hs, cs, gates = [None] * seq_len, [None] * seq_len, [None] * seq_len
     steps = range(seq_len - 1, -1, -1) if reverse else range(seq_len)
     for t in steps:
         pre = pre_x[:, t] + h.to(w_hh.dtype).float() @ w
-        h_new, c_new = _gates(pre, c, hidden)
+        act = torch.cat([torch.sigmoid(pre[:, :2 * hidden]),
+                         torch.tanh(pre[:, 2 * hidden:3 * hidden]),
+                         torch.sigmoid(pre[:, 3 * hidden:])], dim=-1)
+        c_new = act[:, hidden:2 * hidden] * c + act[:, :hidden] * act[:, 2 * hidden:3 * hidden]
+        h_new = act[:, 3 * hidden:] * torch.tanh(c_new)
         m = valid[:, t, None]
         h = torch.where(m, h_new, h)
         c = torch.where(m, c_new, c)
-        out[:, t] = torch.where(m, h_new, 0.0)
-    return out
+        hs[t] = torch.where(m, h_new, 0.0)
+        if train:
+            cs[t] = c
+            gates[t] = torch.where(m, act, 0.0)
+    hs = torch.stack(hs, dim=1)
+    if train:
+        return hs, torch.stack(cs, dim=1), torch.stack(gates, dim=1)
+    return hs
+
+
+def _directions_plain(pre_x_of, w_hh, lengths, seq_len, reverse, dtype, train):
+    """Run ``_scan_plain`` per direction over ``pre_x_of(d)`` and join the
+    directions side by side in ``dtype``."""
+    valid = length_mask(lengths, seq_len)
+    outs = [_scan_plain(pre_x_of(d), w_hh[d], valid, rev, train)
+            for d, rev in enumerate(reverse)]
+    if not train:
+        return torch.cat(outs, dim=-1).to(dtype)
+    return tuple(torch.cat([o[i] for o in outs], dim=-1).to(dtype) for i in range(3))
 
 
 def lstm_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -192,10 +313,9 @@ def lstm_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     reverse: Sequence[bool]) -> torch.Tensor:
     """Plain version of ``lstm_scan``."""
     four_h = w_hh.shape[2]
-    valid = length_mask(lengths, x_proj.shape[1])
-    outs = [_scan_plain(x_proj[..., d * four_h:(d + 1) * four_h].float(),
-                        w_hh[d], valid, rev) for d, rev in enumerate(reverse)]
-    return torch.cat(outs, dim=-1).to(x_proj.dtype)
+    return _directions_plain(
+        lambda d: x_proj[..., d * four_h:(d + 1) * four_h].float(), w_hh, lengths,
+        x_proj.shape[1], reverse, x_proj.dtype, train=False)
 
 
 def lstm_scan_fusedin_plain(x: torch.Tensor, w_ih: torch.Tensor,
@@ -204,15 +324,164 @@ def lstm_scan_fusedin_plain(x: torch.Tensor, w_ih: torch.Tensor,
                             reverse: Sequence[bool]) -> torch.Tensor:
     """Plain version of ``lstm_scan_fusedin``: the input projection in
     float32, ``(x @ W_ih + b) + h @ W_hh`` as the Pallas kernel sums it."""
-    valid = length_mask(lengths, x.shape[1])
-    outs = [_scan_plain(x.float() @ w_ih[d].float() + b[d].float(), w_hh[d],
-                        valid, rev) for d, rev in enumerate(reverse)]
-    return torch.cat(outs, dim=-1).to(x.dtype)
+    return _directions_plain(
+        lambda d: x.float() @ w_ih[d].float() + b[d].float(), w_hh, lengths,
+        x.shape[1], reverse, x.dtype, train=False)
+
+
+def lstm_scan_train_plain(x_proj, w_hh, lengths, reverse):
+    """Plain version of ``lstm_scan_train``: (hs, cs, gates) in x_proj's
+    dtype, gates (B, T, ndir * 4H) with each direction's [i, f, g, o] side by
+    side."""
+    four_h = w_hh.shape[2]
+    return _directions_plain(
+        lambda d: x_proj[..., d * four_h:(d + 1) * four_h].float(), w_hh, lengths,
+        x_proj.shape[1], reverse, x_proj.dtype, train=True)
+
+
+def lstm_scan_fusedin_train_plain(x, w_ih, b, w_hh, lengths, reverse):
+    """Plain version of ``lstm_scan_fusedin_train``."""
+    return _directions_plain(
+        lambda d: x.float() @ w_ih[d].float() + b[d].float(), w_hh, lengths,
+        x.shape[1], reverse, x.dtype, train=True)
+
+
+def lstm_bwd_dw_plain(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
+                      dy: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+                      reverse: Sequence[bool]):
+    """Plain version of ``lstm_bwd_dw``: the adjoint recurrence written out,
+    one step at a time in the order opposite to the forward scan, with the
+    kernel's roundings (saved streams and dpre in the stream dtype, the
+    rounded dpre as the operand of both products, float32 sums and carries).
+    Not autograd through the forward loop, which would round nowhere."""
+    dtype = gates.dtype
+    ndir, hidden, four_h = w_hh.shape
+    batch, seq_len = gates.shape[0], gates.shape[1]
+    valid = length_mask(lengths, seq_len)
+    dpre = torch.zeros_like(gates)
+    d_whh = torch.zeros(ndir, hidden, four_h, dtype=torch.float32, device=gates.device)
+    for d, rev in enumerate(reverse):
+        wt = w_hh[d].float().T                      # (4H, H)
+        g_d = gates[..., d * four_h:(d + 1) * four_h]
+        cs_d, hs_d, dy_d = (t[..., d * hidden:(d + 1) * hidden] for t in (cs, hs, dy))
+        dh = torch.zeros(batch, hidden, dtype=torch.float32, device=gates.device)
+        dc = torch.zeros_like(dh)
+        for t in (range(seq_len) if rev else range(seq_len - 1, -1, -1)):
+            t_prev = t + 1 if rev else t - 1        # the forward scan's previous frame
+            has_prev = 0 <= t_prev < seq_len
+            i, f, g, o = g_d[:, t].float().split(hidden, dim=-1)
+            c_t = cs_d[:, t].float()
+            c_p = cs_d[:, t_prev].float() if has_prev else torch.zeros_like(c_t)
+            m = valid[:, t, None]
+            tanh_ct = torch.tanh(c_t)
+            dh_total = torch.where(m, dy_d[:, t].float(), 0.0) + dh
+            dc_total = dc + dh_total * o * (1.0 - tanh_ct * tanh_ct)
+            step = torch.cat([dc_total * g * i * (1.0 - i),
+                              dc_total * c_p * f * (1.0 - f),
+                              dc_total * i * (1.0 - g * g),
+                              dh_total * tanh_ct * o * (1.0 - o)], dim=-1)
+            step = torch.where(m, step, 0.0).to(dtype)
+            dpre[:, t, d * four_h:(d + 1) * four_h] = step
+            step = step.float()
+            if has_prev:
+                d_whh[d] += hs_d[:, t_prev].float().T @ step
+            dh = torch.where(m, step @ wt, dh_total)
+            dc = torch.where(m, dc_total * f, dc)
+    return dpre, d_whh
 
 
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
+
+def lstm_scan_train(x_proj, w_hh, lengths, reverse):
+    """The training forward over a precomputed projection: ``lstm_scan``'s
+    arguments -> (hs, cs, gates). hs as ``lstm_scan`` gives it; cs (B, T,
+    ndir * H) the carry c after each frame, the frozen carry at padded
+    frames; gates (B, T, ndir * 4H) the activated [i, f, g, o] of each
+    direction, zero at padded frames; all in x_proj's dtype."""
+    if x_proj.device.type == "cpu":
+        return lstm_scan_train_plain(x_proj, w_hh, lengths, reverse)
+    return _launch("lstm_scan_train", False, True, x_proj, None, None, w_hh,
+                   lengths, tuple(reverse))
+
+
+def lstm_scan_fusedin_train(x, w_ih, b, w_hh, lengths, reverse):
+    """The training forward with the input projection in the kernel:
+    ``lstm_scan_fusedin``'s arguments -> (hs, cs, gates)."""
+    if x.device.type == "cpu":
+        return lstm_scan_fusedin_train_plain(x, w_ih, b, w_hh, lengths, reverse)
+    return _launch("lstm_scan_fusedin_train", True, True, x, w_ih, b, w_hh,
+                   lengths, tuple(reverse))
+
+
+def lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, reverse):
+    """The adjoint recurrence with dW_hh: the training forward's streams
+    (gates, cs, hs), the gradient dy of hs (B, T, ndir * H) in the stream
+    dtype, w_hh (ndir, H, 4H), lengths, the forward's ``reverse`` flags ->
+    (dpre (B, T, ndir * 4H) in the stream dtype, the gradient of the
+    pre-activations, zero at padded frames; d_whh (ndir, H, 4H) float32)."""
+    if gates.device.type == "cpu":
+        return lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, reverse)
+    return _launch_bwd(gates, cs, hs, dy, w_hh, lengths, tuple(reverse))
+
+
+class _LstmScan(torch.autograd.Function):
+    """``lstm_scan`` under autograd (the JAX ``pallas_lstm_scan`` custom
+    VJP): forward the training kernel, backward the adjoint kernel."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, lengths, reverse):
+        hs, cs, gates = lstm_scan_train(x_proj, w_hh, lengths, reverse)
+        ctx.save_for_backward(w_hh, lengths, hs, cs, gates)
+        ctx.reverse = reverse
+        return hs
+
+    @staticmethod
+    def backward(ctx, d_hs):
+        w_hh, lengths, hs, cs, gates = ctx.saved_tensors
+        dpre, d_whh = lstm_bwd_dw(gates, cs, hs, d_hs.to(gates.dtype).contiguous(),
+                                  w_hh, lengths, ctx.reverse)
+        return dpre, d_whh.to(w_hh.dtype), None, None
+
+
+class _LstmScanFusedin(torch.autograd.Function):
+    """``lstm_scan_fusedin`` under autograd (the JAX
+    ``pallas_lstm_scan_fusedin`` custom VJP). The gradients of the input
+    projection are plain products over the streamed dpre, outside any kernel
+    as in the JAX package: one direction at a time, float32 sums, results in
+    the stream dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, b, w_hh, lengths, reverse):
+        hs, cs, gates = lstm_scan_fusedin_train(x, w_ih, b, w_hh, lengths, reverse)
+        ctx.save_for_backward(x, w_ih, w_hh, lengths, hs, cs, gates)
+        ctx.reverse = reverse
+        return hs
+
+    @staticmethod
+    def backward(ctx, d_hs):
+        x, w_ih, w_hh, lengths, hs, cs, gates = ctx.saved_tensors
+        dtype = gates.dtype
+        dpre, d_whh = lstm_bwd_dw(gates, cs, hs, d_hs.to(dtype).contiguous(),
+                                  w_hh, lengths, ctx.reverse)
+        ndir, in_dim, four_h = w_ih.shape
+        x2 = x.reshape(-1, in_dim)
+        d_x, d_wih, d_b = None, [], []
+        for d in range(ndir):
+            dp = dpre[..., d * four_h:(d + 1) * four_h].reshape(-1, four_h)
+            d_wih.append(x2.T @ dp)
+            d_b.append(dp.sum(0, dtype=torch.float32).to(dtype))
+            if ctx.needs_input_grad[0]:
+                part = (dp @ w_ih[d].T).reshape(x.shape)
+                d_x = part if d_x is None else d_x + part
+        return (d_x, torch.stack(d_wih), torch.stack(d_b), d_whh.to(w_hh.dtype),
+                None, None)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
 
 def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
               reverse: Sequence[bool]) -> torch.Tensor:
@@ -221,10 +490,12 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
     x_proj (B, T, ndir * 4H) = ``x @ W_ih + b`` of each direction side by
     side; w_hh (ndir, H, 4H); lengths (B,); ``reverse[d]`` walks direction d
     in descending time. Returns (B, T, ndir * H), zero at padded frames, in
-    x_proj's dtype."""
+    x_proj's dtype. Differentiable in x_proj and w_hh."""
+    if _wants_grad(x_proj, w_hh):
+        return _LstmScan.apply(x_proj, w_hh, lengths, tuple(reverse))
     if x_proj.device.type == "cpu":
         return lstm_scan_plain(x_proj, w_hh, lengths, reverse)
-    return _launch("lstm_scan", False, x_proj, None, None, w_hh, lengths,
+    return _launch("lstm_scan", False, False, x_proj, None, None, w_hh, lengths,
                    tuple(reverse))
 
 
@@ -234,10 +505,13 @@ def lstm_scan_fusedin(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     """LSTM recurrence with the input projection in the kernel.
 
     x (B, T, D) with D <= 128, shared by the directions; w_ih (ndir, D, 4H);
-    b (ndir, 4H); w_hh (ndir, H, 4H). Otherwise as ``lstm_scan``."""
+    b (ndir, 4H); w_hh (ndir, H, 4H). Otherwise as ``lstm_scan``.
+    Differentiable in x, w_ih, b and w_hh."""
+    if _wants_grad(x, w_ih, b, w_hh):
+        return _LstmScanFusedin.apply(x, w_ih, b, w_hh, lengths, tuple(reverse))
     if x.device.type == "cpu":
         return lstm_scan_fusedin_plain(x, w_ih, b, w_hh, lengths, reverse)
-    return _launch("lstm_scan_fusedin", True, x, w_ih, b, w_hh, lengths,
+    return _launch("lstm_scan_fusedin", True, False, x, w_ih, b, w_hh, lengths,
                    tuple(reverse))
 
 

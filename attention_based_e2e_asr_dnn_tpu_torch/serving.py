@@ -27,8 +27,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from attention_based_e2e_asr_dnn_tpu import constants
-from attention_based_e2e_asr_dnn_tpu.utils.levenshtein import ids_to_str
+from attention_based_e2e_asr_dnn_tpu_torch import constants
+from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import ids_to_str
 from attention_based_e2e_asr_dnn_tpu_torch.data.batching import pad_to_multiple
 from attention_based_e2e_asr_dnn_tpu_torch.decoding.greedy import make_las_greedy_step
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import (

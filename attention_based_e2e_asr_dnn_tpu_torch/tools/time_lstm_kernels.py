@@ -1,0 +1,91 @@
+"""Time the LSTM kernels of ``ops/lstm_cuda.py`` on the card at the main
+paths' shapes and print one JSON line.
+
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels [--reps 20]
+
+Shapes: base-LAS, H=512, both directions in one launch, bfloat16 and
+float32; the infer batch (B=64: layer 0 at T=1536 with D=15, layer 1 at
+T=768 over a 2 x 4H projection) for the lean forward kernels, and the train
+batch (B=128) for the training forward and the adjoint where the tree has
+them. Times are CUDA-event medians of ``--reps`` calls after one warm-up
+call, each call all its 32-row launches. The line names the card and its
+power limit, so two trees can be compared within one run on one card (run
+them in turns: parent, change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+
+import torch
+
+from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+H = 512
+
+
+def median_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--reps", type=int, default=20)
+    reps = parser.parse_args().reps
+    if not torch.cuda.is_available():
+        raise SystemExit("time_lstm_kernels: no CUDA device; the kernels run only on the card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    gen = torch.Generator().manual_seed(0)
+    k = H ** -0.5
+    rev = (False, True)
+    out = {"card": card, "reps": reps, "ms": {}}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        w_hh = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
+        w_ih = ((torch.rand(2, 15, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
+        b = ((torch.rand(2, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
+        for batch in (64, 128):
+            for name, seq_len in (("fusedin", 1536), ("scan", 768)):
+                lengths = torch.randint(1, seq_len + 1, (batch,), generator=gen)
+                lengths[::32], lengths[1::32] = seq_len, 1
+                lengths = lengths.to(torch.int32).cuda()
+                if name == "fusedin":
+                    args = (torch.randn(batch, seq_len, 15, generator=gen).to("cuda", dtype),
+                            w_ih, b, w_hh)
+                    lean = lc.lstm_scan_fusedin
+                    train = getattr(lc, "lstm_scan_fusedin_train", None)
+                else:
+                    args = ((torch.rand(batch, seq_len, 2 * 4 * H, generator=gen) - 0.5)
+                            .to("cuda", dtype), w_hh)
+                    lean = lc.lstm_scan
+                    train = getattr(lc, "lstm_scan_train", None)
+                key = f"{dtype_name} B={batch} T={seq_len}"
+                with torch.no_grad():
+                    out["ms"][f"lstm_scan{'_fusedin' if name == 'fusedin' else ''} {key}"] = \
+                        median_ms(lambda: lean(*args, lengths, rev), reps)
+                if batch == 128 and train is not None:
+                    hs, cs, gates = train(*args, lengths, rev)
+                    dy = torch.randn(hs.shape, generator=gen).to("cuda", dtype)
+                    out["ms"][f"{train.__name__} {key}"] = \
+                        median_ms(lambda: train(*args, lengths, rev), reps)
+                    out["ms"][f"lstm_bwd_dw {key}"] = median_ms(
+                        lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
+                    del hs, cs, gates, dy
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

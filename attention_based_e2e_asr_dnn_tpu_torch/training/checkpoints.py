@@ -83,7 +83,7 @@ def save_checkpoint(path: str, payload: dict) -> str:
 
 def _load_torch_checkpoint(path: str) -> dict:
     """Reference ``.pt`` -> params-only payload via ``compat``."""
-    from attention_based_e2e_asr_dnn_tpu import compat
+    from attention_based_e2e_asr_dnn_tpu_torch import compat
 
     sd, meta = compat.load_torch_state_dict(path, return_meta=True)
     params, family = compat.params_from_state_dict(sd)

@@ -1,26 +1,140 @@
-"""Eval and inference steps (counterpart of the JAX ``training/steps.py``).
+"""Train, eval and inference steps (counterpart of the JAX
+``training/steps.py``).
 
-Each step runs under ``torch.inference_mode``: features are cast to the
-compute dtype (integer inputs pass through), the model free-runs for
-``CHR_MAX_STEPS`` steps, and greedy ids come back for the host-side
-Levenshtein pass or the transcript. PyTorch runs eagerly, so there is no
-``jit``; a step is a plain function of (params, inputs).
+PyTorch runs eagerly, so there is no ``jit``; a step is a plain function.
 
-The train step (SpecAugment, teacher forcing, dropout, the optimizer and the
-NaN guard) is not ported yet.
+The train step: SpecAugment on the device, the model under autograd in the
+compute dtype with float32 parameters (their casts stay in the graph, so the
+gradients arrive in float32), the masked cross-entropy, the global gradient
+norm, and the optimizer of ``training/optim.py`` with the learning rate and
+the teacher-forcing rate as runtime scalars. With ``nan_guard`` a step whose
+gradient norm is not finite is a true no-op: parameters and the whole
+optimizer state, its count included, keep their values. That choice is made
+with ``torch.where`` on device tensors, and the metrics stay device tensors,
+so the step itself never waits for the device. Parameters are updated in
+place.
+
+The eval and inference steps run under ``torch.inference_mode``: features
+are cast to the compute dtype (integer inputs pass through), the model
+free-runs for ``CHR_MAX_STEPS`` steps, and greedy ids come back for the
+host-side Levenshtein pass or the transcript.
 """
 
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import torch
 
+from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug, specaugment
 from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
+from attention_based_e2e_asr_dnn_tpu_torch.training.optim import (
+    Optimizer,
+    OptState,
+    global_norm,
+)
 
 
 def _cast_features(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """Cast float features to the compute dtype; integer inputs (the
     Rewriter's char ids) pass through untouched."""
     return x.to(compute_dtype) if x.is_floating_point() else x
+
+
+class TrainState:
+    """What a train step carries: the parameter module (updated in place),
+    the optimizer state, the generator the step draws its noise from (on the
+    parameters' device), and the update counter."""
+
+    def __init__(self, params: torch.nn.Module, opt_state: OptState,
+                 generator: Optional[torch.Generator], step: int = 0):
+        self.params = params
+        self.opt_state = opt_state
+        self.generator = generator
+        self.step = step
+
+
+def create_train_state(params: torch.nn.Module, opt: Optimizer, seed: int = 0,
+                       device: str = "cuda") -> TrainState:
+    """Move ``params`` to ``device`` (the card unless the caller asks for the
+    CPU; no card raises) and build a fresh optimizer state and a generator
+    seeded with ``seed`` there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_train_state: no CUDA device; training runs on "
+                           "the card unless device='cpu' is asked for")
+    params = params.to(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(params, opt.init(params.parameters()), generator)
+
+
+def make_train_step(apply_fn, opt: Optimizer, accum_steps: int = 1,
+                    compute_dtype=torch.float32, use_specaug: bool = False,
+                    specaug_freq: int = 6, specaug_time: int = 200,
+                    specaug_iid: bool = False, nan_guard: bool = True):
+    """Build the train step.
+
+    ``apply_fn(params, x, lx, dec_y=, tf_rate=, init_force=, train=True,
+    draws=, generator=)`` returns an object with ``.logits`` and
+    ``.att_map`` (``las_apply`` with its config bound). It takes the pass's
+    randomness from ``draws`` or, where that is None, draws it from
+    ``generator``.
+
+        step(state, x, lx, y, ly, tf_rate, lr, init_force=False, draws=None)
+            -> (state, metrics, att_map)
+
+    ``y`` has <sos> already stripped. ``draws`` (``models.las.TrainDraws``,
+    its ``specaug`` field included) replays a given draw; by default every
+    random number comes from ``state.generator``. ``metrics``: ``loss``,
+    ``ppl``, ``grad_norm`` (before clipping), ``n_tokens``, ``finite``, all
+    device tensors."""
+    if accum_steps != opt.accum_steps:
+        raise ValueError(f"accum_steps {accum_steps} differs from the optimizer's "
+                         f"{opt.accum_steps}")
+
+    def step(state: TrainState, x, lx, y, ly, tf_rate, lr,
+             init_force: bool = False, draws: Any = None):
+        params = list(state.params.parameters())
+        if use_specaug:
+            spec = (draws.specaug if draws is not None else
+                    draw_specaug(x.shape[0], specaug_freq, specaug_time, specaug_iid,
+                                 state.generator, x.device))
+            x = specaugment(x, spec)
+        out = apply_fn(state.params, _cast_features(x, compute_dtype), lx, dec_y=y,
+                       tf_rate=tf_rate, init_force=init_force, train=True,
+                       draws=draws, generator=state.generator)
+        loss, n_tokens = masked_ce_loss(out.logits, y, ly)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+        with torch.no_grad():
+            grad_norm = global_norm(grads)
+            ok = torch.isfinite(grad_norm)
+            if not nan_guard:
+                ok = torch.ones_like(ok)
+            if nan_guard:
+                # a non-finite step must be a true no-op: zero update AND the
+                # previous optimizer state, or stale momentum and the
+                # decoupled weight decay would still move the parameters
+                grads = [torch.where(ok, g, 0.0) for g in grads]
+                updates, new_state = opt.update(grads, state.opt_state, params, lr)
+                updates = [torch.where(ok, u, 0.0) for u in updates]
+                new_state = OptState(*(
+                    None if new is None else
+                    torch.where(ok, new, old) if torch.is_tensor(new) else
+                    [torch.where(ok, n, o) for n, o in zip(new, old)]
+                    for new, old in zip(new_state, state.opt_state)))
+            else:
+                updates, new_state = opt.update(grads, state.opt_state, params, lr)
+            for p, u in zip(params, updates):
+                p.add_(u)
+        state.opt_state = new_state
+        state.step += 1
+        metrics = {"loss": loss.detach(), "ppl": torch.exp(loss.detach()),
+                   "grad_norm": grad_norm, "n_tokens": n_tokens, "finite": ok}
+        return state, metrics, out.att_map.detach()
+
+    return step
 
 
 def make_eval_step(apply_fn, compute_dtype=torch.float32):

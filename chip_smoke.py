@@ -30,13 +30,40 @@ on one NVIDIA card, from the root of a checkout:
    through the plain functions (``lstm_impl: scan``), then greedy decoding
    of both. float32: encoder outputs within tolerance and identical ids.
    bfloat16: the max error and the share of identical transcripts.
-6. The ``infer`` CLI in-process on the card over a 128-utterance test set in
+6. Kernels ``lstm_scan_train`` / ``lstm_scan_fusedin_train`` (the training
+   forward) and ``lstm_bwd_dw`` (its adjoint) at the train step's shapes
+   (B=128 as four launches of 32 rows, H=512; layer 0 at T=1536 with D=15,
+   layer 1 at T=768 over a 2 x 4H projection), float32 and bfloat16, ragged
+   lengths with a length-1 row and a full row in every launch: hs bit-equal
+   to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
+   Function's d_x, d_wih, d_b against the plain versions.
+7. A trainer that takes a few steps: seeded base-LAS weights, one seeded
+   batch (B=128, T=1536, L=192, lengths ragged within the bucket), bfloat16
+   compute, SpecAugment and dropout on, tf_rate 0.9, AdamW (amsgrad, lr 1e-3,
+   wd 5e-6), clip 5, NaN guard on, ``lstm_impl: pallas``, ``decoder_impl:
+   scan``: one warm-up step and 5 timed steps (up to 10 if the loss has not
+   fallen below the warm-up step's). Every step finite, the loss falls, 16 launches of the training
+   forward and 16 of the adjoint a step, none of the lean kernels, no plain
+   version called. Seconds a step, utterances/s, peak device memory and the
+   split listener forward / speller forward / backward / optimizer.
+8. Train parity: one float32 step at full width and a short time axis (B=40,
+   T=256, L=32, dropout and SpecAugment on, one shared set of draws) through
+   the kernels and through ``lstm_impl: scan`` on the card: loss, grad_norm
+   and every updated parameter.
+9. The ``infer`` CLI in-process on the card over a 128-utterance test set in
    the reference layout, at ``batch_size: 64``, every best checkpoint and
    their average, twice: ``early_stop: true`` (the early-exit greedy decode)
    and ``early_stop: false`` (the fused decode kernel). The CSVs must be
    well-formed and in template order, the decode route ``cuda``, and the
    launch counts those of 64-row batches. Utterances/s, ms per batch and
    peak device memory are printed.
+
+Beside each kernel's time the record holds ``bound_ms``, the least time the
+card could take for the same work: the larger of the operations this run's
+valid frames need over 989 TFLOP/s (bf16, dense) and the bytes of every
+input and output, each once, over 3.35 TB/s; and ``library_ms``, the time of
+one PyTorch call for the same function (cuDNN's LSTM through ``nn.LSTM`` on
+the packed batch), a yardstick the port never calls.
 
 Any failure exits non-zero before the result. The line before the last is
 the kernels' JSON record; the last line is
@@ -55,6 +82,7 @@ import tempfile
 import time
 
 SEED = 11785
+DEVICE = "cuda"
 B, H = 32, 512
 # float32: the kernel and the plain loop differ only in summation order;
 # over 1536 steps that stays near 1e-6. bfloat16: h is rounded to bf16 as
@@ -76,6 +104,23 @@ KERNELS = {
     "lstm_scan": (768, 2 * 2 * H, "attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py:87"),
 }
 SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan.cu"
+BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_bwd.cu"
+PALLAS = "attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py"
+# the card's published peaks (H100 SXM): dense bf16 FLOP/s, bytes/s
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# the train step's shapes
+TRAIN_B, TRAIN_T, TRAIN_L = 128, 1536, 192
+TRAIN_KERNELS = {
+    # forward name: (T, input width, TPU kernel it replaces)
+    "lstm_scan_fusedin_train": (1536, 15, PALLAS + ":854"),
+    "lstm_scan_train": (768, 2 * 2 * H, PALLAS + ":239"),
+}
+# The training forward and the adjoint against their plain versions: the
+# largest error over the largest magnitude of the plain tensor. float32:
+# summation order over up to 1536 steps (dW_hh sums T x B terms).
+# bfloat16: the streams are bf16 and an order difference that flips one
+# rounding carries along the recurrence: four bf16 steps (4 * 2**-8).
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 BASE_LAS_MODEL = {
     "listener_configs": {
         "input_dim": 15, "uniform_hid_dim": 512, "lstm_layers": 1,
@@ -108,6 +153,52 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """(least time in ms, "operations" or "bytes") at the card's peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fmt_ms(value) -> str:
+    return "not measured" if value is None else f"{value:.3f}"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def nn_lstm_ms(torch, x, lengths, dtype, mode: str):
+    """cuDNN's LSTM through ``nn.LSTM`` (one bidirectional layer, H hidden)
+    on the packed batch, CUDA-event median of 5: ``mode`` "infer" (forward
+    under no_grad), "train" (forward with the graph kept) or "backward" (all
+    gradients from a given output gradient). None where this PyTorch build
+    has no such LSTM for the dtype."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    try:
+        lstm = torch.nn.LSTM(x.shape[2], H, batch_first=True, bidirectional=True)
+        lstm = lstm.to(DEVICE, dtype)
+        packed = pack_padded_sequence(x.detach().clone().requires_grad_(mode != "infer"),
+                                      lengths.cpu().long(), batch_first=True,
+                                      enforce_sorted=False)
+        if mode == "infer":
+            with torch.no_grad():
+                lstm(packed)
+                return cuda_median_ms(torch, lambda: lstm(packed), 5)
+        if mode == "train":
+            lstm(packed)
+            return cuda_median_ms(torch, lambda: lstm(packed), 5)
+        out = lstm(packed)[0].data
+        dy = torch.randn_like(out)
+        leaves = list(lstm.parameters())
+        run = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)  # noqa: E731
+        run()
+        return cuda_median_ms(torch, run, 5)
+    except RuntimeError as exc:
+        log(f"  nn.LSTM {mode} {dtype}: not available ({str(exc).splitlines()[0]})")
+        return None
+
+
 def cuda_median_ms(torch, fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -133,13 +224,14 @@ def environment(torch, card: str) -> float:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"torch.version.cuda {torch.version.cuda}  nvcc: {nvcc.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    modules = (lstm_cuda, speller_cuda)
-    with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source
-        libs = list(pool.map(cuda_build.build_library, [m.SOURCE for m in modules]))
-    for m in modules:
-        m.load_library()
+    sources = (*lstm_cuda.SOURCES, speller_cuda.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        libs = list(pool.map(cuda_build.build_library, sources))
+    lstm_cuda.load_library()
+    lstm_cuda.load_bwd_library()
+    speller_cuda.load_library()
     build_s = time.perf_counter() - t0
-    log(f"kernel build: {build_s:.2f} s ({SOURCE}, {SPELLER_SOURCE})")
+    log(f"kernel build: {build_s:.2f} s ({SOURCE}, {BWD_SOURCE}, {SPELLER_SOURCE})")
     for so in libs:
         with open(so + ".log") as fh:
             for line in fh:
@@ -194,15 +286,23 @@ def kernel_phase(torch, card: str) -> dict:
             err = (got.float() - ref.float()).abs().max().item()
             ms = cuda_median_ms(torch, lambda: kern(*args), 20)
             plain_ms = cuda_median_ms(torch, lambda: plain(*args), 3)
+            # the work of this run's valid frames, both directions
+            frames = int(lengths.sum())
+            flops = 2 * frames * 2 * 4 * H * (H + (in_dim if name == "lstm_scan_fusedin" else 0))
+            bound, bound_by = bound_ms(flops, nbytes(*args[:-2], lengths, got))
+            library_ms = nn_lstm_ms(torch, x, lengths, dtype, "infer")
             log(f"[{card}] {name} {dtype_name} B={B} T={seq_len} D={in_dim} H={H} 2 dirs: "
                 f"max_abs_err {err:.3e} (tol {TOL[dtype_name]:g})  kernel {ms:.3f} ms  "
-                f"plain {plain_ms:.3f} ms")
+                f"plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({bound_by})  "
+                f"nn.LSTM on the layer's input {fmt_ms(library_ms)} ms")
             if not err <= TOL[dtype_name]:
                 raise AssertionError(f"{name} {dtype_name}: max_abs_err {err} > {TOL[dtype_name]}")
             if dtype_name == "bfloat16":  # the serving dtype goes into the record
                 records[name] = {"name": name, "route": "cuda", "source": SOURCE,
                                  "replaces": replaces, "launches": 0,
-                                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound, "bound_by": bound_by,
+                                 "library_ms": library_ms}
     return records
 
 
@@ -279,11 +379,354 @@ def speller_kernel_phase(torch, card: str) -> dict:
                 raise AssertionError(f"speller_decode {case}: free-run ids differ where the "
                                      f"top two logits are {max(gaps)} apart")
             if case == "base-LAS" and dtype_name == "bfloat16":  # the infer path's
+                # per row and step: cell 1 over [context; h1] (the embedding
+                # arrives pre-projected), cell 2, the query, scores and context
+                # over the row's valid frames, the classifier
+                proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
+                per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2
+                               + h2 * proj + 2 * proj * vocab)
+                flops = spl.CHR_MAX_STEPS * (batch * per_row + 4 * proj * int(lengths.sum()))
+                moved = nbytes(*(t for t in operands if torch.is_tensor(t)), logits, wgts, ids)
+                bound, bound_by = bound_ms(flops, moved)
+                log(f"[{card}] speller_decode {case} {dtype_name}: bound {bound:.3f} ms "
+                    f"({bound_by}; {flops:.3e} operations, {moved:.3e} bytes)")
                 record = {"name": "speller_decode", "route": "cuda",
                           "source": SPELLER_SOURCE, "replaces": SPELLER_REPLACES,
                           "launches": 0, "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms}
+                          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": None}
     return record
+
+
+def ragged_lengths(torch, gen, batch: int, low: int, high: int):
+    """Lengths in [low, high] with a full row and a length-``low`` row in
+    every 32-row launch."""
+    lengths = torch.randint(low, high + 1, (batch,), generator=gen)
+    for r0 in range(0, batch, B):
+        lengths[r0], lengths[min(r0 + 1, batch - 1)] = high, low
+    return lengths.to(torch.int32)
+
+
+def rel_err(got, ref) -> tuple:
+    """(max-abs error, the same over the largest magnitude of ``ref``)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def train_kernel_phase(torch, card: str) -> dict:
+    """The training forward and the adjoint against their plain versions at
+    the train step's shapes; returns the JSON records (bfloat16)."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    records = {}
+    batch, rev = TRAIN_B, (False, True)
+    n_launch = len(lc.row_chunks(batch))
+    for name, (seq_len, in_dim, replaces) in TRAIN_KERNELS.items():
+        fused = name == "lstm_scan_fusedin_train"
+        lengths = ragged_lengths(torch, gen, batch, 1, seq_len).to(DEVICE)
+        k = 1.0 / H ** 0.5
+        w_hh32 = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).to(DEVICE)
+        w_ih32 = ((torch.rand(2, in_dim, 4 * H, generator=gen) * 2 - 1) * k).to(DEVICE)
+        b32 = ((torch.rand(2, 4 * H, generator=gen) * 2 - 1) * k).to(DEVICE)
+        x32 = torch.randn(batch, seq_len, in_dim, generator=gen).to(DEVICE)
+        dy32 = torch.randn(batch, seq_len, 2 * H, generator=gen).to(DEVICE)
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            tol = TRAIN_TOL[dtype_name]
+            w_hh, dy = w_hh32.to(dtype), dy32.to(dtype)
+            if fused:
+                x = x32.to(dtype)
+                w_ih, b = w_ih32.to(dtype), b32.to(dtype)
+                args = (x, w_ih, b, w_hh)
+                lean, train, plain = (lc.lstm_scan_fusedin, lc.lstm_scan_fusedin_train,
+                                      lc.lstm_scan_fusedin_train_plain)
+            else:
+                x = (x32.clamp(-1, 1) * 0.5).to(dtype)
+                w_cat = torch.cat([w_ih32[0], w_ih32[1]], dim=1).to(dtype)
+                args = (torch.matmul(x, w_cat) + torch.cat([b32[0], b32[1]]).to(dtype), w_hh)
+                lean, train, plain = lc.lstm_scan, lc.lstm_scan_train, lc.lstm_scan_train_plain
+            lc.reset_launch_counts()
+            hs, cs, gates = train(*args, lengths, rev)
+            dpre, d_whh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+            torch.cuda.synchronize()
+            if lc.LAUNCHES[name] != n_launch or lc.LAUNCHES["lstm_bwd_dw"] != n_launch:
+                raise AssertionError(f"{name}: B={batch} took {dict(lc.LAUNCHES)} launches, "
+                                     f"not {n_launch} of 32 rows each")
+            with torch.no_grad():
+                if not torch.equal(hs, lean(*args, lengths, rev)):
+                    raise AssertionError(f"{name} {dtype_name}: hs differs from the lean kernel's")
+            p_hs, p_cs, p_gates = plain(*args, lengths, rev)
+            p_dpre, p_dwhh = lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
+            torch.cuda.synchronize()
+            pads = torch.arange(seq_len, device=DEVICE)[None, :] >= lengths[:, None].long()
+            if dpre[pads].abs().max().item() != 0.0 or gates[pads].abs().max().item() != 0.0:
+                raise AssertionError(f"{name} {dtype_name}: non-zero dpre or gates at "
+                                     f"padded frames")
+            errs = {"hs": rel_err(hs, p_hs), "cs": rel_err(cs, p_cs),
+                    "gates": rel_err(gates, p_gates), "dpre": rel_err(dpre, p_dpre),
+                    "dW_hh": rel_err(d_whh, p_dwhh)}
+            if fused:
+                # the fused-input Function's own products over the kernel's dpre,
+                # against the same products over the plain dpre
+                leaves = [a.clone().requires_grad_(True) for a in args]
+                got = torch.autograd.grad(lc.lstm_scan_fusedin(*leaves, lengths, rev),
+                                          leaves, dy)
+                x2 = x.reshape(-1, in_dim)
+                for d in range(2):
+                    dp = p_dpre[..., d * 4 * H:(d + 1) * 4 * H].reshape(-1, 4 * H)
+                    part = (dp @ w_ih[d].T).reshape(x.shape)
+                    want_x = part if d == 0 else want_x + part
+                    errs[f"d_wih[{d}]"] = rel_err(got[1][d], x2.T @ dp)
+                    errs[f"d_b[{d}]"] = rel_err(got[2][d], dp.sum(0, dtype=torch.float32))
+                errs["d_x"] = rel_err(got[0], want_x)
+                del leaves, got, want_x, part, dp
+            fwd_ms = cuda_median_ms(torch, lambda: train(*args, lengths, rev), 10)
+            bwd_ms = cuda_median_ms(
+                torch, lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), 10)
+            plain_fwd_ms = cuda_median_ms(torch, lambda: plain(*args, lengths, rev), 1)
+            plain_bwd_ms = cuda_median_ms(
+                torch, lambda: lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev), 1)
+            frames = int(lengths.sum())
+            fwd_flops = 2 * frames * 2 * 4 * H * (H + (in_dim if fused else 0))
+            fwd_bound = bound_ms(fwd_flops, nbytes(*args, lengths, hs, cs, gates))
+            # dh_prev = dpre @ W_hh^T and dW_hh += h^T dpre: 2 * 4H * H each
+            bwd_flops = 2 * frames * 2 * 4 * H * H * 2
+            bwd_bound = bound_ms(bwd_flops, nbytes(gates, cs, hs, dy, w_hh, lengths, dpre, d_whh))
+            lib_fwd = nn_lstm_ms(torch, x, lengths, dtype, "train")
+            lib_bwd = nn_lstm_ms(torch, x, lengths, dtype, "backward")
+            hs2, dp2 = hs.reshape(-1, 2 * H), dpre.reshape(-1, 2 * 4 * H)
+            dw_matmul_ms = cuda_median_ms(torch, lambda: [
+                torch.matmul(hs2[:, d * H:(d + 1) * H].T, dp2[:, d * 4 * H:(d + 1) * 4 * H])
+                for d in range(2)], 5)
+            shown = ", ".join(f"{k} {a:.3e} ({r:.1e} of max)" for k, (a, r) in errs.items())
+            log(f"[{card}] {name} + lstm_bwd_dw {dtype_name} B={batch} ({n_launch} launches) "
+                f"T={seq_len} D={in_dim} H={H} 2 dirs: hs bit-equal to the lean kernel; "
+                f"max_abs_err {shown}; tolerance {tol:g} of max")
+            log(f"    forward kernel {fwd_ms:.3f} ms  plain {plain_fwd_ms:.3f} ms  bound "
+                f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]})  nn.LSTM forward {fmt_ms(lib_fwd)} ms")
+            log(f"    adjoint kernel {bwd_ms:.3f} ms  plain {plain_bwd_ms:.3f} ms  bound "
+                f"{bwd_bound[0]:.3f} ms ({bwd_bound[1]})  nn.LSTM backward {fmt_ms(lib_bwd)} ms  "
+                f"torch.matmul for dW_hh alone {dw_matmul_ms:.3f} ms")
+            bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
+            if bad:
+                raise AssertionError(f"{name} {dtype_name}: errors over {tol} of max: {bad}")
+            if dtype_name == "bfloat16":
+                records[name] = {
+                    "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                    "launches": 0, "max_abs_err": max(errs["cs"][0], errs["gates"][0]),
+                    "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
+                    "bound_by": fwd_bound[1], "library_ms": lib_fwd}
+                if fused:  # the adjoint's record at its largest shape
+                    records["lstm_bwd_dw"] = {
+                        "name": "lstm_bwd_dw", "route": "cuda", "source": BWD_SOURCE,
+                        "replaces": PALLAS + ":382", "launches": 0,
+                        "max_abs_err": errs["dpre"][0], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                        "library_ms": lib_bwd}
+            del hs, cs, gates, dpre, d_whh, p_hs, p_cs, p_gates, p_dpre, p_dwhh, hs2, dp2
+            torch.cuda.empty_cache()
+    return records
+
+
+def train_config(lstm_impl: str = "pallas"):
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_config_from_dicts
+
+    return las_config_from_dicts(
+        {**BASE_LAS_MODEL["listener_configs"], "lstm_impl": lstm_impl},
+        {**BASE_LAS_MODEL["speller_configs"], "decoder_impl": "scan"})
+
+
+def train_batch(torch, batch: int, seq_len: int, labels: int, seed: int):
+    """A seeded batch in one length bucket: frames within the last 256 of
+    ``seq_len``, labels within the last 32 of ``labels``."""
+    gen = torch.Generator().manual_seed(seed)
+    lx = torch.randint(seq_len - 255, seq_len + 1, (batch,), generator=gen)
+    ly = torch.randint(labels - 31, labels + 1, (batch,), generator=gen)
+    lx[0], ly[0] = seq_len, labels
+    x = torch.randn(batch, seq_len, 15, generator=gen)
+    x[torch.arange(seq_len)[None, :] >= lx[:, None]] = 0.0
+    y = torch.randint(1, 29, (batch, labels), generator=gen)
+    y[torch.arange(labels)[None, :] >= ly[:, None]] = 29
+    lx, y, ly = (t.to(torch.int32) for t in (lx, y, ly))
+    return tuple(t.to(DEVICE) for t in (x, lx, y, ly))
+
+
+def build_trainer(torch, cfg, compute_dtype, seed: int):
+    """Seeded parameters, optimizer, state and step, as ``bench.py`` of the
+    JAX package builds them for base-LAS."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_apply, las_init
+    from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
+        create_train_state,
+        make_train_step,
+    )
+
+    params = las_init(cfg, torch.Generator().manual_seed(seed))
+    opt = build_optimizer("adamw", {"lr": 1e-3, "weight_decay": 5e-6, "amsgrad": True},
+                          grad_norm=5.0)
+    state = create_train_state(params, opt, seed=seed + 1, device=DEVICE)
+
+    def apply_fn(p, x, lx, **kwargs):
+        return las_apply(p, cfg, x, lx, **kwargs)
+
+    step = make_train_step(apply_fn, opt, compute_dtype=compute_dtype, use_specaug=True)
+    return opt, state, step
+
+
+class forbid_plain:
+    """While active, every plain version in ``ops/lstm_cuda.py`` raises."""
+
+    NAMES = ("_scan_plain", "lstm_scan_plain", "lstm_scan_fusedin_plain",
+             "lstm_scan_train_plain", "lstm_scan_fusedin_train_plain", "lstm_bwd_dw_plain")
+
+    def __enter__(self):
+        from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain version ran inside the train step")
+
+        self.saved = {n: getattr(lc, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(lc, n, refuse)
+
+    def __exit__(self, *exc):
+        from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+        for n, fn in self.saved.items():
+            setattr(lc, n, fn)
+
+
+def train_phase(torch, card: str) -> dict:
+    """A trainer that takes a few steps at full width; returns the launches
+    of the timed steps."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        draw_train_noise,
+        listener_apply,
+        speller_apply,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
+
+    cfg = train_config()
+    opt, state, step = build_trainer(torch, cfg, torch.bfloat16, SEED)
+    x, lx, y, ly = train_batch(torch, TRAIN_B, TRAIN_T, TRAIN_L, SEED)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    tf_rate, lr = 0.9, 1e-3
+
+    with forbid_plain():
+        state, warm, _ = step(state, x, lx, y, ly, tf_rate, lr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lc.reset_launch_counts()
+        sc.reset_launch_counts()
+        metrics, times = [], []
+        first_loss = warm["loss"].item()  # the first step taken on this batch
+        while len(metrics) < 5 or (len(metrics) < 10 and
+                                   not metrics[-1]["loss"] < first_loss):
+            t0 = time.perf_counter()
+            state, m, att_map = step(state, x, lx, y, ly, tf_rate, lr)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: v.item() for k, v in m.items()})
+        counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+    n_steps = len(metrics)
+    chunks = len(lc.row_chunks(TRAIN_B))
+    want = {**dict.fromkeys(counts, 0),
+            "lstm_scan_fusedin_train": chunks * n_steps,
+            "lstm_scan_train": 3 * chunks * n_steps,
+            "lstm_bwd_dw": 4 * chunks * n_steps}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts} != {want} for {n_steps} steps")
+    if not all(m["finite"] for m in metrics) or not bool(warm["finite"]):
+        raise AssertionError(f"train: a step was not finite: {metrics}")
+    losses = [m["loss"] for m in metrics]
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if not losses[-1] < first_loss:
+        raise AssertionError(f"train: the loss did not fall below the first step's "
+                             f"{first_loss} in {n_steps} steps: {losses}")
+    if att_map.shape != (1, TRAIN_T // 8, TRAIN_L + 1):
+        raise AssertionError(f"train: att_map {tuple(att_map.shape)}")
+    if int(state.opt_state.count) != n_steps + 1 or state.step != n_steps + 1:
+        raise AssertionError("train: the optimizer did not count every step")
+    sec = statistics.median(times)
+    log(f"[{card}] train base-LAS bf16 B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} "
+        f"({n_params / 1e6:.1f}M parameters; lstm_impl pallas, decoder_impl scan; SpecAugment, "
+        f"dropout, tf_rate {tf_rate}, AdamW amsgrad lr {lr}, clip 5, NaN guard): 1 warm-up + "
+        f"{n_steps} steps, median {sec:.3f} s/step (all: {[round(t, 3) for t in times]}), "
+        f"{TRAIN_B / sec:.2f} utt/s, peak device memory {peak / 2**20:.1f} MiB")
+    log(f"    loss warm-up {first_loss:.4f}, then {[round(v, 4) for v in losses]}; "
+        f"grad_norm {[round(m['grad_norm'], 3) for m in metrics]}; launches {counts}")
+
+    # where a step's time goes: the same pieces the step runs, CUDA events between
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    params = list(state.params.parameters())
+    with forbid_plain():
+        draws = draw_train_noise(cfg, TRAIN_B, TRAIN_L, state.generator, x.device)
+        torch.cuda.synchronize()
+        marks[0].record()
+        enc_h, enc_l = listener_apply(state.params["listener"], cfg.listener,
+                                      x.to(torch.bfloat16), lx, True, draws.listener_masks)
+        marks[1].record()
+        out = speller_apply(state.params["speller"], cfg.speller, enc_h, enc_l, y, tf_rate,
+                            False, True, draws)
+        loss, _ = masked_ce_loss(out.logits, y, ly)
+        marks[2].record()
+        grads = torch.autograd.grad(loss, params)
+        marks[3].record()
+        with torch.no_grad():
+            opt.update(list(grads), state.opt_state, params, lr)
+        marks[4].record()
+        torch.cuda.synchronize()
+    split = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
+    log(f"    split of one step (CUDA events; SpecAugment and the parameter update left "
+        f"out): listener forward {split[0]:.1f} ms, speller forward + loss {split[1]:.1f} ms, "
+        f"backward {split[2]:.1f} ms, optimizer {split[3]:.1f} ms")
+    return {k: counts[k] for k in ("lstm_scan_fusedin_train", "lstm_scan_train", "lstm_bwd_dw")}
+
+
+def train_parity_phase(torch, card: str) -> None:
+    """One float32 step at full width through the kernels and through the
+    plain loops under autograd, from the same weights, batch and draws."""
+    from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
+
+    batch, seq_len, labels, lr = 40, 256, 32, 1e-3
+    x, lx, y, ly = train_batch(torch, batch, seq_len, labels, SEED + 2)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    draws = draw_train_noise(train_config(), batch, labels, gen, DEVICE,
+                             specaug=draw_specaug(batch, 6, 200, False, gen, DEVICE))
+    results = {}
+    for impl in ("pallas", "scan"):
+        _, state, step = build_trainer(torch, train_config(impl), torch.float32, SEED)
+        state, m, _ = step(state, x, lx, y, ly, 0.9, lr, draws=draws)
+        torch.cuda.synchronize()
+        results[impl] = ({k: v.item() for k, v in m.items()},
+                         [p.detach() for p in state.params.parameters()])
+    (mk, pk), (mp, pp) = results["pallas"], results["scan"]
+    # Tolerances. loss and grad_norm: float32 sums in another order, 1e-4
+    # relative. Parameters: the first AdamW step moves an element by
+    # lr * g / (|g| + eps), i.e. by +-lr whatever |g| is, so an element whose
+    # gradient is rounding noise around zero may move the other way: no
+    # element may differ by more than 2 * lr, and no more than one in a
+    # thousand by more than 1e-5.
+    worst = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    off = sum(((a - b).abs() > 1e-5).sum().item() for a, b in zip(pk, pp))
+    total = sum(a.numel() for a in pk)
+    log(f"[{card}] train parity float32 B={batch} T={seq_len} L={labels}, kernels vs "
+        f"lstm_impl scan, one step, shared draws: loss {mk['loss']:.6f} / {mp['loss']:.6f}, "
+        f"grad_norm {mk['grad_norm']:.6f} / {mp['grad_norm']:.6f}; parameters max_abs_diff "
+        f"{worst:.3e} (bound 2 x lr = {2 * lr:g}), {off} of {total} elements off by more "
+        f"than 1e-5 (allowed {total // 1000})")
+    for key in ("loss", "grad_norm"):
+        if not abs(mk[key] - mp[key]) <= 1e-4 * abs(mp[key]):
+            raise AssertionError(f"train parity: {key} {mk[key]} vs {mp[key]}")
+    if not (mk["finite"] and mp["finite"] and mk["n_tokens"] == mp["n_tokens"]):
+        raise AssertionError(f"train parity: metrics {mk} vs {mp}")
+    if not (worst <= 2 * lr * 1.01 and off <= total // 1000):
+        raise AssertionError(f"train parity: parameters differ by {worst}, {off} elements off")
 
 
 def make_experiment(torch, root: str) -> str:
@@ -363,7 +806,8 @@ def infer_phase(torch, card: str, exp: str, data: str, work: str) -> dict:
         counts = {**lc.LAUNCHES, **sc.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
         routes = las.decode_route_report()
-        want = {"lstm_scan_fusedin": 2 * n_batches * n_ckpts,  # 64 rows: 2 launches
+        want = {**dict.fromkeys(counts, 0),  # none of the training kernels
+                "lstm_scan_fusedin": 2 * n_batches * n_ckpts,  # 64 rows: 2 launches
                 "lstm_scan": 3 * 2 * n_batches * n_ckpts,
                 "speller_decode": 0 if early_stop else n_batches * n_ckpts}
         if counts != want:
@@ -408,7 +852,8 @@ def serve_phase(torch, card: str, exp: str, feats: list) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(lc.LAUNCHES)
-    want = {"lstm_scan_fusedin": n_batches, "lstm_scan": 3 * n_batches}
+    want = {**dict.fromkeys(counts, 0), "lstm_scan_fusedin": n_batches,
+            "lstm_scan": 3 * n_batches}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want} for {n_batches} batches")
 
@@ -422,7 +867,7 @@ def serve_phase(torch, card: str, exp: str, feats: list) -> tuple:
     if len(streamed) != 4 or not all(set(s) <= vocab for s in streamed):
         raise AssertionError("streamed transcripts malformed")
     launches = dict(lc.LAUNCHES)
-    if not all(launches[k] > counts[k] for k in launches):
+    if not all(launches[k] > counts[k] for k in ("lstm_scan_fusedin", "lstm_scan")):
         raise AssertionError(f"streaming ran no kernel: {launches}")
     peak = torch.cuda.max_memory_allocated()
     same = sum(a == b for a, b in zip(streamed, t.transcribe(feats[:4])))
@@ -503,6 +948,7 @@ def main() -> int:
 
     environment(torch, card)
     records = kernel_phase(torch, card)
+    train_records = train_kernel_phase(torch, card)
 
     rng = np.random.default_rng(SEED)
     feats = [rng.standard_normal((int(n), 15)).astype(np.float32)
@@ -517,12 +963,21 @@ def main() -> int:
         infer_launches = infer_phase(torch, card, exp, data, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    del t
+    torch.cuda.empty_cache()
+    train_launches = train_phase(torch, card)
+    train_parity_phase(torch, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
-    # launches in the main-path runs: serving, then infer early_stop true/false
+    # launches in the main-path runs: serving, then infer early_stop true/false;
+    # the training kernels in the train phase's timed steps
     for name in records:
         records[name]["launches"] = launches.get(name, 0) + infer_launches[name]
+    for name in train_records:
+        train_records[name]["launches"] = train_launches[name]
+    records.update(train_records)
+    for name in records:
         if records[name]["launches"] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     print(json.dumps({"kernels": list(records.values())}))

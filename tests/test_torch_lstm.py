@@ -95,7 +95,7 @@ def test_bilstm_plain_and_kernel_route_match_jax(in_dim):
     np.testing.assert_allclose(plain, ref, atol=ATOL_F32)
     np.testing.assert_array_equal(routed, plain)
     # a CPU tensor takes the plain version: no kernel launched
-    assert lstm_cuda.LAUNCHES == {"lstm_scan": 0, "lstm_scan_fusedin": 0}
+    assert not any(lstm_cuda.LAUNCHES.values())
 
 
 def test_kernel_wrappers_raise_off_cpu_without_cuda():

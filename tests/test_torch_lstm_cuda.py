@@ -70,7 +70,7 @@ def test_single_direction_and_launch_count_on_card(cuda_device, reverse):
     lstm_cuda.reset_launch_counts()
     got = lstm_cuda.lstm_apply_kernel({k: v.to(cuda_device) for k, v in params.items()},
                                       x.to(cuda_device), lengths.to(cuda_device), reverse)
-    assert lstm_cuda.LAUNCHES == {"lstm_scan": 1, "lstm_scan_fusedin": 0}
+    assert lstm_cuda.LAUNCHES == {**dict.fromkeys(lstm_cuda.LAUNCHES, 0), "lstm_scan": 1}
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)
 
 
@@ -112,3 +112,115 @@ def test_kernels_take_batches_past_32_rows_on_card(cuda_device, batch, fused):
     assert lstm_cuda.LAUNCHES[kern.__name__] == len(lstm_cuda.row_chunks(batch)) == 2
     assert got.shape == (batch, seq_len, 2 * hidden)
     torch.testing.assert_close(got, plain(*args), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The training forward (lstm_scan_train / lstm_scan_fusedin_train) and the
+# adjoint (lstm_bwd_dw)
+# ---------------------------------------------------------------------------
+
+def _train_case(device, batch, hidden, dtype, ndir, fused, seed=0):
+    gen = torch.Generator().manual_seed(1000 * batch + hidden + seed)
+    seq_len = 19
+    lengths = torch.randint(1, seq_len + 1, (batch,), generator=gen).to(torch.int32)
+    lengths[0], lengths[-1] = seq_len, 1
+    k = hidden ** -0.5
+    reverse = (False, True)[:ndir]
+
+    def uniform(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * k).to(device, dtype)
+
+    w_hh = uniform(ndir, hidden, 4 * hidden)
+    if fused:
+        args = (torch.randn(batch, seq_len, 15, generator=gen).to(device, dtype),
+                uniform(ndir, 15, 4 * hidden), uniform(ndir, 4 * hidden), w_hh)
+    else:
+        args = ((torch.rand(batch, seq_len, ndir * 4 * hidden, generator=gen) - 0.5)
+                .to(device, dtype), w_hh)
+    dy = torch.randn(batch, seq_len, ndir * hidden, generator=gen).to(device, dtype)
+    return args, lengths.to(device), reverse, dy
+
+
+# float32: summation order only. bfloat16: outputs are bf16 and an order
+# difference that flips one rounding carries along the recurrence: two bf16
+# steps (2 * 2**-8) of the compared tensor's largest magnitude.
+def _tol(dtype, ref):
+    if dtype == torch.float32:
+        return 1e-4
+    return 2.0 ** -7 * max(float(ref.float().abs().max()), 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [5, 32, 40, 64])
+@pytest.mark.parametrize("hidden,ndir", [(64, 1), (64, 2), (512, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_train_kernels_match_plain_on_card(cuda_device, batch, hidden, ndir, dtype, fused):
+    args, lengths, reverse, dy = _train_case(cuda_device, batch, hidden, dtype, ndir, fused)
+    lean, train, train_plain = (
+        (lstm_cuda.lstm_scan_fusedin, lstm_cuda.lstm_scan_fusedin_train,
+         lstm_cuda.lstm_scan_fusedin_train_plain) if fused else
+        (lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_train, lstm_cuda.lstm_scan_train_plain))
+    n_launch = len(lstm_cuda.row_chunks(batch))
+    lstm_cuda.reset_launch_counts()
+    hs, cs, gates = train(*args, lengths, reverse)
+    dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, args[-1], lengths, reverse)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES[train.__name__] == n_launch
+    assert lstm_cuda.LAUNCHES["lstm_bwd_dw"] == n_launch
+    # hs of the training forward is the lean forward's, bit for bit
+    assert torch.equal(hs, lean(*args, lengths, reverse))
+    p_hs, p_cs, p_gates = train_plain(*args, lengths, reverse)
+    for got, ref in ((hs, p_hs), (cs, p_cs), (gates, p_gates)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=_tol(dtype, ref), rtol=0)
+    # the adjoint on the kernel's own streams, against the plain adjoint on them
+    p_dpre, p_dwhh = lstm_cuda.lstm_bwd_dw_plain(gates, cs, hs, dy, args[-1], lengths, reverse)
+    assert dpre.dtype == dtype and d_whh.dtype == torch.float32
+    torch.testing.assert_close(dpre.float(), p_dpre.float(), atol=_tol(dtype, p_dpre), rtol=0)
+    torch.testing.assert_close(d_whh, p_dwhh, atol=_tol(dtype, p_dwhh), rtol=0)
+    pads = torch.arange(hs.shape[1], device=cuda_device)[None, :] >= lengths[:, None]
+    assert dpre[pads].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_functions_backward_on_card(cuda_device, fused):
+    """The autograd Functions on CUDA tensors: every gradient against the
+    same Function on the CPU (the plain versions), float32."""
+    args, lengths, reverse, dy = _train_case(cuda_device, 40, 64, torch.float32, 2, fused)
+    fn = lstm_cuda.lstm_scan_fusedin if fused else lstm_cuda.lstm_scan
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    cpu_leaves = [a.cpu().requires_grad_(True) for a in args]
+    lstm_cuda.reset_launch_counts()
+    out = fn(*leaves, lengths, reverse)
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    name = "lstm_scan_fusedin_train" if fused else "lstm_scan_train"
+    assert lstm_cuda.LAUNCHES == {**dict.fromkeys(lstm_cuda.LAUNCHES, 0),
+                                  name: 2, "lstm_bwd_dw": 2}
+    want = torch.autograd.grad(fn(*cpu_leaves, lengths.cpu(), reverse), cpu_leaves, dy.cpu())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():  # no gradient wanted: the lean kernel
+        fn(*leaves, lengths, reverse)
+    assert lstm_cuda.LAUNCHES[name] == 2
+
+
+@pytest.mark.cuda
+def test_adjoint_rejects_unsupported_shapes_on_card(cuda_device):
+    def call(hidden, device=cuda_device, batch=2):
+        g = torch.zeros(batch, 4, 4 * hidden, device=device)
+        h = torch.zeros(batch, 4, hidden, device=device)
+        return lstm_cuda._launch_bwd(g, h, h, h, torch.zeros(1, hidden, 4 * hidden, device=device),
+                                     torch.ones(batch, dtype=torch.int32), (False,))
+
+    with pytest.raises(ValueError, match="hidden 1024 > 512.*kernel #6"):
+        call(1024)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        call(48)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        call(64, device="cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        lstm_cuda._launch("lstm_scan_train", False, True, torch.zeros(2, 4, 128), None, None,
+                          torch.zeros(1, 32, 128), torch.ones(2, dtype=torch.int32), (False,))
