@@ -1,13 +1,24 @@
-// Fused free-running speller decode for Hopper (sm_90a): one cooperative
-// launch runs every step of the eval decode for the whole batch.
+// Fused speller decode for Hopper (sm_90a): one cooperative launch runs every
+// step of the decode for the whole batch, in an eval and a training form.
 //
 // Replaces (attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py):
-//   _decode_fwd_kernel (:90) as _fwd_chunk (:465) launches it with
-//   save_residuals=False and no dropout: the eval form of TPU kernel #8.
+//   _decode_fwd_kernel (:90) as _fwd_chunk (:465) launches it: TPU kernel #8.
 //   Each step selects the input id (a forced id >= 0, else the id fed back by
 //   the previous step; <sos> at step 0), runs cell 1, cell 2, the query
 //   projection, the masked-softmax cross-attention of every head, the tied
 //   classifier and the first-max argmax that feeds the next step.
+//   TRAIN = false is the eval form (save_residuals=False, no dropout).
+//   TRAIN = true is the training form (save_residuals=True): each cell's
+//   output is multiplied by the step's dropout mask in fp32 (h1d = h1n *
+//   m1[t], h2d = h2n * m2[t]; the dropped value is the carry), and the streams
+//   the adjoint (speller_bwd.cu) reads are stored in the weight dtype: the fed
+//   id, both cells' activated gates [i, f, g, o] and c, h1d, h2d and the
+//   context. The fed id (L, B) int32 stands for the Pallas kernel's one-hot
+//   `sel` (L, B, Vp): the gradient of embw1 gathers by it. h1d, h2d and the
+//   context streams double as the exchange buffers between blocks, so the
+//   training form stores only the gates, c and the id beyond what the eval
+//   form writes. Without masks and forcing its logits and weights are
+//   bit-equal to the eval form's.
 //
 // Numerics follow the Pallas kernel (and ops/speller_cuda.py's plain
 // version): carries h1, c1, h2, c2, ctx in fp32, rounded to the weight dtype
@@ -51,26 +62,20 @@
 // on the CUDA cores; tensor cores are later work.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "speller_common.cuh"
 
 namespace cg = cooperative_groups;
 
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int ROWS = 2;   // batch rows a warp carries at once in the cell and query phases
 constexpr int VMAX = 32;  // padded vocabulary: one lane per entry
-constexpr int MAX_GRID = 128;  // blocks of a launch, at most: a power of two, one per SM
-constexpr int MAX_UNITS = 8;   // units of a cell (query columns) a block owns, at most:
-                               // the largest case of the phase switches in the kernel
-constexpr unsigned FULL = 0xffffffffu;
 
 // pointer slots of the launch (the order of ops/speller_cuda.py's list)
 enum Ptr {
   P_K, P_V, P_BIAS, P_CTX0, P_H10, P_C10, P_H20, P_C20, P_EMBW1, P_WC1, P_WHH1, P_WIH2,
   P_WHH2, P_B2, P_WQ, P_BQ, P_WCLS, P_CLSB, P_FORCED, P_LOGITS, P_WGTS, P_IDS, P_H1X,
-  P_H2X, P_CTXX, P_QX, P_C1, P_C2, P_PREV, N_PTRS
+  P_H2X, P_CTXX, P_QX, P_C1, P_C2, P_PREV,
+  // the training form's masks (null: no dropout) and residual streams
+  P_M1, P_M2, P_SEL, P_GATES1, P_C1R, P_H1D, P_GATES2, P_C2R, P_H2D, P_CTXR, N_PTRS
 };
 // int slots
 enum Dim { D_B, D_TE, D_T, D_P, D_HEADS, D_H1, D_H2, D_VP, D_SOS, N_DIMS };
@@ -81,125 +86,27 @@ struct DecodeArgs {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-// the value v.astype(T) leaves
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// scalar loads: L2 only (ld.cg) for buffers other blocks write during the
-// launch; the read-only path for inputs
-__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ float ld_nc(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld_nc(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-// 16 bytes -> 4 or 8 floats
-__device__ __forceinline__ void unpack16(uint4 v, float* dst, const float*) {
-  dst[0] = __uint_as_float(v.x);
-  dst[1] = __uint_as_float(v.y);
-  dst[2] = __uint_as_float(v.z);
-  dst[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void unpack16(uint4 v, float* dst, const __nv_bfloat16*) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-template <typename T> __device__ __forceinline__ void load16_cg(const T* p, float* dst) {
-  unpack16(__ldcg(reinterpret_cast<const uint4*>(p)), dst, p);
-}
-template <typename T> __device__ __forceinline__ void load16_nc(const T* p, float* dst) {
-  unpack16(__ldg(reinterpret_cast<const uint4*>(p)), dst, p);
-}
-template <typename T> __device__ __forceinline__ void load16_smem(const T* p, float* dst) {
-  unpack16(*reinterpret_cast<const uint4*>(p), dst, p);
-}
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-__host__ __device__ constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
-
-// acc[i][c] += x[rows[i], 0:len] . w_s[c * w_stride + w_off + (0:len)] over
-// this lane's 16-byte slices of x (lane * VEC, + 32 * VEC, ...); x rows are
-// len apart. The rows' loads go out together and each weight slice is read
-// from shared memory once for all rows.
-template <typename T, int NC>
-__device__ __forceinline__ void dot_rows(float (*acc)[NC], const T* x, int len, const int* rows,
-                                         const T* w_s, int w_stride, int w_off, int lane) {
-  constexpr int VEC = 16 / sizeof(T);
-#pragma unroll 2
-  for (int k = lane * VEC; k < len; k += 32 * VEC) {
-    float xv[ROWS][VEC];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) load16_cg(x + (long long)rows[i] * len + k, xv[i]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float wv[VEC];
-      load16_smem(w_s + c * w_stride + w_off + k, wv);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[i][c] = fmaf(xv[i][j], wv[j], acc[i][c]);
-    }
-  }
-}
-
-// The rows a warp carries at once: r0, r0 + NWARPS, ...; a row past the
-// batch repeats r0 (computed, never written).
-__device__ __forceinline__ void warp_rows(int r0, int B, int* rows, bool* live) {
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    live[i] = r0 + i * NWARPS < B;
-    rows[i] = live[i] ? r0 + i * NWARPS : r0;
-  }
-}
-
-// Transposing butterfly over the warp: on entry each lane holds N partial
-// sums; on exit acc[0] of every lane holds the warp-wide sum of column
-// lane >> (5 - log2 N). Each halving step sends half the columns to the
-// partner lane and keeps the other half (N - 1 shuffles in all), then plain
-// butterflies finish.
-template <int N, int O>
-__device__ __forceinline__ void halve(float* acc, int lane) {
-  if constexpr (N > 1) {
-    const bool upper = (lane & O) != 0;
-#pragma unroll
-    for (int j = 0; j < N / 2; ++j) {
-      const float send = upper ? acc[j] : acc[j + N / 2];
-      const float keep = upper ? acc[j + N / 2] : acc[j];
-      acc[j] = keep + __shfl_xor_sync(FULL, send, O);
-    }
-    halve<N / 2, O / 2>(acc, lane);
-  } else {
-#pragma unroll
-    for (int o = O; o >= 1; o >>= 1) acc[0] += __shfl_xor_sync(FULL, acc[0], o);
-  }
-}
+// The training form's streams of one cell at one step: the dropout mask (B, H)
+// (null: none), the activated gates (B, 4H), c (B, H) and, for cell 1, the fed
+// id (B,).
+template <typename T> struct CellStreams {
+  const T* mask;
+  T* gates;
+  T* c;
+  int* sel;
+};
 
 // One LSTM cell step for every batch row, this block's NC / 4 units
 // [u0, u0 + NC / 4): pre = [x0 | x1] . W_s + extra, gates [i, f, g, o] in
 // fp32. Column c of w_s is gate c / U of unit u0 + c % U. extra is embw1's row
 // of the input id (cell 1: forced id, else the fed-back one) or b2 (cell 2,
-// prev == nullptr).
-template <typename T, int NC>
+// prev == nullptr). TRAIN: h is multiplied by the mask before it is rounded,
+// and the gates, c and the fed id are stored.
+template <typename T, int NC, bool TRAIN>
 __device__ __forceinline__ void cell_phase(const T* w_s, const T* x0, int K0, const T* x1, int K1,
                                            int H, int u0, const T* extra, const int* forced_t,
-                                           const int* prev, float* c, T* h_next, int B) {
+                                           const int* prev, float* c, T* h_next, int B,
+                                           const CellStreams<T>& st) {
   constexpr int U = NC / 4;
   constexpr int SHIFT = 5 - log2i(NC);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -209,7 +116,7 @@ __device__ __forceinline__ void cell_phase(const T* w_s, const T* x0, int K0, co
     bool live[ROWS];
     warp_rows(r0, B, rows, live);
     // the rows' extras and carries load before the dot, behind its latency
-    float ex[ROWS][4], c_old[ROWS];
+    float ex[ROWS][4], c_old[ROWS], keep[ROWS];
     if (lane < U) {
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
@@ -217,6 +124,12 @@ __device__ __forceinline__ void cell_phase(const T* w_s, const T* x0, int K0, co
         if (prev != nullptr) {
           id = forced_t != nullptr ? forced_t[rows[i]] : -1;
           if (id < 0) id = __ldcg(prev + rows[i]);
+          if constexpr (TRAIN) {
+            if (blockIdx.x == 0 && lane == 0 && live[i]) st.sel[rows[i]] = id;
+          }
+        }
+        if constexpr (TRAIN) {
+          keep[i] = st.mask != nullptr ? to_f(st.mask[(long long)rows[i] * H + u0 + u]) : 1.0f;
         }
 #pragma unroll
         for (int g = 0; g < 4; ++g) ex[i][g] = to_f(extra[(long long)id * 4 * H + g * H + u0 + u]);
@@ -245,7 +158,17 @@ __device__ __forceinline__ void cell_phase(const T* w_s, const T* x0, int K0, co
         const float og = sigmoidf(pre[3]);
         const float cn = fg * c_old[i] + ig * gg;
         c[(long long)rows[i] * H + u0 + u] = cn;
-        h_next[(long long)rows[i] * H + u0 + u] = from_f<T>(og * tanhf(cn));
+        float hn = og * tanhf(cn);
+        if constexpr (TRAIN) {
+          if (st.mask != nullptr) hn *= keep[i];
+          T* grow = st.gates + (long long)rows[i] * 4 * H + u0 + u;
+          grow[0] = from_f<T>(ig);
+          grow[H] = from_f<T>(fg);
+          grow[2 * H] = from_f<T>(gg);
+          grow[3 * H] = from_f<T>(og);
+          st.c[(long long)rows[i] * H + u0 + u] = from_f<T>(cn);
+        }
+        h_next[(long long)rows[i] * H + u0 + u] = from_f<T>(hn);
       }
     }
   }
@@ -280,8 +203,9 @@ __device__ __forceinline__ void linear_phase(const T* w_s, const T* x, int K, in
 
 // Attention, classifier and feedback for the rows of this block.
 template <typename T>
-__device__ __forceinline__ void attend_phase(const DecodeArgs& a, int t, float* q_s, float* ctx_s,
-                                             float* part_s, float* red_s, float* sc_s) {
+__device__ __forceinline__ void attend_phase(const DecodeArgs& a, int t, T* ctx_out, float* q_s,
+                                             float* ctx_s, float* part_s, float* red_s,
+                                             float* sc_s) {
   constexpr int VEC = 16 / sizeof(T);
   const int P = a.P, Te = a.Te, heads = a.heads, Vp = a.Vp, B = a.B;
   const int d = P / heads;
@@ -292,7 +216,6 @@ __device__ __forceinline__ void attend_phase(const DecodeArgs& a, int t, float* 
   const T* wcls = static_cast<const T*>(a.p[P_WCLS]);
   const T* clsb = static_cast<const T*>(a.p[P_CLSB]);
   const T* qx = static_cast<const T*>(a.p[P_QX]);
-  T* ctxx = static_cast<T*>(const_cast<void*>(a.p[P_CTXX]));
   T* logits = static_cast<T*>(const_cast<void*>(a.p[P_LOGITS]));
   T* wgts = static_cast<T*>(const_cast<void*>(a.p[P_WGTS]));
   int* ids = static_cast<int*>(const_cast<void*>(a.p[P_IDS]));
@@ -373,7 +296,7 @@ __device__ __forceinline__ void attend_phase(const DecodeArgs& a, int t, float* 
       float acc = 0.0f;
       for (int k = 0; k < groups; ++k) acc += red_s[k * P + p];
       ctx_s[p] = round_to<T>(acc);
-      ctxx[(long long)r * P + p] = from_f<T>(acc);
+      ctx_out[(long long)r * P + p] = from_f<T>(acc);
     }
     __syncthreads();
 
@@ -419,8 +342,6 @@ __device__ __forceinline__ void attend_phase(const DecodeArgs& a, int t, float* 
   }
 }
 
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
 // bytes of dynamic shared memory: the three weight slices in T, then fp32
 // q, ctx, classifier partials, the context's group sums and the scores of
 // every head
@@ -431,7 +352,7 @@ static size_t smem_bytes(size_t elem, int grid, int Te, int P, int heads, int H1
   return align16(weights) + floats * sizeof(float);
 }
 
-template <typename T>
+template <typename T, bool TRAIN>
 __global__ void __launch_bounds__(NTHREADS, 1) speller_decode_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = a.P, H1 = a.H1, H2 = a.H2, B = a.B, G = gridDim.x;
@@ -478,24 +399,27 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_decode_kernel(DecodeArgs 
   float* c2 = static_cast<float*>(const_cast<void*>(a.p[P_C2]));
   int* prev = static_cast<int*>(const_cast<void*>(a.p[P_PREV]));
 
-  // the t = -1 state: h and ctx as given (T), c as fp32, <sos> fed back
+  // the t = -1 state: h and ctx as given (T), c as fp32, <sos> fed back. The
+  // training form reads h and ctx of t = -1 where they are, and afterwards
+  // from its h1d, h2d and context streams.
+  const T* h10 = static_cast<const T*>(a.p[P_H10]);
+  const T* h20 = static_cast<const T*>(a.p[P_H20]);
+  const T* ctx0 = static_cast<const T*>(a.p[P_CTX0]);
   {
-    const T* h10 = static_cast<const T*>(a.p[P_H10]);
     const T* c10 = static_cast<const T*>(a.p[P_C10]);
-    const T* h20 = static_cast<const T*>(a.p[P_H20]);
     const T* c20 = static_cast<const T*>(a.p[P_C20]);
-    const T* ctx0 = static_cast<const T*>(a.p[P_CTX0]);
     const long long tid = (long long)blockIdx.x * NTHREADS + threadIdx.x;
     const long long stride = (long long)G * NTHREADS;
     for (long long i = tid; i < (long long)B * H1; i += stride) {
-      h1x[i] = h10[i];
+      if constexpr (!TRAIN) h1x[i] = h10[i];
       c1[i] = to_f(c10[i]);
     }
     for (long long i = tid; i < (long long)B * H2; i += stride) {
-      h2x[i] = h20[i];
+      if constexpr (!TRAIN) h2x[i] = h20[i];
       c2[i] = to_f(c20[i]);
     }
-    for (long long i = tid; i < (long long)B * P; i += stride) ctxx[i] = ctx0[i];
+    if constexpr (!TRAIN)
+      for (long long i = tid; i < (long long)B * P; i += stride) ctxx[i] = ctx0[i];
     for (long long i = tid; i < B; i += stride) prev[i] = a.sos;
   }
   cg::grid_group grid = cg::this_grid();
@@ -505,16 +429,46 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_decode_kernel(DecodeArgs 
   const T* b2 = static_cast<const T*>(a.p[P_B2]);
   const T* bq = static_cast<const T*>(a.p[P_BQ]);
   const int* forced = static_cast<const int*>(a.p[P_FORCED]);
+  const T* m1 = static_cast<const T*>(a.p[P_M1]);
+  const T* m2 = static_cast<const T*>(a.p[P_M2]);
+  int* sel = static_cast<int*>(const_cast<void*>(a.p[P_SEL]));
+  T* gates1 = static_cast<T*>(const_cast<void*>(a.p[P_GATES1]));
+  T* c1r = static_cast<T*>(const_cast<void*>(a.p[P_C1R]));
+  T* h1d = static_cast<T*>(const_cast<void*>(a.p[P_H1D]));
+  T* gates2 = static_cast<T*>(const_cast<void*>(a.p[P_GATES2]));
+  T* c2r = static_cast<T*>(const_cast<void*>(a.p[P_C2R]));
+  T* h2d = static_cast<T*>(const_cast<void*>(a.p[P_H2D]));
+  T* ctxr = static_cast<T*>(const_cast<void*>(a.p[P_CTXR]));
   for (int t = 0; t < a.T; ++t) {
-    const T* h1_prev = h1x + (long long)(t & 1) * B * H1;
-    T* h1_next = h1x + (long long)((t + 1) & 1) * B * H1;
-    const T* h2_prev = h2x + (long long)(t & 1) * B * H2;
-    T* h2_next = h2x + (long long)((t + 1) & 1) * B * H2;
+    const T *h1_prev, *h2_prev, *ctx_prev;
+    T *h1_next, *h2_next, *ctx_next;
+    CellStreams<T> st1{nullptr, nullptr, nullptr, nullptr}, st2{nullptr, nullptr, nullptr, nullptr};
+    if constexpr (TRAIN) {
+      const long long row = (long long)t * B;  // this step's rows of a (T, B, .) stream
+      h1_prev = t == 0 ? h10 : h1d + (row - B) * H1;
+      h1_next = h1d + row * H1;
+      h2_prev = t == 0 ? h20 : h2d + (row - B) * H2;
+      h2_next = h2d + row * H2;
+      ctx_prev = t == 0 ? ctx0 : ctxr + (row - B) * P;
+      ctx_next = ctxr + row * P;
+      st1 = {m1 != nullptr ? m1 + row * H1 : nullptr, gates1 + row * 4 * H1, c1r + row * H1,
+             sel + row};
+      st2 = {m2 != nullptr ? m2 + row * H2 : nullptr, gates2 + row * 4 * H2, c2r + row * H2,
+             nullptr};
+    } else {
+      h1_prev = h1x + (long long)(t & 1) * B * H1;
+      h1_next = h1x + (long long)((t + 1) & 1) * B * H1;
+      h2_prev = h2x + (long long)(t & 1) * B * H2;
+      h2_next = h2x + (long long)((t + 1) & 1) * B * H2;
+      ctx_prev = ctxx;
+      ctx_next = ctxx;
+    }
     const int* forced_t = forced != nullptr ? forced + (long long)t * B : nullptr;
 
-#define CELL1(NC)                                                                          \
-  case NC:                                                                                 \
-    cell_phase<T, NC>(w1_s, ctxx, P, h1_prev, H1, H1, u01, embw1, forced_t, prev, c1, h1_next, B); \
+#define CELL1(NC)                                                                              \
+  case NC:                                                                                     \
+    cell_phase<T, NC, TRAIN>(w1_s, ctx_prev, P, h1_prev, H1, H1, u01, embw1, forced_t, prev, c1, \
+                             h1_next, B, st1);                                                 \
     break;
     switch (4 * U1) { CELL1(4) CELL1(8) CELL1(16) CELL1(32) }
 #undef CELL1
@@ -522,7 +476,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_decode_kernel(DecodeArgs 
 
 #define CELL2(NC)                                                                              \
   case NC:                                                                                     \
-    cell_phase<T, NC>(w2_s, h1_next, H1, h2_prev, H2, H2, u02, b2, nullptr, nullptr, c2, h2_next, B); \
+    cell_phase<T, NC, TRAIN>(w2_s, h1_next, H1, h2_prev, H2, H2, u02, b2, nullptr, nullptr, c2, \
+                             h2_next, B, st2);                                                 \
     break;
     switch (4 * U2) { CELL2(4) CELL2(8) CELL2(16) CELL2(32) }
 #undef CELL2
@@ -536,14 +491,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_decode_kernel(DecodeArgs 
 #undef QUERY
     grid.sync();
 
-    attend_phase<T>(a, t, q_s, ctx_s, part_s, red_s, sc_s);
+    attend_phase<T>(a, t, ctx_next, q_s, ctx_s, part_s, red_s, sc_s);
     grid.sync();
   }
 }
 
-template <typename T>
+template <typename T, bool TRAIN>
 static cudaError_t launch(const DecodeArgs& a, int grid, cudaStream_t stream) {
-  auto kernel = speller_decode_kernel<T>;
+  auto kernel = speller_decode_kernel<T, TRAIN>;
   const size_t smem = smem_bytes(sizeof(T), grid, a.Te, a.P, a.heads, a.H1, a.H2);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -581,10 +536,12 @@ extern "C" size_t speller_decode_smem_bytes(int dtype, int grid, int Te, int P, 
                     H2);
 }
 
-// ptrs: N_PTRS device pointers in enum Ptr order (P_FORCED may be null);
-// dims: N_DIMS ints in enum Dim order. Returns a cudaError_t (0 on success).
-extern "C" int speller_decode_launch(int dtype, int grid, const void* const* ptrs, const int* dims,
-                                     float scale, void* stream) {
+// ptrs: N_PTRS device pointers in enum Ptr order (P_FORCED may be null; with
+// train == 0 the slots from P_M1 on are not read; with train != 0 P_M1 and
+// P_M2 may be null, and P_H1X, P_H2X and P_CTXX are not touched); dims: N_DIMS
+// ints in enum Dim order. Returns a cudaError_t (0 on success).
+extern "C" int speller_decode_launch(int dtype, int train, int grid, const void* const* ptrs,
+                                     const int* dims, float scale, void* stream) {
   DecodeArgs a;
   for (int i = 0; i < N_PTRS; ++i) a.p[i] = ptrs[i];
   a.B = dims[D_B];
@@ -598,7 +555,9 @@ extern "C" int speller_decode_launch(int dtype, int grid, const void* const* ptr
   a.sos = dims[D_SOS];
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, grid, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, grid, s);
+  if (dtype == 0) return train ? launch<float, true>(a, grid, s) : launch<float, false>(a, grid, s);
+  if (dtype == 1)
+    return train ? launch<__nv_bfloat16, true>(a, grid, s)
+                 : launch<__nv_bfloat16, false>(a, grid, s);
   return (int)cudaErrorInvalidValue;
 }

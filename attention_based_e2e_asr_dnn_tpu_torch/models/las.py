@@ -10,13 +10,13 @@ reference ``state_dict`` naming of ``compat`` has no slot for them).
 
 Ported: the config dataclasses, ``las_config_from_dicts``, parameter init,
 ``listener_apply`` (with locked dropout in training), ``speller_apply``
-(the free-running eval decode on the fused decode kernel,
-``ops/speller_cuda.py``, when ``decoder_impl: pallas``, as a loop of PyTorch
-ops otherwise; the teacher-forced training decode as that loop under
-autograd, with dropout, per-step batch-shared teacher-forcing coins and the
-``init_force`` prior), the decode-route report and ``las_apply``.
-``decoder_impl: pallas`` in training (the fused decoder's training form and
-its adjoint kernel) is not ported yet and raises.
+(with ``decoder_impl: pallas`` the free-running eval decode and the
+teacher-forced training decode on the fused decode kernels,
+``ops/speller_cuda.py``, the training one differentiable through the adjoint
+kernel; with ``decoder_impl: scan`` a loop of PyTorch ops, under autograd in
+training, with dropout, per-step batch-shared teacher-forcing coins and the
+``init_force`` prior, which the kernels do not compute: on the card a
+``pallas`` config raises for it), the decode-route report and ``las_apply``.
 
 Randomness of a training pass is one ``TrainDraws`` record, either drawn
 from an explicit ``torch.Generator`` (``draw_train_noise``) or handed in, so
@@ -26,6 +26,7 @@ a test can replay the JAX package's draws.
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
@@ -94,8 +95,8 @@ class SpellerConfig:
     CHR_SOS_IDX: int = 0
     USE_GREEDY: bool = True
     legacy_scale: bool = False
-    # "pallas": the eval decode on the fused CUDA kernel (ops/speller_cuda.py);
-    # "scan": the step loop of PyTorch ops below
+    # "pallas": the decode on the fused CUDA kernels (ops/speller_cuda.py), in
+    # eval and in training; "scan": the step loop of PyTorch ops below
     decoder_impl: str = "scan"
 
     def __post_init__(self):
@@ -373,8 +374,21 @@ class SpellerOutput(NamedTuple):
 
 
 # Which decoder served each (decoder, batch, enc_len) shape: "cuda" (the
-# fused kernel), "plain" (its plain version, for CPU tensors) or "scan".
+# fused kernels), "plain" (their plain versions, for CPU tensors) or "scan".
 _DECODE_ROUTES: dict = {}
+_WARNED_FALLBACKS: set = set()
+
+
+def _warn_fused_fallback(batch: int, enc_len: int, reason: str) -> None:
+    """Say once per shape and reason, on stderr, that ``decoder_impl: pallas``
+    took the scan decoder (the JAX package's ``_warn_fused_fallback``)."""
+    key = (batch, enc_len, reason)
+    if key in _WARNED_FALLBACKS:
+        return
+    _WARNED_FALLBACKS.add(key)
+    print(f"WARNING: decoder_impl=pallas requested but shape "
+          f"(B={batch}, Te={enc_len}) fell back to the scan decoder: "
+          f"{reason}", file=sys.stderr)
 
 
 def _decoder_key(cfg) -> str:
@@ -393,6 +407,13 @@ def decode_route_report() -> dict:
             for (k, b, t), impl in sorted(_DECODE_ROUTES.items())}
 
 
+def reset_decode_routes() -> None:
+    """Forget the routes and the warnings given, so that the next
+    ``decode_route_report`` speaks of the decodes made from here on."""
+    _DECODE_ROUTES.clear()
+    _WARNED_FALLBACKS.clear()
+
+
 def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
                   enc_l: torch.Tensor, dec_y: Optional[torch.Tensor] = None,
                   tf_rate=1.0, init_force: bool = False, train: bool = False,
@@ -400,32 +421,43 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
     """The autoregressive decode (the JAX ``speller_apply``).
 
     Eval (``train=False``, ``dec_y=None``): free-running greedy for
-    ``CHR_MAX_STEPS`` steps; ``decoder_impl: pallas`` runs it in one launch
-    of the fused kernel (its plain version for CPU tensors); a shape the
-    kernel cannot take raises.
+    ``CHR_MAX_STEPS`` steps. Training (``train=True``, ``dec_y`` (B, L)
+    given): L steps under autograd. Step t feeds the gold embedding of step
+    t - 1 where ``coins[t] <= tf_rate`` (one coin per step, shared by the
+    batch; step 0 is never forced), else the embedding of its own previous
+    argmax. ``draws`` supplies the coins and the dropout masks; without it
+    there is neither forcing nor dropout, as in the JAX package without a
+    key. ``init_force`` biases every step's attention by the block-diagonal
+    prior.
 
-    Training (``dec_y`` (B, L) given): L steps of the step loop under
-    autograd. Step t feeds the gold embedding of step t - 1 where
-    ``coins[t] <= tf_rate`` (one coin per step, shared by the batch; step 0
-    is never forced), else the embedding of its own previous argmax.
-    ``draws`` supplies the coins and the dropout masks; without it there is
-    neither forcing nor dropout, as in the JAX package without a key.
-    ``init_force`` biases every step's attention by the block-diagonal
-    prior."""
+    ``decoder_impl: pallas`` runs either decode on the fused kernels (their
+    plain versions for CPU tensors); a shape a kernel cannot take raises.
+    The kernels compute neither the ``init_force`` prior nor a pass with
+    ``dec_y`` given outside training. For CPU tensors such a pass warns once
+    a shape and takes the step loop, as the JAX package does (the loop
+    ignores ``dec_y`` outside training). For CUDA tensors it raises a
+    ``ValueError`` that names what the kernels lack, since a ``pallas``
+    config never leaves the kernels on the card unasked: run those passes
+    with ``decoder_impl: scan``. Training without ``dec_y`` raises."""
     batch, enc_len, _ = enc_h.shape
     key = (_decoder_key(cfg), batch, enc_len)
     if cfg.decoder_impl == "pallas":
-        if train:
-            raise NotImplementedError(
-                "decoder_impl: pallas in training needs the fused decoder's "
-                "training form and its adjoint (kernels #8-train and #9, "
-                "speller_pallas.py:90 and :223), which are not ported yet; "
-                "train with decoder_impl: scan")
-        if dec_y is not None or init_force:
-            raise ValueError("the fused decode kernel runs the free-running "
-                             "eval decode only (no dec_y, no init_force)")
-        _DECODE_ROUTES[key] = "cuda" if enc_h.is_cuda else "plain"
-        return speller_apply_fused(params, cfg, enc_h, enc_l)
+        if train and dec_y is None:
+            raise ValueError("training decode requires dec_y")
+        if init_force:
+            reason = ("init_force epoch (the fused kernels do not compute the "
+                      "prior-biased attention)")
+        elif dec_y is not None and not train:
+            reason = ("dec_y given outside training (the fused kernels force "
+                      "labels only in their training form)")
+        else:
+            _DECODE_ROUTES[key] = "cuda" if enc_h.is_cuda else "plain"
+            return speller_apply_fused(params, cfg, enc_h, enc_l, dec_y, tf_rate,
+                                       train, draws)
+        if enc_h.is_cuda:
+            raise ValueError(f"decoder_impl=pallas cannot serve this pass on "
+                             f"the card: {reason}; use decoder_impl: scan for it")
+        _warn_fused_fallback(batch, enc_len, reason)
     _DECODE_ROUTES[key] = "scan"
     dtype = enc_h.dtype
     params = cast_params(params, dtype)

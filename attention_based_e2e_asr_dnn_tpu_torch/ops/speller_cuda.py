@@ -1,29 +1,44 @@
-"""Fused speller-decode kernel for Hopper (counterpart of the JAX
-``ops/speller_pallas.py``, eval form), with its plain version.
+"""Fused speller-decode kernels for Hopper (counterpart of the JAX
+``ops/speller_pallas.py``), with their plain versions and the autograd
+Function that joins them.
 
-  ``speller_decode``  replaces ``_decode_fwd_kernel`` (speller_pallas.py:90)
-                      as ``_fwd_chunk`` (:465) launches it with
-                      ``save_residuals=False``: one launch runs every step of
-                      the free-running decode for the whole batch (input-id
-                      select, cell 1, cell 2, query, masked-softmax attention
-                      per head, tied classifier, first-max feedback).
+  ``speller_decode``        replaces ``_decode_fwd_kernel``
+                            (speller_pallas.py:90) as ``_fwd_chunk`` (:465)
+                            launches it with ``save_residuals=False``: one
+                            launch runs every step of the decode for the whole
+                            batch (input-id select, cell 1, cell 2, query,
+                            masked-softmax attention per head, tied
+                            classifier, first-max feedback).
+  ``speller_decode_train``  the same kernel with ``save_residuals=True``: the
+                            per-step dropout masks m1, m2 on the cells'
+                            outputs and the residual streams of the adjoint
+                            (the fed id, both cells' gates and c, the dropped
+                            h1 and h2, the context).
+  ``speller_decode_bwd``    replaces ``_decode_bwd_kernel`` (:223) as
+                            ``_bwd_chunk`` (:554) launches it: the adjoint,
+                            walking time down, with the products against the
+                            transposed weights inside.
 
-The source (``csrc/speller_decode.cu``) says what bounds the kernel and how
-it is laid out. The wrapper runs the plain PyTorch version
-(``speller_decode_plain``) for a CPU tensor, launches the kernel for a CUDA
-tensor or raises, and counts its launches in ``LAUNCHES``. On the card the
-TPU's routing (``pick_chunk``, the Te pad to 64, the lane gates of
-``fused_decode_unavailable_reason``) does not apply: a shape the kernel
-cannot take raises a ``ValueError`` that names the limit, where the JAX
-package falls back to the scan decoder.
+The sources (``csrc/speller_decode.cu``, ``csrc/speller_bwd.cu``) say what
+bounds the kernels and how they are laid out. Each wrapper runs its plain
+PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor or
+raises, and counts its launches in ``LAUNCHES``. On the card the TPU's
+routing (``pick_chunk``, the Te pad to 64, the lane gates of
+``fused_decode_unavailable_reason``) does not apply: a shape a kernel cannot
+take raises a ``ValueError`` that names the limit, where the JAX package
+falls back to the scan decoder.
 
-``speller_apply_fused`` is the eval form (``dec_y=None``) of the JAX
-``speller_apply_fused`` (speller_pallas.py:862): the operands
-(``decode_operands``), the kernel, and the ``SpellerOutput`` of
+``fused_decode`` is the JAX ``fused_decode`` (:636): where a gradient is
+wanted it goes through ``_FusedDecode``, whose forward is the training kernel
+and whose backward is the adjoint kernel plus the weight-gradient products
+the JAX package also forms outside its kernels (``_fused_bwd`` :694);
+otherwise it stays on the eval kernel.
+
+``speller_apply_fused`` is the JAX ``speller_apply_fused`` (:862), the
+teacher-forced training decode and the free-running eval decode: the operands
+(``decode_operands``), the forced-id stream and the dropout masks from the
+pass's draws, ``fused_decode``, and the ``SpellerOutput`` of
 ``models/las.py::speller_apply``.
-
-The training form (teacher forcing, dropout masks, the residual streams and
-the adjoint kernel #9) is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,21 +57,31 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
     cross_attention_precompute,
     cross_attention_step,
 )
-from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import _gates
+from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import _wants_grad
 
 SOURCE = os.path.join(cuda_build.CSRC, "speller_decode.cu")
+BWD_SOURCE = os.path.join(cuda_build.CSRC, "speller_bwd.cu")
+SOURCES = (SOURCE, BWD_SOURCE)
 
 NEG = -1e9  # additive pad bias; exp(NEG - max) underflows to exactly 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches since the last reset
-LAUNCHES = {"speller_decode": 0}
+LAUNCHES = {"speller_decode": 0, "speller_decode_train": 0, "speller_decode_bwd": 0}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the residual streams of the training form, in the order the wrappers return
+# them: the fed id (T, B) int32 (it stands for the Pallas kernel's one-hot
+# ``sel`` (T, B, Vp)); then in the weight dtype both cells' activated gates
+# [i, f, g, o] (T, B, 4H) and c (T, B, H), the dropped outputs h1d and h2d,
+# and the context (T, B, P)
+RESIDUALS = ("sel", "gates1", "c1", "h1d", "gates2", "c2", "h2d", "ctx")
 
 
 def pick_te_chunk(te: int) -> int:
@@ -72,21 +97,18 @@ def pick_te_chunk(te: int) -> int:
 # Plain version
 # ---------------------------------------------------------------------------
 
-def speller_decode_plain(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1,
-                         whh1, wih2, whh2, b2, wq, bq, wcls, clsb, *,
-                         heads: int, scale: float, sos_idx: int, steps: int,
-                         forced: Optional[torch.Tensor] = None):
-    """Plain version of ``speller_decode``, step by step in PyTorch with the
-    Pallas kernel's numerics (speller_pallas.py:90-216): fp32 carries,
-    rounded to the weight dtype only as dot operands; fp32 dots and gates;
-    scores and context as fp32 products of operands rounded to the weight
-    dtype, summed in fp32 (the context per ``pick_te_chunk`` piece): what
-    the kernel computes in interpret mode, where XLA forms the products of
-    ``qh * kc`` and ``wc * vc`` in fp32; the feedback is the first maximum
-    of the fp32 logits.
-
-    Returns (logits (T, B, Vp), weights (T, B, heads, Te), both in k's
-    dtype, and the fed-back ids (T, B) int32)."""
+def _decode_steps(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
+                  whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx, steps,
+                  forced, m1, m2, residuals):
+    """The decode step by step in PyTorch with the Pallas kernel's numerics
+    (speller_pallas.py:90-216): fp32 carries, rounded to the weight dtype
+    only as dot operands; fp32 dots and gates; the cells' outputs times the
+    step's mask in fp32 where there is one, the dropped value being the
+    carry; scores and context as fp32 products of operands rounded to the
+    weight dtype, summed in fp32 (the context per ``pick_te_chunk`` piece):
+    what the kernel computes in interpret mode, where XLA forms the products
+    of ``qh * kc`` and ``wc * vc`` in fp32; the feedback is the first maximum
+    of the fp32 logits."""
     wdt = k.dtype
     batch, te, proj = k.shape
     d_head = proj // heads
@@ -102,13 +124,20 @@ def speller_decode_plain(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1,
     h1, c1, h2, c2, ctx = (s.float() for s in (h10, c10, h20, c20, ctx0))
     prev = torch.full((batch,), sos_idx, dtype=torch.long, device=k.device)
     logits_t, wgts_t, ids_t = [], [], []
+    saved = [[] for _ in RESIDUALS]
     for t in range(steps):
         sel = prev if forced is None else torch.where(forced[t] >= 0,
                                                       forced[t].long(), prev)
         pre1 = (embw1[sel] + op(ctx) @ wc1) + op(h1) @ whh1
-        h1, c1 = _gates(pre1, c1, h1dim)
+        act1 = _activate(pre1, h1dim)
+        h1, c1 = _cell_out(act1, c1, h1dim)
+        if m1 is not None:
+            h1 = h1 * m1[t].float()
         pre2 = (op(h1) @ wih2 + op(h2) @ whh2) + b2
-        h2, c2 = _gates(pre2, c2, h2dim)
+        act2 = _activate(pre2, h2dim)
+        h2, c2 = _cell_out(act2, c2, h2dim)
+        if m2 is not None:
+            h2 = h2 * m2[t].float()
         q = op(h2) @ wq + bq
         ctx_parts, w_parts = [], []
         for h in range(heads):
@@ -126,8 +155,132 @@ def speller_decode_plain(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1,
         logits_t.append(logits.to(wdt))
         wgts_t.append(torch.stack(w_parts, 1).to(wdt))
         ids_t.append(prev)
-    return (torch.stack(logits_t), torch.stack(wgts_t),
-            torch.stack(ids_t).to(torch.int32))
+        if residuals:
+            for store, x in zip(saved, (sel.to(torch.int32), act1.to(wdt), c1.to(wdt),
+                                        h1.to(wdt), act2.to(wdt), c2.to(wdt),
+                                        h2.to(wdt), ctx.to(wdt))):
+                store.append(x)
+    out = (torch.stack(logits_t), torch.stack(wgts_t),
+           torch.stack(ids_t).to(torch.int32))
+    if residuals:
+        return (*out, tuple(torch.stack(x) for x in saved))
+    return out
+
+
+def _activate(pre, hid):
+    """Activated gates [i, f, g, o] of a pre-activation (B, 4H), fp32."""
+    return torch.cat([torch.sigmoid(pre[:, :2 * hid]),
+                      torch.tanh(pre[:, 2 * hid:3 * hid]),
+                      torch.sigmoid(pre[:, 3 * hid:])], dim=-1)
+
+
+def _cell_out(act, c, hid):
+    i, f, g, o = act.split(hid, dim=-1)
+    c_new = f * c + i * g
+    return o * torch.tanh(c_new), c_new
+
+
+def speller_decode_plain(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1,
+                         whh1, wih2, whh2, b2, wq, bq, wcls, clsb, *,
+                         heads: int, scale: float, sos_idx: int, steps: int,
+                         forced: Optional[torch.Tensor] = None):
+    """Plain version of ``speller_decode`` (``_decode_steps`` has the
+    numerics). Returns (logits (T, B, Vp), weights (T, B, heads, Te), both in
+    k's dtype, and the fed-back ids (T, B) int32)."""
+    return _decode_steps(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
+                         wih2, whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx,
+                         steps, forced, None, None, residuals=False)
+
+
+def speller_decode_train_plain(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1,
+                               whh1, wih2, whh2, b2, wq, bq, wcls, clsb, *,
+                               heads: int, scale: float, sos_idx: int, steps: int,
+                               forced: Optional[torch.Tensor] = None,
+                               m1: Optional[torch.Tensor] = None,
+                               m2: Optional[torch.Tensor] = None):
+    """Plain version of ``speller_decode_train``: ``speller_decode_plain``
+    with the masks, plus the residual streams in k's dtype (``RESIDUALS``)."""
+    return _decode_steps(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
+                         wih2, whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx,
+                         steps, forced, m1, m2, residuals=True)
+
+
+def _cell_adjoint(d_hd, mask_t, gates_t, c_t, c_prev, dc, hid):
+    """One cell's gate adjoint at one step (speller_pallas.py:292-309), fp32:
+    the cotangent of the dropped output -> (dpre (B, 4H), the new dc)."""
+    d_hn = d_hd if mask_t is None else d_hd * mask_t.float()
+    i, f, g, o = gates_t.float().split(hid, dim=-1)
+    tanh_c = torch.tanh(c_t.float())
+    dc_tot = dc + d_hn * o * (1.0 - tanh_c * tanh_c)
+    dpre = torch.cat([dc_tot * g * i * (1.0 - i),
+                      dc_tot * c_prev.float() * f * (1.0 - f),
+                      dc_tot * i * (1.0 - g * g),
+                      d_hn * tanh_c * o * (1.0 - o)], dim=-1)
+    return dpre, dc_tot * f
+
+
+def speller_decode_bwd_plain(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1,
+                             c1, gates2, c2, wgts, m1, m2, dqup, dctxup, dwup, *,
+                             heads: int, scale: float):
+    """Plain version of ``speller_decode_bwd``: the adjoint written out, one
+    step at a time with time running down, with the Pallas kernel's roundings
+    (speller_pallas.py:223-390): the saved streams read in the weight dtype;
+    dpre, d_q, d_ctx and ``dsc * scale`` rounded to the weight dtype as dot
+    operands and as stored; the attention products formed in fp32 from those
+    rounded operands and summed in fp32 (dq_att per ``pick_te_chunk`` piece);
+    carries fp32. Not autograd through the forward, which would round
+    nowhere."""
+    wdt = k.dtype
+    steps, batch = gates1.shape[:2]
+    te, proj = k.shape[1], k.shape[2]
+    d_head = proj // heads
+    h1dim, h2dim = whh1.shape[0], whh2.shape[0]
+    te_chunk = pick_te_chunk(te)
+
+    def op(x):
+        return x.to(wdt).float()
+
+    kf, vf = k.float(), v.float()
+    wc1t, whh1t, wih2t, whh2t, wqt = (w.float().T for w in (wc1, whh1, wih2, whh2, wq))
+    f32 = {"dtype": torch.float32, "device": k.device}
+    dh1, dc1 = torch.zeros(batch, h1dim, **f32), torch.zeros(batch, h1dim, **f32)
+    dh2, dc2 = torch.zeros(batch, h2dim, **f32), torch.zeros(batch, h2dim, **f32)
+    dctx = torch.zeros(batch, proj, **f32)
+    dpre1_t, dpre2_t, dq_t, dctxtot_t, dsc_t = ([None] * steps for _ in range(5))
+    for t in range(steps - 1, -1, -1):
+        d_ctx = dctx + dctxup[t].float()
+        dctxtot_t[t] = d_ctx.to(wdt)
+        dq_parts, dsc_parts = [], []
+        for h in range(heads):
+            sl = slice(h * d_head, (h + 1) * d_head)
+            w = wgts[t, :, h].float()
+            dw = (op(d_ctx[:, None, sl]) * vf[:, :, sl]).sum(-1)
+            if dwup is not None:
+                dw = dw + dwup[t, :, h].float()
+            dsc = w * (dw - (dw * w).sum(-1, keepdim=True))
+            dsc_parts.append(dsc.to(wdt))
+            dscs = op(dsc * scale)
+            dq_parts.append(sum(
+                (dscs[:, c0:c0 + te_chunk, None] * kf[:, c0:c0 + te_chunk, sl]).sum(1)
+                for c0 in range(0, te, te_chunk)))
+        d_q = torch.cat(dq_parts, -1) + dqup[t].float()
+        dq_t[t] = d_q.to(wdt)
+        dsc_t[t] = torch.stack(dsc_parts, 1)
+        # cell 2
+        dpre2, dc2 = _cell_adjoint(dh2 + op(d_q) @ wqt, None if m2 is None else m2[t],
+                                   gates2[t], c2[t], c2[t - 1] if t else c20, dc2, h2dim)
+        dpre2_t[t] = dpre2.to(wdt)
+        dpre2 = dpre2_t[t].float()
+        dh2 = dpre2 @ whh2t
+        # cell 1
+        dpre1, dc1 = _cell_adjoint(dh1 + dpre2 @ wih2t, None if m1 is None else m1[t],
+                                   gates1[t], c1[t], c1[t - 1] if t else c10, dc1, h1dim)
+        dpre1_t[t] = dpre1.to(wdt)
+        dpre1 = dpre1_t[t].float()
+        dh1 = dpre1 @ whh1t
+        dctx = dpre1 @ wc1t
+    return (torch.stack(dpre1_t), torch.stack(dpre2_t), torch.stack(dq_t),
+            torch.stack(dctxtot_t), torch.stack(dsc_t), dh1, dc1, dh2, dc2, dctx)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +293,7 @@ def load_library() -> ctypes.CDLL:
     its C entry points."""
     lib = ctypes.CDLL(cuda_build.build_library(SOURCE))
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.speller_decode_launch.argtypes = [i, i, p, p, ctypes.c_float, p]
+    lib.speller_decode_launch.argtypes = [i, i, i, p, p, ctypes.c_float, p]
     lib.speller_decode_launch.restype = ctypes.c_int
     lib.speller_decode_smem_bytes.argtypes = [i] * 7
     lib.speller_decode_smem_bytes.restype = ctypes.c_size_t
@@ -150,11 +303,26 @@ def load_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def load_bwd_library() -> ctypes.CDLL:
+    """Build ``csrc/speller_bwd.cu`` and bind its C entry points."""
+    lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.speller_bwd_launch.argtypes = [i, i, p, p, ctypes.c_float, p]
+    lib.speller_bwd_launch.restype = ctypes.c_int
+    lib.speller_bwd_smem_bytes.argtypes = [i] * 7
+    lib.speller_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.speller_bwd_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.speller_bwd_limits.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def kernel_limits(device: int) -> dict:
-    """The kernel's geometry as the source defines it (at most ``max_grid``
-    blocks of ``nthreads`` threads, each owning 1, 2, 4 ... ``max_units``
-    units of each cell and query columns; ``vmax`` padded vocabulary
-    entries) and the shared memory a block of ``device`` may opt into."""
+    """The forward kernel's geometry as the source defines it (at most
+    ``max_grid`` blocks of ``nthreads`` threads, each owning 1, 2, 4 ...
+    ``max_units`` units of each cell and query columns; ``vmax`` padded
+    vocabulary entries) and the shared memory a block of ``device`` may opt
+    into."""
     out = (ctypes.c_longlong * 5)()
     err = load_library().speller_decode_limits(device, out)
     if err != 0:
@@ -162,6 +330,17 @@ def kernel_limits(device: int) -> dict:
                            f"{device} failed with cudaError {err}")
     return dict(zip(("max_grid", "max_units", "nthreads", "vmax",
                      "smem_optin"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_kernel_limits(device: int) -> dict:
+    """The adjoint kernel's geometry, as ``kernel_limits`` (no vocabulary)."""
+    out = (ctypes.c_longlong * 4)()
+    err = load_bwd_library().speller_bwd_limits(device, out)
+    if err != 0:
+        raise RuntimeError(f"speller_decode_bwd: reading the limits of device "
+                           f"{device} failed with cudaError {err}")
+    return dict(zip(("max_grid", "max_units", "nthreads", "smem_optin"), out))
 
 
 def grid_size(h1dim: int, h2dim: int, proj: int, max_grid: int) -> int:
@@ -173,16 +352,58 @@ def grid_size(h1dim: int, h2dim: int, proj: int, max_grid: int) -> int:
     return grid
 
 
+def _check_operands(name, ref, operands):
+    """Every operand (label -> (tensor, shape)) has its shape and is
+    contiguous, in ``ref``'s dtype, on ``ref``'s device (a CUDA device)."""
+    if not ref.is_cuda:
+        raise ValueError(f"{name}: kernel needs CUDA tensors, got {ref.device}")
+    if ref.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {ref.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    for key, (t, shape) in operands.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if t.device != ref.device or t.dtype != ref.dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous {ref.dtype} on "
+                             f"{ref.device}")
+
+
+def _check_geometry(name, lim, smem_fn, dtype, batch, te, steps, proj, heads,
+                    h1dim, h2dim):
+    """The limits both kernels share; returns the blocks of the launch."""
+    if batch < 1 or te < 1 or steps < 1:
+        raise ValueError(f"{name}: batch {batch}, encoder length {te} and "
+                         f"steps {steps} must be at least 1")
+    grid = grid_size(h1dim, h2dim, proj, lim["max_grid"])
+    allowed = [1 << i for i in range(lim["max_units"].bit_length())]
+    if any(n % 8 or n // grid not in allowed for n in (h1dim, h2dim, proj)):
+        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must "
+                         f"be multiples of 8 and each {grid} x "
+                         f"{', '.join(map(str, allowed[:-1]))} or "
+                         f"{allowed[-1]} (one launch of {grid} blocks)")
+    if proj % heads or (proj // heads) % 8:
+        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
+                         f"must be a whole multiple of 8")
+    vec = 16 // dtype.itemsize  # elements in a 16-byte load
+    if proj > lim["nthreads"] * vec:
+        raise ValueError(f"{name}: P {proj} above {lim['nthreads'] * vec} "
+                         f"(the context takes one 16-byte slice a thread)")
+    smem = smem_fn(_DTYPE_CODES[dtype], grid, te, proj, heads, h1dim, h2dim)
+    if smem > lim["smem_optin"]:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory a "
+                         f"block (Te {te}, heads {heads}, H1 {h1dim}, "
+                         f"{dtype}), the device's limit is {lim['smem_optin']}")
+    return grid
+
+
 def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
             whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx, steps,
-            forced):
-    name = "speller_decode"
-    if not k.is_cuda:
-        raise ValueError(f"{name}: kernel needs CUDA tensors, got {k.device}")
+            forced, m1=None, m2=None, train=False):
+    """Check shapes and launch the forward kernel. Returns (logits, weights,
+    ids), and with ``train`` also the tuple of residual streams."""
+    name = "speller_decode_train" if train else "speller_decode"
     dtype = k.dtype
-    if dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {dtype} not supported "
-                         f"(float32 or bfloat16)")
     batch, te, proj = k.shape
     h1dim, h2dim, vp = whh1.shape[0], whh2.shape[0], embw1.shape[0]
     operands = {"k": (k, (batch, te, proj)), "v": (v, (batch, te, proj)),
@@ -196,31 +417,17 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
                 "whh2": (whh2, (h2dim, 4 * h2dim)), "b2": (b2, (4 * h2dim,)),
                 "wq": (wq, (h2dim, proj)), "bq": (bq, (proj,)),
                 "wcls": (wcls, (2 * proj, vp)), "clsb": (clsb, (vp,))}
-    for key, (t, shape) in operands.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
-                             f"{shape}")
-        if t.device != k.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous {dtype} on "
-                             f"{k.device}")
-    if batch < 1 or te < 1 or steps < 1:
-        raise ValueError(f"{name}: batch {batch}, encoder length {te} and "
-                         f"steps {steps} must be at least 1")
+    if m1 is not None or m2 is not None:
+        if not train or m1 is None or m2 is None:
+            raise ValueError(f"{name}: the dropout masks m1 and m2 come "
+                             f"together, and only in the training form")
+        operands["m1"] = (m1, (steps, batch, h1dim))
+        operands["m2"] = (m2, (steps, batch, h2dim))
+    _check_operands(name, k, operands)
     lim = kernel_limits(k.device.index)
-    grid = grid_size(h1dim, h2dim, proj, lim["max_grid"])
-    allowed = [1 << i for i in range(lim["max_units"].bit_length())]
-    if any(n % 8 or n // grid not in allowed for n in (h1dim, h2dim, proj)):
-        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must "
-                         f"be multiples of 8 and each {grid} x "
-                         f"{', '.join(map(str, allowed[:-1]))} or "
-                         f"{allowed[-1]} (one launch of {grid} blocks)")
-    if proj % heads or (proj // heads) % 8:
-        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
-                         f"must be a whole multiple of 8")
-    vec = 16 // k.element_size()  # elements in a 16-byte load
-    if proj > lim["nthreads"] * vec:
-        raise ValueError(f"{name}: P {proj} above {lim['nthreads'] * vec} "
-                         f"(the context takes one 16-byte slice a thread)")
+    lib = load_library()
+    grid = _check_geometry(name, lim, lib.speller_decode_smem_bytes, dtype, batch,
+                           te, steps, proj, heads, h1dim, h2dim)
     if vp > lim["vmax"] or not 0 <= sos_idx < vp:
         raise ValueError(f"{name}: padded vocabulary {vp} must be at most "
                          f"{lim['vmax']} and hold <sos> {sos_idx}")
@@ -229,14 +436,6 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
             or forced.device != k.device or not forced.is_contiguous()):
         raise ValueError(f"{name}: forced ids must be contiguous int32 "
                          f"({steps}, {batch}) on {k.device}")
-    lib = load_library()
-    code = _DTYPE_CODES[dtype]
-    smem = lib.speller_decode_smem_bytes(code, grid, te, proj, heads, h1dim,
-                                         h2dim)
-    if smem > lim["smem_optin"]:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory a "
-                         f"block (Te {te}, heads {heads}, H1 {h1dim}), the "
-                         f"device's limit is {lim['smem_optin']}")
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=k.device)
@@ -244,27 +443,96 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
     logits = empty(steps, batch, vp)
     wgts = empty(steps, batch, heads, te)
     ids = empty(steps, batch, dt=torch.int32)
-    scratch = [empty(2, batch, h1dim), empty(2, batch, h2dim),
-               empty(batch, proj), empty(batch, proj),
-               empty(batch, h1dim, dt=torch.float32),
-               empty(batch, h2dim, dt=torch.float32),
-               empty(batch, dt=torch.int32)]
+    # the exchange buffers of the eval form (the training form exchanges
+    # through its h1d, h2d and context streams), then q, the fp32 c carries
+    # and the fed-back id
+    scratch = ([None] * 3 if train else
+               [empty(2, batch, h1dim), empty(2, batch, h2dim), empty(batch, proj)])
+    scratch += [empty(batch, proj), empty(batch, h1dim, dt=torch.float32),
+                empty(batch, h2dim, dt=torch.float32), empty(batch, dt=torch.int32)]
+    saved = ()
+    if train:  # the order of RESIDUALS
+        saved = (empty(steps, batch, dt=torch.int32), empty(steps, batch, 4 * h1dim),
+                 empty(steps, batch, h1dim), empty(steps, batch, h1dim),
+                 empty(steps, batch, 4 * h2dim), empty(steps, batch, h2dim),
+                 empty(steps, batch, h2dim), empty(steps, batch, proj))
     # the order of enum Ptr in the source
     tensors = ([k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
                 whh2, b2, wq, bq, wcls, clsb, forced, logits, wgts, ids]
-               + scratch)
+               + scratch + [m1, m2, *saved] + [None] * (8 - len(saved)))
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     dims = (ctypes.c_int * 9)(batch, te, steps, proj, heads, h1dim, h2dim, vp,
                               sos_idx)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.speller_decode_launch(code, grid, ptrs, dims, float(scale),
-                                        stream)
+        err = lib.speller_decode_launch(_DTYPE_CODES[dtype], int(train), grid, ptrs,
+                                        dims, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
     LAUNCHES[name] += 1
-    return logits, wgts, ids
+    return (logits, wgts, ids, saved) if train else (logits, wgts, ids)
+
+
+def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
+                c2, wgts, m1, m2, dqup, dctxup, dwup, heads, scale):
+    """Check shapes and launch the adjoint kernel, the whole batch in one
+    launch (the source says why)."""
+    name = "speller_decode_bwd"
+    dtype = k.dtype
+    batch, te, proj = k.shape
+    h1dim, h2dim = whh1.shape[0], whh2.shape[0]
+    steps = gates1.shape[0]
+    operands = {"k": (k, (batch, te, proj)), "v": (v, (batch, te, proj)),
+                "wc1": (wc1, (proj, 4 * h1dim)),
+                "whh1": (whh1, (h1dim, 4 * h1dim)),
+                "wih2": (wih2, (h1dim, 4 * h2dim)),
+                "whh2": (whh2, (h2dim, 4 * h2dim)), "wq": (wq, (h2dim, proj)),
+                "c10": (c10, (batch, h1dim)), "c20": (c20, (batch, h2dim)),
+                "gates1": (gates1, (steps, batch, 4 * h1dim)),
+                "c1": (c1, (steps, batch, h1dim)),
+                "gates2": (gates2, (steps, batch, 4 * h2dim)),
+                "c2": (c2, (steps, batch, h2dim)),
+                "wgts": (wgts, (steps, batch, heads, te)),
+                "dqup": (dqup, (steps, batch, proj)),
+                "dctxup": (dctxup, (steps, batch, proj))}
+    if (m1 is None) != (m2 is None):
+        raise ValueError(f"{name}: the dropout masks m1 and m2 come together")
+    if m1 is not None:
+        operands["m1"] = (m1, (steps, batch, h1dim))
+        operands["m2"] = (m2, (steps, batch, h2dim))
+    if dwup is not None:
+        operands["dwup"] = (dwup, (steps, batch, heads, te))
+    _check_operands(name, k, operands)
+    lim = bwd_kernel_limits(k.device.index)
+    lib = load_bwd_library()
+    grid = _check_geometry(name, lim, lib.speller_bwd_smem_bytes, dtype, batch, te,
+                           steps, proj, heads, h1dim, h2dim)
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=k.device)
+
+    f32 = torch.float32
+    outs = [empty(steps, batch, 4 * h1dim), empty(steps, batch, 4 * h2dim),
+            empty(steps, batch, proj), empty(steps, batch, proj),
+            empty(steps, batch, heads, te),
+            empty(batch, h1dim, dt=f32), empty(batch, h1dim, dt=f32),
+            empty(batch, h2dim, dt=f32), empty(batch, h2dim, dt=f32),
+            empty(batch, proj, dt=f32)]
+    # the order of enum Ptr in the source
+    tensors = [k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
+               wgts, m1, m2, dqup, dctxup, dwup] + outs
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    dims = (ctypes.c_int * 7)(batch, te, steps, proj, heads, h1dim, h2dim)
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.speller_bwd_launch(_DTYPE_CODES[dtype], grid, ptrs, dims,
+                                     float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+    LAUNCHES[name] += 1
+    return tuple(outs)
 
 
 def speller_decode(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
@@ -292,6 +560,146 @@ def speller_decode(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
                                     sos_idx=sos_idx, steps=steps,
                                     forced=forced)
     return _launch(*args, heads, scale, sos_idx, steps, forced)
+
+
+def speller_decode_train(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
+                         wih2, whh2, b2, wq, bq, wcls, clsb, *, heads: int,
+                         scale: float, sos_idx: int, steps: int,
+                         forced: Optional[torch.Tensor] = None,
+                         m1: Optional[torch.Tensor] = None,
+                         m2: Optional[torch.Tensor] = None):
+    """The training form of ``speller_decode``: its operands, the forced ids,
+    and the dropout masks m1 (T, B, H1), m2 (T, B, H2) in the operands'
+    dtype, 0 or 1 / keep (both or neither), which multiply the cells' outputs
+    in fp32; the dropped output is the carry.
+
+    Returns (logits, weights, ids, residuals): the streams the adjoint reads
+    (``RESIDUALS``), in the operands' dtype but for the fed ids."""
+    args = (k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
+            whh2, b2, wq, bq, wcls, clsb)
+    if k.device.type == "cpu":
+        return speller_decode_train_plain(*args, heads=heads, scale=scale,
+                                          sos_idx=sos_idx, steps=steps,
+                                          forced=forced, m1=m1, m2=m2)
+    return _launch(*args, heads, scale, sos_idx, steps, forced, m1, m2, train=True)
+
+
+def speller_decode_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1,
+                       gates2, c2, wgts, m1, m2, dqup, dctxup, dwup, *,
+                       heads: int, scale: float):
+    """The adjoint of the training decode, time running down.
+
+    k, v and the weights as ``speller_decode`` takes them; c10, c20 the
+    t = -1 carries; the forward's streams gates1 (T, B, 4H1), c1 (T, B, H1),
+    gates2, c2, the attention weights (T, B, heads, Te) and the masks m1, m2
+    (or None); the cotangents of q and of the context through the
+    classifier, dqup and dctxup (T, B, P), and of the weights, dwup
+    (T, B, heads, Te) or None. All in one dtype.
+
+    Returns (dpre1 (T, B, 4H1), dpre2 (T, B, 4H2), dq, dctxtot (T, B, P),
+    dsc (T, B, heads, Te) in that dtype; dh10, dc10 (B, H1), dh20, dc20
+    (B, H2), dctx0 (B, P) float32)."""
+    args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
+            wgts, m1, m2, dqup, dctxup, dwup)
+    if k.device.type == "cpu":
+        return speller_decode_bwd_plain(*args, heads=heads, scale=scale)
+    return _launch_bwd(*args, heads, scale)
+
+
+class _FusedDecode(torch.autograd.Function):
+    """``fused_decode`` under autograd (the JAX ``fused_decode`` custom VJP,
+    speller_pallas.py:636-802): forward the training kernel, backward the
+    adjoint kernel and, outside any kernel as in the JAX package
+    (``_fused_bwd`` :694-799), the cotangents through the tied classifier and
+    the weight gradients as products over all T x B rows, each with float32
+    accumulation and the result in the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, heads, scale, sos_idx, steps, forced, m1, m2, *operands):
+        logits, wgts, ids, saved = speller_decode_train(
+            *operands, heads=heads, scale=scale, sos_idx=sos_idx, steps=steps,
+            forced=forced, m1=m1, m2=m2)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(ids)
+        ctx.options = (heads, scale)
+        ctx.has_masks = m1 is not None
+        ctx.save_for_backward(*operands, *saved, wgts, *((m1, m2) if ctx.has_masks else ()))
+        return logits, wgts, ids
+
+    @staticmethod
+    def backward(ctx, d_logits, d_wgts, _d_ids):
+        heads, scale = ctx.options
+        tensors = ctx.saved_tensors
+        (k, v, _bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2, whh2, b2,
+         wq, bq, wcls, clsb) = tensors[:18]
+        sel, gates1, c1, h1d, gates2, c2, h2d, ctxs, wgts = tensors[18:27]
+        m1, m2 = tensors[27:] if ctx.has_masks else (None, None)
+        dt = k.dtype
+        steps, batch, vp = gates1.shape[0], k.shape[0], embw1.shape[0]
+        proj = k.shape[2]
+        if d_logits is None:
+            d_logits = torch.zeros(steps, batch, vp, dtype=dt, device=k.device)
+        d_logits = d_logits.to(dt)
+        # upstream through the tied classifier
+        d_dec = d_logits @ wcls.T
+        dqup = d_dec[..., :proj].contiguous()
+        dctxup = d_dec[..., proj:].contiguous()
+        dwup = None if d_wgts is None else d_wgts.to(dt).contiguous()
+        (dpre1, dpre2, dq, dctxtot, dsc, d_h10, d_c10, d_h20, d_c20,
+         d_ctx0) = speller_decode_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20,
+                                      gates1, c1, gates2, c2, wgts, m1, m2, dqup,
+                                      dctxup, dwup, heads=heads, scale=scale)
+
+        def rows(x):  # (T, B, X) -> (T * B, X)
+            return x.reshape(-1, x.shape[-1])
+
+        def shifted(x0, xs):  # the stream one step earlier, the t = -1 value first
+            return rows(torch.cat([x0[None], xs[:-1]]))
+
+        def col_sum(x):
+            return rows(x).sum(0, dtype=torch.float32).to(dt)
+
+        dpre1_r, dpre2_r, dq_r, dl_r = rows(dpre1), rows(dpre2), rows(dq), rows(d_logits)
+        # the one-hot the Pallas kernel stores is rebuilt from the fed ids
+        sel_1h = F.one_hot(sel.reshape(-1).long(), vp).to(dt)
+        d_embw1 = sel_1h.T @ dpre1_r
+        d_wc1 = shifted(ctx0, ctxs).T @ dpre1_r
+        d_whh1 = shifted(h10, h1d).T @ dpre1_r
+        d_wih2 = rows(h1d).T @ dpre2_r
+        d_whh2 = shifted(h20, h2d).T @ dpre2_r
+        d_wq = rows(h2d).T @ dq_r
+        # the classifier: q recomputed once as one product
+        q_all = h2d @ wq + bq
+        d_wcls = rows(torch.cat([q_all, ctxs], dim=-1)).T @ dl_r
+        # the attention cache, per head as products over time in float32
+        d_head = proj // heads
+        d_k = scale * torch.einsum(
+            "tbhe,tbhd->behd", dsc.float(),
+            q_all.float().reshape(steps, batch, heads, d_head))
+        d_v = torch.einsum("tbhe,tbhd->behd", wgts.float(),
+                           dctxtot.float().reshape(steps, batch, heads, d_head))
+        return (None,) * 7 + (
+            d_k.reshape(k.shape).to(dt), d_v.reshape(v.shape).to(dt), None,
+            d_ctx0.to(dt), d_h10.to(dt), d_c10.to(dt), d_h20.to(dt), d_c20.to(dt),
+            d_embw1, d_wc1, d_whh1, d_wih2, d_whh2, col_sum(dpre2), d_wq,
+            col_sum(dq), d_wcls, col_sum(d_logits))
+
+
+def fused_decode(operands, *, heads: int, scale: float, sos_idx: int, steps: int,
+                 forced: Optional[torch.Tensor] = None,
+                 m1: Optional[torch.Tensor] = None,
+                 m2: Optional[torch.Tensor] = None):
+    """The fused decode over ``speller_decode``'s 18 operands, differentiable
+    in all of them but the pad bias: (logits (T, B, Vp), weights (T, B,
+    heads, Te)). Where a gradient is wanted the training kernel runs under
+    ``_FusedDecode``; without one, and without masks, the eval kernel does."""
+    opts = {"heads": heads, "scale": scale, "sos_idx": sos_idx, "steps": steps}
+    if _wants_grad(*operands):
+        return _FusedDecode.apply(heads, scale, sos_idx, steps, forced, m1, m2,
+                                  *operands)[:2]
+    if m1 is None:
+        return speller_decode(*operands, **opts, forced=forced)[:2]
+    return speller_decode_train(*operands, **opts, forced=forced, m1=m1, m2=m2)[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -353,16 +761,48 @@ def decode_options(cfg) -> dict:
             "sos_idx": cfg.CHR_SOS_IDX, "steps": cfg.CHR_MAX_STEPS}
 
 
-def speller_apply_fused(params, cfg, enc_h: torch.Tensor,
-                        enc_l: torch.Tensor):
-    """The free-running eval decode (``CHR_MAX_STEPS`` greedy steps) through
-    ``speller_decode``: the JAX ``speller_apply_fused`` with ``dec_y=None,
-    train=False``. Returns ``SpellerOutput(logits (B, steps, V), att_map)``,
-    the attention map of sample 0 with the t = -1 step first."""
+def decode_draws(cfg, dec_y, tf_rate, train: bool, draws, dtype):
+    """The forced-id stream and the dropout masks of one pass
+    (speller_pallas.py:899-931): step t feeds ``dec_y[:, t - 1]`` where
+    ``coins[t] <= tf_rate`` (one coin a step, shared by the batch; step 0 is
+    never forced), else -1, the fed-back argmax; the masks are the draws'
+    keep masks scaled by 1 / keep in ``dtype`` (in bfloat16 the scale is
+    rounded, as in the JAX package). Without ``draws`` or outside training:
+    no forcing, no dropout. Returns (forced (T, B) int32 or None, m1, m2)."""
+    forced = m1 = m2 = None
+    if not train or draws is None:
+        return forced, m1, m2
+    if dec_y is not None:
+        coins = draws.coins.to(dec_y.device).clone()
+        coins[0] = 2.0
+        gold = torch.cat([torch.zeros_like(dec_y[:, :1]), dec_y[:, :-1]], dim=1).T
+        forced = torch.where((coins <= tf_rate)[:, None], gold.to(torch.int32),
+                             -1).contiguous()
+    if cfg.dec_lstm_dropout > 0.0:
+        keep = 1.0 - cfg.dec_lstm_dropout
+        m1 = (draws.m1.to(dtype) / keep).contiguous()
+        m2 = (draws.m2.to(dtype) / keep).contiguous()
+    return forced, m1, m2
+
+
+def speller_apply_fused(params, cfg, enc_h: torch.Tensor, enc_l: torch.Tensor,
+                        dec_y: Optional[torch.Tensor] = None, tf_rate=1.0,
+                        train: bool = False, draws=None):
+    """The decode through the fused kernels (the JAX ``speller_apply_fused``,
+    speller_pallas.py:862; no ``init_force``). Training: ``dec_y.shape[1]``
+    teacher-forced steps with the coins and dropout masks of ``draws``
+    (``models.las.TrainDraws``), differentiable in the parameters and
+    ``enc_h``. Eval (``dec_y=None``): ``CHR_MAX_STEPS`` free-running greedy
+    steps. Returns ``SpellerOutput(logits (B, steps, V), att_map)``, the
+    attention map of sample 0 with the t = -1 step first."""
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import SpellerOutput
 
     operands, wgts0 = decode_operands(params, cfg, enc_h, enc_l)
-    logits_t, wgts_t, _ = speller_decode(*operands, **decode_options(cfg))
+    opts = decode_options(cfg)
+    if dec_y is not None:
+        opts["steps"] = dec_y.shape[1]
+    forced, m1, m2 = decode_draws(cfg, dec_y, tf_rate, train, draws, enc_h.dtype)
+    logits_t, wgts_t = fused_decode(operands, **opts, forced=forced, m1=m1, m2=m2)
     logits = logits_t.transpose(0, 1)[:, :, :cfg.dec_vocab_size]
     w_sample0 = wgts_t[:, 0].transpose(0, 1)  # (heads, steps, Te)
     att_map = torch.cat([wgts0[0][:, None, :], w_sample0], dim=1)

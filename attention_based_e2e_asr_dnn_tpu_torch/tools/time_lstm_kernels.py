@@ -17,38 +17,20 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 
 import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import median_ms, require_card
 
 H = 512
-
-
-def median_ms(fn, reps: int) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
     reps = parser.parse_args().reps
-    if not torch.cuda.is_available():
-        raise SystemExit("time_lstm_kernels: no CUDA device; the kernels run only on the card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = require_card("time_lstm_kernels")
     gen = torch.Generator().manual_seed(0)
     k = H ** -0.5
     rev = (False, True)

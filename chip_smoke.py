@@ -37,20 +37,38 @@ on one NVIDIA card, from the root of a checkout:
    lengths with a length-1 row and a full row in every launch: hs bit-equal
    to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
    Function's d_x, d_wih, d_b against the plain versions.
-7. A trainer that takes a few steps: seeded base-LAS weights, one seeded
+7. Kernels ``speller_decode_train`` (the fused decoder's training forward)
+   and ``speller_decode_bwd`` (its adjoint) at the train step's shapes: the
+   base-LAS decoder at B=128 and the scaled-LAS decoder (H1 1024, 4 heads) at
+   B=32, Te=192 with lengths mixed from 1 to Te, L=192, dropout 0.3, forced
+   and free steps mixed, float32 and bfloat16. The forward's logits, weights
+   and eight residual streams against the plain version fed the kernel's own
+   ids; the adjoint's five streams and five final carries against the plain
+   adjoint, with and without a cotangent on the weights; every operand's
+   gradient through the autograd Function on the kernels against the same
+   Function on the plain versions; the training form without dropout and
+   forcing bit-equal to ``speller_decode``.
+8. A trainer that takes a few steps: seeded base-LAS weights, one seeded
    batch (B=128, T=1536, L=192, lengths ragged within the bucket), bfloat16
    compute, SpecAugment and dropout on, tf_rate 0.9, AdamW (amsgrad, lr 1e-3,
-   wd 5e-6), clip 5, NaN guard on, ``lstm_impl: pallas``, ``decoder_impl:
-   scan``: one warm-up step and 5 timed steps (up to 10 if the loss has not
-   fallen below the warm-up step's). Every step finite, the loss falls, 16 launches of the training
-   forward and 16 of the adjoint a step, none of the lean kernels, no plain
-   version called. Seconds a step, utterances/s, peak device memory and the
-   split listener forward / speller forward / backward / optimizer.
-8. Train parity: one float32 step at full width and a short time axis (B=40,
+   wd 5e-6), clip 5, NaN guard on, ``lstm_impl: pallas``. First with
+   ``decoder_impl: pallas``, every kernel tier engaged: one warm-up step and 5
+   timed steps (up to 10 if the loss has not fallen below the warm-up
+   step's). Every step finite, the loss falls, a step launches the listener's
+   training forward 16 times, its adjoint 16 times, the decoder's training
+   forward once and its adjoint once, none of the lean or eval kernels, and
+   calls no plain version; the decode route is ``cuda``. Then with
+   ``decoder_impl: scan`` (the decoder as a loop of PyTorch ops under
+   autograd, the earlier route) for comparison, one warm-up and 3 steps.
+   Seconds a step, utterances/s, peak device memory and the split listener
+   forward / speller forward / backward / optimizer of each.
+9. Train parity: one float32 step at full width and a short time axis (B=40,
    T=256, L=32, dropout and SpecAugment on, one shared set of draws) through
-   the kernels and through ``lstm_impl: scan`` on the card: loss, grad_norm
-   and every updated parameter.
-9. The ``infer`` CLI in-process on the card over a 128-utterance test set in
+   three routes on the card: both kernel tiers, the listener kernels with the
+   scan decoder, and the plain loops (``lstm_impl: scan``, ``decoder_impl:
+   scan``): loss, grad_norm and every updated parameter of the first two
+   against the third.
+10. The ``infer`` CLI in-process on the card over a 128-utterance test set in
    the reference layout, at ``batch_size: 64``, every best checkpoint and
    their average, twice: ``early_stop: true`` (the early-exit greedy decode)
    and ``early_stop: false`` (the fused decode kernel). The CSVs must be
@@ -63,7 +81,8 @@ card could take for the same work: the larger of the operations this run's
 valid frames need over 989 TFLOP/s (bf16, dense) and the bytes of every
 input and output, each once, over 3.35 TB/s; and ``library_ms``, the time of
 one PyTorch call for the same function (cuDNN's LSTM through ``nn.LSTM`` on
-the packed batch), a yardstick the port never calls.
+the packed batch), a yardstick the port never calls; None for the speller
+kernels, whose function no single PyTorch call computes.
 
 Any failure exits non-zero before the result. The line before the last is
 the kernels' JSON record; the last line is
@@ -137,7 +156,9 @@ N_UTTS, MIN_FRAMES, MAX_FRAMES = 40, 200, 1500
 N_TEST_UTTS, INFER_BATCH = 128, 64
 
 SPELLER_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_decode.cu"
+SPELLER_BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_bwd.cu"
 SPELLER_REPLACES = "attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py:90"
+SPELLER_BWD_REPLACES = "attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py:223"
 # speller_decode at the main path's shapes: base-LAS as infer runs it
 # (batch_size 64) and scaled-LAS (configs/scaled-las.yml: H1 1024, 4 heads
 # of 64) at B=32; encoder length 192 (1536 frames / 8), 600 steps
@@ -147,6 +168,22 @@ SPELLER_CASES = {
     "scaled-LAS": ({"dec_lstm_hid_dim": 1024, "att_heads": 4}, 1024, 32),
 }
 TE_DEC = 192
+# the training form and the adjoint at the train step's shapes (192 label
+# steps): base-LAS at the train batch, scaled-LAS at B=32
+SPELLER_TRAIN_CASES = {
+    "base-LAS": ({}, 512, TRAIN_B),
+    "scaled-LAS": ({"dec_lstm_hid_dim": 1024, "att_heads": 4}, 1024, 32),
+}
+# speller_decode_train and speller_decode_bwd against their plain versions on
+# the same inputs (the plain forward fed the kernel's own ids), and every
+# operand's gradient through the Function on the kernels against the
+# Function on the plain versions: the largest error over the largest
+# magnitude of the plain tensor. float32: summation order over 192 steps
+# (the weight gradients sum T x B terms). bfloat16: every stream and dot
+# operand is rounded to bf16, and an order difference that flips one
+# rounding is carried down the recurrence and through the products: four
+# bf16 steps (4 * 2**-8), as for the LSTM training kernels.
+SPELLER_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 
 
 def log(msg: str) -> None:
@@ -224,14 +261,16 @@ def environment(torch, card: str) -> float:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"torch.version.cuda {torch.version.cuda}  nvcc: {nvcc.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    sources = (*lstm_cuda.SOURCES, speller_cuda.SOURCE)
+    sources = (*lstm_cuda.SOURCES, *speller_cuda.SOURCES)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         libs = list(pool.map(cuda_build.build_library, sources))
     lstm_cuda.load_library()
     lstm_cuda.load_bwd_library()
     speller_cuda.load_library()
+    speller_cuda.load_bwd_library()
     build_s = time.perf_counter() - t0
-    log(f"kernel build: {build_s:.2f} s ({SOURCE}, {BWD_SOURCE}, {SPELLER_SOURCE})")
+    log(f"kernel build: {build_s:.2f} s ({SOURCE}, {BWD_SOURCE}, {SPELLER_SOURCE}, "
+        f"{SPELLER_BWD_SOURCE})")
     for so in libs:
         with open(so + ".log") as fh:
             for line in fh:
@@ -398,6 +437,190 @@ def speller_kernel_phase(torch, card: str) -> dict:
     return record
 
 
+BWD_NAMES = ("dpre1", "dpre2", "dq", "dctxtot", "dsc", "dh10", "dc10", "dh20", "dc20",
+             "dctx0")
+OPERAND_NAMES = ("k", "v", "bias", "ctx0", "h10", "c10", "h20", "c20", "embw1", "wc1", "whh1",
+                 "wih2", "whh2", "b2", "wq", "bq", "wcls", "clsb")
+
+
+def speller_train_kernel_phase(torch, card: str) -> dict:
+    """speller_decode_train and speller_decode_bwd against their plain
+    versions on the operands the train step builds (random full-width
+    parameters, encoder lengths mixed from 1 to Te, dropout 0.3, a coin
+    stream that mixes forced and free steps); returns the JSON records
+    (base-LAS, bfloat16)."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        las_config_from_dicts,
+        las_init,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    records = {}
+    steps = TRAIN_L
+    for case, (changes, width, batch) in SPELLER_TRAIN_CASES.items():
+        cfg = las_config_from_dicts(
+            {**BASE_LAS_MODEL["listener_configs"], "uniform_hid_dim": width},
+            {**BASE_LAS_MODEL["speller_configs"], **changes})
+        params = las_init(cfg, gen)["speller"].to(DEVICE)
+        spl = cfg.speller
+        vocab, proj = spl.dec_vocab_size, spl.att_proj_dim
+        h1, h2, heads = spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim, spl.att_heads
+        lengths = torch.randint(1, TE_DEC + 1, (batch,), generator=gen)
+        lengths[0], lengths[1] = TE_DEC, 1
+        enc = torch.randn(batch, TE_DEC, cfg.listener.enc_out_dim, generator=gen) * 0.5
+        enc[torch.arange(TE_DEC)[None, :] >= lengths[:, None]] = 0.0
+        coins = torch.rand(steps, generator=gen)
+        coins[0] = 2.0
+        gold = torch.randint(1, vocab - 1, (steps, batch), generator=gen, dtype=torch.int32)
+        forced = torch.where((coins <= 0.7)[:, None], gold, -1).to(DEVICE).contiguous()
+        n_free = int((forced[:, 0] < 0).sum())
+        keep = 1.0 - spl.dec_lstm_dropout
+        keep1 = torch.rand(steps, batch, h1, generator=gen) < keep
+        keep2 = torch.rand(steps, batch, h2, generator=gen) < keep
+        cots32 = [torch.randn(steps, batch, n, generator=gen) * 0.1 for n in (proj, proj)]
+        dw32 = torch.randn(steps, batch, heads, TE_DEC, generator=gen) * 0.1
+        dl32 = torch.randn(steps, batch, 32, generator=gen) * 0.1
+        dl32[..., vocab:] = 0.0
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            tol = SPELLER_TRAIN_TOL[dtype_name]
+            with torch.no_grad():
+                operands, _ = sc.decode_operands(params, spl, enc.to(dtype).to(DEVICE),
+                                                 lengths.to(DEVICE))
+            opts = {**sc.decode_options(spl), "steps": steps}
+            m1, m2 = ((m.to(dtype) / keep).to(DEVICE) for m in (keep1, keep2))
+            sc.reset_launch_counts()
+            logits, wgts, ids, saved = sc.speller_decode_train(*operands, **opts, forced=forced,
+                                                               m1=m1, m2=m2)
+            torch.cuda.synchronize()
+            sel = saved[0]
+            if not (torch.equal(sel[forced >= 0], forced[forced >= 0])
+                    and torch.equal(sel[1:][forced[1:] < 0], ids[:-1][forced[1:] < 0])
+                    and bool((sel[0] == spl.CHR_SOS_IDX).all())):
+                raise AssertionError(f"speller_decode_train {case} {dtype_name}: the fed ids "
+                                     f"are not the forced ids and the fed-back argmax")
+            if not torch.isfinite(logits[..., :vocab].float()).all():
+                raise AssertionError(f"speller_decode_train {case} {dtype_name}: logits not finite")
+            # the fed-back id is the first maximum of the step's own fp32
+            # logits: in float32 the stored logits are those, in bfloat16
+            # their monotone rounding, which may tie where they did not
+            shown = logits[..., :vocab].float()
+            top = shown.max(-1).values
+            first = torch.where(shown == top[..., None],
+                                torch.arange(vocab, device=DEVICE), vocab).min(-1).values
+            picked = shown.gather(-1, ids.long().unsqueeze(-1)).squeeze(-1)
+            if not (torch.equal(picked, top)
+                    and (dtype != torch.float32 or torch.equal(ids.long(), first))):
+                raise AssertionError(f"speller_decode_train {case} {dtype_name}: the ids are "
+                                     f"not the first maxima of the kernel's own logits")
+            # the plain version fed the kernel's own ids at every step
+            p_logits, p_wgts, _, p_saved = sc.speller_decode_train_plain(
+                *operands, **opts, forced=sel, m1=m1, m2=m2)
+            errs = {"logits": rel_err(logits[..., :vocab], p_logits[..., :vocab]),
+                    "weights": rel_err(wgts, p_wgts)}
+            errs.update({n: rel_err(a, b) for n, a, b in
+                         zip(sc.RESIDUALS[1:], saved[1:], p_saved[1:])})
+            # the training form without dropout and forcing is the eval form
+            with torch.no_grad():
+                lean = sc.speller_decode(*operands, **opts)
+                bare = sc.speller_decode_train(*operands, **opts)
+            if not all(torch.equal(a, b) for a, b in zip(bare[:3], lean)):
+                raise AssertionError(f"speller_decode_train {case} {dtype_name}: without "
+                                     f"masks and forcing it differs from speller_decode")
+            k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+            _, gates1, c1, _, gates2, c2, _, _ = saved
+            dqup, dctxup = (c.to(dtype).to(DEVICE) for c in cots32)
+            dwup = dw32.to(dtype).to(DEVICE)
+            bwd_args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
+                        wgts, m1, m2, dqup, dctxup)
+            kw = {"heads": opts["heads"], "scale": opts["scale"]}
+            for label, dw in (("", None), (" (weights' cotangent)", dwup)):
+                got = sc.speller_decode_bwd(*bwd_args, dw, **kw)
+                want = sc.speller_decode_bwd_plain(*bwd_args, dw, **kw)
+                errs.update({n + label: rel_err(a, b) for n, a, b in zip(BWD_NAMES, got, want)})
+                if got[4][wgts == 0].abs().max().item() != 0.0:
+                    raise AssertionError(f"speller_decode_bwd {case} {dtype_name}: a score "
+                                         f"gradient at a padded frame")
+            del got, want
+            # every operand's gradient through the Function: the kernels
+            # against the plain versions, both fed the kernel's ids
+            d_logits = dl32.to(dtype).to(DEVICE)
+            grads = {}
+            for route in ("kernels", "plain"):
+                saved_fns = (sc.speller_decode_train, sc.speller_decode_bwd)
+                if route == "plain":
+                    sc.speller_decode_train = sc.speller_decode_train_plain
+                    sc.speller_decode_bwd = sc.speller_decode_bwd_plain
+                try:
+                    leaves = [t.detach().requires_grad_(n != "bias")
+                              for n, t in zip(OPERAND_NAMES, operands)]
+                    outs = sc.fused_decode(leaves, **opts, forced=sel, m1=m1, m2=m2)
+                    grads[route] = torch.autograd.grad(
+                        outs, [t for t in leaves if t.requires_grad], [d_logits, dwup])
+                finally:
+                    sc.speller_decode_train, sc.speller_decode_bwd = saved_fns
+            errs.update({"d_" + n: rel_err(a, b) for n, a, b in zip(
+                [n for n in OPERAND_NAMES if n != "bias"], grads["kernels"], grads["plain"])})
+            del grads, leaves, outs
+            n_fwd, n_bwd = sc.LAUNCHES["speller_decode_train"], sc.LAUNCHES["speller_decode_bwd"]
+            if (n_fwd, n_bwd) != (3, 3):
+                raise AssertionError(f"speller kernels {case}: {dict(sc.LAUNCHES)} launches, "
+                                     f"not 3 of the forward and 3 of the adjoint")
+            fwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_train(
+                *operands, **opts, forced=forced, m1=m1, m2=m2), 10)
+            bwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_bwd(*bwd_args, None, **kw),
+                                    10)
+            plain_fwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_train_plain(
+                *operands, **opts, forced=sel, m1=m1, m2=m2), 1)
+            plain_bwd_ms = cuda_median_ms(
+                torch, lambda: sc.speller_decode_bwd_plain(*bwd_args, None, **kw), 1)
+            # per row and step: cell 1 over [context; h1], cell 2, the query,
+            # the classifier, and scores and context over the row's valid
+            # frames; the adjoint: the products with wq^T, [wih2; whh2]^T and
+            # [whh1; wc1]^T and the two attention products
+            frames = int(lengths.sum())
+            cells = (proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2 + h2 * proj
+            fwd_flops = steps * (2 * batch * (cells + 2 * proj * vocab) + 4 * proj * frames)
+            bwd_flops = steps * (2 * batch * cells + 4 * proj * frames)
+            fwd_bound = bound_ms(fwd_flops, nbytes(*operands, forced, m1, m2, logits, wgts, ids,
+                                                   *saved))
+            bwd_outs = sc.speller_decode_bwd(*bwd_args, None, **kw)
+            bwd_bound = bound_ms(bwd_flops, nbytes(*bwd_args, *bwd_outs))
+            del bwd_outs
+            worst = max(errs, key=lambda n: errs[n][1])
+            log(f"[{card}] speller_decode_train + speller_decode_bwd {case} {dtype_name} "
+                f"B={batch} Te={TE_DEC} L={steps} H1={h1} heads={heads}, dropout "
+                f"{spl.dec_lstm_dropout}, {n_free} free steps of {steps}: {len(errs)} tensors "
+                f"against the plain versions, largest error {errs[worst][0]:.3e} "
+                f"({errs[worst][1]:.1e} of max, {worst}; tolerance {tol:g} of max); the "
+                f"training form without masks and forcing bit-equal to speller_decode")
+            log("    " + ", ".join(f"{n} {r:.1e}" for n, (_, r) in errs.items()))
+            log(f"    forward kernel {fwd_ms:.3f} ms  plain {plain_fwd_ms:.3f} ms  bound "
+                f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]}; {fwd_flops:.3e} operations)")
+            log(f"    adjoint kernel {bwd_ms:.3f} ms  plain {plain_bwd_ms:.3f} ms  bound "
+                f"{bwd_bound[0]:.3f} ms ({bwd_bound[1]}; {bwd_flops:.3e} operations)")
+            bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
+            if bad:
+                raise AssertionError(f"speller kernels {case} {dtype_name}: errors over {tol} "
+                                     f"of max: {bad}")
+            if case == "base-LAS" and dtype_name == "bfloat16":  # the train step's
+                records["speller_decode_train"] = {
+                    "name": "speller_decode_train", "route": "cuda", "source": SPELLER_SOURCE,
+                    "replaces": SPELLER_REPLACES, "launches": 0,
+                    "max_abs_err": max(errs[n][0] for n in ("logits", *sc.RESIDUALS[1:])),
+                    "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
+                    "bound_by": fwd_bound[1], "library_ms": None}
+                records["speller_decode_bwd"] = {
+                    "name": "speller_decode_bwd", "route": "cuda", "source": SPELLER_BWD_SOURCE,
+                    "replaces": SPELLER_BWD_REPLACES, "launches": 0,
+                    "max_abs_err": max(errs[n][0] for n in BWD_NAMES),
+                    "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
+                    "bound_by": bwd_bound[1], "library_ms": None}
+            del logits, wgts, ids, saved, p_logits, p_wgts, p_saved, lean, bare
+            torch.cuda.empty_cache()
+    return records
+
+
 def ragged_lengths(torch, gen, batch: int, low: int, high: int):
     """Lengths in [low, high] with a full row and a length-``low`` row in
     every 32-row launch."""
@@ -528,19 +751,22 @@ def train_kernel_phase(torch, card: str) -> dict:
     return records
 
 
-def train_config(lstm_impl: str = "pallas"):
+def train_config(lstm_impl: str = "pallas", decoder_impl: str = "pallas"):
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_config_from_dicts
 
     return las_config_from_dicts(
         {**BASE_LAS_MODEL["listener_configs"], "lstm_impl": lstm_impl},
-        {**BASE_LAS_MODEL["speller_configs"], "decoder_impl": "scan"})
+        {**BASE_LAS_MODEL["speller_configs"], "decoder_impl": decoder_impl})
 
 
 def train_batch(torch, batch: int, seq_len: int, labels: int, seed: int):
     """A seeded batch in one length bucket: frames within the last 256 of
-    ``seq_len``, labels within the last 32 of ``labels``."""
+    ``seq_len`` but at least 8, so that every row keeps an encoder frame
+    after the pyramid's three halvings (over a row without one the fused
+    decoder attends uniformly and the scan decoder not at all, in the JAX
+    package too); labels within the last 32 of ``labels``."""
     gen = torch.Generator().manual_seed(seed)
-    lx = torch.randint(seq_len - 255, seq_len + 1, (batch,), generator=gen)
+    lx = torch.randint(max(seq_len - 255, 8), seq_len + 1, (batch,), generator=gen)
     ly = torch.randint(labels - 31, labels + 1, (batch,), generator=gen)
     lx[0], ly[0] = seq_len, labels
     x = torch.randn(batch, seq_len, 15, generator=gen)
@@ -574,31 +800,39 @@ def build_trainer(torch, cfg, compute_dtype, seed: int):
 
 
 class forbid_plain:
-    """While active, every plain version in ``ops/lstm_cuda.py`` raises."""
+    """While active, every plain version in ``ops/lstm_cuda.py`` and
+    ``ops/speller_cuda.py`` raises."""
 
-    NAMES = ("_scan_plain", "lstm_scan_plain", "lstm_scan_fusedin_plain",
-             "lstm_scan_train_plain", "lstm_scan_fusedin_train_plain", "lstm_bwd_dw_plain")
+    NAMES = {"lstm_cuda": ("_scan_plain", "lstm_scan_plain", "lstm_scan_fusedin_plain",
+                           "lstm_scan_train_plain", "lstm_scan_fusedin_train_plain",
+                           "lstm_bwd_dw_plain"),
+             "speller_cuda": ("_decode_steps", "speller_decode_plain",
+                              "speller_decode_train_plain", "_cell_adjoint",
+                              "speller_decode_bwd_plain")}
 
     def __enter__(self):
-        from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+        import importlib
 
         def refuse(*args, **kwargs):
             raise AssertionError("a plain version ran inside the train step")
 
-        self.saved = {n: getattr(lc, n) for n in self.NAMES}
-        for n in self.NAMES:
-            setattr(lc, n, refuse)
+        self.saved = []
+        for module, names in self.NAMES.items():
+            mod = importlib.import_module(f"attention_based_e2e_asr_dnn_tpu_torch.ops.{module}")
+            for n in names:
+                self.saved.append((mod, n, getattr(mod, n)))
+                setattr(mod, n, refuse)
 
     def __exit__(self, *exc):
-        from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
-
-        for n, fn in self.saved.items():
-            setattr(lc, n, fn)
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
 
 
-def train_phase(torch, card: str) -> dict:
-    """A trainer that takes a few steps at full width; returns the launches
-    of the timed steps."""
+def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
+    """A trainer that takes a few steps at full width with the listener on
+    its kernels and the decoder on ``decoder_impl``; returns the launches of
+    the timed steps."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models import las
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
         draw_train_noise,
         listener_apply,
@@ -608,7 +842,8 @@ def train_phase(torch, card: str) -> dict:
     from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
     from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
 
-    cfg = train_config()
+    cfg = train_config("pallas", decoder_impl)
+    fused = decoder_impl == "pallas"
     opt, state, step = build_trainer(torch, cfg, torch.bfloat16, SEED)
     x, lx, y, ly = train_batch(torch, TRAIN_B, TRAIN_T, TRAIN_L, SEED)
     n_params = sum(p.numel() for p in state.params.parameters())
@@ -618,12 +853,13 @@ def train_phase(torch, card: str) -> dict:
         state, warm, _ = step(state, x, lx, y, ly, tf_rate, lr)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        las.reset_decode_routes()
         lc.reset_launch_counts()
         sc.reset_launch_counts()
         metrics, times = [], []
         first_loss = warm["loss"].item()  # the first step taken on this batch
-        while len(metrics) < 5 or (len(metrics) < 10 and
-                                   not metrics[-1]["loss"] < first_loss):
+        while len(metrics) < min_steps or (len(metrics) < 10 and
+                                           not metrics[-1]["loss"] < first_loss):
             t0 = time.perf_counter()
             state, m, att_map = step(state, x, lx, y, ly, tf_rate, lr)
             torch.cuda.synchronize()
@@ -631,14 +867,32 @@ def train_phase(torch, card: str) -> dict:
             metrics.append({k: v.item() for k, v in m.items()})
         counts = {**lc.LAUNCHES, **sc.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
+        routes = las.decode_route_report()
     n_steps = len(metrics)
     chunks = len(lc.row_chunks(TRAIN_B))
     want = {**dict.fromkeys(counts, 0),
             "lstm_scan_fusedin_train": chunks * n_steps,
             "lstm_scan_train": 3 * chunks * n_steps,
-            "lstm_bwd_dw": 4 * chunks * n_steps}
+            "lstm_bwd_dw": 4 * chunks * n_steps,
+            # the whole batch in one launch of each decoder kernel
+            "speller_decode_train": n_steps if fused else 0,
+            "speller_decode_bwd": n_steps if fused else 0}
     if counts != want:
         raise AssertionError(f"train: launches {counts} != {want} for {n_steps} steps")
+    if routes != {f"B={TRAIN_B},Te={TRAIN_T // 8}": "cuda" if fused else "scan"}:
+        raise AssertionError(f"train decoder_impl {decoder_impl}: decode routes {routes}")
+    if fused:  # what the kernels lack raises on the card; nothing gives way to the loop
+        enc = torch.zeros(2, 8, cfg.listener.enc_out_dim, device=DEVICE)
+        for lacking in ({"init_force": True, "train": True}, {"train": False}):
+            try:
+                speller_apply(state.params["speller"], cfg.speller, enc, None, y[:2], **lacking)
+            except ValueError as err:
+                if "use decoder_impl: scan" not in str(err):
+                    raise
+            else:
+                raise AssertionError(f"train: decoder_impl pallas served {lacking} on the card")
+        if las.decode_route_report() != routes:
+            raise AssertionError("train: a refused pass recorded a decode route")
     if not all(m["finite"] for m in metrics) or not bool(warm["finite"]):
         raise AssertionError(f"train: a step was not finite: {metrics}")
     losses = [m["loss"] for m in metrics]
@@ -653,16 +907,19 @@ def train_phase(torch, card: str) -> dict:
         raise AssertionError("train: the optimizer did not count every step")
     sec = statistics.median(times)
     log(f"[{card}] train base-LAS bf16 B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} "
-        f"({n_params / 1e6:.1f}M parameters; lstm_impl pallas, decoder_impl scan; SpecAugment, "
+        f"({n_params / 1e6:.1f}M parameters; lstm_impl pallas, decoder_impl {decoder_impl}; "
+        f"SpecAugment, "
         f"dropout, tf_rate {tf_rate}, AdamW amsgrad lr {lr}, clip 5, NaN guard): 1 warm-up + "
         f"{n_steps} steps, median {sec:.3f} s/step (all: {[round(t, 3) for t in times]}), "
         f"{TRAIN_B / sec:.2f} utt/s, peak device memory {peak / 2**20:.1f} MiB")
     log(f"    loss warm-up {first_loss:.4f}, then {[round(v, 4) for v in losses]}; "
-        f"grad_norm {[round(m['grad_norm'], 3) for m in metrics]}; launches {counts}")
+        f"grad_norm {[round(m['grad_norm'], 3) for m in metrics]}; decode routes {routes}; "
+        f"launches {counts}")
 
     # where a step's time goes: the same pieces the step runs, CUDA events between
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    params = list(state.params.parameters())
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    spell_params = list(state.params["speller"].parameters())
+    listen_params = list(state.params["listener"].parameters())
     with forbid_plain():
         draws = draw_train_noise(cfg, TRAIN_B, TRAIN_L, state.generator, x.device)
         torch.cuda.synchronize()
@@ -674,22 +931,31 @@ def train_phase(torch, card: str) -> dict:
                             False, True, draws)
         loss, _ = masked_ce_loss(out.logits, y, ly)
         marks[2].record()
-        grads = torch.autograd.grad(loss, params)
+        # the backward in two stages: down to the encoder output, then the listener
+        *d_spell, d_enc = torch.autograd.grad(loss, [*spell_params, enc_h])
         marks[3].record()
-        with torch.no_grad():
-            opt.update(list(grads), state.opt_state, params, lr)
+        d_listen = torch.autograd.grad(enc_h, listen_params, d_enc)
         marks[4].record()
+        grads = [*d_listen, *d_spell]  # the parameters' order: listener, speller
+        with torch.no_grad():
+            opt.update(grads, state.opt_state, [*listen_params, *spell_params], lr)
+        marks[5].record()
         torch.cuda.synchronize()
-    split = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
+    split = [marks[i].elapsed_time(marks[i + 1]) for i in range(5)]
     log(f"    split of one step (CUDA events; SpecAugment and the parameter update left "
         f"out): listener forward {split[0]:.1f} ms, speller forward + loss {split[1]:.1f} ms, "
-        f"backward {split[2]:.1f} ms, optimizer {split[3]:.1f} ms")
-    return {k: counts[k] for k in ("lstm_scan_fusedin_train", "lstm_scan_train", "lstm_bwd_dw")}
+        f"backward {split[2] + split[3]:.1f} ms (speller {split[2]:.1f}, listener "
+        f"{split[3]:.1f}), optimizer {split[4]:.1f} ms")
+    del state, opt, step, grads, d_spell, d_listen, d_enc, out, loss, enc_h
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("lstm_scan_fusedin_train", "lstm_scan_train", "lstm_bwd_dw",
+                                   "speller_decode_train", "speller_decode_bwd")}
 
 
 def train_parity_phase(torch, card: str) -> None:
-    """One float32 step at full width through the kernels and through the
-    plain loops under autograd, from the same weights, batch and draws."""
+    """One float32 step at full width through both kernel tiers, through the
+    listener kernels with the scan decoder, and through the plain loops under
+    autograd, from the same weights, batch and draws."""
     from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
 
@@ -698,35 +964,42 @@ def train_parity_phase(torch, card: str) -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     draws = draw_train_noise(train_config(), batch, labels, gen, DEVICE,
                              specaug=draw_specaug(batch, 6, 200, False, gen, DEVICE))
+    routes = {"lstm_impl pallas + decoder_impl pallas": ("pallas", "pallas"),
+              "lstm_impl pallas + decoder_impl scan": ("pallas", "scan"),
+              "plain": ("scan", "scan")}
     results = {}
-    for impl in ("pallas", "scan"):
-        _, state, step = build_trainer(torch, train_config(impl), torch.float32, SEED)
+    for name, impls in routes.items():
+        _, state, step = build_trainer(torch, train_config(*impls), torch.float32, SEED)
         state, m, _ = step(state, x, lx, y, ly, 0.9, lr, draws=draws)
         torch.cuda.synchronize()
-        results[impl] = ({k: v.item() for k, v in m.items()},
+        results[name] = ({k: v.item() for k, v in m.items()},
                          [p.detach() for p in state.params.parameters()])
-    (mk, pk), (mp, pp) = results["pallas"], results["scan"]
+    mp, pp = results.pop("plain")
     # Tolerances. loss and grad_norm: float32 sums in another order, 1e-4
-    # relative. Parameters: the first AdamW step moves an element by
-    # lr * g / (|g| + eps), i.e. by +-lr whatever |g| is, so an element whose
-    # gradient is rounding noise around zero may move the other way: no
-    # element may differ by more than 2 * lr, and no more than one in a
-    # thousand by more than 1e-5.
-    worst = max((a - b).abs().max().item() for a, b in zip(pk, pp))
-    off = sum(((a - b).abs() > 1e-5).sum().item() for a, b in zip(pk, pp))
-    total = sum(a.numel() for a in pk)
-    log(f"[{card}] train parity float32 B={batch} T={seq_len} L={labels}, kernels vs "
-        f"lstm_impl scan, one step, shared draws: loss {mk['loss']:.6f} / {mp['loss']:.6f}, "
-        f"grad_norm {mk['grad_norm']:.6f} / {mp['grad_norm']:.6f}; parameters max_abs_diff "
-        f"{worst:.3e} (bound 2 x lr = {2 * lr:g}), {off} of {total} elements off by more "
-        f"than 1e-5 (allowed {total // 1000})")
-    for key in ("loss", "grad_norm"):
-        if not abs(mk[key] - mp[key]) <= 1e-4 * abs(mp[key]):
-            raise AssertionError(f"train parity: {key} {mk[key]} vs {mp[key]}")
-    if not (mk["finite"] and mp["finite"] and mk["n_tokens"] == mp["n_tokens"]):
-        raise AssertionError(f"train parity: metrics {mk} vs {mp}")
-    if not (worst <= 2 * lr * 1.01 and off <= total // 1000):
-        raise AssertionError(f"train parity: parameters differ by {worst}, {off} elements off")
+    # relative (the fused decoder also keeps its gates and carries in float32
+    # where the loop's are float32 too). Parameters: the first AdamW step
+    # moves an element by lr * g / (|g| + eps), i.e. by +-lr whatever |g| is,
+    # so an element whose gradient is rounding noise around zero may move the
+    # other way: no element may differ by more than 2 * lr, and no more than
+    # one in a thousand by more than 1e-5.
+    for name, (mk, pk) in results.items():
+        worst = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+        off = sum(((a - b).abs() > 1e-5).sum().item() for a, b in zip(pk, pp))
+        total = sum(a.numel() for a in pk)
+        log(f"[{card}] train parity float32 B={batch} T={seq_len} L={labels}, {name} vs "
+            f"lstm_impl scan + decoder_impl scan, one step, shared draws: loss "
+            f"{mk['loss']:.6f} / {mp['loss']:.6f}, grad_norm {mk['grad_norm']:.6f} / "
+            f"{mp['grad_norm']:.6f}; parameters max_abs_diff {worst:.3e} (bound 2 x lr = "
+            f"{2 * lr:g}), {off} of {total} elements off by more than 1e-5 (allowed "
+            f"{total // 1000})")
+        for key in ("loss", "grad_norm"):
+            if not abs(mk[key] - mp[key]) <= 1e-4 * abs(mp[key]):
+                raise AssertionError(f"train parity {name}: {key} {mk[key]} vs {mp[key]}")
+        if not (mk["finite"] and mp["finite"] and mk["n_tokens"] == mp["n_tokens"]):
+            raise AssertionError(f"train parity {name}: metrics {mk} vs {mp}")
+        if not (worst <= 2 * lr * 1.01 and off <= total // 1000):
+            raise AssertionError(f"train parity {name}: parameters differ by {worst}, {off} "
+                                 f"elements off")
 
 
 def make_experiment(torch, root: str) -> str:
@@ -794,7 +1067,7 @@ def infer_phase(torch, card: str, exp: str, data: str, work: str) -> dict:
             fh.write(f"SOME_FOLDER: {data}\nexp_folder: {exp}\nbatch_size: {INFER_BATCH}\n"
                      f"pad_time_multiple: 256\nrun_all: true\nepoch_num: null\n"
                      f"run_avg: true\nearly_stop: {str(early_stop).lower()}\n")
-        las._DECODE_ROUTES.clear()
+        las.reset_decode_routes()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         lc.reset_launch_counts()
@@ -954,6 +1227,7 @@ def main() -> int:
     feats = [rng.standard_normal((int(n), 15)).astype(np.float32)
              for n in rng.integers(MIN_FRAMES, MAX_FRAMES + 1, N_UTTS)]
     records["speller_decode"] = speller_kernel_phase(torch, card)
+    train_records.update(speller_train_kernel_phase(torch, card))
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         exp = make_experiment(torch, os.path.join(root, "exp"))
@@ -965,13 +1239,16 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     del t
     torch.cuda.empty_cache()
-    train_launches = train_phase(torch, card)
+    # this slice's path: every kernel tier engaged; then the earlier route
+    train_launches = train_phase(torch, card, "pallas", 5)
+    train_phase(torch, card, "scan", 3)
     train_parity_phase(torch, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     # launches in the main-path runs: serving, then infer early_stop true/false;
-    # the training kernels in the train phase's timed steps
+    # the training kernels in the timed steps of the train phase with both
+    # kernel tiers
     for name in records:
         records[name]["launches"] = launches.get(name, 0) + infer_launches[name]
     for name in train_records:

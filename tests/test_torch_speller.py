@@ -196,7 +196,7 @@ def test_speller_apply_routes_on_decoder_impl(impl):
     cfg = _port_cfg(_cfg(2, impl))
     module = tlas.las_from_jax_params(_params(3, _cfg(2)))
     enc_h, enc_l = _encoder(3)
-    tlas._DECODE_ROUTES.clear()
+    tlas.reset_decode_routes()
     with torch.inference_mode():
         out = tlas.speller_apply(module["speller"], cfg.speller, torch.from_numpy(enc_h),
                                  torch.from_numpy(enc_l))

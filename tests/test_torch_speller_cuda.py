@@ -1,6 +1,6 @@
-"""PyTorch port, the fused speller-decode CUDA kernel against its plain
-version on the card. Free of JAX, so it runs on a machine with a card and no
-JAX:
+"""PyTorch port, the fused speller-decode CUDA kernels (the eval form, the
+training form and the adjoint) against their plain versions on the card. Free
+of JAX, so it runs on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_speller_cuda.py -m cuda --noconftest
 
@@ -54,7 +54,7 @@ def test_kernel_matches_plain_forced_along_its_ids_on_card(cuda_device, dtype, h
         speller_cuda.reset_launch_counts()
         logits, wgts, ids = speller_cuda.speller_decode(*operands, **opts)
         torch.cuda.synchronize()
-        assert speller_cuda.LAUNCHES == {"speller_decode": 1}
+        assert speller_cuda.LAUNCHES["speller_decode"] == 1
         forced = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
         ref_logits, ref_wgts, ref_ids = speller_cuda.speller_decode_plain(
             *operands, **opts, forced=forced)
@@ -140,3 +140,185 @@ def test_kernel_limits_on_card(cuda_device):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert lim["max_grid"] <= sms and lim["max_units"] >= 1 and lim["vmax"] >= 32
     assert lim["nthreads"] % 32 == 0 and lim["smem_optin"] >= 48 * 1024
+
+
+# -- the training form and the adjoint ---------------------------------------
+
+# the largest error over the largest magnitude of the plain tensor. float32:
+# summation order. bfloat16: the streams are bf16 and a flipped rounding is
+# carried along the recurrence: four bf16 steps (4 * 2**-8).
+REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max() /
+            ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _train_inputs(device, dtype, heads, batch=5, te=37, steps=24, drop=0.3, seed=0):
+    cfg, params, enc, lengths = _setup(device, batch=batch, te=te, att_heads=heads)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(dtype), lengths)
+    opts = {**speller_cuda.decode_options(cfg), "steps": steps}
+    forced = torch.randint(0, cfg.dec_vocab_size, (steps, batch), generator=gen,
+                           dtype=torch.int32)
+    forced[torch.rand(steps, generator=gen) > 0.6] = -1  # free steps among forced ones
+    forced[0] = -1
+    m1 = m2 = None
+    if drop > 0.0:
+        keep = 1.0 - drop
+        m1 = ((torch.rand(steps, batch, cfg.dec_lstm_hid_dim, generator=gen) < keep)
+              .to(dtype) / keep).to(device)
+        m2 = ((torch.rand(steps, batch, cfg.dec_lstm_out_dim, generator=gen) < keep)
+              .to(dtype) / keep).to(device)
+    return cfg, operands, opts, forced.to(device), m1, m2, gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2])
+def test_train_kernel_matches_plain_on_card(cuda_device, dtype, heads):
+    cfg, operands, opts, forced, m1, m2, _ = _train_inputs(cuda_device, dtype, heads)
+    speller_cuda.reset_launch_counts()
+    logits, wgts, ids, saved = speller_cuda.speller_decode_train(
+        *operands, **opts, forced=forced, m1=m1, m2=m2)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_train"] == 1
+    assert speller_cuda.LAUNCHES["speller_decode"] == 0
+    # the plain version fed the kernel's own ids at every step
+    sel = saved[0]
+    free = forced < 0
+    assert torch.equal(sel[~free], forced[~free]) and bool((sel[0] == cfg.CHR_SOS_IDX).all())
+    assert torch.equal(sel[1:][free[1:]], ids[:-1][free[1:]])
+    p_logits, p_wgts, _, p_saved = speller_cuda.speller_decode_train_plain(
+        *operands, **opts, forced=sel, m1=m1, m2=m2)
+    tol = REL_TOL[dtype]
+    vocab = cfg.dec_vocab_size
+    assert _rel_err(logits[..., :vocab], p_logits[..., :vocab]) <= tol
+    assert _rel_err(wgts, p_wgts) <= tol
+    for name, got, want in zip(speller_cuda.RESIDUALS[1:], saved[1:], p_saved[1:]):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert _rel_err(got, want) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_form_without_masks_is_the_eval_form_on_card(cuda_device, dtype):
+    cfg, operands, opts, forced, _, _, _ = _train_inputs(cuda_device, dtype, 2, drop=0.0)
+    for f in (None, forced):
+        train = speller_cuda.speller_decode_train(*operands, **opts, forced=f)
+        lean = speller_cuda.speller_decode(*operands, **opts, forced=f)
+        for a, b in zip(train[:3], lean):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,with_dw,drop", [(1, False, 0.3), (2, True, 0.3),
+                                                (2, False, 0.0)])
+def test_bwd_kernel_matches_plain_on_card(cuda_device, dtype, heads, with_dw, drop):
+    cfg, operands, opts, forced, m1, m2, gen = _train_inputs(cuda_device, dtype, heads,
+                                                             drop=drop)
+    _, wgts, _, saved = speller_cuda.speller_decode_train(*operands, **opts, forced=forced,
+                                                          m1=m1, m2=m2)
+    k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+    _, gates1, c1, _, gates2, c2, _, _ = saved
+    steps, batch, proj = opts["steps"], k.shape[0], k.shape[2]
+
+    def cot(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).to(cuda_device, dtype)
+
+    dqup, dctxup = cot(steps, batch, proj), cot(steps, batch, proj)
+    dwup = cot(*wgts.shape) if with_dw else None
+    args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts,
+            m1, m2, dqup, dctxup, dwup)
+    kw = {"heads": opts["heads"], "scale": opts["scale"]}
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 1
+    want = speller_cuda.speller_decode_bwd_plain(*args, **kw)
+    names = ("dpre1", "dpre2", "dq", "dctxtot", "dsc", "dh10", "dc10", "dh20", "dc20", "dctx0")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a, b) <= REL_TOL[dtype], name
+    # pads carry no weight, so no score gradient
+    assert bool((got[4][wgts == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_function_grads_on_card_match_cpu(cuda_device):
+    """The Function on the card (both kernels and the products around them)
+    against the Function on the CPU (the plain versions), float32: every
+    operand's gradient, with a cotangent on the weights."""
+    cfg, operands, opts, forced, m1, m2, gen = _train_inputs(cuda_device, torch.float32, 2)
+    d_logits = torch.randn(opts["steps"], 5, 32, generator=gen) * 0.1
+    d_logits[..., cfg.dec_vocab_size:] = 0.0
+    d_wgts = torch.randn(opts["steps"], 5, 2, 37, generator=gen) * 0.1
+    grads = {}
+    for device in (cuda_device, torch.device("cpu")):
+        leaves = [t.detach().to(device).requires_grad_(i != 2)  # not the pad bias
+                  for i, t in enumerate(operands)]
+        outs = speller_cuda.fused_decode(
+            leaves, **opts, forced=forced.to(device), m1=m1.to(device), m2=m2.to(device))
+        grads[device.type] = torch.autograd.grad(
+            outs, [t for t in leaves if t.requires_grad],
+            [d_logits.to(device), d_wgts.to(device)])
+    for n, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        assert _rel_err(a.cpu(), b) <= 1e-4, f"operand gradient {n}"
+
+
+@pytest.mark.cuda
+def test_training_speller_apply_on_card_matches_cpu(cuda_device):
+    """The training speller with ``decoder_impl: pallas`` on the card against
+    its CPU route, float32: logits, attention map and parameter gradients."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
+
+    cfg, params, enc, lengths = _setup(cuda_device, batch=4, te=16, dec_lstm_dropout=0.3)
+    gen = torch.Generator().manual_seed(3)
+    dec_y = torch.randint(1, 29, (4, 12), generator=gen, dtype=torch.int32)
+    lcfg = las_config_from_dicts(LISTENER, {**SPELLER, "dec_lstm_dropout": 0.3})
+    draws = draw_train_noise(lcfg, 4, 12, gen, "cpu")
+    results = {}
+    for device in ("cuda", "cpu"):
+        p = params.to(device)
+        d = type(draws)([], draws.coins.to(device), draws.m1.to(device), draws.m2.to(device))
+        speller_cuda.reset_launch_counts()
+        out = speller_apply(p, cfg, enc.to(device), lengths.to(device), dec_y.to(device),
+                            tf_rate=0.5, train=True, draws=d)
+        g = torch.autograd.grad(out.logits.float().square().mean(), list(p.parameters()))
+        if device == "cuda":
+            assert speller_cuda.LAUNCHES == {"speller_decode": 0, "speller_decode_train": 1,
+                                             "speller_decode_bwd": 1}
+        results[device] = (out.logits.detach().cpu(), out.att_map.detach().cpu(),
+                           [x.cpu() for x in g])
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(results["cuda"][1], results["cpu"][1], atol=1e-5, rtol=0)
+    for a, b in zip(results["cuda"][2], results["cpu"][2]):
+        assert _rel_err(a, b) <= 1e-4 or (a - b).abs().max() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_rejects_unsupported_shapes_on_card(cuda_device):
+    cfg, operands, opts, forced, m1, m2, _ = _train_inputs(cuda_device, torch.float32, 2,
+                                                           batch=2, te=8, steps=4)
+    _, wgts, _, saved = speller_cuda.speller_decode_train(*operands, **opts, forced=forced,
+                                                          m1=m1, m2=m2)
+    k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+    _, gates1, c1, _, gates2, c2, _, _ = saved
+    dq = torch.zeros(4, 2, 64, device=cuda_device)
+    args = [k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts, m1, m2,
+            dq, dq, None]
+    kw = {"heads": 2, "scale": opts["scale"]}
+    speller_cuda.speller_decode_bwd(*args, **kw)
+    with pytest.raises(ValueError, match="wgts"):  # saved for 2 heads
+        speller_cuda.speller_decode_bwd(*args, heads=16, scale=opts["scale"])
+    with pytest.raises(ValueError, match="m1 and m2 come together"):
+        speller_cuda.speller_decode_bwd(*args[:15], None, *args[16:], **kw)
+    with pytest.raises(ValueError, match="dqup"):
+        speller_cuda.speller_decode_bwd(*args[:16], dq[:3], dq, None, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        speller_cuda.speller_decode_bwd(*args[:16], dq.double(), dq, None, **kw)
+    lim = speller_cuda.bwd_kernel_limits(torch.cuda.current_device())
+    assert lim["max_grid"] <= 132 and lim["smem_optin"] >= 48 * 1024

@@ -249,14 +249,20 @@ def test_training_speller_without_draws_has_no_forcing_or_dropout():
 
 
 def test_training_with_fused_decoder_raises():
+    """``decoder_impl: pallas`` trains (test_torch_speller_train.py holds that
+    route to the JAX package); what still raises is training without labels,
+    which the JAX package hands to the scan decoder to refuse
+    (models/las.py:275-276, :290-291)."""
     cfg = _port_cfg(NO_DROPOUT)
     cfg = dataclasses.replace(cfg, speller=dataclasses.replace(cfg.speller,
                                                                decoder_impl="pallas"))
     x, y = _batch()
-    with pytest.raises(NotImplementedError, match="#8-train and #9"):
-        tlas.las_apply(tlas.las_from_jax_params(_params(NO_DROPOUT)), cfg,
-                       torch.from_numpy(x), torch.from_numpy(LX),
-                       dec_y=torch.from_numpy(y), train=True)
+    module = tlas.las_from_jax_params(_params(NO_DROPOUT))
+    with pytest.raises(ValueError, match="training decode requires dec_y"):
+        tlas.las_apply(module, cfg, torch.from_numpy(x), torch.from_numpy(LX), train=True)
+    out = tlas.las_apply(module, cfg, torch.from_numpy(x), torch.from_numpy(LX),
+                         dec_y=torch.from_numpy(y), train=True)
+    assert out.logits.shape == (B, L, 30) and out.logits.requires_grad
 
 
 def test_drawn_noise_has_the_replayed_layout():
