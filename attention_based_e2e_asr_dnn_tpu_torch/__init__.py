@@ -10,9 +10,11 @@ of JAX: what it needs of ``constants``, ``config``, ``utils/levenshtein`` and
 ``compat`` it keeps as its own copies under the same names.
 
 Ported so far: greedy serving of a trained LAS experiment, the batch
-``infer`` CLI with the eval decode on the fused speller-decode kernel, and
-the base-LAS training step (``lstm_impl: pallas``, ``decoder_impl: scan``)
-with every listener layer forward and backward on hand-written kernels.
+``infer`` CLI with the eval decode on the fused speller-decode kernel, the
+training step with both kernel tiers (``lstm_impl: pallas``, ``decoder_impl:
+pallas``) at base-LAS and scaled-LAS width (H=1024, ``remat``), and the
+``train`` CLI with the Trainer, its checkpoint policy and the convergence
+harness.
 
   constants        the output vocabulary
   config           YAML -> attribute tree with ``configs``-splat semantics
@@ -21,29 +23,44 @@ with every listener layer forward and backward on hand-written kernels.
   ops/masking      length and pad masks
   ops/precision    compute-dtype policy (config name -> torch dtype)
   ops/dropout      locked and elementwise dropout, masks injectable
-  ops/lstm         plain LSTM directions and the listener's stacks
+  ops/lstm         plain LSTM directions and the listener's stacks, with
+                   ``remat`` (a layer recomputed in the backward pass)
   ops/cuda_build   nvcc build of a ``csrc/`` source at first use
-  ops/lstm_cuda    the LSTM-recurrence CUDA kernels (forward, training
-                   forward, adjoint), their plain versions, the autograd
-                   Functions
+  ops/lstm_cuda    the LSTM-recurrence CUDA kernels (``lstm_scan``,
+                   ``lstm_scan_fusedin``, their training forms, the adjoints
+                   ``lstm_bwd_dw`` up to H=512 and ``lstm_bwd`` with the
+                   outside dW_hh product up to H=1024), their plain versions,
+                   the autograd Functions
   ops/attention    cross-attention precompute and decode step, the
                    init_force prior
-  ops/speller_cuda the fused eval speller-decode CUDA kernel, its plain
-                   version, and the eval ``speller_apply_fused``
+  ops/speller_cuda the fused speller-decode CUDA kernels (eval, training
+                   forward, adjoint), their plain versions, ``_FusedDecode``
+                   and ``speller_apply_fused``
   models/las       configs, the ListenAttendSpell parameter module, the
                    weight bridge to the JAX params tree, ``TrainDraws``,
                    listener/speller (eval and teacher-forced training),
                    ``las_apply``
   decoding/greedy  early-exit greedy decode
-  data/batching    length-bucketed batches (numpy)
+  data/batching    length-bucketed batches (numpy), ``ThreadedPrefetcher``
   data/datasets    the reference-layout and toy ASR datasets (numpy)
   data/specaug     SpecAugment on the device, draws injectable
   training/loss    masked token-mean cross-entropy
   training/optim   adam / adamw / sgd after optax, the schedulers
   training/steps   the train, eval and inference steps
-  training/checkpoints  the ``.ckpt`` npz format, reader and writer
+  training/checkpoints  the ``.ckpt`` npz format, reader and writer,
+                   ``CheckpointManager``
+  training/trainer the epoch-loop ``Trainer`` (schedulers, dev LD, crash
+                   save, resume; checkpoints either package resumes from)
+  utils/logging    ``MetricLogger``, ``experiment_folder``, ``log.json``
+  utils/summary    the parameter table and shape/FLOP summary the CLI prints
+  utils/flops      the analytic FLOPs model
+  utils/plotting   attention-map PNGs (matplotlib at the call)
   serving          Transcriber / StreamingTranscriber
   infer            the batch inference CLI
+  train            the training CLI
+  tools/           kernel timing (``time_lstm_kernels``,
+                   ``time_speller_kernels``), the synthetic corpus generator
+                   and the convergence harness
 """
 
 __version__ = "0.1.0"

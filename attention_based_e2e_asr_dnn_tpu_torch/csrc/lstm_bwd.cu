@@ -1,10 +1,15 @@
 // Adjoint of the persistent LSTM recurrence (lstm_scan.cu, TRAIN = true) for
 // Hopper (sm_90a): one cooperative launch walks the whole time loop of one
-// listener layer backwards, one or both directions, and accumulates dW_hh.
+// listener layer backwards, one or both directions. Two forms of one kernel:
 //
 // Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py):
-//   _lstm_bwd_dw_kernel (:382), launched by _backward_pallas_dw (:593), the
-//   H <= 512 route of _adjoint_with_dw (:788).
+//   WITH_DW = true, entry lstm_bwd_dw: _lstm_bwd_dw_kernel (:382), launched by
+//       _backward_pallas_dw (:593), the H <= 512 route of _adjoint_with_dw
+//       (:788), which also accumulates dW_hh;
+//   WITH_DW = false, entry lstm_bwd: _lstm_bwd_kernel (:311), launched by
+//       _backward_pallas (:668), the route of wider layers (H = 1024): it
+//       returns dpre only, and dW_hh is one product over the streamed hs and
+//       dpre outside the kernel (ops/lstm_cuda.py), as in the JAX package.
 //
 // What it computes. Time runs opposite to the forward scan. With the saved
 // activated gates i, f, g, o, the saved carry c_t, its scan-previous value
@@ -17,7 +22,7 @@
 //           dc_total*i*(1-g^2), dh_total*tanh(c_t)*o*(1-o)] * m
 //   dh_prev = round(dpre) @ W_hh^T,  dc_prev = dc_total * f
 //   dh = m ? dh_prev : dh_total,     dc = m ? dc_prev : dc
-//   dW_hh += hs[scan-previous frame]^T round(dpre)
+//   dW_hh += hs[scan-previous frame]^T round(dpre)      (WITH_DW only)
 // dpre is stored in the stream dtype; the rounded values are the operands of
 // both products, sums are fp32, carries fp32. A padded frame is an exact
 // no-op (dpre = 0, carries unchanged). The scan's first frame pairs with
@@ -50,6 +55,23 @@
 //   4. one grid-wide barrier publishes dpre_t.
 // Plain FMA on the CUDA cores; wgmma/TMA and taking step 3 off the barrier's
 // critical path are later work.
+//
+// The form without dW_hh drops step 3, the hs input, the 64 accumulators and
+// the block's own-dpre buffer. What is hard at H = 1024 and what it does:
+//   * shared memory: the block's rows of W_hh take UNITS x 4H x 4 bytes
+//     (128 KB), and one gate (B x H fp32, 131 KB) no longer fits beside them.
+//     The previous dpre row (4H wide) is therefore staged in pieces of
+//     SW = H / 2 columns (8 passes of 66 KB), 202 KB a block in all, the same
+//     for both dtypes since shared memory holds fp32. Up to H = 512 a piece is
+//     one gate (SW = H, 4 passes), as in the form with dW_hh;
+//   * grid: 2 x 1024 / 8 = 256 blocks cannot be co-resident at one block an
+//     SM, and two blocks an SM would halve the shared memory. The wrapper
+//     launches once a direction (128 blocks): the directions are independent,
+//     and the JAX package launches once a direction too (:1252);
+//   * c_prev is cs indexed one frame earlier along the scan, zero at the
+//     scan's first frame; no shifted copy is made.
+// Per block and step it reads the previous dpre (B x 4H) from L2 and does
+// B x 4H x UNITS FMAs, at H = 1024 twice what it does at H = 512.
 
 #include <cooperative_groups.h>
 
@@ -70,24 +92,30 @@ struct BwdArgs {
   const int* lengths;  // (B,)
   void* dpre;          // out (B, T, ndir*4H), stream dtype; the exchange buffer
   float* dw;           // out (ndir, H, 4H) fp32
-  int ndir, rev_bits, B, T, H;
+  int ndir, rev_bits, B, T, H;  // ndir: directions side by side in the tensors
+  int dir0, grid_dirs;          // this launch runs directions [dir0, dir0 + grid_dirs)
 };
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
+template <typename T, bool WITH_DW>
+__global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.B, seq_len = a.T;
   const int G = 4 * H;
   const int blocks_per_dir = H / UNITS;
-  const int d = blockIdx.x / blocks_per_dir;
+  const int d = a.dir0 + blockIdx.x / blocks_per_dir;
   const int u0 = (blockIdx.x % blocks_per_dir) * UNITS;
   const bool rev = (a.rev_bits >> d) & 1;  // the forward scan walked time descending
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int st_stride = H + 4;  // padded rows: conflict-free float4 reads
+  // columns of the previous dpre row staged at a time: one gate, or half a
+  // gate for a wide layer in the form without dW_hh
+  const int SW = (!WITH_DW && H > WIDE_FROM) ? H / 2 : H;
+  const int n_pass = WITH_DW ? 4 : G / SW;
+  const int st_stride = SW + 4;  // padded rows: conflict-free float4 reads
 
-  // shared memory: W_hh rows [4H][UNITS]; staging [BMAX][H + 4]; cross-warp
-  // reduction [NWARPS][UNITS][32]; this block's own dpre [BMAX][4 * UNITS]
+  // shared memory: W_hh rows [4H][UNITS]; staging [BMAX][SW + 4]; cross-warp
+  // reduction [NWARPS][UNITS][32]; WITH_DW: this block's own dpre
+  // [BMAX][4 * UNITS]
   float* w_s = smem;
   float* stage_s = w_s + G * UNITS;
   float* red_s = stage_s + BMAX * st_stride;
@@ -125,7 +153,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < DW_COLS; ++c) acc_dw[i][c] = 0.0f;
 
-  const int k_per_warp = H / NWARPS;  // of each gate's H columns
+  const int k_per_warp = SW / NWARPS;  // of each staged piece's columns
   const int kk0 = warp * k_per_warp;
   cg::grid_group grid = cg::this_grid();
   __syncthreads();
@@ -156,11 +184,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
       float acc[UNITS];
 #pragma unroll
       for (int u = 0; u < UNITS; ++u) acc[u] = 0.0f;
-      for (int c = 0; c < 4; ++c) {
-        stage_rows(stage_s, st_stride, dpre + (long long)t_last * st_g + c * H, sb_g, B, H);
+      for (int c = 0; c < n_pass; ++c) {
+        stage_rows(stage_s, st_stride, dpre + (long long)t_last * st_g + c * SW, sb_g, B, SW);
         __syncthreads();
         const float* drow = stage_s + lane * st_stride;
-        const float* wc = w_s + (long long)c * H * UNITS;
+        const float* wc = w_s + (long long)c * SW * UNITS;
         for (int kk = kk0; kk < kk0 + k_per_warp; kk += 4) {
           const float4 dv = *reinterpret_cast<const float4*>(drow + kk);
           const float dk[4] = {dv.x, dv.y, dv.z, dv.w};
@@ -178,7 +206,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
             acc[7] = fmaf(dk[j], w1.w, acc[7]);
           }
         }
-        __syncthreads();  // stage_s is refilled by the next gate
+        __syncthreads();  // stage_s is refilled by the next piece
       }
 #pragma unroll
       for (int u = 0; u < UNITS; ++u) red_s[(warp * UNITS + u) * 32 + lane] = acc[u];
@@ -210,12 +238,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
       for (int g = 0; g < 4; ++g) {
         const T r = from_f<T>(dp[g]);
         prow[g * H] = r;
-        own_s[cb * OWN_COLS + cu * 4 + g] = to_f(r);
+        if (WITH_DW) own_s[cb * OWN_COLS + cu * 4 + g] = to_f(r);
       }
     }
 
     // 3. dW_hh += hs[t_prev]^T dpre_t for this block's columns
-    if (has_prev) {
+    if (WITH_DW && has_prev) {
       stage_rows(stage_s, st_stride, hs + (long long)t_prev * st_h, sb_h, B, H);
       __syncthreads();  // also publishes own_s
       if (dw_live) {
@@ -241,7 +269,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
     grid.sync();
   }
 
-  if (dw_live) {
+  if (WITH_DW && dw_live) {
     float* dw = a.dw + (long long)d * H * G;
 #pragma unroll
     for (int i = 0; i < DW_H; ++i)
@@ -253,21 +281,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_bwd_dw_kernel(BwdArgs a) {
   }
 }
 
-static size_t smem_bytes(int H) {
-  const size_t floats = (size_t)4 * H * UNITS + (size_t)BMAX * (H + 4) +
-                        (size_t)NWARPS * UNITS * 32 + (size_t)BMAX * OWN_COLS;
+static size_t smem_bytes(int H, bool with_dw) {
+  const int sw = (!with_dw && H > WIDE_FROM) ? H / 2 : H;
+  const size_t floats = (size_t)4 * H * UNITS + (size_t)BMAX * (sw + 4) +
+                        (size_t)NWARPS * UNITS * 32 + (with_dw ? (size_t)BMAX * OWN_COLS : 0);
   return floats * sizeof(float);
 }
 
-template <typename T>
+template <typename T, bool WITH_DW>
 static cudaError_t launch(BwdArgs a, cudaStream_t stream) {
-  auto kernel = lstm_bwd_dw_kernel<T>;
-  const size_t smem = smem_bytes(a.H);
+  auto kernel = lstm_bwd_kernel<T, WITH_DW>;
+  const size_t smem = smem_bytes(a.H, WITH_DW);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   void* params[] = {&a};
-  const dim3 grid(a.ndir * a.H / UNITS), block(NTHREADS);
+  const dim3 grid(a.grid_dirs * a.H / UNITS), block(NTHREADS);
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid, block, params, smem,
                                     stream);
   if (err != cudaSuccess) return err;
@@ -282,9 +311,25 @@ extern "C" int lstm_bwd_dw_launch(int dtype, int ndir, int rev_bits, int B, int 
                                   const void* gates, const void* cs, const void* hs,
                                   const void* dy, const void* w_hh, const int* lengths,
                                   void* dpre, float* dw, void* stream) {
-  BwdArgs a{gates, cs, hs, dy, w_hh, lengths, dpre, dw, ndir, rev_bits, B, T, H};
+  BwdArgs a{gates, cs, hs, dy, w_hh, lengths, dpre, dw, ndir, rev_bits, B, T, H, 0, ndir};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
+  if (dtype == 0) return launch<float, true>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16, true>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The form without dW_hh: no hs, no dw. The tensors hold ndir directions side
+// by side; the launch runs grid_dirs of them from dir0 on. H % 32 == 0 up to
+// 512 and H % 64 == 0 from there to 1024; grid_dirs * H / 8 blocks no more
+// than the card's SMs (the wrapper launches a wide layer once a direction).
+extern "C" int lstm_bwd_launch(int dtype, int ndir, int rev_bits, int dir0, int grid_dirs, int B,
+                               int T, int H, const void* gates, const void* cs, const void* dy,
+                               const void* w_hh, const int* lengths, void* dpre,
+                               void* stream) {
+  BwdArgs a{gates, cs,   nullptr,  dy, w_hh, lengths, dpre,
+            nullptr, ndir, rev_bits, B,  T,    H,       dir0, grid_dirs};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, false>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16, false>(a, s);
   return (int)cudaErrorInvalidValue;
 }

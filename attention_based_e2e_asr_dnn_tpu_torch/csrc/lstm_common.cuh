@@ -11,6 +11,9 @@ constexpr int NWARPS = 8;    // k-split of the recurrent dot
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int BMAX = 32;     // batch rows: one per lane
 constexpr int LOAD_BATCH = 8;  // 16-byte loads in flight per thread
+// Above this hidden size a (BMAX, H) slab no longer fits in shared memory
+// beside a block's weights: the kernels stage it in two halves.
+constexpr int WIDE_FROM = 512;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

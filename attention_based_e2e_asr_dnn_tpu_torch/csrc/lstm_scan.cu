@@ -30,7 +30,10 @@
 // which removing the dot saves ~5 us and the grid barrier ~2 us (PERF.md).
 //
 // Design. A persistent grid of ndir * H / UNITS blocks (128 blocks at
-// H = 512 with both directions, on 132 SMs). Block j of direction d owns
+// H = 512 with both directions, on 132 SMs; a layer too wide for that, as
+// H = 1024 with its 2 x 128 blocks, is launched once a direction by the
+// wrapper: the directions are independent, and one block an SM keeps the
+// whole of shared memory for the block's W_hh columns). Block j of direction d owns
 // hidden units [UNITS*j, UNITS*j + UNITS) and keeps their four gates' columns
 // of W_hh (H x 4*UNITS, as fp32) in shared memory for the whole sequence.
 // Thread (warp u, lane b) owns batch row b of unit u and keeps its c and h in
@@ -43,6 +46,12 @@
 //   4. thread (u, b) applies the gates, updates its carry, writes its output
 //      and its rounded h into the other half of the exchange buffer;
 //   5. one grid-wide barrier (cooperative groups) publishes h_t.
+// WIDE = true (512 < H <= 1024): the block's W_hh columns alone take
+// H x 32 x 4 bytes (128 KB at H = 1024), so h_{t-1} no longer fits beside
+// them in one piece (32 x (H + 4) x 4 bytes more would pass the 227 KB a
+// block may use). Steps 1 and 2 then run twice, over one half of the k range
+// at a time (66 KB of staging at H = 1024, 194 KB in all). WIDE = false is
+// the single pass, as compiled before there was a wide form.
 // The cooperative launch refuses a grid that cannot be co-resident, so a
 // shape too wide for the card fails at launch instead of deadlocking.
 // Plain FMA on the CUDA cores; wgmma/TMA are later work.
@@ -71,7 +80,7 @@ struct ScanArgs {
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-template <typename T, bool FUSED_IN, bool TRAIN>
+template <typename T, bool FUSED_IN, bool TRAIN, bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.B, seq_len = a.T, D = a.D;
@@ -81,10 +90,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
   const bool rev = (a.rev_bits >> d) & 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int hs_stride = H + 4;  // padded rows: conflict-free float4 reads
+  constexpr int PASSES = WIDE ? 2 : 1;  // pieces of the k range staged in turn
+  const int SW = H / PASSES;            // columns of h staged at a time
+  const int hs_stride = SW + 4;  // padded rows: conflict-free float4 reads
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
 
-  // shared memory: W_hh slice [H][UNITS][4]; h rows [BMAX][H + 4], reused as
+  // shared memory: W_hh slice [H][UNITS][4]; h rows [BMAX][SW + 4], reused as
   // the cross-warp reduction buffer [NWARPS][UNITS][4][32]; then the fused
   // input projection's W_ih slice [D][UNITS][4] and bias [UNITS][4].
   float* w_s = smem;
@@ -124,66 +135,74 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
   T* gates = static_cast<T*>(a.gates);
   T* hbuf = static_cast<T*>(a.hbuf);
   const long long hbuf_half = (long long)a.ndir * B * H;
-  const int k_chunk = H / NWARPS;
+  const int k_chunk = SW / NWARPS;
   const int k0 = warp * k_chunk;
   cg::grid_group grid = cg::this_grid();
 
   for (int s = 0; s < seq_len; ++s) {
     const int t = rev ? seq_len - 1 - s : s;
-    // 1. h_{t-1} (rows < B) into shared memory: zero at the first step, else
-    //    16-byte loads that bypass L1 (other blocks wrote them), all issued
-    //    before any is converted. Rows >= B hold stale values; their lanes
-    //    compute on them and write nothing.
-    if (s == 0) {
-      for (int idx = threadIdx.x; idx < B * H; idx += NTHREADS)
-        h_s[(idx / H) * hs_stride + idx % H] = 0.0f;
-    } else {
-      const uint4* h_prev = reinterpret_cast<const uint4*>(
-          hbuf + (s & 1) * hbuf_half + (long long)d * B * H);
-      const int chunks_per_row = H / VEC;
-      const int n_chunks = B * chunks_per_row;
-      for (int base = threadIdx.x; base < n_chunks; base += NTHREADS * LOAD_BATCH) {
-        uint4 buf[LOAD_BATCH];
-#pragma unroll
-        for (int j = 0; j < LOAD_BATCH; ++j) {
-          const int c = base + j * NTHREADS;
-          if (c < n_chunks) buf[j] = __ldcg(h_prev + c);
-        }
-#pragma unroll
-        for (int j = 0; j < LOAD_BATCH; ++j) {
-          const int c = base + j * NTHREADS;
-          if (c < n_chunks)
-            unpack16(buf[j], h_s + (c / chunks_per_row) * hs_stride + (c % chunks_per_row) * VEC,
-                     static_cast<const T*>(nullptr));
-        }
-      }
-    }
-    __syncthreads();
-
-    // 2. partial recurrent dots for batch row `lane`, k in this warp's chunk
     float acc[UNITS][4];
 #pragma unroll
     for (int u = 0; u < UNITS; ++u)
 #pragma unroll
       for (int g = 0; g < 4; ++g) acc[u][g] = 0.0f;
-    const float* hrow = h_s + lane * hs_stride;
-    for (int k = k0; k < k0 + k_chunk; k += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(hrow + k);
-      const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4* wrow = reinterpret_cast<const float4*>(w_s + (k + kk) * UNITS * 4);
+    for (int p = 0; p < PASSES; ++p) {
+      // 1. h_{t-1} (rows < B, columns [p * SW, p * SW + SW)) into shared
+      //    memory: zero at the first step, else 16-byte loads that bypass L1
+      //    (other blocks wrote them), all issued before any is converted.
+      //    Rows >= B hold stale values; their lanes compute on them and write
+      //    nothing.
+      if (s == 0) {
+        for (int idx = threadIdx.x; idx < B * SW; idx += NTHREADS)
+          h_s[(idx / SW) * hs_stride + idx % SW] = 0.0f;
+      } else if (WIDE) {
+        stage_rows(h_s, hs_stride, hbuf + (s & 1) * hbuf_half + (long long)d * B * H + p * SW,
+                   (long long)H, B, SW);
+      } else {
+        const uint4* h_prev = reinterpret_cast<const uint4*>(
+            hbuf + (s & 1) * hbuf_half + (long long)d * B * H);
+        const int chunks_per_row = H / VEC;
+        const int n_chunks = B * chunks_per_row;
+        for (int base = threadIdx.x; base < n_chunks; base += NTHREADS * LOAD_BATCH) {
+          uint4 buf[LOAD_BATCH];
 #pragma unroll
-        for (int u = 0; u < UNITS; ++u) {
-          const float4 w = wrow[u];
-          acc[u][0] = fmaf(hk[kk], w.x, acc[u][0]);
-          acc[u][1] = fmaf(hk[kk], w.y, acc[u][1]);
-          acc[u][2] = fmaf(hk[kk], w.z, acc[u][2]);
-          acc[u][3] = fmaf(hk[kk], w.w, acc[u][3]);
+          for (int j = 0; j < LOAD_BATCH; ++j) {
+            const int c = base + j * NTHREADS;
+            if (c < n_chunks) buf[j] = __ldcg(h_prev + c);
+          }
+#pragma unroll
+          for (int j = 0; j < LOAD_BATCH; ++j) {
+            const int c = base + j * NTHREADS;
+            if (c < n_chunks)
+              unpack16(buf[j], h_s + (c / chunks_per_row) * hs_stride + (c % chunks_per_row) * VEC,
+                       static_cast<const T*>(nullptr));
+          }
         }
       }
+      __syncthreads();
+
+      // 2. partial recurrent dots for batch row `lane`, k in this warp's chunk
+      const float* hrow = h_s + lane * hs_stride;
+      const float* w_p = w_s + (long long)p * SW * UNITS * 4;
+      for (int k = k0; k < k0 + k_chunk; k += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(hrow + k);
+        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4* wrow = reinterpret_cast<const float4*>(w_p + (k + kk) * UNITS * 4);
+#pragma unroll
+          for (int u = 0; u < UNITS; ++u) {
+            const float4 w = wrow[u];
+            acc[u][0] = fmaf(hk[kk], w.x, acc[u][0]);
+            acc[u][1] = fmaf(hk[kk], w.y, acc[u][1]);
+            acc[u][2] = fmaf(hk[kk], w.z, acc[u][2]);
+            acc[u][3] = fmaf(hk[kk], w.w, acc[u][3]);
+          }
+        }
+      }
+      __syncthreads();  // h_s is refilled by the next pass, then reused as red_s
     }
-    __syncthreads();  // h_s is reused as red_s below
 
     // 3. cross-warp reduction through shared memory
 #pragma unroll
@@ -250,8 +269,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
   }
 }
 
-static size_t smem_bytes(int D, int H, bool fused) {
-  const int hs_stride = H + 4;
+static size_t smem_bytes(int D, int H, bool fused, bool wide) {
+  const int hs_stride = (wide ? H / 2 : H) + 4;
   const int h_region = BMAX * hs_stride > NWARPS * UNITS * 4 * 32 ? BMAX * hs_stride
                                                                  : NWARPS * UNITS * 4 * 32;
   size_t floats = (size_t)H * UNITS * 4 + h_region;
@@ -259,10 +278,10 @@ static size_t smem_bytes(int D, int H, bool fused) {
   return floats * sizeof(float);
 }
 
-template <typename T, bool FUSED_IN, bool TRAIN>
+template <typename T, bool FUSED_IN, bool TRAIN, bool WIDE>
 static cudaError_t launch(ScanArgs a, cudaStream_t stream) {
-  auto kernel = lstm_scan_kernel<T, FUSED_IN, TRAIN>;
-  const size_t smem = smem_bytes(a.D, a.H, FUSED_IN);
+  auto kernel = lstm_scan_kernel<T, FUSED_IN, TRAIN, WIDE>;
+  const size_t smem = smem_bytes(a.D, a.H, FUSED_IN, WIDE);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -275,15 +294,23 @@ static cudaError_t launch(ScanArgs a, cudaStream_t stream) {
 }
 
 // Shapes are checked by the Python wrapper (ops/lstm_cuda.py): B <= 32,
-// H % 32 == 0, ndir * H / 8 blocks no more than the card's SMs, D <= 128 for
-// the fused input. A grid that still cannot be co-resident (shared memory)
+// H % 32 == 0 up to 512 and H % 64 == 0 from there to 1024 (the wide form),
+// ndir * H / 8 blocks no more than the card's SMs, D <= 128 for the fused
+// input. A grid that still cannot be co-resident (shared memory)
 // is refused by the cooperative launch and reported here.
 // dtype: 0 = float32, 1 = bfloat16. train != 0 also writes cs and gates.
 // Returns a cudaError_t (0 on success).
+template <typename T, bool WIDE>
+static cudaError_t dispatch_form(int fused, int train, ScanArgs a, cudaStream_t s) {
+  if (train)
+    return fused ? launch<T, true, true, WIDE>(a, s) : launch<T, false, true, WIDE>(a, s);
+  return fused ? launch<T, true, false, WIDE>(a, s) : launch<T, false, false, WIDE>(a, s);
+}
+
 template <typename T>
 static cudaError_t dispatch(int fused, int train, ScanArgs a, cudaStream_t s) {
-  if (train) return fused ? launch<T, true, true>(a, s) : launch<T, false, true>(a, s);
-  return fused ? launch<T, true, false>(a, s) : launch<T, false, false>(a, s);
+  if (a.H > WIDE_FROM) return dispatch_form<T, true>(fused, train, a, s);
+  return dispatch_form<T, false>(fused, train, a, s);
 }
 
 extern "C" int lstm_scan_launch(int dtype, int fused, int train, int ndir, int rev_bits, int B,

@@ -11,11 +11,14 @@ Features pad with 0.0 and transcripts with the EOS/PAD id, as the reference
 collate does (src/utils.py:96). The batches equal the JAX package's.
 
 PyTorch runs eagerly, so the buckets bound padding, not compiled programs.
-The lazy datasets' native assembler (``data/lazy.py``) is not ported yet.
+``ThreadedPrefetcher`` assembles batches ahead on a worker thread. The lazy
+datasets' native assembler (``data/lazy.py``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Iterator, List, Optional
 
@@ -128,3 +131,64 @@ class BucketBatcher:
 
     def __iter__(self) -> Iterator[Batch]:
         return self.epoch(0)
+
+
+class ThreadedPrefetcher:
+    """Wrap a batch iterator and assemble up to ``depth`` batches ahead on a
+    worker thread (the role the reference gave DataLoader workers): numpy's
+    file reads and padding release the GIL, so they overlap the main thread's
+    work. Order is kept; an exception in the worker is raised in the
+    consumer; ``close`` stops the worker of an iterator left half-read."""
+
+    _DONE = object()
+
+    def __init__(self, batch_iter: Iterator, depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+
+        def put(item) -> bool:
+            # bounded, and given up once the consumer has closed us: a worker
+            # must not sit on a full queue for ever
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for item in batch_iter:
+                    if not put(item):
+                        return
+            except BaseException as exc:  # raised again on the consumer's side
+                put(exc)
+                return
+            put(self._DONE)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        """Stop the worker and drop what is queued (idempotent)."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=2.0)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._DONE:
+            self._thread.join()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._thread.join()
+            raise item
+        return item

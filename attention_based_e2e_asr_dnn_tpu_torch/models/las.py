@@ -66,7 +66,7 @@ class ListenerConfig:
     # "pallas": the hand-written CUDA kernels (ops/lstm_cuda.py); "scan": the
     # plain PyTorch loops (ops/lstm.py)
     lstm_impl: str = "scan"
-    remat: bool = False      # not ported: raises in training (ops/lstm.py)
+    remat: bool = False      # recompute each layer in the backward pass (ops/lstm.py)
 
     @property
     def enc_out_dim(self) -> int:

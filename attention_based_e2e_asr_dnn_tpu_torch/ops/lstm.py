@@ -19,8 +19,14 @@ layer to the CUDA kernels of ``ops/lstm_cuda.py`` instead (whose wrappers
 take these same plain loops for CPU tensors), forward and backward.
 
 In training the stacks apply locked dropout after each layer, as the JAX
-stacks do. ``remat`` (recompute a layer's activations in the backward pass)
-is not ported: it raises in training.
+stacks do. With ``remat`` a layer keeps only its input for the backward
+pass and runs its forward again there (the JAX stacks' ``jax.checkpoint`` a
+layer): the first pass runs without a graph, so ``impl="pallas"`` launches
+the lean kernels (``lstm_scan`` / ``lstm_scan_fusedin``, which write neither
+cs nor the gates), and the backward pass launches the training forward and
+then the adjoint. The layer has no randomness of its own (the dropout masks
+are the stack's inputs), so the second forward repeats the first bit for bit
+and the gradients equal those without ``remat``.
 """
 
 from __future__ import annotations
@@ -96,8 +102,56 @@ def bilstm_apply(params, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor
                             lstm_scan_plain)
 
 
-def _layer_apply(layer, x, lengths, bidirectional: bool, impl: str):
-    """One (Bi)LSTM layer: the CUDA kernels ("pallas") or the plain loops."""
+class _RematLayer(torch.autograd.Function):
+    """One layer that saves only its inputs: the forward runs without a
+    graph, the backward runs it again under autograd and differentiates."""
+
+    @staticmethod
+    def forward(ctx, fn, x, lengths, *leaves):
+        ctx.fn = fn
+        ctx.save_for_backward(x, lengths, *leaves)
+        with torch.no_grad():
+            return fn(x, lengths, leaves)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        x, lengths, *leaves = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip([x, *leaves], ctx.needs_input_grad[1:2]
+                                     + ctx.needs_input_grad[3:])]
+        with torch.enable_grad():
+            y = ctx.fn(inputs[0], lengths, inputs[1:])
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, d_y))
+        d_x, *d_leaves = [next(grads) if t.requires_grad else None for t in inputs]
+        return (None, d_x, None, *d_leaves)
+
+
+def _layer_leaves(layer, bidirectional: bool):
+    """A layer's tensors in a fixed order, and the function that puts such a
+    list back into the layer's shape."""
+    dirs = ("fwd", "bwd") if bidirectional else (None,)
+    keys = ("w_ih", "w_hh", "b")
+    leaves = [(layer[d] if d else layer)[k] for d in dirs for k in keys]
+
+    def rebuild(flat):
+        it = iter(flat)
+        parts = [{k: next(it) for k in keys} for _ in dirs]
+        return dict(zip(dirs, parts)) if bidirectional else parts[0]
+
+    return leaves, rebuild
+
+
+def _layer_apply(layer, x, lengths, bidirectional: bool, impl: str, remat: bool = False):
+    """One (Bi)LSTM layer: the CUDA kernels ("pallas") or the plain loops;
+    with ``remat`` (and a gradient wanted) through ``_RematLayer``."""
+    if remat and torch.is_grad_enabled():
+        leaves, rebuild = _layer_leaves(layer, bidirectional)
+        if x.requires_grad or any(t.requires_grad for t in leaves):
+            def fn(xx, ll, flat):
+                return _layer_apply(rebuild(flat), xx, ll, bidirectional, impl)
+
+            return _RematLayer.apply(fn, x, lengths, *leaves)
     if impl == "pallas":
         from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
             bilstm_apply_kernel,
@@ -110,12 +164,8 @@ def _layer_apply(layer, x, lengths, bidirectional: bool, impl: str):
             else lstm_apply(layer, x, lengths))
 
 
-def _check_train_args(train: bool, remat: bool, masks, n_layers: int):
+def _check_train_args(masks, n_layers: int):
     """The per-layer dropout masks of a training pass (None = draw)."""
-    if train and remat:
-        raise NotImplementedError(
-            "remat=True (recompute listener activations in the backward pass) "
-            "is not ported; train with remat: false")
     if masks is None:
         return [None] * n_layers
     if len(masks) != n_layers:
@@ -132,10 +182,11 @@ def locked_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
     """LockedLSTM stack. Per layer: LSTM, then in training locked dropout
     with rate ``init_dropout`` after layer 0 and ``mid_dropout`` after the
     rest, from ``masks[i]`` ((B, 1, D), True = keep) or drawn from
-    ``generator``. Lengths are unchanged. Returns (y, lengths)."""
-    masks = _check_train_args(train, remat, masks, len(params))
+    ``generator``. ``remat``: see the module docstring. Lengths are
+    unchanged. Returns (y, lengths)."""
+    masks = _check_train_args(masks, len(params))
     for i, layer in enumerate(params):
-        x = _layer_apply(layer, x, lengths, bidirectional, impl)
+        x = _layer_apply(layer, x, lengths, bidirectional, impl, remat)
         if train:
             x = locked_dropout(x, mid_dropout if i else init_dropout, masks[i], generator)
     return x, lengths
@@ -153,7 +204,7 @@ def pyramidal_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
     training apply locked dropout (``mid_dropout`` for inner layers,
     ``final_dropout`` after the last). Returns (y, lengths)."""
     num_layers = len(params)
-    masks = _check_train_args(train, remat, masks, num_layers)
+    masks = _check_train_args(masks, num_layers)
     for i, layer in enumerate(params):
         batch, seq_len, dim = x.shape
         if seq_len % 2 != 0:
@@ -163,7 +214,7 @@ def pyramidal_lstm_stack_apply(params, x: torch.Tensor, lengths: torch.Tensor,
             )
         lengths = lengths // 2
         x = x.reshape(batch, seq_len // 2, 2 * dim)
-        x = _layer_apply(layer, x, lengths, bidirectional, impl)
+        x = _layer_apply(layer, x, lengths, bidirectional, impl, remat)
         if train:
             rate = mid_dropout if i < num_layers - 1 else final_dropout
             x = locked_dropout(x, rate, masks[i], generator)

@@ -20,25 +20,40 @@ compile-time switches for the input projection and the training streams:
                          frozen carry at padded frames) and the activated
                          gates [i, f, g, o] in the stream dtype.
 
-``csrc/lstm_bwd.cu`` holds the adjoint:
+``csrc/lstm_bwd.cu`` holds the adjoint, in two forms of one kernel:
 
   ``lstm_bwd_dw``        replaces ``_lstm_bwd_dw_kernel`` (lstm_pallas.py:382,
                          via ``_backward_pallas_dw``): the adjoint recurrence
                          in the opposite time order, ``dh_prev = dpre @
-                         W_hh^T`` and the ``dW_hh`` sum inside the kernel.
+                         W_hh^T`` and the ``dW_hh`` sum inside the kernel;
+                         H <= 512;
+  ``lstm_bwd``           replaces ``_lstm_bwd_kernel`` (lstm_pallas.py:311,
+                         via ``_backward_pallas``): the same recurrence
+                         without the ``dW_hh`` sum, the route of wider layers
+                         (H up to 1024). ``dw_hh_outside`` then forms
+                         ``dW_hh`` as one ``torch.mm`` a direction over the
+                         streamed hs and dpre, outside any kernel, as the JAX
+                         package's ``_dw_outside_einsum`` does.
 
 Each launch runs the whole time loop of one layer for one or both
 directions and at most 32 batch rows, with the carry on chip; the sources'
 headers say what bounds them and how they are laid out. A wider batch takes
 one launch per 32 rows (``row_chunks``) into one output: rows are
 independent, and the per-launch partial ``dW_hh`` are summed in launch order.
+A layer whose directions together need more blocks than the card has SMs
+(H = 1024: 2 x 128) takes one launch a direction (``_direction_groups``).
+Limits, checked by the wrappers: H a multiple of 32 up to 512, a multiple of
+64 from there to 1024 (the kernels' wide form), H / 8 blocks no more than the
+card's SMs, ``lstm_bwd_dw`` only up to H = 512.
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor or raises, and counts its launches in ``LAUNCHES``.
 
 ``lstm_scan`` and ``lstm_scan_fusedin`` are differentiable: where a gradient
 is wanted they go through a ``torch.autograd.Function`` whose forward is the
-training kernel and whose backward is ``lstm_bwd_dw``; otherwise they launch
-the lean kernels, which write neither ``cs`` nor the gates.
+training kernel and whose backward is ``lstm_bwd_dw`` up to H = 512 and
+``lstm_bwd`` plus ``dw_hh_outside`` for a wider layer (``_adjoint``, the JAX
+``_adjoint_with_dw``'s routing); otherwise they launch the lean kernels, which
+write neither ``cs`` nor the gates.
 
 The libraries are built with ``nvcc`` at first use into ``_build/``
 (``ops/cuda_build.py``) and bound with ``ctypes``.
@@ -69,15 +84,17 @@ SOURCES = (SOURCE, BWD_SOURCE)
 _UNITS = 8
 _BMAX = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# widest hidden size of the adjoint kernel (the JAX package's in-kernel-dW
-# route ends there too, lstm_pallas.py:550) and the shared memory a block
-# may use on the card
-_BWD_MAX_HIDDEN = 512
+# widest hidden size of the adjoint with dW_hh in the kernel (the JAX package's
+# in-kernel-dW route ends there too, lstm_pallas.py:550); above it the kernels
+# stage their exchange in two halves (WIDE_FROM in csrc/lstm_common.cuh), up to
+# _MAX_HIDDEN; and the shared memory a block may use on the card
+_BWD_DW_MAX_HIDDEN = 512
+_MAX_HIDDEN = 1024
 _SMEM_LIMIT = 232448
 
 # launches of each kernel since the last reset
 LAUNCHES = {"lstm_scan": 0, "lstm_scan_fusedin": 0, "lstm_scan_train": 0,
-            "lstm_scan_fusedin_train": 0, "lstm_bwd_dw": 0}
+            "lstm_scan_fusedin_train": 0, "lstm_bwd_dw": 0, "lstm_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -109,13 +126,18 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_bwd_library() -> ctypes.CDLL:
-    """Build ``csrc/lstm_bwd.cu`` and bind its C entry point."""
+    """Build ``csrc/lstm_bwd.cu`` and bind its two C entry points."""
     lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
     fn = lib.lstm_bwd_dw_launch
     i, p = ctypes.c_int, ctypes.c_void_p
     fn.argtypes = [i, i, i, i, i, i,      # dtype ndir rev B T H
                    p, p, p, p, p, p,      # gates cs hs dy w_hh lengths
                    p, p, p]               # dpre dw stream
+    fn.restype = ctypes.c_int
+    fn = lib.lstm_bwd_launch
+    fn.argtypes = [i, i, i, i, i, i, i, i,  # dtype ndir rev dir0 grid_dirs B T H
+                   p, p, p, p, p,           # gates cs dy w_hh lengths
+                   p, p]                    # dpre stream
     fn.restype = ctypes.c_int
     return lib
 
@@ -125,9 +147,34 @@ def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
     return [(r0, min(r0 + rows, batch)) for r0 in range(0, batch, rows)]
 
 
+def _direction_groups(name: str, ndir: int, hidden: int, sms: int) -> List[Tuple[int, int]]:
+    """(first direction, count) of each launch: all directions in one
+    cooperative launch where their ``ndir * H / 8`` blocks are co-resident
+    at one block an SM, else one launch a direction; raises where one
+    direction alone does not fit."""
+    if ndir * hidden // _UNITS <= sms:
+        return [(0, ndir)]
+    if hidden // _UNITS <= sms:
+        return [(d, 1) for d in range(ndir)]
+    raise ValueError(f"{name}: H={hidden} needs {hidden // _UNITS} co-resident "
+                     f"blocks a direction, the card has {sms} SMs")
+
+
+def _staged_width(hidden: int) -> int:
+    """Columns of the exchanged slab a block stages at a time (WIDE_FROM)."""
+    return hidden if hidden <= _BWD_DW_MAX_HIDDEN else hidden // 2
+
+
+def _check_smem(name: str, hidden: int, smem: int) -> None:
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: hidden {hidden} needs {smem} bytes of shared "
+                         f"memory a block, the card allows {_SMEM_LIMIT}")
+
+
 def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
                       lengths: torch.Tensor, reverse: Tuple[bool, ...]):
-    """The checks every kernel shares; returns (ndir, hidden)."""
+    """The checks every kernel shares; returns (ndir, hidden, the launches'
+    direction groups)."""
     if not ref.is_cuda:
         raise ValueError(f"{name}: kernel needs CUDA tensors, got {ref.device}")
     dtype = ref.dtype
@@ -148,24 +195,24 @@ def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
         raise ValueError(f"{name}: empty time axis")
     if hidden % 32 != 0:
         raise ValueError(f"{name}: hidden {hidden} must be a multiple of 32")
+    if hidden > _BWD_DW_MAX_HIDDEN and (hidden % 64 != 0 or hidden > _MAX_HIDDEN):
+        raise ValueError(f"{name}: hidden {hidden} above {_BWD_DW_MAX_HIDDEN} must be "
+                         f"a multiple of 64 and at most {_MAX_HIDDEN}")
     sms = torch.cuda.get_device_properties(ref.device).multi_processor_count
-    if ndir * hidden // _UNITS > sms:
-        raise ValueError(f"{name}: {ndir} x H={hidden} needs "
-                         f"{ndir * hidden // _UNITS} co-resident blocks, the "
-                         f"card has {sms} SMs")
+    groups = _direction_groups(name, ndir, hidden, sms)
     if lengths.shape != (ref.shape[0],):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} != "
                          f"({ref.shape[0]},)")
-    return ndir, hidden
+    return ndir, hidden, groups
 
 
 def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
             w_hh: torch.Tensor, lengths: torch.Tensor,
             reverse: Tuple[bool, ...]):
-    """Check shapes and launch the forward kernel once per 32 rows. Returns
-    hs (B, T, ndir * H), and with ``train`` also cs (same shape) and gates
-    (B, T, ndir * 4H)."""
-    ndir, hidden = _check_recurrence(
+    """Check shapes and launch the forward kernel once per 32 rows and
+    direction group. Returns hs (B, T, ndir * H), and with ``train`` also cs
+    (same shape) and gates (B, T, ndir * 4H)."""
+    ndir, hidden, groups = _check_recurrence(
         name, x, [x, w_hh] + ([w_ih, b] if fused else []), w_hh, lengths, reverse)
     dtype, four_h = x.dtype, 4 * hidden
     batch, seq_len = x.shape[0], x.shape[1]
@@ -182,6 +229,10 @@ def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
             raise ValueError(f"{name}: x_proj width {x.shape[2]} != "
                              f"{ndir} x 4H")
         x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
+    # W_hh columns, the staged h (reused for the cross-warp sums), W_ih and bias
+    _check_smem(name, hidden, 4 * (
+        hidden * _UNITS * 4 + max(_BMAX * (_staged_width(hidden) + 4), 8 * _UNITS * 4 * 32)
+        + (in_dim * _UNITS * 4 + _UNITS * 4 if fused else 0)))
 
     lib = load_library()
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
@@ -189,25 +240,31 @@ def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
     cs = torch.empty_like(out) if train else None
     gates = (torch.empty(batch, seq_len, ndir * four_h, dtype=dtype, device=x.device)
              if train else None)
-    rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
+    size = x.element_size()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         for r0, r1 in row_chunks(batch):
-            hbuf = torch.empty(2, ndir, r1 - r0, hidden, dtype=dtype, device=x.device)
-            err = lib.lstm_scan_launch(
-                _DTYPE_CODES[dtype], int(fused), int(train), ndir, rev_bits,
-                r1 - r0, seq_len, in_dim, hidden, x[r0:r1].data_ptr(), *x_strides,
-                w_ih.data_ptr() if fused else None,
-                b.data_ptr() if fused else None,
-                w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
-                out[r0:r1].data_ptr(), hidden, seq_len * ndir * hidden, ndir * hidden,
-                hbuf.data_ptr(),
-                cs[r0:r1].data_ptr() if train else None,
-                gates[r0:r1].data_ptr() if train else None,
-                four_h, seq_len * ndir * four_h, ndir * four_h, stream)
-            if err != 0:
-                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-            LAUNCHES[name] += 1
+            # a group's launch sees its directions as directions 0.. of tensors
+            # that start at its first direction's columns
+            for d0, nd in groups:
+                hbuf = torch.empty(2, nd, r1 - r0, hidden, dtype=dtype, device=x.device)
+                rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
+                err = lib.lstm_scan_launch(
+                    _DTYPE_CODES[dtype], int(fused), int(train), nd, rev_bits,
+                    r1 - r0, seq_len, in_dim, hidden,
+                    x[r0:r1].data_ptr() + d0 * x_strides[0] * size, *x_strides,
+                    w_ih[d0].data_ptr() if fused else None,
+                    b[d0].data_ptr() if fused else None,
+                    w_hh[d0].data_ptr(), lengths[r0:r1].data_ptr(),
+                    out[r0:r1].data_ptr() + d0 * hidden * size,
+                    hidden, seq_len * ndir * hidden, ndir * hidden,
+                    hbuf.data_ptr(),
+                    cs[r0:r1].data_ptr() + d0 * hidden * size if train else None,
+                    gates[r0:r1].data_ptr() + d0 * four_h * size if train else None,
+                    four_h, seq_len * ndir * four_h, ndir * four_h, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+                LAUNCHES[name] += 1
     return (out, cs, gates) if train else out
 
 
@@ -217,24 +274,18 @@ def _launch_bwd(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
     """Check shapes and launch the adjoint kernel once per 32 rows. Returns
     dpre (B, T, ndir * 4H) and d_whh (ndir, H, 4H) float32."""
     name = "lstm_bwd_dw"
-    ndir, hidden = _check_recurrence(name, gates, [gates, cs, hs, dy, w_hh],
-                                     w_hh, lengths, reverse)
+    ndir, hidden, groups = _check_recurrence(name, gates, [gates, cs, hs, dy, w_hh],
+                                             w_hh, lengths, reverse)
     batch, seq_len = gates.shape[0], gates.shape[1]
-    if hidden > _BWD_MAX_HIDDEN:
+    if hidden > _BWD_DW_MAX_HIDDEN or len(groups) > 1:
         raise ValueError(
-            f"{name}: hidden {hidden} > {_BWD_MAX_HIDDEN}; a wider layer is the "
-            f"route of the adjoint without dW_hh (_lstm_bwd_kernel, "
-            f"lstm_pallas.py:311, kernel #6), which is not ported yet")
-    smem = 4 * (4 * hidden * _UNITS + _BMAX * (hidden + 4) + 8 * _UNITS * 32
-                + _BMAX * 4 * _UNITS)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: hidden {hidden} needs {smem} bytes of shared "
-                         f"memory a block, the card allows {_SMEM_LIMIT}")
-    if gates.shape != (batch, seq_len, ndir * 4 * hidden):
-        raise ValueError(f"{name}: gates {tuple(gates.shape)} != (B, T, {ndir} x 4H)")
-    for label, t in (("cs", cs), ("hs", hs), ("dy", dy)):
-        if t.shape != (batch, seq_len, ndir * hidden):
-            raise ValueError(f"{name}: {label} {tuple(t.shape)} != (B, T, {ndir} x H)")
+            f"{name}: {ndir} x hidden {hidden}: the adjoint with dW_hh in the kernel "
+            f"takes H <= {_BWD_DW_MAX_HIDDEN} with all directions in one launch; a "
+            f"wider layer is lstm_bwd's, with dw_hh_outside for dW_hh")
+    # W_hh rows, one staged gate, the cross-warp sums, the block's own dpre
+    _check_smem(name, hidden, 4 * (4 * hidden * _UNITS + _BMAX * (hidden + 4)
+                                   + 8 * _UNITS * 32 + _BMAX * 4 * _UNITS))
+    _check_stream_shapes(name, gates, {"cs": cs, "hs": hs, "dy": dy}, ndir, hidden)
 
     lib = load_bwd_library()
     lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
@@ -258,6 +309,49 @@ def _launch_bwd(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
     for n in range(1, len(chunks)):  # a fixed order: runs repeat bit for bit
         d_whh = d_whh + dw_parts[n]
     return dpre, d_whh
+
+
+def _check_stream_shapes(name: str, gates: torch.Tensor, streams: dict, ndir: int,
+                         hidden: int) -> None:
+    batch, seq_len = gates.shape[0], gates.shape[1]
+    if gates.shape != (batch, seq_len, ndir * 4 * hidden):
+        raise ValueError(f"{name}: gates {tuple(gates.shape)} != (B, T, {ndir} x 4H)")
+    for label, t in streams.items():
+        if t.shape != (batch, seq_len, ndir * hidden):
+            raise ValueError(f"{name}: {label} {tuple(t.shape)} != (B, T, {ndir} x H)")
+
+
+def _launch_bwd_nodw(gates: torch.Tensor, cs: torch.Tensor, dy: torch.Tensor,
+                     w_hh: torch.Tensor, lengths: torch.Tensor,
+                     reverse: Tuple[bool, ...]) -> torch.Tensor:
+    """Check shapes and launch the adjoint without dW_hh once per 32 rows and
+    direction group. Returns dpre (B, T, ndir * 4H)."""
+    name = "lstm_bwd"
+    ndir, hidden, groups = _check_recurrence(name, gates, [gates, cs, dy, w_hh],
+                                             w_hh, lengths, reverse)
+    # W_hh rows, the staged piece of the previous dpre, the cross-warp sums
+    _check_smem(name, hidden, 4 * (4 * hidden * _UNITS + _BMAX * (_staged_width(hidden) + 4)
+                                   + 8 * _UNITS * 32))
+    _check_stream_shapes(name, gates, {"cs": cs, "dy": dy}, ndir, hidden)
+    batch, seq_len = gates.shape[0], gates.shape[1]
+
+    lib = load_bwd_library()
+    lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
+    dpre = torch.empty_like(gates)
+    rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for r0, r1 in row_chunks(batch):
+            for d0, nd in groups:
+                err = lib.lstm_bwd_launch(
+                    _DTYPE_CODES[gates.dtype], ndir, rev_bits, d0, nd, r1 - r0, seq_len,
+                    hidden, gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr(),
+                    dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
+                    dpre[r0:r1].data_ptr(), stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+                LAUNCHES[name] += 1
+    return dpre
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +448,22 @@ def lstm_bwd_dw_plain(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
     kernel's roundings (saved streams and dpre in the stream dtype, the
     rounded dpre as the operand of both products, float32 sums and carries).
     Not autograd through the forward loop, which would round nowhere."""
+    return _bwd_plain(gates, cs, hs, dy, w_hh, lengths, reverse)
+
+
+def lstm_bwd_plain(gates: torch.Tensor, cs: torch.Tensor, dy: torch.Tensor,
+                   w_hh: torch.Tensor, lengths: torch.Tensor,
+                   reverse: Sequence[bool]) -> torch.Tensor:
+    """Plain version of ``lstm_bwd``: the same loop as ``lstm_bwd_dw_plain``
+    without the ``dW_hh`` sum; dpre is rounded to the stream dtype before it
+    is the operand of ``dpre @ W_hh^T``, as the Pallas kernel rounds it
+    (lstm_pallas.py:358)."""
+    return _bwd_plain(gates, cs, None, dy, w_hh, lengths, reverse)
+
+
+def _bwd_plain(gates, cs, hs, dy, w_hh, lengths, reverse):
+    """The adjoint loop; with ``hs`` it also sums dW_hh and returns (dpre,
+    d_whh), without it dpre alone."""
     dtype = gates.dtype
     ndir, hidden, four_h = w_hh.shape
     batch, seq_len = gates.shape[0], gates.shape[1]
@@ -363,7 +473,7 @@ def lstm_bwd_dw_plain(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
     for d, rev in enumerate(reverse):
         wt = w_hh[d].float().T                      # (4H, H)
         g_d = gates[..., d * four_h:(d + 1) * four_h]
-        cs_d, hs_d, dy_d = (t[..., d * hidden:(d + 1) * hidden] for t in (cs, hs, dy))
+        cs_d, dy_d = (t[..., d * hidden:(d + 1) * hidden] for t in (cs, dy))
         dh = torch.zeros(batch, hidden, dtype=torch.float32, device=gates.device)
         dc = torch.zeros_like(dh)
         for t in (range(seq_len) if rev else range(seq_len - 1, -1, -1)):
@@ -383,11 +493,36 @@ def lstm_bwd_dw_plain(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
             step = torch.where(m, step, 0.0).to(dtype)
             dpre[:, t, d * four_h:(d + 1) * four_h] = step
             step = step.float()
-            if has_prev:
-                d_whh[d] += hs_d[:, t_prev].float().T @ step
+            if has_prev and hs is not None:
+                d_whh[d] += hs[:, t_prev, d * hidden:(d + 1) * hidden].float().T @ step
             dh = torch.where(m, step @ wt, dh_total)
             dc = torch.where(m, dc_total * f, dc)
-    return dpre, d_whh
+    return dpre if hs is None else (dpre, d_whh)
+
+
+def dw_hh_outside(hs: torch.Tensor, dpre: torch.Tensor,
+                  reverse: Sequence[bool]) -> torch.Tensor:
+    """dW_hh from the streamed hs (B, T, ndir * H) and dpre (B, T, ndir * 4H)
+    as one product a direction over all B x (T - 1) rows, outside any kernel
+    (the JAX ``_dw_outside_einsum``, sliced form: the scan's first frame pairs
+    with h = 0 and is left out). Operands in the stream dtype, float32 sums,
+    (ndir, H, 4H) float32."""
+    ndir = len(reverse)
+    hidden, four_h = hs.shape[2] // ndir, dpre.shape[2] // ndir
+    out = []
+    for d, rev in enumerate(reverse):
+        h_d = hs[..., d * hidden:(d + 1) * hidden]
+        p_d = dpre[..., d * four_h:(d + 1) * four_h]
+        # the scan-previous frame of t is t + 1 in a descending scan, else t - 1
+        h_d, p_d = (h_d[:, 1:], p_d[:, :-1]) if rev else (h_d[:, :-1], p_d[:, 1:])
+        a, b = h_d.reshape(-1, hidden).T, p_d.reshape(-1, four_h)
+        if a.dtype == torch.float32:
+            out.append(torch.mm(a, b))
+        elif a.is_cuda:
+            out.append(torch.mm(a, b, out_dtype=torch.float32))
+        else:  # the CPU has no mixed-precision product: the same sums in float32
+            out.append(torch.mm(a.float(), b.float()))
+    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------
@@ -426,9 +561,29 @@ def lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, reverse):
     return _launch_bwd(gates, cs, hs, dy, w_hh, lengths, tuple(reverse))
 
 
+def lstm_bwd(gates, cs, dy, w_hh, lengths, reverse) -> torch.Tensor:
+    """The adjoint recurrence without dW_hh, for layers up to H = 1024:
+    ``lstm_bwd_dw``'s arguments less hs -> dpre (B, T, ndir * 4H) in the
+    stream dtype. ``dw_hh_outside(hs, dpre, reverse)`` gives dW_hh."""
+    if gates.device.type == "cpu":
+        return lstm_bwd_plain(gates, cs, dy, w_hh, lengths, reverse)
+    return _launch_bwd_nodw(gates, cs, dy, w_hh, lengths, tuple(reverse))
+
+
+def _adjoint(gates, cs, hs, dy, w_hh, lengths, reverse):
+    """(dpre, d_whh float32), routed by width as the JAX ``_adjoint_with_dw``
+    routes: up to H = 512 the kernel that sums dW_hh itself, wider the kernel
+    without it and the outside product."""
+    if w_hh.shape[1] <= _BWD_DW_MAX_HIDDEN:
+        return lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, reverse)
+    dpre = lstm_bwd(gates, cs, dy, w_hh, lengths, reverse)
+    return dpre, dw_hh_outside(hs, dpre, reverse)
+
+
 class _LstmScan(torch.autograd.Function):
     """``lstm_scan`` under autograd (the JAX ``pallas_lstm_scan`` custom
-    VJP): forward the training kernel, backward the adjoint kernel."""
+    VJP): forward the training kernel, backward the adjoint kernel of the
+    layer's width (``_adjoint``)."""
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, lengths, reverse):
@@ -440,8 +595,8 @@ class _LstmScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_hs):
         w_hh, lengths, hs, cs, gates = ctx.saved_tensors
-        dpre, d_whh = lstm_bwd_dw(gates, cs, hs, d_hs.to(gates.dtype).contiguous(),
-                                  w_hh, lengths, ctx.reverse)
+        dpre, d_whh = _adjoint(gates, cs, hs, d_hs.to(gates.dtype).contiguous(),
+                               w_hh, lengths, ctx.reverse)
         return dpre, d_whh.to(w_hh.dtype), None, None
 
 
@@ -463,8 +618,8 @@ class _LstmScanFusedin(torch.autograd.Function):
     def backward(ctx, d_hs):
         x, w_ih, w_hh, lengths, hs, cs, gates = ctx.saved_tensors
         dtype = gates.dtype
-        dpre, d_whh = lstm_bwd_dw(gates, cs, hs, d_hs.to(dtype).contiguous(),
-                                  w_hh, lengths, ctx.reverse)
+        dpre, d_whh = _adjoint(gates, cs, hs, d_hs.to(dtype).contiguous(),
+                               w_hh, lengths, ctx.reverse)
         ndir, in_dim, four_h = w_ih.shape
         x2 = x.reshape(-1, in_dim)
         d_x, d_wih, d_b = None, [], []

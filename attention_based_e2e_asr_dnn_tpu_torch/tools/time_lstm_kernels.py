@@ -1,13 +1,15 @@
 """Time the LSTM kernels of ``ops/lstm_cuda.py`` on the card at the main
 paths' shapes and print one JSON line.
 
-    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels [--reps 20]
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels [--reps 20] [--hidden 512]
 
-Shapes: base-LAS, H=512, both directions in one launch, bfloat16 and
-float32; the infer batch (B=64: layer 0 at T=1536 with D=15, layer 1 at
-T=768 over a 2 x 4H projection) for the lean forward kernels, and the train
-batch (B=128) for the training forward and the adjoint where the tree has
-them. Times are CUDA-event medians of ``--reps`` calls after one warm-up
+Shapes: ``--hidden`` 512 (base-LAS, both directions in one launch) or 1024
+(scaled-LAS, one launch a direction), bfloat16 and float32; the infer batch
+(B=64: layer 0 at T=1536 with D=15, layer 1 at T=768 over a 2 x 4H
+projection) for the lean forward kernels, and the train batch (B=128) for
+the training forward and the adjoints where the tree has them:
+``lstm_bwd_dw`` up to H=512, ``lstm_bwd`` at every width, and the outside
+dW_hh product beside it. Times are CUDA-event medians of ``--reps`` calls after one warm-up
 call, each call all its 32-row launches. The line names the card and its
 power limit, so two trees can be compared within one run on one card (run
 them in turns: parent, change, change, parent).
@@ -23,18 +25,17 @@ import torch
 from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import median_ms, require_card
 
-H = 512
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
-    reps = parser.parse_args().reps
+    parser.add_argument("--hidden", type=int, default=512)
+    cli = parser.parse_args()
+    reps, H = cli.reps, cli.hidden
     card = require_card("time_lstm_kernels")
     gen = torch.Generator().manual_seed(0)
     k = H ** -0.5
     rev = (False, True)
-    out = {"card": card, "reps": reps, "ms": {}}
+    out = {"card": card, "reps": reps, "hidden": H, "ms": {}}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         w_hh = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
         w_ih = ((torch.rand(2, 15, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
@@ -63,8 +64,16 @@ def main() -> None:
                     dy = torch.randn(hs.shape, generator=gen).to("cuda", dtype)
                     out["ms"][f"{train.__name__} {key}"] = \
                         median_ms(lambda: train(*args, lengths, rev), reps)
-                    out["ms"][f"lstm_bwd_dw {key}"] = median_ms(
-                        lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
+                    if H <= 512:
+                        out["ms"][f"lstm_bwd_dw {key}"] = median_ms(
+                            lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
+                    if hasattr(lc, "lstm_bwd"):
+                        dpre = lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+                        out["ms"][f"lstm_bwd {key}"] = median_ms(
+                            lambda: lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev), reps)
+                        out["ms"][f"dw_hh_outside {key}"] = median_ms(
+                            lambda: lc.dw_hh_outside(hs, dpre, rev), reps)
+                        del dpre
                     del hs, cs, gates, dy
     print(json.dumps(out))
 

@@ -1,0 +1,241 @@
+"""LAS training entry point (counterpart of the JAX ``train.py``):
+
+    python -m attention_based_e2e_asr_dnn_tpu_torch.train -c configs/base-las.yml [--device cpu]
+
+Flow: config load -> mini-vs-full vocab selection -> derived-config
+injection -> experiment folder + config.json snapshot -> batchers -> model
+-> Trainer -> train_eval -> log.json. The YAML keys are the JAX CLI's.
+
+``--device`` (default ``cuda``) names where the model trains; ``cuda``
+without a card fails. Settings whose modules are not ported raise
+``NotImplementedError`` and name their ROADMAP item before anything is
+trained: ``lazy_data: true``, ``parallel.use: true``, ``eval_beam_size > 1``
+and ``export_artifact``. ``parallel.model > 1`` with a ``pallas`` tier raises
+the JAX CLI's ``ValueError``: tensor parallelism shards the LSTM gate
+matrices, which a fused kernel cannot take sharded.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from attention_based_e2e_asr_dnn_tpu_torch import constants
+from attention_based_e2e_asr_dnn_tpu_torch.config import (
+    Config,
+    inject_vocab,
+    load_yaml,
+    snapshot_config,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
+from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import (
+    AsrTrainDevDataset,
+    ToyTrainDevDataset,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+    LASConfig,
+    las_apply,
+    las_config_from_dicts,
+    las_init,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
+from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
+from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import (
+    MetricLogger,
+    dump_log_json,
+    experiment_folder,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.utils.summary import (
+    model_summary,
+    shape_flop_summary,
+)
+
+
+def scale_las_dropouts(cfg: LASConfig, scale: float) -> LASConfig:
+    """Apply the dropout scheduler's multiplicative scale to every rate
+    (reference dropout_step, src/train.py:459-474)."""
+    if scale == 1.0:
+        return cfg
+    lis = dataclasses.replace(
+        cfg.listener,
+        init_dropout=cfg.listener.init_dropout * scale,
+        mid_dropout=cfg.listener.mid_dropout * scale,
+        final_dropout=cfg.listener.final_dropout * scale,
+    )
+    spe = dataclasses.replace(
+        cfg.speller,
+        att_dropout=cfg.speller.att_dropout * scale,
+        dec_emb_dropout=cfg.speller.dec_emb_dropout * scale,
+        dec_lstm_dropout=cfg.speller.dec_lstm_dropout * scale,
+    )
+    return LASConfig(listener=lis, speller=spe)
+
+
+def make_las_apply_factory(base_cfg: LASConfig):
+    """``make_apply(dropout_scale) -> apply_fn`` for the Trainer: ``las_apply``
+    with the config, its dropout rates scaled, bound."""
+
+    def make_apply(dropout_scale: float):
+        cfg = scale_las_dropouts(base_cfg, dropout_scale)
+
+        def apply_fn(params, x, lx, **kwargs):
+            return las_apply(params, cfg, x, lx, **kwargs)
+
+        return apply_fn
+
+    return make_apply
+
+
+def resolve_vocab(trncfgs_dict: dict):
+    """Mini-vs-full vocab selection (reference src/train.py:492-510)."""
+    use_mini = os.path.basename(trncfgs_dict["TRN_FOLDER"]).startswith("mini")
+    if use_mini:
+        dev_labels = np.load(os.path.join(trncfgs_dict["TRN_FOLDER"], "dev_labels.npy"))
+        uniq = list(np.unique(dev_labels))
+        vocab_map = {str(u): i for i, u in enumerate(uniq)}
+        vocab_map["[PAD]"] = len(vocab_map)
+        vocab = list(vocab_map.keys())
+        sos_key, eos_key = "[SOS]", "[EOS]"
+    else:
+        vocab, vocab_map = constants.VOCAB, constants.VOCAB_MAP
+        sos_key, eos_key = "<sos>", "<eos>"
+    return use_mini, vocab, vocab_map, sos_key, eos_key
+
+
+def check_ported(trncfgs, las_cfg: LASConfig) -> None:
+    """Raise for the settings this package cannot serve yet."""
+    par = getattr(trncfgs, "parallel", None)
+    if par is not None and par.use:
+        model_par = int(getattr(par, "model", 1) or 1)
+        pallas_flags = [
+            name for name, v in (
+                ("listener_configs.lstm_impl", las_cfg.listener.lstm_impl),
+                ("speller_configs.decoder_impl", las_cfg.speller.decoder_impl),
+            ) if v == "pallas"]
+        if model_par > 1 and pallas_flags:
+            raise ValueError(
+                f"parallel: model={model_par} (tensor parallelism) "
+                f"requires the scan implementations, but "
+                f"{' and '.join(pallas_flags)} is 'pallas'. TP shards "
+                "the LSTM gate matrices, which a fused kernel "
+                "cannot consume sharded. Use the scan impls with "
+                "parallel.model, or keep the kernel tiers and scale "
+                "with parallel.data (DP composes with both kernel "
+                "tiers).")
+        raise NotImplementedError(
+            "parallel.use: true is not ported yet (ROADMAP queue 1, item 11: "
+            "parallel/); train on one card with parallel.use: false")
+    if bool(getattr(trncfgs, "lazy_data", False)):
+        raise NotImplementedError(
+            "lazy_data: true is not ported yet (ROADMAP queue 1, item 5: "
+            "data/lazy.py and data/native_loader.py); set lazy_data: false")
+    if int(getattr(trncfgs, "eval_beam_size", 0) or 0) > 1:
+        raise NotImplementedError(
+            "eval_beam_size > 1 is not ported yet (ROADMAP queue 1, item 9: "
+            "decoding/beam.py)")
+    if getattr(trncfgs, "export_artifact", None):
+        raise NotImplementedError(
+            "export_artifact is not ported yet (ROADMAP queue 1, item 8: export.py)")
+
+
+def main(args):
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device here; "
+                           f"pass --device cpu to train on the CPU")
+    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    trncfgs_dict = load_yaml(args.config_file)
+    use_mini, vocab, vocab_map, sos_key, eos_key = resolve_vocab(trncfgs_dict)
+    trncfgs_dict = inject_vocab(trncfgs_dict, vocab, vocab_map, sos_key, eos_key)
+    trncfgs = Config(trncfgs_dict)
+    eos_idx = trncfgs_dict["EOS_IDX"]
+    sos_idx = trncfgs_dict["SOS_IDX"]
+    las_cfg = las_config_from_dicts(
+        trncfgs.model.configs["listener_configs"],
+        trncfgs.model.configs["speller_configs"],
+    )
+    check_ported(trncfgs, las_cfg)
+
+    # wandb-or-timestamp experiment folder + config snapshot (src/train.py:519-530)
+    wandb_cfg = getattr(trncfgs, "wandb", None)
+    logger = MetricLogger(
+        use_wandb=bool(wandb_cfg and wandb_cfg.use),
+        wandb_configs=getattr(wandb_cfg, "configs", None),
+        run_config=trncfgs_dict,
+    )
+    tgt_folder = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
+    snapshot_config(trncfgs_dict, tgt_folder)
+    milestone_dir = getattr(trncfgs, "MST_FOLDER", None)
+
+    # data
+    pad_time = int(getattr(trncfgs, "pad_time_multiple", 128))
+    pad_label = int(getattr(trncfgs, "pad_label_multiple", 32))
+    if use_mini:
+        trn_ds = ToyTrainDevDataset(trncfgs.TRN_FOLDER, "train", vocab_map)
+        dev_ds = ToyTrainDevDataset(trncfgs.TRN_FOLDER, "dev", vocab_map)
+    else:
+        trn_ds = AsrTrainDevDataset(
+            std_dir=trncfgs.TRN_FOLDER, label_to_idx=vocab_map, keep_tags=True,
+            max_utterances=getattr(trncfgs, "max_utterances", None),
+        )
+        dev_ds = AsrTrainDevDataset(
+            std_dir=trncfgs.DEV_FOLDER, label_to_idx=vocab_map, keep_tags=True,
+            max_utterances=getattr(trncfgs, "max_utterances", None),
+        )
+    trn_batcher = BucketBatcher(
+        trn_ds, trncfgs.batch_size, pad_time, pad_label, label_pad_id=eos_idx,
+        shuffle=True, seed=int(trncfgs.seed),
+    )
+    dev_batcher = BucketBatcher(
+        dev_ds, trncfgs.batch_size, pad_time, pad_label, label_pad_id=eos_idx,
+    )
+    print(f"[data] {len(trn_batcher)} train batches, {len(dev_batcher)} dev batches")
+
+    trainer = Trainer(
+        init_fn=lambda generator: las_init(las_cfg, generator),
+        make_apply=make_las_apply_factory(las_cfg),
+        trn_batcher=trn_batcher,
+        dev_batcher=dev_batcher,
+        trncfgs=trncfgs,
+        saving_dir=tgt_folder,
+        milestone_dir=milestone_dir,
+        sos_idx=sos_idx,
+        eos_idx=eos_idx,
+        compute_dtype=compute_dtype(getattr(trncfgs, "compute_dtype", "float32")),
+        logger=logger,
+        device=args.device,
+    )
+    print(model_summary(trainer.state.params, trncfgs.model.tag))
+    # shape and FLOP summary on the first real batch's shapes; a wiring
+    # mistake raises here, before the first epoch
+    first = next(iter(trn_batcher.epoch(0)))
+    print(shape_flop_summary(
+        trainer.state.params, las_cfg, batch=first.x.shape[0],
+        time_steps=first.x.shape[1], label_len=max(first.y.shape[1] - 1, 1),
+        feat_dim=first.x.shape[2],
+    ))
+
+    trainer.train_eval(int(trncfgs.epochs))
+    dump_log_json(os.path.join(tgt_folder, "log.json"),
+                  trainer.train_history, trainer.dev_history)
+    logger.finish()
+    return trainer
+
+
+def build_argparser():
+    parser = argparse.ArgumentParser(
+        description="Training E2E Attention-Based ASR (LAS), PyTorch")
+    parser.add_argument("--config-file", "-c", type=str,
+                        default="./configs/base-las.yml",
+                        help="filepath to the configuration file")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="where the model trains: cuda, cuda:N or cpu")
+    return parser
+
+
+if __name__ == "__main__":
+    main(build_argparser().parse_args())

@@ -10,6 +10,11 @@ written by either package load in the other.
 Reference PyTorch ``.pt`` checkpoints load through the reference package's
 ``compat`` converters (``weights_only=True``). The JAX package's legacy
 pickle checkpoints are not read here.
+
+``CheckpointManager`` is the Trainer's policy, the JAX package's: a save on
+any new best of dev loss, dev LD or dev perplexity under a composite tag
+(``min-loss-ld-ppl-epoch[N].ckpt``), at most ``max_savings`` of them kept
+(the oldest goes first), and a milestone copy every tenth epoch.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import json
 import os
 import zipfile
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -141,3 +146,61 @@ def average_checkpoints(paths: List[str]) -> dict:
             acc = _tree_map(lambda a, b: a + np.asarray(b, np.float64) / len(paths),
                             acc, params)
     return {"params": _tree_map(lambda a: np.asarray(a, np.float32), acc)}
+
+
+class CheckpointManager:
+    """Best/milestone checkpoint policy (reference: src/train.py:321-368)."""
+
+    def __init__(self, ckpt_dir: str, milestone_dir: Optional[str] = None,
+                 max_savings: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.milestone_dir = milestone_dir
+        self.max_savings = max_savings
+        self.saved_files: List[str] = []  # exact basenames, eviction order
+        self.min_loss = float("inf")
+        self.min_ld = float("inf")
+        self.min_ppl = float("inf")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if milestone_dir:
+            os.makedirs(milestone_dir, exist_ok=True)
+
+    def reset_best(self) -> None:
+        self.min_loss = self.min_ld = self.min_ppl = float("inf")
+        self.saved_files = []
+
+    def maybe_save(self, epoch: int, dev_loss: float, dev_ld: float,
+                   dev_ppl: float, payload: dict) -> Optional[str]:
+        """Save on any new best (composite tag) and on 10-epoch milestones."""
+        tag = "min"
+        if dev_loss <= self.min_loss:
+            self.min_loss = dev_loss
+            tag += "-loss"
+        if dev_ld < self.min_ld:
+            self.min_ld = dev_ld
+            tag += "-ld"
+        if dev_ppl <= self.min_ppl:
+            self.min_ppl = dev_ppl
+            tag += "-ppl"
+        is_best = len(tag) > 3
+        is_milestone = epoch > 0 and (epoch + 1) % 10 == 0
+
+        saved = None
+        if is_best:
+            if len(self.saved_files) >= self.max_savings:
+                # by exact basename: a suffix match would also hit the
+                # emergency-epoch[N].ckpt crash saves
+                evict_path = os.path.join(self.ckpt_dir, self.saved_files.pop(0))
+                if os.path.exists(evict_path):
+                    os.remove(evict_path)
+            name = f"{tag}-epoch[{epoch}].ckpt"
+            saved = os.path.join(self.ckpt_dir, name)
+            save_checkpoint(saved, payload)
+            self.saved_files.append(name)
+        if is_milestone and self.milestone_dir:
+            save_checkpoint(
+                os.path.join(self.milestone_dir, f"epoch[{epoch}].ckpt"), payload)
+        return saved
+
+    def list_checkpoints(self) -> List[str]:
+        return sorted(os.path.join(self.ckpt_dir, f)
+                      for f in os.listdir(self.ckpt_dir) if f.endswith(".ckpt"))

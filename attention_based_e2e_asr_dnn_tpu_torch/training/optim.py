@@ -220,6 +220,75 @@ def opt_state_to_optax(module: torch.nn.Module, state: OptState) -> dict:
             "nu_max": tree(state.nu_max)}
 
 
+def _jax_leaf_order(module: torch.nn.Module) -> List[int]:
+    """Positions in ``module.parameters()`` in the order JAX flattens the
+    params tree: dict keys sorted at every level, lists by index."""
+    names = [n for n, _ in module.named_parameters()]
+    key = lambda i: [(0, int(p)) if p.isdigit() else (1, p)  # noqa: E731
+                     for p in names[i].split(".")]
+    return sorted(range(len(names)), key=key)
+
+
+def opt_state_to_leaves(module: torch.nn.Module, state: OptState, lr: float) -> list:
+    """``OptState`` -> the flat leaf list of the JAX package's optimizer state
+    (``jax.tree_util.tree_leaves`` of ``build_optimizer(...)``'s state), as a
+    ``.ckpt`` stores it: [count, learning_rate, count, mu.., nu.., nu_max..]
+    for adam/adamw, [count, learning_rate, trace..] for sgd; with gradient
+    accumulation [mini_step, gradient_step] before and the running mean of
+    the gradients after. Per-parameter leaves in the JAX tree's order."""
+    order = _jax_leaf_order(module)
+
+    def per_param(leaves):
+        return [] if leaves is None else [leaves[i].detach().cpu().numpy() for i in order]
+
+    count = np.asarray(int(state.count), np.int32)
+    inner = [count, np.asarray(lr, np.float32)]
+    if state.nu is not None:  # adam / adamw keep their own count
+        inner.append(count)
+    inner += per_param(state.mu) + per_param(state.nu) + per_param(state.nu_max)
+    if state.mini_step is None:
+        return inner
+    return ([np.asarray(int(state.mini_step), np.int32), count] + inner
+            + per_param(state.acc_grads))
+
+
+def opt_state_from_leaves(module: torch.nn.Module, leaves: list,
+                          like: OptState) -> OptState:
+    """The inverse of ``opt_state_to_leaves``: a ``.ckpt``'s flat optimizer
+    leaves -> ``OptState`` shaped like ``like`` (a fresh state of the live
+    optimizer) on its device. Raises ``ValueError`` where the leaf count does
+    not fit (another optimizer or accumulation setting)."""
+    order = _jax_leaf_order(module)
+    n, device = len(order), like.count.device
+    groups = [g for g in (like.mu, like.nu, like.nu_max) if g is not None]
+    accum = like.mini_step is not None
+    head = 2 + (1 if like.nu is not None else 0)
+    want = (2 if accum else 0) + head + n * (len(groups) + (1 if accum else 0))
+    if len(leaves) != want:
+        raise ValueError(f"checkpoint has {len(leaves)} optimizer leaves, the live "
+                         f"optimizer state has {want}")
+    leaves = list(leaves)
+    mini = leaves.pop(0) if accum else None
+    if accum:
+        leaves.pop(0)  # gradient_step: the inner count again
+    count = torch.tensor(int(leaves[0]), dtype=torch.int32, device=device)
+    leaves = leaves[head:]
+
+    def per_param():
+        out = [None] * n
+        for pos, i in enumerate(order):
+            out[i] = torch.from_numpy(np.array(leaves[pos], dtype=np.float32)).to(device)
+        del leaves[:n]
+        return out
+
+    mu, nu, nu_max = (per_param() if g is not None else None
+                      for g in (like.mu, like.nu, like.nu_max))
+    if not accum:
+        return OptState(count, mu, nu, nu_max)
+    return OptState(count, mu, nu, nu_max,
+                    torch.tensor(int(mini), dtype=torch.int32, device=device), per_param())
+
+
 # ---------------------------------------------------------------------------
 # Schedulers (host-side state machines)
 # ---------------------------------------------------------------------------

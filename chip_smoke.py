@@ -36,7 +36,14 @@ on one NVIDIA card, from the root of a checkout:
    layer 1 at T=768 over a 2 x 4H projection), float32 and bfloat16, ragged
    lengths with a length-1 row and a full row in every launch: hs bit-equal
    to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
-   Function's d_x, d_wih, d_b against the plain versions.
+   Function's d_x, d_wih, d_b against the plain versions; ``lstm_bwd`` (the
+   adjoint without dW_hh) at the same shapes, its dpre against
+   ``lstm_bwd_dw``'s and against its own plain version, and the outside dW_hh
+   product against the sum inside the kernel. Then the same at scaled-LAS's
+   H=1024 (the kernels' wide form, one launch a direction, eight launches a
+   call): the training forward, ``lstm_bwd`` with the outside product (timed
+   on its own) as the adjoint, and the lean forward kernels, which are a
+   ``remat`` layer's first pass.
 7. Kernels ``speller_decode_train`` (the fused decoder's training forward)
    and ``speller_decode_bwd`` (its adjoint) at the train step's shapes: the
    base-LAS decoder at B=128 and the scaled-LAS decoder (H1 1024, 4 heads) at
@@ -52,14 +59,14 @@ on one NVIDIA card, from the root of a checkout:
    batch (B=128, T=1536, L=192, lengths ragged within the bucket), bfloat16
    compute, SpecAugment and dropout on, tf_rate 0.9, AdamW (amsgrad, lr 1e-3,
    wd 5e-6), clip 5, NaN guard on, ``lstm_impl: pallas``. First with
-   ``decoder_impl: pallas``, every kernel tier engaged: one warm-up step and 5
+   ``decoder_impl: pallas``, every kernel tier engaged: one warm-up step and 3
    timed steps (up to 10 if the loss has not fallen below the warm-up
    step's). Every step finite, the loss falls, a step launches the listener's
    training forward 16 times, its adjoint 16 times, the decoder's training
    forward once and its adjoint once, none of the lean or eval kernels, and
    calls no plain version; the decode route is ``cuda``. Then with
    ``decoder_impl: scan`` (the decoder as a loop of PyTorch ops under
-   autograd, the earlier route) for comparison, one warm-up and 3 steps.
+   autograd, the earlier route) for comparison, one warm-up and 2 steps.
    Seconds a step, utterances/s, peak device memory and the split listener
    forward / speller forward / backward / optimizer of each.
 9. Train parity: one float32 step at full width and a short time axis (B=40,
@@ -68,7 +75,33 @@ on one NVIDIA card, from the root of a checkout:
    scan decoder, and the plain loops (``lstm_impl: scan``, ``decoder_impl:
    scan``): loss, grad_norm and every updated parameter of the first two
    against the third.
-10. The ``infer`` CLI in-process on the card over a 128-utterance test set in
+10. scaled-LAS (the model block of ``configs/scaled-las.yml``: listener
+   H=1024, ``remat: true``; speller 4 heads, hid 1024) on the same batch and
+   recipe as 8, both kernel tiers: one warm-up and 3 timed steps, every one
+   finite. This phase asserts finiteness and the launches, not a falling
+   loss: AdamW's first updates at lr 1e-3 (+-lr on each of 144M parameters)
+   throw this model's loss on one repeated batch above the untrained
+   model's, and a few steps do not bring it back; that the loss falls at
+   this width is held by phase 11's epochs. A step launches the
+   lean forward 32 times (the first pass of the four ``remat`` layers, 4 x 32
+   rows x 2 directions each), the training forward 32 times and ``lstm_bwd``
+   32 times in the backward pass, ``lstm_bwd_dw`` never, and calls no plain
+   version. Seconds a step, utterances/s, the split, peak device memory, and
+   one step with ``remat: false`` for the memory it saves. Then the float32
+   parity step of 9 at this width, the kernels against the plain loops.
+11. The ``train`` CLI in-process on the card at scaled-LAS width: a seeded
+   corpus from the port's generator (256 / 64 / 64 utterances),
+   ``configs/scaled-las.yml`` with ``parallel.use: false``, ``lazy_data:
+   false``, the folders pointed at the corpus, ``batch_size`` 32 and 2
+   epochs: the train loss falls, dev loss and dev LD are finite, ``ckpts/``
+   holds what ``CheckpointManager`` kept, ``log.json`` and the config snapshot
+   are there, the decode route is ``cuda``, no plain version ran. Then the
+   CLI again with ``finetune.use: true`` on the last checkpoint for one more
+   epoch: it starts at the saved epoch with the saved lr and tf_rate, and its
+   train loss is below the last saved epoch's. Then the
+   ``infer`` CLI (``early_stop: false``) decodes the corpus's test split from
+   the folder the Trainer wrote, every best checkpoint and their average.
+12. The ``infer`` CLI in-process on the card over a 128-utterance test set in
    the reference layout, at ``batch_size: 64``, every best checkpoint and
    their average, twice: ``early_stop: true`` (the early-exit greedy decode)
    and ``early_stop: false`` (the fused decode kernel). The CSVs must be
@@ -78,8 +111,10 @@ on one NVIDIA card, from the root of a checkout:
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
-valid frames need over 989 TFLOP/s (bf16, dense) and the bytes of every
-input and output, each once, over 3.35 TB/s; and ``library_ms``, the time of
+valid frames need over 989 TFLOP/s (bf16, dense) and the bytes the function
+must move over 3.35 TB/s (of a padded input stream only the rows at valid
+frames, which are all a kernel needs to read; the weights, the lengths and
+every output whole, pads being written as zeros); and ``library_ms``, the time of
 one PyTorch call for the same function (cuDNN's LSTM through ``nn.LSTM`` on
 the packed batch), a yardstick the port never calls; None for the speller
 kernels, whose function no single PyTorch call computes.
@@ -91,6 +126,8 @@ the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -130,10 +167,20 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # the train step's shapes
 TRAIN_B, TRAIN_T, TRAIN_L = 128, 1536, 192
 TRAIN_KERNELS = {
-    # forward name: (T, input width, TPU kernel it replaces)
-    "lstm_scan_fusedin_train": (1536, 15, PALLAS + ":854"),
-    "lstm_scan_train": (768, 2 * 2 * H, PALLAS + ":239"),
+    # forward name: (T, input is the fused 15 features, TPU kernel it replaces,
+    # the lean kernel and the TPU kernel that one replaces)
+    "lstm_scan_fusedin_train": (1536, True, PALLAS + ":854", "lstm_scan_fusedin",
+                                PALLAS + ":854"),
+    "lstm_scan_train": (768, False, PALLAS + ":239", "lstm_scan", PALLAS + ":87"),
 }
+# scaled-LAS's listener width (configs/scaled-las.yml): the kernels' wide
+# form, one launch a direction, the adjoint without dW_hh
+WIDE_H = 1024
+
+
+def at_width(name: str, hidden: int) -> str:
+    """The record's name: the kernel's, with the width where it is not 512."""
+    return name if hidden == H else f"{name} (H={hidden})"
 # The training forward and the adjoint against their plain versions: the
 # largest error over the largest magnitude of the plain tensor. float32:
 # summation order over up to 1536 steps (dW_hh sums T x B terms).
@@ -152,6 +199,14 @@ BASE_LAS_MODEL = {
         "USE_GREEDY": True, "decoder_impl": "pallas",
         "dec_vocab_size": 30, "CHR_SOS_IDX": 0, "CHR_PAD_IDX": 29},
 }
+# the model block of configs/scaled-las.yml
+SCALED_LAS_MODEL = {
+    "listener_configs": {**BASE_LAS_MODEL["listener_configs"], "uniform_hid_dim": WIDE_H,
+                         "remat": True},
+    "speller_configs": {**BASE_LAS_MODEL["speller_configs"], "att_heads": 4,
+                        "dec_lstm_hid_dim": 1024},
+}
+MODELS = {"base-LAS": BASE_LAS_MODEL, "scaled-LAS": SCALED_LAS_MODEL}
 N_UTTS, MIN_FRAMES, MAX_FRAMES = 40, 200, 1500
 N_TEST_UTTS, INFER_BATCH = 128, 64
 
@@ -204,7 +259,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def nn_lstm_ms(torch, x, lengths, dtype, mode: str):
+def valid_bytes(frames: int, *streams) -> int:
+    """Bytes of the rows of padded (B, T, width) ``streams`` at a run's
+    ``frames`` valid (row, time) positions: what must be read of them."""
+    return sum(frames * t.shape[-1] * t.element_size() for t in streams)
+
+
+def nn_lstm_ms(torch, x, lengths, dtype, mode: str, hidden: int = 512):
     """cuDNN's LSTM through ``nn.LSTM`` (one bidirectional layer, H hidden)
     on the packed batch, CUDA-event median of 5: ``mode`` "infer" (forward
     under no_grad), "train" (forward with the graph kept) or "backward" (all
@@ -213,7 +274,7 @@ def nn_lstm_ms(torch, x, lengths, dtype, mode: str):
     from torch.nn.utils.rnn import pack_padded_sequence
 
     try:
-        lstm = torch.nn.LSTM(x.shape[2], H, batch_first=True, bidirectional=True)
+        lstm = torch.nn.LSTM(x.shape[2], hidden, batch_first=True, bidirectional=True)
         lstm = lstm.to(DEVICE, dtype)
         packed = pack_padded_sequence(x.detach().clone().requires_grad_(mode != "infer"),
                                       lengths.cpu().long(), batch_first=True,
@@ -328,7 +389,8 @@ def kernel_phase(torch, card: str) -> dict:
             # the work of this run's valid frames, both directions
             frames = int(lengths.sum())
             flops = 2 * frames * 2 * 4 * H * (H + (in_dim if name == "lstm_scan_fusedin" else 0))
-            bound, bound_by = bound_ms(flops, nbytes(*args[:-2], lengths, got))
+            bound, bound_by = bound_ms(
+                flops, valid_bytes(frames, args[0]) + nbytes(*args[1:-2], lengths, got))
             library_ms = nn_lstm_ms(torch, x, lengths, dtype, "infer")
             log(f"[{card}] {name} {dtype_name} B={B} T={seq_len} D={in_dim} H={H} 2 dirs: "
                 f"max_abs_err {err:.3e} (tol {TOL[dtype_name]:g})  kernel {ms:.3f} ms  "
@@ -636,24 +698,31 @@ def rel_err(got, ref) -> tuple:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def train_kernel_phase(torch, card: str) -> dict:
+def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
     """The training forward and the adjoint against their plain versions at
-    the train step's shapes; returns the JSON records (bfloat16)."""
+    the train step's shapes and listener width ``hidden``; returns the JSON
+    records (bfloat16). Up to H=512 the adjoint is ``lstm_bwd_dw``, and
+    ``lstm_bwd`` with the outside dW_hh product is held against it; at
+    scaled-LAS's H=1024 the adjoint is ``lstm_bwd`` with that product (a
+    launch a direction), and the lean forward kernels are recorded too: they
+    are the first pass of a ``remat`` layer."""
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 
-    gen = torch.Generator().manual_seed(SEED + 1)
+    gen = torch.Generator().manual_seed(SEED + 1 + hidden)
     records = {}
     batch, rev = TRAIN_B, (False, True)
-    n_launch = len(lc.row_chunks(batch))
-    for name, (seq_len, in_dim, replaces) in TRAIN_KERNELS.items():
-        fused = name == "lstm_scan_fusedin_train"
+    wide = hidden > H
+    n_launch = len(lc.row_chunks(batch)) * (2 if wide else 1)
+    four_h = 4 * hidden
+    for name, (seq_len, fused, replaces, lean_name, lean_replaces) in TRAIN_KERNELS.items():
+        in_dim = 15 if fused else 2 * 2 * hidden
         lengths = ragged_lengths(torch, gen, batch, 1, seq_len).to(DEVICE)
-        k = 1.0 / H ** 0.5
-        w_hh32 = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).to(DEVICE)
-        w_ih32 = ((torch.rand(2, in_dim, 4 * H, generator=gen) * 2 - 1) * k).to(DEVICE)
-        b32 = ((torch.rand(2, 4 * H, generator=gen) * 2 - 1) * k).to(DEVICE)
+        k = 1.0 / hidden ** 0.5
+        w_hh32 = ((torch.rand(2, hidden, four_h, generator=gen) * 2 - 1) * k).to(DEVICE)
+        w_ih32 = ((torch.rand(2, in_dim, four_h, generator=gen) * 2 - 1) * k).to(DEVICE)
+        b32 = ((torch.rand(2, four_h, generator=gen) * 2 - 1) * k).to(DEVICE)
         x32 = torch.randn(batch, seq_len, in_dim, generator=gen).to(DEVICE)
-        dy32 = torch.randn(batch, seq_len, 2 * H, generator=gen).to(DEVICE)
+        dy32 = torch.randn(batch, seq_len, 2 * hidden, generator=gen).to(DEVICE)
         for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             tol = TRAIN_TOL[dtype_name]
             w_hh, dy = w_hh32.to(dtype), dy32.to(dtype)
@@ -661,25 +730,37 @@ def train_kernel_phase(torch, card: str) -> dict:
                 x = x32.to(dtype)
                 w_ih, b = w_ih32.to(dtype), b32.to(dtype)
                 args = (x, w_ih, b, w_hh)
-                lean, train, plain = (lc.lstm_scan_fusedin, lc.lstm_scan_fusedin_train,
-                                      lc.lstm_scan_fusedin_train_plain)
+                lean, train, plain, lean_plain = (
+                    lc.lstm_scan_fusedin, lc.lstm_scan_fusedin_train,
+                    lc.lstm_scan_fusedin_train_plain, lc.lstm_scan_fusedin_plain)
             else:
                 x = (x32.clamp(-1, 1) * 0.5).to(dtype)
                 w_cat = torch.cat([w_ih32[0], w_ih32[1]], dim=1).to(dtype)
                 args = (torch.matmul(x, w_cat) + torch.cat([b32[0], b32[1]]).to(dtype), w_hh)
-                lean, train, plain = lc.lstm_scan, lc.lstm_scan_train, lc.lstm_scan_train_plain
+                lean, train, plain, lean_plain = (lc.lstm_scan, lc.lstm_scan_train,
+                                                  lc.lstm_scan_train_plain, lc.lstm_scan_plain)
             lc.reset_launch_counts()
             hs, cs, gates = train(*args, lengths, rev)
-            dpre, d_whh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+            if wide:
+                dpre = lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+                d_whh = lc.dw_hh_outside(hs, dpre, rev)
+            else:
+                dpre, d_whh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
             torch.cuda.synchronize()
-            if lc.LAUNCHES[name] != n_launch or lc.LAUNCHES["lstm_bwd_dw"] != n_launch:
+            adjoint = "lstm_bwd" if wide else "lstm_bwd_dw"
+            if lc.LAUNCHES[name] != n_launch or lc.LAUNCHES[adjoint] != n_launch:
                 raise AssertionError(f"{name}: B={batch} took {dict(lc.LAUNCHES)} launches, "
                                      f"not {n_launch} of 32 rows each")
             with torch.no_grad():
                 if not torch.equal(hs, lean(*args, lengths, rev)):
                     raise AssertionError(f"{name} {dtype_name}: hs differs from the lean kernel's")
             p_hs, p_cs, p_gates = plain(*args, lengths, rev)
-            p_dpre, p_dwhh = lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
+            if wide:
+                p_dpre = lc.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)
+                # the product's reference: float32 operands, the plain dpre
+                p_dwhh = lc.dw_hh_outside(hs.float(), p_dpre.float(), rev)
+            else:
+                p_dpre, p_dwhh = lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
             torch.cuda.synchronize()
             pads = torch.arange(seq_len, device=DEVICE)[None, :] >= lengths[:, None].long()
             if dpre[pads].abs().max().item() != 0.0 or gates[pads].abs().max().item() != 0.0:
@@ -688,6 +769,19 @@ def train_kernel_phase(torch, card: str) -> dict:
             errs = {"hs": rel_err(hs, p_hs), "cs": rel_err(cs, p_cs),
                     "gates": rel_err(gates, p_gates), "dpre": rel_err(dpre, p_dpre),
                     "dW_hh": rel_err(d_whh, p_dwhh)}
+            same_dpre = None
+            if not wide:
+                # the adjoint without dW_hh at this width: its dpre against
+                # lstm_bwd_dw's, the outside product against the sum in the kernel
+                nodw = lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+                same_dpre = torch.equal(nodw, dpre)
+                errs["lstm_bwd dpre vs lstm_bwd_dw"] = rel_err(nodw, dpre)
+                errs["outside dW_hh vs in-kernel"] = rel_err(lc.dw_hh_outside(hs, nodw, rev),
+                                                             d_whh)
+                errs["lstm_bwd dpre"] = rel_err(nodw, p_dpre)
+                if lc.LAUNCHES["lstm_bwd"] != n_launch:
+                    raise AssertionError(f"lstm_bwd: {dict(lc.LAUNCHES)} launches")
+                del nodw
             if fused:
                 # the fused-input Function's own products over the kernel's dpre,
                 # against the same products over the plain dpre
@@ -696,67 +790,104 @@ def train_kernel_phase(torch, card: str) -> dict:
                                           leaves, dy)
                 x2 = x.reshape(-1, in_dim)
                 for d in range(2):
-                    dp = p_dpre[..., d * 4 * H:(d + 1) * 4 * H].reshape(-1, 4 * H)
+                    dp = p_dpre[..., d * four_h:(d + 1) * four_h].reshape(-1, four_h)
                     part = (dp @ w_ih[d].T).reshape(x.shape)
                     want_x = part if d == 0 else want_x + part
                     errs[f"d_wih[{d}]"] = rel_err(got[1][d], x2.T @ dp)
                     errs[f"d_b[{d}]"] = rel_err(got[2][d], dp.sum(0, dtype=torch.float32))
                 errs["d_x"] = rel_err(got[0], want_x)
                 del leaves, got, want_x, part, dp
-            fwd_ms = cuda_median_ms(torch, lambda: train(*args, lengths, rev), 10)
+            reps = 5 if wide else 10
+            fwd_ms = cuda_median_ms(torch, lambda: train(*args, lengths, rev), reps)
+            bwd_dw_ms = None if wide else cuda_median_ms(
+                torch, lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
             bwd_ms = cuda_median_ms(
-                torch, lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), 10)
+                torch, lambda: lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev), reps)
+            dw_ms = cuda_median_ms(torch, lambda: lc.dw_hh_outside(hs, dpre, rev), 5)
             plain_fwd_ms = cuda_median_ms(torch, lambda: plain(*args, lengths, rev), 1)
             plain_bwd_ms = cuda_median_ms(
-                torch, lambda: lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev), 1)
+                torch, (lambda: lc.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)) if wide
+                else (lambda: lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)), 1)
             frames = int(lengths.sum())
-            fwd_flops = 2 * frames * 2 * 4 * H * (H + (in_dim if fused else 0))
-            fwd_bound = bound_ms(fwd_flops, nbytes(*args, lengths, hs, cs, gates))
-            # dh_prev = dpre @ W_hh^T and dW_hh += h^T dpre: 2 * 4H * H each
-            bwd_flops = 2 * frames * 2 * 4 * H * H * 2
-            bwd_bound = bound_ms(bwd_flops, nbytes(gates, cs, hs, dy, w_hh, lengths, dpre, d_whh))
-            lib_fwd = nn_lstm_ms(torch, x, lengths, dtype, "train")
-            lib_bwd = nn_lstm_ms(torch, x, lengths, dtype, "backward")
-            hs2, dp2 = hs.reshape(-1, 2 * H), dpre.reshape(-1, 2 * 4 * H)
-            dw_matmul_ms = cuda_median_ms(torch, lambda: [
-                torch.matmul(hs2[:, d * H:(d + 1) * H].T, dp2[:, d * 4 * H:(d + 1) * 4 * H])
-                for d in range(2)], 5)
+            fwd_flops = 2 * frames * 2 * four_h * (hidden + (in_dim if fused else 0))
+            fwd_bound = bound_ms(fwd_flops, valid_bytes(frames, args[0])
+                                 + nbytes(*args[1:], lengths, hs, cs, gates))
+            # dh_prev = dpre @ W_hh^T: 2 * 4H * H a frame and direction; the
+            # kernel that also sums dW_hh += h^T dpre does as much again
+            nodw_flops = 2 * frames * 2 * four_h * hidden
+            nodw_bound = bound_ms(nodw_flops, valid_bytes(frames, gates, cs, dy)
+                                  + nbytes(w_hh, lengths, dpre))
+            dw_bound = bound_ms(2 * nodw_flops, valid_bytes(frames, gates, cs, hs, dy)
+                                + nbytes(w_hh, lengths, dpre, d_whh))
+            lib_fwd = nn_lstm_ms(torch, x, lengths, dtype, "train", hidden)
+            lib_bwd = nn_lstm_ms(torch, x, lengths, dtype, "backward", hidden)
             shown = ", ".join(f"{k} {a:.3e} ({r:.1e} of max)" for k, (a, r) in errs.items())
-            log(f"[{card}] {name} + lstm_bwd_dw {dtype_name} B={batch} ({n_launch} launches) "
-                f"T={seq_len} D={in_dim} H={H} 2 dirs: hs bit-equal to the lean kernel; "
-                f"max_abs_err {shown}; tolerance {tol:g} of max")
+            log(f"[{card}] {name} + {adjoint} {dtype_name} B={batch} ({n_launch} launches) "
+                f"T={seq_len} D={in_dim} H={hidden} 2 dirs: hs bit-equal to the lean kernel; "
+                f"max_abs_err {shown}; tolerance {tol:g} of max"
+                + ("" if same_dpre is None else
+                   f"; lstm_bwd's dpre bit-equal to lstm_bwd_dw's: {same_dpre}"))
             log(f"    forward kernel {fwd_ms:.3f} ms  plain {plain_fwd_ms:.3f} ms  bound "
                 f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]})  nn.LSTM forward {fmt_ms(lib_fwd)} ms")
-            log(f"    adjoint kernel {bwd_ms:.3f} ms  plain {plain_bwd_ms:.3f} ms  bound "
-                f"{bwd_bound[0]:.3f} ms ({bwd_bound[1]})  nn.LSTM backward {fmt_ms(lib_bwd)} ms  "
-                f"torch.matmul for dW_hh alone {dw_matmul_ms:.3f} ms")
+            log(f"    adjoint: lstm_bwd {bwd_ms:.3f} ms (bound {nodw_bound[0]:.3f} ms, "
+                f"{nodw_bound[1]}; {nodw_flops:.3e} operations); lstm_bwd_dw "
+                f"{fmt_ms(bwd_dw_ms)} ms (bound {dw_bound[0]:.3f} ms, {dw_bound[1]}); plain "
+                f"{plain_bwd_ms:.3f} ms; nn.LSTM backward {fmt_ms(lib_bwd)} ms")
+            log(f"    outside dW_hh product (dw_hh_outside, one torch.mm a direction over "
+                f"{batch} x {seq_len - 1} rows): {dw_ms:.3f} ms")
             bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
             if bad:
                 raise AssertionError(f"{name} {dtype_name}: errors over {tol} of max: {bad}")
             if dtype_name == "bfloat16":
-                records[name] = {
-                    "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                records[at_width(name, hidden)] = {
+                    "name": at_width(name, hidden), "route": "cuda", "source": SOURCE,
+                    "replaces": replaces,
                     "launches": 0, "max_abs_err": max(errs["cs"][0], errs["gates"][0]),
                     "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
                     "bound_by": fwd_bound[1], "library_ms": lib_fwd}
-                if fused:  # the adjoint's record at its largest shape
+                if wide:  # the lean kernels at this width: remat's first pass
+                    with torch.no_grad():
+                        lean_ms = cuda_median_ms(torch, lambda: lean(*args, lengths, rev), reps)
+                        lean_plain_ms = cuda_median_ms(
+                            torch, lambda: lean_plain(*args, lengths, rev), 1)
+                    lean_bound = bound_ms(fwd_flops, valid_bytes(frames, args[0])
+                                          + nbytes(*args[1:], lengths, hs))
+                    lib_lean = nn_lstm_ms(torch, x, lengths, dtype, "infer", hidden)
+                    log(f"    lean kernel {lean_name} {lean_ms:.3f} ms  plain "
+                        f"{lean_plain_ms:.3f} ms  bound {lean_bound[0]:.3f} ms "
+                        f"({lean_bound[1]})  nn.LSTM under no_grad {fmt_ms(lib_lean)} ms")
+                    records[at_width(lean_name, hidden)] = {
+                        "name": at_width(lean_name, hidden), "route": "cuda", "source": SOURCE,
+                        "replaces": lean_replaces, "launches": 0, "max_abs_err": errs["hs"][0],
+                        "ms": lean_ms, "plain_ms": lean_plain_ms, "bound_ms": lean_bound[0],
+                        "bound_by": lean_bound[1], "library_ms": lib_lean}
+                if fused and not wide:  # the adjoint's record at its largest shape
                     records["lstm_bwd_dw"] = {
                         "name": "lstm_bwd_dw", "route": "cuda", "source": BWD_SOURCE,
                         "replaces": PALLAS + ":382", "launches": 0,
-                        "max_abs_err": errs["dpre"][0], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-                        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                        "max_abs_err": errs["dpre"][0], "ms": bwd_dw_ms,
+                        "plain_ms": plain_bwd_ms,
+                        "bound_ms": dw_bound[0], "bound_by": dw_bound[1],
                         "library_ms": lib_bwd}
-            del hs, cs, gates, dpre, d_whh, p_hs, p_cs, p_gates, p_dpre, p_dwhh, hs2, dp2
+                if fused and wide:
+                    records["lstm_bwd"] = {
+                        "name": "lstm_bwd", "route": "cuda", "source": BWD_SOURCE,
+                        "replaces": PALLAS + ":311", "launches": 0,
+                        "max_abs_err": errs["dpre"][0], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                        "bound_ms": nodw_bound[0], "bound_by": nodw_bound[1],
+                        "library_ms": lib_bwd}
+            del hs, cs, gates, dpre, d_whh, p_hs, p_cs, p_gates, p_dpre, p_dwhh
             torch.cuda.empty_cache()
     return records
 
 
-def train_config(lstm_impl: str = "pallas", decoder_impl: str = "pallas"):
+def train_config(lstm_impl: str = "pallas", decoder_impl: str = "pallas",
+                 model: str = "base-LAS", **listener):
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_config_from_dicts
 
     return las_config_from_dicts(
-        {**BASE_LAS_MODEL["listener_configs"], "lstm_impl": lstm_impl},
-        {**BASE_LAS_MODEL["speller_configs"], "decoder_impl": decoder_impl})
+        {**MODELS[model]["listener_configs"], "lstm_impl": lstm_impl, **listener},
+        {**MODELS[model]["speller_configs"], "decoder_impl": decoder_impl})
 
 
 def train_batch(torch, batch: int, seq_len: int, labels: int, seed: int):
@@ -779,7 +910,7 @@ def train_batch(torch, batch: int, seq_len: int, labels: int, seed: int):
 
 def build_trainer(torch, cfg, compute_dtype, seed: int):
     """Seeded parameters, optimizer, state and step, as ``bench.py`` of the
-    JAX package builds them for base-LAS."""
+    JAX package builds them (``BENCH_ARCH`` base or scaled)."""
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_apply, las_init
     from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
     from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
@@ -805,7 +936,7 @@ class forbid_plain:
 
     NAMES = {"lstm_cuda": ("_scan_plain", "lstm_scan_plain", "lstm_scan_fusedin_plain",
                            "lstm_scan_train_plain", "lstm_scan_fusedin_train_plain",
-                           "lstm_bwd_dw_plain"),
+                           "lstm_bwd_dw_plain", "lstm_bwd_plain", "_bwd_plain"),
              "speller_cuda": ("_decode_steps", "speller_decode_plain",
                               "speller_decode_train_plain", "_cell_adjoint",
                               "speller_decode_bwd_plain")}
@@ -828,10 +959,13 @@ class forbid_plain:
             setattr(mod, n, fn)
 
 
-def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
-    """A trainer that takes a few steps at full width with the listener on
-    its kernels and the decoder on ``decoder_impl``; returns the launches of
-    the timed steps."""
+def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
+                model: str = "base-LAS") -> dict:
+    """A trainer that takes a few steps at the full width of ``model`` with
+    the listener on its kernels and the decoder on ``decoder_impl``; returns
+    the launches of the timed steps. scaled-LAS trains with ``remat``: each
+    listener layer's first pass is a lean kernel, its backward pass the
+    training forward again and then ``lstm_bwd`` with the outside dW_hh."""
     from attention_based_e2e_asr_dnn_tpu_torch.models import las
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
         draw_train_noise,
@@ -842,8 +976,10 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
     from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
     from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
 
-    cfg = train_config("pallas", decoder_impl)
+    cfg = train_config("pallas", decoder_impl, model)
     fused = decoder_impl == "pallas"
+    remat, heads = cfg.listener.remat, cfg.speller.att_heads
+    wide = cfg.listener.uniform_hid_dim > H
     opt, state, step = build_trainer(torch, cfg, torch.bfloat16, SEED)
     x, lx, y, ly = train_batch(torch, TRAIN_B, TRAIN_T, TRAIN_L, SEED)
     n_params = sum(p.numel() for p in state.params.parameters())
@@ -858,8 +994,15 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
         sc.reset_launch_counts()
         metrics, times = [], []
         first_loss = warm["loss"].item()  # the first step taken on this batch
-        while len(metrics) < min_steps or (len(metrics) < 10 and
-                                           not metrics[-1]["loss"] < first_loss):
+
+        def fell() -> bool:
+            # below the warm-up step's loss. Not asked of the wide model,
+            # whose loss these few steps need not bring back below the
+            # untrained model's: its train CLI phase holds that the loss
+            # falls from one epoch to the next.
+            return wide or metrics[-1]["loss"] < first_loss
+
+        while len(metrics) < min_steps or (len(metrics) < 10 and not fell()):
             t0 = time.perf_counter()
             state, m, att_map = step(state, x, lx, y, ly, tf_rate, lr)
             torch.cuda.synchronize()
@@ -869,11 +1012,14 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
         peak = torch.cuda.max_memory_allocated()
         routes = las.decode_route_report()
     n_steps = len(metrics)
-    chunks = len(lc.row_chunks(TRAIN_B))
+    # a layer's launches a step: one per 32 rows, and per direction when wide
+    chunks = len(lc.row_chunks(TRAIN_B)) * (2 if wide else 1)
     want = {**dict.fromkeys(counts, 0),
+            "lstm_scan_fusedin": chunks * n_steps if remat else 0,
+            "lstm_scan": 3 * chunks * n_steps if remat else 0,
             "lstm_scan_fusedin_train": chunks * n_steps,
             "lstm_scan_train": 3 * chunks * n_steps,
-            "lstm_bwd_dw": 4 * chunks * n_steps,
+            "lstm_bwd" if wide else "lstm_bwd_dw": 4 * chunks * n_steps,
             # the whole batch in one launch of each decoder kernel
             "speller_decode_train": n_steps if fused else 0,
             "speller_decode_bwd": n_steps if fused else 0}
@@ -898,17 +1044,17 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
     losses = [m["loss"] for m in metrics]
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"train: losses {losses}")
-    if not losses[-1] < first_loss:
-        raise AssertionError(f"train: the loss did not fall below the first step's "
+    if not fell():
+        raise AssertionError(f"train: the loss did not fall below the warm-up step's "
                              f"{first_loss} in {n_steps} steps: {losses}")
-    if att_map.shape != (1, TRAIN_T // 8, TRAIN_L + 1):
+    if att_map.shape != (heads, TRAIN_T // 8, TRAIN_L + 1):
         raise AssertionError(f"train: att_map {tuple(att_map.shape)}")
     if int(state.opt_state.count) != n_steps + 1 or state.step != n_steps + 1:
         raise AssertionError("train: the optimizer did not count every step")
     sec = statistics.median(times)
-    log(f"[{card}] train base-LAS bf16 B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} "
-        f"({n_params / 1e6:.1f}M parameters; lstm_impl pallas, decoder_impl {decoder_impl}; "
-        f"SpecAugment, "
+    log(f"[{card}] train {model} bf16 B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} "
+        f"({n_params / 1e6:.1f}M parameters; lstm_impl pallas, decoder_impl {decoder_impl}, "
+        f"remat {remat}; SpecAugment, "
         f"dropout, tf_rate {tf_rate}, AdamW amsgrad lr {lr}, clip 5, NaN guard): 1 warm-up + "
         f"{n_steps} steps, median {sec:.3f} s/step (all: {[round(t, 3) for t in times]}), "
         f"{TRAIN_B / sec:.2f} utt/s, peak device memory {peak / 2**20:.1f} MiB")
@@ -943,33 +1089,57 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int) -> dict:
         torch.cuda.synchronize()
     split = [marks[i].elapsed_time(marks[i + 1]) for i in range(5)]
     log(f"    split of one step (CUDA events; SpecAugment and the parameter update left "
-        f"out): listener forward {split[0]:.1f} ms, speller forward + loss {split[1]:.1f} ms, "
-        f"backward {split[2] + split[3]:.1f} ms (speller {split[2]:.1f}, listener "
-        f"{split[3]:.1f}), optimizer {split[4]:.1f} ms")
+        f"out): listener forward {split[0]:.1f} ms"
+        f"{' (the lean kernels: remat)' if remat else ''}, speller forward + loss "
+        f"{split[1]:.1f} ms, backward {split[2] + split[3]:.1f} ms (speller {split[2]:.1f}, "
+        f"listener {split[3]:.1f}{', its layers recomputed first' if remat else ''}), "
+        f"optimizer {split[4]:.1f} ms")
     del state, opt, step, grads, d_spell, d_listen, d_enc, out, loss, enc_h
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in ("lstm_scan_fusedin_train", "lstm_scan_train", "lstm_bwd_dw",
-                                   "speller_decode_train", "speller_decode_bwd")}
+    if remat:
+        # the memory remat saves: the same step keeping every layer's streams
+        _, state, step = build_trainer(
+            torch, train_config("pallas", decoder_impl, model, remat=False), torch.bfloat16, SEED)
+        with forbid_plain():
+            state, _, _ = step(state, x, lx, y, ly, tf_rate, lr)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m, _ = step(state, x, lx, y, ly, tf_rate, lr)
+            torch.cuda.synchronize()
+            sec_off = time.perf_counter() - t0
+        peak_off = torch.cuda.max_memory_allocated()
+        if not bool(m["finite"]):
+            raise AssertionError(f"train {model} remat false: step not finite")
+        log(f"    the same step with remat false: {sec_off:.3f} s, peak device memory "
+            f"{peak_off / 2**20:.1f} MiB against {peak / 2**20:.1f} MiB with remat "
+            f"({(peak_off - peak) / 2**20:.1f} MiB saved), loss {m['loss'].item():.4f}")
+        del state, step
+        torch.cuda.empty_cache()
+    return counts
 
 
-def train_parity_phase(torch, card: str) -> None:
-    """One float32 step at full width through both kernel tiers, through the
-    listener kernels with the scan decoder, and through the plain loops under
-    autograd, from the same weights, batch and draws."""
+def train_parity_phase(torch, card: str, model: str = "base-LAS") -> None:
+    """One float32 step at the full width of ``model`` through both kernel
+    tiers, (base-LAS) through the listener kernels with the scan decoder, and
+    through the plain loops under autograd, from the same weights, batch and
+    draws."""
     from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
 
     batch, seq_len, labels, lr = 40, 256, 32, 1e-3
     x, lx, y, ly = train_batch(torch, batch, seq_len, labels, SEED + 2)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    draws = draw_train_noise(train_config(), batch, labels, gen, DEVICE,
+    draws = draw_train_noise(train_config(model=model), batch, labels, gen, DEVICE,
                              specaug=draw_specaug(batch, 6, 200, False, gen, DEVICE))
     routes = {"lstm_impl pallas + decoder_impl pallas": ("pallas", "pallas"),
               "lstm_impl pallas + decoder_impl scan": ("pallas", "scan"),
               "plain": ("scan", "scan")}
+    if model != "base-LAS":
+        del routes["lstm_impl pallas + decoder_impl scan"]
     results = {}
     for name, impls in routes.items():
-        _, state, step = build_trainer(torch, train_config(*impls), torch.float32, SEED)
+        _, state, step = build_trainer(torch, train_config(*impls, model), torch.float32, SEED)
         state, m, _ = step(state, x, lx, y, ly, 0.9, lr, draws=draws)
         torch.cuda.synchronize()
         results[name] = ({k: v.item() for k, v in m.items()},
@@ -986,7 +1156,7 @@ def train_parity_phase(torch, card: str) -> None:
         worst = max((a - b).abs().max().item() for a, b in zip(pk, pp))
         off = sum(((a - b).abs() > 1e-5).sum().item() for a, b in zip(pk, pp))
         total = sum(a.numel() for a in pk)
-        log(f"[{card}] train parity float32 B={batch} T={seq_len} L={labels}, {name} vs "
+        log(f"[{card}] train parity {model} float32 B={batch} T={seq_len} L={labels}, {name} vs "
             f"lstm_impl scan + decoder_impl scan, one step, shared draws: loss "
             f"{mk['loss']:.6f} / {mp['loss']:.6f}, grad_norm {mk['grad_norm']:.6f} / "
             f"{mp['grad_norm']:.6f}; parameters max_abs_diff {worst:.3e} (bound 2 x lr = "
@@ -1106,6 +1276,188 @@ def infer_phase(torch, card: str, exp: str, data: str, work: str) -> dict:
     return launches
 
 
+N_CLI_TRAIN, N_CLI_DEV, N_CLI_TEST, CLI_BATCH = 256, 64, 64, 32
+
+
+class Tee(io.StringIO):
+    """Keeps what is written and passes it on to ``stream``."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        return super().write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def train_cli_phase(torch, card: str, work: str) -> tuple:
+    """The ``train`` CLI in-process on the card at scaled-LAS width: a seeded
+    corpus from the port's generator, ``configs/scaled-las.yml`` with
+    ``parallel.use: false``, ``lazy_data: false``, its folders pointed at the
+    corpus, ``batch_size`` 32 and 2 epochs; then the CLI again with
+    ``finetune.use: true`` on the last checkpoint it wrote, for one more
+    epoch. Returns (the first run's experiment folder, the corpus, the
+    launches of the first run)."""
+    import yaml
+
+    from attention_based_e2e_asr_dnn_tpu_torch import train
+    from attention_based_e2e_asr_dnn_tpu_torch.models import las
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.make_synthetic_data import generate
+    from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
+        list_best_checkpoints,
+        load_checkpoint,
+    )
+
+    corpus = os.path.join(work, "corpus")
+    generate(corpus, n_train=N_CLI_TRAIN, n_dev=N_CLI_DEV, n_test=N_CLI_TEST, seed=SEED)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "scaled-las.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    for block, written in cfg["model"]["configs"].items():
+        if written != {key: SCALED_LAS_MODEL[block][key] for key in written}:
+            raise AssertionError(f"configs/scaled-las.yml's {block} are not the ones the "
+                                 f"kernel and train phases ran")
+    cfg["parallel"]["use"] = False
+    cfg.update(lazy_data=False, batch_size=CLI_BATCH, epochs=2,
+               TRN_FOLDER=os.path.join(corpus, "train-clean-100"),
+               DEV_FOLDER=os.path.join(corpus, "dev-clean"),
+               TST_FOLDER=os.path.join(corpus, "test-clean"),
+               EXP_FOLDER=os.path.join(work, "experiments"),
+               MST_FOLDER=os.path.join(work, "milestones"))
+
+    def run(name, cfg):
+        path = os.path.join(work, name)
+        with open(path, "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        return train.main(train.build_argparser().parse_args(["-c", path]))
+
+    las.reset_decode_routes()
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with forbid_plain():
+        trainer = run("train.yml", cfg)
+    counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    routes = las.decode_route_report()
+    folder = trainer.saving_dir
+    trn, dev = trainer.train_history, trainer.dev_history
+    with open(os.path.join(folder, "log.json")) as fh:
+        logged = json.load(fh)
+    with open(os.path.join(folder, "config.json")) as fh:
+        snap = json.load(fh)
+    finite = all(v == v and abs(v) != float("inf")
+                 for v in trn["loss"] + dev["loss"] + dev["ld"])
+    if not (len(trn["loss"]) == 2 and finite and trn["loss"][1] < trn["loss"][0]):
+        raise AssertionError(f"train CLI: histories {trn} {dev}")
+    if logged != [trn, dev] or snap["model"]["configs"] != SCALED_LAS_MODEL:
+        raise AssertionError("train CLI: log.json or the config snapshot is off")
+    # what CheckpointManager keeps: the best-tagged saves, at most max_savings
+    kept = sorted(os.listdir(os.path.join(folder, "ckpts")))
+    best = list_best_checkpoints(os.path.join(folder, "ckpts"))
+    if not (kept == best == sorted(trainer.ckpt.saved_files) and
+            1 <= len(kept) <= cfg["max_savings"] and
+            all(k.startswith("min-") and k.endswith("].ckpt") for k in kept)):
+        raise AssertionError(f"train CLI: ckpts/ holds {kept}, the manager kept "
+                             f"{trainer.ckpt.saved_files}")
+    if not routes or set(routes.values()) != {"cuda"}:
+        raise AssertionError(f"train CLI: decode routes {routes}")
+    idle = [k for k in ("lstm_scan_fusedin", "lstm_scan", "lstm_scan_fusedin_train",
+                        "lstm_scan_train", "lstm_bwd", "speller_decode",
+                        "speller_decode_train", "speller_decode_bwd") if counts[k] <= 0]
+    if idle or counts["lstm_bwd_dw"] != 0:
+        raise AssertionError(f"train CLI: launches {counts}")
+    n_batches = (-(-N_CLI_TRAIN // CLI_BATCH), -(-N_CLI_DEV // CLI_BATCH))
+    log(f"[{card}] train CLI scaled-LAS bf16 ({N_CLI_TRAIN} train / {N_CLI_DEV} dev "
+        f"utterances, batch_size {CLI_BATCH}: {n_batches[0]} + {n_batches[1]} batches an "
+        f"epoch): train loss {[round(v, 4) for v in trn['loss']]}, dev loss "
+        f"{[round(v, 4) for v in dev['loss']]}, dev LD {[round(v, 3) for v in dev['ld']]}; "
+        f"epoch seconds {[round(t, 2) for t in trainer.epoch_seconds]} (train "
+        f"{[round(t, 2) for t in trainer.train_seconds]}, dev "
+        f"{[round(t, 2) for t in trainer.eval_seconds]}); peak device memory "
+        f"{peak / 2**20:.1f} MiB; ckpts {kept}; routes {routes}; launches {counts}")
+
+    # resume: one more epoch from the last checkpoint
+    last = os.path.join(folder, "ckpts", kept[-1])
+    saved = load_checkpoint(last)
+    cfg["finetune"] = {"use": True, "reinit_lr": False, "checkpoint": last}
+    cfg["epochs"] = saved["epoch"] + 1
+    cfg["EXP_FOLDER"] = os.path.join(work, "experiments-resumed")
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        resumed = run("resume.yml", cfg)
+    lines = tee.getvalue().splitlines()
+    first = [ln for ln in lines if ln.startswith(f"[epoch {saved['epoch']}]")]
+    if not (any(f"at epoch[{saved['epoch']}]" in ln for ln in lines) and len(first) == 1 and
+            f"tf {saved['tf_rate']:.2f} lr {saved['current_lr']:.2e}" in first[0] and
+            resumed.epoch == saved["epoch"] + 1 and
+            resumed.train_history["loss"][:-1] == saved["train_loss"] and
+            resumed.train_history["loss"][-1] < saved["train_loss"][-1] and
+            int(resumed.state.opt_state.count) > saved["batch"]):
+        raise AssertionError(f"train CLI resume: {lines}")
+    log(f"[{card}] train CLI resumed from {kept[-1]} at epoch {saved['epoch']} with lr "
+        f"{saved['current_lr']:g}, tf_rate {saved['tf_rate']:g}: one epoch in "
+        f"{resumed.epoch_seconds[-1]:.2f} s, train loss "
+        f"{resumed.train_history['loss'][-1]:.4f}")
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    return folder, corpus, counts
+
+
+def train_to_infer_phase(torch, card: str, folder: str, corpus: str, work: str) -> None:
+    """The port's ``infer`` CLI on the corpus's test split from the experiment
+    folder the Trainer wrote: every best checkpoint and their average,
+    ``early_stop: false`` (the fused decode kernel) at scaled-LAS width."""
+    from attention_based_e2e_asr_dnn_tpu_torch import infer
+    from attention_based_e2e_asr_dnn_tpu_torch.models import las
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import list_best_checkpoints
+
+    names = [os.path.splitext(c)[0]
+             for c in list_best_checkpoints(os.path.join(folder, "ckpts"))] + ["avg-all"]
+    cfg_path = os.path.join(work, "infer-trained.yml")
+    with open(cfg_path, "w") as fh:
+        fh.write(f"SOME_FOLDER: {os.path.join(corpus, 'test-clean')}\nexp_folder: {folder}\n"
+                 f"batch_size: {CLI_BATCH}\npad_time_multiple: 256\nrun_all: true\n"
+                 f"epoch_num: null\nrun_avg: true\nearly_stop: false\n")
+    las.reset_decode_routes()
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with forbid_plain():
+        infer.main(infer.build_argparser().parse_args(["-c", cfg_path]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    routes = las.decode_route_report()
+    n_batches = -(-N_CLI_TEST // CLI_BATCH) * len(names)
+    want = {**dict.fromkeys(counts, 0), "lstm_scan_fusedin": 2 * n_batches,
+            "lstm_scan": 3 * 2 * n_batches, "speller_decode": n_batches}
+    if counts != want or not routes or set(routes.values()) != {"cuda"}:
+        raise AssertionError(f"train -> infer: launches {counts} != {want}, routes {routes}")
+    vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
+    lengths = []
+    for name in names:
+        with open(os.path.join(folder, "preds", f"{name}-tst.csv")) as fh:
+            lines = fh.read().split("\n")
+        rows = [ln.split(",", 1) for ln in lines[1:-1]]
+        if (lines[0] != "id,label" or lines[-1] != "" or
+                [r[0] for r in rows] != [str(i) for i in range(N_CLI_TEST)] or
+                not all(len(r) == 2 and set(r[1]) <= vocab for r in rows)):
+            raise AssertionError(f"train -> infer: {name}-tst.csv malformed")
+        lengths.append(sum(len(r[1]) for r in rows) / len(rows))
+    log(f"[{card}] train -> infer scaled-LAS bf16 early_stop=false: {N_CLI_TEST} test "
+        f"utterances x {len(names)} checkpoints ({names}) in {wall:.3f} s; mean transcript "
+        f"{[round(v, 1) for v in lengths]} chars; routes {routes}; launches {counts}")
+
+
 def serve_phase(torch, card: str, exp: str, feats: list) -> tuple:
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
     from attention_based_e2e_asr_dnn_tpu_torch.serving import (
@@ -1222,6 +1574,7 @@ def main() -> int:
     environment(torch, card)
     records = kernel_phase(torch, card)
     train_records = train_kernel_phase(torch, card)
+    wide_records = train_kernel_phase(torch, card, WIDE_H)
 
     rng = np.random.default_rng(SEED)
     feats = [rng.standard_normal((int(n), 15)).astype(np.float32)
@@ -1239,10 +1592,20 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     del t
     torch.cuda.empty_cache()
-    # this slice's path: every kernel tier engaged; then the earlier route
-    train_launches = train_phase(torch, card, "pallas", 5)
-    train_phase(torch, card, "scan", 3)
+    # base-LAS with every kernel tier engaged; then the earlier route
+    train_launches = train_phase(torch, card, "pallas", 3)
+    train_phase(torch, card, "scan", 2)
     train_parity_phase(torch, card)
+    # scaled-LAS (H=1024, remat): train steps and the parity step, then the
+    # train CLI, a resumed run and the infer CLI from the folder it wrote
+    wide_launches = train_phase(torch, card, "pallas", 3, "scaled-LAS")
+    train_parity_phase(torch, card, "scaled-LAS")
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        folder, corpus, cli_launches = train_cli_phase(torch, card, root)
+        train_to_infer_phase(torch, card, folder, corpus, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -1254,6 +1617,13 @@ def main() -> int:
     for name in train_records:
         train_records[name]["launches"] = train_launches[name]
     records.update(train_records)
+    # the wide rows: the timed scaled-LAS train steps and the train CLI's run
+    for name, record in wide_records.items():
+        kernel = name.split(" (")[0]
+        record["launches"] = wide_launches[kernel] + cli_launches[kernel]
+        if wide_launches[kernel] <= 0 or cli_launches[kernel] <= 0:
+            raise AssertionError(f"{name} never launched in the scaled-LAS steps or the CLI")
+    records.update(wide_records)
     for name in records:
         if records[name]["launches"] <= 0:
             raise AssertionError(f"{name} never launched on the main path")

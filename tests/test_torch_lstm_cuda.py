@@ -156,18 +156,38 @@ def _tol(dtype, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [True, False])
 def test_train_kernels_match_plain_on_card(cuda_device, batch, hidden, ndir, dtype, fused):
+    _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [5, 40])
+@pytest.mark.parametrize("hidden,ndir", [(1024, 1), (1024, 2), (768, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_wide_train_kernels_match_plain_on_card(cuda_device, batch, hidden, ndir, dtype, fused):
+    """Above H = 512 the kernels stage their exchange in two halves, a layer
+    of two directions takes one launch a direction, and the adjoint is
+    ``lstm_bwd`` with the outside dW_hh product."""
+    _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused)
+
+
+def _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused):
     args, lengths, reverse, dy = _train_case(cuda_device, batch, hidden, dtype, ndir, fused)
     lean, train, train_plain = (
         (lstm_cuda.lstm_scan_fusedin, lstm_cuda.lstm_scan_fusedin_train,
          lstm_cuda.lstm_scan_fusedin_train_plain) if fused else
         (lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_train, lstm_cuda.lstm_scan_train_plain))
-    n_launch = len(lstm_cuda.row_chunks(batch))
+    wide = hidden > 512
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_launch = len(lstm_cuda.row_chunks(batch)) * len(
+        lstm_cuda._direction_groups("test", ndir, hidden, sms))
     lstm_cuda.reset_launch_counts()
     hs, cs, gates = train(*args, lengths, reverse)
-    dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, args[-1], lengths, reverse)
+    dpre, d_whh = lstm_cuda._adjoint(gates, cs, hs, dy, args[-1], lengths, reverse)
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES[train.__name__] == n_launch
-    assert lstm_cuda.LAUNCHES["lstm_bwd_dw"] == n_launch
+    assert lstm_cuda.LAUNCHES["lstm_bwd" if wide else "lstm_bwd_dw"] == n_launch
+    assert lstm_cuda.LAUNCHES["lstm_bwd_dw" if wide else "lstm_bwd"] == 0
     # hs of the training forward is the lean forward's, bit for bit
     assert torch.equal(hs, lean(*args, lengths, reverse))
     p_hs, p_cs, p_gates = train_plain(*args, lengths, reverse)
@@ -181,6 +201,15 @@ def test_train_kernels_match_plain_on_card(cuda_device, batch, hidden, ndir, dty
     torch.testing.assert_close(d_whh, p_dwhh, atol=_tol(dtype, p_dwhh), rtol=0)
     pads = torch.arange(hs.shape[1], device=cuda_device)[None, :] >= lengths[:, None]
     assert dpre[pads].abs().max().item() == 0.0
+    # the kernel without dW_hh against its own plain version and, where both
+    # take the width, against the kernel with it; the outside product against
+    # the sum inside the kernel
+    nodw = lstm_cuda.lstm_bwd(gates, cs, dy, args[-1], lengths, reverse)
+    p_nodw = lstm_cuda.lstm_bwd_plain(gates, cs, dy, args[-1], lengths, reverse)
+    torch.testing.assert_close(nodw.float(), p_nodw.float(), atol=_tol(dtype, p_nodw), rtol=0)
+    torch.testing.assert_close(nodw.float(), dpre.float(), atol=_tol(dtype, dpre), rtol=0)
+    torch.testing.assert_close(lstm_cuda.dw_hh_outside(hs, nodw, reverse), p_dwhh,
+                               atol=_tol(dtype, p_dwhh), rtol=0)
 
 
 @pytest.mark.cuda
@@ -215,8 +244,14 @@ def test_adjoint_rejects_unsupported_shapes_on_card(cuda_device):
         return lstm_cuda._launch_bwd(g, h, h, h, torch.zeros(1, hidden, 4 * hidden, device=device),
                                      torch.ones(batch, dtype=torch.int32), (False,))
 
-    with pytest.raises(ValueError, match="hidden 1024 > 512.*kernel #6"):
+    with pytest.raises(ValueError, match="hidden 1024.*takes H <= 512.*lstm_bwd's"):
         call(1024)
+    with pytest.raises(ValueError, match="multiple of 64 and at most 1024"):
+        lstm_cuda.lstm_bwd(torch.zeros(2, 4, 4 * 2048, device=cuda_device),
+                           torch.zeros(2, 4, 2048, device=cuda_device),
+                           torch.zeros(2, 4, 2048, device=cuda_device),
+                           torch.zeros(1, 2048, 4 * 2048, device=cuda_device),
+                           torch.ones(2, dtype=torch.int32), (False,))
     with pytest.raises(ValueError, match="multiple of 32"):
         call(48)
     with pytest.raises(ValueError, match="needs CUDA tensors"):

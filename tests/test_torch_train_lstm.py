@@ -222,7 +222,31 @@ def test_adjoint_wrapper_raises_off_cpu_without_cuda():
 
 @pytest.mark.parametrize("stack", ["locked", "pyramidal"])
 def test_stack_remat_raises_in_training(stack):
+    """``remat=True`` in training no longer raises (the name dates from when
+    it did): the stack recomputes each layer in the backward pass, and the
+    output and every gradient equal those of ``remat=False`` bit for bit."""
+    gen = torch.Generator().manual_seed(9)
     fn = (tlstm.locked_lstm_stack_apply if stack == "locked"
           else tlstm.pyramidal_lstm_stack_apply)
-    with pytest.raises(NotImplementedError, match="remat"):
-        fn([], torch.zeros(1, 2, 3), torch.tensor([2]), train=True, remat=True)
+    in_dim = 6 if stack == "locked" else 3  # the pyramid doubles its input
+
+    def direction(d):
+        return {"w_ih": (torch.rand(d, 4 * H, generator=gen) - 0.5) * 0.4,
+                "w_hh": (torch.rand(H, 4 * H, generator=gen) - 0.5) * 0.4,
+                "b": torch.rand(4 * H, generator=gen) - 0.5}
+
+    widths = [6, 2 * H] if stack == "locked" else [6, 4 * H]
+    params = [{"fwd": direction(d), "bwd": direction(d)} for d in widths]
+    leaves = [t.requires_grad_(True) for layer in params for p in layer.values()
+              for t in p.values()]
+    x = torch.randn(3, 8, in_dim, generator=gen).requires_grad_(True)
+    lengths = torch.tensor([8, 5, 2])
+    masks = [torch.rand(3, 1, 2 * H, generator=gen) < 0.8 for _ in params]
+    kw = dict(impl="pallas", train=True, masks=masks, mid_dropout=0.2)
+    kw.update({"init_dropout": 0.2} if stack == "locked" else {"final_dropout": 0.2})
+    grads = {}
+    for remat in (False, True):
+        y, _ = fn(params, x, lengths, remat=remat, **kw)
+        grads[remat] = (y.detach(), *torch.autograd.grad(y.square().sum(), [x, *leaves]))
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
