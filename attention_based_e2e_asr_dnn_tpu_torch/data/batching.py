@@ -11,8 +11,11 @@ Features pad with 0.0 and transcripts with the EOS/PAD id, as the reference
 collate does (src/utils.py:96). The batches equal the JAX package's.
 
 PyTorch runs eagerly, so the buckets bound padding, not compiled programs.
-``ThreadedPrefetcher`` assembles batches ahead on a worker thread. The lazy
-datasets' native assembler (``data/lazy.py``) is not ported yet.
+``ThreadedPrefetcher`` assembles batches ahead on a worker thread. A dataset
+that exposes ``feature_lengths`` is not read to learn its lengths, and one
+that exposes ``assemble(indices, t_pad)`` and ``label(i)`` (the lazy datasets
+of ``data/lazy.py``) builds its own padded feature batch, so that no feature
+file is read before its batch is due.
 """
 
 from __future__ import annotations
@@ -101,23 +104,30 @@ class BucketBatcher:
         take = list(idx)
         n_real = len(take)
         take += [take[-1]] * (self.batch_size - n_real)  # repeat-pad
-        items = [self.dataset[i] for i in take]
-        xs = [it[0] for it in items] if self.has_labels else items
-
-        lx = np.array([len(x) for x in xs], dtype=np.int32)
-        t_pad = pad_to_multiple(int(lx.max()), self.pad_time_multiple)
-        if xs[0].ndim == 2:
-            x = np.zeros((self.batch_size, t_pad, xs[0].shape[1]), dtype=np.float32)
-        else:
-            x = np.full((self.batch_size, t_pad), self.label_pad_id, dtype=np.int32)
-        for b, ex in enumerate(xs):
-            x[b, : len(ex)] = ex
         indices = np.array(list(idx) + [-1] * (self.batch_size - n_real),
                            dtype=np.int64)
-        if not self.has_labels:
+        if hasattr(self.dataset, "assemble"):
+            # lazy path: the dataset reads and pads the features in one pass
+            # (the native thread pool, or numpy); labels come from its
+            # in-memory transcripts, so no item's features are loaded twice
+            t_pad = pad_to_multiple(int(self._lengths[take].max()), self.pad_time_multiple)
+            x, lx = self.dataset.assemble(take, t_pad)
+            ys = [self.dataset.label(i) for i in take] if self.has_labels else None
+        else:
+            items = [self.dataset[i] for i in take]
+            xs = [it[0] for it in items] if self.has_labels else items
+            ys = [it[1] for it in items] if self.has_labels else None
+            lx = np.array([len(x) for x in xs], dtype=np.int32)
+            t_pad = pad_to_multiple(int(lx.max()), self.pad_time_multiple)
+            if xs[0].ndim == 2:
+                x = np.zeros((self.batch_size, t_pad, xs[0].shape[1]), dtype=np.float32)
+            else:
+                x = np.full((self.batch_size, t_pad), self.label_pad_id, dtype=np.int32)
+            for b, ex in enumerate(xs):
+                x[b, : len(ex)] = ex
+        if ys is None:
             return Batch(x=x, lx=lx, indices=indices)
 
-        ys = [it[1] for it in items]
         ly = np.array([len(y) for y in ys], dtype=np.int32)
         l_pad = pad_to_multiple(int(ly.max()), self.pad_label_multiple)
         y = np.full((self.batch_size, l_pad), self.label_pad_id, dtype=np.int32)

@@ -41,6 +41,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     las_config_from_dicts,
     las_from_jax_params,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     average_checkpoints,
@@ -139,6 +140,11 @@ def main(args):
             "beam search is not ported yet (ROADMAP queue 1, item 9)")
     exp_folder = infcfgs.exp_folder
     model_cfgs = load_config(os.path.join(exp_folder, "config.json"))
+    # on a card with a kernel tier configured: every kernel source built side
+    # by side before the first batch
+    cuda_build.build_for(
+        device, model_cfgs.model.configs["listener_configs"].get("lstm_impl"),
+        model_cfgs.model.configs["speller_configs"].get("decoder_impl"))
 
     use_mini = os.path.basename(model_cfgs.TRN_FOLDER).startswith("mini")
     # a reference experiment's snapshot has no vocabulary: the fixed table

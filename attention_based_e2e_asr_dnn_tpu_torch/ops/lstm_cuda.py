@@ -2,8 +2,9 @@
 ``ops/lstm_pallas.py``), with their plain versions and the autograd
 Functions that join them.
 
-Two CUDA sources. ``csrc/lstm_scan.cu`` holds the forward recurrence with
-compile-time switches for the input projection and the training streams:
+Three CUDA sources. ``csrc/lstm_scan.cu`` holds the forward recurrence with
+compile-time switches for the input projection and the training streams
+(the kernel's body is ``csrc/lstm_scan_body.cuh``):
 
   ``lstm_scan``          replaces ``_lstm_scan_nocs_kernel``
                          (lstm_pallas.py:87, via ``_forward_pallas`` with
@@ -19,6 +20,26 @@ compile-time switches for the input projection and the training streams:
                          with two more output streams, the carry ``cs`` (the
                          frozen carry at padded frames) and the activated
                          gates [i, f, g, o] in the stream dtype.
+
+``csrc/lstm_scan_streams.cu`` holds two further forms of that recurrence:
+
+  ``lstm_scan_cs``       replaces ``_lstm_scan_kernel`` with ``with_cs=True``
+                         (lstm_pallas.py:98, via ``_forward_pallas``):
+                         ``lstm_scan`` with the carry stream ``cs`` beside hs
+                         and no gates;
+  ``bilstm_scan_fused``  replaces ``_bilstm_scan_kernel`` (lstm_pallas.py:1063,
+                         via ``_forward_pallas_bi``): both directions in one
+                         launch over xp (T, 2, B, 4H) with direction 1 flipped
+                         in time, hs the carry itself (frozen at padded
+                         frames, not zero) and cs, both (T, 2, B, H).
+                         ``bilstm_apply_fused`` is the layer op on it (the JAX
+                         ``bilstm_apply_pallas_fused``), and
+                         ``_BilstmScanFused`` its gradient: the gates are
+                         recomputed from (xp, hs) for all frames at once, then
+                         ``lstm_bwd`` and ``dw_hh_outside``. The kernel takes
+                         lengths, so only prefix masks (the op builds no
+                         other), any batch of at least one row, and H <= 512:
+                         a wider layer raises and is ``bilstm_apply_kernel``'s.
 
 ``csrc/lstm_bwd.cu`` holds the adjoint, in two forms of one kernel:
 
@@ -76,8 +97,9 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
 from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import length_mask
 
 SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan.cu")
+STREAMS_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_streams.cu")
 BWD_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd.cu")
-SOURCES = (SOURCE, BWD_SOURCE)
+SOURCES = (SOURCE, STREAMS_SOURCE, BWD_SOURCE)
 
 # the kernels' fixed geometry (csrc/lstm_common.cuh): hidden units per block,
 # batch rows per block (one per lane)
@@ -94,7 +116,8 @@ _SMEM_LIMIT = 232448
 
 # launches of each kernel since the last reset
 LAUNCHES = {"lstm_scan": 0, "lstm_scan_fusedin": 0, "lstm_scan_train": 0,
-            "lstm_scan_fusedin_train": 0, "lstm_bwd_dw": 0, "lstm_bwd": 0}
+            "lstm_scan_fusedin_train": 0, "lstm_bwd_dw": 0, "lstm_bwd": 0,
+            "lstm_scan_cs": 0, "bilstm_scan_fused": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,6 +148,21 @@ def load_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def load_streams_library() -> ctypes.CDLL:
+    """Build ``csrc/lstm_scan_streams.cu`` and bind its C entry point."""
+    lib = ctypes.CDLL(cuda_build.build_library(STREAMS_SOURCE))
+    fn = lib.lstm_scan_streams_launch
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = [i, i, i, i, i, i, i,        # dtype bi ndir rev B T H
+                   p, ll, ll, ll,              # x and its strides
+                   p, p,                       # w_hh lengths
+                   p, ll, ll, ll,              # out and its strides
+                   p, p, p]                    # exchange buffer, cs, stream
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def load_bwd_library() -> ctypes.CDLL:
     """Build ``csrc/lstm_bwd.cu`` and bind its two C entry points."""
     lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
@@ -140,6 +178,9 @@ def load_bwd_library() -> ctypes.CDLL:
                    p, p]                    # dpre stream
     fn.restype = ctypes.c_int
     return lib
+
+
+LOADERS = (load_library, load_streams_library, load_bwd_library)
 
 
 def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
@@ -268,6 +309,68 @@ def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
     return (out, cs, gates) if train else out
 
 
+def _launch_streams(name: str, bi: bool, x: torch.Tensor, w_hh: torch.Tensor,
+                    lengths: torch.Tensor, reverse: Tuple[bool, ...]):
+    """Check shapes and launch a form of ``csrc/lstm_scan_streams.cu`` once
+    per 32 rows (and direction group). ``bi``: x is xp (T, 2, B, 4H) and the
+    outputs are (T, 2, B, H), both directions in every launch; else x is
+    x_proj (B, T, ndir * 4H) and the outputs (B, T, ndir * H). Returns
+    (hs, cs)."""
+    if x.dim() != (4 if bi else 3):
+        raise ValueError(f"{name}: input {tuple(x.shape)} must have "
+                         f"{'(T, 2, B, 4H)' if bi else '(B, T, ndir x 4H)'} axes")
+    by_row = x.permute(2, 0, 1, 3) if bi else x  # batch first, then time
+    ndir, hidden, groups = _check_recurrence(name, by_row, [x, w_hh], w_hh, lengths, reverse)
+    dtype, four_h = x.dtype, 4 * hidden
+    batch, seq_len = by_row.shape[0], by_row.shape[1]
+    if bi:
+        if x.shape[1] != 2 or x.shape[3] != four_h or ndir != 2:
+            raise ValueError(f"{name}: xp {tuple(x.shape)} must be (T, 2, B, 4H) for "
+                             f"w_hh {tuple(w_hh.shape)}")
+        if len(groups) > 1:
+            raise ValueError(
+                f"{name}: hidden {hidden} needs 2 x {hidden // _UNITS} co-resident blocks, "
+                f"more than the card's SMs: both directions fit one launch only up to "
+                f"H = {_BWD_DW_MAX_HIDDEN}; a wider layer is bilstm_apply_kernel's, a "
+                f"launch a direction")
+        x_strides = (batch * four_h, four_h, 2 * batch * four_h)
+        o_strides = (batch * hidden, hidden, 2 * batch * hidden)
+        out = torch.empty(seq_len, 2, batch, hidden, dtype=dtype, device=x.device)
+    else:
+        if x.shape[2] != ndir * four_h:
+            raise ValueError(f"{name}: x_proj {tuple(x.shape)} must be (B, T, {ndir} x 4H)")
+        x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
+        o_strides = (hidden, seq_len * ndir * hidden, ndir * hidden)
+        out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
+    # W_hh columns and the staged h (reused for the cross-warp sums)
+    _check_smem(name, hidden, 4 * (
+        hidden * _UNITS * 4 + max(_BMAX * (_staged_width(hidden) + 4), 8 * _UNITS * 4 * 32)))
+
+    lib = load_streams_library()
+    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+    cs = torch.empty_like(out)
+    size = x.element_size()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for r0, r1 in row_chunks(batch):
+            # a launch sees rows r0.. as rows 0.. and a group's directions as
+            # directions 0..: both are offsets of whole strides
+            for d0, nd in groups:
+                hbuf = torch.empty(2, nd, r1 - r0, hidden, dtype=dtype, device=x.device)
+                rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
+                x_off = (r0 * x_strides[1] + d0 * x_strides[0]) * size
+                o_off = (r0 * o_strides[1] + d0 * o_strides[0]) * size
+                err = lib.lstm_scan_streams_launch(
+                    _DTYPE_CODES[dtype], int(bi), nd, rev_bits, r1 - r0, seq_len, hidden,
+                    x.data_ptr() + x_off, *x_strides, w_hh[d0].data_ptr(),
+                    lengths[r0:r1].data_ptr(), out.data_ptr() + o_off, *o_strides,
+                    hbuf.data_ptr(), cs.data_ptr() + o_off, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+                LAUNCHES[name] += 1
+    return out, cs
+
+
 def _launch_bwd(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
                 dy: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
                 reverse: Tuple[bool, ...]):
@@ -359,11 +462,13 @@ def _launch_bwd_nodw(gates: torch.Tensor, cs: torch.Tensor, dy: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _scan_plain(pre_x: torch.Tensor, w_hh: torch.Tensor, valid: torch.Tensor,
-                reverse: bool, train: bool = False):
+                reverse: bool, train: bool = False, zero_pads: bool = True):
     """One direction's recurrence in float32 over pre_x (B, T, 4H) float32;
-    w_hh (H, 4H) in the weight dtype. Returns hs (B, T, H) float32, and with
-    ``train`` also cs (B, T, H) and the activated gates (B, T, 4H), zero at
-    padded frames, both float32 (the caller rounds them to the stream dtype)."""
+    w_hh (H, 4H) in the weight dtype; ``valid`` (B, T) bool, any mask. Returns
+    hs (B, T, H) float32, zero at padded frames or, without ``zero_pads``, the
+    frozen carry there; and with ``train`` also cs (B, T, H) and the activated
+    gates (B, T, 4H), zero at padded frames, both float32 (the caller rounds
+    them to the stream dtype)."""
     batch, seq_len, _ = pre_x.shape
     hidden = w_hh.shape[0]
     w = w_hh.float()
@@ -381,7 +486,7 @@ def _scan_plain(pre_x: torch.Tensor, w_hh: torch.Tensor, valid: torch.Tensor,
         m = valid[:, t, None]
         h = torch.where(m, h_new, h)
         c = torch.where(m, c_new, c)
-        hs[t] = torch.where(m, h_new, 0.0)
+        hs[t] = torch.where(m, h_new, 0.0) if zero_pads else h
         if train:
             cs[t] = c
             gates[t] = torch.where(m, act, 0.0)
@@ -431,6 +536,26 @@ def lstm_scan_train_plain(x_proj, w_hh, lengths, reverse):
     return _directions_plain(
         lambda d: x_proj[..., d * four_h:(d + 1) * four_h].float(), w_hh, lengths,
         x_proj.shape[1], reverse, x_proj.dtype, train=True)
+
+
+def lstm_scan_cs_plain(x_proj, w_hh, lengths, reverse):
+    """Plain version of ``lstm_scan_cs``: ``lstm_scan_train_plain`` without
+    its gates."""
+    return lstm_scan_train_plain(x_proj, w_hh, lengths, reverse)[:2]
+
+
+def bilstm_scan_fused_plain(xp: torch.Tensor, w_hh: torch.Tensor,
+                            lengths: torch.Tensor):
+    """Plain version of ``bilstm_scan_fused``: both streams walked ascending,
+    direction 1 under the flipped mask (its padded frames first); hs is the
+    carry h, frozen at padded frames; (hs, cs), each (T, 2, B, H) in xp's
+    dtype."""
+    valid = length_mask(lengths, xp.shape[0])
+    outs = [_scan_plain(xp[:, d].transpose(0, 1).float(), w_hh[d],
+                        valid.flip(1) if d else valid, False, train=True, zero_pads=False)
+            for d in range(2)]
+    return tuple(torch.stack([o[i].transpose(0, 1) for o in outs], dim=1).to(xp.dtype)
+                 for i in range(2))
 
 
 def lstm_scan_fusedin_train_plain(x, w_ih, b, w_hh, lengths, reverse):
@@ -515,14 +640,19 @@ def dw_hh_outside(hs: torch.Tensor, dpre: torch.Tensor,
         p_d = dpre[..., d * four_h:(d + 1) * four_h]
         # the scan-previous frame of t is t + 1 in a descending scan, else t - 1
         h_d, p_d = (h_d[:, 1:], p_d[:, :-1]) if rev else (h_d[:, :-1], p_d[:, 1:])
-        a, b = h_d.reshape(-1, hidden).T, p_d.reshape(-1, four_h)
-        if a.dtype == torch.float32:
-            out.append(torch.mm(a, b))
-        elif a.is_cuda:
-            out.append(torch.mm(a, b, out_dtype=torch.float32))
-        else:  # the CPU has no mixed-precision product: the same sums in float32
-            out.append(torch.mm(a.float(), b.float()))
+        out.append(_mm_f32(h_d.reshape(-1, hidden).T, p_d.reshape(-1, four_h)))
     return torch.stack(out)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with operands in their own dtype, float32 sums and a float32
+    result."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # the CPU has no mixed-precision product: the same sums in float32
+    return torch.mm(a.float(), b.float())
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +698,32 @@ def lstm_bwd(gates, cs, dy, w_hh, lengths, reverse) -> torch.Tensor:
     if gates.device.type == "cpu":
         return lstm_bwd_plain(gates, cs, dy, w_hh, lengths, reverse)
     return _launch_bwd_nodw(gates, cs, dy, w_hh, lengths, tuple(reverse))
+
+
+def lstm_scan_cs(x_proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+                 reverse: Sequence[bool]):
+    """``lstm_scan`` with the carry stream: ``lstm_scan``'s arguments ->
+    (hs, cs), hs as ``lstm_scan`` gives it bit for bit, cs (B, T, ndir * H)
+    as ``lstm_scan_train`` gives it (the carry c after each frame, frozen at
+    padded frames), in x_proj's dtype. Not differentiable."""
+    if x_proj.device.type == "cpu":
+        return lstm_scan_cs_plain(x_proj, w_hh, lengths, reverse)
+    return _launch_streams("lstm_scan_cs", False, x_proj, w_hh, lengths, tuple(reverse))
+
+
+def bilstm_scan_fused(xp: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+    """Both directions of a BiLSTM layer in one launch (a launch per 32 rows).
+
+    xp (T, 2, B, 4H): each direction's ``x @ W_ih + b``, direction 1 flipped
+    in time as a whole (so a row's padded frames come first in it); w_hh
+    (2, H, 4H); lengths (B,). Returns (hs, cs), each (T, 2, B, H) in xp's
+    dtype and in the streams' own time order: the carries h and c after each
+    frame, frozen at padded frames (direction 0 holds the row's last valid h
+    and c there, direction 1 zeros). Not differentiable: ``_BilstmScanFused``
+    is. H <= 512 on the card."""
+    if xp.device.type == "cpu":
+        return bilstm_scan_fused_plain(xp, w_hh, lengths)
+    return _launch_streams("bilstm_scan_fused", True, xp, w_hh, lengths, (False, False))
 
 
 def _adjoint(gates, cs, hs, dy, w_hh, lengths, reverse):
@@ -634,6 +790,80 @@ class _LstmScanFusedin(torch.autograd.Function):
                 None, None)
 
 
+def _streams_to_natural(t: torch.Tensor) -> torch.Tensor:
+    """(T, 2, B, W) in the fused kernel's layout -> (B, T, 2W) with both
+    directions in natural time, side by side (the other kernels' layout)."""
+    return torch.cat([t[:, 0], t[:, 1].flip(0)], dim=-1).transpose(0, 1).contiguous()
+
+
+def _natural_to_streams(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_streams_to_natural``."""
+    width = t.shape[2] // 2
+    by_time = t.transpose(0, 1)
+    return torch.stack([by_time[..., :width], by_time[..., width:].flip(0)], dim=1)
+
+
+class _BilstmScanFused(torch.autograd.Function):
+    """``bilstm_scan_fused`` under autograd (the JAX ``pallas_bilstm_scan``
+    custom VJP): (xp, w_hh, lengths) -> hs, differentiable in xp and w_hh.
+
+    The forward saves (xp, hs, cs) and no gates, as the JAX one does. The
+    backward recomputes the pre-activations of every frame at once (hs is
+    saved, so ``xp + h_prev @ W_hh`` is one product a direction and nothing
+    is sequential), activates them in float32, rounds them to the stream
+    dtype and zeroes them at padded frames: the gates stream of the training
+    forward. Then the adjoint recurrence is ``lstm_bwd`` and dW_hh is
+    ``dw_hh_outside``, on the streams brought into natural time, where
+    direction 1 is an ordinary descending direction. A cotangent on hs at one
+    of direction 0's padded frames belongs to the frozen carry and so to the
+    row's last valid frame: it is added there before the launch (``lstm_bwd``
+    ignores cotangents at padded frames); one at direction 1's padded frames
+    meets the constant zero carry and is dropped."""
+
+    @staticmethod
+    def forward(ctx, xp, w_hh, lengths):
+        hs, cs = bilstm_scan_fused(xp, w_hh, lengths)
+        ctx.save_for_backward(xp, w_hh, lengths, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, d_hs):
+        xp, w_hh, lengths, hs, cs = ctx.saved_tensors
+        dtype, (seq_len, _, batch, four_h) = xp.dtype, xp.shape
+        hidden = four_h // 4
+        reverse = (False, True)
+        xp_n, hs_n, cs_n = (_streams_to_natural(t) for t in (xp, hs, cs))
+        valid = length_mask(lengths, seq_len)
+
+        # direction 0's cotangents at padded frames, onto the last valid frame
+        dy = _streams_to_natural(d_hs.float())
+        tail = torch.where(valid[:, :, None], 0.0, dy[..., :hidden]).sum(1)
+        last = (lengths.long() - 1).clamp(min=0)
+        rows = torch.arange(batch, device=dy.device)
+        dy[rows, last, :hidden] += torch.where((lengths > 0)[:, None], tail, 0.0)
+        dy = dy.to(dtype)
+
+        # the gates of every frame from the saved hs: the scan-previous frame
+        # of t is t - 1 for direction 0 and t + 1 for direction 1
+        zero = hs_n.new_zeros(batch, 1, hidden)
+        gates = []
+        for d in range(2):
+            h_d = hs_n[..., d * hidden:(d + 1) * hidden]
+            h_prev = (torch.cat([h_d[:, 1:], zero], dim=1) if d
+                      else torch.cat([zero, h_d[:, :-1]], dim=1))
+            pre = (xp_n[..., d * four_h:(d + 1) * four_h].float()
+                   + _mm_f32(h_prev.reshape(-1, hidden), w_hh[d]).view(batch, seq_len, four_h))
+            act = torch.cat([torch.sigmoid(pre[..., :2 * hidden]),
+                             torch.tanh(pre[..., 2 * hidden:3 * hidden]),
+                             torch.sigmoid(pre[..., 3 * hidden:])], dim=-1)
+            gates.append(torch.where(valid[:, :, None], act, 0.0).to(dtype))
+        gates = torch.cat(gates, dim=-1)
+
+        dpre = lstm_bwd(gates, cs_n, dy, w_hh, lengths, reverse)
+        d_whh = dw_hh_outside(hs_n, dpre, reverse)
+        return _natural_to_streams(dpre), d_whh.to(w_hh.dtype), None
+
+
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -684,3 +914,35 @@ def bilstm_apply_kernel(params, x: torch.Tensor,
     (B, T, D) -> (B, T, 2H) = [fwd, bwd]."""
     return directions_apply([params["fwd"], params["bwd"]], x, lengths,
                             (False, True), lstm_scan_fusedin, lstm_scan)
+
+
+def bilstm_apply_fused(params, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """``bilstm_apply_pallas_fused``'s contract: (B, T, D) -> (B, T, 2H) =
+    [fwd, bwd], zero at padded frames, on the fused bidirectional kernel.
+
+    One product projects the input for both directions (W_ih concatenated on
+    the output axis); direction 1's projection is flipped in time and both are
+    laid out as (T, 2, B, 4H); ``bilstm_scan_fused`` runs the recurrence;
+    direction 1's states are flipped back, and the padded frames, where the
+    kernel leaves the frozen carry, are zeroed. Differentiable in x and the
+    parameters (``_BilstmScanFused``). The JAX package keeps this op beside
+    ``bilstm_apply_pallas`` as the small-batch variant and routes no config
+    key to it; neither does this package."""
+    dtype = x.dtype
+    seq_len = x.shape[1]
+    fwd, bwd = params["fwd"], params["bwd"]
+    four_h = 4 * fwd["w_hh"].shape[0]
+    w_ih = torch.cat([fwd["w_ih"], bwd["w_ih"]], dim=1).to(dtype)
+    b = torch.cat([fwd["b"], bwd["b"]]).to(dtype)
+    xp_cat = torch.matmul(x, w_ih) + b
+    xp = torch.stack([xp_cat[..., :four_h], xp_cat[..., four_h:].flip(1)], dim=0)
+    xp = xp.permute(2, 0, 1, 3).contiguous()                       # (T, 2, B, 4H)
+    w_hh = torch.stack([fwd["w_hh"], bwd["w_hh"]]).to(dtype)
+    if _wants_grad(xp, w_hh):
+        hs = _BilstmScanFused.apply(xp, w_hh, lengths)
+    else:
+        hs, _ = bilstm_scan_fused(xp, w_hh, lengths)
+    h_fwd = hs[:, 0].transpose(0, 1)                                # (B, T, H)
+    h_bwd = hs[:, 1].transpose(0, 1).flip(1)
+    valid = length_mask(lengths, seq_len)
+    return torch.cat([h_fwd, h_bwd], dim=-1) * valid[:, :, None].to(dtype)

@@ -316,6 +316,9 @@ def load_bwd_library() -> ctypes.CDLL:
     return lib
 
 
+LOADERS = (load_library, load_bwd_library)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_limits(device: int) -> dict:
     """The forward kernel's geometry as the source defines it (at most

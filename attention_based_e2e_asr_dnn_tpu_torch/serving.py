@@ -9,9 +9,21 @@ The experiment's ``config.json`` snapshot rebuilds the model and the
 checkpoint loads from the data-only format. Requests are length-sorted into
 padded batches of ``batch_size`` rows (the last one repeat-padded), each
 padded in time to a multiple of ``pad_time_multiple``, and the original
-order is restored. PyTorch runs eagerly, so there is no compile ladder:
-every batch takes its tight time bucket, and ``warmup`` only runs one batch
-per bucket to build the kernels and fill the allocator's cache.
+order is restored.
+
+Warm-up. The JAX ``Transcriber`` compiles one program a (batch, time bucket)
+shape, so it warms a ladder of buckets, counts a bucket as warm once its
+program exists, and routes a request up to a warm bucket instead of stalling
+on a compile. PyTorch runs eagerly and compiles no shape anew, so here "warm"
+means that the kernels' libraries are built and bound (``build_all``, the one
+cost of a cold start on the card: about a minute of ``nvcc``) and that one
+batch of the bucket has run (allocator cache, cuBLAS handles). The interface
+is the JAX one: ``auto_warmup`` starts the ladder on a background thread,
+largest bucket first; ``wait_ready`` blocks until the largest is warm and
+re-raises a failed warm-up; ``wait_warm`` joins the thread; the background
+ladder yields to requests in flight. ``_route_bucket`` always returns the
+tight bucket: no bucket is cheaper to enter than another, so padding a batch
+up to a warm one would only add work.
 
 Not ported yet (ROADMAP queue 1, items 9 and 11): beam search, the Rewriter
 corrector, data-parallel decoding.
@@ -22,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -35,6 +48,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     las_config_from_dicts,
     las_from_jax_params,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     average_checkpoints,
@@ -85,10 +99,15 @@ class Transcriber:
         checkpoint: explicit checkpoint path; default = latest best tag.
         average: uniform-average all best checkpoints instead.
         beam_size: 0/1 = early-stop greedy (beam search not ported yet).
+        length_alpha: beam search's length normalisation; kept for the day
+            beam search is ported, unused by the greedy decode.
         max_len_factor: force-finish a row beyond this many characters per
             encoder frame (0 disables).
         batch_size: decode batch (requests are chunked and padded to it).
         pad_time_multiple: time bucket granularity.
+        auto_warmup: frame counts whose buckets a background thread warms,
+            largest first (see the module docstring); ``wait_ready`` gates
+            traffic on the largest.
         device: where the model runs ("cuda", "cuda:1", "cpu").
     """
 
@@ -98,9 +117,11 @@ class Transcriber:
         checkpoint: Optional[str] = None,
         average: bool = False,
         beam_size: int = 0,
+        length_alpha: float = 0.0,
         max_len_factor: float = 3.0,
         batch_size: int = 32,
         pad_time_multiple: int = 128,
+        auto_warmup: Optional[Sequence[int]] = None,
         data_parallel: int = 1,
         corrector=None,
         device: str = "cuda",
@@ -114,6 +135,8 @@ class Transcriber:
         if data_parallel > 1:
             raise NotImplementedError(
                 "data-parallel decoding is not ported yet (ROADMAP queue 1, item 11)")
+        self.corrector = None
+        self.length_alpha = length_alpha
         snap, payload = load_experiment(exp_folder, checkpoint, average)
         model_cfgs = snap["model"]["configs"]
         self.cfg = las_config_from_dicts(model_cfgs["listener_configs"],
@@ -126,42 +149,139 @@ class Transcriber:
         self.pad_time_multiple = pad_time_multiple
         self.n_feats = self.cfg.listener.input_dim
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Transcriber(device={device!r}): no CUDA device here; "
+                               f"pass device='cpu' to decode on the CPU")
         self.params = las_from_jax_params(payload["params"]).to(self.device)
         self._step = make_las_greedy_step(
             self.cfg, compute_dtype=self.compute_dtype,
             max_len_factor=max_len_factor)
+
+        # warm-bucket registry (see the module docstring for what "warm" is)
+        self._warm: set = set()
+        self._warm_lock = threading.Lock()
+        self._ready_evt = threading.Event()
+        # ready = the ladder's LARGEST bucket is warm; a small early request
+        # that warms a tight bucket must not flip it
+        self._ready_bucket = (max(pad_to_multiple(t, pad_time_multiple)
+                                  for t in auto_warmup)
+                              if auto_warmup else 0)
+        # requests in flight: the background warm-up waits between buckets
+        # while there are any, so that it does not queue work on the card in
+        # front of live traffic
+        self._fg_cv = threading.Condition()
+        self._fg_count = 0
+        self._warmup_thread: Optional[threading.Thread] = None
+        self._warmup_error: Optional[BaseException] = None
+        if auto_warmup:
+            self._warmup_thread = threading.Thread(
+                target=self._warmup_bg, args=(tuple(auto_warmup),), daemon=True)
+            self._warmup_thread.start()
+        else:
+            self._build_kernels()
+
+    def _build_kernels(self) -> None:
+        """On a card with a kernel tier configured: every kernel source built
+        side by side and bound (a failed build raises)."""
+        cuda_build.build_for(self.device, self.cfg.listener.lstm_impl,
+                             self.cfg.speller.decoder_impl)
+
+    def _warmup_bg(self, time_buckets) -> None:
+        """The background warm-up: the kernels' build, then the ladder. A
+        failure must not vanish into a dead daemon thread: it is recorded and
+        ``wait_ready`` is released, so that the caller sees the error instead
+        of blocking for ever."""
+        try:
+            self._build_kernels()
+            self.warmup(time_buckets, largest_first=True, yield_to_foreground=True)
+        except BaseException as exc:  # noqa: BLE001 - raised again in wait_ready
+            self._warmup_error = exc
+            self._ready_evt.set()
 
     def _decode(self, x: np.ndarray, lx: np.ndarray) -> np.ndarray:
         ids = self._step(self.params, torch.from_numpy(x).to(self.device),
                          torch.from_numpy(lx).to(self.device))
         return ids.cpu().numpy()
 
-    def warmup(self, time_buckets: Sequence[int] = (512,)) -> None:
-        """Run one full batch per time bucket."""
-        for t in sorted({pad_to_multiple(t, self.pad_time_multiple)
-                         for t in time_buckets}):
-            x = np.zeros((self.batch_size, t, self.n_feats), np.float32)
-            self._decode(x, np.full((self.batch_size,), t, np.int32))
+    def warmup(self, time_buckets: Sequence[int] = (512,),
+               largest_first: bool = False,
+               yield_to_foreground: bool = False) -> None:
+        """Run one full batch per time bucket not warm yet. ``largest_first``
+        warms the largest bucket first (the one ``wait_ready`` waits for);
+        ``yield_to_foreground`` (the background mode) pauses between buckets
+        while requests are in flight."""
+        buckets = sorted({pad_to_multiple(t, self.pad_time_multiple)
+                          for t in time_buckets}, reverse=largest_first)
+        for t_pad in buckets:
+            if yield_to_foreground and self._ready_evt.is_set():
+                with self._fg_cv:
+                    while self._fg_count > 0:
+                        self._fg_cv.wait(timeout=5.0)
+            with self._warm_lock:
+                if t_pad in self._warm:
+                    continue
+            x = np.zeros((self.batch_size, t_pad, self.n_feats), np.float32)
+            self._decode(x, np.full((self.batch_size,), t_pad, np.int32))
+            self._mark_warm(t_pad)
+
+    def _mark_warm(self, t_pad: int) -> None:
+        with self._warm_lock:
+            self._warm.add(t_pad)
+        if t_pad >= self._ready_bucket:
+            self._ready_evt.set()
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        """Block until the auto-warm-up's largest bucket is warm: the kernels
+        are built and bound and a full batch of that size has run, so no
+        request pays a cold start. Returns True when ready, False on timeout;
+        raises ``RuntimeError`` if the background warm-up failed. Without
+        ``auto_warmup`` it returns True at once."""
+        if self._warmup_thread is None:
+            return True
+        got = self._ready_evt.wait(timeout)
+        if self._warmup_error is not None:
+            raise RuntimeError(
+                "background auto-warmup failed") from self._warmup_error
+        return got
+
+    def wait_warm(self, timeout: Optional[float] = None) -> None:
+        """Block until the background auto-warm-up ladder has finished."""
+        if self._warmup_thread is not None:
+            self._warmup_thread.join(timeout)
+
+    def _route_bucket(self, t_need: int) -> int:
+        """The execution bucket of a batch that needs ``t_need`` frames:
+        always the tight one. The JAX ``Transcriber`` routes up to a warm
+        bucket to avoid a compile; PyTorch compiles no shape, so a larger
+        bucket would only add padded frames to the recurrence."""
+        return pad_to_multiple(t_need, self.pad_time_multiple)
 
     def transcribe(self, features: Sequence[np.ndarray]) -> List[str]:
         """Transcribe variable-length (T_i, n_feats) float feature arrays."""
         n = len(features)
         order = sorted(range(n), key=lambda i: len(features[i]), reverse=True)
         out: List[Optional[str]] = [None] * n
-        for start in range(0, n, self.batch_size):
-            chunk = order[start: start + self.batch_size]
-            rows = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
-            t_pad = pad_to_multiple(max(len(features[i]) for i in chunk),
-                                    self.pad_time_multiple)
-            x = np.zeros((self.batch_size, t_pad, self.n_feats), np.float32)
-            lx = np.zeros((self.batch_size,), np.int32)
-            for r, i in enumerate(rows):
-                f = np.asarray(features[i], np.float32)[:, : self.n_feats]
-                x[r, : len(f)] = f
-                lx[r] = len(f)
-            ids = self._decode(x, lx)
-            for r, i in enumerate(chunk):
-                out[i] = ids_to_str(ids[r], self.vocab, self.sos_idx, self.eos_idx)
+        with self._fg_cv:
+            self._fg_count += 1
+        try:
+            for start in range(0, n, self.batch_size):
+                chunk = order[start: start + self.batch_size]
+                rows = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
+                t_pad = self._route_bucket(max(len(features[i]) for i in chunk))
+                x = np.zeros((self.batch_size, t_pad, self.n_feats), np.float32)
+                lx = np.zeros((self.batch_size,), np.int32)
+                for r, i in enumerate(rows):
+                    f = np.asarray(features[i], np.float32)[:, : self.n_feats]
+                    x[r, : len(f)] = f
+                    lx[r] = len(f)
+                ids = self._decode(x, lx)
+                self._mark_warm(t_pad)
+                for r, i in enumerate(chunk):
+                    out[i] = ids_to_str(ids[r], self.vocab, self.sos_idx, self.eos_idx)
+        finally:
+            with self._fg_cv:
+                self._fg_count -= 1
+                self._fg_cv.notify_all()
         return out  # type: ignore[return-value]
 
 

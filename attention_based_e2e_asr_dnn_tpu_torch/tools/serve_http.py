@@ -1,0 +1,135 @@
+"""Serve a trained experiment over HTTP (counterpart of the JAX package's
+``tools/serve_http.py``).
+
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.serve_http \\
+        experiments/<run> --port 8080 [--batch-size 32] \\
+        [--warmup 256 512 1024 1536] [--device cuda]
+
+Gates traffic on readiness when a warmup ladder is given: the server binds
+first, ``/healthz`` answers at once, and ``/readyz`` turns 200 when the
+kernels are built and the ladder's largest bucket has run one batch; POST
+``/v1/transcribe`` afterwards. ``--device`` (default ``cuda``) names where
+the model runs; ``cuda`` without a card fails.
+
+The flags are the JAX tool's. Those whose modules are not ported raise
+``NotImplementedError`` and name their ROADMAP item: ``--artifact`` and
+``--corrector-artifact`` (item 8b, export.py), ``--corrector`` and its
+options (item 9), ``--beam-size`` above 1 (item 9), ``--data-parallel`` above
+1 (item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import threading
+import time
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("exp_folder", nargs="?", default=None)
+    ap.add_argument("--artifact", action="append", default=None,
+                    help="serve from exported .tlas bucket(s) (not ported)")
+    ap.add_argument("--corrector-artifact", default=None,
+                    help="rewriter .tlas for gated auto-correction (not ported)")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--average", action="store_true")
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--pad-time-multiple", type=int, default=128)
+    ap.add_argument("--beam-size", type=int, default=0)
+    ap.add_argument("--max-wait-ms", type=float, default=10.0)
+    ap.add_argument("--warmup", type=int, nargs="*", default=None,
+                    help="bucket ladder (frame counts) to warm before ready")
+    ap.add_argument("--corrector", default=None,
+                    help="LM experiment folder for gated auto-correction "
+                         "(not ported)")
+    ap.add_argument("--corrector-margin", type=float, default=0.0)
+    ap.add_argument("--corrector-span-family", default=None)
+    ap.add_argument("--corrector-span-conf-tau", type=float, default=0.5)
+    ap.add_argument("--corrector-span-fracs", type=float, nargs="+",
+                    default=[0.25, 0.5, 0.75, 0.9])
+    ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs: cuda, cuda:N or cpu")
+    return ap
+
+
+def check_ported(args) -> None:
+    """Raise for the flags this package cannot serve yet."""
+    if args.artifact or args.corrector_artifact:
+        raise NotImplementedError(
+            "--artifact / --corrector-artifact are not ported yet (ROADMAP "
+            "queue 1, item 8b: export.py); serve an experiment folder")
+    if (args.corrector or args.corrector_span_family is not None
+            or args.corrector_margin):
+        raise NotImplementedError(
+            "--corrector and its options are not ported yet (ROADMAP queue 1, "
+            "item 9: the Rewriter corrector)")
+    if args.beam_size > 1:
+        raise NotImplementedError(
+            "--beam-size > 1 is not ported yet (ROADMAP queue 1, item 9: "
+            "decoding/beam.py)")
+    if args.data_parallel > 1:
+        raise NotImplementedError(
+            "--data-parallel > 1 is not ported yet (ROADMAP queue 1, item 11: "
+            "parallel/)")
+
+
+def start(args):
+    """Build the Transcriber and the bound, started server for ``args``."""
+    from attention_based_e2e_asr_dnn_tpu_torch.server import AsrHttpServer
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Transcriber
+
+    transcriber = Transcriber(
+        args.exp_folder,
+        checkpoint=args.checkpoint,
+        average=args.average,
+        beam_size=args.beam_size,
+        batch_size=args.batch_size,
+        pad_time_multiple=args.pad_time_multiple,
+        auto_warmup=args.warmup,
+        data_parallel=args.data_parallel,
+        device=args.device,
+    )
+    # bind FIRST: /healthz answers during warmup and /readyz gates traffic
+    # (a readiness probe that cannot connect looks like a dead process)
+    server = AsrHttpServer(transcriber, host=args.host, port=args.port,
+                           max_wait_ms=args.max_wait_ms).start()
+    return transcriber, server
+
+
+def main(argv=None) -> int:
+    ap = build_argparser()
+    args = ap.parse_args(argv)
+    check_ported(args)
+    if not args.exp_folder:
+        ap.error("give an experiment folder")
+    if args.warmup == []:
+        ap.error("--warmup needs at least one bucket frame count "
+                 "(e.g. --warmup 512 1024)")
+    transcriber, server = start(args)
+    print(f"listening on {server.host}:{server.port}"
+          + (" (readiness gated on warmup via /readyz)"
+             if args.warmup is not None else ""), flush=True)
+    if args.warmup is not None:
+        def announce():
+            try:
+                transcriber.wait_ready()
+                print("ready: kernels built, first warmup bucket run", flush=True)
+            except RuntimeError as exc:
+                print(f"warmup FAILED: {exc}", flush=True)
+
+        threading.Thread(target=announce, daemon=True).start()
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,9 @@ Shapes: ``--hidden`` 512 (base-LAS, both directions in one launch) or 1024
 projection) for the lean forward kernels, and the train batch (B=128) for
 the training forward and the adjoints where the tree has them:
 ``lstm_bwd_dw`` up to H=512, ``lstm_bwd`` at every width, and the outside
-dW_hh product beside it. Times are CUDA-event medians of ``--reps`` calls after one warm-up
+dW_hh product beside it; ``lstm_scan_cs`` and, up to H=512,
+``bilstm_scan_fused`` (over the same projection laid out as (T, 2, B, 4H))
+beside ``lstm_scan``. Times are CUDA-event medians of ``--reps`` calls after one warm-up
 call, each call all its 32-row launches. The line names the card and its
 power limit, so two trees can be compared within one run on one card (run
 them in turns: parent, change, change, parent).
@@ -59,6 +61,16 @@ def main() -> None:
                 with torch.no_grad():
                     out["ms"][f"lstm_scan{'_fusedin' if name == 'fusedin' else ''} {key}"] = \
                         median_ms(lambda: lean(*args, lengths, rev), reps)
+                if name == "scan" and hasattr(lc, "lstm_scan_cs"):
+                    with torch.no_grad():
+                        out["ms"][f"lstm_scan_cs {key}"] = median_ms(
+                            lambda: lc.lstm_scan_cs(*args, lengths, rev), reps)
+                        if H <= 512:
+                            xp = torch.stack(args[0].split(4 * H, dim=-1), 0).permute(
+                                2, 0, 1, 3).contiguous()
+                            out["ms"][f"bilstm_scan_fused {key}"] = median_ms(
+                                lambda: lc.bilstm_scan_fused(xp, w_hh, lengths), reps)
+                            del xp
                 if batch == 128 and train is not None:
                     hs, cs, gates = train(*args, lengths, rev)
                     dy = torch.randn(hs.shape, generator=gen).to("cuda", dtype)

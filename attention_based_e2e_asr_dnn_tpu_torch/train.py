@@ -9,8 +9,9 @@ injection -> experiment folder + config.json snapshot -> batchers -> model
 ``--device`` (default ``cuda``) names where the model trains; ``cuda``
 without a card fails. Settings whose modules are not ported raise
 ``NotImplementedError`` and name their ROADMAP item before anything is
-trained: ``lazy_data: true``, ``parallel.use: true``, ``eval_beam_size > 1``
-and ``export_artifact``. ``parallel.model > 1`` with a ``pallas`` tier raises
+trained: ``parallel.use: true``, ``eval_beam_size > 1`` and
+``export_artifact``. ``lazy_data: true`` keeps the features on disk and
+assembles each batch when it is due (``data/lazy.py``). ``parallel.model > 1`` with a ``pallas`` tier raises
 the JAX CLI's ``ValueError``: tensor parallelism shards the LSTM gate
 matrices, which a fused kernel cannot take sharded.
 """
@@ -129,10 +130,6 @@ def check_ported(trncfgs, las_cfg: LASConfig) -> None:
         raise NotImplementedError(
             "parallel.use: true is not ported yet (ROADMAP queue 1, item 11: "
             "parallel/); train on one card with parallel.use: false")
-    if bool(getattr(trncfgs, "lazy_data", False)):
-        raise NotImplementedError(
-            "lazy_data: true is not ported yet (ROADMAP queue 1, item 5: "
-            "data/lazy.py and data/native_loader.py); set lazy_data: false")
     if int(getattr(trncfgs, "eval_beam_size", 0) or 0) > 1:
         raise NotImplementedError(
             "eval_beam_size > 1 is not ported yet (ROADMAP queue 1, item 9: "
@@ -177,6 +174,20 @@ def main(args):
     if use_mini:
         trn_ds = ToyTrainDevDataset(trncfgs.TRN_FOLDER, "train", vocab_map)
         dev_ds = ToyTrainDevDataset(trncfgs.TRN_FOLDER, "dev", vocab_map)
+    elif bool(getattr(trncfgs, "lazy_data", False)):
+        # disk-backed features: each batch is assembled when it is due,
+        # nothing is preloaded (the reference loads every feature into
+        # memory, src/utils.py:69-76)
+        from attention_based_e2e_asr_dnn_tpu_torch.data.lazy import LazyAsrTrainDevDataset
+
+        trn_ds = LazyAsrTrainDevDataset(
+            trncfgs.TRN_FOLDER, vocab_map, keep_tags=True,
+            max_utterances=getattr(trncfgs, "max_utterances", None),
+        )
+        dev_ds = LazyAsrTrainDevDataset(
+            trncfgs.DEV_FOLDER, vocab_map, keep_tags=True,
+            max_utterances=getattr(trncfgs, "max_utterances", None),
+        )
     else:
         trn_ds = AsrTrainDevDataset(
             std_dir=trncfgs.TRN_FOLDER, label_to_idx=vocab_map, keep_tags=True,

@@ -42,6 +42,7 @@ import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.data.batching import ThreadedPrefetcher
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_to_jax_params
+from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     CheckpointManager,
     load_checkpoint,
@@ -110,6 +111,12 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Trainer(device={device!r}): no CUDA device here; "
                                f"pass device='cpu' to train on the CPU")
+        # on a card with a kernel tier configured: every kernel source built
+        # side by side now, not one after another at first launch
+        model_cfgs = getattr(getattr(trncfgs, "model", None), "configs", None) or {}
+        cuda_build.build_for(
+            self.device, (model_cfgs.get("listener_configs") or {}).get("lstm_impl"),
+            (model_cfgs.get("speller_configs") or {}).get("decoder_impl"))
         self.trncfgs = trncfgs
         self.trn_batcher = trn_batcher
         self.dev_batcher = dev_batcher

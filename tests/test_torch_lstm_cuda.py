@@ -259,3 +259,119 @@ def test_adjoint_rejects_unsupported_shapes_on_card(cuda_device):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         lstm_cuda._launch("lstm_scan_train", False, True, torch.zeros(2, 4, 128), None, None,
                           torch.zeros(1, 32, 128), torch.ones(2, dtype=torch.int32), (False,))
+
+
+def _ragged(batch, seq_len, gen):
+    lengths = torch.randint(1, seq_len + 1, (batch,), generator=gen)
+    lengths[0], lengths[min(1, batch - 1)] = seq_len, 1
+    return lengths.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [5, 40])
+@pytest.mark.parametrize("hidden,ndir", [(64, 1), (64, 2), (512, 2), (1024, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_cs_streams_are_the_lean_and_train_kernels_on_card(cuda_device, batch, hidden,
+                                                                ndir, dtype):
+    """``lstm_scan_cs``: hs bit-equal to ``lstm_scan``'s, cs bit-equal to
+    ``lstm_scan_train``'s, both close to the plain version."""
+    gen = torch.Generator().manual_seed(21 + hidden + batch)
+    seq_len = 29
+    lengths = _ragged(batch, seq_len, gen).to(cuda_device)
+    k = hidden ** -0.5
+    w_hh = ((torch.rand(ndir, hidden, 4 * hidden, generator=gen) * 2 - 1) * k).to(cuda_device, dtype)
+    x_proj = (torch.rand(batch, seq_len, ndir * 4 * hidden, generator=gen) - 0.5).to(
+        cuda_device, dtype)
+    rev = (False, True)[:ndir]
+    lstm_cuda.reset_launch_counts()
+    hs, cs = lstm_cuda.lstm_scan_cs(x_proj, w_hh, lengths, rev)
+    torch.cuda.synchronize()
+    n = len(lstm_cuda.row_chunks(batch)) * (ndir if ndir * hidden > 1024 else 1)
+    assert lstm_cuda.LAUNCHES["lstm_scan_cs"] == n
+    with torch.no_grad():
+        assert torch.equal(hs, lstm_cuda.lstm_scan(x_proj, w_hh, lengths, rev))
+    assert torch.equal(cs, lstm_cuda.lstm_scan_train(x_proj, w_hh, lengths, rev)[1])
+    p_hs, p_cs = lstm_cuda.lstm_scan_cs_plain(x_proj, w_hh, lengths, rev)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(hs.float(), p_hs.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(cs.float(), p_cs.float(), atol=2 * atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5, 32, 40])
+@pytest.mark.parametrize("hidden", [64, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_scan_fused_matches_plain_on_card(cuda_device, batch, hidden, dtype):
+    """hs and cs at every frame, the padded ones included (direction 0 the
+    frozen carry, direction 1 zeros), any batch from one row on."""
+    gen = torch.Generator().manual_seed(31 + hidden + batch)
+    seq_len = 23
+    lengths = _ragged(batch, seq_len, gen).to(cuda_device)
+    k = hidden ** -0.5
+    w_hh = ((torch.rand(2, hidden, 4 * hidden, generator=gen) * 2 - 1) * k).to(cuda_device, dtype)
+    xp = (torch.rand(seq_len, 2, batch, 4 * hidden, generator=gen) - 0.5).to(cuda_device, dtype)
+    lstm_cuda.reset_launch_counts()
+    hs, cs = lstm_cuda.bilstm_scan_fused(xp, w_hh, lengths)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == len(lstm_cuda.row_chunks(batch))
+    assert hs.shape == cs.shape == (seq_len, 2, batch, hidden) and hs.dtype == dtype
+    p_hs, p_cs = lstm_cuda.bilstm_scan_fused_plain(xp, w_hh, lengths)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(hs.float(), p_hs.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(cs.float(), p_cs.float(), atol=2 * atol, rtol=0)
+    t = torch.arange(seq_len, device=cuda_device)[:, None]
+    pads1 = t < seq_len - lengths[None, :].long()                 # direction 1: pads first
+    assert hs[:, 1][pads1].abs().max().item() == 0 if pads1.any() else True
+    row = min(1, batch - 1)                                       # the length-1 row
+    if batch > 1:
+        assert torch.equal(hs[-1, 0, row], hs[0, 0, row]) and hs[0, 0, row].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
+def test_bilstm_apply_fused_forward_backward_on_card(cuda_device, dtype, tol):
+    """The op on the kernels against the op on the plain versions (CPU
+    tensors) and against the two-kernel op on the card: output and every
+    gradient, over the largest entry of the reference."""
+    gen = torch.Generator().manual_seed(41)
+    batch, seq_len, in_dim, hidden = 40, 19, 160, 64
+    lengths = _ragged(batch, seq_len, gen)
+    k = hidden ** -0.5
+
+    def one():
+        return {"w_ih": (torch.rand(in_dim, 4 * hidden, generator=gen) * 2 - 1) * k,
+                "w_hh": (torch.rand(hidden, 4 * hidden, generator=gen) * 2 - 1) * k,
+                "b": (torch.rand(4 * hidden, generator=gen) * 2 - 1) * k}
+
+    params = {"fwd": one(), "bwd": one()}
+    x = torch.randn(batch, seq_len, in_dim, generator=gen)
+    r = torch.randn(batch, seq_len, 2 * hidden, generator=gen)
+
+    def run(fn, device):
+        leaves = {d: {n: t.to(device, dtype).requires_grad_(True) for n, t in p.items()}
+                  for d, p in params.items()}
+        xx = x.to(device, dtype).requires_grad_(True)
+        out = fn(leaves, xx, lengths.to(device))
+        flat = [xx] + [t for p in leaves.values() for t in p.values()]
+        grads = torch.autograd.grad((out.float() * r.to(device)).sum(), flat)
+        return [out.detach().float().cpu()] + [g.float().cpu() for g in grads]
+
+    lstm_cuda.reset_launch_counts()
+    got = run(lstm_cuda.bilstm_apply_fused, cuda_device)
+    assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == 2 and lstm_cuda.LAUNCHES["lstm_bwd"] == 2
+    for ref in (run(lstm_cuda.bilstm_apply_fused, "cpu"),
+                run(lstm_cuda.bilstm_apply_kernel, cuda_device)):
+        for a, b in zip(got, ref):
+            assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_bilstm_scan_fused_refuses_a_wide_layer_on_card(cuda_device):
+    """2 x 128 blocks are more than the card's SMs: no quiet split."""
+    xp = torch.zeros(4, 2, 3, 4096, device=cuda_device)
+    w_hh = torch.zeros(2, 1024, 4096, device=cuda_device)
+    with pytest.raises(ValueError, match="bilstm_apply_kernel"):
+        lstm_cuda.bilstm_scan_fused(xp, w_hh, torch.ones(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\(T, 2, B, 4H\)"):
+        lstm_cuda.bilstm_scan_fused(xp[:, :1].contiguous(), w_hh[:, :64, :256].contiguous(),
+                                    torch.ones(3, dtype=torch.int32))

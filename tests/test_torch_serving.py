@@ -179,3 +179,101 @@ def test_port_serves_without_jax(tmp_path):
                          env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+def test_auto_warmup_ladder_ready_and_warm(tmp_path):
+    """The JAX Transcriber's warm-up surface: the background ladder warms
+    the largest bucket first, ``wait_ready`` returns once that one is warm,
+    ``wait_warm`` joins the ladder, and transcripts are unchanged by it."""
+    exp = _make_experiment(str(tmp_path / "exp"))
+    feats = _utterances()
+    plain = tserving.Transcriber(exp, batch_size=4, pad_time_multiple=16, device="cpu")
+    assert plain.wait_ready(timeout=0.0) is True      # no ladder: ready at once
+    plain.wait_warm()
+    assert plain.corrector is None and plain.length_alpha == 0.0
+    t = tserving.Transcriber(exp, batch_size=4, pad_time_multiple=16, device="cpu",
+                             auto_warmup=(20, 40, 33), length_alpha=0.6)
+    assert t._ready_bucket == 48 and t.length_alpha == 0.6
+    assert t.wait_ready(timeout=120) is True
+    assert 48 in t._warm
+    t.wait_warm(timeout=120)
+    assert not t._warmup_thread.is_alive()
+    assert t._warm == {32, 48}                        # 20 -> 32, 33 and 40 -> 48
+    assert t.transcribe(feats) == plain.transcribe(feats)
+    assert t._fg_count == 0
+    # a bucket that is warm is not run again
+    calls = []
+    t._decode = lambda x, lx: calls.append(x.shape) or np.zeros((4, 1), np.int32)
+    t.warmup((40, 60))
+    assert calls == [(4, 64, 15)]
+
+
+def test_route_bucket_is_always_the_tight_one(tmp_path):
+    """Unlike the JAX Transcriber, which pads a batch up to a warm bucket to
+    avoid a compile: PyTorch compiles no shape, so routing up would only add
+    padded frames."""
+    exp = _make_experiment(str(tmp_path / "exp"))
+    t = tserving.Transcriber(exp, batch_size=4, pad_time_multiple=16, device="cpu")
+    t.warmup((64,))
+    assert t._warm == {64}
+    assert [t._route_bucket(n) for n in (1, 16, 17, 40, 64, 65)] == [16, 16, 32, 48, 64, 80]
+    t.transcribe(_utterances(3))                      # 5..39 frames: tight buckets
+    assert t._warm - {64} and max(t._warm - {64}) <= 48
+
+
+def test_failed_warmup_resurfaces_in_wait_ready(tmp_path, monkeypatch):
+    exp = _make_experiment(str(tmp_path / "exp"))
+
+    def boom(self, x, lx):
+        raise ValueError("no kernel for this shape")
+
+    monkeypatch.setattr(tserving.Transcriber, "_decode", boom)
+    t = tserving.Transcriber(exp, batch_size=4, pad_time_multiple=16, device="cpu",
+                             auto_warmup=(32,))
+    with pytest.raises(RuntimeError, match="auto-warmup failed") as err:
+        t.wait_ready(timeout=60)
+    assert isinstance(err.value.__cause__, ValueError)
+    t.wait_warm(timeout=60)
+    assert not t._warmup_thread.is_alive() and t._warm == set()
+
+
+def test_warmup_yields_to_requests_in_flight(tmp_path):
+    """Once ready, the background ladder waits between buckets while a
+    request is in flight."""
+    import threading
+
+    exp = _make_experiment(str(tmp_path / "exp"))
+    t = tserving.Transcriber(exp, batch_size=4, pad_time_multiple=16, device="cpu")
+    t._ready_evt.set()
+    with t._fg_cv:
+        t._fg_count = 1                               # a request in flight
+    th = threading.Thread(target=t.warmup, args=((16,),),
+                          kwargs={"yield_to_foreground": True}, daemon=True)
+    th.start()
+    th.join(timeout=0.5)
+    assert th.is_alive() and t._warm == set()
+    with t._fg_cv:
+        t._fg_count = 0
+        t._fg_cv.notify_all()
+    th.join(timeout=60)
+    assert not th.is_alive() and t._warm == {16}
+
+
+def test_transcriber_builds_kernels_only_on_a_card(tmp_path, monkeypatch):
+    """``build_for``: nothing on the CPU, nothing without a kernel tier,
+    ``build_all`` on a card with one; and ``cuda`` without a card raises."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
+
+    built = []
+    monkeypatch.setattr(cuda_build, "build_all", lambda: built.append(1))
+    cuda_build.build_for("cpu", "pallas", "pallas")
+    cuda_build.build_for("cuda", "scan", None)
+    assert built == []
+    cuda_build.build_for("cuda:0", "scan", "pallas")
+    assert built == [1]
+    exp = _make_experiment(str(tmp_path / "exp"))
+    tserving.Transcriber(exp, device="cpu")
+    assert built == [1]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserving.Transcriber(exp, device="cuda")

@@ -37,6 +37,8 @@ def test_every_module_imports_without_jax():
     every module of the port and reports what it loaded."""
     modules = _port_modules()
     assert len(modules) >= 25 and f"{port.__name__}.training.steps" in modules
+    assert {f"{port.__name__}.{m}" for m in ("data.lazy", "data.native_loader", "server",
+                                             "tools.serve_http")} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         "for name in ('jax', 'jaxlib', 'optax', 'attention_based_e2e_asr_dnn_tpu'):\n"

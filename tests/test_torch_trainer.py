@@ -523,7 +523,6 @@ def _cli_config(corpus, exp, **extra):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    ({"lazy_data": True}, NotImplementedError, "lazy_data.*queue 1, item 5"),
     ({"parallel": {"use": True, "data": 4, "model": 1}}, NotImplementedError,
      "parallel.*queue 1, item 11"),
     ({"parallel": {"use": True, "data": None, "model": 2}}, ValueError,
