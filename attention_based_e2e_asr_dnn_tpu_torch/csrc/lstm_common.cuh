@@ -1,6 +1,9 @@
-// Shared by the LSTM recurrence kernels (lstm_scan.cu, lstm_bwd.cu): the
-// fixed block geometry, dtype conversions, and the loader that stages rows
-// of a (rows, H) slab from global memory into padded float32 shared memory.
+// Shared by the LSTM recurrence kernels (lstm_scan.cu, lstm_scan_streams.cu,
+// lstm_scan_tc.cu, lstm_scan_tc_streams.cu, lstm_bwd.cu): the fixed block
+// geometry of the float32 forms and of the adjoint, dtype conversions, the
+// forward recurrence's arguments and output forms, and the loader that stages
+// rows of a (rows, H) slab from global memory into padded float32 shared
+// memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +17,29 @@ constexpr int LOAD_BATCH = 8;  // 16-byte loads in flight per thread
 // Above this hidden size a (BMAX, H) slab no longer fits in shared memory
 // beside a block's weights: the kernels stage it in two halves.
 constexpr int WIDE_FROM = 512;
+
+constexpr int STREAMS_HS = 0;
+constexpr int STREAMS_TRAIN = 1;
+constexpr int STREAMS_CS = 2;
+constexpr int STREAMS_BI = 3;
+
+struct ScanArgs {
+  const void* x;        // FUSED_IN: (B, T, D) input; else (B, T, ndir*4H) x_proj
+  long long x_sd, x_sb, x_st;   // element strides: direction, batch, time
+  const void* w_ih;     // FUSED_IN: (ndir, D, 4H)
+  const void* bias;     // FUSED_IN: (ndir, 4H)
+  const void* w_hh;     // (ndir, H, 4H)
+  const int* lengths;   // (B,)
+  void* out;            // (B, T, ndir*H)
+  long long o_sd, o_sb, o_st;
+  void* hbuf;           // (2, ndir, B, H) exchange buffer, weight dtype
+  void* cs;             // all but STREAMS_HS: (B, T, ndir*H), out's strides
+  void* gates;          // STREAMS_TRAIN: (B, T, ndir*4H)
+  long long g_sd, g_sb, g_st;
+  int ndir, rev_bits, B, T, D, H;
+};
+
+__device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

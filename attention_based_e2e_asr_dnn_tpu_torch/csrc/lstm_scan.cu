@@ -1,7 +1,9 @@
-// Persistent LSTM recurrence for Hopper (sm_90a): one cooperative launch runs
-// the whole time loop of one listener layer, one or both directions.
+// Persistent LSTM recurrence for Hopper (sm_90a), float32: one cooperative
+// launch runs the whole time loop of one listener layer, one or both
+// directions, for up to 32 batch rows. bfloat16 runs on tensor cores in
+// lstm_scan_tc.cu (all rows up to 128 and both directions in one launch).
 //
-// Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py):
+// Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py), in float32:
 //   FUSED_IN = false: _lstm_scan_nocs_kernel (:87), launched by
 //       _forward_pallas(with_cs=False) -- pre_t = x_proj[t] + h_{t-1} @ W_hh;
 //   FUSED_IN = true:  _lstm_scan_fusedin_kernel (:854), launched by
@@ -54,7 +56,8 @@
 // the single pass, as compiled before there was a wide form.
 // The cooperative launch refuses a grid that cannot be co-resident, so a
 // shape too wide for the card fails at launch instead of deadlocking.
-// Plain FMA on the CUDA cores; wgmma/TMA are later work.
+// Plain FMA on the CUDA cores, which keeps float32's 1e-4 tolerance against
+// the plain version (TF32 tensor cores would not).
 //
 // The kernel's body is lstm_scan_body.cuh; this source instantiates its lean
 // and training forms, lstm_scan_streams.cu the hs + cs form and the fused
@@ -67,7 +70,8 @@
 // ndir * H / 8 blocks no more than the card's SMs, D <= 128 for the fused
 // input. A grid that still cannot be co-resident (shared memory)
 // is refused by the cooperative launch and reported here.
-// dtype: 0 = float32, 1 = bfloat16. train != 0 also writes cs and gates.
+// dtype: 0 = float32 (bfloat16 is lstm_scan_tc_launch's). train != 0 also
+// writes cs and gates.
 // Returns a cudaError_t (0 on success).
 template <typename T, bool WIDE>
 static cudaError_t dispatch_form(int fused, int train, ScanArgs a, cudaStream_t s) {
@@ -95,6 +99,5 @@ extern "C" int lstm_scan_launch(int dtype, int fused, int train, int ndir, int r
              hbuf, cs,   gates, g_sd, g_sb, g_st, ndir, rev_bits, B,       T,    D,    H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(fused, train, a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(fused, train, a, s);
   return (int)cudaErrorInvalidValue;
 }

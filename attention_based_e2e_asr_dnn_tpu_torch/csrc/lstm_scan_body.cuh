@@ -1,11 +1,12 @@
-// The persistent LSTM recurrence kernel itself, shared by the two sources
+// The float32 persistent LSTM recurrence kernel, shared by the two sources
 // that instantiate it: lstm_scan.cu (the lean and the training forms) and
 // lstm_scan_streams.cu (the hs + cs form and the fused bidirectional form).
 // Two sources so that two nvcc processes build the template's instances side
 // by side. lstm_scan.cu's header says what the kernel computes, what bounds
-// it and how it is laid out; this file adds only the STREAMS switch.
+// it and how it is laid out; this file adds only the STREAMS switch. The
+// bfloat16 forms run on tensor cores in lstm_scan_tc_body.cuh.
 //
-// STREAMS (compile time) names what a launch writes beside hs:
+// STREAMS (lstm_common.cuh; compile time) names what a launch writes beside hs:
 //   STREAMS_HS     nothing: the lean forms (inference, remat's first pass);
 //   STREAMS_TRAIN  cs and the activated gates, for the adjoint kernel;
 //   STREAMS_CS     cs alone (_lstm_scan_kernel with with_cs=True,
@@ -23,29 +24,6 @@
 #include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
-
-constexpr int STREAMS_HS = 0;
-constexpr int STREAMS_TRAIN = 1;
-constexpr int STREAMS_CS = 2;
-constexpr int STREAMS_BI = 3;
-
-struct ScanArgs {
-  const void* x;        // FUSED_IN: (B, T, D) input; else (B, T, ndir*4H) x_proj
-  long long x_sd, x_sb, x_st;   // element strides: direction, batch, time
-  const void* w_ih;     // FUSED_IN: (ndir, D, 4H)
-  const void* bias;     // FUSED_IN: (ndir, 4H)
-  const void* w_hh;     // (ndir, H, 4H)
-  const int* lengths;   // (B,)
-  void* out;            // (B, T, ndir*H)
-  long long o_sd, o_sb, o_st;
-  void* hbuf;           // (2, ndir, B, H) exchange buffer, weight dtype
-  void* cs;             // all but STREAMS_HS: (B, T, ndir*H), out's strides
-  void* gates;          // STREAMS_TRAIN: (B, T, ndir*4H)
-  long long g_sd, g_sb, g_st;
-  int ndir, rev_bits, B, T, D, H;
-};
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 template <typename T, bool FUSED_IN, int STREAMS, bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {

@@ -1,6 +1,7 @@
-// Two further forms of the persistent LSTM recurrence of lstm_scan.cu (the
-// kernel's body is lstm_scan_body.cuh; that source's header says what bounds
-// it and how a block is laid out). Both read a precomputed x_proj.
+// Two further float32 forms of the persistent LSTM recurrence of lstm_scan.cu
+// (bfloat16: lstm_scan_tc_streams.cu; the kernel's body is
+// lstm_scan_body.cuh; lstm_scan.cu's header says what bounds it and how a
+// block is laid out). Both read a precomputed x_proj.
 //
 // Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py):
 //   STREAMS_CS: _lstm_scan_kernel with with_cs=True (:98, launched by
@@ -33,7 +34,8 @@
 #include "lstm_scan_body.cuh"
 
 // Shapes are checked by the Python wrapper (ops/lstm_cuda.py), as for
-// lstm_scan_launch. dtype: 0 = float32, 1 = bfloat16. bi != 0: the fused
+// lstm_scan_launch. dtype: 0 = float32 (bfloat16 is
+// lstm_scan_tc_streams_launch's). bi != 0: the fused
 // bidirectional form (ndir = 2, rev_bits ignored). Returns a cudaError_t.
 template <typename T>
 static cudaError_t dispatch(int bi, ScanArgs a, cudaStream_t s) {
@@ -55,6 +57,5 @@ extern "C" int lstm_scan_streams_launch(int dtype, int bi, int ndir, int rev_bit
              hbuf, cs,   nullptr, 0,    0,       0,       ndir, rev_bits, B,       T,    0,    H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(bi, a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(bi, a, s);
   return (int)cudaErrorInvalidValue;
 }

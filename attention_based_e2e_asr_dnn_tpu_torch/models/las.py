@@ -15,8 +15,9 @@ teacher-forced training decode on the fused decode kernels,
 ``ops/speller_cuda.py``, the training one differentiable through the adjoint
 kernel; with ``decoder_impl: scan`` a loop of PyTorch ops, under autograd in
 training, with dropout, per-step batch-shared teacher-forcing coins and the
-``init_force`` prior, which the kernels do not compute: on the card a
-``pallas`` config raises for it), the decode-route report and ``las_apply``.
+``init_force`` prior, which the kernels do not compute: a ``pallas`` config
+takes the loop for such a pass, says so and records the route, as the JAX
+package does), the decode-route report and ``las_apply``.
 
 Randomness of a training pass is one ``TrainDraws`` record, either drawn
 from an explicit ``torch.Generator`` (``draw_train_noise``) or handed in, so
@@ -433,12 +434,11 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
     ``decoder_impl: pallas`` runs either decode on the fused kernels (their
     plain versions for CPU tensors); a shape a kernel cannot take raises.
     The kernels compute neither the ``init_force`` prior nor a pass with
-    ``dec_y`` given outside training. For CPU tensors such a pass warns once
-    a shape and takes the step loop, as the JAX package does (the loop
-    ignores ``dec_y`` outside training). For CUDA tensors it raises a
-    ``ValueError`` that names what the kernels lack, since a ``pallas``
-    config never leaves the kernels on the card unasked: run those passes
-    with ``decoder_impl: scan``. Training without ``dec_y`` raises."""
+    ``dec_y`` given outside training. Such a pass, on the card as on the
+    CPU, warns once a shape, records the route ``"scan"`` and takes the step
+    loop: the JAX package's own route for a pass its kernel does not compute
+    (its ``models/las.py``; the loop ignores ``dec_y`` outside training).
+    Training without ``dec_y`` raises."""
     batch, enc_len, _ = enc_h.shape
     key = (_decoder_key(cfg), batch, enc_len)
     if cfg.decoder_impl == "pallas":
@@ -454,9 +454,6 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
             _DECODE_ROUTES[key] = "cuda" if enc_h.is_cuda else "plain"
             return speller_apply_fused(params, cfg, enc_h, enc_l, dec_y, tf_rate,
                                        train, draws)
-        if enc_h.is_cuda:
-            raise ValueError(f"decoder_impl=pallas cannot serve this pass on "
-                             f"the card: {reason}; use decoder_impl: scan for it")
         _warn_fused_fallback(batch, enc_len, reason)
     _DECODE_ROUTES[key] = "scan"
     dtype = enc_h.dtype

@@ -2,9 +2,14 @@
 ``ops/lstm_pallas.py``), with their plain versions and the autograd
 Functions that join them.
 
-Three CUDA sources. ``csrc/lstm_scan.cu`` holds the forward recurrence with
-compile-time switches for the input projection and the training streams
-(the kernel's body is ``csrc/lstm_scan_body.cuh``):
+The forward recurrence has two bodies: ``csrc/lstm_scan_tc_body.cuh`` for
+bfloat16 (the recurrent dot on tensor cores, ``wgmma``), instantiated by
+``csrc/lstm_scan_tc.cu`` and ``csrc/lstm_scan_tc_streams.cu``, and
+``csrc/lstm_scan_body.cuh`` for float32 (CUDA-core FMAs, which keep float32's
+tolerance), instantiated by ``csrc/lstm_scan.cu`` and
+``csrc/lstm_scan_streams.cu``. Each wrapper takes either dtype and routes by
+it. ``lstm_scan.cu`` / ``lstm_scan_tc.cu`` hold the forms with compile-time
+switches for the input projection and the training streams:
 
   ``lstm_scan``          replaces ``_lstm_scan_nocs_kernel``
                          (lstm_pallas.py:87, via ``_forward_pallas`` with
@@ -21,7 +26,8 @@ compile-time switches for the input projection and the training streams
                          frozen carry at padded frames) and the activated
                          gates [i, f, g, o] in the stream dtype.
 
-``csrc/lstm_scan_streams.cu`` holds two further forms of that recurrence:
+``csrc/lstm_scan_streams.cu`` / ``csrc/lstm_scan_tc_streams.cu`` hold two
+further forms of that recurrence:
 
   ``lstm_scan_cs``       replaces ``_lstm_scan_kernel`` with ``with_cs=True``
                          (lstm_pallas.py:98, via ``_forward_pallas``):
@@ -56,16 +62,21 @@ compile-time switches for the input projection and the training streams
                          streamed hs and dpre, outside any kernel, as the JAX
                          package's ``_dw_outside_einsum`` does.
 
-Each launch runs the whole time loop of one layer for one or both
-directions and at most 32 batch rows, with the carry on chip; the sources'
-headers say what bounds them and how they are laid out. A wider batch takes
-one launch per 32 rows (``row_chunks``) into one output: rows are
-independent, and the per-launch partial ``dW_hh`` are summed in launch order.
-A layer whose directions together need more blocks than the card has SMs
-(H = 1024: 2 x 128) takes one launch a direction (``_direction_groups``).
-Limits, checked by the wrappers: H a multiple of 32 up to 512, a multiple of
-64 from there to 1024 (the kernels' wide form), H / 8 blocks no more than the
-card's SMs, ``lstm_bwd_dw`` only up to H = 512.
+Each launch runs the whole time loop of one layer with the carry on chip;
+the sources' headers say what bounds them and how they are laid out.
+``plan_launches`` (pure, a function of dtype, B, H, directions and SMs) says
+which launches a forward call makes. bfloat16: up to 128 batch rows and both
+directions in one launch at every width up to H = 1024 (8 hidden units a
+block up to H = 512, 16 above: at most 128 blocks); a wider batch takes one
+launch per 128 rows. float32, and the adjoints in both dtypes: at most 32
+rows a launch (``row_chunks``), 8 units a block, and a layer whose
+directions together need more blocks than the card has SMs (H = 1024: 2 x
+128) takes one launch a direction (``_direction_groups``). Rows are
+independent; the adjoint's per-launch partial ``dW_hh`` are summed in launch
+order. Limits, checked by the wrappers: H a multiple of 32 up to 512, a
+multiple of 64 from there to 1024, the shared memory a block may use,
+``lstm_bwd_dw`` only up to H = 512, ``bilstm_scan_fused`` only up to H =
+512.
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor or raises, and counts its launches in ``LAUNCHES``.
 
@@ -77,7 +88,8 @@ training kernel and whose backward is ``lstm_bwd_dw`` up to H = 512 and
 write neither ``cs`` nor the gates.
 
 The libraries are built with ``nvcc`` at first use into ``_build/``
-(``ops/cuda_build.py``) and bound with ``ctypes``.
+(``ops/cuda_build.py``, or all side by side by ``build_all``) and bound with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -85,7 +97,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -98,13 +110,22 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import length_mask
 
 SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan.cu")
 STREAMS_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_streams.cu")
+TC_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_tc.cu")
+TC_STREAMS_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_tc_streams.cu")
 BWD_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd.cu")
-SOURCES = (SOURCE, STREAMS_SOURCE, BWD_SOURCE)
+SOURCES = (SOURCE, STREAMS_SOURCE, TC_SOURCE, TC_STREAMS_SOURCE, BWD_SOURCE)
 
-# the kernels' fixed geometry (csrc/lstm_common.cuh): hidden units per block,
-# batch rows per block (one per lane)
+# the float32 kernels' and the adjoint's fixed geometry (csrc/lstm_common.cuh):
+# hidden units per block, batch rows per launch (one per lane)
 _UNITS = 8
 _BMAX = 32
+# the bfloat16 forward's (csrc/lstm_scan_tc_body.cuh): batch rows a launch,
+# columns of h a ring stage, rows of the reduction tile, the tiles' alignment
+_TC_ROWS = 128
+_TC_KC = 64
+_TC_RED_ROWS = 128
+_TC_ALIGN = 1024
+_TC_MAX_STAGES = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # widest hidden size of the adjoint with dW_hh in the kernel (the JAX package's
 # in-kernel-dW route ends there too, lstm_pallas.py:550); above it the kernels
@@ -129,37 +150,59 @@ def reset_launch_counts() -> None:
 # Build and bind
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build ``csrc/lstm_scan.cu`` (once per source version) and bind its C
-    entry point."""
-    lib = ctypes.CDLL(cuda_build.build_library(SOURCE))
-    fn = lib.lstm_scan_launch
-    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i, i, i, i, i, i, i, i, i,  # dtype fused train ndir rev B T D H
-                   p, ll, ll, ll,              # x and its strides
-                   p, p, p, p,                 # w_ih bias w_hh lengths
-                   p, ll, ll, ll,              # out and its strides
-                   p, p,                       # exchange buffer, cs
-                   p, ll, ll, ll,              # gates and its strides
-                   p]                          # stream
+_i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+# the forward's C arguments before the stream: lstm_scan_launch's ...
+_SCAN_ARGS = [_i, _i, _i, _i, _i, _i, _i, _i, _i,  # dtype fused train ndir rev B T D H
+              _p, _ll, _ll, _ll,                   # x and its strides
+              _p, _p, _p, _p,                      # w_ih bias w_hh lengths
+              _p, _ll, _ll, _ll,                   # out and its strides
+              _p, _p,                              # exchange buffer, cs
+              _p, _ll, _ll, _ll]                   # gates and its strides
+# ... and lstm_scan_streams_launch's
+_STREAMS_ARGS = [_i, _i, _i, _i, _i, _i, _i,       # dtype bi ndir rev B T H
+                 _p, _ll, _ll, _ll,                # x and its strides
+                 _p, _p,                           # w_hh lengths
+                 _p, _ll, _ll, _ll,                # out and its strides
+                 _p, _p]                           # exchange buffer, cs
+# the bfloat16 entries add the plan's units a block and the per-direction
+# counters
+_TC_ARGS = [_i, _p]
+
+
+def _bind(source: str, entry: str, argtypes) -> ctypes.CDLL:
+    """Build ``source`` (once per source version) and bind its C entry
+    point, which takes ``argtypes`` and then the stream."""
+    lib = ctypes.CDLL(cuda_build.build_library(source))
+    fn = getattr(lib, entry)
+    fn.argtypes = list(argtypes) + [_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """``csrc/lstm_scan.cu``: the float32 lean and training forms."""
+    return _bind(SOURCE, "lstm_scan_launch", _SCAN_ARGS)
 
 
 @functools.lru_cache(maxsize=None)
 def load_streams_library() -> ctypes.CDLL:
-    """Build ``csrc/lstm_scan_streams.cu`` and bind its C entry point."""
-    lib = ctypes.CDLL(cuda_build.build_library(STREAMS_SOURCE))
-    fn = lib.lstm_scan_streams_launch
-    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i, i, i, i, i, i, i,        # dtype bi ndir rev B T H
-                   p, ll, ll, ll,              # x and its strides
-                   p, p,                       # w_hh lengths
-                   p, ll, ll, ll,              # out and its strides
-                   p, p, p]                    # exchange buffer, cs, stream
-    fn.restype = ctypes.c_int
-    return lib
+    """``csrc/lstm_scan_streams.cu``: the float32 hs + cs and fused
+    bidirectional forms."""
+    return _bind(STREAMS_SOURCE, "lstm_scan_streams_launch", _STREAMS_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def load_tc_library() -> ctypes.CDLL:
+    """``csrc/lstm_scan_tc.cu``: the bfloat16 lean and training forms."""
+    return _bind(TC_SOURCE, "lstm_scan_tc_launch", _SCAN_ARGS + _TC_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def load_tc_streams_library() -> ctypes.CDLL:
+    """``csrc/lstm_scan_tc_streams.cu``: the bfloat16 hs + cs and fused
+    bidirectional forms."""
+    return _bind(TC_STREAMS_SOURCE, "lstm_scan_tc_streams_launch", _STREAMS_ARGS + _TC_ARGS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,7 +223,8 @@ def load_bwd_library() -> ctypes.CDLL:
     return lib
 
 
-LOADERS = (load_library, load_streams_library, load_bwd_library)
+LOADERS = (load_library, load_streams_library, load_tc_library, load_tc_streams_library,
+           load_bwd_library)
 
 
 def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
@@ -188,16 +232,17 @@ def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
     return [(r0, min(r0 + rows, batch)) for r0 in range(0, batch, rows)]
 
 
-def _direction_groups(name: str, ndir: int, hidden: int, sms: int) -> List[Tuple[int, int]]:
+def _direction_groups(name: str, ndir: int, hidden: int, sms: int,
+                      units: int = _UNITS) -> List[Tuple[int, int]]:
     """(first direction, count) of each launch: all directions in one
-    cooperative launch where their ``ndir * H / 8`` blocks are co-resident
-    at one block an SM, else one launch a direction; raises where one
-    direction alone does not fit."""
-    if ndir * hidden // _UNITS <= sms:
+    cooperative launch where their ``ndir * H / units`` blocks are
+    co-resident at one block an SM, else one launch a direction; raises
+    where one direction alone does not fit."""
+    if ndir * hidden // units <= sms:
         return [(0, ndir)]
-    if hidden // _UNITS <= sms:
+    if hidden // units <= sms:
         return [(d, 1) for d in range(ndir)]
-    raise ValueError(f"{name}: H={hidden} needs {hidden // _UNITS} co-resident "
+    raise ValueError(f"{name}: H={hidden} needs {hidden // units} co-resident "
                      f"blocks a direction, the card has {sms} SMs")
 
 
@@ -212,10 +257,93 @@ def _check_smem(name: str, hidden: int, smem: int) -> None:
                          f"memory a block, the card allows {_SMEM_LIMIT}")
 
 
+def _check_hidden(name: str, hidden: int) -> None:
+    """The widths every LSTM kernel takes."""
+    if hidden % 32 != 0 or hidden < 32:
+        raise ValueError(f"{name}: hidden {hidden} must be a multiple of 32")
+    if hidden > _BWD_DW_MAX_HIDDEN and (hidden % 64 != 0 or hidden > _MAX_HIDDEN):
+        raise ValueError(f"{name}: hidden {hidden} above {_BWD_DW_MAX_HIDDEN} must be "
+                         f"a multiple of 64 and at most {_MAX_HIDDEN}")
+
+
+def tc_units(hidden: int) -> int:
+    """Hidden units a block of the bfloat16 forward takes: 8 up to H = 512,
+    16 above, so that a direction needs at most 64 blocks and both fit one
+    launch on a card of 128 SMs or more."""
+    return _UNITS if hidden <= _BWD_DW_MAX_HIDDEN else 2 * _UNITS
+
+
+def tc_smem_bytes(hidden: int, units: int, in_dim: int = 0) -> int:
+    """Shared memory a block of the bfloat16 forward uses
+    (``tc_smem_bytes`` in csrc/lstm_scan_tc_body.cuh): W_hh's 4U columns as
+    bf16 in 64-wide k-chunks; under the fused input W_ih's columns (bf16) and
+    the bias (fp32); the ring of h stages in what is left of the card's
+    limit, whole 128-row stages of 64 columns, at most four and two more
+    than h has chunks, at least the reduction tile it doubles as; and the slack
+    that puts the swizzled tiles on a 1024-byte boundary."""
+    n = 4 * units
+    chunks = -(-hidden // _TC_KC)
+    w = chunks * n * 128
+    inputs = in_dim * n * 2 + n * 4 if in_dim else 0
+    stage = _TC_ROWS * _TC_KC * 2
+    room = max(_SMEM_LIMIT - _TC_ALIGN - w - inputs, 0) // stage
+    ring = max(min(room, chunks + 2, _TC_MAX_STAGES) * stage, _TC_RED_ROWS * (n + 8) * 4)
+    return _TC_ALIGN + w + ring + inputs
+
+
+def f32_smem_bytes(hidden: int, in_dim: int = 0) -> int:
+    """Shared memory a block of the float32 forward uses (``smem_bytes`` in
+    csrc/lstm_scan_body.cuh): W_hh's columns as fp32, the staged h (reused
+    for the cross-warp sums), under the fused input W_ih's columns and the
+    bias."""
+    floats = (hidden * _UNITS * 4
+              + max(_BMAX * (_staged_width(hidden) + 4), 8 * _UNITS * 4 * 32))
+    if in_dim:
+        floats += in_dim * _UNITS * 4 + _UNITS * 4
+    return 4 * floats
+
+
+class Launch(NamedTuple):
+    """One cooperative launch of the forward recurrence."""
+    r0: int      # first batch row
+    r1: int      # one past the last
+    d0: int      # first direction
+    nd: int      # directions
+    units: int   # hidden units a block
+    blocks: int
+    smem: int    # shared memory a block, bytes
+
+
+def plan_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, ndir: int,
+                  sms: int, in_dim: int = 0) -> List[Launch]:
+    """The launches of the forward recurrence for a (batch, H, ndir) layer on
+    a card of ``sms`` SMs; ``in_dim`` > 0 for the fused input projection.
+
+    bfloat16 (the tensor-core body): up to 128 rows a launch, ``tc_units``
+    units a block, all directions in one launch wherever their blocks fit
+    the SMs. float32: the CUDA-core body,
+    32 rows a launch, 8 units a block, a launch a direction where both do
+    not fit. Every (row, direction) is in exactly one launch. Raises a
+    ``ValueError`` naming the limit for a width or a shared-memory need the
+    kernels do not take."""
+    _check_hidden(name, hidden)
+    if in_dim > FUSED_IN_MAX_DIM:
+        raise ValueError(f"{name}: in_dim {in_dim} > {FUSED_IN_MAX_DIM}")
+    if dtype == torch.bfloat16:
+        units = tc_units(hidden)
+        rows, smem = _TC_ROWS, tc_smem_bytes(hidden, units, in_dim)
+    else:
+        units, rows, smem = _UNITS, _BMAX, f32_smem_bytes(hidden, in_dim)
+    _check_smem(name, hidden, smem)
+    groups = _direction_groups(name, ndir, hidden, sms, units)
+    return [Launch(r0, r1, d0, nd, units, nd * hidden // units, smem)
+            for r0, r1 in row_chunks(batch, rows) for d0, nd in groups]
+
+
 def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
                       lengths: torch.Tensor, reverse: Tuple[bool, ...]):
-    """The checks every kernel shares; returns (ndir, hidden, the launches'
-    direction groups)."""
+    """The checks every kernel shares; returns (ndir, hidden, the card's
+    SMs)."""
     if not ref.is_cuda:
         raise ValueError(f"{name}: kernel needs CUDA tensors, got {ref.device}")
     dtype = ref.dtype
@@ -234,33 +362,46 @@ def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
         raise ValueError(f"{name}: empty batch")
     if ref.shape[1] < 1:
         raise ValueError(f"{name}: empty time axis")
-    if hidden % 32 != 0:
-        raise ValueError(f"{name}: hidden {hidden} must be a multiple of 32")
-    if hidden > _BWD_DW_MAX_HIDDEN and (hidden % 64 != 0 or hidden > _MAX_HIDDEN):
-        raise ValueError(f"{name}: hidden {hidden} above {_BWD_DW_MAX_HIDDEN} must be "
-                         f"a multiple of 64 and at most {_MAX_HIDDEN}")
+    _check_hidden(name, hidden)
     sms = torch.cuda.get_device_properties(ref.device).multi_processor_count
-    groups = _direction_groups(name, ndir, hidden, sms)
     if lengths.shape != (ref.shape[0],):
         raise ValueError(f"{name}: lengths {tuple(lengths.shape)} != "
                          f"({ref.shape[0]},)")
-    return ndir, hidden, groups
+    return ndir, hidden, sms
+
+
+def _forward_call(plan: List[Launch], name: str, dtype: torch.dtype, hidden: int, device,
+                  call) -> None:
+    """Run ``plan``: for each launch an exchange buffer (2, nd, rows, H) and,
+    in bfloat16, nd zeroed counters; ``call(launch, hbuf, extra, stream)``
+    makes the C call, ``extra`` being the bfloat16 entry's (units, counters)
+    and empty in float32. Counts the launches."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for ln in plan:
+            hbuf = torch.empty(2, ln.nd, ln.r1 - ln.r0, hidden, dtype=dtype, device=device)
+            extra = ()
+            if dtype == torch.bfloat16:
+                sync = torch.zeros(ln.nd, dtype=torch.int32, device=device)
+                extra = (ln.units, sync.data_ptr())
+            err = call(ln, hbuf.data_ptr(), extra, stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+            LAUNCHES[name] += 1
 
 
 def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
             w_hh: torch.Tensor, lengths: torch.Tensor,
             reverse: Tuple[bool, ...]):
-    """Check shapes and launch the forward kernel once per 32 rows and
-    direction group. Returns hs (B, T, ndir * H), and with ``train`` also cs
-    (same shape) and gates (B, T, ndir * 4H)."""
-    ndir, hidden, groups = _check_recurrence(
+    """Check shapes and launch the forward kernel as ``plan_launches`` plans
+    it. Returns hs (B, T, ndir * H), and with ``train`` also cs (same shape)
+    and gates (B, T, ndir * 4H)."""
+    ndir, hidden, sms = _check_recurrence(
         name, x, [x, w_hh] + ([w_ih, b] if fused else []), w_hh, lengths, reverse)
     dtype, four_h = x.dtype, 4 * hidden
     batch, seq_len = x.shape[0], x.shape[1]
     in_dim = x.shape[2] if fused else 0
     if fused:
-        if in_dim > FUSED_IN_MAX_DIM:
-            raise ValueError(f"{name}: in_dim {in_dim} > {FUSED_IN_MAX_DIM}")
         if w_ih.shape != (ndir, in_dim, four_h) or b.shape != (ndir, four_h):
             raise ValueError(f"{name}: w_ih/b shapes {tuple(w_ih.shape)}, "
                              f"{tuple(b.shape)} do not match")
@@ -270,104 +411,95 @@ def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
             raise ValueError(f"{name}: x_proj width {x.shape[2]} != "
                              f"{ndir} x 4H")
         x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
-    # W_hh columns, the staged h (reused for the cross-warp sums), W_ih and bias
-    _check_smem(name, hidden, 4 * (
-        hidden * _UNITS * 4 + max(_BMAX * (_staged_width(hidden) + 4), 8 * _UNITS * 4 * 32)
-        + (in_dim * _UNITS * 4 + _UNITS * 4 if fused else 0)))
+    plan = plan_launches(name, dtype, batch, hidden, ndir, sms, in_dim)
 
-    lib = load_library()
+    tc = dtype == torch.bfloat16
+    fn = load_tc_library().lstm_scan_tc_launch if tc else load_library().lstm_scan_launch
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
     cs = torch.empty_like(out) if train else None
     gates = (torch.empty(batch, seq_len, ndir * four_h, dtype=dtype, device=x.device)
              if train else None)
     size = x.element_size()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r0, r1 in row_chunks(batch):
-            # a group's launch sees its directions as directions 0.. of tensors
-            # that start at its first direction's columns
-            for d0, nd in groups:
-                hbuf = torch.empty(2, nd, r1 - r0, hidden, dtype=dtype, device=x.device)
-                rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
-                err = lib.lstm_scan_launch(
-                    _DTYPE_CODES[dtype], int(fused), int(train), nd, rev_bits,
-                    r1 - r0, seq_len, in_dim, hidden,
-                    x[r0:r1].data_ptr() + d0 * x_strides[0] * size, *x_strides,
-                    w_ih[d0].data_ptr() if fused else None,
-                    b[d0].data_ptr() if fused else None,
-                    w_hh[d0].data_ptr(), lengths[r0:r1].data_ptr(),
-                    out[r0:r1].data_ptr() + d0 * hidden * size,
-                    hidden, seq_len * ndir * hidden, ndir * hidden,
-                    hbuf.data_ptr(),
-                    cs[r0:r1].data_ptr() + d0 * hidden * size if train else None,
-                    gates[r0:r1].data_ptr() + d0 * four_h * size if train else None,
-                    four_h, seq_len * ndir * four_h, ndir * four_h, stream)
-                if err != 0:
-                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-                LAUNCHES[name] += 1
+
+    def call(ln, hbuf, extra, stream):
+        # a launch sees its rows as rows 0.. and its directions as directions
+        # 0.. of tensors that start at its first row and direction
+        r0, r1, d0, nd = ln.r0, ln.r1, ln.d0, ln.nd
+        rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
+        return fn(
+            _DTYPE_CODES[dtype], int(fused), int(train), nd, rev_bits,
+            r1 - r0, seq_len, in_dim, hidden,
+            x[r0:r1].data_ptr() + d0 * x_strides[0] * size, *x_strides,
+            w_ih[d0].data_ptr() if fused else None,
+            b[d0].data_ptr() if fused else None,
+            w_hh[d0].data_ptr(), lengths[r0:r1].data_ptr(),
+            out[r0:r1].data_ptr() + d0 * hidden * size,
+            hidden, seq_len * ndir * hidden, ndir * hidden,
+            hbuf,
+            cs[r0:r1].data_ptr() + d0 * hidden * size if train else None,
+            gates[r0:r1].data_ptr() + d0 * four_h * size if train else None,
+            four_h, seq_len * ndir * four_h, ndir * four_h, *extra, stream)
+
+    _forward_call(plan, name, dtype, hidden, x.device, call)
     return (out, cs, gates) if train else out
 
 
 def _launch_streams(name: str, bi: bool, x: torch.Tensor, w_hh: torch.Tensor,
                     lengths: torch.Tensor, reverse: Tuple[bool, ...]):
-    """Check shapes and launch a form of ``csrc/lstm_scan_streams.cu`` once
-    per 32 rows (and direction group). ``bi``: x is xp (T, 2, B, 4H) and the
-    outputs are (T, 2, B, H), both directions in every launch; else x is
-    x_proj (B, T, ndir * 4H) and the outputs (B, T, ndir * H). Returns
-    (hs, cs)."""
+    """Check shapes and launch a form of ``csrc/lstm_scan_streams.cu`` (float32)
+    or ``csrc/lstm_scan_tc_streams.cu`` (bfloat16) as ``plan_launches`` plans
+    it. ``bi``: x is xp (T, 2, B, 4H) and the outputs are (T, 2, B, H), both
+    directions in every launch; else x is x_proj (B, T, ndir * 4H) and the
+    outputs (B, T, ndir * H). Returns (hs, cs)."""
     if x.dim() != (4 if bi else 3):
         raise ValueError(f"{name}: input {tuple(x.shape)} must have "
                          f"{'(T, 2, B, 4H)' if bi else '(B, T, ndir x 4H)'} axes")
     by_row = x.permute(2, 0, 1, 3) if bi else x  # batch first, then time
-    ndir, hidden, groups = _check_recurrence(name, by_row, [x, w_hh], w_hh, lengths, reverse)
+    ndir, hidden, sms = _check_recurrence(name, by_row, [x, w_hh], w_hh, lengths, reverse)
     dtype, four_h = x.dtype, 4 * hidden
     batch, seq_len = by_row.shape[0], by_row.shape[1]
     if bi:
         if x.shape[1] != 2 or x.shape[3] != four_h or ndir != 2:
             raise ValueError(f"{name}: xp {tuple(x.shape)} must be (T, 2, B, 4H) for "
                              f"w_hh {tuple(w_hh.shape)}")
-        if len(groups) > 1:
+        plan = plan_launches(name, dtype, batch, hidden, ndir, sms)
+        if hidden > _BWD_DW_MAX_HIDDEN or len({(ln.d0, ln.nd) for ln in plan}) > 1:
             raise ValueError(
-                f"{name}: hidden {hidden} needs 2 x {hidden // _UNITS} co-resident blocks, "
-                f"more than the card's SMs: both directions fit one launch only up to "
+                f"{name}: hidden {hidden}: both directions in one launch are taken up to "
                 f"H = {_BWD_DW_MAX_HIDDEN}; a wider layer is bilstm_apply_kernel's, a "
-                f"launch a direction")
+                f"launch a direction in float32")
         x_strides = (batch * four_h, four_h, 2 * batch * four_h)
         o_strides = (batch * hidden, hidden, 2 * batch * hidden)
         out = torch.empty(seq_len, 2, batch, hidden, dtype=dtype, device=x.device)
     else:
         if x.shape[2] != ndir * four_h:
             raise ValueError(f"{name}: x_proj {tuple(x.shape)} must be (B, T, {ndir} x 4H)")
+        plan = plan_launches(name, dtype, batch, hidden, ndir, sms)
         x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
         o_strides = (hidden, seq_len * ndir * hidden, ndir * hidden)
         out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
-    # W_hh columns and the staged h (reused for the cross-warp sums)
-    _check_smem(name, hidden, 4 * (
-        hidden * _UNITS * 4 + max(_BMAX * (_staged_width(hidden) + 4), 8 * _UNITS * 4 * 32)))
 
-    lib = load_streams_library()
+    tc = dtype == torch.bfloat16
+    fn = (load_tc_streams_library().lstm_scan_tc_streams_launch if tc
+          else load_streams_library().lstm_scan_streams_launch)
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     cs = torch.empty_like(out)
     size = x.element_size()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r0, r1 in row_chunks(batch):
-            # a launch sees rows r0.. as rows 0.. and a group's directions as
-            # directions 0..: both are offsets of whole strides
-            for d0, nd in groups:
-                hbuf = torch.empty(2, nd, r1 - r0, hidden, dtype=dtype, device=x.device)
-                rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
-                x_off = (r0 * x_strides[1] + d0 * x_strides[0]) * size
-                o_off = (r0 * o_strides[1] + d0 * o_strides[0]) * size
-                err = lib.lstm_scan_streams_launch(
-                    _DTYPE_CODES[dtype], int(bi), nd, rev_bits, r1 - r0, seq_len, hidden,
-                    x.data_ptr() + x_off, *x_strides, w_hh[d0].data_ptr(),
-                    lengths[r0:r1].data_ptr(), out.data_ptr() + o_off, *o_strides,
-                    hbuf.data_ptr(), cs.data_ptr() + o_off, stream)
-                if err != 0:
-                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-                LAUNCHES[name] += 1
+
+    def call(ln, hbuf, extra, stream):
+        # a launch sees rows r0.. as rows 0.. and its directions as directions
+        # 0..: both are offsets of whole strides
+        r0, r1, d0, nd = ln.r0, ln.r1, ln.d0, ln.nd
+        rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
+        x_off = (r0 * x_strides[1] + d0 * x_strides[0]) * size
+        o_off = (r0 * o_strides[1] + d0 * o_strides[0]) * size
+        return fn(_DTYPE_CODES[dtype], int(bi), nd, rev_bits, r1 - r0, seq_len, hidden,
+                  x.data_ptr() + x_off, *x_strides, w_hh[d0].data_ptr(),
+                  lengths[r0:r1].data_ptr(), out.data_ptr() + o_off, *o_strides,
+                  hbuf, cs.data_ptr() + o_off, *extra, stream)
+
+    _forward_call(plan, name, dtype, hidden, x.device, call)
     return out, cs
 
 
@@ -377,10 +509,10 @@ def _launch_bwd(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
     """Check shapes and launch the adjoint kernel once per 32 rows. Returns
     dpre (B, T, ndir * 4H) and d_whh (ndir, H, 4H) float32."""
     name = "lstm_bwd_dw"
-    ndir, hidden, groups = _check_recurrence(name, gates, [gates, cs, hs, dy, w_hh],
-                                             w_hh, lengths, reverse)
+    ndir, hidden, sms = _check_recurrence(name, gates, [gates, cs, hs, dy, w_hh],
+                                          w_hh, lengths, reverse)
     batch, seq_len = gates.shape[0], gates.shape[1]
-    if hidden > _BWD_DW_MAX_HIDDEN or len(groups) > 1:
+    if hidden > _BWD_DW_MAX_HIDDEN or len(_direction_groups(name, ndir, hidden, sms)) > 1:
         raise ValueError(
             f"{name}: {ndir} x hidden {hidden}: the adjoint with dW_hh in the kernel "
             f"takes H <= {_BWD_DW_MAX_HIDDEN} with all directions in one launch; a "
@@ -430,8 +562,9 @@ def _launch_bwd_nodw(gates: torch.Tensor, cs: torch.Tensor, dy: torch.Tensor,
     """Check shapes and launch the adjoint without dW_hh once per 32 rows and
     direction group. Returns dpre (B, T, ndir * 4H)."""
     name = "lstm_bwd"
-    ndir, hidden, groups = _check_recurrence(name, gates, [gates, cs, dy, w_hh],
-                                             w_hh, lengths, reverse)
+    ndir, hidden, sms = _check_recurrence(name, gates, [gates, cs, dy, w_hh],
+                                          w_hh, lengths, reverse)
+    groups = _direction_groups(name, ndir, hidden, sms)
     # W_hh rows, the staged piece of the previous dpre, the cross-warp sums
     _check_smem(name, hidden, 4 * (4 * hidden * _UNITS + _BMAX * (_staged_width(hidden) + 4)
                                    + 8 * _UNITS * 32))
@@ -712,7 +845,8 @@ def lstm_scan_cs(x_proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
 
 
 def bilstm_scan_fused(xp: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
-    """Both directions of a BiLSTM layer in one launch (a launch per 32 rows).
+    """Both directions of a BiLSTM layer in one launch (a launch per 128 rows
+    in bfloat16, per 32 in float32).
 
     xp (T, 2, B, 4H): each direction's ``x @ W_ih + b``, direction 1 flipped
     in time as a whole (so a row's padded frames come first in it); w_hh

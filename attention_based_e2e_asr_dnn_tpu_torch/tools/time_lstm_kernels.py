@@ -1,20 +1,22 @@
 """Time the LSTM kernels of ``ops/lstm_cuda.py`` on the card at the main
 paths' shapes and print one JSON line.
 
-    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels [--reps 20] [--hidden 512]
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels \
+        [--reps 20] [--hidden 512]
 
-Shapes: ``--hidden`` 512 (base-LAS, both directions in one launch) or 1024
-(scaled-LAS, one launch a direction), bfloat16 and float32; the infer batch
-(B=64: layer 0 at T=1536 with D=15, layer 1 at T=768 over a 2 x 4H
-projection) for the lean forward kernels, and the train batch (B=128) for
-the training forward and the adjoints where the tree has them:
-``lstm_bwd_dw`` up to H=512, ``lstm_bwd`` at every width, and the outside
-dW_hh product beside it; ``lstm_scan_cs`` and, up to H=512,
-``bilstm_scan_fused`` (over the same projection laid out as (T, 2, B, 4H))
-beside ``lstm_scan``. Times are CUDA-event medians of ``--reps`` calls after one warm-up
-call, each call all its 32-row launches. The line names the card and its
-power limit, so two trees can be compared within one run on one card (run
-them in turns: parent, change, change, parent).
+Shapes: ``--hidden`` 512 (base-LAS) or 1024 (scaled-LAS), bfloat16 and
+float32; the serve, infer and train batches (B=32, 64 and 128: layer 0 at
+T=1536 with D=15, layer 1 at T=768 over a 2 x 4H projection) for the lean
+forward kernels, and the train batch (B=128) for the training forward and
+the adjoints where the tree has them: ``lstm_bwd_dw`` up to H=512,
+``lstm_bwd`` at every width, and the outside dW_hh product beside it;
+``lstm_scan_cs`` and, up to H=512, ``bilstm_scan_fused`` (over the same
+projection laid out as (T, 2, B, 4H)) beside ``lstm_scan``. Times are
+CUDA-event medians of ``--reps`` calls after one warm-up call, each call all
+the launches its wrapper makes (bfloat16: one per 128 rows, both directions;
+float32: one per 32 rows, and a direction at H=1024). The line names the
+card and its power limit, so two trees can be compared within one run on one
+card (run them in turns: parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ import torch
 from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import median_ms, require_card
 
+FORMS = ("lstm_scan_fusedin", "lstm_scan", "lstm_scan_fusedin_train", "lstm_scan_train",
+         "lstm_scan_cs", "bilstm_scan_fused", "lstm_bwd_dw", "lstm_bwd")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
@@ -34,6 +40,7 @@ def main() -> None:
     cli = parser.parse_args()
     reps, H = cli.reps, cli.hidden
     card = require_card("time_lstm_kernels")
+    fn = {name: getattr(lc, name, None) for name in FORMS}  # the wrappers this tree has
     gen = torch.Generator().manual_seed(0)
     k = H ** -0.5
     rev = (False, True)
@@ -42,7 +49,7 @@ def main() -> None:
         w_hh = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
         w_ih = ((torch.rand(2, 15, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
         b = ((torch.rand(2, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
-        for batch in (64, 128):
+        for batch in (32, 64, 128):
             for name, seq_len in (("fusedin", 1536), ("scan", 768)):
                 lengths = torch.randint(1, seq_len + 1, (batch,), generator=gen)
                 lengths[::32], lengths[1::32] = seq_len, 1
@@ -50,36 +57,34 @@ def main() -> None:
                 if name == "fusedin":
                     args = (torch.randn(batch, seq_len, 15, generator=gen).to("cuda", dtype),
                             w_ih, b, w_hh)
-                    lean = lc.lstm_scan_fusedin
-                    train = getattr(lc, "lstm_scan_fusedin_train", None)
+                    lean, train = "lstm_scan_fusedin", "lstm_scan_fusedin_train"
                 else:
                     args = ((torch.rand(batch, seq_len, 2 * 4 * H, generator=gen) - 0.5)
                             .to("cuda", dtype), w_hh)
-                    lean = lc.lstm_scan
-                    train = getattr(lc, "lstm_scan_train", None)
+                    lean, train = "lstm_scan", "lstm_scan_train"
                 key = f"{dtype_name} B={batch} T={seq_len}"
                 with torch.no_grad():
-                    out["ms"][f"lstm_scan{'_fusedin' if name == 'fusedin' else ''} {key}"] = \
-                        median_ms(lambda: lean(*args, lengths, rev), reps)
-                if name == "scan" and hasattr(lc, "lstm_scan_cs"):
+                    out["ms"][f"{lean} {key}"] = median_ms(
+                        lambda: fn[lean](*args, lengths, rev), reps)
+                if name == "scan" and fn["lstm_scan_cs"] is not None:
                     with torch.no_grad():
                         out["ms"][f"lstm_scan_cs {key}"] = median_ms(
-                            lambda: lc.lstm_scan_cs(*args, lengths, rev), reps)
+                            lambda: fn["lstm_scan_cs"](*args, lengths, rev), reps)
                         if H <= 512:
                             xp = torch.stack(args[0].split(4 * H, dim=-1), 0).permute(
                                 2, 0, 1, 3).contiguous()
                             out["ms"][f"bilstm_scan_fused {key}"] = median_ms(
-                                lambda: lc.bilstm_scan_fused(xp, w_hh, lengths), reps)
+                                lambda: fn["bilstm_scan_fused"](xp, w_hh, lengths), reps)
                             del xp
-                if batch == 128 and train is not None:
-                    hs, cs, gates = train(*args, lengths, rev)
+                if batch == 128 and fn[train] is not None:
+                    hs, cs, gates = fn[train](*args, lengths, rev)
                     dy = torch.randn(hs.shape, generator=gen).to("cuda", dtype)
-                    out["ms"][f"{train.__name__} {key}"] = \
-                        median_ms(lambda: train(*args, lengths, rev), reps)
-                    if H <= 512:
+                    out["ms"][f"{train} {key}"] = median_ms(
+                        lambda: fn[train](*args, lengths, rev), reps)
+                    if H <= 512 and fn["lstm_bwd_dw"] is not None:
                         out["ms"][f"lstm_bwd_dw {key}"] = median_ms(
                             lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
-                    if hasattr(lc, "lstm_bwd"):
+                    if fn["lstm_bwd"] is not None:
                         dpre = lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
                         out["ms"][f"lstm_bwd {key}"] = median_ms(
                             lambda: lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev), reps)

@@ -8,11 +8,15 @@ on one NVIDIA card, from the root of a checkout:
    the time to build the kernels from ``csrc/`` (one ``nvcc`` per source,
    all started together).
 2. Each LSTM kernel against its plain PyTorch version on the same CUDA
-   tensors at the shapes the infer CLI gives it (B=64, two launches of 32
-   rows; H=512; listener layer 0 at T=1536 with D=15, pyramid layer 1 at
-   T=768 over a 2 x 4H projection), both directions in one launch, lengths
-   mixed from 1 to T, float32 and bfloat16: max-abs error against a stated
-   tolerance and the median time of each (CUDA events).
+   tensors at the shapes the infer CLI gives it (B=64; H=512; listener layer
+   0 at T=1536 with D=15, pyramid layer 1 at T=768 over a 2 x 4H
+   projection), both directions in one launch, lengths mixed from 1 to T,
+   float32 (the CUDA-core kernels, two launches of 32 rows) and bfloat16 (the
+   tensor-core kernels, one launch of all rows): max-abs error against a
+   stated tolerance and the median time of each (CUDA events). Every forward
+   launch count below is the plan's (``lstm_cuda.plan_launches``), asserted:
+   in bfloat16 one launch per 128 rows with both directions at H=512 and
+   H=1024; in float32 one per 32 rows, and one a direction at H=1024.
 3. ``speller_decode`` on the operands the eval decode builds from seeded
    full-width parameters: base-LAS at B=64 and scaled-LAS (H1 1024, 4
    heads) at B=32, Te=192 with lengths mixed from 1 to Te, 600 steps,
@@ -32,7 +36,8 @@ on one NVIDIA card, from the root of a checkout:
    bfloat16: the max error and the share of identical transcripts.
 6. Kernels ``lstm_scan_train`` / ``lstm_scan_fusedin_train`` (the training
    forward) and ``lstm_bwd_dw`` (its adjoint) at the train step's shapes
-   (B=128 as four launches of 32 rows, H=512; layer 0 at T=1536 with D=15,
+   (B=128, the adjoint as four launches of 32 rows, H=512; layer 0 at T=1536
+   with D=15,
    layer 1 at T=768 over a 2 x 4H projection), float32 and bfloat16, ragged
    lengths with a length-1 row and a full row in every launch: hs bit-equal
    to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
@@ -40,10 +45,11 @@ on one NVIDIA card, from the root of a checkout:
    adjoint without dW_hh) at the same shapes, its dpre against
    ``lstm_bwd_dw``'s and against its own plain version, and the outside dW_hh
    product against the sum inside the kernel. Then the same at scaled-LAS's
-   H=1024 (the kernels' wide form, one launch a direction, eight launches a
-   call): the training forward, ``lstm_bwd`` with the outside product (timed
-   on its own) as the adjoint, and the lean forward kernels, which are a
-   ``remat`` layer's first pass.
+   H=1024 (float32: the wide form, one launch a direction; ``lstm_bwd``
+   eight launches a call): the training forward, ``lstm_bwd`` with the
+   outside product (timed on its own) as the adjoint, and the lean forward
+   kernels, which are a ``remat`` layer's first pass (timed at B=128 at both
+   widths).
 7. Kernels ``speller_decode_train`` (the fused decoder's training forward)
    and ``speller_decode_bwd`` (its adjoint) at the train step's shapes: the
    base-LAS decoder at B=128 and the scaled-LAS decoder (H1 1024, 4 heads) at
@@ -62,9 +68,12 @@ on one NVIDIA card, from the root of a checkout:
    ``decoder_impl: pallas``, every kernel tier engaged: one warm-up step and 3
    timed steps (up to 10 if the loss has not fallen below the warm-up
    step's). Every step finite, the loss falls, a step launches the listener's
-   training forward 16 times, its adjoint 16 times, the decoder's training
-   forward once and its adjoint once, none of the lean or eval kernels, and
-   calls no plain version; the decode route is ``cuda``. Then with
+   training forward 4 times (a layer's whole batch and both directions in
+   one launch), its adjoint 16 times, the decoder's training forward once
+   and its adjoint once, none of the lean or eval kernels, and calls no
+   plain version; the decode route is ``cuda``. An ``init_force`` pass and
+   a pass with labels outside training take the step loop and record the
+   route ``scan``, as in the JAX package. Then with
    ``decoder_impl: scan`` (the decoder as a loop of PyTorch ops under
    autograd, the earlier route) for comparison, one warm-up and 2 steps.
    Seconds a step, utterances/s, peak device memory and the split listener
@@ -83,10 +92,11 @@ on one NVIDIA card, from the root of a checkout:
    throw this model's loss on one repeated batch above the untrained
    model's, and a few steps do not bring it back; that the loss falls at
    this width is held by phase 11's epochs. A step launches the
-   lean forward 32 times (the first pass of the four ``remat`` layers, 4 x 32
-   rows x 2 directions each), the training forward 32 times and ``lstm_bwd``
-   32 times in the backward pass, ``lstm_bwd_dw`` never, and calls no plain
-   version. Seconds a step, utterances/s, the split, peak device memory, and
+   lean forward 4 times (the first pass of the four ``remat`` layers, one
+   launch each), the training forward 4 times and ``lstm_bwd`` 32 times (4 x
+   32 rows x 2 directions a layer) in the backward pass, ``lstm_bwd_dw``
+   never, and calls no plain version. Seconds a step, utterances/s, the
+   split, peak device memory, and
    one step with ``remat: false`` for the memory it saves. Then the float32
    parity step of 9 at this width, the kernels against the plain loops.
 11. The ``train`` CLI in-process on the card at scaled-LAS width: a seeded
@@ -106,8 +116,8 @@ on one NVIDIA card, from the root of a checkout:
    cs) and ``bilstm_scan_fused`` (#7: both directions in one launch over
    (T, 2, B, 4H) with direction 1 flipped in time, hs the frozen carry at
    padded frames), and the op ``bilstm_apply_fused`` over #7, at a listener
-   layer's full width (H=512, input 1024 wide; T=768 at B=8, 32 and 128, four
-   launches, and T=1536 at B=32), float32 and bfloat16, ragged lengths with a
+   layer's full width (H=512, input 1024 wide; T=768 at B=8, 32 and 128, and
+   T=1536 at B=32), float32 and bfloat16, ragged lengths with a
    length-1 and a full row in every launch. #3's hs bit-equal to
    ``lstm_scan``'s and its cs to ``lstm_scan_train``'s; #7's hs and cs against
    the plain version at every frame, pads included; the op against
@@ -191,6 +201,9 @@ KERNELS = {
 }
 SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan.cu"
 STREAMS_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan_streams.cu"
+# the bfloat16 forms of the forward recurrence (the records' dtype): tensor cores
+TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan_tc.cu"
+TC_STREAMS_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan_tc_streams.cu"
 BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_bwd.cu"
 PALLAS = "attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py"
 # the card's published peaks (H100 SXM): dense bf16 FLOP/s, bytes/s
@@ -379,9 +392,9 @@ def environment(torch, card: str) -> float:
     t0 = time.perf_counter()
     libs = cuda_build.build_all()  # one nvcc per source, side by side; then bound
     build_s = time.perf_counter() - t0
-    log(f"kernel build: {build_s:.2f} s ({SOURCE}, {STREAMS_SOURCE}, {BWD_SOURCE}, "
-        f"{SPELLER_SOURCE}, {SPELLER_BWD_SOURCE}; cuda_build.build_all, the call the "
-        f"entry points make)")
+    log(f"kernel build: {build_s:.2f} s ({SOURCE}, {STREAMS_SOURCE}, {TC_SOURCE}, "
+        f"{TC_STREAMS_SOURCE}, {BWD_SOURCE}, {SPELLER_SOURCE}, {SPELLER_BWD_SOURCE}; "
+        f"cuda_build.build_all, the call the entry points make)")
     log(f"native batch assembler (native/libasrtpu.so, not tracked): "
         f"{'loaded' if native_available() else 'absent, the numpy assembler serves'}")
     for so in libs:
@@ -393,8 +406,9 @@ def environment(torch, card: str) -> float:
 
 
 def kernel_phase(torch, card: str) -> dict:
-    """Each kernel against its plain version at the infer CLI's batch (two
-    launches of 32 rows a call); returns the JSON records."""
+    """Each kernel against its plain version at the infer CLI's batch (one
+    launch in bfloat16, two of 32 rows in float32); returns the JSON
+    records."""
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 
     gen = torch.Generator().manual_seed(SEED)
@@ -425,9 +439,11 @@ def kernel_phase(torch, card: str) -> dict:
             before = lc.LAUNCHES[name]
             got = kern(*args)
             torch.cuda.synchronize()
-            if lc.LAUNCHES[name] - before != 2:
-                raise AssertionError(f"{name}: B={B} took {lc.LAUNCHES[name] - before} "
-                                     f"launches, not 2 of 32 rows")
+            n_launch = forward_launches(torch, dtype, B, H,
+                                        in_dim if name == "lstm_scan_fusedin" else 0)
+            if lc.LAUNCHES[name] - before != n_launch:
+                raise AssertionError(f"{name} {dtype_name}: B={B} took "
+                                     f"{lc.LAUNCHES[name] - before} launches, not {n_launch}")
             ref = plain(*args)
             torch.cuda.synchronize()
             if got.shape != (B, seq_len, 2 * H) or got.dtype != dtype:
@@ -451,7 +467,7 @@ def kernel_phase(torch, card: str) -> dict:
             if not err <= TOL[dtype_name]:
                 raise AssertionError(f"{name} {dtype_name}: max_abs_err {err} > {TOL[dtype_name]}")
             if dtype_name == "bfloat16":  # the serving dtype goes into the record
-                records[name] = {"name": name, "route": "cuda", "source": SOURCE,
+                records[name] = {"name": name, "route": "cuda", "source": TC_SOURCE,
                                  "replaces": replaces, "launches": 0,
                                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound, "bound_by": bound_by,
@@ -735,6 +751,22 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
     return records
 
 
+def forward_launches(torch, dtype, batch: int, hidden: int, in_dim: int = 0) -> int:
+    """Launches of a two-direction forward call: bfloat16 one per 128 rows,
+    both directions in each at every width up to 1024 (asserted against
+    the plan); float32 one per 32 rows, and one a direction at H=1024."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = lc.plan_launches("forward", dtype, batch, hidden, 2, sms, in_dim)
+    rows = len(lc.row_chunks(batch, 128 if dtype == torch.bfloat16 else 32))
+    want = rows if dtype == torch.bfloat16 else rows * (2 if hidden > H else 1)
+    if len(plan) != want or (dtype == torch.bfloat16 and any(ln.nd != 2 for ln in plan)):
+        raise AssertionError(f"forward B={batch} H={hidden} {dtype}: plan {plan}, not "
+                             f"{want} launches")
+    return want
+
+
 def ragged_lengths(torch, gen, batch: int, low: int, high: int):
     """Lengths in [low, high] with a full row and a length-``low`` row in
     every 32-row launch."""
@@ -764,7 +796,8 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
     records = {}
     batch, rev = TRAIN_B, (False, True)
     wide = hidden > H
-    n_launch = len(lc.row_chunks(batch)) * (2 if wide else 1)
+    # the adjoints: one launch per 32 rows, and per direction when wide
+    n_adjoint = len(lc.row_chunks(batch)) * (2 if wide else 1)
     four_h = 4 * hidden
     for name, (seq_len, fused, replaces, lean_name, lean_replaces) in TRAIN_KERNELS.items():
         in_dim = 15 if fused else 2 * 2 * hidden
@@ -800,9 +833,10 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                 dpre, d_whh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
             torch.cuda.synchronize()
             adjoint = "lstm_bwd" if wide else "lstm_bwd_dw"
-            if lc.LAUNCHES[name] != n_launch or lc.LAUNCHES[adjoint] != n_launch:
+            n_launch = forward_launches(torch, dtype, batch, hidden, in_dim if fused else 0)
+            if lc.LAUNCHES[name] != n_launch or lc.LAUNCHES[adjoint] != n_adjoint:
                 raise AssertionError(f"{name}: B={batch} took {dict(lc.LAUNCHES)} launches, "
-                                     f"not {n_launch} of 32 rows each")
+                                     f"not {n_launch} (forward) and {n_adjoint} (adjoint)")
             with torch.no_grad():
                 if not torch.equal(hs, lean(*args, lengths, rev)):
                     raise AssertionError(f"{name} {dtype_name}: hs differs from the lean kernel's")
@@ -835,7 +869,7 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                 errs["outside dW_hh vs in-kernel"] = rel_err(lc.dw_hh_outside(hs, nodw, rev),
                                                              d_whh)
                 errs["lstm_bwd dpre"] = rel_err(nodw, p_dpre)
-                if lc.LAUNCHES["lstm_bwd"] != n_launch:
+                if lc.LAUNCHES["lstm_bwd"] != n_adjoint:
                     raise AssertionError(f"lstm_bwd: {dict(lc.LAUNCHES)} launches")
                 del nodw
             if fused:
@@ -874,7 +908,8 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
             lib_fwd = nn_lstm_ms(torch, x, lengths, dtype, "train", hidden)
             lib_bwd = nn_lstm_ms(torch, x, lengths, dtype, "backward", hidden)
             shown = ", ".join(f"{k} {a:.3e} ({r:.1e} of max)" for k, (a, r) in errs.items())
-            log(f"[{card}] {name} + {adjoint} {dtype_name} B={batch} ({n_launch} launches) "
+            log(f"[{card}] {name} + {adjoint} {dtype_name} B={batch} ({n_launch} + {n_adjoint} "
+                f"launches) "
                 f"T={seq_len} D={in_dim} H={hidden} 2 dirs: hs bit-equal to the lean kernel; "
                 f"max_abs_err {shown}; tolerance {tol:g} of max"
                 + ("" if same_dpre is None else
@@ -892,24 +927,25 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                 raise AssertionError(f"{name} {dtype_name}: errors over {tol} of max: {bad}")
             if dtype_name == "bfloat16":
                 records[at_width(name, hidden)] = {
-                    "name": at_width(name, hidden), "route": "cuda", "source": SOURCE,
+                    "name": at_width(name, hidden), "route": "cuda", "source": TC_SOURCE,
                     "replaces": replaces,
                     "launches": 0, "max_abs_err": max(errs["cs"][0], errs["gates"][0]),
                     "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
                     "bound_by": fwd_bound[1], "library_ms": lib_fwd}
-                if wide:  # the lean kernels at this width: remat's first pass
-                    with torch.no_grad():
-                        lean_ms = cuda_median_ms(torch, lambda: lean(*args, lengths, rev), reps)
-                        lean_plain_ms = cuda_median_ms(
-                            torch, lambda: lean_plain(*args, lengths, rev), 1)
-                    lean_bound = bound_ms(fwd_flops, valid_bytes(frames, args[0])
-                                          + nbytes(*args[1:], lengths, hs))
-                    lib_lean = nn_lstm_ms(torch, x, lengths, dtype, "infer", hidden)
-                    log(f"    lean kernel {lean_name} {lean_ms:.3f} ms  plain "
-                        f"{lean_plain_ms:.3f} ms  bound {lean_bound[0]:.3f} ms "
-                        f"({lean_bound[1]})  nn.LSTM under no_grad {fmt_ms(lib_lean)} ms")
+                # the lean kernels at the train batch (at H=1024 remat's first pass)
+                with torch.no_grad():
+                    lean_ms = cuda_median_ms(torch, lambda: lean(*args, lengths, rev), reps)
+                    lean_plain_ms = cuda_median_ms(
+                        torch, lambda: lean_plain(*args, lengths, rev), 1)
+                lean_bound = bound_ms(fwd_flops, valid_bytes(frames, args[0])
+                                      + nbytes(*args[1:], lengths, hs))
+                lib_lean = nn_lstm_ms(torch, x, lengths, dtype, "infer", hidden)
+                log(f"    lean kernel {lean_name} {lean_ms:.3f} ms  plain "
+                    f"{lean_plain_ms:.3f} ms  bound {lean_bound[0]:.3f} ms "
+                    f"({lean_bound[1]})  nn.LSTM under no_grad {fmt_ms(lib_lean)} ms")
+                if wide:  # a row: remat's first pass; at H=512 no main path runs them at B=128
                     records[at_width(lean_name, hidden)] = {
-                        "name": at_width(lean_name, hidden), "route": "cuda", "source": SOURCE,
+                        "name": at_width(lean_name, hidden), "route": "cuda", "source": TC_SOURCE,
                         "replaces": lean_replaces, "launches": 0, "max_abs_err": errs["hs"][0],
                         "ms": lean_ms, "plain_ms": lean_plain_ms, "bound_ms": lean_bound[0],
                         "bound_by": lean_bound[1], "library_ms": lib_lean}
@@ -937,7 +973,8 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
 # is 2 x 2H = 1024 wide; (T, B) as serving and training give them
 FUSED_IN_DIM = 2 * H
 FUSED_CASES = ((768, 8), (768, 32), (768, 128), (1536, 32))
-FUSED_RECORD_CASE = (768, 32)  # the JSON rows' shape: the serving batch
+# the JSON rows' shapes: the serving batch, and the train batch
+FUSED_RECORD_CASES = {(768, 32): "", (768, 128): " (B=128)"}
 
 
 def fused_layer(torch, gen, dtype):
@@ -964,8 +1001,9 @@ def op_grads(torch, fn, params, x, lengths, r):
 
 def fused_kernel_phase(torch, card: str) -> tuple:
     """Kernels ``lstm_scan_cs`` (#3) and ``bilstm_scan_fused`` (#7) and the
-    op ``bilstm_apply_fused`` at a listener layer's full width; returns (the
-    JSON records, the launches of the driven run). No YAML key of either
+    op ``bilstm_apply_fused`` at a listener layer's full width; returns the
+    JSON records, each with the launches of its own shape's driven run. No
+    YAML key of either
     package routes to these two kernels (the JAX package keeps the op beside
     its two-kernel BiLSTM as the small-batch variant), so their main path is
     the op itself, driven here forward and backward with the counts set to 0
@@ -978,7 +1016,7 @@ def fused_kernel_phase(torch, card: str) -> tuple:
              "d_b[bwd]")
     driven = dict.fromkeys(("lstm_scan_cs", "bilstm_scan_fused", "lstm_bwd"), 0)
     for seq_len, batch in FUSED_CASES:
-        n_launch = len(lc.row_chunks(batch))
+        n_adjoint = len(lc.row_chunks(batch))  # lstm_bwd: one launch per 32 rows
         lengths = ragged_lengths(torch, gen, batch, 1, seq_len).to(DEVICE)
         x32 = (torch.randn(batch, seq_len, FUSED_IN_DIM, generator=gen).clamp(-1, 1) * 0.5)
         r = torch.randn(batch, seq_len, 2 * H, generator=gen).to(DEVICE)
@@ -988,6 +1026,7 @@ def fused_kernel_phase(torch, card: str) -> tuple:
             tol = TRAIN_TOL[dtype_name]
             params = {d: {n: t.to(dtype) for n, t in p.items()} for d, p in params32.items()}
             x = x32.to(DEVICE, dtype)
+            n_launch = forward_launches(torch, dtype, batch, H)
             w_hh = torch.stack([params["fwd"]["w_hh"], params["bwd"]["w_hh"]])
             w_cat = torch.cat([params["fwd"]["w_ih"], params["bwd"]["w_ih"]], dim=1)
             x_proj = torch.matmul(x, w_cat) + torch.cat([params["fwd"]["b"], params["bwd"]["b"]])
@@ -1002,7 +1041,7 @@ def fused_kernel_phase(torch, card: str) -> tuple:
                 torch.cuda.synchronize()
             counts = dict(lc.LAUNCHES)
             want = {**dict.fromkeys(counts, 0), "lstm_scan_cs": n_launch,
-                    "bilstm_scan_fused": n_launch, "lstm_bwd": n_launch}
+                    "bilstm_scan_fused": n_launch, "lstm_bwd": n_adjoint}
             if counts != want:
                 raise AssertionError(f"fused op B={batch}: launches {counts} != {want}")
             for k in driven:
@@ -1092,7 +1131,8 @@ def fused_kernel_phase(torch, card: str) -> tuple:
             library_ms = nn_lstm_ms(torch, x, lengths, dtype, "infer")
             shown = ", ".join(f"{k} {a:.2e} ({rr:.1e})" for k, (a, rr) in errs.items())
             log(f"[{card}] lstm_scan_cs + bilstm_scan_fused + bilstm_apply_fused {dtype_name} "
-                f"B={batch} ({n_launch} launches) T={seq_len} D={FUSED_IN_DIM} H={H}: #3's hs "
+                f"B={batch} ({n_launch} launches, lstm_bwd {n_adjoint}) T={seq_len} "
+                f"D={FUSED_IN_DIM} H={H}: #3's hs "
                 f"bit-equal to lstm_scan's and cs to lstm_scan_train's; the op bit-equal to "
                 f"bilstm_apply_kernel: {same_out}; max_abs_err (of max): {shown}; tolerance "
                 f"{tol:g} of max")
@@ -1106,16 +1146,18 @@ def fused_kernel_phase(torch, card: str) -> tuple:
             if bad:
                 raise AssertionError(f"fused op {dtype_name} B={batch} T={seq_len}: errors over "
                                      f"{tol} of max: {bad}")
-            if dtype_name == "bfloat16" and (seq_len, batch) == FUSED_RECORD_CASE:
-                records["lstm_scan_cs"] = {
-                    "name": "lstm_scan_cs", "route": "cuda", "source": STREAMS_SOURCE,
-                    "replaces": PALLAS + ":98", "launches": 0,
+            suffix = FUSED_RECORD_CASES.get((seq_len, batch))
+            if dtype_name == "bfloat16" and suffix is not None:
+                records["lstm_scan_cs" + suffix] = {
+                    "name": "lstm_scan_cs" + suffix, "route": "cuda", "source": TC_STREAMS_SOURCE,
+                    "replaces": PALLAS + ":98", "launches": counts["lstm_scan_cs"],
                     "max_abs_err": max(errs["#3 hs"][0], errs["#3 cs"][0]), "ms": ms3,
                     "plain_ms": plain3, "bound_ms": bound3[0], "bound_by": bound3[1],
                     "library_ms": library_ms}
-                records["bilstm_scan_fused"] = {
-                    "name": "bilstm_scan_fused", "route": "cuda", "source": STREAMS_SOURCE,
-                    "replaces": PALLAS + ":1063", "launches": 0,
+                records["bilstm_scan_fused" + suffix] = {
+                    "name": "bilstm_scan_fused" + suffix, "route": "cuda",
+                    "source": TC_STREAMS_SOURCE,
+                    "replaces": PALLAS + ":1063", "launches": counts["bilstm_scan_fused"],
                     "max_abs_err": max(errs["#7 hs"][0], errs["#7 cs"][0]), "ms": ms7,
                     "plain_ms": plain7, "bound_ms": bound7[0], "bound_by": bound7[1],
                     "library_ms": library_ms}
@@ -1134,7 +1176,7 @@ def fused_kernel_phase(torch, card: str) -> tuple:
     log(f"[{card}] bilstm_scan_fused at H={WIDE_H} raises and names bilstm_apply_kernel; "
         f"launches of the driven runs (the op forward and backward and lstm_scan_cs, no YAML "
         f"key of either package routes to them): {driven}")
-    return records, driven
+    return records
 
 
 def http_phase(torch, card: str, exp: str, feats: list) -> dict:
@@ -1318,6 +1360,53 @@ class forbid_plain:
             setattr(mod, n, fn)
 
 
+def step_split(torch, cfg, state, opt, x, lx, y, ly, tf_rate, lr) -> tuple:
+    """One pass of the train step's pieces, as the step runs them: the
+    listener forward, the speller forward and loss, the backward in two
+    stages (down to the encoder output, then the listener) and the
+    optimizer. Returns (the device ms of each piece by CUDA events, the host
+    ms to enqueue it): a device time much above the host's is the card's
+    work, one close to it a wait on the host."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        draw_train_noise,
+        listener_apply,
+        speller_apply,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    host = []
+    spell_params = list(state.params["speller"].parameters())
+    listen_params = list(state.params["listener"].parameters())
+    with forbid_plain():
+        draws = draw_train_noise(cfg, x.shape[0], y.shape[1], state.generator, x.device)
+        torch.cuda.synchronize()
+
+        def mark(i):
+            marks[i].record()
+            host.append(time.perf_counter())
+
+        mark(0)
+        enc_h, enc_l = listener_apply(state.params["listener"], cfg.listener,
+                                      x.to(torch.bfloat16), lx, True, draws.listener_masks)
+        mark(1)
+        out = speller_apply(state.params["speller"], cfg.speller, enc_h, enc_l, y, tf_rate,
+                            False, True, draws)
+        loss, _ = masked_ce_loss(out.logits, y, ly)
+        mark(2)
+        *d_spell, d_enc = torch.autograd.grad(loss, [*spell_params, enc_h])
+        mark(3)
+        d_listen = torch.autograd.grad(enc_h, listen_params, d_enc)
+        mark(4)
+        with torch.no_grad():  # the parameters' order: listener, speller
+            opt.update([*d_listen, *d_spell], state.opt_state, [*listen_params, *spell_params],
+                       lr)
+        mark(5)
+        torch.cuda.synchronize()
+    return ([marks[i].elapsed_time(marks[i + 1]) for i in range(5)],
+            [1e3 * (host[i + 1] - host[i]) for i in range(5)])
+
+
 def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
                 model: str = "base-LAS") -> dict:
     """A trainer that takes a few steps at the full width of ``model`` with
@@ -1326,14 +1415,9 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
     listener layer's first pass is a lean kernel, its backward pass the
     training forward again and then ``lstm_bwd`` with the outside dW_hh."""
     from attention_based_e2e_asr_dnn_tpu_torch.models import las
-    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
-        draw_train_noise,
-        listener_apply,
-        speller_apply,
-    )
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import speller_apply
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
     from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
-    from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
 
     cfg = train_config("pallas", decoder_impl, model)
     fused = decoder_impl == "pallas"
@@ -1371,13 +1455,15 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
         peak = torch.cuda.max_memory_allocated()
         routes = las.decode_route_report()
     n_steps = len(metrics)
-    # a layer's launches a step: one per 32 rows, and per direction when wide
+    # a layer's launches a step: the forward one per 128 rows with both
+    # directions (bf16), the adjoint one per 32 rows, and per direction when wide
+    fwd = forward_launches(torch, torch.bfloat16, TRAIN_B, cfg.listener.uniform_hid_dim)
     chunks = len(lc.row_chunks(TRAIN_B)) * (2 if wide else 1)
     want = {**dict.fromkeys(counts, 0),
-            "lstm_scan_fusedin": chunks * n_steps if remat else 0,
-            "lstm_scan": 3 * chunks * n_steps if remat else 0,
-            "lstm_scan_fusedin_train": chunks * n_steps,
-            "lstm_scan_train": 3 * chunks * n_steps,
+            "lstm_scan_fusedin": fwd * n_steps if remat else 0,
+            "lstm_scan": 3 * fwd * n_steps if remat else 0,
+            "lstm_scan_fusedin_train": fwd * n_steps,
+            "lstm_scan_train": 3 * fwd * n_steps,
             "lstm_bwd" if wide else "lstm_bwd_dw": 4 * chunks * n_steps,
             # the whole batch in one launch of each decoder kernel
             "speller_decode_train": n_steps if fused else 0,
@@ -1386,18 +1472,20 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
         raise AssertionError(f"train: launches {counts} != {want} for {n_steps} steps")
     if routes != {f"B={TRAIN_B},Te={TRAIN_T // 8}": "cuda" if fused else "scan"}:
         raise AssertionError(f"train decoder_impl {decoder_impl}: decode routes {routes}")
-    if fused:  # what the kernels lack raises on the card; nothing gives way to the loop
+    if fused:
+        # what the kernels lack takes the step loop, as in the JAX package: it
+        # warns and records the route "scan" for its shape
         enc = torch.zeros(2, 8, cfg.listener.enc_out_dim, device=DEVICE)
+        enc_l = torch.full((2,), 8, dtype=torch.int32, device=DEVICE)
         for lacking in ({"init_force": True, "train": True}, {"train": False}):
-            try:
-                speller_apply(state.params["speller"], cfg.speller, enc, None, y[:2], **lacking)
-            except ValueError as err:
-                if "use decoder_impl: scan" not in str(err):
-                    raise
-            else:
-                raise AssertionError(f"train: decoder_impl pallas served {lacking} on the card")
-        if las.decode_route_report() != routes:
-            raise AssertionError("train: a refused pass recorded a decode route")
+            las.reset_decode_routes()
+            with torch.no_grad():
+                out = speller_apply(state.params["speller"], cfg.speller, enc, enc_l, y[:2],
+                                    **lacking)
+            if las.decode_route_report() != {"B=2,Te=8": "scan"}:
+                raise AssertionError(f"train: {lacking} took {las.decode_route_report()}")
+            if not bool(torch.isfinite(out.logits).all()):
+                raise AssertionError(f"train: {lacking} on the scan loop is not finite")
     if not all(m["finite"] for m in metrics) or not bool(warm["finite"]):
         raise AssertionError(f"train: a step was not finite: {metrics}")
     losses = [m["loss"] for m in metrics]
@@ -1421,39 +1509,21 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
         f"grad_norm {[round(m['grad_norm'], 3) for m in metrics]}; decode routes {routes}; "
         f"launches {counts}")
 
-    # where a step's time goes: the same pieces the step runs, CUDA events between
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    spell_params = list(state.params["speller"].parameters())
-    listen_params = list(state.params["listener"].parameters())
-    with forbid_plain():
-        draws = draw_train_noise(cfg, TRAIN_B, TRAIN_L, state.generator, x.device)
-        torch.cuda.synchronize()
-        marks[0].record()
-        enc_h, enc_l = listener_apply(state.params["listener"], cfg.listener,
-                                      x.to(torch.bfloat16), lx, True, draws.listener_masks)
-        marks[1].record()
-        out = speller_apply(state.params["speller"], cfg.speller, enc_h, enc_l, y, tf_rate,
-                            False, True, draws)
-        loss, _ = masked_ce_loss(out.logits, y, ly)
-        marks[2].record()
-        # the backward in two stages: down to the encoder output, then the listener
-        *d_spell, d_enc = torch.autograd.grad(loss, [*spell_params, enc_h])
-        marks[3].record()
-        d_listen = torch.autograd.grad(enc_h, listen_params, d_enc)
-        marks[4].record()
-        grads = [*d_listen, *d_spell]  # the parameters' order: listener, speller
-        with torch.no_grad():
-            opt.update(grads, state.opt_state, [*listen_params, *spell_params], lr)
-        marks[5].record()
-        torch.cuda.synchronize()
-    split = [marks[i].elapsed_time(marks[i + 1]) for i in range(5)]
-    log(f"    split of one step (CUDA events; SpecAugment and the parameter update left "
-        f"out): listener forward {split[0]:.1f} ms"
+    # where a step's time goes: the same pieces the step runs, CUDA events
+    # between them; one pass untimed, then the median of three
+    passes = [step_split(torch, cfg, state, opt, x, lx, y, ly, tf_rate, lr)
+              for _ in range(4)]
+    split = [statistics.median(p[0][i] for p in passes[1:]) for i in range(5)]
+    host = [statistics.median(p[1][i] for p in passes[1:]) for i in range(5)]
+    log(f"    split of one step (CUDA events, median of 3 passes after one; SpecAugment and "
+        f"the parameter update left out): listener forward {split[0]:.1f} ms"
         f"{' (the lean kernels: remat)' if remat else ''}, speller forward + loss "
         f"{split[1]:.1f} ms, backward {split[2] + split[3]:.1f} ms (speller {split[2]:.1f}, "
         f"listener {split[3]:.1f}{', its layers recomputed first' if remat else ''}), "
-        f"optimizer {split[4]:.1f} ms")
-    del state, opt, step, grads, d_spell, d_listen, d_enc, out, loss, enc_h
+        f"optimizer {split[4]:.1f} ms; host ms to enqueue each piece "
+        f"{[round(v, 1) for v in host]}; the untimed pass's device ms "
+        f"{[round(v, 1) for v in passes[0][0]]}, host ms {[round(v, 1) for v in passes[0][1]]}")
+    del state, opt, step
     torch.cuda.empty_cache()
     if remat:
         # the memory remat saves: the same step keeping every layer's streams
@@ -1608,9 +1678,10 @@ def infer_phase(torch, card: str, exp: str, data: str, work: str) -> dict:
         counts = {**lc.LAUNCHES, **sc.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
         routes = las.decode_route_report()
+        fwd = forward_launches(torch, torch.bfloat16, INFER_BATCH, H, 15)  # 64 rows: 1
         want = {**dict.fromkeys(counts, 0),  # none of the training kernels
-                "lstm_scan_fusedin": 2 * n_batches * n_ckpts,  # 64 rows: 2 launches
-                "lstm_scan": 3 * 2 * n_batches * n_ckpts,
+                "lstm_scan_fusedin": fwd * n_batches * n_ckpts,
+                "lstm_scan": 3 * fwd * n_batches * n_ckpts,
                 "speller_decode": 0 if early_stop else n_batches * n_ckpts}
         if counts != want:
             raise AssertionError(f"infer early_stop={early_stop}: launches {counts} != {want}")
@@ -1804,8 +1875,9 @@ def train_to_infer_phase(torch, card: str, folder: str, corpus: str, work: str) 
     counts = {**lc.LAUNCHES, **sc.LAUNCHES}
     routes = las.decode_route_report()
     n_batches = -(-N_CLI_TEST // CLI_BATCH) * len(names)
-    want = {**dict.fromkeys(counts, 0), "lstm_scan_fusedin": 2 * n_batches,
-            "lstm_scan": 3 * 2 * n_batches, "speller_decode": n_batches}
+    fwd = forward_launches(torch, torch.bfloat16, CLI_BATCH, WIDE_H, 15)  # both directions: 1
+    want = {**dict.fromkeys(counts, 0), "lstm_scan_fusedin": fwd * n_batches,
+            "lstm_scan": 3 * fwd * n_batches, "speller_decode": n_batches}
     if counts != want or not routes or set(routes.values()) != {"cuda"}:
         raise AssertionError(f"train -> infer: launches {counts} != {want}, routes {routes}")
     vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
@@ -1946,7 +2018,7 @@ def main() -> int:
         train_records = train_kernel_phase(torch, card)
         wide_records = train_kernel_phase(torch, card, WIDE_H)
     with phase("12 lstm_scan_cs, bilstm_scan_fused, bilstm_apply_fused"):
-        fused_records, fused_launches = fused_kernel_phase(torch, card)
+        fused_records = fused_kernel_phase(torch, card)
 
     rng = np.random.default_rng(SEED)
     feats = [rng.standard_normal((int(n), 15)).astype(np.float32)
@@ -1997,8 +2069,8 @@ def main() -> int:
     for name in records:
         records[name]["launches"] = (launches.get(name, 0) + http_launches.get(name, 0)
                                      + infer_launches[name])
-    for name in train_records:
-        train_records[name]["launches"] = train_launches[name]
+    for name, record in train_records.items():
+        record["launches"] = train_launches[name]
     records.update(train_records)
     # the wide rows: the timed scaled-LAS train steps and the train CLI's run
     for name, record in wide_records.items():
@@ -2008,9 +2080,7 @@ def main() -> int:
             raise AssertionError(f"{name} never launched in the scaled-LAS steps or the CLI")
     records.update(wide_records)
     # the last two kernels: no YAML key of either package routes to them, so
-    # their main path is the op itself, in the driven runs of its phase
-    for name, record in fused_records.items():
-        record["launches"] = fused_launches[name]
+    # their main path is the op itself, in the driven run at each row's shape
     records.update(fused_records)
     for name in records:
         if records[name]["launches"] <= 0:

@@ -119,6 +119,19 @@ def test_kernels_take_batches_past_32_rows_on_card(cuda_device, batch, fused):
 # adjoint (lstm_bwd_dw)
 # ---------------------------------------------------------------------------
 
+def _batch_dtypes(batches):
+    """(batch, dtype) cases: each of ``batches`` in both dtypes, then the
+    bfloat16 forward's own batches: 96 (base-LAS's), 128 (one launch's rows)
+    and 129 (two launches)."""
+    return ([(b, dt) for dt in (torch.float32, torch.bfloat16) for b in batches]
+            + [(b, torch.bfloat16) for b in (96, 128, 129)])
+
+
+def _forward_launches(device, dtype, batch, hidden, ndir):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return len(lstm_cuda.plan_launches("test", dtype, batch, hidden, ndir, sms))
+
+
 def _train_case(device, batch, hidden, dtype, ndir, fused, seed=0):
     gen = torch.Generator().manual_seed(1000 * batch + hidden + seed)
     seq_len = 19
@@ -151,23 +164,22 @@ def _tol(dtype, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [5, 32, 40, 64])
+@pytest.mark.parametrize("batch,dtype", _batch_dtypes([5, 32, 40, 64]))
 @pytest.mark.parametrize("hidden,ndir", [(64, 1), (64, 2), (512, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [True, False])
 def test_train_kernels_match_plain_on_card(cuda_device, batch, hidden, ndir, dtype, fused):
     _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [5, 40])
+@pytest.mark.parametrize("batch,dtype", _batch_dtypes([5, 40]))
 @pytest.mark.parametrize("hidden,ndir", [(1024, 1), (1024, 2), (768, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [True, False])
 def test_wide_train_kernels_match_plain_on_card(cuda_device, batch, hidden, ndir, dtype, fused):
-    """Above H = 512 the kernels stage their exchange in two halves, a layer
-    of two directions takes one launch a direction, and the adjoint is
-    ``lstm_bwd`` with the outside dW_hh product."""
+    """Above H = 512: the float32 forward stages its exchange in two halves
+    and takes one launch a direction, the bfloat16 forward runs 16 units a
+    block with both directions in one launch; the adjoint is ``lstm_bwd``
+    with the outside dW_hh product."""
     _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused)
 
 
@@ -179,14 +191,16 @@ def _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused):
         (lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_train, lstm_cuda.lstm_scan_train_plain))
     wide = hidden > 512
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    n_launch = len(lstm_cuda.row_chunks(batch)) * len(
+    # the adjoint: 32 rows a launch, a launch a direction where both do not fit
+    n_adjoint = len(lstm_cuda.row_chunks(batch)) * len(
         lstm_cuda._direction_groups("test", ndir, hidden, sms))
     lstm_cuda.reset_launch_counts()
     hs, cs, gates = train(*args, lengths, reverse)
     dpre, d_whh = lstm_cuda._adjoint(gates, cs, hs, dy, args[-1], lengths, reverse)
     torch.cuda.synchronize()
-    assert lstm_cuda.LAUNCHES[train.__name__] == n_launch
-    assert lstm_cuda.LAUNCHES["lstm_bwd" if wide else "lstm_bwd_dw"] == n_launch
+    assert lstm_cuda.LAUNCHES[train.__name__] == _forward_launches(
+        cuda_device, dtype, batch, hidden, ndir)
+    assert lstm_cuda.LAUNCHES["lstm_bwd" if wide else "lstm_bwd_dw"] == n_adjoint
     assert lstm_cuda.LAUNCHES["lstm_bwd_dw" if wide else "lstm_bwd"] == 0
     # hs of the training forward is the lean forward's, bit for bit
     assert torch.equal(hs, lean(*args, lengths, reverse))
@@ -268,9 +282,8 @@ def _ragged(batch, seq_len, gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [5, 40])
+@pytest.mark.parametrize("batch,dtype", _batch_dtypes([5, 40]))
 @pytest.mark.parametrize("hidden,ndir", [(64, 1), (64, 2), (512, 2), (1024, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_cs_streams_are_the_lean_and_train_kernels_on_card(cuda_device, batch, hidden,
                                                                 ndir, dtype):
     """``lstm_scan_cs``: hs bit-equal to ``lstm_scan``'s, cs bit-equal to
@@ -286,8 +299,8 @@ def test_scan_cs_streams_are_the_lean_and_train_kernels_on_card(cuda_device, bat
     lstm_cuda.reset_launch_counts()
     hs, cs = lstm_cuda.lstm_scan_cs(x_proj, w_hh, lengths, rev)
     torch.cuda.synchronize()
-    n = len(lstm_cuda.row_chunks(batch)) * (ndir if ndir * hidden > 1024 else 1)
-    assert lstm_cuda.LAUNCHES["lstm_scan_cs"] == n
+    assert lstm_cuda.LAUNCHES["lstm_scan_cs"] == _forward_launches(
+        cuda_device, dtype, batch, hidden, ndir)
     with torch.no_grad():
         assert torch.equal(hs, lstm_cuda.lstm_scan(x_proj, w_hh, lengths, rev))
     assert torch.equal(cs, lstm_cuda.lstm_scan_train(x_proj, w_hh, lengths, rev)[1])
@@ -298,9 +311,8 @@ def test_scan_cs_streams_are_the_lean_and_train_kernels_on_card(cuda_device, bat
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 5, 32, 40])
+@pytest.mark.parametrize("batch,dtype", _batch_dtypes([1, 5, 32, 40]))
 @pytest.mark.parametrize("hidden", [64, 512])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bilstm_scan_fused_matches_plain_on_card(cuda_device, batch, hidden, dtype):
     """hs and cs at every frame, the padded ones included (direction 0 the
     frozen carry, direction 1 zeros), any batch from one row on."""
@@ -313,7 +325,8 @@ def test_bilstm_scan_fused_matches_plain_on_card(cuda_device, batch, hidden, dty
     lstm_cuda.reset_launch_counts()
     hs, cs = lstm_cuda.bilstm_scan_fused(xp, w_hh, lengths)
     torch.cuda.synchronize()
-    assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == len(lstm_cuda.row_chunks(batch))
+    assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == _forward_launches(
+        cuda_device, dtype, batch, hidden, 2)
     assert hs.shape == cs.shape == (seq_len, 2, batch, hidden) and hs.dtype == dtype
     p_hs, p_cs = lstm_cuda.bilstm_scan_fused_plain(xp, w_hh, lengths)
     atol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -358,7 +371,9 @@ def test_bilstm_apply_fused_forward_backward_on_card(cuda_device, dtype, tol):
 
     lstm_cuda.reset_launch_counts()
     got = run(lstm_cuda.bilstm_apply_fused, cuda_device)
-    assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == 2 and lstm_cuda.LAUNCHES["lstm_bwd"] == 2
+    assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == _forward_launches(
+        cuda_device, dtype, batch, hidden, 2)
+    assert lstm_cuda.LAUNCHES["lstm_bwd"] == len(lstm_cuda.row_chunks(batch))
     for ref in (run(lstm_cuda.bilstm_apply_fused, "cpu"),
                 run(lstm_cuda.bilstm_apply_kernel, cuda_device)):
         for a, b in zip(got, ref):
@@ -367,11 +382,15 @@ def test_bilstm_apply_fused_forward_backward_on_card(cuda_device, dtype, tol):
 
 @pytest.mark.cuda
 def test_bilstm_scan_fused_refuses_a_wide_layer_on_card(cuda_device):
-    """2 x 128 blocks are more than the card's SMs: no quiet split."""
+    """Above H = 512 in either dtype (in float32 2 x 128 blocks are more than
+    the card's SMs): no quiet split."""
+    for dtype in (torch.float32, torch.bfloat16):
+        xp = torch.zeros(4, 2, 3, 4096, device=cuda_device, dtype=dtype)
+        w_hh = torch.zeros(2, 1024, 4096, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="bilstm_apply_kernel"):
+            lstm_cuda.bilstm_scan_fused(xp, w_hh, torch.ones(3, dtype=torch.int32))
     xp = torch.zeros(4, 2, 3, 4096, device=cuda_device)
     w_hh = torch.zeros(2, 1024, 4096, device=cuda_device)
-    with pytest.raises(ValueError, match="bilstm_apply_kernel"):
-        lstm_cuda.bilstm_scan_fused(xp, w_hh, torch.ones(3, dtype=torch.int32))
     with pytest.raises(ValueError, match=r"\(T, 2, B, 4H\)"):
         lstm_cuda.bilstm_scan_fused(xp[:, :1].contiguous(), w_hh[:, :64, :256].contiguous(),
                                     torch.ones(3, dtype=torch.int32))

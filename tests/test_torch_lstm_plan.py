@@ -1,0 +1,102 @@
+"""PyTorch port, the launch plan of the forward LSTM recurrence
+(``ops/lstm_cuda.py::plan_launches``): which cooperative launches a
+(dtype, batch, H, directions) layer takes on a card of a given number of SMs,
+with the units a block and the shared memory each block needs. Pure Python:
+no card, no kernel."""
+
+import itertools
+
+import pytest
+import torch
+
+from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda
+
+SMS = 132  # an H100's
+SMEM_LIMIT = 232448  # the shared memory a block may use on it
+# every hidden size the wrappers take
+WIDTHS = [h for h in range(32, 1025, 32) if h <= 512 or h % 64 == 0]
+
+
+def _spans(plan):
+    return [(ln.r0, ln.r1, ln.d0, ln.nd) for ln in plan]
+
+
+@pytest.mark.parametrize("hidden,batch,in_dim", [
+    (512, 96, 15), (512, 96, 0), (512, 128, 15), (512, 128, 0),   # base-LAS
+    (1024, 128, 15), (1024, 128, 0),                              # scaled-LAS
+])
+def test_bf16_main_path_is_one_launch_with_both_directions(hidden, batch, in_dim):
+    plan = lstm_cuda.plan_launches("k", torch.bfloat16, batch, hidden, 2, SMS, in_dim)
+    assert _spans(plan) == [(0, batch, 0, 2)]
+    (ln,) = plan
+    assert ln.units == (8 if hidden <= 512 else 16)
+    assert ln.blocks == 128 <= SMS
+
+
+def test_bf16_batch_past_128_rows_takes_a_second_launch():
+    plan = lstm_cuda.plan_launches("k", torch.bfloat16, 129, 1024, 2, SMS)
+    assert _spans(plan) == [(0, 128, 0, 2), (128, 129, 0, 2)]
+
+
+@pytest.mark.parametrize("batch,hidden,ndir", [
+    (5, 64, 2), (40, 512, 2), (128, 512, 2), (128, 1024, 2), (129, 768, 2), (64, 1024, 1)])
+def test_fp32_keeps_rows_of_32_and_direction_groups(batch, hidden, ndir):
+    plan = lstm_cuda.plan_launches("k", torch.float32, batch, hidden, ndir, SMS)
+    want = [(r0, r1, d0, nd) for r0, r1 in lstm_cuda.row_chunks(batch)
+            for d0, nd in lstm_cuda._direction_groups("k", ndir, hidden, SMS)]
+    assert _spans(plan) == want
+    assert {(ln.units, ln.blocks) for ln in plan} == {
+        (8, nd * hidden // 8) for _, _, _, nd in want}
+
+
+@pytest.mark.parametrize("dtype,batch,hidden,ndir,sms", [
+    (torch.bfloat16, 1, 32, 1, SMS), (torch.bfloat16, 257, 512, 2, SMS),
+    (torch.bfloat16, 300, 1024, 2, 100), (torch.float32, 97, 1024, 2, SMS),
+    (torch.float32, 33, 256, 2, SMS), (torch.bfloat16, 40, 640, 2, SMS)])
+def test_every_row_and_direction_is_in_one_launch(dtype, batch, hidden, ndir, sms):
+    plan = lstm_cuda.plan_launches("k", dtype, batch, hidden, ndir, sms)
+    cells = [(r, d) for ln in plan for r in range(ln.r0, ln.r1)
+             for d in range(ln.d0, ln.d0 + ln.nd)]
+    assert sorted(cells) == list(itertools.product(range(batch), range(ndir)))
+    assert all(ln.blocks <= sms for ln in plan)
+
+
+def test_bf16_splits_directions_only_where_the_blocks_do_not_fit():
+    # 2 x 64 blocks on a card of 100 SMs: a launch a direction
+    plan = lstm_cuda.plan_launches("k", torch.bfloat16, 128, 1024, 2, 100)
+    assert _spans(plan) == [(0, 128, 0, 1), (0, 128, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_shared_memory_fits_at_every_width(dtype):
+    for hidden, in_dim in itertools.product(WIDTHS, (0, 15, 128)):
+        for ln in lstm_cuda.plan_launches("k", dtype, 128, hidden, 2, SMS, in_dim):
+            assert ln.smem <= SMEM_LIMIT, (hidden, in_dim, ln)
+
+
+def test_bf16_shared_memory_bytes():
+    stage, align = 128 * 64 * 2, 1024
+    # W_hh 1024 x 64 bf16, W_ih 15 (or 128) x 64 bf16 and the bias; the ring:
+    # four 128-row stages, its most
+    assert lstm_cuda.tc_smem_bytes(1024, 16, 15) == align + 131072 + 4 * stage + 1920 + 256
+    assert lstm_cuda.tc_smem_bytes(1024, 16, 128) == align + 131072 + 4 * stage + 16384 + 256
+    assert lstm_cuda.tc_smem_bytes(512, 8) == align + 32768 + 4 * stage
+    # H = 32: one (half-empty) chunk; the ring three stages, more than the
+    # 128 x 40 fp32 reduction tile
+    assert lstm_cuda.tc_smem_bytes(32, 8) == align + 32 * 128 + 3 * stage
+    # the reduction tile at 16 units, 128 x 72 fp32, is less than three stages
+    assert lstm_cuda.tc_smem_bytes(64, 16) == align + 64 * 128 + 3 * stage
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hidden,in_dim,match", [
+    (0, 0, "hidden 0 must be a multiple of 32"),
+    (48, 0, "hidden 48 must be a multiple of 32"),
+    (544, 0, "hidden 544 above 512 must be a multiple of 64 and at most 1024"),
+    (1088, 0, "hidden 1088 above 512 must be a multiple of 64 and at most 1024"),
+    (64, 129, "in_dim 129 > 128"),
+])
+def test_refused_shapes_raise(dtype, hidden, in_dim, match):
+    with pytest.raises(ValueError, match=match):
+        lstm_cuda.plan_launches("k", dtype, 8, hidden, 2, SMS, in_dim)
+

@@ -322,3 +322,57 @@ def test_bwd_kernel_rejects_unsupported_shapes_on_card(cuda_device):
         speller_cuda.speller_decode_bwd(*args[:16], dq.double(), dq, None, **kw)
     lim = speller_cuda.bwd_kernel_limits(torch.cuda.current_device())
     assert lim["max_grid"] <= 132 and lim["smem_optin"] >= 48 * 1024
+
+
+# the model block of configs/base-las.yml
+BASE_LAS = (
+    {"input_dim": 15, "uniform_hid_dim": 512, "lstm_layers": 1, "plstm_layers": 3,
+     "bidirectional": True, "init_dropout": 0.3, "mid_dropout": 0.3, "final_dropout": 0.35,
+     "lstm_impl": "pallas"},
+    {"att_proj_dim": 256, "att_heads": 1, "dec_emb_dim": 512, "dec_lstm_hid_dim": 512,
+     "dec_lstm_out_dim": 256, "dec_lstm_dropout": 0.3, "CHR_MAX_STEPS": 600,
+     "dec_vocab_size": 30, "CHR_SOS_IDX": 0, "CHR_PAD_IDX": 29})
+
+
+@pytest.mark.cuda
+def test_init_force_train_step_takes_the_scan_route_on_card(cuda_device, capsys):
+    """An ``init_force`` train step at base-LAS width with ``decoder_impl:
+    pallas`` warns, records the route ``"scan"`` and equals the same step
+    with ``decoder_impl: scan``: the same listener kernels, the same step
+    loop, the same draws from the same seed. float32; the parameters within
+    1e-6, the loss exactly."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models import las
+    from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
+        create_train_state,
+        make_train_step,
+    )
+
+    batch, frames, labels = 8, 256, 32
+    gen = torch.Generator().manual_seed(5)
+    lx = torch.randint(frames - 64, frames + 1, (batch,), generator=gen).to(torch.int32)
+    lx[0] = frames
+    x = torch.randn(batch, frames, 15, generator=gen)
+    y = torch.randint(1, 29, (batch, labels), generator=gen).to(torch.int32)
+    ly = torch.full((batch,), labels, dtype=torch.int32)
+    x, lx, y, ly = (t.to(cuda_device) for t in (x, lx, y, ly))
+    results = {}
+    for impl in ("pallas", "scan"):
+        cfg = las_config_from_dicts(BASE_LAS[0], {**BASE_LAS[1], "decoder_impl": impl})
+        opt = build_optimizer("adamw", {"lr": 1e-3, "weight_decay": 5e-6, "amsgrad": True},
+                              grad_norm=5.0)
+        state = create_train_state(las_init(cfg, torch.Generator().manual_seed(11)), opt,
+                                   seed=12, device=cuda_device)
+        step = make_train_step(lambda p, xx, ll, **kw: las.las_apply(p, cfg, xx, ll, **kw), opt,
+                               use_specaug=True)
+        las.reset_decode_routes()
+        state, metrics, _ = step(state, x, lx, y, ly, 0.9, 1e-3, init_force=True)
+        torch.cuda.synchronize()
+        results[impl] = (state, metrics, las.decode_route_report())
+    err = capsys.readouterr().err
+    assert "fell back to the scan decoder" in err and "init_force" in err
+    (fused, m_fused, routes), (scan, m_scan, _) = results["pallas"], results["scan"]
+    assert routes == {f"B={batch},Te={frames // 8}": "scan"}
+    assert bool(m_fused["finite"]) and torch.equal(m_fused["loss"], m_scan["loss"])
+    for (name, p), q in zip(fused.params.named_parameters(), scan.params.parameters()):
+        torch.testing.assert_close(p, q, rtol=0, atol=1e-6, msg=name)

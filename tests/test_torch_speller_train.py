@@ -409,29 +409,34 @@ def test_dec_y_outside_training_takes_scan(capsys):
     np.testing.assert_allclose(out.logits.numpy(), np.asarray(ref.logits), atol=ATOL_F32 * 5)
 
 
-class _CardTensor:
-    """What ``speller_apply`` reads of ``enc_h`` before it routes."""
-    shape = (ttl.B, 6, 8)
-    is_cuda = True
-
-
 @pytest.mark.parametrize("kwargs, names", [
-    (dict(dec_y=torch.zeros(ttl.B, ttl.L, dtype=torch.int32), train=True, init_force=True),
-     "init_force"),
-    (dict(dec_y=torch.zeros(ttl.B, ttl.L, dtype=torch.int32), train=False),
-     "dec_y given outside training"),
+    (dict(train=True, init_force=True, tf_rate=0.9), "init_force"),
+    (dict(train=False), "dec_y given outside training"),
 ], ids=["init_force", "dec_y-outside-training"])
 def test_fused_decoder_on_the_card_raises_for_what_the_kernels_lack(kwargs, names, capsys):
-    """On CUDA tensors a ``pallas`` config never gives way to the step loop:
-    a pass the kernels cannot compute raises and names it, before any
-    tensor is touched, with no warning and no route recorded."""
+    """A pass the fused kernels cannot compute takes the step loop on any
+    device, the JAX package's own route for it (its models/las.py): it warns
+    once a shape naming what the kernels lack, records the route ``"scan"``
+    and gives the very numbers of a ``decoder_impl: scan`` config. The
+    device plays no part in the choice, so real tensors on the CPU hold the
+    card's route too; tests/test_torch_speller_cuda.py runs it on the card
+    inside a train step."""
+    cfg = ttl.NO_DROPOUT
+    params, enc, enc_l, y = _speller_case(cfg)
+    module = tlas.las_from_jax_params(params)["speller"]
+    args = (torch.from_numpy(enc), torch.from_numpy(enc_l))
+    if kwargs["train"]:
+        kwargs = dict(kwargs, draws=_replay_speller_draws(jax.random.key(3), cfg, ttl.B, ttl.L))
     tlas.reset_decode_routes()
-    with pytest.raises(ValueError, match=names) as err:
-        tlas.speller_apply(None, ttl._port_cfg(_fused(ttl.NO_DROPOUT)).speller,
-                           _CardTensor(), None, **kwargs)
-    assert "decoder_impl: scan" in str(err.value)
-    assert tlas.decode_route_report() == {}
-    assert "fell back" not in capsys.readouterr().err
+    with torch.inference_mode(not kwargs["train"]):
+        out = tlas.speller_apply(module, ttl._port_cfg(_fused(cfg)).speller, *args,
+                                 dec_y=torch.from_numpy(y), **kwargs)
+        err = capsys.readouterr().err
+        assert "fell back to the scan decoder" in err and names in err
+        assert tlas.decode_route_report() == {f"B={ttl.B},Te=6": "scan"}
+        ref = tlas.speller_apply(module, ttl._port_cfg(cfg).speller, *args,
+                                 dec_y=torch.from_numpy(y), **kwargs)
+    assert torch.equal(out.logits, ref.logits) and torch.equal(out.att_map, ref.att_map)
 
 
 @pytest.mark.parametrize("n_steps", [1, 2])
