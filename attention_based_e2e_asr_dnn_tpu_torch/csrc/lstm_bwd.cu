@@ -1,8 +1,9 @@
 // Adjoint of the persistent LSTM recurrence (lstm_scan.cu, TRAIN = true) for
-// Hopper (sm_90a): one cooperative launch walks the whole time loop of one
-// listener layer backwards, one or both directions. Two forms of one kernel:
+// Hopper (sm_90a), float32: one cooperative launch walks the whole time loop
+// of one listener layer backwards, one or both directions (bfloat16 is
+// lstm_bwd_tc.cu's, on tensor cores). Two forms of one kernel:
 //
-// Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py):
+// Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py), in float32:
 //   WITH_DW = true, entry lstm_bwd_dw: _lstm_bwd_dw_kernel (:382), launched by
 //       _backward_pallas_dw (:593), the H <= 512 route of _adjoint_with_dw
 //       (:788), which also accumulates dW_hh;
@@ -53,8 +54,7 @@
 //      hs[b, 4hq..4hq+3] x dpre[b, 16ch..16ch+15] over the rows into 64 fp32
 //      registers, written out once after the last step;
 //   4. one grid-wide barrier publishes dpre_t.
-// Plain FMA on the CUDA cores; wgmma/TMA and taking step 3 off the barrier's
-// critical path are later work.
+// Plain FMA on the CUDA cores, which keep float32's tolerance.
 //
 // The form without dW_hh drops step 3, the hs input, the 64 accumulators and
 // the block's own-dpre buffer. What is hard at H = 1024 and what it does:
@@ -305,7 +305,7 @@ static cudaError_t launch(BwdArgs a, cudaStream_t stream) {
 
 // Shapes are checked by the Python wrapper (ops/lstm_cuda.py): B <= 32,
 // H % 32 == 0, H <= 512, ndir * H / 8 blocks no more than the card's SMs,
-// every tensor contiguous. dtype: 0 = float32, 1 = bfloat16. Returns a
+// every tensor contiguous. dtype: 0 = float32 (bfloat16 is lstm_bwd_tc_launch's). Returns a
 // cudaError_t (0 on success).
 extern "C" int lstm_bwd_dw_launch(int dtype, int ndir, int rev_bits, int B, int T, int H,
                                   const void* gates, const void* cs, const void* hs,
@@ -314,7 +314,6 @@ extern "C" int lstm_bwd_dw_launch(int dtype, int ndir, int rev_bits, int B, int 
   BwdArgs a{gates, cs, hs, dy, w_hh, lengths, dpre, dw, ndir, rev_bits, B, T, H, 0, ndir};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float, true>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16, true>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -330,6 +329,5 @@ extern "C" int lstm_bwd_launch(int dtype, int ndir, int rev_bits, int dir0, int 
             nullptr, ndir, rev_bits, B,  T,    H,       dir0, grid_dirs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float, false>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16, false>(a, s);
   return (int)cudaErrorInvalidValue;
 }

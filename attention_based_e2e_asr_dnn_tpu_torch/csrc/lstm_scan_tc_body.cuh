@@ -47,6 +47,7 @@
 #include <stdint.h>
 
 #include "lstm_common.cuh"
+#include "wgmma_common.cuh"
 
 constexpr int TC_WARPS = 8;
 constexpr int TC_THREADS = TC_WARPS * 32;
@@ -54,99 +55,11 @@ constexpr int TC_ROWS = 128;           // batch rows a launch
 constexpr int TC_KC = 64;              // columns of h a ring stage holds
 constexpr int TC_STAGE_BYTES = TC_ROWS * TC_KC * 2;  // a stage of 128 rows
 constexpr int TC_RED_ROWS = 2 * 64;    // k-slices x row groups x 64
-constexpr int TC_SMEM_LIMIT = 232448;  // shared memory a block may use (sm_90)
-constexpr int TC_ALIGN = 1024;         // the swizzled tiles' alignment
 // stages of the ring at most: S - 2 = 2 chunks in flight. A ring that asks
 // for all of h at once lands its first chunk as late as its last, where a
 // shallow one lets the products start on chunk 0 while the rest loads: of 3,
 // 4, 5 and 6 stages, 4 was the fastest on an H100
 constexpr int TC_MAX_STAGES = 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte piece `c` (0..7) of row `r` in a [rows][64] bf16 tile
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-// wgmma: a warpgroup's 64 x N x 16 product, A and B from shared memory
-// through descriptors, fp32 accumulators in registers (N / 2 a thread)
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// the descriptor of a K-major bf16 tile of 128-byte rows, 16-byte pieces
-// XOR-swizzled by the row's low three bits (the 128-byte swizzle), rows in
-// groups of eight 1024 bytes apart; `saddr` 1024-byte aligned but for the
-// k offset within a row
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most P of this warpgroup's product groups are in flight; the
-// accumulators are its operands, so that nothing reads them before
-template <int P, int R>
-__device__ __forceinline__ void wgmma_wait(float (&d)[R]) {
-  static_assert(R == 16 || R == 32, "m64n32 or m64n64 accumulators");
-  if constexpr (R == 16) {
-  asm volatile("wgmma.wait_group.sync.aligned %16;\n"
-             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-               "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-               "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) : "n"(P) : "memory");
-  } else {
-  asm volatile("wgmma.wait_group.sync.aligned %32;\n"
-             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-               "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-               "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-               "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-               "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-               "+f"(d[30]), "+f"(d[31]) : "n"(P) : "memory");
-  }
-}
-// the cp.async writes of the ring (generic proxy) before wgmma reads them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
@@ -180,51 +93,6 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   }
 }
 
-// V = 1, 2, 4 or 8 adjacent bf16 values as one access of 2 V bytes (aligned)
-template <int V>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* f) {
-  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 values");
-  if constexpr (V == 1) {
-    f[0] = __bfloat162float(*p);
-  } else {
-    uint32_t w[V / 2];
-    if constexpr (V == 2) {
-      w[0] = *reinterpret_cast<const uint32_t*>(p);
-    } else if constexpr (V == 4) {
-      const uint2 u = *reinterpret_cast<const uint2*>(p);
-      w[0] = u.x, w[1] = u.y;
-    } else {
-      const uint4 u = *reinterpret_cast<const uint4*>(p);
-      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-    }
-#pragma unroll
-    for (int i = 0; i < V / 2; ++i) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      f[2 * i] = v.x, f[2 * i + 1] = v.y;
-    }
-  }
-}
-template <int V>
-__device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float* f) {
-  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "1, 2, 4 or 8 values");
-  if constexpr (V == 1) {
-    *p = __float2bfloat16(f[0]);
-  } else {
-    uint32_t w[V / 2];
-#pragma unroll
-    for (int i = 0; i < V / 2; ++i) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&v);
-    }
-    if constexpr (V == 2) {
-      *reinterpret_cast<uint32_t*>(p) = w[0];
-    } else if constexpr (V == 4) {
-      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-    } else {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
 // a compile-time count of cells, handed to a generic lambda
 template <int V>
 struct Cells {
@@ -233,15 +101,6 @@ struct Cells {
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.L1 [%0];\n" ::"l"(p));
-}
-
-__device__ __forceinline__ void arrive_release(unsigned* ctr) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(ctr) : "memory");
-}
-__device__ __forceinline__ unsigned load_acquire(const unsigned* ctr) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(ctr) : "memory");
-  return v;
 }
 
 // The block's shared memory: W_hh columns, the ring (reused as the reduction

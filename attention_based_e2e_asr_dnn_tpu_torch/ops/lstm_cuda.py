@@ -47,7 +47,10 @@ further forms of that recurrence:
                          other), any batch of at least one row, and H <= 512:
                          a wider layer raises and is ``bilstm_apply_kernel``'s.
 
-``csrc/lstm_bwd.cu`` holds the adjoint, in two forms of one kernel:
+The adjoint has two bodies too: ``csrc/lstm_bwd_tc.cu`` for bfloat16 (both
+products on tensor cores, the exchanged dpre streamed by TMA; body
+``csrc/lstm_bwd_tc_body.cuh``) and ``csrc/lstm_bwd.cu`` for float32
+(CUDA-core FMAs), each in two forms of one kernel:
 
   ``lstm_bwd_dw``        replaces ``_lstm_bwd_dw_kernel`` (lstm_pallas.py:382,
                          via ``_backward_pallas_dw``): the adjoint recurrence
@@ -64,11 +67,11 @@ further forms of that recurrence:
 
 Each launch runs the whole time loop of one layer with the carry on chip;
 the sources' headers say what bounds them and how they are laid out.
-``plan_launches`` (pure, a function of dtype, B, H, directions and SMs) says
-which launches a forward call makes. bfloat16: up to 128 batch rows and both
-directions in one launch at every width up to H = 1024 (8 hidden units a
-block up to H = 512, 16 above: at most 128 blocks); a wider batch takes one
-launch per 128 rows. float32, and the adjoints in both dtypes: at most 32
+``plan_launches`` and ``plan_bwd_launches`` (pure, functions of dtype, B, H,
+directions and SMs) say which launches a forward and an adjoint call make.
+bfloat16: up to 128 batch rows and both directions in one launch at every
+width up to H = 1024 (8 hidden units a block up to H = 512, 16 above: at most
+128 blocks); a wider batch takes one launch per 128 rows. float32: at most 32
 rows a launch (``row_chunks``), 8 units a block, and a layer whose
 directions together need more blocks than the card has SMs (H = 1024: 2 x
 128) takes one launch a direction (``_direction_groups``). Rows are
@@ -113,7 +116,8 @@ STREAMS_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_streams.cu")
 TC_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_tc.cu")
 TC_STREAMS_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_tc_streams.cu")
 BWD_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd.cu")
-SOURCES = (SOURCE, STREAMS_SOURCE, TC_SOURCE, TC_STREAMS_SOURCE, BWD_SOURCE)
+BWD_TC_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd_tc.cu")
+SOURCES = (SOURCE, STREAMS_SOURCE, TC_SOURCE, TC_STREAMS_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 
 # the float32 kernels' and the adjoint's fixed geometry (csrc/lstm_common.cuh):
 # hidden units per block, batch rows per launch (one per lane)
@@ -126,6 +130,11 @@ _TC_KC = 64
 _TC_RED_ROWS = 128
 _TC_ALIGN = 1024
 _TC_MAX_STAGES = 4
+# the bfloat16 adjoint's (csrc/lstm_bwd_tc_body.cuh): columns of dpre a ring
+# stage holds, its most stages, the mbarriers' bytes
+_BT_SC = 128
+_BT_MAX_STAGES = 6
+_BT_BAR_BYTES = 2 * _BT_MAX_STAGES * 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # widest hidden size of the adjoint with dW_hh in the kernel (the JAX package's
 # in-kernel-dW route ends there too, lstm_pallas.py:550); above it the kernels
@@ -223,8 +232,17 @@ def load_bwd_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_bwd_tc_library() -> ctypes.CDLL:
+    """``csrc/lstm_bwd_tc.cu``: the bfloat16 adjoint, both forms."""
+    return _bind(BWD_TC_SOURCE, "lstm_bwd_tc_launch",
+                 [_i, _i, _i, _i, _i, _i, _i, _i,   # with_dw ndir rev dir0 grid_dirs B T H
+                  _p, _p, _p, _p, _p, _p,           # gates cs hs dy w_hh lengths
+                  _p, _p, _p, _i, _p])              # dpre xbuf dw, units, counters
+
+
 LOADERS = (load_library, load_streams_library, load_tc_library, load_tc_streams_library,
-           load_bwd_library)
+           load_bwd_library, load_bwd_tc_library)
 
 
 def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
@@ -304,7 +322,7 @@ def f32_smem_bytes(hidden: int, in_dim: int = 0) -> int:
 
 
 class Launch(NamedTuple):
-    """One cooperative launch of the forward recurrence."""
+    """One cooperative launch of the forward recurrence or of its adjoint."""
     r0: int      # first batch row
     r1: int      # one past the last
     d0: int      # first direction
@@ -338,6 +356,65 @@ def plan_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, ndir: 
     groups = _direction_groups(name, ndir, hidden, sms, units)
     return [Launch(r0, r1, d0, nd, units, nd * hidden // units, smem)
             for r0, r1 in row_chunks(batch, rows) for d0, nd in groups]
+
+
+def bwd_tc_smem_bytes(rows: int, hidden: int, units: int, with_dw: bool) -> int:
+    """Shared memory a block of the bfloat16 adjoint uses in a launch of
+    ``rows`` rows (``bt_smem_bytes`` in csrc/lstm_bwd_tc_body.cuh): W_hh's U
+    rows as bf16; the ring, whole stages of the rows rounded up to 64 (64 or
+    128) x 128 columns of dpre, in what is left of the card's limit, at most
+    six and at most the stages of one step (4H / 128); with dW_hh the hs_t
+    tile (rows x U bf16); up to 64 rows the reduction tile (64 x U fp32); the
+    mbarriers; and the slack that puts the swizzled tiles on a 1024-byte
+    boundary. At least one stage: a layer that leaves no room for one needs
+    more than the limit."""
+    box = 128 if rows > 64 else 64
+    stage = box * _BT_SC * 2
+    fixed = (_TC_ALIGN + 4 * hidden // 64 * units * 128
+             + (box // 64 * units * 128 if with_dw else 0)
+             + (0 if rows > 64 else 64 * units * 4) + _BT_BAR_BYTES)
+    stages = min(max(_SMEM_LIMIT - fixed, 0) // stage, _BT_MAX_STAGES, 4 * hidden // _BT_SC)
+    return fixed + max(stages, 1) * stage
+
+
+def f32_bwd_smem_bytes(hidden: int, with_dw: bool) -> int:
+    """Shared memory a block of the float32 adjoint uses (``smem_bytes`` in
+    csrc/lstm_bwd.cu): W_hh's rows as fp32, the staged piece of the previous
+    dpre, the cross-warp sums, with dW_hh the block's own dpre."""
+    width = hidden if with_dw else _staged_width(hidden)
+    floats = (4 * hidden * _UNITS + _BMAX * (width + 4) + 8 * _UNITS * 32
+              + (_BMAX * 4 * _UNITS if with_dw else 0))
+    return 4 * floats
+
+
+def plan_bwd_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, ndir: int,
+                      sms: int, with_dw: bool) -> List[Launch]:
+    """The launches of the adjoint recurrence (``with_dw``: ``lstm_bwd_dw``,
+    else ``lstm_bwd``) for a (batch, H, ndir) layer on a card of ``sms`` SMs.
+
+    bfloat16 (the tensor-core body): up to 128 rows a launch, ``tc_units``
+    units a block, all directions in one launch wherever their blocks fit
+    the SMs. float32 (the CUDA-core body): 32 rows a launch, 8 units a block,
+    a launch a direction where both do not fit. Every (row, direction) is in
+    exactly one launch. The adjoint with dW_hh takes H <= 512 with all
+    directions in one launch. Raises a ``ValueError`` naming the limit for a
+    width or a shared-memory need the kernels do not take."""
+    _check_hidden(name, hidden)
+    bf16 = dtype == torch.bfloat16
+    units = tc_units(hidden) if bf16 else _UNITS
+    groups = _direction_groups(name, ndir, hidden, sms, units)
+    if with_dw and (hidden > _BWD_DW_MAX_HIDDEN or len(groups) > 1):
+        raise ValueError(
+            f"{name}: {ndir} x hidden {hidden}: the adjoint with dW_hh in the kernel "
+            f"takes H <= {_BWD_DW_MAX_HIDDEN} with all directions in one launch; a "
+            f"wider layer is lstm_bwd's, with dw_hh_outside for dW_hh")
+    plan = []
+    for r0, r1 in row_chunks(batch, _TC_ROWS if bf16 else _BMAX):
+        smem = (bwd_tc_smem_bytes(r1 - r0, hidden, units, with_dw) if bf16
+                else f32_bwd_smem_bytes(hidden, with_dw))
+        _check_smem(name, hidden, smem)
+        plan += [Launch(r0, r1, d0, nd, units, nd * hidden // units, smem) for d0, nd in groups]
+    return plan
 
 
 def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
@@ -503,47 +580,68 @@ def _launch_streams(name: str, bi: bool, x: torch.Tensor, w_hh: torch.Tensor,
     return out, cs
 
 
-def _launch_bwd(gates: torch.Tensor, cs: torch.Tensor, hs: torch.Tensor,
-                dy: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
-                reverse: Tuple[bool, ...]):
-    """Check shapes and launch the adjoint kernel once per 32 rows. Returns
-    dpre (B, T, ndir * 4H) and d_whh (ndir, H, 4H) float32."""
-    name = "lstm_bwd_dw"
-    ndir, hidden, sms = _check_recurrence(name, gates, [gates, cs, hs, dy, w_hh],
-                                          w_hh, lengths, reverse)
+def _launch_adjoint(name: str, with_dw: bool, gates: torch.Tensor, cs: torch.Tensor, hs,
+                    dy: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+                    reverse: Tuple[bool, ...]):
+    """Check shapes and launch the adjoint as ``plan_bwd_launches`` plans it:
+    bfloat16 on the tensor-core body (csrc/lstm_bwd_tc.cu), float32 on the
+    CUDA-core body (csrc/lstm_bwd.cu). Returns dpre (B, T, ndir * 4H) and,
+    ``with_dw``, d_whh (ndir, H, 4H) float32, the launches' partial sums
+    added in launch order (runs repeat bit for bit)."""
+    ndir, hidden, sms = _check_recurrence(
+        name, gates, [gates, cs, dy, w_hh] + ([hs] if with_dw else []), w_hh, lengths, reverse)
+    streams = {"cs": cs, "dy": dy, **({"hs": hs} if with_dw else {})}
+    _check_stream_shapes(name, gates, streams, ndir, hidden)
     batch, seq_len = gates.shape[0], gates.shape[1]
-    if hidden > _BWD_DW_MAX_HIDDEN or len(_direction_groups(name, ndir, hidden, sms)) > 1:
-        raise ValueError(
-            f"{name}: {ndir} x hidden {hidden}: the adjoint with dW_hh in the kernel "
-            f"takes H <= {_BWD_DW_MAX_HIDDEN} with all directions in one launch; a "
-            f"wider layer is lstm_bwd's, with dw_hh_outside for dW_hh")
-    # W_hh rows, one staged gate, the cross-warp sums, the block's own dpre
-    _check_smem(name, hidden, 4 * (4 * hidden * _UNITS + _BMAX * (hidden + 4)
-                                   + 8 * _UNITS * 32 + _BMAX * 4 * _UNITS))
-    _check_stream_shapes(name, gates, {"cs": cs, "hs": hs, "dy": dy}, ndir, hidden)
+    plan = plan_bwd_launches(name, gates.dtype, batch, hidden, ndir, sms, with_dw)
 
-    lib = load_bwd_library()
+    tc = gates.dtype == torch.bfloat16
+    lib = load_bwd_tc_library() if tc else load_bwd_library()
     lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
-    chunks = row_chunks(batch)
     dpre = torch.empty_like(gates)
-    dw_parts = torch.empty(len(chunks), ndir, hidden, 4 * hidden, dtype=torch.float32,
-                           device=gates.device)
+    spans = sorted({(ln.r0, ln.r1) for ln in plan})
+    dw_parts = (torch.empty(len(spans), ndir, hidden, 4 * hidden, dtype=torch.float32,
+                            device=gates.device) if with_dw else None)
     rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for n, (r0, r1) in enumerate(chunks):
-            err = lib.lstm_bwd_dw_launch(
-                _DTYPE_CODES[gates.dtype], ndir, rev_bits, r1 - r0, seq_len, hidden,
-                gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr(), hs[r0:r1].data_ptr(),
-                dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
-                dpre[r0:r1].data_ptr(), dw_parts[n].data_ptr(), stream)
+        for ln in plan:
+            r0, r1 = ln.r0, ln.r1
+            rows = (gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr())
+            tail = (dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
+                    dpre[r0:r1].data_ptr())
+            h_ptr = hs[r0:r1].data_ptr() if with_dw else None
+            dw_ptr = dw_parts[spans.index((r0, r1))].data_ptr() if with_dw else None
+            if tc:
+                # the exchange: each step's dpre, double-buffered, a direction's rows compact
+                xbuf = torch.empty(2, ln.nd, r1 - r0, 4 * hidden, dtype=gates.dtype,
+                                   device=gates.device)
+                sync = torch.zeros(ln.nd, dtype=torch.int32, device=gates.device)
+                err = lib.lstm_bwd_tc_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
+                                             r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
+                                             xbuf.data_ptr(), dw_ptr, ln.units, sync.data_ptr(),
+                                             stream)
+            elif with_dw:
+                err = lib.lstm_bwd_dw_launch(_DTYPE_CODES[gates.dtype], ndir, rev_bits, r1 - r0,
+                                             seq_len, hidden, *rows, h_ptr, *tail, dw_ptr,
+                                             stream)
+            else:
+                err = lib.lstm_bwd_launch(_DTYPE_CODES[gates.dtype], ndir, rev_bits, ln.d0, ln.nd,
+                                          r1 - r0, seq_len, hidden, *rows, *tail, stream)
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed with cudaError {err}")
             LAUNCHES[name] += 1
+    if not with_dw:
+        return dpre
     d_whh = dw_parts[0]
-    for n in range(1, len(chunks)):  # a fixed order: runs repeat bit for bit
+    for n in range(1, len(spans)):  # a fixed order: runs repeat bit for bit
         d_whh = d_whh + dw_parts[n]
     return dpre, d_whh
+
+
+def _launch_bwd(gates, cs, hs, dy, w_hh, lengths, reverse):
+    """``lstm_bwd_dw`` on the card: (dpre, d_whh float32)."""
+    return _launch_adjoint("lstm_bwd_dw", True, gates, cs, hs, dy, w_hh, lengths, reverse)
 
 
 def _check_stream_shapes(name: str, gates: torch.Tensor, streams: dict, ndir: int,
@@ -554,40 +652,6 @@ def _check_stream_shapes(name: str, gates: torch.Tensor, streams: dict, ndir: in
     for label, t in streams.items():
         if t.shape != (batch, seq_len, ndir * hidden):
             raise ValueError(f"{name}: {label} {tuple(t.shape)} != (B, T, {ndir} x H)")
-
-
-def _launch_bwd_nodw(gates: torch.Tensor, cs: torch.Tensor, dy: torch.Tensor,
-                     w_hh: torch.Tensor, lengths: torch.Tensor,
-                     reverse: Tuple[bool, ...]) -> torch.Tensor:
-    """Check shapes and launch the adjoint without dW_hh once per 32 rows and
-    direction group. Returns dpre (B, T, ndir * 4H)."""
-    name = "lstm_bwd"
-    ndir, hidden, sms = _check_recurrence(name, gates, [gates, cs, dy, w_hh],
-                                          w_hh, lengths, reverse)
-    groups = _direction_groups(name, ndir, hidden, sms)
-    # W_hh rows, the staged piece of the previous dpre, the cross-warp sums
-    _check_smem(name, hidden, 4 * (4 * hidden * _UNITS + _BMAX * (_staged_width(hidden) + 4)
-                                   + 8 * _UNITS * 32))
-    _check_stream_shapes(name, gates, {"cs": cs, "dy": dy}, ndir, hidden)
-    batch, seq_len = gates.shape[0], gates.shape[1]
-
-    lib = load_bwd_library()
-    lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
-    dpre = torch.empty_like(gates)
-    rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
-    with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r0, r1 in row_chunks(batch):
-            for d0, nd in groups:
-                err = lib.lstm_bwd_launch(
-                    _DTYPE_CODES[gates.dtype], ndir, rev_bits, d0, nd, r1 - r0, seq_len,
-                    hidden, gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr(),
-                    dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
-                    dpre[r0:r1].data_ptr(), stream)
-                if err != 0:
-                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-                LAUNCHES[name] += 1
-    return dpre
 
 
 # ---------------------------------------------------------------------------
@@ -830,7 +894,8 @@ def lstm_bwd(gates, cs, dy, w_hh, lengths, reverse) -> torch.Tensor:
     stream dtype. ``dw_hh_outside(hs, dpre, reverse)`` gives dW_hh."""
     if gates.device.type == "cpu":
         return lstm_bwd_plain(gates, cs, dy, w_hh, lengths, reverse)
-    return _launch_bwd_nodw(gates, cs, dy, w_hh, lengths, tuple(reverse))
+    return _launch_adjoint("lstm_bwd", False, gates, cs, None, dy, w_hh, lengths,
+                           tuple(reverse))
 
 
 def lstm_scan_cs(x_proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,

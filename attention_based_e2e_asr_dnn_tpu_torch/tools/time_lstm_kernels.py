@@ -2,21 +2,24 @@
 paths' shapes and print one JSON line.
 
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels \
-        [--reps 20] [--hidden 512]
+        [--reps 20] [--hidden 512] [--forms lstm_bwd,lstm_bwd_dw]
 
 Shapes: ``--hidden`` 512 (base-LAS) or 1024 (scaled-LAS), bfloat16 and
 float32; the serve, infer and train batches (B=32, 64 and 128: layer 0 at
 T=1536 with D=15, layer 1 at T=768 over a 2 x 4H projection) for the lean
 forward kernels, and the train batch (B=128) for the training forward and
 the adjoints where the tree has them: ``lstm_bwd_dw`` up to H=512,
-``lstm_bwd`` at every width, and the outside dW_hh product beside it;
+``lstm_bwd`` at every width, and the outside dW_hh product beside it (up to
+H=512 also ``lstm_bwd`` and ``dw_hh_outside`` timed together as one figure,
+the route that would replace ``lstm_bwd_dw`` there);
 ``lstm_scan_cs`` and, up to H=512, ``bilstm_scan_fused`` (over the same
 projection laid out as (T, 2, B, 4H)) beside ``lstm_scan``. Times are
 CUDA-event medians of ``--reps`` calls after one warm-up call, each call all
-the launches its wrapper makes (bfloat16: one per 128 rows, both directions;
-float32: one per 32 rows, and a direction at H=1024). The line names the
+the launches its wrapper makes (bfloat16: one per 128 rows, both directions,
+the adjoint too; float32: one per 32 rows, and a direction at H=1024). The line names the
 card and its power limit, so two trees can be compared within one run on one
-card (run them in turns: parent, change, change, parent).
+card (run them in turns: parent, change, change, parent). ``--forms`` times
+only the named wrappers (and, with ``lstm_bwd``, the outside product).
 """
 
 from __future__ import annotations
@@ -37,10 +40,14 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--hidden", type=int, default=512)
+    parser.add_argument("--forms", default=",".join(FORMS),
+                        help="comma-separated wrappers to time (default: all)")
     cli = parser.parse_args()
     reps, H = cli.reps, cli.hidden
     card = require_card("time_lstm_kernels")
-    fn = {name: getattr(lc, name, None) for name in FORMS}  # the wrappers this tree has
+    wanted = set(cli.forms.split(","))
+    # the wrappers this tree has, of those wanted
+    fn = {name: getattr(lc, name, None) if name in wanted else None for name in FORMS}
     gen = torch.Generator().manual_seed(0)
     k = H ** -0.5
     rev = (False, True)
@@ -63,24 +70,28 @@ def main() -> None:
                             .to("cuda", dtype), w_hh)
                     lean, train = "lstm_scan", "lstm_scan_train"
                 key = f"{dtype_name} B={batch} T={seq_len}"
-                with torch.no_grad():
-                    out["ms"][f"{lean} {key}"] = median_ms(
-                        lambda: fn[lean](*args, lengths, rev), reps)
+                if fn[lean] is not None:
+                    with torch.no_grad():
+                        out["ms"][f"{lean} {key}"] = median_ms(
+                            lambda: fn[lean](*args, lengths, rev), reps)
                 if name == "scan" and fn["lstm_scan_cs"] is not None:
                     with torch.no_grad():
                         out["ms"][f"lstm_scan_cs {key}"] = median_ms(
                             lambda: fn["lstm_scan_cs"](*args, lengths, rev), reps)
-                        if H <= 512:
+                        if H <= 512 and fn["bilstm_scan_fused"] is not None:
                             xp = torch.stack(args[0].split(4 * H, dim=-1), 0).permute(
                                 2, 0, 1, 3).contiguous()
                             out["ms"][f"bilstm_scan_fused {key}"] = median_ms(
                                 lambda: fn["bilstm_scan_fused"](xp, w_hh, lengths), reps)
                             del xp
-                if batch == 128 and fn[train] is not None:
-                    hs, cs, gates = fn[train](*args, lengths, rev)
+                adjoints = fn["lstm_bwd_dw"] is not None or fn["lstm_bwd"] is not None
+                if batch == 128 and (fn[train] is not None or adjoints):
+                    # the training forward's streams are the adjoints' inputs
+                    hs, cs, gates = getattr(lc, train)(*args, lengths, rev)
                     dy = torch.randn(hs.shape, generator=gen).to("cuda", dtype)
-                    out["ms"][f"{train} {key}"] = median_ms(
-                        lambda: fn[train](*args, lengths, rev), reps)
+                    if fn[train] is not None:
+                        out["ms"][f"{train} {key}"] = median_ms(
+                            lambda: fn[train](*args, lengths, rev), reps)
                     if H <= 512 and fn["lstm_bwd_dw"] is not None:
                         out["ms"][f"lstm_bwd_dw {key}"] = median_ms(
                             lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
@@ -90,6 +101,11 @@ def main() -> None:
                             lambda: lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev), reps)
                         out["ms"][f"dw_hh_outside {key}"] = median_ms(
                             lambda: lc.dw_hh_outside(hs, dpre, rev), reps)
+                        if H <= 512:
+                            out["ms"][f"lstm_bwd+dw_hh_outside {key}"] = median_ms(
+                                lambda: lc.dw_hh_outside(
+                                    hs, lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev), rev),
+                                reps)
                         del dpre
                     del hs, cs, gates, dy
     print(json.dumps(out))

@@ -36,17 +36,19 @@ on one NVIDIA card, from the root of a checkout:
    bfloat16: the max error and the share of identical transcripts.
 6. Kernels ``lstm_scan_train`` / ``lstm_scan_fusedin_train`` (the training
    forward) and ``lstm_bwd_dw`` (its adjoint) at the train step's shapes
-   (B=128, the adjoint as four launches of 32 rows, H=512; layer 0 at T=1536
-   with D=15,
-   layer 1 at T=768 over a 2 x 4H projection), float32 and bfloat16, ragged
+   (B=128, H=512; layer 0 at T=1536 with D=15, layer 1 at T=768 over a
+   2 x 4H projection), float32 and bfloat16 (the bf16 adjoint the
+   tensor-core kernel, one launch of all rows and both directions; float32
+   four launches of 32 rows; the plan's counts asserted), ragged
    lengths with a length-1 row and a full row in every launch: hs bit-equal
    to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
    Function's d_x, d_wih, d_b against the plain versions; ``lstm_bwd`` (the
    adjoint without dW_hh) at the same shapes, its dpre against
    ``lstm_bwd_dw``'s and against its own plain version, and the outside dW_hh
-   product against the sum inside the kernel. Then the same at scaled-LAS's
-   H=1024 (float32: the wide form, one launch a direction; ``lstm_bwd``
-   eight launches a call): the training forward, ``lstm_bwd`` with the
+   product against the sum inside the kernel; in bfloat16 the two forms'
+   dpre bit-equal (asserted). Then the same at scaled-LAS's H=1024 (float32:
+   the wide form, one launch a direction, ``lstm_bwd`` eight launches a call;
+   bfloat16 one): the training forward, ``lstm_bwd`` with the
    outside product (timed on its own) as the adjoint, and the lean forward
    kernels, which are a ``remat`` layer's first pass (timed at B=128 at both
    widths).
@@ -69,7 +71,8 @@ on one NVIDIA card, from the root of a checkout:
    timed steps (up to 10 if the loss has not fallen below the warm-up
    step's). Every step finite, the loss falls, a step launches the listener's
    training forward 4 times (a layer's whole batch and both directions in
-   one launch), its adjoint 16 times, the decoder's training forward once
+   one launch), its adjoint 4 times (one launch a layer), the decoder's
+   training forward once
    and its adjoint once, none of the lean or eval kernels, and calls no
    plain version; the decode route is ``cuda``. An ``init_force`` pass and
    a pass with labels outside training take the step loop and record the
@@ -93,8 +96,8 @@ on one NVIDIA card, from the root of a checkout:
    model's, and a few steps do not bring it back; that the loss falls at
    this width is held by phase 11's epochs. A step launches the
    lean forward 4 times (the first pass of the four ``remat`` layers, one
-   launch each), the training forward 4 times and ``lstm_bwd`` 32 times (4 x
-   32 rows x 2 directions a layer) in the backward pass, ``lstm_bwd_dw``
+   launch each), the training forward 4 times and ``lstm_bwd`` 4 times (one
+   launch a layer) in the backward pass, ``lstm_bwd_dw``
    never, and calls no plain version. Seconds a step, utterances/s, the
    split, peak device memory, and
    one step with ``remat: false`` for the memory it saves. Then the float32
@@ -205,6 +208,8 @@ STREAMS_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan_streams.c
 TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan_tc.cu"
 TC_STREAMS_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_scan_tc_streams.cu"
 BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_bwd.cu"
+# the bfloat16 adjoint (the records' dtype): tensor cores, dpre streamed by TMA
+BWD_TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_bwd_tc.cu"
 PALLAS = "attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py"
 # the card's published peaks (H100 SXM): dense bf16 FLOP/s, bytes/s
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -393,7 +398,8 @@ def environment(torch, card: str) -> float:
     libs = cuda_build.build_all()  # one nvcc per source, side by side; then bound
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.2f} s ({SOURCE}, {STREAMS_SOURCE}, {TC_SOURCE}, "
-        f"{TC_STREAMS_SOURCE}, {BWD_SOURCE}, {SPELLER_SOURCE}, {SPELLER_BWD_SOURCE}; "
+        f"{TC_STREAMS_SOURCE}, {BWD_SOURCE}, {BWD_TC_SOURCE}, {SPELLER_SOURCE}, "
+        f"{SPELLER_BWD_SOURCE}; "
         f"cuda_build.build_all, the call the entry points make)")
     log(f"native batch assembler (native/libasrtpu.so, not tracked): "
         f"{'loaded' if native_available() else 'absent, the numpy assembler serves'}")
@@ -767,6 +773,21 @@ def forward_launches(torch, dtype, batch: int, hidden: int, in_dim: int = 0) -> 
     return want
 
 
+def adjoint_launches(torch, dtype, batch: int, hidden: int, with_dw: bool) -> int:
+    """Launches of a two-direction adjoint call, from the plan
+    (``lstm_cuda.plan_bwd_launches``): bfloat16 one per 128 rows with both
+    directions (asserted); float32 one per 32 rows, and one a direction at
+    H=1024."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = lc.plan_bwd_launches("adjoint", dtype, batch, hidden, 2, sms, with_dw)
+    if dtype == torch.bfloat16 and (len(plan) != len(lc.row_chunks(batch, 128))
+                                    or any(ln.nd != 2 for ln in plan)):
+        raise AssertionError(f"adjoint B={batch} H={hidden}: plan {plan}")
+    return len(plan)
+
+
 def ragged_lengths(torch, gen, batch: int, low: int, high: int):
     """Lengths in [low, high] with a full row and a length-``low`` row in
     every 32-row launch."""
@@ -796,8 +817,6 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
     records = {}
     batch, rev = TRAIN_B, (False, True)
     wide = hidden > H
-    # the adjoints: one launch per 32 rows, and per direction when wide
-    n_adjoint = len(lc.row_chunks(batch)) * (2 if wide else 1)
     four_h = 4 * hidden
     for name, (seq_len, fused, replaces, lean_name, lean_replaces) in TRAIN_KERNELS.items():
         in_dim = 15 if fused else 2 * 2 * hidden
@@ -810,6 +829,8 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
         dy32 = torch.randn(batch, seq_len, 2 * hidden, generator=gen).to(DEVICE)
         for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             tol = TRAIN_TOL[dtype_name]
+            # the adjoint's launches: lstm_bwd_dw up to H=512, lstm_bwd above
+            n_adjoint = adjoint_launches(torch, dtype, batch, hidden, not wide)
             w_hh, dy = w_hh32.to(dtype), dy32.to(dtype)
             if fused:
                 x = x32.to(dtype)
@@ -869,8 +890,12 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                 errs["outside dW_hh vs in-kernel"] = rel_err(lc.dw_hh_outside(hs, nodw, rev),
                                                              d_whh)
                 errs["lstm_bwd dpre"] = rel_err(nodw, p_dpre)
-                if lc.LAUNCHES["lstm_bwd"] != n_adjoint:
+                if lc.LAUNCHES["lstm_bwd"] != adjoint_launches(torch, dtype, batch, hidden, False):
                     raise AssertionError(f"lstm_bwd: {dict(lc.LAUNCHES)} launches")
+                # bfloat16: one body for both forms, the dW products apart from dh's sums
+                if dtype_name == "bfloat16" and not same_dpre:
+                    raise AssertionError(f"{name}: bf16 lstm_bwd's dpre differs from "
+                                         f"lstm_bwd_dw's")
                 del nodw
             if fused:
                 # the fused-input Function's own products over the kernel's dpre,
@@ -951,7 +976,7 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                         "bound_by": lean_bound[1], "library_ms": lib_lean}
                 if fused and not wide:  # the adjoint's record at its largest shape
                     records["lstm_bwd_dw"] = {
-                        "name": "lstm_bwd_dw", "route": "cuda", "source": BWD_SOURCE,
+                        "name": "lstm_bwd_dw", "route": "cuda", "source": BWD_TC_SOURCE,
                         "replaces": PALLAS + ":382", "launches": 0,
                         "max_abs_err": errs["dpre"][0], "ms": bwd_dw_ms,
                         "plain_ms": plain_bwd_ms,
@@ -959,7 +984,7 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                         "library_ms": lib_bwd}
                 if fused and wide:
                     records["lstm_bwd"] = {
-                        "name": "lstm_bwd", "route": "cuda", "source": BWD_SOURCE,
+                        "name": "lstm_bwd", "route": "cuda", "source": BWD_TC_SOURCE,
                         "replaces": PALLAS + ":311", "launches": 0,
                         "max_abs_err": errs["dpre"][0], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
                         "bound_ms": nodw_bound[0], "bound_by": nodw_bound[1],
@@ -1016,7 +1041,6 @@ def fused_kernel_phase(torch, card: str) -> tuple:
              "d_b[bwd]")
     driven = dict.fromkeys(("lstm_scan_cs", "bilstm_scan_fused", "lstm_bwd"), 0)
     for seq_len, batch in FUSED_CASES:
-        n_adjoint = len(lc.row_chunks(batch))  # lstm_bwd: one launch per 32 rows
         lengths = ragged_lengths(torch, gen, batch, 1, seq_len).to(DEVICE)
         x32 = (torch.randn(batch, seq_len, FUSED_IN_DIM, generator=gen).clamp(-1, 1) * 0.5)
         r = torch.randn(batch, seq_len, 2 * H, generator=gen).to(DEVICE)
@@ -1027,6 +1051,7 @@ def fused_kernel_phase(torch, card: str) -> tuple:
             params = {d: {n: t.to(dtype) for n, t in p.items()} for d, p in params32.items()}
             x = x32.to(DEVICE, dtype)
             n_launch = forward_launches(torch, dtype, batch, H)
+            n_adjoint = adjoint_launches(torch, dtype, batch, H, False)
             w_hh = torch.stack([params["fwd"]["w_hh"], params["bwd"]["w_hh"]])
             w_cat = torch.cat([params["fwd"]["w_ih"], params["bwd"]["w_ih"]], dim=1)
             x_proj = torch.matmul(x, w_cat) + torch.cat([params["fwd"]["b"], params["bwd"]["b"]])
@@ -1455,10 +1480,11 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
         peak = torch.cuda.max_memory_allocated()
         routes = las.decode_route_report()
     n_steps = len(metrics)
-    # a layer's launches a step: the forward one per 128 rows with both
-    # directions (bf16), the adjoint one per 32 rows, and per direction when wide
+    # a layer's launches a step: the forward and the adjoint one per 128 rows
+    # with both directions (bf16)
     fwd = forward_launches(torch, torch.bfloat16, TRAIN_B, cfg.listener.uniform_hid_dim)
-    chunks = len(lc.row_chunks(TRAIN_B)) * (2 if wide else 1)
+    chunks = adjoint_launches(torch, torch.bfloat16, TRAIN_B, cfg.listener.uniform_hid_dim,
+                              not wide)
     want = {**dict.fromkeys(counts, 0),
             "lstm_scan_fusedin": fwd * n_steps if remat else 0,
             "lstm_scan": 3 * fwd * n_steps if remat else 0,
@@ -1514,13 +1540,15 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
     passes = [step_split(torch, cfg, state, opt, x, lx, y, ly, tf_rate, lr)
               for _ in range(4)]
     split = [statistics.median(p[0][i] for p in passes[1:]) for i in range(5)]
+    worst = [max(p[0][i] for p in passes[1:]) for i in range(5)]
     host = [statistics.median(p[1][i] for p in passes[1:]) for i in range(5)]
     log(f"    split of one step (CUDA events, median of 3 passes after one; SpecAugment and "
         f"the parameter update left out): listener forward {split[0]:.1f} ms"
         f"{' (the lean kernels: remat)' if remat else ''}, speller forward + loss "
         f"{split[1]:.1f} ms, backward {split[2] + split[3]:.1f} ms (speller {split[2]:.1f}, "
         f"listener {split[3]:.1f}{', its layers recomputed first' if remat else ''}), "
-        f"optimizer {split[4]:.1f} ms; host ms to enqueue each piece "
+        f"optimizer {split[4]:.1f} ms; the largest of the 3 passes "
+        f"{[round(v, 1) for v in worst]} ms; host ms to enqueue each piece "
         f"{[round(v, 1) for v in host]}; the untimed pass's device ms "
         f"{[round(v, 1) for v in passes[0][0]]}, host ms {[round(v, 1) for v in passes[0][1]]}")
     del state, opt, step

@@ -132,6 +132,11 @@ def _forward_launches(device, dtype, batch, hidden, ndir):
     return len(lstm_cuda.plan_launches("test", dtype, batch, hidden, ndir, sms))
 
 
+def _adjoint_launches(device, dtype, batch, hidden, ndir, with_dw):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return len(lstm_cuda.plan_bwd_launches("test", dtype, batch, hidden, ndir, sms, with_dw))
+
+
 def _train_case(device, batch, hidden, dtype, ndir, fused, seed=0):
     gen = torch.Generator().manual_seed(1000 * batch + hidden + seed)
     seq_len = 19
@@ -190,10 +195,9 @@ def _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused):
          lstm_cuda.lstm_scan_fusedin_train_plain) if fused else
         (lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_train, lstm_cuda.lstm_scan_train_plain))
     wide = hidden > 512
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    # the adjoint: 32 rows a launch, a launch a direction where both do not fit
-    n_adjoint = len(lstm_cuda.row_chunks(batch)) * len(
-        lstm_cuda._direction_groups("test", ndir, hidden, sms))
+    # the adjoint's plan: bfloat16 one launch per 128 rows with every
+    # direction; float32 per 32 rows, a launch a direction where both do not fit
+    n_adjoint = _adjoint_launches(cuda_device, dtype, batch, hidden, ndir, not wide)
     lstm_cuda.reset_launch_counts()
     hs, cs, gates = train(*args, lengths, reverse)
     dpre, d_whh = lstm_cuda._adjoint(gates, cs, hs, dy, args[-1], lengths, reverse)
@@ -373,7 +377,8 @@ def test_bilstm_apply_fused_forward_backward_on_card(cuda_device, dtype, tol):
     got = run(lstm_cuda.bilstm_apply_fused, cuda_device)
     assert lstm_cuda.LAUNCHES["bilstm_scan_fused"] == _forward_launches(
         cuda_device, dtype, batch, hidden, 2)
-    assert lstm_cuda.LAUNCHES["lstm_bwd"] == len(lstm_cuda.row_chunks(batch))
+    assert lstm_cuda.LAUNCHES["lstm_bwd"] == _adjoint_launches(
+        cuda_device, dtype, batch, hidden, 2, False)
     for ref in (run(lstm_cuda.bilstm_apply_fused, "cpu"),
                 run(lstm_cuda.bilstm_apply_kernel, cuda_device)):
         for a, b in zip(got, ref):
@@ -394,3 +399,79 @@ def test_bilstm_scan_fused_refuses_a_wide_layer_on_card(cuda_device):
     with pytest.raises(ValueError, match=r"\(T, 2, B, 4H\)"):
         lstm_cuda.bilstm_scan_fused(xp[:, :1].contiguous(), w_hh[:, :64, :256].contiguous(),
                                     torch.ones(3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 adjoint on tensor cores (csrc/lstm_bwd_tc.cu)
+# ---------------------------------------------------------------------------
+
+def _adjoint_case(device, batch, hidden, ndir, seq_len, seed=3):
+    """Saved streams as the training forward leaves them (gates i, f, o in
+    (0, 1) and g in (-1, 1)), bfloat16, ragged lengths with a full and a
+    length-1 row."""
+    gen = torch.Generator().manual_seed(seed + 1000 * batch + hidden)
+    four_h = 4 * hidden
+    gates = torch.rand(batch, seq_len, ndir * four_h, generator=gen)
+    for d in range(ndir):
+        g = slice(d * four_h + 2 * hidden, d * four_h + 3 * hidden)
+        gates[..., g] = gates[..., g] * 2 - 1
+    streams = [torch.randn(batch, seq_len, ndir * hidden, generator=gen) for _ in range(3)]
+    w_hh = (torch.rand(ndir, hidden, four_h, generator=gen) * 2 - 1) * hidden ** -0.5
+    lengths = _ragged(batch, seq_len, gen).to(device)
+    cs, hs, dy = (t.to(device, torch.bfloat16) for t in streams)
+    return (gates.to(device, torch.bfloat16), cs, hs, dy, w_hh.to(device, torch.bfloat16),
+            lengths, (False, True)[:ndir])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (128, 512), (129, 512), (40, 1024)])
+def test_bf16_adjoint_repeats_bit_for_bit_on_card(cuda_device, batch, hidden):
+    """Two calls on the same inputs give the same bits: a fixed summation
+    order, no atomics, the partial dW_hh of two launches summed in order."""
+    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, batch, hidden, 2, 11)
+    first = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+    assert torch.equal(first, lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev))
+    if hidden <= 512:
+        dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+        again = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+        assert torch.equal(dpre, again[0]) and torch.equal(d_whh, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [128, 129])
+def test_bf16_adjoint_forms_give_the_same_dpre_on_card(cuda_device, batch):
+    """``lstm_bwd``'s dpre is ``lstm_bwd_dw``'s bit for bit (the dW products
+    never touch dh's sums), at B=128 (one launch) and B=129 (two, their
+    partial dW_hh summed in order), and both agree with the plain versions."""
+    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, batch, 512, 2, 13)
+    lstm_cuda.reset_launch_counts()
+    nodw = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+    dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+    torch.cuda.synchronize()
+    n = 1 if batch <= 128 else 2
+    assert lstm_cuda.LAUNCHES["lstm_bwd"] == lstm_cuda.LAUNCHES["lstm_bwd_dw"] == n
+    assert torch.equal(nodw, dpre)
+    p_dpre, p_dwhh = lstm_cuda.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
+    torch.testing.assert_close(dpre.float(), p_dpre.float(), atol=_tol(torch.bfloat16, p_dpre),
+                               rtol=0)
+    torch.testing.assert_close(d_whh, p_dwhh, atol=_tol(torch.bfloat16, p_dwhh), rtol=0)
+    pads = torch.arange(gates.shape[1], device=cuda_device)[None, :] >= lengths[:, None]
+    assert dpre[pads].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [768, 1024])
+@pytest.mark.parametrize("batch", [5, 128])
+def test_bf16_wide_adjoint_is_one_launch_of_both_directions_on_card(cuda_device, hidden, batch):
+    """Above H = 512 ``lstm_bwd`` takes 16 units a block and both directions
+    in one launch of up to 128 rows, and agrees with its plain version."""
+    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, batch, hidden, 2, 7)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = lstm_cuda.plan_bwd_launches("test", torch.bfloat16, batch, hidden, 2, sms, False)
+    assert [(ln.d0, ln.nd, ln.units) for ln in plan] == [(0, 2, 16)]
+    lstm_cuda.reset_launch_counts()
+    dpre = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES["lstm_bwd"] == 1
+    ref = lstm_cuda.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)
+    torch.testing.assert_close(dpre.float(), ref.float(), atol=_tol(torch.bfloat16, ref), rtol=0)

@@ -100,3 +100,105 @@ def test_refused_shapes_raise(dtype, hidden, in_dim, match):
     with pytest.raises(ValueError, match=match):
         lstm_cuda.plan_launches("k", dtype, 8, hidden, 2, SMS, in_dim)
 
+
+
+# ---------------------------------------------------------------------------
+# The adjoint's plan (``plan_bwd_launches``): ``lstm_bwd`` (with_dw False)
+# and ``lstm_bwd_dw`` (with_dw True)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hidden,with_dw", [
+    (64, False), (64, True), (512, False), (512, True), (768, False), (1024, False)])
+@pytest.mark.parametrize("batch", [5, 64, 96, 128])
+def test_bwd_bf16_is_one_launch_with_every_direction(hidden, with_dw, batch):
+    plan = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, batch, hidden, 2, SMS, with_dw)
+    assert _spans(plan) == [(0, batch, 0, 2)]
+    (ln,) = plan
+    assert ln.units == lstm_cuda.tc_units(hidden)
+    assert ln.blocks == 2 * hidden // ln.units <= SMS
+
+
+@pytest.mark.parametrize("hidden,with_dw", [(512, False), (512, True), (1024, False)])
+def test_bwd_bf16_batch_past_128_rows_takes_a_second_launch(hidden, with_dw):
+    plan = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, 129, hidden, 2, SMS, with_dw)
+    assert _spans(plan) == [(0, 128, 0, 2), (128, 129, 0, 2)]
+    # the one-row launch stages 64-row tiles: less shared memory than 128 rows
+    assert plan[1].smem < plan[0].smem
+
+
+@pytest.mark.parametrize("batch,hidden,ndir,with_dw", [
+    (5, 64, 2, True), (40, 512, 2, True), (128, 512, 2, True), (128, 512, 2, False),
+    (128, 1024, 2, False), (129, 768, 2, False), (64, 1024, 1, False)])
+def test_bwd_fp32_keeps_rows_of_32_and_direction_groups(batch, hidden, ndir, with_dw):
+    plan = lstm_cuda.plan_bwd_launches("k", torch.float32, batch, hidden, ndir, SMS, with_dw)
+    want = [(r0, r1, d0, nd) for r0, r1 in lstm_cuda.row_chunks(batch)
+            for d0, nd in lstm_cuda._direction_groups("k", ndir, hidden, SMS)]
+    assert _spans(plan) == want
+    assert {(ln.units, ln.blocks) for ln in plan} == {
+        (8, nd * hidden // 8) for _, _, _, nd in want}
+    assert {ln.smem for ln in plan} == {lstm_cuda.f32_bwd_smem_bytes(hidden, with_dw)}
+
+
+@pytest.mark.parametrize("dtype,batch,hidden,ndir,sms,with_dw", [
+    (torch.bfloat16, 1, 32, 1, SMS, True), (torch.bfloat16, 257, 512, 2, SMS, True),
+    (torch.bfloat16, 300, 1024, 2, 100, False), (torch.float32, 97, 1024, 2, SMS, False),
+    (torch.float32, 33, 256, 2, SMS, True), (torch.bfloat16, 40, 640, 2, SMS, False)])
+def test_bwd_every_row_and_direction_is_in_one_launch(dtype, batch, hidden, ndir, sms, with_dw):
+    plan = lstm_cuda.plan_bwd_launches("k", dtype, batch, hidden, ndir, sms, with_dw)
+    cells = [(r, d) for ln in plan for r in range(ln.r0, ln.r1)
+             for d in range(ln.d0, ln.d0 + ln.nd)]
+    assert sorted(cells) == list(itertools.product(range(batch), range(ndir)))
+    assert all(ln.blocks <= sms and ln.r1 - ln.r0 <= (128 if dtype == torch.bfloat16 else 32)
+               for ln in plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_dw", [False, True])
+def test_bwd_shared_memory_fits_at_every_width(dtype, with_dw):
+    for hidden in WIDTHS:
+        if with_dw and hidden > 512:
+            continue
+        for batch in (1, 64, 65, 128):
+            for ln in lstm_cuda.plan_bwd_launches("k", dtype, batch, hidden, 2, SMS, with_dw):
+                assert ln.smem <= SMEM_LIMIT, (hidden, batch, ln)
+
+
+def test_bwd_bf16_shared_memory_bytes():
+    align, bars = 1024, 96
+    stage128, stage64 = 128 * 128 * 2, 64 * 128 * 2
+    # H=1024, 16 units: W_hh rows 16 x 4096 bf16; three 128-row stages fit
+    assert lstm_cuda.bwd_tc_smem_bytes(128, 1024, 16, False) == (
+        align + 131072 + 3 * stage128 + bars)
+    # up to 64 rows: 64-row stages, five fit, and the 64 x 16 fp32 reduction tile
+    assert lstm_cuda.bwd_tc_smem_bytes(64, 1024, 16, False) == (
+        align + 131072 + 5 * stage64 + 4096 + bars)
+    # H=512, 8 units, with dW_hh: the 128 x 8 hs tile; five stages beside it
+    assert lstm_cuda.bwd_tc_smem_bytes(128, 512, 8, True) == (
+        align + 32768 + 5 * stage128 + 2048 + bars)
+    assert lstm_cuda.bwd_tc_smem_bytes(128, 512, 8, False) == (
+        align + 32768 + 6 * stage128 + bars)
+    # H=32: one stage a step, so one stage
+    assert lstm_cuda.bwd_tc_smem_bytes(5, 32, 8, True) == (
+        align + 2048 + stage64 + 1024 + 2048 + bars)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hidden,with_dw,match", [
+    (768, True, "hidden 768: the adjoint with dW_hh in the kernel takes H <= 512.*lstm_bwd's"),
+    (1024, True, "hidden 1024: the adjoint with dW_hh in the kernel takes H <= 512.*lstm_bwd's"),
+    (48, False, "hidden 48 must be a multiple of 32"),
+    (48, True, "hidden 48 must be a multiple of 32"),
+    (544, False, "hidden 544 above 512 must be a multiple of 64 and at most 1024"),
+    (1088, False, "hidden 1088 above 512 must be a multiple of 64 and at most 1024"),
+])
+def test_bwd_refused_shapes_raise(dtype, hidden, with_dw, match):
+    with pytest.raises(ValueError, match=match):
+        lstm_cuda.plan_bwd_launches("k", dtype, 8, hidden, 2, SMS, with_dw)
+
+
+def test_bwd_dw_refuses_split_directions():
+    # 2 x 64 blocks at H=512 do not fit 100 SMs: lstm_bwd splits, lstm_bwd_dw raises
+    plan = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, 8, 512, 2, 100, False)
+    assert _spans(plan) == [(0, 8, 0, 1), (0, 8, 1, 1)]
+    with pytest.raises(ValueError, match="all directions in one launch"):
+        lstm_cuda.plan_bwd_launches("k", torch.bfloat16, 8, 512, 2, 100, True)
