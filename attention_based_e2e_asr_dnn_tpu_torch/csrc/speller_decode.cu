@@ -1,5 +1,7 @@
-// Fused speller decode for Hopper (sm_90a): one cooperative launch runs every
-// step of the decode for the whole batch, in an eval and a training form.
+// Fused speller decode for Hopper (sm_90a), float32: one cooperative launch
+// runs every step of the decode for the whole batch, in an eval and a
+// training form. bfloat16 runs on speller_decode_tc.cu (the products on
+// tensor cores, counters in place of the grid barriers).
 //
 // Replaces (attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py):
 //   _decode_fwd_kernel (:90) as _fwd_chunk (:465) launches it: TPU kernel #8.
@@ -32,11 +34,12 @@
 // Logits and weights are stored in the weight dtype.
 //
 // What bounds it: 4 x T dependent phases, each short. At base-LAS (H1 512,
-// H2 256, P 256) a step is ~1.3M MACs for a batch row of cells and 2 x Te x P
+// H2 256, P 256) a step is ~2.4M MACs for a batch row of cells and 2 x Te x P
 // for the attention: too little work to fill the card, so a step's cost is
 // its grid barriers (~1.2 us each, measured) plus the latency of each
 // phase's chain of loads, shuffles and stores, which grows with the rows a
-// warp walks (PERF.md has the per-phase ablation).
+// warp walks: the bfloat16 form of this body took ~25 us plus ~0.55 us a
+// batch row a step at base-LAS (PERF.md, the decode's B-scaling).
 //
 // Design. A persistent grid of G blocks (G = 128 at base- and scaled-LAS; every
 // block resident, one per SM) walks all T steps. Block g owns U1 = H1 / G
@@ -59,7 +62,8 @@
 //      argmax; writes ctx, the fed-back id, logits and weights.
 // One grid-wide barrier (cooperative groups) ends each phase. K and V stream
 // from global memory each step; for one step they are L2-resident. Plain FMA
-// on the CUDA cores; tensor cores are later work.
+// on the CUDA cores (float32 keeps its 1e-4 tolerance, which TF32 tensor
+// cores would not).
 
 #include <cooperative_groups.h>
 
@@ -526,7 +530,8 @@ extern "C" int speller_decode_limits(int device, long long* out) {
   return (int)err;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. The wrapper checks the shapes: H1, H2
+// dtype: 0 = float32 (the only one this source instantiates; bfloat16 is
+// speller_decode_tc.cu's). The wrapper checks the shapes: H1, H2
 // and P each `grid` x 1, 2, 4 ... MAX_UNITS; P a multiple of `heads`, the
 // head width a multiple of 8; Vp <= VMAX; the shared memory
 // (speller_decode_smem_bytes) within the device's opt-in limit.
@@ -556,8 +561,5 @@ extern "C" int speller_decode_launch(int dtype, int train, int grid, const void*
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return train ? launch<float, true>(a, grid, s) : launch<float, false>(a, grid, s);
-  if (dtype == 1)
-    return train ? launch<__nv_bfloat16, true>(a, grid, s)
-                 : launch<__nv_bfloat16, false>(a, grid, s);
   return (int)cudaErrorInvalidValue;
 }

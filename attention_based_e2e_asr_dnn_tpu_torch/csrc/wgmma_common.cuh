@@ -1,10 +1,12 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core LSTM bodies
-// (lstm_scan_tc_body.cuh, the forward; lstm_bwd_tc_body.cuh, the adjoint):
-// wgmma on 128-byte-swizzled bf16 tiles in shared memory, the async-proxy
-// fences, mbarriers, TMA tile loads, and the per-direction counters a
-// persistent grid synchronises on.
+// Hopper (sm_90a) building blocks shared by the tensor-core bodies
+// (lstm_scan_tc_body.cuh, the LSTM forward; lstm_bwd_tc_body.cuh, its
+// adjoint; speller_decode_tc.cu, the fused decode): wgmma on
+// 128-byte-swizzled bf16 tiles in shared memory, the async-proxy fences,
+// mbarriers, TMA tile loads and the host's tensor-map encoder, and the
+// counters a persistent grid synchronises on.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -210,3 +212,22 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float* f) {
   }
 }
 
+// cuTensorMapEncodeTiled, through the runtime's driver entry point (the
+// libraries do not link libcuda); null where the driver lacks it
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}

@@ -22,7 +22,7 @@ import os
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -33,11 +33,12 @@ _LOCKS: dict = {}
 _LOCKS_GUARD = threading.Lock()
 
 
-def library_path(source: str) -> str:
-    """Where ``source``'s library is (or will be) built."""
+def library_path(source: str, defines: Sequence[str] = ()) -> str:
+    """Where ``source``'s library is (or will be) built, compiled with the
+    macros ``defines`` (``-D`` each)."""
     src_dir = os.path.dirname(source)
     headers = sorted(f for f in os.listdir(src_dir) if f.endswith(".cuh"))
-    digest = hashlib.sha256()
+    digest = hashlib.sha256(" ".join(defines).encode())
     for path in [source] + [os.path.join(src_dir, f) for f in headers]:
         with open(path, "rb") as fh:
             digest.update(fh.read())
@@ -46,9 +47,10 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
 
 
-def build_library(source: str) -> str:
-    """Compile ``source`` unless its library exists; returns the path."""
-    so = library_path(source)
+def build_library(source: str, defines: Sequence[str] = ()) -> str:
+    """Compile ``source`` (with the macros ``defines``, as an instrumented
+    build needs them) unless its library exists; returns the path."""
+    so = library_path(source, defines)
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(so, threading.Lock())
     with lock:
@@ -64,7 +66,7 @@ def build_library(source: str) -> str:
         cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
                "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, source]
+               *(f"-D{d}" for d in defines), "-o", tmp, source]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {os.path.basename(source)} "

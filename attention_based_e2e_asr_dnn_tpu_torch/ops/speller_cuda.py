@@ -19,8 +19,11 @@ Function that joins them.
                             walking time down, with the products against the
                             transposed weights inside.
 
-The sources (``csrc/speller_decode.cu``, ``csrc/speller_bwd.cu``) say what
-bounds the kernels and how they are laid out. Each wrapper runs its plain
+The sources (``csrc/speller_decode_tc.cu``, the forward in bfloat16 on
+tensor cores; ``csrc/speller_decode.cu``, the forward in float32;
+``csrc/speller_bwd.cu``, the adjoint) say what bounds the kernels and how
+they are laid out; ``plan_decode_tc`` says which launches a bfloat16 forward
+call makes (pure, tested on the CPU). Each wrapper runs its plain
 PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor or
 raises, and counts its launches in ``LAUNCHES``. On the card the TPU's
 routing (``pick_chunk``, the Te pad to 64, the lane gates of
@@ -47,7 +50,7 @@ import ctypes
 import functools
 import math
 import os
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,8 +63,9 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
 from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import _wants_grad
 
 SOURCE = os.path.join(cuda_build.CSRC, "speller_decode.cu")
+TC_SOURCE = os.path.join(cuda_build.CSRC, "speller_decode_tc.cu")
 BWD_SOURCE = os.path.join(cuda_build.CSRC, "speller_bwd.cu")
-SOURCES = (SOURCE, BWD_SOURCE)
+SOURCES = (SOURCE, TC_SOURCE, BWD_SOURCE)
 
 NEG = -1e9  # additive pad bias; exp(NEG - max) underflows to exactly 0
 
@@ -289,8 +293,8 @@ def speller_decode_bwd_plain(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1,
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build ``csrc/speller_decode.cu`` (once per source version) and bind
-    its C entry points."""
+    """Build ``csrc/speller_decode.cu`` (the float32 forward; once per source
+    version) and bind its C entry points."""
     lib = ctypes.CDLL(cuda_build.build_library(SOURCE))
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.speller_decode_launch.argtypes = [i, i, i, p, p, ctypes.c_float, p]
@@ -316,16 +320,32 @@ def load_bwd_library() -> ctypes.CDLL:
     return lib
 
 
-LOADERS = (load_library, load_bwd_library)
+@functools.lru_cache(maxsize=None)
+def load_tc_library(defines: tuple = ()) -> ctypes.CDLL:
+    """Build ``csrc/speller_decode_tc.cu`` (with the macros ``defines``:
+    ``("DT_TRACE",)`` is the phase-stamped build of
+    ``tools/trace_speller_decode.py``) and bind its C entry points."""
+    lib = ctypes.CDLL(cuda_build.build_library(TC_SOURCE, defines))
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.speller_decode_tc_launch.argtypes = [i, p, p, i, ctypes.c_float, p, p]
+    lib.speller_decode_tc_launch.restype = ctypes.c_int
+    lib.speller_decode_tc_smem_bytes.argtypes = [i] * 6
+    lib.speller_decode_tc_smem_bytes.restype = ctypes.c_size_t
+    lib.speller_decode_tc_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.speller_decode_tc_limits.restype = ctypes.c_int
+    return lib
+
+
+LOADERS = (load_library, load_tc_library, load_bwd_library)
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_limits(device: int) -> dict:
-    """The forward kernel's geometry as the source defines it (at most
-    ``max_grid`` blocks of ``nthreads`` threads, each owning 1, 2, 4 ...
-    ``max_units`` units of each cell and query columns; ``vmax`` padded
-    vocabulary entries) and the shared memory a block of ``device`` may opt
-    into."""
+    """The float32 forward kernel's geometry as ``csrc/speller_decode.cu``
+    defines it (at most ``max_grid`` blocks of ``nthreads`` threads, each
+    owning 1, 2, 4 ... ``max_units`` units of each cell and query columns;
+    ``vmax`` padded vocabulary entries) and the shared memory a block of
+    ``device`` may opt into."""
     out = (ctypes.c_longlong * 5)()
     err = load_library().speller_decode_limits(device, out)
     if err != 0:
@@ -333,6 +353,123 @@ def kernel_limits(device: int) -> dict:
                            f"{device} failed with cudaError {err}")
     return dict(zip(("max_grid", "max_units", "nthreads", "vmax",
                      "smem_optin"), out))
+
+
+# the bfloat16 forward's geometry (csrc/speller_decode_tc.cu), mirrored here
+# so that the plan is pure; tc_kernel_limits reads the source's, and a card
+# test holds the two equal
+TC_LIMITS = {"rows": 128, "max_grid": 128, "units2": 2, "kc": 64, "sel": 64,
+             "qcols": 8, "vmax": 32, "max_stages": 8, "min_stages": 4,
+             "smem_limit": 232448, "nthreads": 288}
+TC_UNITS1 = (2, 4, 8)  # cell-1 units a block the source instantiates
+_TC_ALIGN, _TC_BAR_BYTES = 1024, 2 * 8 * 8
+_TC_ATT_THREADS, _TC_ATT_WARPS = 256, 8  # the attention's threads (the consumers)
+
+
+@functools.lru_cache(maxsize=None)
+def tc_kernel_limits(device: int) -> dict:
+    """The bfloat16 forward's geometry as ``csrc/speller_decode_tc.cu``
+    defines it (``TC_LIMITS``' keys), with the shared memory a block of
+    ``device`` may opt into and its SMs."""
+    out = (ctypes.c_longlong * 13)()
+    err = load_tc_library().speller_decode_tc_limits(device, out)
+    if err != 0:
+        raise RuntimeError(f"speller_decode: reading the limits of device "
+                           f"{device} failed with cudaError {err}")
+    return dict(zip((*TC_LIMITS, "smem_optin", "sms"), out))
+
+
+class DecodeTcLaunch(NamedTuple):
+    """One cooperative launch of the bfloat16 forward."""
+    r0: int      # first batch row
+    r1: int      # one past the last
+    stages: int  # the ring's stages
+    smem: int    # shared memory a block, bytes
+
+
+class DecodeTcPlan(NamedTuple):
+    """The launches of a bfloat16 forward call and the geometry they share."""
+    launches: List[DecodeTcLaunch]
+    blocks: int
+    units1: int        # cell-1 units a block
+    units2: int        # cell-2 units a block
+    query_blocks: int  # blocks that own query columns (the first ones)
+    cols: dict         # gate (or query) columns a block owns in each product
+
+
+def decode_tc_smem_bytes(rows: int, te: int, proj: int, heads: int, h1dim: int,
+                         h2dim: int) -> tuple:
+    """(shared memory a block uses, the ring's stages) in a launch of
+    ``rows`` rows of the bfloat16 forward (``dt_smem_bytes`` in
+    csrc/speller_decode_tc.cu): the weight tiles of cell 1 (4 U1 columns, K =
+    H1 + P + 64), cell 2 (8, K = H2 + H1) and the query (8, K = H2) as bf16;
+    the ring, stages of the rows rounded up to 64 (64 or 128) x 64 columns,
+    in what the rest leaves of the card's limit, at most 8; the gate tile,
+    128 rows x 4 U1 + 8 fp32; the attention's fp32 buffers; the mbarriers;
+    and the slack that puts the tiles on a 1024-byte boundary."""
+    lim = TC_LIMITS
+    kc, units1 = lim["kc"], h1dim // (h2dim // lim["units2"])
+    weights = ((h1dim + proj + lim["sel"]) // kc * 4 * units1 * 128
+               + (h2dim + h1dim) // kc * 4 * lim["units2"] * 128
+               + h2dim // kc * lim["qcols"] * 128)
+    red = lim["rows"] * (4 * units1 + 8) * 4
+    att = -(-(2 * proj + _TC_ATT_WARPS * lim["vmax"] + _TC_ATT_THREADS * 8
+              + heads * te) * 4 // 16) * 16
+    fixed = _TC_ALIGN + weights + red + att + _TC_BAR_BYTES
+    stage = (128 if rows > 64 else 64) * 128
+    stages = min(max(lim["smem_limit"] - fixed, 0) // stage, lim["max_stages"])
+    return fixed + stages * stage, stages
+
+
+def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+                   vp: int, sms: int, smem_optin: int,
+                   name: str = "speller_decode") -> DecodeTcPlan:
+    """The launches of a bfloat16 ``speller_decode`` / ``speller_decode_train``
+    call on a card of ``sms`` SMs whose blocks may opt into ``smem_optin``
+    bytes of shared memory: one launch a span of up to 128 batch rows (the
+    rows of the decode are independent), H2 / 2 blocks each, each owning 2
+    units of cell 2, H1 / (H2 / 2) of cell 1 and, in the first P / 8
+    blocks, 8 query columns. Raises a ``ValueError`` naming the limit for a
+    shape the kernel does not take."""
+    lim = TC_LIMITS
+    if batch < 1 or te < 1:
+        raise ValueError(f"{name}: batch {batch} and encoder length {te} must be at least 1")
+    kc = lim["kc"]
+    if h1dim % kc or h2dim % kc or proj % kc or min(h1dim, h2dim, proj) < kc:
+        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must be multiples "
+                         f"of {kc} (bfloat16: the products' 64-column TMA boxes)")
+    blocks = h2dim // lim["units2"]
+    if blocks > min(lim["max_grid"], sms):
+        raise ValueError(f"{name}: H2 {h2dim} above {2 * min(lim['max_grid'], sms)} "
+                         f"(bfloat16: {lim['units2']} cell-2 units a block, at most "
+                         f"{min(lim['max_grid'], sms)} blocks)")
+    if h1dim % blocks or h1dim // blocks not in TC_UNITS1:
+        raise ValueError(f"{name}: H1 / (H2 / 2) = {h1dim} / {blocks} must be "
+                         f"{', '.join(map(str, TC_UNITS1[:-1]))} or {TC_UNITS1[-1]} "
+                         f"(bfloat16: the cell-1 units a block)")
+    query_blocks = proj // lim["qcols"]
+    if query_blocks > blocks:
+        raise ValueError(f"{name}: P {proj} above {lim['qcols']} x {blocks} blocks "
+                         f"(bfloat16: {lim['qcols']} query columns a block)")
+    if proj % heads or (proj // heads) % 8:
+        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
+                         f"must be a whole multiple of 8")
+    if vp > lim["vmax"]:
+        raise ValueError(f"{name}: padded vocabulary {vp} must be at most {lim['vmax']}")
+    launches = []
+    for r0 in range(0, batch, lim["rows"]):
+        r1 = min(r0 + lim["rows"], batch)
+        smem, stages = decode_tc_smem_bytes(r1 - r0, te, proj, heads, h1dim, h2dim)
+        if stages < lim["min_stages"] or smem > smem_optin:
+            raise ValueError(f"{name}: needs {smem} bytes of shared memory a block with "
+                             f"{lim['min_stages']} ring stages or more (Te {te}, heads "
+                             f"{heads}, H1 {h1dim}, bfloat16), the device's limit is "
+                             f"{min(smem_optin, lim['smem_limit'])}")
+        launches.append(DecodeTcLaunch(r0, r1, stages, smem))
+    units1 = h1dim // blocks
+    return DecodeTcPlan(launches, blocks, units1, lim["units2"], query_blocks,
+                        {"cell1": 4 * units1, "cell2": 4 * lim["units2"],
+                         "query": lim["qcols"]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -403,8 +540,10 @@ def _check_geometry(name, lim, smem_fn, dtype, batch, te, steps, proj, heads,
 def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
             whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx, steps,
             forced, m1=None, m2=None, train=False):
-    """Check shapes and launch the forward kernel. Returns (logits, weights,
-    ids), and with ``train`` also the tuple of residual streams."""
+    """Check shapes and launch the forward kernel: bfloat16 on the
+    tensor-core source (``_launch_tc``), float32 on ``csrc/speller_decode.cu``.
+    Returns (logits, weights, ids), and with ``train`` also the tuple of
+    residual streams."""
     name = "speller_decode_train" if train else "speller_decode"
     dtype = k.dtype
     batch, te, proj = k.shape
@@ -427,18 +566,26 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
         operands["m1"] = (m1, (steps, batch, h1dim))
         operands["m2"] = (m2, (steps, batch, h2dim))
     _check_operands(name, k, operands)
-    lim = kernel_limits(k.device.index)
-    lib = load_library()
-    grid = _check_geometry(name, lim, lib.speller_decode_smem_bytes, dtype, batch,
-                           te, steps, proj, heads, h1dim, h2dim)
-    if vp > lim["vmax"] or not 0 <= sos_idx < vp:
-        raise ValueError(f"{name}: padded vocabulary {vp} must be at most "
-                         f"{lim['vmax']} and hold <sos> {sos_idx}")
     if forced is not None and (
             tuple(forced.shape) != (steps, batch) or forced.dtype != torch.int32
             or forced.device != k.device or not forced.is_contiguous()):
         raise ValueError(f"{name}: forced ids must be contiguous int32 "
                          f"({steps}, {batch}) on {k.device}")
+    if steps < 1:
+        raise ValueError(f"{name}: steps {steps} must be at least 1")
+    if not 0 <= sos_idx < vp:
+        raise ValueError(f"{name}: padded vocabulary {vp} must hold <sos> {sos_idx}")
+    if dtype == torch.bfloat16:
+        return _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
+                          wih2, whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx,
+                          steps, forced, m1, m2, train)
+    lim = kernel_limits(k.device.index)
+    lib = load_library()
+    grid = _check_geometry(name, lim, lib.speller_decode_smem_bytes, dtype, batch,
+                           te, steps, proj, heads, h1dim, h2dim)
+    if vp > lim["vmax"]:
+        raise ValueError(f"{name}: padded vocabulary {vp} must be at most "
+                         f"{lim['vmax']}")
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=k.device)
@@ -475,6 +622,62 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
     LAUNCHES[name] += 1
     return (logits, wgts, ids, saved) if train else (logits, wgts, ids)
+
+
+def _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
+               whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx, steps, forced,
+               m1, m2, train):
+    """The bfloat16 forward on ``csrc/speller_decode_tc.cu``, one launch a
+    span of ``plan_decode_tc`` (operands already checked)."""
+    batch, te, proj = k.shape
+    h1dim, h2dim, vp = whh1.shape[0], whh2.shape[0], embw1.shape[0]
+    lim = tc_kernel_limits(k.device.index)
+    plan = plan_decode_tc(batch, te, proj, heads, h1dim, h2dim, vp, lim["sms"],
+                          lim["smem_optin"], name)
+    lib = load_tc_library()
+
+    def empty(*shape, dt=k.dtype):
+        return torch.empty(shape, dtype=dt, device=k.device)
+
+    logits = empty(steps, batch, vp)
+    wgts = empty(steps, batch, heads, te)
+    ids = empty(steps, batch, dt=torch.int32)
+    # the exchanges: slot 0 the t = -1 state; the training form's slots 1..
+    # are its h1d, h2d and context streams
+    slots = steps + 1 if train else 2
+    h1x, h2x, ctxx = (empty(slots, batch, n) for n in (h1dim, h2dim, proj))
+    selx = empty(2, batch, TC_LIMITS["sel"])  # the fed id's one-hot
+    qx = empty(batch, proj)
+    streams = [None] * 5
+    if train:  # sel, gates1, c1, gates2, c2
+        streams = [empty(steps, batch, dt=torch.int32), empty(steps, batch, 4 * h1dim),
+                   empty(steps, batch, h1dim), empty(steps, batch, 4 * h2dim),
+                   empty(steps, batch, h2dim)]
+    counters = torch.zeros(len(plan.launches), 4, dtype=torch.int32, device=k.device)
+    # the order of enum TcPtr in the source, each with its batch dimension
+    # (None: no batch dimension)
+    entries = ([(t, 0) for t in (k, v, bias, ctx0, h10, c10, h20, c20)]
+               + [(t, None) for t in (embw1, wc1, whh1, wih2, whh2, b2, wq, bq, wcls, clsb)]
+               + [(t, 1) for t in (forced, logits, wgts, ids, h1x, h2x, ctxx, selx)]
+               + [(qx, 0)] + [(t, 1) for t in (m1, m2, *streams)])
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, ln in enumerate(plan.launches):
+            ptrs = (ctypes.c_void_p * len(entries))(*[
+                None if t is None else
+                t.data_ptr() + (0 if bdim is None else ln.r0 * t.stride(bdim) * t.element_size())
+                for t, bdim in entries])
+            dims = (ctypes.c_int * 10)(ln.r1 - ln.r0, batch, te, steps, proj, heads, h1dim,
+                                       h2dim, vp, sos_idx)
+            err = lib.speller_decode_tc_launch(int(train), ptrs, dims, slots, float(scale),
+                                               counters[i].data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+            LAUNCHES[name] += 1
+    if not train:
+        return logits, wgts, ids
+    sel, gates1, c1, gates2, c2 = streams
+    return logits, wgts, ids, (sel, gates1, c1, h1x[1:], gates2, c2, h2x[1:], ctxx[1:])
 
 
 def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,

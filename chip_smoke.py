@@ -20,11 +20,13 @@ on one NVIDIA card, from the root of a checkout:
 3. ``speller_decode`` on the operands the eval decode builds from seeded
    full-width parameters: base-LAS at B=64 and scaled-LAS (H1 1024, 4
    heads) at B=32, Te=192 with lengths mixed from 1 to Te, 600 steps,
-   float32 and bfloat16. The plain version forced along the kernel's own
-   fed-back ids must agree at every step within the stated tolerance; the
-   plain version run free must pick the same ids wherever the top two
-   logits are further apart than the tolerance (float32). Median kernel
-   time and the plain time.
+   float32 (``csrc/speller_decode.cu``) and bfloat16 (the tensor-core source
+   ``csrc/speller_decode_tc.cu``, one launch a call up to 128 rows,
+   asserted). The plain version forced along the kernel's own fed-back ids
+   must agree at every step within the stated tolerance; the plain version
+   run free must pick the same ids wherever the top two logits are further
+   apart than the tolerance (float32). Median kernel time and the plain
+   time.
 4. A base-LAS experiment folder (config.json with the base-las model block,
    two seeded full-width random checkpoints) served on the card through
    ``Transcriber.transcribe`` and ``StreamingTranscriber.submit``, with the
@@ -56,7 +58,8 @@ on one NVIDIA card, from the root of a checkout:
    and ``speller_decode_bwd`` (its adjoint) at the train step's shapes: the
    base-LAS decoder at B=128 and the scaled-LAS decoder (H1 1024, 4 heads) at
    B=32, Te=192 with lengths mixed from 1 to Te, L=192, dropout 0.3, forced
-   and free steps mixed, float32 and bfloat16. The forward's logits, weights
+   and free steps mixed, float32 and bfloat16 (the forward on
+   ``csrc/speller_decode_tc.cu``, one launch a call). The forward's logits, weights
    and eight residual streams against the plain version fed the kernel's own
    ids; the adjoint's five streams and five final carries against the plain
    adjoint, with and without a cotangent on the weights; every operand's
@@ -260,6 +263,8 @@ N_UTTS, MIN_FRAMES, MAX_FRAMES = 40, 200, 1500
 N_TEST_UTTS, INFER_BATCH = 128, 64
 
 SPELLER_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_decode.cu"
+# the bfloat16 forms of the decode (the records' dtype): tensor cores
+SPELLER_TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_decode_tc.cu"
 SPELLER_BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_bwd.cu"
 SPELLER_REPLACES = "attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py:90"
 SPELLER_BWD_REPLACES = "attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py:223"
@@ -399,7 +404,7 @@ def environment(torch, card: str) -> float:
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.2f} s ({SOURCE}, {STREAMS_SOURCE}, {TC_SOURCE}, "
         f"{TC_STREAMS_SOURCE}, {BWD_SOURCE}, {BWD_TC_SOURCE}, {SPELLER_SOURCE}, "
-        f"{SPELLER_BWD_SOURCE}; "
+        f"{SPELLER_TC_SOURCE}, {SPELLER_BWD_SOURCE}; "
         f"cuda_build.build_all, the call the entry points make)")
     log(f"native batch assembler (native/libasrtpu.so, not tracked): "
         f"{'loaded' if native_available() else 'absent, the numpy assembler serves'}")
@@ -512,8 +517,12 @@ def speller_kernel_phase(torch, card: str) -> dict:
                 operands, _ = sc.decode_operands(params, spl, enc.to(dtype).cuda(),
                                                  lengths.cuda())
                 opts = sc.decode_options(spl)
+                sc.reset_launch_counts()
                 logits, wgts, ids = sc.speller_decode(*operands, **opts)
                 torch.cuda.synchronize()
+                if sc.LAUNCHES["speller_decode"] != 1:
+                    raise AssertionError(f"speller_decode {case} {dtype_name} B={batch}: "
+                                         f"{sc.LAUNCHES['speller_decode']} launches, not 1")
                 forced = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
                 p_logits, p_wgts, p_ids = sc.speller_decode_plain(*operands, **opts,
                                                                   forced=forced)
@@ -566,7 +575,7 @@ def speller_kernel_phase(torch, card: str) -> dict:
                 log(f"[{card}] speller_decode {case} {dtype_name}: bound {bound:.3f} ms "
                     f"({bound_by}; {flops:.3e} operations, {moved:.3e} bytes)")
                 record = {"name": "speller_decode", "route": "cuda",
-                          "source": SPELLER_SOURCE, "replaces": SPELLER_REPLACES,
+                          "source": SPELLER_TC_SOURCE, "replaces": SPELLER_REPLACES,
                           "launches": 0, "max_abs_err": err, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                           "library_ms": None}
@@ -629,6 +638,9 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
             logits, wgts, ids, saved = sc.speller_decode_train(*operands, **opts, forced=forced,
                                                                m1=m1, m2=m2)
             torch.cuda.synchronize()
+            if sc.LAUNCHES["speller_decode_train"] != 1:
+                raise AssertionError(f"speller_decode_train {case} {dtype_name} B={batch}: "
+                                     f"{sc.LAUNCHES['speller_decode_train']} launches, not 1")
             sel = saved[0]
             if not (torch.equal(sel[forced >= 0], forced[forced >= 0])
                     and torch.equal(sel[1:][forced[1:] < 0], ids[:-1][forced[1:] < 0])
@@ -741,7 +753,8 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
                                      f"of max: {bad}")
             if case == "base-LAS" and dtype_name == "bfloat16":  # the train step's
                 records["speller_decode_train"] = {
-                    "name": "speller_decode_train", "route": "cuda", "source": SPELLER_SOURCE,
+                    "name": "speller_decode_train", "route": "cuda",
+                    "source": SPELLER_TC_SOURCE,
                     "replaces": SPELLER_REPLACES, "launches": 0,
                     "max_abs_err": max(errs[n][0] for n in ("logits", *sc.RESIDUALS[1:])),
                     "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],

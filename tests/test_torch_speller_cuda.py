@@ -376,3 +376,133 @@ def test_init_force_train_step_takes_the_scan_route_on_card(cuda_device, capsys)
     assert bool(m_fused["finite"]) and torch.equal(m_fused["loss"], m_scan["loss"])
     for (name, p), q in zip(fused.params.named_parameters(), scan.params.parameters()):
         torch.testing.assert_close(p, q, rtol=0, atol=1e-6, msg=name)
+
+
+# -- the bfloat16 forward on tensor cores (csrc/speller_decode_tc.cu) ---------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,launches", [(64, 1), (128, 1), (130, 2)])
+def test_bf16_tensor_core_forward_at_larger_batches_on_card(cuda_device, batch, launches):
+    """Both forms at B=64, 128 and 130 (two launches: a span of 128 rows and
+    one of 2) against their plain versions, with the launch count."""
+    cfg, operands, opts, forced, m1, m2, _ = _train_inputs(
+        cuda_device, torch.bfloat16, 2, batch=batch, steps=40)
+    vocab = cfg.dec_vocab_size
+    tol, w_tol = TOL[torch.bfloat16]
+    with torch.inference_mode():
+        eval_opts = speller_cuda.decode_options(cfg)
+        speller_cuda.reset_launch_counts()
+        logits, wgts, ids = speller_cuda.speller_decode(*operands, **eval_opts)
+        torch.cuda.synchronize()
+        assert speller_cuda.LAUNCHES["speller_decode"] == launches
+        own = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+        ref_logits, ref_wgts, _ = speller_cuda.speller_decode_plain(*operands, **eval_opts,
+                                                                     forced=own)
+    torch.testing.assert_close(logits[..., :vocab].float(), ref_logits[..., :vocab].float(),
+                               atol=tol, rtol=0)
+    torch.testing.assert_close(wgts.float(), ref_wgts.float(), atol=w_tol, rtol=0)
+    speller_cuda.reset_launch_counts()
+    logits, wgts, ids, saved = speller_cuda.speller_decode_train(
+        *operands, **opts, forced=forced, m1=m1, m2=m2)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_train"] == launches
+    sel = saved[0]
+    free = forced < 0
+    assert torch.equal(sel[~free], forced[~free])
+    assert torch.equal(sel[1:][free[1:]], ids[:-1][free[1:]])
+    p_logits, p_wgts, _, p_saved = speller_cuda.speller_decode_train_plain(
+        *operands, **opts, forced=sel, m1=m1, m2=m2)
+    rel_tol = REL_TOL[torch.bfloat16]
+    assert _rel_err(logits[..., :vocab], p_logits[..., :vocab]) <= rel_tol
+    assert _rel_err(wgts, p_wgts) <= rel_tol
+    for name, got, want in zip(speller_cuda.RESIDUALS[1:], saved[1:], p_saved[1:]):
+        assert got.shape == want.shape and got.is_contiguous(), name
+        assert _rel_err(got, want) <= rel_tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [5, 128, 130])
+def test_bf16_forms_bit_equal_and_repeat_on_card(cuda_device, batch):
+    """The training form without masks and forcing is the eval form bit for
+    bit, and two calls of either repeat bit for bit (no atomics, a fixed
+    summation order)."""
+    cfg, operands, opts, _, m1, m2, _ = _train_inputs(cuda_device, torch.bfloat16, 2,
+                                                      batch=batch, steps=24)
+    lean = speller_cuda.speller_decode(*operands, **opts)
+    bare = speller_cuda.speller_decode_train(*operands, **opts)
+    for a, b in zip(bare[:3], lean):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(speller_cuda.speller_decode(*operands, **opts),
+                                                 lean))
+    first = speller_cuda.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
+    again = speller_cuda.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
+    for a, b in zip((*first[:3], *first[3]), (*again[:3], *again[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_function_grads_through_the_tensor_core_forward_on_card(cuda_device):
+    """A ``_FusedDecode`` step in bfloat16: every operand's gradient through
+    the tensor-core forward and the adjoint kernel against the Function on
+    the plain versions, both fed the kernel's ids."""
+    cfg, operands, opts, forced, m1, m2, gen = _train_inputs(cuda_device, torch.bfloat16, 2,
+                                                             batch=6)
+    d_logits = (torch.randn(opts["steps"], 6, 32, generator=gen) * 0.1)
+    d_logits[..., cfg.dec_vocab_size:] = 0.0
+    d_logits = d_logits.to(cuda_device, torch.bfloat16)
+    d_wgts = (torch.randn(opts["steps"], 6, 2, 37, generator=gen) * 0.1).to(cuda_device,
+                                                                             torch.bfloat16)
+    sel = speller_cuda.speller_decode_train(*operands, **opts, forced=forced, m1=m1, m2=m2)[3][0]
+    grads = {}
+    for route in ("kernels", "plain"):
+        saved = (speller_cuda.speller_decode_train, speller_cuda.speller_decode_bwd)
+        if route == "plain":
+            speller_cuda.speller_decode_train = speller_cuda.speller_decode_train_plain
+            speller_cuda.speller_decode_bwd = speller_cuda.speller_decode_bwd_plain
+        try:
+            speller_cuda.reset_launch_counts()
+            leaves = [t.detach().requires_grad_(i != 2) for i, t in enumerate(operands)]
+            outs = speller_cuda.fused_decode(leaves, **opts, forced=sel, m1=m1, m2=m2)
+            grads[route] = torch.autograd.grad(
+                outs, [t for t in leaves if t.requires_grad], [d_logits, d_wgts])
+            if route == "kernels":
+                assert speller_cuda.LAUNCHES == {"speller_decode": 0, "speller_decode_train": 1,
+                                                 "speller_decode_bwd": 1}
+        finally:
+            speller_cuda.speller_decode_train, speller_cuda.speller_decode_bwd = saved
+    for n, (a, b) in enumerate(zip(grads["kernels"], grads["plain"])):
+        assert a.dtype == torch.bfloat16
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], f"operand gradient {n}"
+
+
+@pytest.mark.cuda
+def test_bf16_plan_mirrors_the_source_on_card(cuda_device):
+    """The plan's constants and shared-memory count are the built source's."""
+    lib = speller_cuda.load_tc_library()
+    lim = speller_cuda.tc_kernel_limits(torch.cuda.current_device())
+    assert {k: lim[k] for k in speller_cuda.TC_LIMITS} == speller_cuda.TC_LIMITS
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert lim["sms"] == sms and lim["smem_optin"] >= lim["smem_limit"]
+    for rows, te, proj, heads, h1, h2 in [(64, 192, 256, 1, 512, 256),
+                                          (128, 192, 256, 4, 1024, 256),
+                                          (128, 896, 256, 4, 1024, 256),
+                                          (5, 37, 64, 2, 128, 64), (2, 37, 64, 1, 128, 64)]:
+        assert lib.speller_decode_tc_smem_bytes(rows, te, proj, heads, h1, h2) == \
+            speller_cuda.decode_tc_smem_bytes(rows, te, proj, heads, h1, h2)[0]
+
+
+@pytest.mark.cuda
+def test_bf16_refused_shape_raises_on_card(cuda_device):
+    """A bfloat16 shape the tensor-core forward does not take raises a
+    ValueError naming the limit; nothing gives way to the float32 source."""
+    cfg, params, enc, lengths = _setup(cuda_device, batch=2, te=8, dec_lstm_hid_dim=96)
+    with torch.inference_mode():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16),
+                                                   lengths)
+        opts = speller_cuda.decode_options(cfg)
+        speller_cuda.reset_launch_counts()
+        with pytest.raises(ValueError, match="multiples of 64"):
+            speller_cuda.speller_decode(*operands, **opts)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            speller_cuda.speller_decode_train(*operands, **opts)
+    assert sum(speller_cuda.LAUNCHES.values()) == 0
