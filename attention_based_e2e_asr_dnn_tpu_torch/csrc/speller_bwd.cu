@@ -1,6 +1,7 @@
 // Adjoint of the fused speller decode (speller_decode.cu, TRAIN = true) for
-// Hopper (sm_90a): one cooperative launch walks every step of the decode
-// backwards for the whole batch.
+// Hopper (sm_90a), in float32: one cooperative launch walks every step of the
+// decode backwards for the whole batch. bfloat16 runs on speller_bwd_tc.cu
+// (the three products on tensor cores, counters in place of the barriers).
 //
 // Replaces (attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py):
 //   _decode_bwd_kernel (:223), launched by _bwd_chunk (:554): TPU kernel #9.
@@ -12,27 +13,24 @@
 // of the weights (dwup), and the fp32 carries dh1, dc1, dh2, dc2, dctx (zero
 // at t = T - 1), a step is four phases, each needing the whole previous one:
 //   (a) per batch row and head: d_ctx = dctx + dctxup[t];
-//       dw = round(d_ctx) . V (+ dwup[t]);  dsc = w * (dw - sum(dw * w));
-//       dq_att = round(dsc * scale) . K;    d_q = dq_att + dqup[t];
-//   (b) d_h2d = dh2 + round(d_q) @ wq^T; times m2[t]; cell 2's gate adjoint
+//       dw = d_ctx . V (+ dwup[t]);  dsc = w * (dw - sum(dw * w));
+//       dq_att = (dsc * scale) . K;  d_q = dq_att + dqup[t];
+//   (b) d_h2d = dh2 + d_q @ wq^T; times m2[t]; cell 2's gate adjoint
 //       with c2[t] and c2[t - 1] (c20 at t = 0) -> dpre2; dc2 = dc2_tot * f2;
-//   (c) d_h1d = dh1 + round(dpre2) @ wih2^T and dh2 = round(dpre2) @ whh2^T;
+//   (c) d_h1d = dh1 + dpre2 @ wih2^T and dh2 = dpre2 @ whh2^T;
 //       d_h1d times m1[t]; cell 1's gate adjoint -> dpre1; dc1 = dc1_tot * f1;
-//   (d) dh1 = round(dpre1) @ whh1^T and dctx = round(dpre1) @ wc1^T.
-// Streams out, in the weight dtype: dpre1 (T, B, 4H1), dpre2 (T, B, 4H2), dq
+//   (d) dh1 = dpre1 @ whh1^T and dctx = dpre1 @ wc1^T.
+// Streams out, in float32: dpre1 (T, B, 4H1), dpre2 (T, B, 4H2), dq
 // and dctxtot (= d_ctx) (T, B, P), dsc (T, B, heads, Te). After t = 0 the
 // carries are the outputs dh10, dc10, dh20, dc20, dctx0 in fp32. There is no
 // length mask: every step runs for every row, as in the forward.
 //
 // Numerics follow the Pallas kernel (and ops/speller_cuda.py's plain
-// version): the saved streams are read rounded to the weight dtype; dpre, d_q,
-// d_ctx and dsc * scale are rounded to the weight dtype as dot operands (and
-// as the stored streams); the attention products are fp32 products of those
-// rounded operands and K or V, summed in fp32; every other sum, the gate
-// adjoints and the carries are fp32.
+// version) in float32, where its roundings of the dot operands to the weight
+// dtype are identities: every product, sum, gate adjoint and carry is fp32.
 //
 // What bounds it: as the forward, 4 x T dependent phases. Phase (d) reads all
-// of dpre1[t] (B x 4H1 elements: 512 KB at B = 128, H1 = 512 in bf16) in every
+// of dpre1[t] (B x 4H1 elements: 1 MB at B = 128, H1 = 512) in every
 // block, phase (c) all of dpre2[t]: a step moves about three times the
 // forward's exchange bytes through L2 for about the same FMAs, so it is bound
 // by the latency and L2 bandwidth of those reads plus four grid barriers
@@ -40,8 +38,8 @@
 //
 // Design. The forward's persistent grid: G blocks (G = 128 at base- and
 // scaled-LAS), block g owns U1 = H1 / G units of cell 1, U2 = H2 / G of cell 2
-// and NQ = P / G context columns, and keeps in shared memory, in the weight
-// dtype for the whole launch, the ROWS of the weights those need: for (d) rows
+// and NQ = P / G context columns, and keeps in shared memory, for the whole
+// launch, the ROWS of the weights those need: for (d) rows
 // of whh1 (its units) and of wc1 (its context columns) over a reduction of
 // 4H1; for (c) rows of wih2 (its cell-1 units) and whh2 (its cell-2 units)
 // over 4H2; for (b) rows of wq over P. A product with W^T is then the
@@ -91,12 +89,12 @@ struct Saved {
 // gates_t (B, 4H), c_t and c_prev_t (B, H), mask_t (B, H) or null: this step's
 // rows of the saved streams; dh_c, dc_c (B, H) fp32: the carries, zero at the
 // first step of the walk.
-template <typename T>
-__device__ __forceinline__ Saved load_saved(const T* gates_t, const T* c_t, const T* c_prev_t,
-                                            const T* mask_t, const float* dh_c, const float* dc_c,
-                                            bool first, int row, int H, int unit) {
+__device__ __forceinline__ Saved load_saved(const float* gates_t, const float* c_t,
+                                            const float* c_prev_t, const float* mask_t,
+                                            const float* dh_c, const float* dc_c, bool first,
+                                            int row, int H, int unit) {
   Saved s;
-  const T* grow = gates_t + (long long)row * 4 * H + unit;
+  const float* grow = gates_t + (long long)row * 4 * H + unit;
   const long long off = (long long)row * H + unit;
   s.gi = ld_nc(grow);
   s.gf = ld_nc(grow + H);
@@ -111,39 +109,38 @@ __device__ __forceinline__ Saved load_saved(const T* gates_t, const T* c_t, cons
 }
 
 // The gate adjoint of one (row, unit): d_hd is the cotangent of the dropped
-// output; writes the four dpre (rounded) and the dc carry.
-template <typename T>
-__device__ __forceinline__ void cell_adjoint(const Saved& s, float d_hd, bool masked, T* dpre_t,
+// output; writes the four dpre and the dc carry.
+__device__ __forceinline__ void cell_adjoint(const Saved& s, float d_hd, bool masked, float* dpre_t,
                                              float* dc_c, int row, int H, int unit) {
   const float d_hn = masked ? d_hd * s.keep : d_hd;
   const float tanh_c = tanhf(s.c);
   const float dc_tot = s.dc + d_hn * s.go * (1.0f - tanh_c * tanh_c);
-  T* prow = dpre_t + (long long)row * 4 * H + unit;
-  prow[0] = from_f<T>(dc_tot * s.gg * s.gi * (1.0f - s.gi));
-  prow[H] = from_f<T>(dc_tot * s.c_prev * s.gf * (1.0f - s.gf));
-  prow[2 * H] = from_f<T>(dc_tot * s.gi * (1.0f - s.gg * s.gg));
-  prow[3 * H] = from_f<T>(d_hn * tanh_c * s.go * (1.0f - s.go));
+  float* prow = dpre_t + (long long)row * 4 * H + unit;
+  prow[0] = dc_tot * s.gg * s.gi * (1.0f - s.gi);
+  prow[H] = dc_tot * s.c_prev * s.gf * (1.0f - s.gf);
+  prow[2 * H] = dc_tot * s.gi * (1.0f - s.gg * s.gg);
+  prow[3 * H] = d_hn * tanh_c * s.go * (1.0f - s.go);
   dc_c[(long long)row * H + unit] = dc_tot * s.gf;
 }
 
 // What a cell's adjoint reads and writes at one step.
-template <typename T> struct CellStep {
-  const T* gates_t;
-  const T* c_t;
-  const T* c_prev_t;
-  const T* mask_t;
+struct CellStep {
+  const float* gates_t;
+  const float* c_t;
+  const float* c_prev_t;
+  const float* mask_t;
   float* dh_c;
   float* dc_c;
-  T* dpre_t;
+  float* dpre_t;
   int H, u0;
   bool first;
 };
 
 // Phase (b): d_h2d[r, u] = dh2[r, u] + x[r] . w_s[u] over this block's NA
 // units of the cell, then the cell's gate adjoint. x (B, K) is dq[t].
-template <typename T, int NA>
-__device__ __forceinline__ void adjoint_b(const T* w_s, const T* x, int K, int B,
-                                          const CellStep<T>& cell) {
+template <int NA>
+__device__ __forceinline__ void adjoint_b(const float* w_s, const float* x, int K, int B,
+                                          const CellStep& cell) {
   constexpr int SA = 5 - log2i(NA);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r0 = warp; r0 < B; r0 += ROWS * NWARPS) {
@@ -162,14 +159,14 @@ __device__ __forceinline__ void adjoint_b(const T* w_s, const T* x, int K, int B
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < NA; ++j) acc[i][j] = 0.0f;
-    dot_rows<T, NA>(acc, x, K, rows, w_s, K, 0, lane);
+    dot_rows<float, NA>(acc, x, K, rows, w_s, K, 0, lane);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       halve<NA, 16>(acc[i], lane);
       const float dot = __shfl_sync(FULL, acc[i][0], (lane % NA) << SA);
       if (lane < NA && live[i])
-        cell_adjoint<T>(sv[i], sv[i].dh + dot, cell.mask_t != nullptr, cell.dpre_t, cell.dc_c,
-                        rows[i], cell.H, cell.u0 + lane);
+        cell_adjoint(sv[i], sv[i].dh + dot, cell.mask_t != nullptr, cell.dpre_t, cell.dc_c,
+                     rows[i], cell.H, cell.u0 + lane);
     }
   }
 }
@@ -181,9 +178,9 @@ __device__ __forceinline__ void adjoint_b(const T* w_s, const T* x, int K, int B
 // (d), x = dpre1[t]): the first NA sums are the new dh1 of its cell-1 units,
 // written to cell.dh_c; the last NB the new dctx of its context columns,
 // written to out_b.
-template <typename T, int NA, int NB, bool CELL>
-__device__ __forceinline__ void adjoint_cd(const T* w_s, const T* x, int K, int B,
-                                           const CellStep<T>& cell, float* out_b, int Hb, int b0) {
+template <int NA, int NB, bool CELL>
+__device__ __forceinline__ void adjoint_cd(const float* w_s, const float* x, int K, int B,
+                                           const CellStep& cell, float* out_b, int Hb, int b0) {
   constexpr int SA = 5 - log2i(NA), SB = 5 - log2i(NB);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r0 = warp; r0 < B; r0 += ROWS * NWARPS) {
@@ -204,7 +201,7 @@ __device__ __forceinline__ void adjoint_cd(const T* w_s, const T* x, int K, int 
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < NA + NB; ++j) acc[i][j] = 0.0f;
-    dot_rows<T, NA + NB>(acc, x, K, rows, w_s, K, 0, lane);
+    dot_rows<float, NA + NB>(acc, x, K, rows, w_s, K, 0, lane);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       halve<NA, 16>(acc[i], lane);
@@ -213,8 +210,8 @@ __device__ __forceinline__ void adjoint_cd(const T* w_s, const T* x, int K, int 
       const float dot_b = __shfl_sync(FULL, acc[i][NA], (lane % NB) << SB);
       if (lane < NA && live[i]) {
         if constexpr (CELL)
-          cell_adjoint<T>(sv[i], sv[i].dh + dot_a, cell.mask_t != nullptr, cell.dpre_t, cell.dc_c,
-                          rows[i], cell.H, cell.u0 + lane);
+          cell_adjoint(sv[i], sv[i].dh + dot_a, cell.mask_t != nullptr, cell.dpre_t,
+                       cell.dc_c, rows[i], cell.H, cell.u0 + lane);
         else
           cell.dh_c[(long long)rows[i] * cell.H + cell.u0 + lane] = dot_a;
       }
@@ -224,40 +221,39 @@ __device__ __forceinline__ void adjoint_cd(const T* w_s, const T* x, int K, int 
 }
 
 // Phase (a): the attention and softmax adjoint of the rows of this block.
-template <typename T>
 __device__ __forceinline__ void attend_adjoint(const BwdArgs& a, int t, bool first, float* dch_s,
                                                float* red_s, float* dw_s, float* w_s) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(float);
   const int P = a.P, Te = a.Te, heads = a.heads, B = a.B;
   const int d = P / heads;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* kmat = static_cast<const T*>(a.p[P_K]);
-  const T* vmat = static_cast<const T*>(a.p[P_V]);
-  const T* wgts = static_cast<const T*>(a.p[P_WGTS]);
-  const T* dqup = static_cast<const T*>(a.p[P_DQUP]);
-  const T* dctxup = static_cast<const T*>(a.p[P_DCTXUP]);
-  const T* dwup = static_cast<const T*>(a.p[P_DWUP]);
+  const float* kmat = static_cast<const float*>(a.p[P_K]);
+  const float* vmat = static_cast<const float*>(a.p[P_V]);
+  const float* wgts = static_cast<const float*>(a.p[P_WGTS]);
+  const float* dqup = static_cast<const float*>(a.p[P_DQUP]);
+  const float* dctxup = static_cast<const float*>(a.p[P_DCTXUP]);
+  const float* dwup = static_cast<const float*>(a.p[P_DWUP]);
   const float* dctx_c = static_cast<const float*>(a.p[P_DCTX]);
-  T* dq = static_cast<T*>(const_cast<void*>(a.p[P_DQ]));
-  T* dctxtot = static_cast<T*>(const_cast<void*>(a.p[P_DCTXTOT]));
-  T* dsc_out = static_cast<T*>(const_cast<void*>(a.p[P_DSC]));
+  float* dq = static_cast<float*>(const_cast<void*>(a.p[P_DQ]));
+  float* dctxtot = static_cast<float*>(const_cast<void*>(a.p[P_DCTXTOT]));
+  float* dsc_out = static_cast<float*>(const_cast<void*>(a.p[P_DSC]));
 
   for (int r = blockIdx.x; r < B; r += gridDim.x) {
     const long long row = (long long)t * B + r;
-    // d_ctx = dctx + dctxup[t]: stored, and rounded for the product with V
+    // d_ctx = dctx + dctxup[t]: stored, and kept for the product with V
     for (int p = threadIdx.x; p < P; p += NTHREADS) {
       const float carry = first ? 0.0f : __ldcg(dctx_c + (long long)r * P + p);
       const float d_ctx = carry + ld_nc(dctxup + row * P + p);
-      dctxtot[row * P + p] = from_f<T>(d_ctx);
-      dch_s[p] = round_to<T>(d_ctx);
+      dctxtot[row * P + p] = d_ctx;
+      dch_s[p] = d_ctx;
     }
     __syncthreads();
 
     // dw[h][te] = sum_i d_ctx[h, i] * v[te, h, i] (+ dwup); w beside it
-    const T* vrow = vmat + (long long)r * Te * P;
+    const float* vrow = vmat + (long long)r * Te * P;
     for (int item = threadIdx.x; item < heads * Te; item += NTHREADS) {
       const int h = item / Te, te = item % Te;
-      const T* vp = vrow + (long long)te * P + h * d;
+      const float* vp = vrow + (long long)te * P + h * d;
       const float* cp = dch_s + h * d;
       float s = 0.0f;
 #pragma unroll 8
@@ -273,8 +269,8 @@ __device__ __forceinline__ void attend_adjoint(const BwdArgs& a, int t, bool fir
     }
     __syncthreads();
 
-    // softmax adjoint per head (warp h): dsc = w * (dw - sum(dw * w)); dsc out
-    // in T, dsc * scale rounded to T for the product with K
+    // softmax adjoint per head (warp h): dsc = w * (dw - sum(dw * w)); dsc out,
+    // dsc * scale kept for the product with K
     for (int h = warp; h < heads; h += NWARPS) {
       float* dwh = dw_s + h * Te;
       const float* wh = w_s + h * Te;
@@ -284,8 +280,8 @@ __device__ __forceinline__ void attend_adjoint(const BwdArgs& a, int t, bool fir
       for (int o = 16; o >= 1; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
       for (int te = lane; te < Te; te += 32) {
         const float dsc = wh[te] * (dwh[te] - sum);
-        dsc_out[row * heads * Te + h * Te + te] = from_f<T>(dsc);
-        dwh[te] = round_to<T>(dsc * a.scale);
+        dsc_out[row * heads * Te + h * Te + te] = dsc;
+        dwh[te] = dsc * a.scale;
       }
     }
     __syncthreads();
@@ -293,7 +289,7 @@ __device__ __forceinline__ void attend_adjoint(const BwdArgs& a, int t, bool fir
     // dq_att[p] = sum_te dsc_scaled[h(p)][te] * k[te, p]: thread (group g,
     // slice s) sums frames g, g + groups, ... of the VEC columns of slice s
     // (one head's: d % VEC == 0); the groups' sums meet in shared memory
-    const T* krow = kmat + (long long)r * Te * P;
+    const float* krow = kmat + (long long)r * Te * P;
     const int slices = P / VEC, groups = NTHREADS / slices;
     const int g = threadIdx.x / slices, p0 = (threadIdx.x % slices) * VEC;
     if (g < groups) {
@@ -316,22 +312,21 @@ __device__ __forceinline__ void attend_adjoint(const BwdArgs& a, int t, bool fir
     for (int p = threadIdx.x; p < P; p += NTHREADS) {
       float acc = 0.0f;
       for (int k = 0; k < groups; ++k) acc += red_s[k * P + p];
-      dq[row * P + p] = from_f<T>(acc + ld_nc(dqup + row * P + p));
+      dq[row * P + p] = acc + ld_nc(dqup + row * P + p);
     }
     __syncthreads();  // the row's shared buffers are reused by the next row
   }
 }
 
-// bytes of dynamic shared memory: the three weight slices in T, then fp32
-// d_ctx, dq_att's group sums, and dw and w of every head
-static size_t smem_bytes(size_t elem, int grid, int Te, int P, int heads, int H1, int H2) {
+// bytes of dynamic shared memory: the three weight slices, then d_ctx,
+// dq_att's group sums, and dw and w of every head
+static size_t smem_bytes(int grid, int Te, int P, int heads, int H1, int H2) {
   const size_t u1 = H1 / grid, u2 = H2 / grid, nq = P / grid;
-  const size_t weights = ((u1 + nq) * 4 * H1 + (u1 + u2) * 4 * H2 + u2 * P) * elem;
-  const size_t floats = (size_t)P + NTHREADS * (16 / elem) + 2 * (size_t)heads * Te;
+  const size_t weights = ((u1 + nq) * 4 * H1 + (u1 + u2) * 4 * H2 + u2 * P) * sizeof(float);
+  const size_t floats = (size_t)P + NTHREADS * 4 + 2 * (size_t)heads * Te;
   return align16(weights) + floats * sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = a.P, H1 = a.H1, H2 = a.H2, B = a.B, G = gridDim.x;
@@ -339,22 +334,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
   const int KD = 4 * H1, KC = 4 * H2;
   const int u01 = blockIdx.x * U1, u02 = blockIdx.x * U2, q0 = blockIdx.x * NQ;
 
-  T* wd_s = reinterpret_cast<T*>(smem_raw);  // (d): rows of whh1, then of wc1
-  T* wc_s = wd_s + (U1 + NQ) * KD;           // (c): rows of wih2, then of whh2
-  T* wb_s = wc_s + (U1 + U2) * KC;           // (b): rows of wq
+  float* wd_s = reinterpret_cast<float*>(smem_raw);  // (d): rows of whh1, then of wc1
+  float* wc_s = wd_s + (U1 + NQ) * KD;           // (c): rows of wih2, then of whh2
+  float* wb_s = wc_s + (U1 + U2) * KC;           // (b): rows of wq
   float* dch_s = reinterpret_cast<float*>(
       smem_raw +
-      align16(((size_t)(U1 + NQ) * KD + (size_t)(U1 + U2) * KC + (size_t)U2 * P) * sizeof(T)));
+      align16(((size_t)(U1 + NQ) * KD + (size_t)(U1 + U2) * KC + (size_t)U2 * P) * sizeof(float)));
   float* red_s = dch_s + P;
-  float* dw_s = red_s + NTHREADS * (16 / sizeof(T));
+  float* dw_s = red_s + NTHREADS * (16 / sizeof(float));
   float* w_s = dw_s + a.heads * a.Te;
 
   {
-    const T* wc1 = static_cast<const T*>(a.p[P_WC1]);
-    const T* whh1 = static_cast<const T*>(a.p[P_WHH1]);
-    const T* wih2 = static_cast<const T*>(a.p[P_WIH2]);
-    const T* whh2 = static_cast<const T*>(a.p[P_WHH2]);
-    const T* wq = static_cast<const T*>(a.p[P_WQ]);
+    const float* wc1 = static_cast<const float*>(a.p[P_WC1]);
+    const float* whh1 = static_cast<const float*>(a.p[P_WHH1]);
+    const float* wih2 = static_cast<const float*>(a.p[P_WIH2]);
+    const float* whh2 = static_cast<const float*>(a.p[P_WHH2]);
+    const float* wq = static_cast<const float*>(a.p[P_WQ]);
     // this block's weight rows, [row][k], for the whole launch
     for (int idx = threadIdx.x; idx < (U1 + NQ) * KD; idx += NTHREADS) {
       const int c = idx / KD, k = idx % KD;
@@ -369,17 +364,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
   }
   __syncthreads();
 
-  const T* c10 = static_cast<const T*>(a.p[P_C10]);
-  const T* c20 = static_cast<const T*>(a.p[P_C20]);
-  const T* gates1 = static_cast<const T*>(a.p[P_GATES1]);
-  const T* c1 = static_cast<const T*>(a.p[P_C1]);
-  const T* gates2 = static_cast<const T*>(a.p[P_GATES2]);
-  const T* c2 = static_cast<const T*>(a.p[P_C2]);
-  const T* m1 = static_cast<const T*>(a.p[P_M1]);
-  const T* m2 = static_cast<const T*>(a.p[P_M2]);
-  T* dpre1 = static_cast<T*>(const_cast<void*>(a.p[P_DPRE1]));
-  T* dpre2 = static_cast<T*>(const_cast<void*>(a.p[P_DPRE2]));
-  const T* dq = static_cast<const T*>(a.p[P_DQ]);
+  const float* c10 = static_cast<const float*>(a.p[P_C10]);
+  const float* c20 = static_cast<const float*>(a.p[P_C20]);
+  const float* gates1 = static_cast<const float*>(a.p[P_GATES1]);
+  const float* c1 = static_cast<const float*>(a.p[P_C1]);
+  const float* gates2 = static_cast<const float*>(a.p[P_GATES2]);
+  const float* c2 = static_cast<const float*>(a.p[P_C2]);
+  const float* m1 = static_cast<const float*>(a.p[P_M1]);
+  const float* m2 = static_cast<const float*>(a.p[P_M2]);
+  float* dpre1 = static_cast<float*>(const_cast<void*>(a.p[P_DPRE1]));
+  float* dpre2 = static_cast<float*>(const_cast<void*>(a.p[P_DPRE2]));
+  const float* dq = static_cast<const float*>(a.p[P_DQ]);
   float* dh1_c = static_cast<float*>(const_cast<void*>(a.p[P_DH1]));
   float* dc1_c = static_cast<float*>(const_cast<void*>(a.p[P_DC1]));
   float* dh2_c = static_cast<float*>(const_cast<void*>(a.p[P_DH2]));
@@ -392,10 +387,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
     const bool first = s == 0;
     const long long row = (long long)t * B;  // this step's rows of a (T, B, .) stream
 
-    attend_adjoint<T>(a, t, first, dch_s, red_s, dw_s, w_s);
+    attend_adjoint(a, t, first, dch_s, red_s, dw_s, w_s);
     grid.sync();
 
-    const CellStep<T> cell2{gates2 + row * 4 * H2,
+    const CellStep cell2{gates2 + row * 4 * H2,
                             c2 + row * H2,
                             t == 0 ? c20 : c2 + (row - B) * H2,
                             m2 != nullptr ? m2 + row * H2 : nullptr,
@@ -406,14 +401,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
                             u02,
                             first};
     switch (U2) {
-      case 1: adjoint_b<T, 1>(wb_s, dq + row * P, P, B, cell2); break;
-      case 2: adjoint_b<T, 2>(wb_s, dq + row * P, P, B, cell2); break;
-      case 4: adjoint_b<T, 4>(wb_s, dq + row * P, P, B, cell2); break;
-      case 8: adjoint_b<T, 8>(wb_s, dq + row * P, P, B, cell2); break;
+      case 1: adjoint_b<1>(wb_s, dq + row * P, P, B, cell2); break;
+      case 2: adjoint_b<2>(wb_s, dq + row * P, P, B, cell2); break;
+      case 4: adjoint_b<4>(wb_s, dq + row * P, P, B, cell2); break;
+      case 8: adjoint_b<8>(wb_s, dq + row * P, P, B, cell2); break;
     }
     grid.sync();
 
-    const CellStep<T> cell1{gates1 + row * 4 * H1,
+    const CellStep cell1{gates1 + row * 4 * H1,
                             c1 + row * H1,
                             t == 0 ? c10 : c1 + (row - B) * H1,
                             m1 != nullptr ? m1 + row * H1 : nullptr,
@@ -426,7 +421,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
     // NA = U1 with NB = U2 (phase (c)) or NQ (phase (d))
 #define PAIR(NA, NB, CELL, W, X, K, OUT, HB, B0) \
   case NA * 16 + NB:                             \
-    adjoint_cd<T, NA, NB, CELL>(W, X, K, B, cell1, OUT, HB, B0); \
+    adjoint_cd<NA, NB, CELL>(W, X, K, B, cell1, OUT, HB, B0); \
     break;
 #define PAIRS(CELL, W, X, K, OUT, HB, B0)                                            \
   PAIR(1, 1, CELL, W, X, K, OUT, HB, B0) PAIR(1, 2, CELL, W, X, K, OUT, HB, B0)      \
@@ -447,10 +442,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) speller_bwd_kernel(BwdArgs a) {
   }
 }
 
-template <typename T>
 static cudaError_t launch(const BwdArgs& a, int grid, cudaStream_t stream) {
-  auto kernel = speller_bwd_kernel<T>;
-  const size_t smem = smem_bytes(sizeof(T), grid, a.Te, a.P, a.heads, a.H1, a.H2);
+  auto kernel = speller_bwd_kernel;
+  const size_t smem = smem_bytes(grid, a.Te, a.P, a.heads, a.H1, a.H2);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -476,14 +470,14 @@ extern "C" int speller_bwd_limits(int device, long long* out) {
   return (int)err;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. The wrapper checks the shapes: H1, H2
-// and P each `grid` x 1, 2, 4 ... MAX_UNITS; P a multiple of `heads`, the
-// head width a multiple of 8; P at most NTHREADS 16-byte slices; the shared
-// memory (speller_bwd_smem_bytes) within the device's opt-in limit.
+// dtype: 0 = float32, the only one this source takes (0 bytes for another).
+// The wrapper checks the shapes: H1, H2 and P each `grid` x 1, 2, 4 ...
+// MAX_UNITS; P a multiple of `heads`, the head width a multiple of 8; P at most
+// NTHREADS 16-byte slices; the shared memory (speller_bwd_smem_bytes) within
+// the device's opt-in limit.
 extern "C" size_t speller_bwd_smem_bytes(int dtype, int grid, int Te, int P, int heads, int H1,
                                          int H2) {
-  return smem_bytes(dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16), grid, Te, P, heads, H1,
-                    H2);
+  return dtype == 0 ? smem_bytes(grid, Te, P, heads, H1, H2) : 0;
 }
 
 // ptrs: N_PTRS device pointers in enum Ptr order (P_M1, P_M2 and P_DWUP may be
@@ -501,8 +495,6 @@ extern "C" int speller_bwd_launch(int dtype, int grid, const void* const* ptrs, 
   a.H1 = dims[D_H1];
   a.H2 = dims[D_H2];
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, grid, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, grid, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch(a, grid, static_cast<cudaStream_t>(stream));
 }

@@ -34,20 +34,27 @@
 // ends each phase with a grid barrier.
 //
 // What the design does about it:
-//   * Geometry. G = H2 / 2 blocks (128 at base- and scaled-LAS; 288 threads:
-//     two consumer warpgroups and a producer warp). Block g owns U2 = 2 units
-//     of cell 2 and U1 = H1 / G (2, 4 or 8) of cell 1, the four gates of a
-//     unit side by side (column n = 4u + gate), and keeps those columns of
-//     [whh1; wc1; embw1] and [whh2; wih2] as bf16 in shared memory for the
-//     whole launch, K-major, 64 k a 128-byte row with the 128-byte swizzle.
+//   * Geometry. G blocks, the largest power of two up to 128 (and the card's
+//     SMs) that divides H1 and H2 (128 at base- and scaled-LAS; 288
+//     threads: two consumer warpgroups and a producer warp). Block g owns U1
+//     = H1 / G units of cell 1 (1 to 8) and U2 = H2 / G of cell 2 (1 to 4),
+//     the four gates of a unit side by side (column n = 4u + gate), and
+//     keeps those columns of [whh1; wc1; embw1] and [whh2; wih2] as bf16 in
+//     shared memory for the whole launch, K-major, 64 k a 128-byte row with
+//     the 128-byte swizzle. A product's N = 8 NC, NC = ceil(U / 2) (the
+//     template's NC1, NC2): where 4U is not a multiple of 8 (U odd) the last
+//     four columns are zero weights and their unit is not stored. Keeping G
+//     at 128 keeps the cell-1 tile within the card at H1 = 1024 (21 k-chunks
+//     x 32 columns x 128 B = 86 KB); G = H2 / 2 would give 64 blocks of 16
+//     units there (172 KB) at H2 = 128.
 //   * The query. wgmma's N is a multiple of 8, and P / G = 2 columns a block
 //     would not be one; the query's P columns go 8 a block to the first
-//     P / 8 blocks (32 at P = 256), the same product as the cells'. Left on
-//     the CUDA cores it would walk the rows again; folded into the attention
-//     (the block of row r forming q_r itself) every block would read all of
-//     wq each step, 128 KB at base-LAS, more than the row's K (96 KB), whose
-//     scores take ~4.5 us of a step (PERF.md). On tensor cores it is
-//     a few k-steps and one more hand-off.
+//     P / 8 blocks (32 at P = 256; so P <= 8 G), the same product as the
+//     cells'. Left on the CUDA cores it would walk the rows again; folded into
+//     the attention (the block of row r forming q_r itself) every block would
+//     read all of wq each step, 128 KB at base-LAS, more than the row's K (96
+//     KB), whose scores take ~4.5 us of a step (PERF.md). On tensor cores it
+//     is a few k-steps and one more hand-off.
 //   * Products. Each phase's input streams from its exchange buffer in
 //     64-column boxes through a ring of shared-memory stages, loaded by TMA
 //     from one producer thread and completing on the stage's `full`
@@ -60,8 +67,9 @@
 //     adds them in the fixed order warpgroup 0 + warpgroup 1: no atomics and
 //     no k split across blocks, so two runs repeat bit for bit and the
 //     training form without masks and forcing is bit-equal to the eval form.
-//     A thread owns U / 2 units of one row of each cell for the whole launch
-//     and keeps their fp32 c carries in registers.
+//     A thread owns NC unit slots of one row of each cell (slots NC h ..
+//     NC h + NC - 1 of the block's units, h = its half) for the whole launch
+//     and keeps their fp32 c carries in registers; a slot past U is idle.
 //   * Attention (per row, as speller_decode.cu): block r takes batch row r
 //     (r += G): scores, softmax (NWARPS / heads warps a head), context,
 //     classifier and first-max argmax; it writes the next step's fed id (a
@@ -112,7 +120,8 @@ constexpr int DT_CONSUMERS = NTHREADS;          // two warpgroups (the attention
 constexpr int DT_THREADS = DT_CONSUMERS + 32;   // and the producer warp
 constexpr int DT_ROWS = 128;                    // batch rows a launch
 constexpr int DT_MAX_GRID = 128;                // blocks, at most: one per SM
-constexpr int DT_UNITS2 = 2;                    // cell-2 units a block (N = 8)
+constexpr int DT_MAX_UNITS1 = 8;                // cell-1 units a block, at most (N = 32)
+constexpr int DT_MAX_UNITS2 = 4;                // cell-2 units a block, at most (N = 16)
 constexpr int DT_KC = 64;                       // columns of a ring stage: one TMA box
 constexpr int DT_SEL = 64;                      // the one-hot's width (Vp <= DT_VMAX used)
 constexpr int DT_QCOLS = 8;                     // query columns of a query block (N = 8)
@@ -121,12 +130,6 @@ constexpr int DT_MAX_STAGES = 8;
 constexpr int DT_MIN_STAGES = 4;
 constexpr int DT_BAR_BYTES = 2 * DT_MAX_STAGES * 8;
 enum Ctr { C_CELL1, C_CELL2, C_QUERY, C_ATTEND, N_CTRS };
-
-// a compile-time count of columns, handed to a generic lambda
-template <int V>
-struct Cols {
-  static constexpr int value = V;
-};
 
 // Phase stamps for tools/trace_speller_decode.py. Built with -DDT_TRACE, thread
 // 0 (and the producer's lane 0, its two) of blocks 0, G / 2 and G - 1 write
@@ -172,7 +175,7 @@ enum TcPtr {
   T_M1, T_M2, T_SEL, T_GATES1, T_C1R, T_GATES2, T_C2R, N_TC_PTRS
 };
 // int slots
-enum TcDim { E_B, E_LDB, E_TE, E_T, E_P, E_HEADS, E_H1, E_H2, E_VP, E_SOS, N_TC_DIMS };
+enum TcDim { E_B, E_LDB, E_TE, E_T, E_P, E_HEADS, E_H1, E_H2, E_VP, E_SOS, E_G, N_TC_DIMS };
 
 struct DecodeTcArgs {
   const void* p[N_TC_PTRS];
@@ -181,20 +184,20 @@ struct DecodeTcArgs {
 };
 
 // The block's shared memory, in this order after the slack that puts it on
-// a 1024-byte boundary: the weight tiles of cell 1 (N1 = 4 U1 columns, K =
-// H1 + P + DT_SEL), cell 2 (8 columns, K = H2 + H1) and the query (8
-// columns, K = H2); the ring, stages of the launch's rows rounded up to 64
-// (64 or 128) x 64 columns; the gate tile (128 rows x N1 + 8 fp32); the
-// attention's fp32 buffers (q, ctx, classifier partials, the context's
-// group sums, the scores of every head); the mbarriers. The ring takes what
-// the rest leaves of TC_SMEM_LIMIT, at most DT_MAX_STAGES.
+// a 1024-byte boundary: the weight tiles of cell 1 (N1 = 8 NC1 columns, K =
+// H1 + P + DT_SEL), cell 2 (N2 = 8 NC2 columns, K = H2 + H1) and the query
+// (8 columns, K = H2); the ring, stages of the launch's rows rounded up to
+// 64 (64 or 128) x 64 columns; the gate tile (128 rows x the widest N + 8
+// fp32); the attention's fp32 buffers (q, ctx, classifier partials, the
+// context's group sums, the scores of every head); the mbarriers. The ring
+// takes what the rest leaves of TC_SMEM_LIMIT, at most DT_MAX_STAGES.
 __host__ __device__ inline int dt_box_rows(int B) { return B > 64 ? 128 : 64; }
-__host__ __device__ inline size_t dt_w_bytes(int H1, int H2, int P, int U1) {
-  return (size_t)((H1 + P + DT_SEL) / DT_KC) * 4 * U1 * 128 +
-         (size_t)((H2 + H1) / DT_KC) * 4 * DT_UNITS2 * 128 + (size_t)(H2 / DT_KC) * DT_QCOLS * 128;
+__host__ __device__ inline size_t dt_w_bytes(int H1, int H2, int P, int NC1, int NC2) {
+  return (size_t)((H1 + P + DT_SEL) / DT_KC) * 8 * NC1 * 128 +
+         (size_t)((H2 + H1) / DT_KC) * 8 * NC2 * 128 + (size_t)(H2 / DT_KC) * DT_QCOLS * 128;
 }
-__host__ __device__ inline size_t dt_red_bytes(int U1) {
-  return (size_t)DT_ROWS * (4 * U1 + 8) * sizeof(float);
+__host__ __device__ inline size_t dt_red_bytes(int NC1, int NC2) {
+  return (size_t)DT_ROWS * (8 * (NC1 > NC2 ? NC1 : NC2) + 8) * sizeof(float);
 }
 __host__ __device__ inline size_t dt_att_bytes(int Te, int P, int heads) {
   return align16((2 * (size_t)P + NWARPS * DT_VMAX + NTHREADS * 8 + (size_t)heads * Te) *
@@ -202,20 +205,21 @@ __host__ __device__ inline size_t dt_att_bytes(int Te, int P, int heads) {
 }
 __host__ __device__ inline size_t dt_stage_bytes(int B) { return (size_t)dt_box_rows(B) * 128; }
 __host__ __device__ inline size_t dt_fixed_bytes(int Te, int P, int heads, int H1, int H2,
-                                                 int U1) {
-  return TC_ALIGN + dt_w_bytes(H1, H2, P, U1) + dt_red_bytes(U1) + dt_att_bytes(Te, P, heads) +
-         DT_BAR_BYTES;
+                                                 int NC1, int NC2) {
+  return TC_ALIGN + dt_w_bytes(H1, H2, P, NC1, NC2) + dt_red_bytes(NC1, NC2) +
+         dt_att_bytes(Te, P, heads) + DT_BAR_BYTES;
 }
-__host__ __device__ inline int dt_stages(int B, int Te, int P, int heads, int H1, int H2, int U1) {
-  const size_t fixed = dt_fixed_bytes(Te, P, heads, H1, H2, U1);
+__host__ __device__ inline int dt_stages(int B, int Te, int P, int heads, int H1, int H2, int NC1,
+                                         int NC2) {
+  const size_t fixed = dt_fixed_bytes(Te, P, heads, H1, H2, NC1, NC2);
   const int room =
       fixed < (size_t)TC_SMEM_LIMIT ? (int)((TC_SMEM_LIMIT - fixed) / dt_stage_bytes(B)) : 0;
   return room < DT_MAX_STAGES ? room : DT_MAX_STAGES;
 }
 __host__ __device__ inline size_t dt_smem_bytes(int B, int Te, int P, int heads, int H1, int H2,
-                                                int U1) {
-  return dt_fixed_bytes(Te, P, heads, H1, H2, U1) +
-         (size_t)dt_stages(B, Te, P, heads, H1, H2, U1) * dt_stage_bytes(B);
+                                                int NC1, int NC2) {
+  return dt_fixed_bytes(Te, P, heads, H1, H2, NC1, NC2) +
+         (size_t)dt_stages(B, Te, P, heads, H1, H2, NC1, NC2) * dt_stage_bytes(B);
 }
 
 // Attention, classifier and feedback of batch row r at step t (the per-row
@@ -420,20 +424,20 @@ __device__ __forceinline__ void attend_row(const DecodeTcArgs& a, int t, int r,
   named_barrier(1, DT_CONSUMERS);  // the row's shared buffers are reused by the next row
 }
 
-template <bool TRAIN, int U1>
+template <bool TRAIN, int NC1, int NC2>
 __global__ void __launch_bounds__(DT_THREADS, 1)
     speller_decode_tc_kernel(DecodeTcArgs a, const __grid_constant__ CUtensorMap map_h1,
                              const __grid_constant__ CUtensorMap map_h2,
                              const __grid_constant__ CUtensorMap map_ctx,
                              const __grid_constant__ CUtensorMap map_sel, unsigned* ctr) {
   using T = __nv_bfloat16;
-  constexpr int U2 = DT_UNITS2;
-  constexpr int N1 = 4 * U1, N2 = 4 * U2;
-  constexpr int R1 = U1 / 2, R2 = U2 / 2;  // units of one row a thread owns
+  constexpr int N1 = 8 * NC1, N2 = 8 * NC2;
+  constexpr int R1 = NC1, R2 = NC2;  // unit slots of one row a thread owns
   extern __shared__ __align__(TC_ALIGN) unsigned char smem_raw[];
 
   const int B = a.B, ldb = a.ldb, P = a.P, H1 = a.H1, H2 = a.H2, nsteps = a.T;
   const int G = gridDim.x;
+  const int U1 = H1 / G, U2 = H2 / G;  // units of each cell a block owns
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u01 = blockIdx.x * U1, u02 = blockIdx.x * U2;
   const int nqb = P / DT_QCOLS;
@@ -441,16 +445,16 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
   const int q0 = blockIdx.x * DT_QCOLS;
   const int ch1 = H1 / DT_KC, ch2 = H2 / DT_KC, chc = P / DT_KC;
   const int K1 = H1 + P + DT_SEL, K2 = H2 + H1;
-  const int S = dt_stages(B, a.Te, P, a.heads, H1, H2, U1);
+  const int S = dt_stages(B, a.Te, P, a.heads, H1, H2, NC1, NC2);
   const int stage_bytes = (int)dt_stage_bytes(B);
 
   unsigned char* w1_s =
       smem_raw + ((TC_ALIGN - (smem_u32(smem_raw) & (TC_ALIGN - 1))) & (TC_ALIGN - 1));
   unsigned char* w2_s = w1_s + (size_t)(K1 / DT_KC) * N1 * 128;
   unsigned char* wq_s = w2_s + (size_t)(K2 / DT_KC) * N2 * 128;
-  unsigned char* ring = w1_s + dt_w_bytes(H1, H2, P, U1);
+  unsigned char* ring = w1_s + dt_w_bytes(H1, H2, P, NC1, NC2);
   float* red_s = reinterpret_cast<float*>(ring + (size_t)S * stage_bytes);
-  float* q_s = red_s + dt_red_bytes(U1) / sizeof(float);
+  float* q_s = red_s + dt_red_bytes(NC1, NC2) / sizeof(float);
   float* ctx_s = q_s + P;
   float* part_s = ctx_s + P;
   float* cred_s = part_s + NWARPS * DT_VMAX;
@@ -462,7 +466,8 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
 
   // this block's weight columns, K-major, one 64-k tile after another: cell
   // 1 over [h1; ctx; one-hot] against [whh1; wc1; embw1 (zero past Vp)],
-  // cell 2 over [h2; h1] against [whh2; wih2], the query over h2 against wq
+  // cell 2 over [h2; h1] against [whh2; wih2], the query over h2 against wq;
+  // the columns of a unit slot past U are zeros
   {
     const T* whh1 = static_cast<const T*>(a.p[T_WHH1]);
     const T* wc1 = static_cast<const T*>(a.p[T_WC1]);
@@ -475,24 +480,28 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
       *reinterpret_cast<T*>(tile + (size_t)(k / DT_KC) * N * 128 + swz(n, kk >> 3) +
                             (kk & 7) * 2) = v;
     };
+    const T zero = __float2bfloat16(0.0f);
     for (int idx = tid; idx < K1 * N1; idx += DT_THREADS) {
       const int n = idx % N1, k = idx / N1;
       const long long col = (long long)(n & 3) * H1 + u01 + (n >> 2);
       T v;
-      if (k < H1)
+      if ((n >> 2) >= U1)
+        v = zero;
+      else if (k < H1)
         v = whh1[(long long)k * 4 * H1 + col];
       else if (k < H1 + P)
         v = wc1[(long long)(k - H1) * 4 * H1 + col];
       else
-        v = k - H1 - P < a.Vp ? embw1[(long long)(k - H1 - P) * 4 * H1 + col]
-                              : __float2bfloat16(0.0f);
+        v = k - H1 - P < a.Vp ? embw1[(long long)(k - H1 - P) * 4 * H1 + col] : zero;
       put(w1_s, N1, n, k, v);
     }
     for (int idx = tid; idx < K2 * N2; idx += DT_THREADS) {
       const int n = idx % N2, k = idx / N2;
       const long long col = (long long)(n & 3) * H2 + u02 + (n >> 2);
       put(w2_s, N2, n, k,
-          k < H2 ? whh2[(long long)k * 4 * H2 + col] : wih2[(long long)(k - H2) * 4 * H2 + col]);
+          (n >> 2) >= U2 ? zero
+          : k < H2       ? whh2[(long long)k * 4 * H2 + col]
+                         : wih2[(long long)(k - H2) * 4 * H2 + col]);
     }
     if (qblock)
       for (int idx = tid; idx < H2 * DT_QCOLS; idx += DT_THREADS) {
@@ -559,10 +568,13 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
   const int wg = warp / 4;
   const bool split = B <= 64;     // both warpgroups on rows 0..63, the k-chunks split
   const int rg = split ? 0 : wg;  // the 64 rows of the warpgroup's products
-  // a thread's cells: units [ub, ub + U / 2) of row `row`
+  // a thread's cells: unit slots [ub, ub + R) of row `row`, the first n of
+  // them units of the block (all where U = 2 R, and then one access each)
   const int row = tid >> 1, half = tid & 1;
   const bool live = row < B;
   const int ub1 = half * R1, ub2 = half * R2;
+  const int n1 = min(max(U1 - ub1, 0), R1), n2 = min(max(U2 - ub2, 0), R2);
+  const bool vec1 = U1 == 2 * R1, vec2 = U2 == 2 * R2;
   T* h1x = static_cast<T*>(const_cast<void*>(a.p[T_H1X]));
   T* h2x = static_cast<T*>(const_cast<void*>(a.p[T_H2X]));
   T* ctxx = static_cast<T*>(const_cast<void*>(a.p[T_CTXX]));
@@ -587,7 +599,7 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < R2; ++i)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) b2v[i][g] = to_f(b2[g * H2 + u02 + ub2 + i]);
+      for (int g = 0; g < 4; ++g) b2v[i][g] = i < n2 ? to_f(b2[g * H2 + u02 + ub2 + i]) : 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) bqv[j] = qblock ? to_f(bq[q0 + 4 * half + j]) : 0.0f;
     float v1[R1], v2[R2];
@@ -597,12 +609,12 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
     for (int i = 0; i < R2; ++i) c2[i] = 0.0f;
     if (live) {
       const long long o1 = (long long)row * H1 + u01 + ub1, o2 = (long long)row * H2 + u02 + ub2;
-      load_bf16<R1>(static_cast<const T*>(a.p[T_C10]) + o1, c1);
-      load_bf16<R2>(static_cast<const T*>(a.p[T_C20]) + o2, c2);
-      load_bf16<R1>(static_cast<const T*>(a.p[T_H10]) + o1, v1);
-      load_bf16<R2>(static_cast<const T*>(a.p[T_H20]) + o2, v2);
-      store_bf16<R1>(h1x + o1, v1);  // slot 0
-      store_bf16<R2>(h2x + o2, v2);
+      load_units<R1>(static_cast<const T*>(a.p[T_C10]) + o1, n1, vec1, c1);
+      load_units<R2>(static_cast<const T*>(a.p[T_C20]) + o2, n2, vec2, c2);
+      load_units<R1>(static_cast<const T*>(a.p[T_H10]) + o1, n1, vec1, v1);
+      load_units<R2>(static_cast<const T*>(a.p[T_H20]) + o2, n2, vec2, v2);
+      store_units<R1>(h1x + o1, n1, vec1, v1);  // slot 0
+      store_units<R2>(h2x + o2, n2, vec2, v2);
     }
     const T* ctx0 = static_cast<const T*>(a.p[T_CTX0]);
     for (int r = blockIdx.x; r < B; r += G) {
@@ -711,8 +723,8 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
     for (int i = 0; i < R2; ++i) keep2[i] = 1.0f;
     if constexpr (TRAIN) {
       if (live && m1 != nullptr) {
-        load_bf16<R1>(m1 + ((long long)t * ldb + row) * H1 + u01 + ub1, keep1);
-        load_bf16<R2>(m2 + ((long long)t * ldb + row) * H2 + u02 + ub2, keep2);
+        load_units<R1>(m1 + ((long long)t * ldb + row) * H1 + u01 + ub1, n1, vec1, keep1);
+        load_units<R2>(m2 + ((long long)t * ldb + row) * H2 + u02 + ub2, n2, vec2, keep2);
       }
     }
 
@@ -732,18 +744,18 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
         for (int g = 0; g < 4; ++g) gv1[g][i] = gi[g];
       }
       const long long o = ((long long)sn * ldb + row) * H1 + u01 + ub1;
-      store_bf16<R1>(h1x + o, hv);
+      store_units<R1>(h1x + o, n1, vec1, hv);
     }
     publish(C_CELL1);
     DT_STAMP(S_CELL1_PUBLISHED, t);
     if constexpr (TRAIN) {  // the residual streams, read by no block: after the publish
       if (live) {
         const long long ot = ((long long)t * ldb + row) * H1 + u01 + ub1;
-        store_bf16<R1>(c1r + ot, cv1);
+        store_units<R1>(c1r + ot, n1, vec1, cv1);
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          store_bf16<R1>(gates1 + ((long long)t * ldb + row) * 4 * H1 + g * H1 + u01 + ub1,
-                         gv1[g]);
+          store_units<R1>(gates1 + ((long long)t * ldb + row) * 4 * H1 + g * H1 + u01 + ub1, n1,
+                          vec1, gv1[g]);
       }
     }
 
@@ -764,18 +776,18 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
         for (int g = 0; g < 4; ++g) gv2[g][i] = gi[g];
       }
       const long long o = ((long long)sn * ldb + row) * H2 + u02 + ub2;
-      store_bf16<R2>(h2x + o, hv);
+      store_units<R2>(h2x + o, n2, vec2, hv);
     }
     publish(C_CELL2);
     DT_STAMP(S_CELL2_PUBLISHED, t);
     if constexpr (TRAIN) {
       if (live) {
         const long long ot = ((long long)t * ldb + row) * H2 + u02 + ub2;
-        store_bf16<R2>(c2r + ot, cv2);
+        store_units<R2>(c2r + ot, n2, vec2, cv2);
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          store_bf16<R2>(gates2 + ((long long)t * ldb + row) * 4 * H2 + g * H2 + u02 + ub2,
-                         gv2[g]);
+          store_units<R2>(gates2 + ((long long)t * ldb + row) * 4 * H2 + g * H2 + u02 + ub2, n2,
+                          vec2, gv2[g]);
       }
     }
 
@@ -827,44 +839,49 @@ static bool encode_exchange(EncodeTiledFn encode, CUtensorMap* map, const void* 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool TRAIN, int U1>
-static cudaError_t dt_launch(const DecodeTcArgs& a, const CUtensorMap* maps, unsigned* ctr,
-                             cudaStream_t stream) {
-  auto kernel = speller_decode_tc_kernel<TRAIN, U1>;
-  const size_t smem = dt_smem_bytes(a.B, a.Te, a.P, a.heads, a.H1, a.H2, U1);
+template <bool TRAIN, int NC1, int NC2>
+static cudaError_t dt_launch(const DecodeTcArgs& a, int G, const CUtensorMap* maps,
+                             unsigned* ctr, cudaStream_t stream) {
+  auto kernel = speller_decode_tc_kernel<TRAIN, NC1, NC2>;
+  const size_t smem = dt_smem_bytes(a.B, a.Te, a.P, a.heads, a.H1, a.H2, NC1, NC2);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   DecodeTcArgs args = a;
   CUtensorMap m0 = maps[0], m1 = maps[1], m2 = maps[2], m3 = maps[3];
   void* params[] = {&args, &m0, &m1, &m2, &m3, &ctr};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(a.H2 / DT_UNITS2),
-                                    dim3(DT_THREADS), params, smem, stream);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(G), dim3(DT_THREADS),
+                                    params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // The geometry the wrapper (ops/speller_cuda.py::plan_decode_tc) mirrors,
 // and the shared memory a block of `device` may opt into: out = {DT_ROWS,
-// DT_MAX_GRID, DT_UNITS2, DT_KC, DT_SEL, DT_QCOLS, DT_VMAX, DT_MAX_STAGES,
-// DT_MIN_STAGES, TC_SMEM_LIMIT, DT_THREADS, opt-in bytes, SMs}. Returns a
-// cudaError_t (0 on success).
+// DT_MAX_GRID, DT_MAX_UNITS1, DT_MAX_UNITS2, DT_KC, DT_SEL, DT_QCOLS,
+// DT_VMAX, DT_MAX_STAGES, DT_MIN_STAGES, TC_SMEM_LIMIT, DT_THREADS, opt-in
+// bytes, SMs}. Returns a cudaError_t (0 on success).
 extern "C" int speller_decode_tc_limits(int device, long long* out) {
   int optin = 0, sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long v[] = {DT_ROWS, DT_MAX_GRID, DT_UNITS2, DT_KC, DT_SEL, DT_QCOLS, DT_VMAX,
-                         DT_MAX_STAGES, DT_MIN_STAGES, TC_SMEM_LIMIT, DT_THREADS, optin, sms};
-  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  const long long v[] = {DT_ROWS,   DT_MAX_GRID,   DT_MAX_UNITS1, DT_MAX_UNITS2, DT_KC,
+                         DT_SEL,    DT_QCOLS,      DT_VMAX,       DT_MAX_STAGES, DT_MIN_STAGES,
+                         TC_SMEM_LIMIT, DT_THREADS, optin,        sms};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
   return (int)err;
 }
 
-// bytes of dynamic shared memory of a launch of B rows (U1 = H1 / (H2 / 2))
-extern "C" size_t speller_decode_tc_smem_bytes(int B, int Te, int P, int heads, int H1, int H2) {
-  return dt_smem_bytes(B, Te, P, heads, H1, H2, H1 / (H2 / DT_UNITS2));
+// N / 8 of a product of U units a block (four gate columns a unit)
+__host__ __device__ inline int dt_nc(int U) { return (U + 1) / 2; }
+
+// bytes of dynamic shared memory of a launch of B rows on G blocks
+extern "C" size_t speller_decode_tc_smem_bytes(int B, int Te, int P, int heads, int H1, int H2,
+                                               int G) {
+  return dt_smem_bytes(B, Te, P, heads, H1, H2, dt_nc(H1 / G), dt_nc(H2 / G));
 }
 
-// One launch of B <= DT_ROWS rows. ptrs: N_TC_PTRS device pointers in enum
+// One launch of B <= DT_ROWS rows on dims[E_G] blocks. ptrs: N_TC_PTRS device pointers in enum
 // TcPtr order, each at the launch's first row (P_FORCED may be null; with
 // train == 0 the slots from T_M1 on are not read; with train != 0 T_M1 and
 // T_M2 may be null); the exchanges T_H1X, T_H2X, T_CTXX hold `slots` slots
@@ -888,14 +905,16 @@ extern "C" int speller_decode_tc_launch(int train, const void* const* ptrs, cons
   a.Vp = dims[E_VP];
   a.sos = dims[E_SOS];
   a.scale = scale;
-  const int G = a.H2 / DT_UNITS2;
+  const int G = dims[E_G];
   const int U1 = G > 0 && a.H1 % G == 0 ? a.H1 / G : 0;
+  const int U2 = G > 0 && a.H2 % G == 0 ? a.H2 / G : 0;
+  const int nc1 = dt_nc(U1), nc2 = dt_nc(U2);
   const bool shape_ok =
       a.B >= 1 && a.B <= DT_ROWS && a.ldb >= a.B && a.T >= 1 && a.Te >= 1 && a.H2 % DT_KC == 0 &&
-      a.H1 % DT_KC == 0 && a.P % DT_KC == 0 && G >= 1 && G <= DT_MAX_GRID &&
-      (U1 == 2 || U1 == 4 || U1 == 8) && a.P / DT_QCOLS <= G && a.heads >= 1 &&
-      a.P % a.heads == 0 && (a.P / a.heads) % 8 == 0 && a.Vp >= 1 && a.Vp <= DT_VMAX &&
-      dt_stages(a.B, a.Te, a.P, a.heads, a.H1, a.H2, U1) >= DT_MIN_STAGES;
+      a.H1 % DT_KC == 0 && a.P % DT_KC == 0 && G >= 1 && G <= DT_MAX_GRID && U1 >= 1 &&
+      U1 <= DT_MAX_UNITS1 && U2 >= 1 && U2 <= DT_MAX_UNITS2 && a.P / DT_QCOLS <= G &&
+      a.heads >= 1 && a.P % a.heads == 0 && (a.P / a.heads) % 8 == 0 && a.Vp >= 1 &&
+      a.Vp <= DT_VMAX && dt_stages(a.B, a.Te, a.P, a.heads, a.H1, a.H2, nc1, nc2) >= DT_MIN_STAGES;
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -907,13 +926,17 @@ extern "C" int speller_decode_tc_launch(int train, const void* const* ptrs, cons
     return (int)cudaErrorInvalidValue;
   unsigned* c = static_cast<unsigned*>(ctr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((train ? 16 : 0) + U1) {
-    case 2: return (int)dt_launch<false, 2>(a, maps, c, s);
-    case 4: return (int)dt_launch<false, 4>(a, maps, c, s);
-    case 8: return (int)dt_launch<false, 8>(a, maps, c, s);
-    case 18: return (int)dt_launch<true, 2>(a, maps, c, s);
-    case 20: return (int)dt_launch<true, 4>(a, maps, c, s);
-    case 24: return (int)dt_launch<true, 8>(a, maps, c, s);
+  // (form, NC1, NC2): every geometry of the limits above
+#define DT_CASE(TR, A, B2) \
+  case (TR) * 100 + (A) * 10 + (B2): return (int)dt_launch<TR, A, B2>(a, G, maps, c, s);
+#define DT_CASES(TR) \
+  DT_CASE(TR, 1, 1) DT_CASE(TR, 1, 2) DT_CASE(TR, 2, 1) DT_CASE(TR, 2, 2) \
+  DT_CASE(TR, 3, 1) DT_CASE(TR, 3, 2) DT_CASE(TR, 4, 1) DT_CASE(TR, 4, 2)
+  switch ((train ? 100 : 0) + nc1 * 10 + nc2) {
+    DT_CASES(false)
+    DT_CASES(true)
   }
+#undef DT_CASES
+#undef DT_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,8 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 // contiguous dimension is M, not K), which bf16 allows.
 template <int N, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "n8, n16, n32 or n64");
+  static_assert(N == 8 || N == 16 || N == 24 || N == 32 || N == 64,
+                "n8, n16, n24, n32 or n64");
   if constexpr (N == 8) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
@@ -44,6 +45,15 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64
         "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_A));
+  } else if constexpr (N == 24) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, %15, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
         : "l"(a), "l"(b), "r"(1), "n"(TRANS_A));
   } else if constexpr (N == 32) {
     asm volatile(
@@ -75,6 +85,12 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64
   }
 }
 
+// a compile-time count of columns, handed to a generic lambda
+template <int V>
+struct Cols {
+  static constexpr int value = V;
+};
+
 // the descriptor of a bf16 tile of 128-byte rows, 16-byte pieces
 // XOR-swizzled by the row's low three bits (the 128-byte swizzle), rows in
 // groups of eight 1024 bytes apart; `saddr` 1024-byte aligned but for the
@@ -101,7 +117,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 // accumulators are its operands, so that nothing reads them before
 template <int P, int R>
 __device__ __forceinline__ void wgmma_wait(float (&d)[R]) {
-  static_assert(R == 4 || R == 8 || R == 16 || R == 32, "n8 .. n64 accumulators");
+  static_assert(R == 4 || R == 8 || R == 12 || R == 16 || R == 32, "n8 .. n64 accumulators");
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(P) : "memory");
   fence_operands(d);
 }
@@ -210,6 +226,33 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float* f) {
       *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
+}
+
+// R adjacent values of which the first n are read (the rest 0) or written:
+// one access of 2 R bytes where `vec` (n == R, R 1, 2 or 4, the address
+// aligned to 2 R bytes), else one value at a time
+template <int R>
+__device__ __forceinline__ void load_units(const __nv_bfloat16* p, int n, bool vec, float* f) {
+  if constexpr (R == 1 || R == 2 || R == 4) {
+    if (vec) {
+      load_bf16<R>(p, f);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) f[i] = i < n ? __bfloat162float(p[i]) : 0.0f;
+}
+template <int R>
+__device__ __forceinline__ void store_units(__nv_bfloat16* p, int n, bool vec, const float* f) {
+  if constexpr (R == 1 || R == 2 || R == 4) {
+    if (vec) {
+      store_bf16<R>(p, f);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (i < n) p[i] = __float2bfloat16(f[i]);
 }
 
 // cuTensorMapEncodeTiled, through the runtime's driver entry point (the

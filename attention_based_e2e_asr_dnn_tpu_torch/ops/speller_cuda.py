@@ -21,9 +21,10 @@ Function that joins them.
 
 The sources (``csrc/speller_decode_tc.cu``, the forward in bfloat16 on
 tensor cores; ``csrc/speller_decode.cu``, the forward in float32;
-``csrc/speller_bwd.cu``, the adjoint) say what bounds the kernels and how
-they are laid out; ``plan_decode_tc`` says which launches a bfloat16 forward
-call makes (pure, tested on the CPU). Each wrapper runs its plain
+``csrc/speller_bwd_tc.cu``, the adjoint in bfloat16 on tensor cores;
+``csrc/speller_bwd.cu``, the adjoint in float32) say what bounds the kernels
+and how they are laid out; ``plan_decode_tc`` and ``plan_decode_bwd_tc`` say
+which launches a bfloat16 call makes (pure, tested on the CPU). Each wrapper runs its plain
 PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor or
 raises, and counts its launches in ``LAUNCHES``. On the card the TPU's
 routing (``pick_chunk``, the Te pad to 64, the lane gates of
@@ -65,7 +66,8 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import _wants_grad
 SOURCE = os.path.join(cuda_build.CSRC, "speller_decode.cu")
 TC_SOURCE = os.path.join(cuda_build.CSRC, "speller_decode_tc.cu")
 BWD_SOURCE = os.path.join(cuda_build.CSRC, "speller_bwd.cu")
-SOURCES = (SOURCE, TC_SOURCE, BWD_SOURCE)
+BWD_TC_SOURCE = os.path.join(cuda_build.CSRC, "speller_bwd_tc.cu")
+SOURCES = (SOURCE, TC_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 
 NEG = -1e9  # additive pad bias; exp(NEG - max) underflows to exactly 0
 
@@ -308,7 +310,8 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_bwd_library() -> ctypes.CDLL:
-    """Build ``csrc/speller_bwd.cu`` and bind its C entry points."""
+    """Build ``csrc/speller_bwd.cu`` (the float32 adjoint) and bind its C
+    entry points."""
     lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.speller_bwd_launch.argtypes = [i, i, p, p, ctypes.c_float, p]
@@ -329,14 +332,32 @@ def load_tc_library(defines: tuple = ()) -> ctypes.CDLL:
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.speller_decode_tc_launch.argtypes = [i, p, p, i, ctypes.c_float, p, p]
     lib.speller_decode_tc_launch.restype = ctypes.c_int
-    lib.speller_decode_tc_smem_bytes.argtypes = [i] * 6
+    lib.speller_decode_tc_smem_bytes.argtypes = [i] * 7
     lib.speller_decode_tc_smem_bytes.restype = ctypes.c_size_t
     lib.speller_decode_tc_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
     lib.speller_decode_tc_limits.restype = ctypes.c_int
     return lib
 
 
-LOADERS = (load_library, load_tc_library, load_bwd_library)
+@functools.lru_cache(maxsize=None)
+def load_bwd_tc_library(defines: tuple = ()) -> ctypes.CDLL:
+    """Build ``csrc/speller_bwd_tc.cu`` (with the macros ``defines``:
+    ``("DB_TRACE",)`` is the phase-stamped build of
+    ``tools/trace_speller_decode.py``) and bind its C entry points."""
+    lib = ctypes.CDLL(cuda_build.build_library(BWD_TC_SOURCE, defines))
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.speller_bwd_tc_launch.argtypes = [p, p, ctypes.c_float, p, p]
+    lib.speller_bwd_tc_launch.restype = ctypes.c_int
+    lib.speller_bwd_tc_smem_bytes.argtypes = [i] * 7
+    lib.speller_bwd_tc_smem_bytes.restype = ctypes.c_size_t
+    lib.speller_bwd_tc_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.speller_bwd_tc_limits.restype = ctypes.c_int
+    lib.speller_bwd_tc_groups.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.speller_bwd_tc_groups.restype = None
+    return lib
+
+
+LOADERS = (load_library, load_tc_library, load_bwd_library, load_bwd_tc_library)
 
 
 @functools.lru_cache(maxsize=None)
@@ -358,10 +379,9 @@ def kernel_limits(device: int) -> dict:
 # the bfloat16 forward's geometry (csrc/speller_decode_tc.cu), mirrored here
 # so that the plan is pure; tc_kernel_limits reads the source's, and a card
 # test holds the two equal
-TC_LIMITS = {"rows": 128, "max_grid": 128, "units2": 2, "kc": 64, "sel": 64,
-             "qcols": 8, "vmax": 32, "max_stages": 8, "min_stages": 4,
+TC_LIMITS = {"rows": 128, "max_grid": 128, "max_units1": 8, "max_units2": 4, "kc": 64,
+             "sel": 64, "qcols": 8, "vmax": 32, "max_stages": 8, "min_stages": 4,
              "smem_limit": 232448, "nthreads": 288}
-TC_UNITS1 = (2, 4, 8)  # cell-1 units a block the source instantiates
 _TC_ALIGN, _TC_BAR_BYTES = 1024, 2 * 8 * 8
 _TC_ATT_THREADS, _TC_ATT_WARPS = 256, 8  # the attention's threads (the consumers)
 
@@ -371,7 +391,7 @@ def tc_kernel_limits(device: int) -> dict:
     """The bfloat16 forward's geometry as ``csrc/speller_decode_tc.cu``
     defines it (``TC_LIMITS``' keys), with the shared memory a block of
     ``device`` may opt into and its SMs."""
-    out = (ctypes.c_longlong * 13)()
+    out = (ctypes.c_longlong * 14)()
     err = load_tc_library().speller_decode_tc_limits(device, out)
     if err != 0:
         raise RuntimeError(f"speller_decode: reading the limits of device "
@@ -397,22 +417,39 @@ class DecodeTcPlan(NamedTuple):
     cols: dict         # gate (or query) columns a block owns in each product
 
 
+def _tc_cols(units: int) -> int:
+    """wgmma's N for ``units`` units of four gate columns: 4 U rounded up
+    to a multiple of 8 (the last four columns zeros where U is odd)."""
+    return 8 * ((units + 1) // 2)
+
+
+def tc_blocks(h1dim: int, h2dim: int, sms: int) -> int:
+    """Blocks of a bfloat16 forward launch: the largest power of two up to
+    128 and the card's SMs that divides H1 and H2."""
+    blocks = 1 << (min(TC_LIMITS["max_grid"], sms).bit_length() - 1)
+    while blocks > 1 and (h1dim % blocks or h2dim % blocks):
+        blocks //= 2
+    return blocks
+
+
 def decode_tc_smem_bytes(rows: int, te: int, proj: int, heads: int, h1dim: int,
-                         h2dim: int) -> tuple:
+                         h2dim: int, blocks: int) -> tuple:
     """(shared memory a block uses, the ring's stages) in a launch of
-    ``rows`` rows of the bfloat16 forward (``dt_smem_bytes`` in
-    csrc/speller_decode_tc.cu): the weight tiles of cell 1 (4 U1 columns, K =
-    H1 + P + 64), cell 2 (8, K = H2 + H1) and the query (8, K = H2) as bf16;
-    the ring, stages of the rows rounded up to 64 (64 or 128) x 64 columns,
-    in what the rest leaves of the card's limit, at most 8; the gate tile,
-    128 rows x 4 U1 + 8 fp32; the attention's fp32 buffers; the mbarriers;
-    and the slack that puts the tiles on a 1024-byte boundary."""
+    ``rows`` rows of the bfloat16 forward on ``blocks`` blocks
+    (``dt_smem_bytes`` in csrc/speller_decode_tc.cu): the weight tiles of
+    cell 1 (N1 = 4 U1 rounded up to 8 columns, K = H1 + P + 64), cell 2 (N2,
+    K = H2 + H1) and the query (8, K = H2) as bf16; the ring, stages of the
+    rows rounded up to 64 (64 or 128) x 64 columns, in what the rest leaves
+    of the card's limit, at most 8; the gate tile, 128 rows x the wider N +
+    8 fp32; the attention's fp32 buffers; the mbarriers; and the slack that
+    puts the tiles on a 1024-byte boundary."""
     lim = TC_LIMITS
-    kc, units1 = lim["kc"], h1dim // (h2dim // lim["units2"])
-    weights = ((h1dim + proj + lim["sel"]) // kc * 4 * units1 * 128
-               + (h2dim + h1dim) // kc * 4 * lim["units2"] * 128
+    kc = lim["kc"]
+    n1, n2 = _tc_cols(h1dim // blocks), _tc_cols(h2dim // blocks)
+    weights = ((h1dim + proj + lim["sel"]) // kc * n1 * 128
+               + (h2dim + h1dim) // kc * n2 * 128
                + h2dim // kc * lim["qcols"] * 128)
-    red = lim["rows"] * (4 * units1 + 8) * 4
+    red = lim["rows"] * (max(n1, n2) + 8) * 4
     att = -(-(2 * proj + _TC_ATT_WARPS * lim["vmax"] + _TC_ATT_THREADS * 8
               + heads * te) * 4 // 16) * 16
     fixed = _TC_ALIGN + weights + red + att + _TC_BAR_BYTES
@@ -427,10 +464,11 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
     """The launches of a bfloat16 ``speller_decode`` / ``speller_decode_train``
     call on a card of ``sms`` SMs whose blocks may opt into ``smem_optin``
     bytes of shared memory: one launch a span of up to 128 batch rows (the
-    rows of the decode are independent), H2 / 2 blocks each, each owning 2
-    units of cell 2, H1 / (H2 / 2) of cell 1 and, in the first P / 8
-    blocks, 8 query columns. Raises a ``ValueError`` naming the limit for a
-    shape the kernel does not take."""
+    rows of the decode are independent), ``tc_blocks`` blocks each (128 where
+    H1 and H2 are multiples of 128), each owning H1 / G units of cell 1 (1 to
+    8), H2 / G of cell 2 (1 to 4) and, in the first P / 8 blocks, 8 query
+    columns. Raises a ``ValueError`` naming the limit for a shape the kernel
+    does not take."""
     lim = TC_LIMITS
     if batch < 1 or te < 1:
         raise ValueError(f"{name}: batch {batch} and encoder length {te} must be at least 1")
@@ -438,15 +476,11 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
     if h1dim % kc or h2dim % kc or proj % kc or min(h1dim, h2dim, proj) < kc:
         raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must be multiples "
                          f"of {kc} (bfloat16: the products' 64-column TMA boxes)")
-    blocks = h2dim // lim["units2"]
-    if blocks > min(lim["max_grid"], sms):
-        raise ValueError(f"{name}: H2 {h2dim} above {2 * min(lim['max_grid'], sms)} "
-                         f"(bfloat16: {lim['units2']} cell-2 units a block, at most "
-                         f"{min(lim['max_grid'], sms)} blocks)")
-    if h1dim % blocks or h1dim // blocks not in TC_UNITS1:
-        raise ValueError(f"{name}: H1 / (H2 / 2) = {h1dim} / {blocks} must be "
-                         f"{', '.join(map(str, TC_UNITS1[:-1]))} or {TC_UNITS1[-1]} "
-                         f"(bfloat16: the cell-1 units a block)")
+    blocks = tc_blocks(h1dim, h2dim, sms)
+    for cell, width, most in (("H1", h1dim, lim["max_units1"]), ("H2", h2dim, lim["max_units2"])):
+        if width > most * blocks:
+            raise ValueError(f"{name}: {cell} {width} above {most * blocks} (bfloat16: at "
+                             f"most {most} units of the cell a block on {blocks} blocks)")
     query_blocks = proj // lim["qcols"]
     if query_blocks > blocks:
         raise ValueError(f"{name}: P {proj} above {lim['qcols']} x {blocks} blocks "
@@ -459,17 +493,130 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
     launches = []
     for r0 in range(0, batch, lim["rows"]):
         r1 = min(r0 + lim["rows"], batch)
-        smem, stages = decode_tc_smem_bytes(r1 - r0, te, proj, heads, h1dim, h2dim)
+        smem, stages = decode_tc_smem_bytes(r1 - r0, te, proj, heads, h1dim, h2dim, blocks)
         if stages < lim["min_stages"] or smem > smem_optin:
             raise ValueError(f"{name}: needs {smem} bytes of shared memory a block with "
                              f"{lim['min_stages']} ring stages or more (Te {te}, heads "
                              f"{heads}, H1 {h1dim}, bfloat16), the device's limit is "
                              f"{min(smem_optin, lim['smem_limit'])}")
         launches.append(DecodeTcLaunch(r0, r1, stages, smem))
-    units1 = h1dim // blocks
-    return DecodeTcPlan(launches, blocks, units1, lim["units2"], query_blocks,
-                        {"cell1": 4 * units1, "cell2": 4 * lim["units2"],
+    units1, units2 = h1dim // blocks, h2dim // blocks
+    return DecodeTcPlan(launches, blocks, units1, units2, query_blocks,
+                        {"cell1": _tc_cols(units1), "cell2": _tc_cols(units2),
                          "query": lim["qcols"]})
+
+
+# the bfloat16 adjoint's geometry (csrc/speller_bwd_tc.cu), mirrored here so
+# that its plan is pure; bwd_tc_kernel_limits reads the source's constants and
+# speller_bwd_tc_groups its assignment of groups, and a card test holds each
+# equal to this copy
+BWD_TC_LIMITS = {"rows": 128, "max_grid": 128, "kc": 64, "gcols": 8, "max_groups": 4,
+                 "max_stages": 8, "min_stages": 2, "smem_limit": 232448, "nthreads": 288}
+# the groups' kinds, in the order of their ids: 8 units of cell 1, 8 units of
+# cell 2, 8 columns of the context
+BWD_KINDS = ("cell1", "cell2", "ctx")
+# the kinds whose columns each product phase forms: (b) d_q @ wq^T, (c)
+# dpre2 @ [wih2; whh2]^T, (d) dpre1 @ [whh1; wc1]^T
+BWD_PHASES = {"b": ("cell2",), "c": ("cell1", "cell2"), "d": ("cell1", "ctx")}
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tc_kernel_limits(device: int) -> dict:
+    """The bfloat16 adjoint's geometry as ``csrc/speller_bwd_tc.cu`` defines
+    it (``BWD_TC_LIMITS``' keys), with the shared memory a block of
+    ``device`` may opt into and its SMs."""
+    out = (ctypes.c_longlong * 11)()
+    err = load_bwd_tc_library().speller_bwd_tc_limits(device, out)
+    if err != 0:
+        raise RuntimeError(f"speller_decode_bwd: reading the limits of device "
+                           f"{device} failed with cudaError {err}")
+    return dict(zip((*BWD_TC_LIMITS, "smem_optin", "sms"), out))
+
+
+class DecodeBwdTcPlan(NamedTuple):
+    """The launches of a bfloat16 adjoint call and the geometry they share."""
+    launches: List[DecodeTcLaunch]
+    blocks: int
+    groups: List[List[tuple]]  # each block's groups: (kind, first unit or column)
+    max_groups: int            # groups a block, at most
+    phase_blocks: dict         # blocks that own columns in each product phase
+    phase_cols: dict           # the widest N of a block in each product phase
+
+
+def bwd_tc_groups(h1dim: int, h2dim: int, proj: int, blocks: int) -> List[List[tuple]]:
+    """Each block's groups of 8 output columns (``csrc/speller_bwd_tc.cu``):
+    group i, of the (H1 + H2 + P) / 8 in the order of ``BWD_KINDS``, goes to
+    block i mod ``blocks``; (kind, its first unit or context column)."""
+    gc = BWD_TC_LIMITS["gcols"]
+    ids = [(kind, first) for kind, width in zip(BWD_KINDS, (h1dim, h2dim, proj))
+           for first in range(0, width, gc)]
+    return [ids[b::blocks] for b in range(blocks)]
+
+
+def decode_bwd_tc_smem_bytes(rows: int, te: int, proj: int, heads: int, max_groups: int) -> tuple:
+    """(shared memory a block uses, the ring's stages) in a launch of
+    ``rows`` rows of the bfloat16 adjoint (``db_smem_bytes`` in
+    csrc/speller_bwd_tc.cu): the ring, stages of the rows rounded up to 64 (64
+    or 128) x 64 k of the input and 8 x ``max_groups`` weight rows x 64 k, in
+    what the rest leaves of the card's limit, at most 8; the product's tile,
+    128 rows x (8 ``max_groups`` + 8) fp32; the attention's fp32 buffers
+    (d_ctx, the group sums, dw of every head); the mbarriers; and the slack
+    that puts the ring on a 1024-byte boundary."""
+    lim = BWD_TC_LIMITS
+    n = lim["gcols"] * max_groups
+    red = lim["rows"] * (n + 8) * 4
+    att = -(-(proj + _TC_ATT_THREADS * 8 + heads * te) * 4 // 16) * 16
+    fixed = _TC_ALIGN + red + att + _TC_BAR_BYTES
+    stage = (128 if rows > 64 else 64) * 128 + n * 128
+    stages = min(max(lim["smem_limit"] - fixed, 0) // stage, lim["max_stages"])
+    return fixed + stages * stage, stages
+
+
+def plan_decode_bwd_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+                       sms: int, smem_optin: int,
+                       name: str = "speller_decode_bwd") -> DecodeBwdTcPlan:
+    """The launches of a bfloat16 ``speller_decode_bwd`` call on a card of
+    ``sms`` SMs whose blocks may opt into ``smem_optin`` bytes of shared
+    memory: one launch a span of up to 128 batch rows, min(128, SMs) blocks
+    each, owning the groups of ``bwd_tc_groups``. Raises a ``ValueError``
+    naming the limit for a shape the kernel does not take."""
+    lim = BWD_TC_LIMITS
+    if batch < 1 or te < 1:
+        raise ValueError(f"{name}: batch {batch} and encoder length {te} must be at least 1")
+    kc = lim["kc"]
+    if h1dim % kc or h2dim % kc or proj % kc or min(h1dim, h2dim, proj) < kc:
+        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must be multiples "
+                         f"of {kc} (bfloat16: the products' 64-column TMA boxes)")
+    blocks = min(lim["max_grid"], sms)
+    groups = bwd_tc_groups(h1dim, h2dim, proj, blocks)
+    max_groups = max(len(g) for g in groups)
+    if max_groups > lim["max_groups"]:
+        raise ValueError(f"{name}: H1 + H2 + P = {h1dim + h2dim + proj} above "
+                         f"{lim['gcols'] * lim['max_groups'] * blocks} (bfloat16: at most "
+                         f"{lim['max_groups']} groups of {lim['gcols']} columns a block on "
+                         f"{blocks} blocks)")
+    if proj % heads or (proj // heads) % 8:
+        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
+                         f"must be a whole multiple of 8")
+    if proj > _TC_ATT_THREADS * 8:
+        raise ValueError(f"{name}: P {proj} above {_TC_ATT_THREADS * 8} "
+                         f"(the attention takes one 16-byte slice a thread)")
+    launches = []
+    for r0 in range(0, batch, lim["rows"]):
+        r1 = min(r0 + lim["rows"], batch)
+        smem, stages = decode_bwd_tc_smem_bytes(r1 - r0, te, proj, heads, max_groups)
+        if stages < lim["min_stages"] or smem > smem_optin:
+            raise ValueError(f"{name}: needs {smem} bytes of shared memory a block with "
+                             f"{lim['min_stages']} ring stages or more (Te {te}, heads "
+                             f"{heads}, bfloat16), the device's limit is "
+                             f"{min(smem_optin, lim['smem_limit'])}")
+        launches.append(DecodeTcLaunch(r0, r1, stages, smem))
+    phase_blocks, phase_cols = {}, {}
+    for ph, kinds in BWD_PHASES.items():
+        per_block = [sum(kind in kinds for kind, _ in g) for g in groups]
+        phase_blocks[ph] = sum(n > 0 for n in per_block)
+        phase_cols[ph] = lim["gcols"] * max(per_block)
+    return DecodeBwdTcPlan(launches, blocks, groups, max_groups, phase_blocks, phase_cols)
 
 
 @functools.lru_cache(maxsize=None)
@@ -667,8 +814,8 @@ def _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih
                 None if t is None else
                 t.data_ptr() + (0 if bdim is None else ln.r0 * t.stride(bdim) * t.element_size())
                 for t, bdim in entries])
-            dims = (ctypes.c_int * 10)(ln.r1 - ln.r0, batch, te, steps, proj, heads, h1dim,
-                                       h2dim, vp, sos_idx)
+            dims = (ctypes.c_int * 11)(ln.r1 - ln.r0, batch, te, steps, proj, heads, h1dim,
+                                       h2dim, vp, sos_idx, plan.blocks)
             err = lib.speller_decode_tc_launch(int(train), ptrs, dims, slots, float(scale),
                                                counters[i].data_ptr(), stream)
             if err != 0:
@@ -682,8 +829,10 @@ def _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih
 
 def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
                 c2, wgts, m1, m2, dqup, dctxup, dwup, heads, scale):
-    """Check shapes and launch the adjoint kernel, the whole batch in one
-    launch (the source says why)."""
+    """Check shapes and launch the adjoint kernel: bfloat16 on the
+    tensor-core source (``_launch_bwd_tc``), float32 on
+    ``csrc/speller_bwd.cu``, the whole batch in one launch (the source says
+    why)."""
     name = "speller_decode_bwd"
     dtype = k.dtype
     batch, te, proj = k.shape
@@ -710,10 +859,6 @@ def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
     if dwup is not None:
         operands["dwup"] = (dwup, (steps, batch, heads, te))
     _check_operands(name, k, operands)
-    lim = bwd_kernel_limits(k.device.index)
-    lib = load_bwd_library()
-    grid = _check_geometry(name, lim, lib.speller_bwd_smem_bytes, dtype, batch, te,
-                           steps, proj, heads, h1dim, h2dim)
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=k.device)
@@ -725,6 +870,13 @@ def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
             empty(batch, h1dim, dt=f32), empty(batch, h1dim, dt=f32),
             empty(batch, h2dim, dt=f32), empty(batch, h2dim, dt=f32),
             empty(batch, proj, dt=f32)]
+    if dtype == torch.bfloat16:
+        return _launch_bwd_tc(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
+                              c2, wgts, m1, m2, dqup, dctxup, dwup, heads, scale, outs)
+    lim = bwd_kernel_limits(k.device.index)
+    lib = load_bwd_library()
+    grid = _check_geometry(name, lim, lib.speller_bwd_smem_bytes, dtype, batch, te,
+                           steps, proj, heads, h1dim, h2dim)
     # the order of enum Ptr in the source
     tensors = [k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
                wgts, m1, m2, dqup, dctxup, dwup] + outs
@@ -738,6 +890,42 @@ def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
     LAUNCHES[name] += 1
+    return tuple(outs)
+
+
+def _launch_bwd_tc(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts,
+                   m1, m2, dqup, dctxup, dwup, heads, scale, outs):
+    """The bfloat16 adjoint on ``csrc/speller_bwd_tc.cu`` into ``outs``, one
+    launch a span of ``plan_decode_bwd_tc`` (operands already checked)."""
+    name = "speller_decode_bwd"
+    batch, te, proj = k.shape
+    h1dim, h2dim = whh1.shape[0], whh2.shape[0]
+    steps = gates1.shape[0]
+    lim = bwd_tc_kernel_limits(k.device.index)
+    plan = plan_decode_bwd_tc(batch, te, proj, heads, h1dim, h2dim, lim["sms"],
+                              lim["smem_optin"], name)
+    lib = load_bwd_tc_library()
+    counters = torch.zeros(len(plan.launches), 4, dtype=torch.int32, device=k.device)
+    # the order of enum BtPtr in the source, each with its batch dimension
+    # (None: no batch dimension)
+    entries = ([(k, 0), (v, 0)] + [(t, None) for t in (wc1, whh1, wih2, whh2, wq)]
+               + [(c10, 0), (c20, 0)]
+               + [(t, 1) for t in (gates1, c1, gates2, c2, wgts, m1, m2, dqup, dctxup, dwup)]
+               + [(t, 1) for t in outs[:5]] + [(t, 0) for t in outs[5:]])
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, ln in enumerate(plan.launches):
+            ptrs = (ctypes.c_void_p * len(entries))(*[
+                None if t is None else
+                t.data_ptr() + (0 if bdim is None else ln.r0 * t.stride(bdim) * t.element_size())
+                for t, bdim in entries])
+            dims = (ctypes.c_int * 9)(ln.r1 - ln.r0, batch, te, steps, proj, heads, h1dim,
+                                      h2dim, plan.blocks)
+            err = lib.speller_bwd_tc_launch(ptrs, dims, float(scale), counters[i].data_ptr(),
+                                            stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+            LAUNCHES[name] += 1
     return tuple(outs)
 
 

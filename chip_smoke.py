@@ -59,13 +59,21 @@ on one NVIDIA card, from the root of a checkout:
    base-LAS decoder at B=128 and the scaled-LAS decoder (H1 1024, 4 heads) at
    B=32, Te=192 with lengths mixed from 1 to Te, L=192, dropout 0.3, forced
    and free steps mixed, float32 and bfloat16 (the forward on
-   ``csrc/speller_decode_tc.cu``, one launch a call). The forward's logits, weights
+   ``csrc/speller_decode_tc.cu``, the adjoint on ``csrc/speller_bwd_tc.cu``,
+   one launch a call). The forward's logits, weights
    and eight residual streams against the plain version fed the kernel's own
    ids; the adjoint's five streams and five final carries against the plain
    adjoint, with and without a cotangent on the weights; every operand's
    gradient through the autograd Function on the kernels against the same
    Function on the plain versions; the training form without dropout and
-   forcing bit-equal to ``speller_decode``.
+   forcing bit-equal to ``speller_decode``. Then, in bfloat16, against their
+   plain versions with one launch a call asserted: a decoder block past the
+   narrower geometry of 2 cell-2 units a block (``dec_lstm_out_dim: 512``,
+   four cell-2 units a block) on the base-LAS decoder's other widths, the eval
+   form, the training form and the adjoint at B=64, 32 steps; and the
+   scaled-LAS decoder at phase 10's batch, B=128, L=192 (the adjoint's full
+   128-row tiles with two groups of columns on half its blocks), the training
+   form and the adjoint, with and without a cotangent on the weights.
 8. A trainer that takes a few steps: seeded base-LAS weights, one seeded
    batch (B=128, T=1536, L=192, lengths ragged within the bucket), bfloat16
    compute, SpecAugment and dropout on, tf_rate 0.9, AdamW (amsgrad, lr 1e-3,
@@ -266,6 +274,8 @@ SPELLER_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_decode.cu"
 # the bfloat16 forms of the decode (the records' dtype): tensor cores
 SPELLER_TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_decode_tc.cu"
 SPELLER_BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_bwd.cu"
+# the bfloat16 adjoint (the records' dtype): tensor cores
+SPELLER_BWD_TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_bwd_tc.cu"
 SPELLER_REPLACES = "attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py:90"
 SPELLER_BWD_REPLACES = "attention_based_e2e_asr_dnn_tpu/ops/speller_pallas.py:223"
 # speller_decode at the main path's shapes: base-LAS as infer runs it
@@ -404,7 +414,7 @@ def environment(torch, card: str) -> float:
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.2f} s ({SOURCE}, {STREAMS_SOURCE}, {TC_SOURCE}, "
         f"{TC_STREAMS_SOURCE}, {BWD_SOURCE}, {BWD_TC_SOURCE}, {SPELLER_SOURCE}, "
-        f"{SPELLER_TC_SOURCE}, {SPELLER_BWD_SOURCE}; "
+        f"{SPELLER_TC_SOURCE}, {SPELLER_BWD_SOURCE}, {SPELLER_BWD_TC_SOURCE}; "
         f"cuda_build.build_all, the call the entry points make)")
     log(f"native batch assembler (native/libasrtpu.so, not tracked): "
         f"{'loaded' if native_available() else 'absent, the numpy assembler serves'}")
@@ -760,14 +770,116 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
                     "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
                     "bound_by": fwd_bound[1], "library_ms": None}
                 records["speller_decode_bwd"] = {
-                    "name": "speller_decode_bwd", "route": "cuda", "source": SPELLER_BWD_SOURCE,
+                    "name": "speller_decode_bwd", "route": "cuda",
+                    "source": SPELLER_BWD_TC_SOURCE,
                     "replaces": SPELLER_BWD_REPLACES, "launches": 0,
                     "max_abs_err": max(errs[n][0] for n in BWD_NAMES),
                     "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
                     "bound_by": bwd_bound[1], "library_ms": None}
             del logits, wgts, ids, saved, p_logits, p_wgts, p_saved, lean, bare
             torch.cuda.empty_cache()
+    for label in BF16_SPELLER_CHECKS:
+        bf16_speller_check(torch, card, label)
+        torch.cuda.empty_cache()
     return records
+
+
+# the bf16 speller kernels at shapes the comparisons above do not reach,
+# against their plain versions: a decoder block past the narrower geometry of
+# 2 cell-2 units a block (four cell-2 units a block in the forward, two groups
+# of columns on some blocks of the adjoint) on the base-LAS decoder's other
+# widths, the eval form too; and scaled-LAS's decoder at the train batch,
+# the shape phase 10's step runs (full 128-row tiles, two groups of columns on
+# half the adjoint's blocks)
+BF16_SPELLER_CHECKS = {
+    # label: (listener width, speller changes, batch, steps, with the eval form)
+    "widened block dec_lstm_out_dim 512": (H, {"dec_lstm_out_dim": 512}, 64, 32, True),
+    "scaled-LAS at the train batch": (WIDE_H, {"dec_lstm_hid_dim": 1024, "att_heads": 4},
+                                      TRAIN_B, TRAIN_L, False),
+}
+
+
+def bf16_speller_check(torch, card: str, label: str) -> None:
+    """The bf16 speller kernels at ``BF16_SPELLER_CHECKS[label]``: the eval
+    form (where asked) against its plain version forced along its ids
+    (``SPELLER_TOL``), the training form's streams and the adjoint's, with
+    and without a cotangent on the weights, against their plain versions
+    (``SPELLER_TRAIN_TOL``), one launch a call."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        las_config_from_dicts,
+        las_init,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    width, changes, batch, steps, eval_form = BF16_SPELLER_CHECKS[label]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cfg = las_config_from_dicts(
+        {**BASE_LAS_MODEL["listener_configs"], "uniform_hid_dim": width},
+        {**BASE_LAS_MODEL["speller_configs"], **changes})
+    spl = cfg.speller
+    vocab = spl.dec_vocab_size
+    params = las_init(cfg, gen)["speller"].to(DEVICE)
+    lengths = torch.randint(1, TE_DEC + 1, (batch,), generator=gen)
+    lengths[0], lengths[1] = TE_DEC, 1
+    enc = torch.randn(batch, TE_DEC, cfg.listener.enc_out_dim, generator=gen) * 0.5
+    enc[torch.arange(TE_DEC)[None, :] >= lengths[:, None]] = 0.0
+    keep = 1.0 - spl.dec_lstm_dropout
+    m1, m2 = (((torch.rand(steps, batch, h, generator=gen) < keep).to(torch.bfloat16) / keep)
+              .to(DEVICE) for h in (spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim))
+    errs, eval_errs = {}, ""
+    with torch.no_grad():
+        operands, _ = sc.decode_operands(params, spl, enc.to(torch.bfloat16).to(DEVICE),
+                                         lengths.to(DEVICE))
+        opts = {**sc.decode_options(spl), "steps": steps}
+        sc.reset_launch_counts()
+        if eval_form:
+            logits, wgts, ids = sc.speller_decode(*operands, **opts)
+            own = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+            p_logits, p_wgts, _ = sc.speller_decode_plain(*operands, **opts, forced=own)
+            tol, w_tol = SPELLER_TOL["bfloat16"]
+            err = (logits[..., :vocab].float() - p_logits[..., :vocab].float()).abs().max().item()
+            w_err = (wgts.float() - p_wgts.float()).abs().max().item()
+            eval_errs = (f"eval logits max_abs_err {err:.3e} (tol {tol:g}), weights "
+                         f"{w_err:.3e} (tol {w_tol:g}); ")
+            if not (err <= tol and w_err <= w_tol):
+                raise AssertionError(f"bf16 speller, {label}: eval errors {err}, {w_err}")
+            del logits, wgts, ids, p_logits, p_wgts
+        t_logits, t_wgts, _, saved = sc.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
+        tp_logits, tp_wgts, _, tp_saved = sc.speller_decode_train_plain(
+            *operands, **opts, forced=saved[0], m1=m1, m2=m2)
+        errs = {"logits": rel_err(t_logits[..., :vocab], tp_logits[..., :vocab]),
+                "weights": rel_err(t_wgts, tp_wgts)}
+        errs.update({n: rel_err(a, b) for n, a, b in
+                     zip(sc.RESIDUALS[1:], saved[1:], tp_saved[1:])})
+        del tp_logits, tp_wgts, tp_saved
+        k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+        _, gates1, c1, _, gates2, c2, _, _ = saved
+        dqup, dctxup = ((torch.randn(steps, batch, spl.att_proj_dim, generator=gen) * 0.1)
+                        .to(DEVICE, torch.bfloat16) for _ in range(2))
+        dwup = (torch.randn(*t_wgts.shape, generator=gen) * 0.1).to(DEVICE, torch.bfloat16)
+        bwd_args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
+                    t_wgts, m1, m2, dqup, dctxup)
+        kw = {"heads": opts["heads"], "scale": opts["scale"]}
+        for tag, dw in (("", None), (" (weights' cotangent)", dwup)):
+            got = sc.speller_decode_bwd(*bwd_args, dw, **kw)
+            want = sc.speller_decode_bwd_plain(*bwd_args, dw, **kw)
+            errs.update({n + tag: rel_err(a, b) for n, a, b in zip(BWD_NAMES, got, want)})
+            del got, want
+        torch.cuda.synchronize()
+    counts = dict(sc.LAUNCHES)
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[{card}] bf16 speller, {label} (H1 {spl.dec_lstm_hid_dim}, H2 "
+        f"{spl.dec_lstm_out_dim}, P {spl.att_proj_dim}, heads {spl.att_heads}) B={batch} "
+        f"Te={TE_DEC} L={steps}: {eval_errs}train + adjoint, {len(errs)} tensors, largest "
+        f"{errs[worst][1]:.1e} of max ({worst}; tolerance {SPELLER_TRAIN_TOL['bfloat16']:g}); "
+        f"launches {counts}")
+    want_counts = {"speller_decode": int(eval_form), "speller_decode_train": 1,
+                   "speller_decode_bwd": 2}
+    if counts != want_counts:
+        raise AssertionError(f"bf16 speller, {label}: launches {counts}, not {want_counts}")
+    bad = {n: r for n, (_, r) in errs.items() if not r <= SPELLER_TRAIN_TOL["bfloat16"]}
+    if bad:
+        raise AssertionError(f"bf16 speller, {label}: errors over tolerance: {bad}")
 
 
 def forward_launches(torch, dtype, batch: int, hidden: int, in_dim: int = 0) -> int:

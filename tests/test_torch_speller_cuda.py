@@ -6,6 +6,8 @@ of JAX, so it runs on a machine with a card and no JAX:
 
 Every test here skips without a CUDA device."""
 
+import ctypes
+
 import pytest
 import torch
 
@@ -486,9 +488,12 @@ def test_bf16_plan_mirrors_the_source_on_card(cuda_device):
     for rows, te, proj, heads, h1, h2 in [(64, 192, 256, 1, 512, 256),
                                           (128, 192, 256, 4, 1024, 256),
                                           (128, 896, 256, 4, 1024, 256),
-                                          (5, 37, 64, 2, 128, 64), (2, 37, 64, 1, 128, 64)]:
-        assert lib.speller_decode_tc_smem_bytes(rows, te, proj, heads, h1, h2) == \
-            speller_cuda.decode_tc_smem_bytes(rows, te, proj, heads, h1, h2)[0]
+                                          (5, 37, 64, 2, 128, 64), (2, 37, 64, 1, 128, 64),
+                                          (64, 192, 256, 1, 128, 512),
+                                          (128, 192, 1024, 1, 512, 128)]:
+        blocks = speller_cuda.tc_blocks(h1, h2, sms)
+        assert lib.speller_decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks) == \
+            speller_cuda.decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks)[0]
 
 
 @pytest.mark.cuda
@@ -506,3 +511,267 @@ def test_bf16_refused_shape_raises_on_card(cuda_device):
         with pytest.raises(ValueError, match="multiples of 64"):
             speller_cuda.speller_decode_train(*operands, **opts)
     assert sum(speller_cuda.LAUNCHES.values()) == 0
+
+
+# -- the widened bfloat16 forward and the bfloat16 adjoint on tensor cores ----
+# (csrc/speller_decode_tc.cu's geometry of 1-8 cell-1 and 1-4 cell-2 units a
+# block; csrc/speller_bwd_tc.cu)
+
+# model blocks past the narrower geometry of 2 cell-2 units a block, on
+# base-LAS's other widths
+WIDENED = {
+    "dec_lstm_out_dim 512": {"dec_lstm_out_dim": 512},
+    "dec_lstm_hid_dim 128, dec_lstm_out_dim 256": {"dec_lstm_hid_dim": 128},
+    "dec_lstm_hid_dim 1024, dec_lstm_out_dim 128": {"dec_lstm_hid_dim": 1024,
+                                                    "dec_lstm_out_dim": 128},
+    "att_proj_dim 1024, dec_lstm_out_dim 128": {"att_proj_dim": 1024, "dec_emb_dim": 2048,
+                                                "dec_lstm_out_dim": 128},
+}
+BASE_SPELLER = {"att_proj_dim": 256, "att_heads": 1, "dec_emb_dim": 512,
+                "dec_lstm_hid_dim": 512, "dec_lstm_out_dim": 256}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", list(WIDENED))
+def test_bf16_widened_blocks_on_the_tensor_core_forward_on_card(cuda_device, block):
+    """The four model blocks launch the tensor-core forward in bfloat16: the
+    eval form at B=64 and the training form at B=128 against their plain
+    versions forced along the kernel's ids (logits within the bf16
+    tolerance, the training streams within four bf16 steps of their
+    largest value), one launch a call."""
+    changes = {**BASE_SPELLER, **WIDENED[block]}
+    vocab_tol, w_tol = TOL[torch.bfloat16]
+    for batch, train in ((64, False), (128, True)):
+        cfg, params, enc, lengths = _setup(cuda_device, batch=batch, te=64, **changes)
+        with torch.inference_mode():
+            operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16),
+                                                       lengths)
+            opts = {**speller_cuda.decode_options(cfg), "steps": 24}
+            speller_cuda.reset_launch_counts()
+            if not train:
+                logits, wgts, ids = speller_cuda.speller_decode(*operands, **opts)
+                torch.cuda.synchronize()
+                assert speller_cuda.LAUNCHES["speller_decode"] == 1
+                own = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+                ref_logits, ref_wgts, _ = speller_cuda.speller_decode_plain(
+                    *operands, **opts, forced=own)
+                v = cfg.dec_vocab_size
+                torch.testing.assert_close(logits[..., :v].float(), ref_logits[..., :v].float(),
+                                           atol=vocab_tol, rtol=0)
+                torch.testing.assert_close(wgts.float(), ref_wgts.float(), atol=w_tol, rtol=0)
+                continue
+            gen = torch.Generator().manual_seed(batch)
+            keep = 0.7
+            m1, m2 = (((torch.rand(24, batch, h, generator=gen) < keep).to(torch.bfloat16)
+                       / keep).to(cuda_device)
+                      for h in (cfg.dec_lstm_hid_dim, cfg.dec_lstm_out_dim))
+            logits, wgts, ids, saved = speller_cuda.speller_decode_train(
+                *operands, **opts, m1=m1, m2=m2)
+            torch.cuda.synchronize()
+            assert speller_cuda.LAUNCHES["speller_decode_train"] == 1
+            p_logits, p_wgts, _, p_saved = speller_cuda.speller_decode_train_plain(
+                *operands, **opts, forced=saved[0], m1=m1, m2=m2)
+        v = cfg.dec_vocab_size
+        assert _rel_err(logits[..., :v], p_logits[..., :v]) <= REL_TOL[torch.bfloat16]
+        assert _rel_err(wgts, p_wgts) <= REL_TOL[torch.bfloat16]
+        for name, got, want in zip(speller_cuda.RESIDUALS[1:], saved[1:], p_saved[1:]):
+            assert _rel_err(got, want) <= REL_TOL[torch.bfloat16], name
+
+
+def _bwd_case(device, batch, heads, drop, changes=None, steps=24, seed=0, hold_forward=False):
+    """The adjoint's operands from a training forward in bfloat16 (with
+    ``hold_forward``, that forward's logits, weights and streams held to its
+    plain version fed its ids, within four bf16 steps, one launch)."""
+    cfg, params, enc, lengths = _setup(device, batch=batch, te=37,
+                                       **{**(changes or {}), "att_heads": heads})
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16), lengths)
+    opts = {**speller_cuda.decode_options(cfg), "steps": steps}
+    m1 = m2 = None
+    if drop > 0.0:
+        m1, m2 = (((torch.rand(steps, batch, h, generator=gen) < 1 - drop).to(torch.bfloat16)
+                   / (1 - drop)).to(device)
+                  for h in (cfg.dec_lstm_hid_dim, cfg.dec_lstm_out_dim))
+    speller_cuda.reset_launch_counts()
+    logits, wgts, _, saved = speller_cuda.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
+    if hold_forward:
+        torch.cuda.synchronize()
+        assert speller_cuda.LAUNCHES["speller_decode_train"] == 1
+        p_logits, p_wgts, _, p_saved = speller_cuda.speller_decode_train_plain(
+            *operands, **opts, forced=saved[0], m1=m1, m2=m2)
+        v = cfg.dec_vocab_size
+        assert _rel_err(logits[..., :v], p_logits[..., :v]) <= REL_TOL[torch.bfloat16]
+        assert _rel_err(wgts, p_wgts) <= REL_TOL[torch.bfloat16]
+        for name, got, want in zip(speller_cuda.RESIDUALS[1:], saved[1:], p_saved[1:]):
+            assert _rel_err(got, want) <= REL_TOL[torch.bfloat16], name
+    k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+    _, gates1, c1, _, gates2, c2, _, _ = saved
+    proj = k.shape[2]
+
+    def cot(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).to(device, torch.bfloat16)
+
+    args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts, m1, m2,
+            cot(steps, batch, proj), cot(steps, batch, proj))
+    return args, cot(*wgts.shape), {"heads": heads, "scale": opts["scale"]}
+
+
+BWD_NAMES = ("dpre1", "dpre2", "dq", "dctxtot", "dsc", "dh10", "dc10", "dh20", "dc20", "dctx0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,launches", [(40, 1), (128, 1), (200, 2)])
+@pytest.mark.parametrize("heads,with_dw,drop", [(1, False, 0.3), (4, True, 0.3),
+                                                (4, False, 0.0)])
+def test_bf16_bwd_tensor_core_matches_plain_on_card(cuda_device, batch, launches, heads,
+                                                    with_dw, drop):
+    """The bfloat16 adjoint on ``csrc/speller_bwd_tc.cu`` against its plain
+    version: every stream and every fp32 carry within four bf16 steps of its
+    largest value, one launch a 128-row span, no score gradient at a pad."""
+    args, dwup, kw = _bwd_case(cuda_device, batch, heads, drop)
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, dwup if with_dw else None, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == launches
+    want = speller_cuda.speller_decode_bwd_plain(*args, dwup if with_dw else None, **kw)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], name
+    assert bool((got[4][args[13] == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["dec_lstm_hid_dim 1024, dec_lstm_out_dim 128",
+                                   "att_proj_dim 1024, dec_lstm_out_dim 128"])
+def test_bf16_bwd_at_widened_blocks_on_card(cuda_device, block):
+    """Two groups of columns a block (N = 16 in two phases) at two of the
+    widened model blocks, B=40."""
+    args, dwup, kw = _bwd_case(cuda_device, 40, 1, 0.3, {**BASE_SPELLER, **WIDENED[block]},
+                               steps=16)
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, dwup, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 1
+    want = speller_cuda.speller_decode_bwd_plain(*args, dwup, **kw)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], name
+
+
+# the decoder block of configs/scaled-las.yml: H1 1024, 4 heads of 64
+SCALED_LAS_SPELLER = {**BASE_SPELLER, "dec_lstm_hid_dim": 1024}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dw", [False, True])
+def test_bf16_train_forward_and_bwd_at_scaled_las_widths_on_card(cuda_device, with_dw):
+    """scaled-LAS's decoder at B=128, dropout 0.3: the training forward,
+    then the adjoint on full 128-row tiles with two groups of columns on 64
+    of the 128 blocks (N = 16 in phases (c) and (d)), every stream and fp32
+    carry within four bf16 steps of its largest value, one launch each."""
+    args, dwup, kw = _bwd_case(cuda_device, 128, 4, 0.3, SCALED_LAS_SPELLER,
+                               hold_forward=True)
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, dwup if with_dw else None, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 1
+    want = speller_cuda.speller_decode_bwd_plain(*args, dwup if with_dw else None, **kw)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [40, 200])
+def test_bf16_bwd_repeats_bit_for_bit_on_card(cuda_device, batch):
+    args, dwup, kw = _bwd_case(cuda_device, batch, 4, 0.3)
+    first = speller_cuda.speller_decode_bwd(*args, dwup, **kw)
+    again = speller_cuda.speller_decode_bwd(*args, dwup, **kw)
+    for name, a, b in zip(BWD_NAMES, first, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_bf16_function_grads_at_a_widened_block_on_card(cuda_device):
+    """``_FusedDecode``'s 17 gradients in bfloat16 at the block H1 128, H2
+    256 (one cell-1 unit a block in the forward): both tensor-core kernels
+    against the Function on the plain versions, fed the kernel's ids, within
+    four bf16 steps."""
+    cfg, params, enc, lengths = _setup(cuda_device, batch=6, te=37,
+                                       **{**BASE_SPELLER, **WIDENED[
+                                           "dec_lstm_hid_dim 128, dec_lstm_out_dim 256"]})
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16), lengths)
+    opts = {**speller_cuda.decode_options(cfg), "steps": 16}
+    d_logits = torch.randn(16, 6, 32, generator=gen) * 0.1
+    d_logits[..., cfg.dec_vocab_size:] = 0.0
+    d_logits = d_logits.to(cuda_device, torch.bfloat16)
+    d_wgts = (torch.randn(16, 6, 1, 37, generator=gen) * 0.1).to(cuda_device, torch.bfloat16)
+    sel = speller_cuda.speller_decode_train(*operands, **opts)[3][0]
+    grads = {}
+    for route in ("kernels", "plain"):
+        saved = (speller_cuda.speller_decode_train, speller_cuda.speller_decode_bwd)
+        if route == "plain":
+            speller_cuda.speller_decode_train = speller_cuda.speller_decode_train_plain
+            speller_cuda.speller_decode_bwd = speller_cuda.speller_decode_bwd_plain
+        try:
+            speller_cuda.reset_launch_counts()
+            leaves = [t.detach().requires_grad_(i != 2) for i, t in enumerate(operands)]
+            outs = speller_cuda.fused_decode(leaves, **opts, forced=sel)
+            grads[route] = torch.autograd.grad(
+                outs, [t for t in leaves if t.requires_grad], [d_logits, d_wgts])
+            if route == "kernels":
+                assert speller_cuda.LAUNCHES == {"speller_decode": 0, "speller_decode_train": 1,
+                                                 "speller_decode_bwd": 1}
+        finally:
+            speller_cuda.speller_decode_train, speller_cuda.speller_decode_bwd = saved
+    assert len(grads["kernels"]) == 17
+    for n, (a, b) in enumerate(zip(grads["kernels"], grads["plain"])):
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], f"operand gradient {n}"
+
+
+@pytest.mark.cuda
+def test_bf16_bwd_plan_mirrors_the_source_on_card(cuda_device):
+    """The adjoint plan's constants, shared-memory count and groups of output
+    columns a block are the built source's."""
+    lib = speller_cuda.load_bwd_tc_library()
+    lim = speller_cuda.bwd_tc_kernel_limits(torch.cuda.current_device())
+    assert {k: lim[k] for k in speller_cuda.BWD_TC_LIMITS} == speller_cuda.BWD_TC_LIMITS
+    for rows, te, proj, heads, h1, h2 in [(128, 192, 256, 1, 512, 256),
+                                          (32, 192, 256, 4, 1024, 256),
+                                          (40, 37, 64, 4, 128, 64),
+                                          (128, 192, 1024, 1, 1024, 512)]:
+        plan = speller_cuda.plan_decode_bwd_tc(rows, te, proj, heads, h1, h2, lim["sms"],
+                                               lim["smem_optin"])
+        assert lib.speller_bwd_tc_smem_bytes(rows, te, proj, heads, h1, h2, plan.blocks) == \
+            plan.launches[0].smem
+        # each block's groups of output columns, as the kernel assigns them
+        n = lim["max_groups"]
+        pairs = (ctypes.c_int * (plan.blocks * n * 2))()
+        lib.speller_bwd_tc_groups(h1, h2, proj, plan.blocks, pairs)
+        built = [[(speller_cuda.BWD_KINDS[pairs[i]], pairs[i + 1])
+                  for i in range(2 * n * b, 2 * n * (b + 1), 2) if pairs[i] >= 0]
+                 for b in range(plan.blocks)]
+        assert built == plan.groups, (h1, h2, proj)
+
+
+@pytest.mark.cuda
+def test_bf16_bwd_refused_shape_raises_on_card(cuda_device):
+    """A bfloat16 adjoint the tensor-core kernel does not take raises a
+    ValueError naming the limit; nothing gives way to the float32 source or
+    the plain version."""
+    def operands(h1, h2, proj, batch=2, te=8, steps=2):
+        shapes = [(batch, te, proj), (batch, te, proj), (proj, 4 * h1), (h1, 4 * h1),
+                  (h1, 4 * h2), (h2, 4 * h2), (h2, proj), (batch, h1), (batch, h2),
+                  (steps, batch, 4 * h1), (steps, batch, h1), (steps, batch, 4 * h2),
+                  (steps, batch, h2), (steps, batch, 1, te)]
+        z = [torch.zeros(sh, dtype=torch.bfloat16, device=cuda_device) for sh in shapes]
+        dq = torch.zeros(steps, batch, proj, dtype=torch.bfloat16, device=cuda_device)
+        return z + [None, None, dq, dq, None]
+
+    speller_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"H1 \+ H2 \+ P = 4160 above 4096"):
+        speller_cuda.speller_decode_bwd(*operands(2048, 1088, 1024), heads=1, scale=1.0)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        speller_cuda.speller_decode_bwd(*operands(96, 64, 64), heads=1, scale=1.0)
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 0

@@ -1,8 +1,9 @@
-"""PyTorch port, the launch plan of the bfloat16 fused speller decode
-(``ops/speller_cuda.py::plan_decode_tc``): which cooperative launches a call
-takes on a card of a given number of SMs, the columns each block owns in
-each product, the ring's stages and the shared memory a block needs; and
-which source each dtype takes. Pure Python: no card, no kernel."""
+"""PyTorch port, the launch plans of the bfloat16 fused speller decode
+(``ops/speller_cuda.py::plan_decode_tc``) and of its adjoint
+(``plan_decode_bwd_tc``): which cooperative launches a call takes on a card
+of a given number of SMs, the columns each block owns in each product, the
+ring's stages and the shared memory a block needs; and which source each
+dtype takes. Pure Python: no card, no kernel."""
 
 import itertools
 
@@ -16,6 +17,13 @@ SMEM_LIMIT = 232448  # the shared memory a block may use on it
 # (P, heads, H1, H2): base-LAS, scaled-LAS and the card tests' widths
 WIDTHS = {"base-LAS": (256, 1, 512, 256), "scaled-LAS": (256, 4, 1024, 256),
           "card tests, 1 head": (64, 1, 128, 64), "card tests, 2 heads": (64, 2, 128, 64)}
+# model blocks the reference's fused decoder takes that the narrower
+# geometry (2 cell-2 units a block, H1 / (H2 / 2) cell-1 units) refused, each
+# on base-LAS's other widths (P 256, 1 head, H1 512, H2 256)
+WIDENED = {"dec_lstm_out_dim 512": (256, 1, 512, 512),
+           "dec_lstm_hid_dim 128, dec_lstm_out_dim 256": (256, 1, 128, 256),
+           "dec_lstm_hid_dim 1024, dec_lstm_out_dim 128": (256, 1, 1024, 128),
+           "att_proj_dim 1024, dec_lstm_out_dim 128": (1024, 1, 512, 128)}
 
 
 def _plan(batch, width="base-LAS", te=192, vp=32, sms=SMS, smem_optin=SMEM_LIMIT):
@@ -46,18 +54,23 @@ def test_every_row_is_in_one_launch(batch):
     assert all(ln.r1 - ln.r0 <= 128 for ln in plan.launches)
 
 
-@pytest.mark.parametrize("width,blocks,units1,query_blocks", [
-    ("base-LAS", 128, 4, 32), ("scaled-LAS", 128, 8, 32),
-    ("card tests, 1 head", 32, 4, 8), ("card tests, 2 heads", 32, 4, 8)])
-def test_blocks_and_columns_of_each_phase(width, blocks, units1, query_blocks):
-    plan = _plan(64, width)
+@pytest.mark.parametrize("width,blocks,units1,units2,query_blocks", [
+    ("base-LAS", 128, 4, 2, 32), ("scaled-LAS", 128, 8, 2, 32),
+    ("card tests, 1 head", 64, 2, 1, 8), ("card tests, 2 heads", 64, 2, 1, 8),
+    ("dec_lstm_out_dim 512", 128, 4, 4, 32),
+    ("dec_lstm_hid_dim 128, dec_lstm_out_dim 256", 128, 1, 2, 32),
+    ("dec_lstm_hid_dim 1024, dec_lstm_out_dim 128", 128, 8, 1, 32),
+    ("att_proj_dim 1024, dec_lstm_out_dim 128", 128, 4, 1, 128)])
+def test_blocks_and_columns_of_each_phase(width, blocks, units1, units2, query_blocks):
+    proj, heads, h1, h2 = {**WIDTHS, **WIDENED}[width]
+    plan = _plan(64, (proj, heads, h1, h2))
     assert (plan.blocks, plan.units1, plan.units2, plan.query_blocks) == (
-        blocks, units1, 2, query_blocks)
-    assert plan.cols == {"cell1": 4 * units1, "cell2": 8, "query": 8}
-    # wgmma's N: a multiple of 8 in every product
+        blocks, units1, units2, query_blocks)
+    # four gate columns a unit, rounded up to wgmma's multiple of 8
+    assert plan.cols == {"cell1": 8 * ((units1 + 1) // 2), "cell2": 8 * ((units2 + 1) // 2),
+                         "query": 8}
     assert all(n % 8 == 0 and 8 <= n <= 256 for n in plan.cols.values())
     # the blocks cover both cells' units and the query's columns exactly once
-    proj, _, h1, h2 = WIDTHS[width]
     assert plan.blocks * plan.units1 == h1 and plan.blocks * plan.units2 == h2
     assert plan.query_blocks * plan.cols["query"] == proj <= plan.blocks * 8
     assert plan.blocks <= SMS
@@ -80,16 +93,22 @@ def test_shared_memory_bytes():
     # 192 floats); the ring's eight 64-row stages
     weights = 13 * 16 * 128 + 12 * 8 * 128 + 4 * 8 * 128
     att = (2 * 256 + 8 * 32 + 256 * 8 + 192) * 4
-    smem, stages = speller_cuda.decode_tc_smem_bytes(64, 192, 256, 1, 512, 256)
+    smem, stages = speller_cuda.decode_tc_smem_bytes(64, 192, 256, 1, 512, 256, 128)
     assert (smem, stages) == (align + weights + 128 * 24 * 4 + att + bars + 8 * 64 * 128, 8)
     # scaled-LAS, 128 rows, Te = 896, 4 heads: 21 tiles of 32 columns; the
     # ring what is left of the limit in 128-row stages
     weights = 21 * 32 * 128 + 20 * 8 * 128 + 4 * 8 * 128
     att = (2 * 256 + 8 * 32 + 256 * 8 + 4 * 896) * 4
     fixed = align + weights + 128 * 40 * 4 + att + bars
-    smem, stages = speller_cuda.decode_tc_smem_bytes(128, 896, 256, 4, 1024, 256)
+    smem, stages = speller_cuda.decode_tc_smem_bytes(128, 896, 256, 4, 1024, 256, 128)
     assert stages == (SMEM_LIMIT - fixed) // (128 * 128) == 4
     assert smem == fixed + 4 * 128 * 128
+    # H1 128, H2 512 (1 and 4 units a block): cell 1 N 8 (4 zero columns),
+    # cell 2 N 16, the gate tile as wide as cell 2's
+    weights = 7 * 8 * 128 + 10 * 16 * 128 + 8 * 8 * 128
+    att = (2 * 256 + 8 * 32 + 256 * 8 + 192) * 4
+    smem, stages = speller_cuda.decode_tc_smem_bytes(64, 192, 256, 1, 128, 512, 128)
+    assert (smem, stages) == (align + weights + 128 * 24 * 4 + att + bars + 8 * 64 * 128, 8)
 
 
 @pytest.mark.parametrize("shape,match", [
@@ -97,16 +116,24 @@ def test_shared_memory_bytes():
     ((0, 192, 256, 1, 512, 256, 32, SMS, SMEM_LIMIT), "batch 0"),
     ((8, 192, 256, 1, 480, 256, 32, SMS, SMEM_LIMIT), "multiples of 64"),
     ((8, 192, 96, 1, 512, 256, 32, SMS, SMEM_LIMIT), "multiples of 64"),
-    ((8, 192, 256, 1, 1024, 512, 32, SMS, SMEM_LIMIT), "H2 512 above 256"),
-    ((8, 192, 256, 1, 512, 256, 32, 100, SMEM_LIMIT), "H2 256 above 200"),
-    ((8, 192, 256, 1, 2048, 256, 32, SMS, SMEM_LIMIT), r"H1 / \(H2 / 2\) = 2048 / 128"),
-    ((8, 192, 256, 1, 64, 128, 32, SMS, SMEM_LIMIT), r"H1 / \(H2 / 2\) = 64 / 64"),
-    ((8, 192, 1024, 1, 256, 128, 32, SMS, SMEM_LIMIT), "P 1024 above 8 x 64"),
+    # the narrower geometry refused these five; the widened one takes four
+    ((8, 192, 256, 1, 1024, 512, 32, SMS, SMEM_LIMIT), None),
+    ((8, 192, 256, 1, 512, 256, 32, 100, SMEM_LIMIT), None),
+    ((8, 192, 256, 1, 2048, 256, 32, SMS, SMEM_LIMIT), "H1 2048 above 1024"),
+    ((8, 192, 256, 1, 64, 128, 32, SMS, SMEM_LIMIT), None),
+    ((8, 192, 1024, 1, 256, 128, 32, SMS, SMEM_LIMIT), None),
     ((8, 192, 256, 3, 512, 256, 32, SMS, SMEM_LIMIT), "head width"),
     ((8, 192, 256, 64, 512, 256, 32, SMS, SMEM_LIMIT), "head width"),
     ((8, 192, 256, 1, 512, 256, 40, SMS, SMEM_LIMIT), "padded vocabulary 40"),
     ((8, 40000, 256, 1, 512, 256, 32, SMS, SMEM_LIMIT), "device's limit"),
     ((8, 192, 256, 1, 512, 256, 32, SMS, 100000), "device's limit is 100000"),
+    # the widened geometry's limits: at most 8 cell-1 and 4 cell-2 units a
+    # block, 8 query columns a block, the shared memory (H1 1024 with H2 512
+    # at 128 rows)
+    ((8, 192, 256, 1, 512, 1024, 32, SMS, SMEM_LIMIT), "H2 1024 above 512"),
+    ((8, 192, 256, 1, 512, 512, 32, 100, SMEM_LIMIT), "H2 512 above 256"),
+    ((8, 192, 1024, 1, 256, 128, 32, 100, SMEM_LIMIT), "P 1024 above 8 x 64"),
+    ((128, 192, 256, 1, 1024, 512, 32, SMS, SMEM_LIMIT), "needs .* device's limit"),
 ])
 def test_refused_shapes_raise(shape, match):
     if match is None:
@@ -122,12 +149,16 @@ def test_limits_mirror_the_source():
     with open(speller_cuda.TC_SOURCE) as fh:
         text = fh.read()
     for key, name in (("rows", "DT_ROWS"), ("max_grid", "DT_MAX_GRID"),
-                      ("units2", "DT_UNITS2"), ("kc", "DT_KC"), ("sel", "DT_SEL"),
+                      ("max_units1", "DT_MAX_UNITS1"), ("max_units2", "DT_MAX_UNITS2"),
+                      ("kc", "DT_KC"), ("sel", "DT_SEL"),
                       ("qcols", "DT_QCOLS"), ("vmax", "DT_VMAX"),
                       ("max_stages", "DT_MAX_STAGES"), ("min_stages", "DT_MIN_STAGES")):
         assert f"constexpr int {name} = {speller_cuda.TC_LIMITS[key]};" in text, name
-    for units in speller_cuda.TC_UNITS1:
-        assert f"dt_launch<true, {units}>" in text and f"dt_launch<false, {units}>" in text
+    # an instantiation for every (N1 / 8, N2 / 8) the unit limits reach
+    lim = speller_cuda.TC_LIMITS
+    for nc1 in range(1, (lim["max_units1"] + 1) // 2 + 1):
+        for nc2 in range(1, (lim["max_units2"] + 1) // 2 + 1):
+            assert f"DT_CASE(TR, {nc1}, {nc2})" in text, (nc1, nc2)
 
 
 # the decode's operands at the card tests' widths, on the CPU (no card: the
@@ -171,3 +202,158 @@ def test_sources_are_built_and_bound():
     assert speller_cuda.TC_SOURCE.endswith("csrc/speller_decode_tc.cu")
     assert speller_cuda.load_tc_library in speller_cuda.LOADERS
     assert len(speller_cuda.LOADERS) == len(speller_cuda.SOURCES)
+
+
+# -- the bfloat16 adjoint (csrc/speller_bwd_tc.cu, plan_decode_bwd_tc) -------
+
+def _bwd_plan(batch, width="base-LAS", te=192, sms=SMS, smem_optin=SMEM_LIMIT):
+    proj, heads, h1, h2 = {**WIDTHS, **WIDENED}[width] if isinstance(width, str) else width
+    return speller_cuda.plan_decode_bwd_tc(batch, te, proj, heads, h1, h2, sms, smem_optin)
+
+
+@pytest.mark.parametrize("width,max_groups,phase_blocks,phase_cols", [
+    # base-LAS: 64 + 32 + 32 groups, one a block
+    ("base-LAS", 1, {"b": 32, "c": 96, "d": 96}, {"b": 8, "c": 8, "d": 8}),
+    # scaled-LAS: 128 + 32 + 32 groups; blocks 0-31 also own a cell-2 group,
+    # 32-63 a context group
+    ("scaled-LAS", 2, {"b": 32, "c": 128, "d": 128}, {"b": 8, "c": 16, "d": 16}),
+    ("card tests, 2 heads", 1, {"b": 8, "c": 24, "d": 24}, {"b": 8, "c": 8, "d": 8}),
+    ("dec_lstm_out_dim 512", 2, {"b": 64, "c": 128, "d": 64}, {"b": 8, "c": 8, "d": 16}),
+    ("dec_lstm_hid_dim 128, dec_lstm_out_dim 256", 1, {"b": 32, "c": 48, "d": 48},
+     {"b": 8, "c": 8, "d": 8}),
+    ("dec_lstm_hid_dim 1024, dec_lstm_out_dim 128", 2, {"b": 16, "c": 128, "d": 128},
+     {"b": 8, "c": 16, "d": 16}),
+    ("att_proj_dim 1024, dec_lstm_out_dim 128", 2, {"b": 16, "c": 80, "d": 128},
+     {"b": 8, "c": 8, "d": 16})])
+def test_bwd_blocks_and_columns_of_each_phase(width, max_groups, phase_blocks, phase_cols):
+    plan = _bwd_plan(128, width)
+    assert plan.blocks == 128 and plan.max_groups == max_groups
+    assert plan.phase_blocks == phase_blocks and plan.phase_cols == phase_cols
+    # every unit of each cell and every context column in exactly one
+    # group of 8, every group on one block, at most 4 a block (N <= 32)
+    proj, _, h1, h2 = {**WIDTHS, **WIDENED}[width]
+    owned = sorted(g for groups in plan.groups for g in groups)
+    assert owned == sorted([("cell1", u) for u in range(0, h1, 8)]
+                           + [("cell2", u) for u in range(0, h2, 8)]
+                           + [("ctx", p) for p in range(0, proj, 8)])
+    assert all(len(g) <= 4 for g in plan.groups) and len(plan.groups) == plan.blocks
+
+
+def test_bwd_groups_go_round_robin():
+    groups = speller_cuda.bwd_tc_groups(1024, 256, 256, 128)
+    assert groups[0] == [("cell1", 0), ("cell2", 0)]
+    assert groups[31] == [("cell1", 248), ("cell2", 248)]
+    assert groups[32] == [("cell1", 256), ("ctx", 0)]
+    assert groups[127] == [("cell1", 1016)]
+
+
+@pytest.mark.parametrize("batch,spans", [(1, [(0, 1)]), (128, [(0, 128)]),
+                                         (200, [(0, 128), (128, 200)])])
+def test_bwd_a_launch_a_128_row_span(batch, spans):
+    plan = _bwd_plan(batch)
+    assert [(ln.r0, ln.r1) for ln in plan.launches] == spans
+
+
+def test_bwd_shared_memory_bytes():
+    align, bars = 1024, 128
+    # base-LAS, 128 rows, one group a block: the product tile 128 x (8 + 8)
+    # fp32; d_ctx, the group sums (256 x 8) and dw (1 x 192) fp32; the ring's
+    # eight stages of a 128-row input box and 8 weight rows, 64 k each
+    fixed = align + 128 * 16 * 4 + (256 + 256 * 8 + 192) * 4 + bars
+    smem, stages = speller_cuda.decode_bwd_tc_smem_bytes(128, 192, 256, 1, 1)
+    assert (smem, stages) == (fixed + 8 * (128 * 128 + 8 * 128), 8)
+    # scaled-LAS, 32 rows (a 64-row box), two groups, 4 heads
+    fixed = align + 128 * 24 * 4 + (256 + 256 * 8 + 4 * 192) * 4 + bars
+    smem, stages = speller_cuda.decode_bwd_tc_smem_bytes(32, 192, 256, 4, 2)
+    assert (smem, stages) == (fixed + 8 * (64 * 128 + 16 * 128), 8)
+    # a long encoder: the ring takes what is left
+    smem, stages = speller_cuda.decode_bwd_tc_smem_bytes(128, 20000, 256, 2, 2)
+    fixed = align + 128 * 24 * 4 + (256 + 256 * 8 + 2 * 20000) * 4 + bars
+    assert stages == (SMEM_LIMIT - fixed) // (128 * 128 + 16 * 128) == 2
+    assert smem == fixed + 2 * (128 * 128 + 16 * 128) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((64, 192, 256, 1, 512, 256, SMS, SMEM_LIMIT), None),
+    ((0, 192, 256, 1, 512, 256, SMS, SMEM_LIMIT), "batch 0"),
+    ((8, 192, 256, 1, 480, 256, SMS, SMEM_LIMIT), "multiples of 64"),
+    ((8, 192, 96, 1, 512, 256, SMS, SMEM_LIMIT), "multiples of 64"),
+    ((8, 192, 1024, 1, 2048, 1088, SMS, SMEM_LIMIT), r"H1 \+ H2 \+ P = 4160 above 4096"),
+    ((8, 192, 1024, 1, 1024, 512, 64, SMEM_LIMIT), r"H1 \+ H2 \+ P = 2560 above 2048"),
+    ((8, 192, 256, 3, 512, 256, SMS, SMEM_LIMIT), "head width"),
+    ((8, 192, 2112, 1, 64, 64, SMS, SMEM_LIMIT), "P 2112 above 2048"),
+    ((8, 60000, 256, 1, 512, 256, SMS, SMEM_LIMIT), "device's limit"),
+    ((8, 192, 256, 1, 512, 256, SMS, 40000), "device's limit is 40000"),
+])
+def test_bwd_refused_shapes_raise(shape, match):
+    if match is None:
+        speller_cuda.plan_decode_bwd_tc(*shape)
+        return
+    with pytest.raises(ValueError, match=match):
+        speller_cuda.plan_decode_bwd_tc(*shape)
+
+
+@pytest.mark.parametrize("batch", [64, 128])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_bwd_plan_takes_every_shape_the_forward_takes(batch, heads):
+    """Over the multiples of 128 the reference takes (H1 128..1024, H2
+    128..512, P 128..1024): wherever the widened bf16 forward plans a call,
+    the bf16 adjoint plans it too; where the forward refuses, only for its
+    shared memory."""
+    taken = 0
+    for h1, h2, proj in itertools.product(range(128, 1025, 128), range(128, 513, 128),
+                                          (128, 256, 512, 1024)):
+        shape = (batch, 192, proj, heads, h1, h2)
+        try:
+            speller_cuda.plan_decode_tc(*shape, 32, SMS, SMEM_LIMIT)
+        except ValueError as exc:
+            assert "shared memory" in str(exc), (shape, str(exc))
+            continue
+        plan = speller_cuda.plan_decode_bwd_tc(*shape, SMS, SMEM_LIMIT)
+        assert all(ln.smem <= SMEM_LIMIT for ln in plan.launches)
+        taken += 1
+    assert taken >= 96  # most of the 128 shapes
+
+
+def test_bwd_limits_mirror_the_source():
+    """The adjoint plan's constants are the source's (the card test reads
+    them from the built library; here from the source's text)."""
+    with open(speller_cuda.BWD_TC_SOURCE) as fh:
+        text = fh.read()
+    for key, name in (("rows", "DB_ROWS"), ("max_grid", "DB_MAX_GRID"), ("kc", "DB_KC"),
+                      ("gcols", "DB_GCOLS"), ("max_groups", "DB_MAX_GROUPS"),
+                      ("max_stages", "DB_MAX_STAGES"), ("min_stages", "DB_MIN_STAGES")):
+        assert f"constexpr int {name} = {speller_cuda.BWD_TC_LIMITS[key]};" in text, name
+    assert "grid.sync" not in text and "cooperative_groups" not in text
+
+
+def _bwd_operands(dtype, batch=2, te=8, proj=64, h1=128, h2=64, steps=3, heads=1):
+    shapes = [(batch, te, proj), (batch, te, proj), (proj, 4 * h1), (h1, 4 * h1),
+              (h1, 4 * h2), (h2, 4 * h2), (h2, proj), (batch, h1), (batch, h2),
+              (steps, batch, 4 * h1), (steps, batch, h1), (steps, batch, 4 * h2),
+              (steps, batch, h2), (steps, batch, heads, te)]
+    return ([torch.zeros(s, dtype=dtype) for s in shapes] + [None, None]
+            + [torch.zeros(steps, batch, proj, dtype=dtype)] * 2 + [None])
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "_launch_bwd_tc"),
+                                         (torch.float32, "bwd_kernel_limits")])
+def test_bwd_bf16_takes_the_tensor_core_source_and_fp32_the_old_one(monkeypatch, dtype, route):
+    """Past the operand checks, a bfloat16 adjoint goes to ``_launch_bwd_tc``
+    (the new source) and float32 to ``csrc/speller_bwd.cu``'s limits and
+    launch; nothing is launched here."""
+    def routed(*args, **kwargs):
+        raise _Routed(route)
+
+    monkeypatch.setattr(speller_cuda, route, routed)
+    monkeypatch.setattr(speller_cuda, "_check_operands", lambda *args: None)
+    with pytest.raises(_Routed, match=route):
+        speller_cuda._launch_bwd(*_bwd_operands(dtype), 1, 0.125)
+
+
+def test_bwd_source_is_built_and_bound():
+    assert speller_cuda.BWD_TC_SOURCE in speller_cuda.SOURCES
+    assert speller_cuda.BWD_TC_SOURCE.endswith("csrc/speller_bwd_tc.cu")
+    assert speller_cuda.load_bwd_tc_library in speller_cuda.LOADERS
+    with open(speller_cuda.BWD_SOURCE) as fh:  # float32 only there now
+        assert "launch<__nv_bfloat16>" not in fh.read()

@@ -227,6 +227,22 @@ def test_function_matches_pallas_vjp_scaled_dims():
                                    err_msg=name)
 
 
+def test_function_matches_pallas_vjp_widened_dims():
+    """A decoder width the bfloat16 kernels take since their widening (H1
+    128, H2 256: one cell-1 unit a block in the forward, the cell-2 units
+    on twice as many groups as the cell-1 ones in the adjoint), in bfloat16
+    with dropout and a cotangent on the weights: four bf16 steps of each
+    gradient's largest entry, as the narrow case above."""
+    dims = (3, 16, 4, 64, 128, 256)
+    (logits, _), (ref_logits, _), got, want = _both_vjps((2, 0.55, 0.3, True), "bfloat16", dims)
+    np.testing.assert_allclose(_np(logits)[..., :V], _np(ref_logits)[..., :V],
+                               atol=_bf16_steps(_np(ref_logits)[..., :V], 1))
+    assert len(got) == 17
+    for name in got:
+        np.testing.assert_allclose(_np(got[name]), _np(want[name]),
+                                   atol=_bf16_steps(_np(want[name]), 4), err_msg=name)
+
+
 @pytest.mark.parametrize("drop", [0.0, 0.3])
 def test_plain_adjoint_equals_autograd_through_plain_forward(drop):
     """The explicit adjoint (``speller_decode_bwd_plain`` and the Function's
