@@ -1,16 +1,19 @@
 """Dataset loaders for the LAS pipeline (counterpart of the JAX
 ``data/datasets.py``), numpy only: ``mfcc/*.npy`` features and
 ``transcript/raw/*.npy`` character transcripts in the reference layout, and
-the toy single-array datasets. Datasets only load and index examples;
-padding and bucketing are ``data/batching.py``'s.
+the toy single-array datasets, and the Rewriter's LM datasets (LAS
+prediction strings, with gold transcripts for training). Datasets only load
+and index examples; padding and bucketing are ``data/batching.py``'s.
 
 The JAX package's loaders cannot be imported without JAX (its
-``data/__init__`` imports SpecAugment). The Rewriter's LM datasets are not
-ported yet.
+``data/__init__`` imports SpecAugment). The LM datasets read a submission
+CSV with the ``csv`` module where the JAX ones use pandas: the same labels,
+an empty one staying ``""`` (pandas' ``keep_default_na=False``).
 """
 
 from __future__ import annotations
 
+import csv
 import os
 from typing import Dict, List, Optional
 
@@ -131,3 +134,64 @@ class ToyTestDataset:
 
     def __getitem__(self, index: int):
         return self.features[index]
+
+
+def _wrap_ids(text: str, label_to_idx: Dict[str, int], sos: int, eos: int) -> np.ndarray:
+    return np.array([sos] + [label_to_idx[c] for c in text] + [eos], dtype=np.int32)
+
+
+def read_prediction_lines(pred_path: str) -> List[str]:
+    """The prediction strings of ``pred_path``, by its content: a submission
+    CSV (an ``id,label`` header, as ``infer`` writes it next to a template)
+    gives its label column, anything else one prediction a line. Blank CSV
+    lines are skipped, as pandas skips them."""
+    with open(pred_path, "r") as fh:
+        first = fh.readline().strip().lower()
+    if first.replace(" ", "") == "id,label":
+        with open(pred_path, "r", newline="") as fh:
+            rows = [row for row in csv.reader(fh) if row]
+        col = rows[0].index("label")
+        return [row[col] if col < len(row) else "" for row in rows[1:]]
+    with open(pred_path, "r") as fh:
+        return [line.rstrip("\n") for line in fh]
+
+
+class LmTrainDevDataset:
+    """LAS-prediction strings paired with gold transcripts (reference:
+    src/lmtrain.py:30-94). Predictions are wrapped in <sos>...<eos>; gold
+    transcripts are the ``.npy`` character arrays, in sorted file order."""
+
+    def __init__(self, trans_dir: str, pred_path: str, label_to_idx: Dict[str, int]):
+        sos = label_to_idx["<sos>"]
+        eos = label_to_idx["<eos>"]
+        self.predictions = [_wrap_ids(line, label_to_idx, sos, eos)
+                            for line in read_prediction_lines(pred_path)]
+        self.transcripts = [
+            np.array([label_to_idx[str(c)] for c in np.load(f)], dtype=np.int32)
+            for f in _npy_files(trans_dir)
+        ]
+        if len(self.predictions) != len(self.transcripts):
+            raise ValueError(f"{pred_path}: {len(self.predictions)} predictions for "
+                             f"{len(self.transcripts)} transcripts in {trans_dir}")
+
+    def __len__(self) -> int:
+        return len(self.predictions)
+
+    def __getitem__(self, index: int):
+        return self.predictions[index], self.transcripts[index]
+
+
+class LmTestDataset:
+    """LAS-prediction strings as id arrays wrapped in <sos>...<eos>."""
+
+    def __init__(self, pred_path: str, label_to_idx: Dict[str, int]):
+        sos = label_to_idx["<sos>"]
+        eos = label_to_idx["<eos>"]
+        self.predictions = [_wrap_ids(line, label_to_idx, sos, eos)
+                            for line in read_prediction_lines(pred_path)]
+
+    def __len__(self) -> int:
+        return len(self.predictions)
+
+    def __getitem__(self, index: int):
+        return self.predictions[index]

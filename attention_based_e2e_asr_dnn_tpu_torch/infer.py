@@ -3,19 +3,20 @@
     python -m attention_based_e2e_asr_dnn_tpu_torch.infer -c configs/infer.yml [--device cpu]
 
 Reads the infer YAML and the experiment's ``config.json`` snapshot to
-rebuild the model, then decodes the test set greedily for every best
-checkpoint (``run_all``), one ``epoch_num``, and/or their uniform average
-(``run_avg`` -> ``ckpts/avg-all.ckpt``). ``early_stop`` (default true) takes
-the early-exit greedy decoder; ``early_stop: false`` the fixed
-``CHR_MAX_STEPS`` decode of ``make_infer_step``, which is the fused decode
-kernel when the speller sets ``decoder_impl: pallas``. Predictions are
-written in the template's utterance order to ``preds/<ckpt>-<tag>.csv``.
+rebuild the model, then decodes the test set for every best checkpoint
+(``run_all``), one ``epoch_num``, and/or their uniform average (``run_avg``
+-> ``ckpts/avg-all.ckpt``). ``beam_size > 1`` takes beam search
+(``length_alpha``, ``max_len_factor``); otherwise ``early_stop`` (default
+true) takes the early-exit greedy decoder and ``early_stop: false`` the
+fixed ``CHR_MAX_STEPS`` decode of ``make_infer_step``, which is the fused
+decode kernel when the speller sets ``decoder_impl: pallas``. Predictions
+are written in the template's utterance order to
+``preds/<ckpt>-<tag>.csv``.
 
 ``--device`` (default ``cuda``) names where the model runs; ``cuda``
 without a card fails. The submission CSV is written with the ``csv``
 module, byte for byte as pandas' ``to_csv(index=False)`` writes it; the
-template's other columns are copied as they are. Beam search
-(``beam_size > 1``) is not ported yet.
+template's other columns are copied as they are.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import (
     AsrTestDataset,
     ToyTestDataset,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import make_las_beam_step
 from attention_based_e2e_asr_dnn_tpu_torch.decoding.greedy import make_las_greedy_step
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     las_apply,
@@ -102,11 +104,18 @@ def infer_one_checkpoint(model_cfgs, infcfgs, checkpoint_filepath, batcher,
         load_checkpoint(checkpoint_filepath)["params"]).to(device)
     # decode with the dtype the experiment trained in (snapshotted config)
     dtype = compute_dtype(getattr(model_cfgs, "compute_dtype", "float32"))
-    if bool(getattr(infcfgs, "early_stop", True)):
-        # all-finished early exit; 0 disables the length cap
-        step = make_las_greedy_step(
-            las_cfg, compute_dtype=dtype,
-            max_len_factor=cfg_float(infcfgs, "max_len_factor", 3.0))
+    beam = int(getattr(infcfgs, "beam_size", 0) or 0)
+    # the cap in characters per encoder frame; 0 disables it
+    len_factor = cfg_float(infcfgs, "max_len_factor", 3.0)
+    if beam > 1:
+        step = make_las_beam_step(
+            las_cfg, beam_size=beam,
+            length_alpha=float(getattr(infcfgs, "length_alpha", 0.0) or 0.0),
+            compute_dtype=dtype, max_len_factor=len_factor)
+    elif bool(getattr(infcfgs, "early_stop", True)):
+        # all-finished early exit
+        step = make_las_greedy_step(las_cfg, compute_dtype=dtype,
+                                    max_len_factor=len_factor)
     else:
         step = make_infer_step(lambda p, x, lx: las_apply(p, las_cfg, x, lx),
                                compute_dtype=dtype)
@@ -135,9 +144,6 @@ def main(args):
         raise RuntimeError(f"--device {args.device}: no CUDA device here; "
                            f"pass --device cpu to decode on the CPU")
     infcfgs = load_config(args.config_file)
-    if int(getattr(infcfgs, "beam_size", 0) or 0) > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP queue 1, item 9)")
     exp_folder = infcfgs.exp_folder
     model_cfgs = load_config(os.path.join(exp_folder, "config.json"))
     # on a card with a kernel tier configured: every kernel source built side

@@ -195,56 +195,77 @@ def las_to_jax_params(module: ListenAttendSpell) -> dict:
     return _tree_to_numpy(module)
 
 
+def _uniform(shape, k: float, generator: torch.Generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2 - 1) * k
+
+
+def _lstm_init(in_dim: int, hid: int, generator: torch.Generator) -> dict:
+    k = 1.0 / math.sqrt(hid)
+    return {"w_ih": _uniform((in_dim, 4 * hid), k, generator),
+            "w_hh": _uniform((hid, 4 * hid), k, generator),
+            "b": _uniform((4 * hid,), k, generator)}
+
+
+def lstm_layer_init(in_dim: int, hid: int, bidirectional: bool,
+                    generator: torch.Generator) -> dict:
+    """One (Bi)LSTM layer's parameters, uniform +-1/sqrt(hid)."""
+    if bidirectional:
+        return {"fwd": _lstm_init(in_dim, hid, generator),
+                "bwd": _lstm_init(in_dim, hid, generator)}
+    return _lstm_init(in_dim, hid, generator)
+
+
+def _linear_init(in_dim: int, out_dim: int, generator: torch.Generator) -> dict:
+    k = 1.0 / math.sqrt(in_dim)
+    return {"w": _uniform((in_dim, out_dim), k, generator),
+            "b": _uniform((out_dim,), k, generator)}
+
+
+def speller_init(sc: SpellerConfig, emb: torch.Tensor, generator: torch.Generator) -> dict:
+    """The speller's parameter tree around the embedding ``emb`` (tied with
+    the classifier)."""
+    return {
+        "attention": {
+            "key_map": _linear_init(sc.enc_out_dim, sc.att_proj_dim, generator),
+            "value_map": _linear_init(sc.enc_out_dim, sc.att_proj_dim, generator),
+            "query_map": _linear_init(sc.dec_lstm_out_dim, sc.att_proj_dim, generator),
+        },
+        "char_emb": emb,
+        "cell1": _lstm_init(sc.dec_emb_dim + sc.att_proj_dim, sc.dec_lstm_hid_dim, generator),
+        "cell2": _lstm_init(sc.dec_lstm_hid_dim, sc.dec_lstm_out_dim, generator),
+        "init_query": torch.rand((1, sc.dec_lstm_out_dim), generator=generator),
+        "init_h1": torch.zeros((1, sc.dec_lstm_hid_dim)),
+        "init_c1": torch.zeros((1, sc.dec_lstm_hid_dim)),
+        "init_h2": torch.zeros((1, sc.dec_lstm_out_dim)),
+        "init_c2": torch.zeros((1, sc.dec_lstm_out_dim)),
+        "cls_b": torch.zeros((sc.dec_vocab_size,)),
+    }
+
+
+def char_embedding_init(sc: SpellerConfig, generator: torch.Generator) -> torch.Tensor:
+    """Normal embedding with a zero PAD row."""
+    emb = torch.randn((sc.dec_vocab_size, sc.dec_emb_dim), generator=generator)
+    emb[sc.CHR_PAD_IDX] = 0.0
+    return emb
+
+
 def las_init(cfg: LASConfig, generator: torch.Generator) -> ListenAttendSpell:
     """Fresh parameters with the JAX ``las_init`` distributions (torch
     defaults: uniform +-1/sqrt(fan) for LSTMs and linears, normal embedding
     with a zero PAD row, uniform [0, 1) init query, zero initial states)."""
-
-    def uniform(shape, k):
-        return (torch.rand(shape, generator=generator) * 2 - 1) * k
-
-    def lstm(in_dim, hid):
-        k = 1.0 / math.sqrt(hid)
-        return {"w_ih": uniform((in_dim, 4 * hid), k),
-                "w_hh": uniform((hid, 4 * hid), k), "b": uniform((4 * hid,), k)}
-
-    def layer(in_dim, hid, bidirectional):
-        if bidirectional:
-            return {"fwd": lstm(in_dim, hid), "bwd": lstm(in_dim, hid)}
-        return lstm(in_dim, hid)
-
-    def linear(in_dim, out_dim):
-        k = 1.0 / math.sqrt(in_dim)
-        return {"w": uniform((in_dim, out_dim), k), "b": uniform((out_dim,), k)}
-
     lc, sc = cfg.listener, cfg.speller
     mult = 2 if lc.bidirectional else 1
     hid = lc.uniform_hid_dim
-    emb = torch.randn((sc.dec_vocab_size, sc.dec_emb_dim), generator=generator)
-    emb[sc.CHR_PAD_IDX] = 0.0
+    emb = char_embedding_init(sc, generator)
     tree = {
         "listener": {
-            "base": [layer(lc.input_dim if i == 0 else hid * mult, hid, lc.bidirectional)
+            "base": [lstm_layer_init(lc.input_dim if i == 0 else hid * mult, hid,
+                                     lc.bidirectional, generator)
                      for i in range(lc.lstm_layers)],
-            "pyramid": [layer(2 * lc.enc_out_dim, hid, lc.bidirectional)
+            "pyramid": [lstm_layer_init(2 * lc.enc_out_dim, hid, lc.bidirectional, generator)
                         for _ in range(lc.plstm_layers)],
         },
-        "speller": {
-            "attention": {
-                "key_map": linear(sc.enc_out_dim, sc.att_proj_dim),
-                "value_map": linear(sc.enc_out_dim, sc.att_proj_dim),
-                "query_map": linear(sc.dec_lstm_out_dim, sc.att_proj_dim),
-            },
-            "char_emb": emb,
-            "cell1": lstm(sc.dec_emb_dim + sc.att_proj_dim, sc.dec_lstm_hid_dim),
-            "cell2": lstm(sc.dec_lstm_hid_dim, sc.dec_lstm_out_dim),
-            "init_query": torch.rand((1, sc.dec_lstm_out_dim), generator=generator),
-            "init_h1": torch.zeros((1, sc.dec_lstm_hid_dim)),
-            "init_c1": torch.zeros((1, sc.dec_lstm_hid_dim)),
-            "init_h2": torch.zeros((1, sc.dec_lstm_out_dim)),
-            "init_c2": torch.zeros((1, sc.dec_lstm_out_dim)),
-            "cls_b": torch.zeros((sc.dec_vocab_size,)),
-        },
+        "speller": speller_init(sc, emb, generator),
     }
     return ListenAttendSpell(tree)
 

@@ -464,7 +464,9 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
     """The launches of a bfloat16 ``speller_decode`` / ``speller_decode_train``
     call on a card of ``sms`` SMs whose blocks may opt into ``smem_optin``
     bytes of shared memory: one launch a span of up to 128 batch rows (the
-    rows of the decode are independent), ``tc_blocks`` blocks each (128 where
+    rows of the decode are independent; spans of 64 rows where a block's
+    weight tiles leave too little room for the ring's 128-row stages),
+    ``tc_blocks`` blocks each (128 where
     H1 and H2 are multiples of 128), each owning H1 / G units of cell 1 (1 to
     8), H2 / G of cell 2 (1 to 4) and, in the first P / 8 blocks, 8 query
     columns. Raises a ``ValueError`` naming the limit for a shape the kernel
@@ -490,9 +492,16 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
                          f"must be a whole multiple of 8")
     if vp > lim["vmax"]:
         raise ValueError(f"{name}: padded vocabulary {vp} must be at most {lim['vmax']}")
+    # 128-row spans where one fits ``min_stages`` ring stages; otherwise 64-row
+    # spans, whose ring stages are half the size (a block whose weight tiles
+    # leave too little room for four 128-row stages)
+    span = lim["rows"]
+    if batch > 64 and decode_tc_smem_bytes(min(batch, span), te, proj, heads, h1dim,
+                                           h2dim, blocks)[1] < lim["min_stages"]:
+        span = 64
     launches = []
-    for r0 in range(0, batch, lim["rows"]):
-        r1 = min(r0 + lim["rows"], batch)
+    for r0 in range(0, batch, span):
+        r1 = min(r0 + span, batch)
         smem, stages = decode_tc_smem_bytes(r1 - r0, te, proj, heads, h1dim, h2dim, blocks)
         if stages < lim["min_stages"] or smem > smem_optin:
             raise ValueError(f"{name}: needs {smem} bytes of shared memory a block with "

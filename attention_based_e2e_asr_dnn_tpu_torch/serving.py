@@ -1,5 +1,6 @@
 """Serving API: load a trained experiment, transcribe feature batches
-(counterpart of the JAX ``serving.py``, greedy decoding).
+(counterpart of the JAX ``serving.py``): greedy or beam decoding, and the
+gated Rewriter corrector.
 
     >>> t = Transcriber("experiments/260816-123456", device="cuda")
     >>> t.transcribe([mfcc1, mfcc2, ...])   # list of (T_i, 15) arrays
@@ -25,8 +26,12 @@ ladder yields to requests in flight. ``_route_bucket`` always returns the
 tight bucket: no bucket is cheaper to enter than another, so padding a batch
 up to a warm one would only add work.
 
-Not ported yet (ROADMAP queue 1, items 9 and 11): beam search, the Rewriter
-corrector, data-parallel decoding.
+``Corrector`` wraps a Rewriter experiment as ``lminfer`` runs it, with the
+experiment's ``compute_dtype`` (as the JAX ``Corrector`` does); a
+``Transcriber`` given one passes every transcript through it, so the
+``StreamingTranscriber`` and the HTTP server return corrected text too.
+
+Not ported yet (ROADMAP queue 1, item 11): data-parallel decoding.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch import constants
 from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import ids_to_str
-from attention_based_e2e_asr_dnn_tpu_torch.data.batching import pad_to_multiple
+from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher, pad_to_multiple
+from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import make_las_beam_step
 from attention_based_e2e_asr_dnn_tpu_torch.decoding.greedy import make_las_greedy_step
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     las_config_from_dicts,
@@ -91,6 +97,107 @@ def load_experiment(exp_folder: str, checkpoint: Optional[str] = None,
     return snap, payload
 
 
+class Corrector:
+    """The gated Rewriter corrector over a trained LM experiment, the serving
+    twin of the ``lminfer`` CLI.
+
+    ``correct(texts)`` rewrites each transcript and keeps a rewrite only
+    where the model scores it ``confidence_margin`` average log-probability
+    a character above regenerating the input (``decoding/rescore.py``):
+    never worse under the model's own likelihood. Fit the margin offline
+    (``lminfer`` with ``confidence_margin: "auto"``) and pass the number.
+    ``span_rewrite=True`` deploys the prefix-anchored candidates, scored in
+    one stacked call with ``decoding.rescore.span_candidate_families``, the
+    machinery ``lminfer`` calibrates with; pass the fitted ``span_family``.
+
+    Args:
+        exp_folder: Rewriter experiment (config.json + ckpts/).
+        checkpoint: explicit checkpoint; default = latest best tag.
+        average: uniform-average all best checkpoints instead.
+        beam_size: > 1 = beam-search rewrites; 0/1 = early-stop greedy.
+        confidence_margin: the gate's threshold; ``gate=False`` keeps every
+            rewrite.
+        span_rewrite: widen the candidates with prefix-anchored rewrites
+            (requires ``gate=True``).
+        span_family: the family the gate thresholds: ``"free"``, ``"conf"``,
+            ``"best"`` or an ``"fNN"`` fraction anchor of ``span_fracs``.
+        device: where the model runs ("cuda", "cuda:1", "cpu").
+    """
+
+    def __init__(
+        self,
+        exp_folder: str,
+        checkpoint: Optional[str] = None,
+        average: bool = False,
+        beam_size: int = 8,
+        length_alpha: float = 0.0,
+        max_len_factor: float = 3.0,
+        batch_size: int = 32,
+        confidence_margin: float = 0.0,
+        gate: bool = True,
+        span_rewrite: bool = False,
+        span_family: str = "best",
+        span_conf_tau: float = 0.5,
+        span_fracs: Sequence[float] = (0.25, 0.5, 0.75, 0.9),
+        device: str = "cuda",
+    ):
+        from attention_based_e2e_asr_dnn_tpu_torch.decoding.rescore import RewriteChain
+        from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
+            RewriterConfig,
+            rewriter_from_jax_params,
+        )
+
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Corrector(device={device!r}): no CUDA device here; "
+                               f"pass device='cpu' to correct on the CPU")
+        if span_rewrite and not gate:
+            raise ValueError("span_rewrite requires gate=True (candidate "
+                             "selection uses the gate's scorer)")
+        snap, payload = load_experiment(exp_folder, checkpoint, average)
+        self.lm_cfg = RewriterConfig(**snap["model"]["configs"])
+        # the experiment's bfloat16 policy, as the Transcriber honours it
+        self.compute_dtype = compute_dtype(snap.get("compute_dtype", "float32"))
+        self.batch_size = batch_size
+        self.margin = float(confidence_margin)
+        # the widest layout a rewrite can need, [SOS] + CHR_MAX_STEPS + [EOS]
+        # rounded up to 32 (the JAX Corrector's score width)
+        self.chain = RewriteChain(
+            self.lm_cfg, self.compute_dtype, beam_size=beam_size, length_alpha=length_alpha,
+            max_len_factor=max_len_factor, gate=gate, span_rewrite=span_rewrite,
+            span_conf_tau=span_conf_tau, span_fracs=span_fracs,
+            score_width=-(-(int(self.lm_cfg.CHR_MAX_STEPS) + 2) // 32) * 32)
+        self.family = "rewrite"
+        if span_rewrite:
+            self.chain.check_family(span_family, " (fit it with lminfer confidence_margin: auto)")
+            self.family = span_family
+        cuda_build.build_for(self.device, self.lm_cfg.lstm_impl, self.lm_cfg.decoder_impl)
+        self.params = rewriter_from_jax_params(payload["params"]).to(self.device)
+
+    def correct(self, texts: Sequence[str]) -> List[str]:
+        """Rewrite transcripts; a gated rewrite falls back to its input.
+        Characters outside the vocabulary are dropped before encoding."""
+        vm, sos, eos = constants.VOCAB_MAP, constants.SOS_IDX, constants.EOS_IDX
+        ids = [np.array([sos] + [vm[c] for c in t if c in vm] + [eos], np.int32)
+               for t in texts]
+        batcher = BucketBatcher(ids, self.batch_size, pad_time_multiple=32,
+                                has_labels=False, label_pad_id=eos)
+        out: List[Optional[str]] = [None] * len(texts)
+        for bt in batcher.epoch(0):
+            dec, margins = self.chain(self.params, bt.x, bt.lx.astype(np.int32))[self.family]
+            for row, orig in enumerate(bt.indices):
+                if orig < 0:
+                    continue
+                rewrite = ids_to_str(dec[row], constants.VOCAB, sos, eos)
+                if margins is not None:
+                    keep = float(margins[row]) > self.margin
+                    out[orig] = rewrite if keep else texts[orig]
+                else:
+                    out[orig] = rewrite
+        assert all(s is not None for s in out)
+        return out  # type: ignore[return-value]
+
+
 class Transcriber:
     """Persistent speech-to-text server over a trained LAS experiment.
 
@@ -98,9 +205,9 @@ class Transcriber:
         exp_folder: experiment directory (config.json + ckpts/).
         checkpoint: explicit checkpoint path; default = latest best tag.
         average: uniform-average all best checkpoints instead.
-        beam_size: 0/1 = early-stop greedy (beam search not ported yet).
-        length_alpha: beam search's length normalisation; kept for the day
-            beam search is ported, unused by the greedy decode.
+        beam_size: > 1 = beam search; 0/1 = early-stop greedy.
+        length_alpha: beam search's length normalisation (``len ** alpha``
+            at selection; 0 = none, with exact pruning).
         max_len_factor: force-finish a row beyond this many characters per
             encoder frame (0 disables).
         batch_size: decode batch (requests are chunked and padded to it).
@@ -108,6 +215,8 @@ class Transcriber:
         auto_warmup: frame counts whose buckets a background thread warms,
             largest first (see the module docstring); ``wait_ready`` gates
             traffic on the largest.
+        corrector: optional ``Corrector``; every ``transcribe`` result
+            passes through it before it is returned.
         device: where the model runs ("cuda", "cuda:1", "cpu").
     """
 
@@ -126,16 +235,10 @@ class Transcriber:
         corrector=None,
         device: str = "cuda",
     ):
-        if beam_size > 1:
-            raise NotImplementedError(
-                "beam search is not ported yet (ROADMAP queue 1, item 9)")
-        if corrector is not None:
-            raise NotImplementedError(
-                "the Rewriter corrector is not ported yet (ROADMAP queue 1, item 9)")
         if data_parallel > 1:
             raise NotImplementedError(
                 "data-parallel decoding is not ported yet (ROADMAP queue 1, item 11)")
-        self.corrector = None
+        self.corrector = corrector
         self.length_alpha = length_alpha
         snap, payload = load_experiment(exp_folder, checkpoint, average)
         model_cfgs = snap["model"]["configs"]
@@ -153,9 +256,14 @@ class Transcriber:
             raise RuntimeError(f"Transcriber(device={device!r}): no CUDA device here; "
                                f"pass device='cpu' to decode on the CPU")
         self.params = las_from_jax_params(payload["params"]).to(self.device)
-        self._step = make_las_greedy_step(
-            self.cfg, compute_dtype=self.compute_dtype,
-            max_len_factor=max_len_factor)
+        if beam_size > 1:
+            self._step = make_las_beam_step(
+                self.cfg, beam_size=beam_size, length_alpha=length_alpha,
+                compute_dtype=self.compute_dtype, max_len_factor=max_len_factor)
+        else:
+            self._step = make_las_greedy_step(
+                self.cfg, compute_dtype=self.compute_dtype,
+                max_len_factor=max_len_factor)
 
         # warm-bucket registry (see the module docstring for what "warm" is)
         self._warm: set = set()
@@ -282,6 +390,8 @@ class Transcriber:
             with self._fg_cv:
                 self._fg_count -= 1
                 self._fg_cv.notify_all()
+        if self.corrector is not None:
+            out = self.corrector.correct(out)  # type: ignore[arg-type]
         return out  # type: ignore[return-value]
 
 

@@ -3,19 +3,23 @@
 
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.serve_http \\
         experiments/<run> --port 8080 [--batch-size 32] \\
-        [--warmup 256 512 1024 1536] [--device cuda]
+        [--warmup 256 512 1024 1536] [--beam-size 8] \\
+        [--corrector lm_experiments/<run> [--corrector-margin M] \\
+         [--corrector-span-family best]] [--device cuda]
 
 Gates traffic on readiness when a warmup ladder is given: the server binds
 first, ``/healthz`` answers at once, and ``/readyz`` turns 200 when the
 kernels are built and the ladder's largest bucket has run one batch; POST
 ``/v1/transcribe`` afterwards. ``--device`` (default ``cuda``) names where
-the model runs; ``cuda`` without a card fails.
+the model runs; ``cuda`` without a card fails. ``--corrector`` passes every
+transcript through the gated Rewriter of that LM experiment
+(``serving.Corrector``); its ``--corrector-*`` flags without it are refused,
+as the JAX tool refuses them.
 
 The flags are the JAX tool's. Those whose modules are not ported raise
 ``NotImplementedError`` and name their ROADMAP item: ``--artifact`` and
-``--corrector-artifact`` (item 8b, export.py), ``--corrector`` and its
-options (item 9), ``--beam-size`` above 1 (item 9), ``--data-parallel`` above
-1 (item 11).
+``--corrector-artifact`` (item 8b, export.py), ``--data-parallel`` above 1
+(item 11).
 """
 
 from __future__ import annotations
@@ -44,13 +48,18 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup", type=int, nargs="*", default=None,
                     help="bucket ladder (frame counts) to warm before ready")
     ap.add_argument("--corrector", default=None,
-                    help="LM experiment folder for gated auto-correction "
-                         "(not ported)")
-    ap.add_argument("--corrector-margin", type=float, default=0.0)
-    ap.add_argument("--corrector-span-family", default=None)
-    ap.add_argument("--corrector-span-conf-tau", type=float, default=0.5)
+                    help="LM experiment folder for gated auto-correction")
+    ap.add_argument("--corrector-margin", type=float, default=0.0,
+                    help="the gate's margin (fit it with lminfer "
+                         "confidence_margin: auto)")
+    ap.add_argument("--corrector-span-family", default=None,
+                    help="enable span rewrites and threshold this family "
+                         "(free, conf, best or fNN)")
+    ap.add_argument("--corrector-span-conf-tau", type=float, default=0.5,
+                    help="the confidence policy's threshold (as calibrated)")
     ap.add_argument("--corrector-span-fracs", type=float, nargs="+",
-                    default=[0.25, 0.5, 0.75, 0.9])
+                    default=[0.25, 0.5, 0.75, 0.9],
+                    help="the fraction anchors (as calibrated)")
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda, cuda:N or cpu")
@@ -63,15 +72,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--artifact / --corrector-artifact are not ported yet (ROADMAP "
             "queue 1, item 8b: export.py); serve an experiment folder")
-    if (args.corrector or args.corrector_span_family is not None
-            or args.corrector_margin):
-        raise NotImplementedError(
-            "--corrector and its options are not ported yet (ROADMAP queue 1, "
-            "item 9: the Rewriter corrector)")
-    if args.beam_size > 1:
-        raise NotImplementedError(
-            "--beam-size > 1 is not ported yet (ROADMAP queue 1, item 9: "
-            "decoding/beam.py)")
     if args.data_parallel > 1:
         raise NotImplementedError(
             "--data-parallel > 1 is not ported yet (ROADMAP queue 1, item 11: "
@@ -81,8 +81,18 @@ def check_ported(args) -> None:
 def start(args):
     """Build the Transcriber and the bound, started server for ``args``."""
     from attention_based_e2e_asr_dnn_tpu_torch.server import AsrHttpServer
-    from attention_based_e2e_asr_dnn_tpu_torch.serving import Transcriber
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Corrector, Transcriber
 
+    corrector = None
+    if args.corrector:
+        span = args.corrector_span_family
+        # tau and fracs as lminfer calibrated with them: other values would
+        # serve another candidate set than the fitted policy was chosen over
+        corrector = Corrector(args.corrector, confidence_margin=args.corrector_margin,
+                              span_rewrite=span is not None, span_family=span or "best",
+                              span_conf_tau=args.corrector_span_conf_tau,
+                              span_fracs=tuple(args.corrector_span_fracs),
+                              device=args.device)
     transcriber = Transcriber(
         args.exp_folder,
         checkpoint=args.checkpoint,
@@ -92,6 +102,7 @@ def start(args):
         pad_time_multiple=args.pad_time_multiple,
         auto_warmup=args.warmup,
         data_parallel=args.data_parallel,
+        corrector=corrector,
         device=args.device,
     )
     # bind FIRST: /healthz answers during warmup and /readyz gates traffic
@@ -107,6 +118,11 @@ def main(argv=None) -> int:
     check_ported(args)
     if not args.exp_folder:
         ap.error("give an experiment folder")
+    if args.corrector is None and (args.corrector_span_family is not None
+                                   or args.corrector_margin):
+        # without a corrector these flags would serve no correction at all
+        ap.error("--corrector-span-family/--corrector-margin need "
+                 "--corrector <lm_experiment> in experiment mode")
     if args.warmup == []:
         ap.error("--warmup needs at least one bucket frame count "
                  "(e.g. --warmup 512 1024)")

@@ -9,8 +9,10 @@ injection -> experiment folder + config.json snapshot -> batchers -> model
 ``--device`` (default ``cuda``) names where the model trains; ``cuda``
 without a card fails. Settings whose modules are not ported raise
 ``NotImplementedError`` and name their ROADMAP item before anything is
-trained: ``parallel.use: true``, ``eval_beam_size > 1`` and
-``export_artifact``. ``lazy_data: true`` keeps the features on disk and
+trained: ``parallel.use: true`` and ``export_artifact``. ``eval_beam_size
+> 1`` takes the dev LD from beam search (``decoding/beam.py::
+make_las_eval_beam_step``: one listener pass a dev batch for the loss decode
+and the beam). ``lazy_data: true`` keeps the features on disk and
 assembles each batch when it is due (``data/lazy.py``). ``parallel.model > 1`` with a ``pallas`` tier raises
 the JAX CLI's ``ValueError``: tensor parallelism shards the LSTM gate
 matrices, which a fused kernel cannot take sharded.
@@ -28,6 +30,7 @@ import torch
 from attention_based_e2e_asr_dnn_tpu_torch import constants
 from attention_based_e2e_asr_dnn_tpu_torch.config import (
     Config,
+    cfg_float,
     inject_vocab,
     load_yaml,
     snapshot_config,
@@ -37,6 +40,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import (
     AsrTrainDevDataset,
     ToyTrainDevDataset,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import make_las_eval_beam_step
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     LASConfig,
     las_apply,
@@ -130,10 +134,6 @@ def check_ported(trncfgs, las_cfg: LASConfig) -> None:
         raise NotImplementedError(
             "parallel.use: true is not ported yet (ROADMAP queue 1, item 11: "
             "parallel/); train on one card with parallel.use: false")
-    if int(getattr(trncfgs, "eval_beam_size", 0) or 0) > 1:
-        raise NotImplementedError(
-            "eval_beam_size > 1 is not ported yet (ROADMAP queue 1, item 9: "
-            "decoding/beam.py)")
     if getattr(trncfgs, "export_artifact", None):
         raise NotImplementedError(
             "export_artifact is not ported yet (ROADMAP queue 1, item 8: export.py)")
@@ -206,6 +206,16 @@ def main(args):
     )
     print(f"[data] {len(trn_batcher)} train batches, {len(dev_batcher)} dev batches")
 
+    dtype = compute_dtype(getattr(trncfgs, "compute_dtype", "float32"))
+    # the beam's dev LD (eval_beam_size > 1)
+    eval_beam_step = None
+    eval_beam = int(getattr(trncfgs, "eval_beam_size", 0) or 0)
+    if eval_beam > 1:
+        eval_beam_step = make_las_eval_beam_step(
+            las_cfg, beam_size=eval_beam, compute_dtype=dtype,
+            length_alpha=float(getattr(trncfgs, "length_alpha", 0.0) or 0.0),
+            max_len_factor=cfg_float(trncfgs, "max_len_factor", 3.0))
+
     trainer = Trainer(
         init_fn=lambda generator: las_init(las_cfg, generator),
         make_apply=make_las_apply_factory(las_cfg),
@@ -216,9 +226,10 @@ def main(args):
         milestone_dir=milestone_dir,
         sos_idx=sos_idx,
         eos_idx=eos_idx,
-        compute_dtype=compute_dtype(getattr(trncfgs, "compute_dtype", "float32")),
+        compute_dtype=dtype,
         logger=logger,
         device=args.device,
+        eval_beam_step=eval_beam_step,
     )
     print(model_summary(trainer.state.params, trncfgs.model.tag))
     # shape and FLOP summary on the first real batch's shapes; a wiring

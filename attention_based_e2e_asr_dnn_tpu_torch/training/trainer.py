@@ -24,9 +24,13 @@ its order (``training/optim.py::opt_state_to_leaves``), the histories, the
 schedulers' state, ``tf_rate``, ``current_lr`` and ``dropout_scale``. Either
 package's ``Trainer`` resumes from the other's file.
 
+``eval_beam_step`` (``decoding/beam.py::make_las_eval_beam_step``) takes the
+dev pass's loss and beam ids from one listener pass a batch, the beam only
+on the epochs that compute the LD.
+
 Not ported: ``pipeline``, ``dp_mesh``, ``shard_batch`` / ``shard_state``
-(ROADMAP queue 1, item 11), ``eval_beam_step`` (item 9) and the ``profile``
-block (item 12); passing one raises ``NotImplementedError``.
+(ROADMAP queue 1, item 11) and the ``profile`` block (item 12); passing one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,7 +79,6 @@ _NOT_PORTED = {
     "shard_state": "ROADMAP queue 1, item 11 (parallel/)",
     "pipeline": "ROADMAP queue 1, item 11 (parallel/pipeline.py)",
     "dp_mesh": "ROADMAP queue 1, item 11 (parallel/dp.py)",
-    "eval_beam_step": "ROADMAP queue 1, item 9 (decoding/beam.py)",
 }
 
 
@@ -94,6 +97,7 @@ class Trainer:
         compute_dtype=torch.float32,
         logger: Optional[MetricLogger] = None,
         device: str = "cuda",
+        eval_beam_step: Optional[Callable] = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -126,6 +130,7 @@ class Trainer:
         self.compute_dtype = compute_dtype
         self.logger = logger or MetricLogger()
         self.make_apply = make_apply
+        self.eval_beam_step = eval_beam_step
 
         # Feature wire format: where the step computes in bf16 anyway,
         # ``feed_dtype: auto`` casts the features on the host, which halves
@@ -370,7 +375,13 @@ class Trainer:
         eval_src = (self._resident_batches("dev", 0) if self.device_resident
                     else self._prepared_batches(self.dev_batcher.epoch(0)))
         for batch, y, ly, indices in eval_src:
-            metrics, pred_ids = self.eval_step(self.state.params, *batch)
+            if self.eval_beam_step is not None:
+                # one listener pass for the loss and the beam; no beam on an
+                # epoch without the LD
+                metrics, pred_ids = self.eval_beam_step(self.state.params, *batch,
+                                                        want_ids=compute_ld)
+            else:
+                metrics, pred_ids = self.eval_step(self.state.params, *batch)
             total_loss += float(metrics["loss"])
             total_ppl += float(metrics["ppl"])
             if compute_ld:

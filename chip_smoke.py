@@ -70,10 +70,14 @@ on one NVIDIA card, from the root of a checkout:
    plain versions with one launch a call asserted: a decoder block past the
    narrower geometry of 2 cell-2 units a block (``dec_lstm_out_dim: 512``,
    four cell-2 units a block) on the base-LAS decoder's other widths, the eval
-   form, the training form and the adjoint at B=64, 32 steps; and the
+   form, the training form and the adjoint at B=64, 32 steps; the
    scaled-LAS decoder at phase 10's batch, B=128, L=192 (the adjoint's full
    128-row tiles with two groups of columns on half its blocks), the training
-   form and the adjoint, with and without a cotangent on the weights.
+   form and the adjoint, with and without a cotangent on the weights; and a
+   block whose weight tiles leave too little shared memory for four ring
+   stages of 128 rows (H1 768, H2 384, P 1024), whose eval and training forms
+   take B=128 in two 64-row launches (the plan's, asserted), then the adjoint
+   in one.
 8. A trainer that takes a few steps: seeded base-LAS weights, one seeded
    batch (B=128, T=1536, L=192, lengths ragged within the bucket), bfloat16
    compute, SpecAugment and dropout on, tf_rate 0.9, AdamW (amsgrad, lr 1e-3,
@@ -157,6 +161,30 @@ on one NVIDIA card, from the root of a checkout:
    well-formed and in template order, the decode route ``cuda``, and the
    launch counts those of 64-row batches. Utterances/s, ms per batch and
    peak device memory are printed.
+
+15. Beam search at base-LAS (bf16, the experiment of phase 4):
+   ``Transcriber(beam_size=8)`` on phase 4's 40 utterances and the ``infer``
+   CLI with ``beam_size: 8`` on phase 14's test set (every best checkpoint
+   and their average), with the launch counters reset just before each and
+   read just after (the listener's lean kernels; the beam step is plain
+   PyTorch, as the JAX beam is plain XLA); utterances/s and ms per batch.
+   Then on one batch: the float32 beam ids of the listener kernels equal to
+   those of the plain loops (``lstm_impl: scan``), and beam 1 equal to greedy
+   in float32 and bfloat16.
+16. The Rewriter chain at ``configs/rewriter.yml``'s model block with both
+   kernel tiers (the file sets neither): first #1 (``lstm_scan``) at the
+   encoder's H=256, B=256, T=608, and #8's eval form at the decoder's widths
+   (H1 256, H2 128, P 128, one head), B=256, Te=608, 600 steps, float32 and
+   bfloat16, against their plain versions, timed. Then a seeded experiment
+   folder (bfloat16 policy) and 256 generated prediction lines of 100-600
+   characters at ``configs/lm-infer.yml``'s ``batch_size: 256``: the
+   ``lminfer`` CLI in five modes (``early_stop: false``, greedy, beam 8, a
+   gate with a fixed margin, ``"auto"`` with span rewrites over a generated
+   64-pair calibration set), float32 as the JAX CLI decodes, each CSV
+   well-formed in template order, launches read per run; the ``Corrector``
+   (bfloat16, beam 8) behind a ``Transcriber`` on phase 4's utterances,
+   equal to ``correct(transcribe(...))``; one ``tools/serve_http
+   --corrector`` burst of six POSTs. Lines/s, ms per batch, launches.
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
@@ -788,14 +816,20 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
 # against their plain versions: a decoder block past the narrower geometry of
 # 2 cell-2 units a block (four cell-2 units a block in the forward, two groups
 # of columns on some blocks of the adjoint) on the base-LAS decoder's other
-# widths, the eval form too; and scaled-LAS's decoder at the train batch,
-# the shape phase 10's step runs (full 128-row tiles, two groups of columns on
-# half the adjoint's blocks)
+# widths, the eval form too; scaled-LAS's decoder at the train batch, the
+# shape phase 10's step runs (full 128-row tiles, two groups of columns on
+# half the adjoint's blocks); and a block whose weight tiles leave too little
+# shared memory for four 128-row ring stages, whose forward takes the train
+# batch in two 64-row spans (the adjoint keeps one 128-row launch)
 BF16_SPELLER_CHECKS = {
-    # label: (listener width, speller changes, batch, steps, with the eval form)
-    "widened block dec_lstm_out_dim 512": (H, {"dec_lstm_out_dim": 512}, 64, 32, True),
+    # label: (listener width, speller changes, batch, steps, with the eval
+    # form, the forward's launches a call)
+    "widened block dec_lstm_out_dim 512": (H, {"dec_lstm_out_dim": 512}, 64, 32, True, 1),
     "scaled-LAS at the train batch": (WIDE_H, {"dec_lstm_hid_dim": 1024, "att_heads": 4},
-                                      TRAIN_B, TRAIN_L, False),
+                                      TRAIN_B, TRAIN_L, False, 1),
+    "64-row spans, H1 768, H2 384, P 1024": (
+        H, {"dec_lstm_hid_dim": 768, "dec_lstm_out_dim": 384, "att_proj_dim": 1024,
+            "dec_emb_dim": 2048}, TRAIN_B, 32, True, 2),
 }
 
 
@@ -804,14 +838,15 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
     form (where asked) against its plain version forced along its ids
     (``SPELLER_TOL``), the training form's streams and the adjoint's, with
     and without a cotangent on the weights, against their plain versions
-    (``SPELLER_TRAIN_TOL``), one launch a call."""
+    (``SPELLER_TRAIN_TOL``); the forward's launches a call as the check
+    states them (asserted against the plan), the adjoint's one."""
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
         las_config_from_dicts,
         las_init,
     )
     from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
 
-    width, changes, batch, steps, eval_form = BF16_SPELLER_CHECKS[label]
+    width, changes, batch, steps, eval_form, fwd_launches = BF16_SPELLER_CHECKS[label]
     gen = torch.Generator().manual_seed(SEED + 5)
     cfg = las_config_from_dicts(
         {**BASE_LAS_MODEL["listener_configs"], "uniform_hid_dim": width},
@@ -867,14 +902,42 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
             del got, want
         torch.cuda.synchronize()
     counts = dict(sc.LAUNCHES)
+    lim = sc.tc_kernel_limits(0)
+    plan = sc.plan_decode_tc(batch, TE_DEC, spl.att_proj_dim, spl.att_heads,
+                             spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim, operands[8].shape[0],
+                             lim["sms"], lim["smem_optin"])
+    spans = ""
+    if fwd_launches > 1:  # the eval form's spans timed against one span alone
+        with torch.no_grad():
+            opts = {**opts, "steps": spl.CHR_MAX_STEPS}
+            ms = cuda_median_ms(torch, lambda: sc.speller_decode(*operands, **opts), 5)
+            span = plan.launches[0].r1
+            # the batch-major operands (k .. c20) cut to the first span
+            first = [t[:span].contiguous() for t in operands[:8]] + list(operands[8:])
+            ms_one = cuda_median_ms(torch, lambda: sc.speller_decode(*first, **opts), 5)
+            plain_ms = cuda_median_ms(
+                torch, lambda: sc.speller_decode_plain(*operands, **opts), 1)
+        proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
+        per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2 + h2 * proj
+                       + 2 * proj * vocab)
+        flops = spl.CHR_MAX_STEPS * (batch * per_row + 4 * proj * int(lengths.sum()))
+        out_bytes = spl.CHR_MAX_STEPS * batch * (operands[8].shape[0] * 2
+                                                 + spl.att_heads * TE_DEC * 2 + 4)
+        bound, bound_by = bound_ms(flops, nbytes(*operands) + out_bytes)
+        spans = (f"; eval form over {spl.CHR_MAX_STEPS} steps in spans "
+                 f"{[(ln.r0, ln.r1) for ln in plan.launches]}: {ms:.3f} ms, one "
+                 f"{span}-row span alone {ms_one:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                 f"{bound:.3f} ms ({bound_by})")
     worst = max(errs, key=lambda n: errs[n][1])
     log(f"[{card}] bf16 speller, {label} (H1 {spl.dec_lstm_hid_dim}, H2 "
         f"{spl.dec_lstm_out_dim}, P {spl.att_proj_dim}, heads {spl.att_heads}) B={batch} "
         f"Te={TE_DEC} L={steps}: {eval_errs}train + adjoint, {len(errs)} tensors, largest "
         f"{errs[worst][1]:.1e} of max ({worst}; tolerance {SPELLER_TRAIN_TOL['bfloat16']:g}); "
-        f"launches {counts}")
-    want_counts = {"speller_decode": int(eval_form), "speller_decode_train": 1,
-                   "speller_decode_bwd": 2}
+        f"launches {counts}{spans}")
+    if len(plan.launches) != fwd_launches:
+        raise AssertionError(f"bf16 speller, {label}: plan {plan.launches}")
+    want_counts = {"speller_decode": int(eval_form) * fwd_launches,
+                   "speller_decode_train": fwd_launches, "speller_decode_bwd": 2}
     if counts != want_counts:
         raise AssertionError(f"bf16 speller, {label}: launches {counts}, not {want_counts}")
     bad = {n: r for n, (_, r) in errs.items() if not r <= SPELLER_TRAIN_TOL["bfloat16"]}
@@ -1809,7 +1872,6 @@ def infer_phase(torch, card: str, exp: str, data: str, work: str) -> dict:
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
     from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
 
-    vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
     n_batches = -(-N_TEST_UTTS // INFER_BATCH)
     n_ckpts = 3  # two best checkpoints and their average
     launches = {"lstm_scan_fusedin": 0, "lstm_scan": 0, "speller_decode": 0}
@@ -1841,13 +1903,8 @@ def infer_phase(torch, card: str, exp: str, data: str, work: str) -> dict:
         if not early_stop and (not routes or set(routes.values()) != {"cuda"}):
             raise AssertionError(f"infer early_stop=false: decode routes {routes}")
         for name in ("min-loss-ld-ppl-epoch[1]", "min-loss-ld-ppl-epoch[2]", "avg-all"):
-            with open(os.path.join(exp, "preds", f"{name}-tst.csv")) as fh:
-                lines = fh.read().split("\n")
-            rows = [ln.split(",", 1) for ln in lines[1:-1]]
-            if (lines[0] != "id,label" or lines[-1] != "" or
-                    [r[0] for r in rows] != [str(i) for i in range(N_TEST_UTTS)] or
-                    not all(len(r) == 2 and set(r[1]) <= vocab for r in rows)):
-                raise AssertionError(f"infer early_stop={early_stop}: {name}-tst.csv malformed")
+            check_preds(os.path.join(exp, "preds", f"{name}-tst.csv"), N_TEST_UTTS,
+                        f"infer early_stop={early_stop}")
         decoded = N_TEST_UTTS * n_ckpts
         log(f"[{card}] infer base-LAS bf16 early_stop={str(early_stop).lower()}: {decoded} "
             f"utts ({MIN_FRAMES}-{MAX_FRAMES} frames; {n_ckpts} checkpoints x {n_batches} "
@@ -2137,6 +2194,697 @@ def parity_phase(torch, card: str, t, feats: list) -> None:
                     raise AssertionError("float32 greedy ids differ kernel vs plain")
 
 
+BEAM = 8
+
+
+def check_preds(path: str, n_rows: int, what: str) -> list:
+    """A submission CSV in template order: ``id,label`` and ``n_rows`` rows
+    of in-vocabulary labels; returns the labels."""
+    vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
+    with open(path) as fh:
+        lines = fh.read().split("\n")
+    rows = [ln.split(",", 1) for ln in lines[1:-1]]
+    if (lines[0] != "id,label" or lines[-1] != "" or
+            [r[0] for r in rows] != [str(i) for i in range(n_rows)] or
+            not all(len(r) == 2 and set(r[1]) <= vocab for r in rows)):
+        raise AssertionError(f"{what}: {os.path.basename(path)} malformed")
+    return [r[1] for r in rows]
+
+
+def beam_phase(torch, card: str, exp: str, feats: list, data: str, work: str) -> dict:
+    """Beam search at base-LAS (phase 15): ``Transcriber(beam_size=8)`` and the
+    infer CLI with ``beam_size: 8``, then on one batch the float32 beam ids
+    of the listener kernels against those of the plain loops, beam 1
+    against greedy, and the dev pass of a beam run (``eval_beam_size``) on
+    each tier; returns the launches of the served runs and the dev pass."""
+    import dataclasses
+
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch import infer
+    from attention_based_e2e_asr_dnn_tpu_torch.data.batching import pad_to_multiple
+    from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import beam_search
+    from attention_based_e2e_asr_dnn_tpu_torch.decoding.greedy import greedy_decode_early_stop
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import listener_apply
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Transcriber
+
+    vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
+    launches = {"lstm_scan_fusedin": 0, "lstm_scan": 0}
+
+    def run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lc.reset_launch_counts()
+        sc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+        for k in launches:
+            launches[k] += counts[k]
+        return out, wall, counts, torch.cuda.max_memory_allocated()
+
+    t = Transcriber(exp, beam_size=BEAM, batch_size=B, pad_time_multiple=128, device="cuda")
+    t.warmup([max(len(f) for f in feats)])
+    n_batches = -(-len(feats) // B)
+    texts, wall, counts, peak = run(lambda: t.transcribe(feats))
+    want = {**dict.fromkeys(counts, 0), "lstm_scan_fusedin": n_batches,
+            "lstm_scan": 3 * n_batches}
+    if counts != want:
+        raise AssertionError(f"beam serve: launches {counts} != {want}")
+    if len(texts) != len(feats) or not all(set(s) <= vocab for s in texts):
+        raise AssertionError("beam serve: transcripts malformed")
+    log(f"[{card}] serve base-LAS bf16 beam {BEAM}: {len(feats)} utts in {n_batches} batches "
+        f"of {B}: {wall:.3f} s, {len(feats) / wall:.2f} utt/s, "
+        f"{wall / n_batches * 1e3:.1f} ms/batch, peak device memory {peak / 2**20:.1f} MiB; "
+        f"mean transcript {sum(map(len, texts)) / len(texts):.1f} chars; launches {counts}")
+
+    cfg_path = os.path.join(work, "infer-beam.yml")
+    with open(cfg_path, "w") as fh:
+        fh.write(f"SOME_FOLDER: {data}\nexp_folder: {exp}\nbatch_size: {INFER_BATCH}\n"
+                 f"pad_time_multiple: 256\nrun_all: true\nepoch_num: null\nrun_avg: true\n"
+                 f"beam_size: {BEAM}\n")
+    n_ckpts, n_infer = 3, -(-N_TEST_UTTS // INFER_BATCH)
+    _, wall, counts, peak = run(lambda: infer.main(
+        infer.build_argparser().parse_args(["-c", cfg_path, "--device", "cuda"])))
+    fwd = forward_launches(torch, torch.bfloat16, INFER_BATCH, H, 15)
+    want = {**dict.fromkeys(counts, 0), "lstm_scan_fusedin": fwd * n_infer * n_ckpts,
+            "lstm_scan": 3 * fwd * n_infer * n_ckpts}
+    if counts != want:
+        raise AssertionError(f"infer beam: launches {counts} != {want}")
+    for name in ("min-loss-ld-ppl-epoch[1]", "min-loss-ld-ppl-epoch[2]", "avg-all"):
+        check_preds(os.path.join(exp, "preds", f"{name}-tst.csv"), N_TEST_UTTS, "infer beam")
+    decoded = N_TEST_UTTS * n_ckpts
+    log(f"[{card}] infer base-LAS bf16 beam_size={BEAM}: {decoded} utts ({n_ckpts} "
+        f"checkpoints x {n_infer} batches of {INFER_BATCH}) in {wall:.3f} s (whole CLI run), "
+        f"{decoded / wall:.2f} utt/s, {wall / (n_infer * n_ckpts) * 1e3:.1f} ms/batch, peak "
+        f"device memory {peak / 2**20:.1f} MiB; launches {counts}")
+
+    batch = feats[:B]
+    t_pad = pad_to_multiple(max(map(len, batch)), 128)
+    x = np.zeros((B, t_pad, 15), np.float32)
+    for r, f in enumerate(batch):
+        x[r, : len(f)] = f
+    x = torch.from_numpy(x).cuda()
+    lx = torch.tensor([len(f) for f in batch], dtype=torch.int32).cuda()
+    kern_cfg = t.cfg.listener
+    plain_cfg = dataclasses.replace(kern_cfg, lstm_impl="scan")
+    sp, spl = t.params["speller"], t.cfg.speller
+    with torch.inference_mode():
+        enc_k, el = listener_apply(t.params["listener"], kern_cfg, x, lx)
+        enc_p, _ = listener_apply(t.params["listener"], plain_cfg, x, lx)
+        ids_k = beam_search(sp, spl, enc_k, el, BEAM)
+        ids_p = beam_search(sp, spl, enc_p, el, BEAM)
+        if not np.array_equal(ids_k, ids_p):
+            raise AssertionError("float32 beam ids differ, listener kernels against plain")
+        same = {}
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            enc, el = listener_apply(t.params["listener"], kern_cfg, x.to(dtype), lx)
+            one = beam_search(sp, spl, enc, el, 1)
+            greedy = greedy_decode_early_stop(sp, spl, enc, el).cpu().numpy()
+            same[name] = int((one == greedy).all(axis=1).sum())
+            if same[name] != B:
+                raise AssertionError(f"{name}: beam 1 differs from greedy in "
+                                     f"{B - same[name]} rows")
+    log(f"[{card}] beam {BEAM} float32 ids, listener kernels vs plain loops: equal in "
+        f"{B}/{B} rows; beam 1 equal to greedy in {same['float32']}/{B} (float32) and "
+        f"{same['bfloat16']}/{B} (bfloat16) rows")
+    for name, count in eval_beam_check(torch, card, t, x, lx).items():
+        launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+EVAL_LABELS = 64  # the dev labels' horizon, so the loss decode's steps
+
+
+def eval_beam_check(torch, card: str, t, x, lx) -> dict:
+    """The dev pass of a beam run (``make_las_eval_beam_step``, what
+    ``train.py`` runs for ``eval_beam_size > 1``) on one batch of phase 4's
+    utterances with seeded labels, on the kernel tier of ``t``'s model and
+    on the plain tier (``lstm_impl`` and ``decoder_impl`` scan), in float32
+    and bfloat16. The kernel tier launches the listener kernels and #8's
+    eval form once a batch, for the loss decode, and the beam nothing more
+    (the same counts with and without its ids); the loss is held to the
+    plain tier's (float32 ``TOL``, bfloat16 ``SPELLER_TRAIN_TOL`` of it)
+    and the float32 beam ids equal. Returns the bfloat16 kernel tier's
+    launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import make_las_eval_beam_step
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    rng = np.random.default_rng(SEED + 5)
+    batch = x.shape[0]
+    ly = torch.from_numpy(rng.integers(2, EVAL_LABELS + 1, batch)).to(torch.int32)
+    ly[0] = EVAL_LABELS
+    y = torch.from_numpy(rng.integers(1, 29, (batch, EVAL_LABELS)))
+    y[torch.arange(EVAL_LABELS)[None, :] >= ly[:, None].long() - 1] = 29  # <eos>, then PAD
+    y, ly = y.cuda(), ly.cuda()
+    plain_cfg = dataclasses.replace(
+        t.cfg, listener=dataclasses.replace(t.cfg.listener, lstm_impl="scan"),
+        speller=dataclasses.replace(t.cfg.speller, decoder_impl="scan"))
+    want = {"lstm_scan_fusedin": 1, "lstm_scan": 3, "speller_decode": 1}
+    kept, notes = {}, []
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        out = {}
+        for tier, cfg in (("kernels", t.cfg), ("plain", plain_cfg)):
+            step = make_las_eval_beam_step(cfg, BEAM, compute_dtype=dtype)
+            seen = []
+            for want_ids in (False, True):
+                lc.reset_launch_counts()
+                sc.reset_launch_counts()
+                metrics, ids = step(t.params, x, lx, y, ly, want_ids=want_ids)
+                torch.cuda.synchronize()
+                seen.append({k: v for k, v in {**lc.LAUNCHES, **sc.LAUNCHES}.items() if v})
+            wanted = want if tier == "kernels" else {}
+            if tier == "kernels" and dtype == torch.bfloat16:
+                kept = seen[-1]
+            if seen != [wanted, wanted]:
+                raise AssertionError(f"eval beam {name} {tier}: launches {seen} (without, with "
+                                     f"the beam), not {wanted}")
+            loss = float(metrics["loss"])
+            if not (np.isfinite(loss) and ids.shape == (batch, t.cfg.speller.CHR_MAX_STEPS)):
+                raise AssertionError(f"eval beam {name} {tier}: loss {loss}, ids {ids.shape}")
+            out[tier] = (loss, ids.numpy())
+        (loss_k, ids_k), (loss_p, ids_p) = out["kernels"], out["plain"]
+        err = abs(loss_k - loss_p)
+        tol = TOL["float32"] if dtype == torch.float32 else SPELLER_TRAIN_TOL[name] * abs(loss_p)
+        equal = int((ids_k == ids_p).all(axis=1).sum())
+        notes.append(f"{name} loss {loss_k:.6f} vs {loss_p:.6f} (|diff| {err:.3e}, tol "
+                     f"{tol:.3e}), beam ids equal in {equal}/{batch} rows")
+        if not err <= tol or (dtype == torch.float32 and equal != batch):
+            raise AssertionError(f"eval beam {name}: " + notes[-1])
+    log(f"[{card}] eval beam step (beam {BEAM}, {EVAL_LABELS}-step loss decode) B={batch}, "
+        f"kernel tier vs plain: " + "; ".join(notes) + f"; launches a dev batch {want}, "
+        f"none of them the beam's")
+    return kept
+
+
+# the model block of configs/rewriter.yml, both kernel tiers configured (the
+# file sets neither, so both default to scan)
+REWRITER_MODEL = {"emb_dim": 256, "enc_lstm_layers": 2, "enc_lstm_hid_dim": 256,
+                  "enc_dropouts": [0.2, 0.2], "att_proj_dim": 128, "att_heads": 1,
+                  "att_dropout": 0.2, "dec_lstm_layers": 2, "dec_lstm_hid_dim": 256,
+                  "dec_lstm_out_dim": 128, "dec_lstm_dropout": 0.2, "CHR_MAX_STEPS": 600,
+                  "lstm_impl": "pallas", "decoder_impl": "pallas"}
+# configs/lm-infer.yml's batch; prediction lines of 100-600 characters, so
+# the encoder length (the text's, with <sos> and <eos>, padded to 32) runs
+# to 608; a calibration set of 64 labelled pairs
+N_LM_LINES, LM_BATCH, N_CAL = 256, 256, 64
+MIN_CHARS, MAX_CHARS, LM_TE = 100, 600, 608
+REWRITER_H = 256
+WORDS = ("THE", "A", "OF", "AND", "TO", "IN", "HE", "WAS", "THAT", "IT", "HIS", "WITH",
+         "AS", "FOR", "HAD", "YOU", "NOT", "BE", "HER", "IS", "BUT", "SAID", "WHICH", "IT'S")
+
+
+def lm_line(rng, n_chars: int) -> str:
+    """About ``n_chars`` characters of words from ``WORDS``."""
+    words = []
+    while sum(len(w) + 1 for w in words) < n_chars:
+        words.append(WORDS[int(rng.integers(len(WORDS)))])
+    return " ".join(words)[:n_chars].strip()
+
+
+def make_lm_experiment(torch, root: str) -> str:
+    """A Rewriter experiment folder: configs/rewriter.yml's model block with
+    both kernel tiers, its bfloat16 policy, one seeded checkpoint."""
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch import EOS_IDX, SOS_IDX, VOCAB
+    from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
+        RewriterConfig,
+        rewriter_init,
+        rewriter_to_jax_params,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import save_checkpoint
+
+    snap = {"compute_dtype": "bfloat16", "VOCAB": list(VOCAB), "SOS_IDX": SOS_IDX,
+            "EOS_IDX": EOS_IDX, "model": {"tag": "base-Rewriter", "configs": REWRITER_MODEL}}
+    os.makedirs(os.path.join(root, "ckpts"))
+    with open(os.path.join(root, "config.json"), "w") as fh:
+        json.dump(snap, fh)
+    params = rewriter_to_jax_params(rewriter_init(RewriterConfig(**REWRITER_MODEL),
+                                                  torch.Generator().manual_seed(SEED)))
+    rng = np.random.default_rng(SEED)
+    for key in ("init_h1", "init_c1", "init_h2", "init_c2"):
+        params["decoder"][key] = rng.uniform(-0.5, 0.5, params["decoder"][key].shape
+                                             ).astype("float32")
+    save_checkpoint(os.path.join(root, "ckpts", "min-loss-epoch[1].ckpt"),
+                    {"params": params, "epoch": 1})
+    return root
+
+
+def make_lm_data(root: str, rng) -> dict:
+    """The prediction CSV with its template, and a calibration set: gold
+    transcripts (reference layout, <sos>/<eos> tagged) and predictions of
+    them with one character in 20 replaced."""
+    import numpy as np
+
+    tst = os.path.join(root, "test-clean")
+    os.makedirs(os.path.join(tst, "transcript"))
+    with open(os.path.join(tst, "transcript", "random_submission.csv"), "w") as fh:
+        fh.write("id,label\n" + "".join(f"{i},X\n" for i in range(N_LM_LINES)))
+    lines = [lm_line(rng, int(n)) for n in rng.integers(MIN_CHARS, MAX_CHARS + 1, N_LM_LINES)]
+    lines[0] = lm_line(rng, MAX_CHARS)
+    preds = os.path.join(root, "pred-test.csv")
+    with open(preds, "w") as fh:
+        fh.write("id,label\n" + "".join(f"{i},{s}\n" for i, s in enumerate(lines)))
+    cal_trans = os.path.join(root, "cal-trans")
+    os.makedirs(cal_trans)
+    cal = []
+    for i, n in enumerate(rng.integers(MIN_CHARS, MAX_CHARS + 1, N_CAL)):
+        gold = lm_line(rng, int(n))
+        np.save(os.path.join(cal_trans, f"{i:04d}.npy"), np.array(["<sos>", *gold, "<eos>"]))
+        noisy = [c if rng.random() > 0.05 else "Q" for c in gold]
+        cal.append("".join(noisy))
+    cal_pred = os.path.join(root, "pred-dev.csv")
+    with open(cal_pred, "w") as fh:
+        fh.write("id,label\n" + "".join(f"{i},{s}\n" for i, s in enumerate(cal)))
+    return {"tst": tst, "preds": preds, "cal_pred": cal_pred, "cal_trans": cal_trans,
+            "chars": sum(map(len, lines))}
+
+
+class capture:
+    """Records the arguments of every call of ``module.<name>`` inside the
+    block it wraps, calling through; the block's value is the list of
+    ``(args, kwargs)``. The module's own code looks the name up at each
+    call, so the main path's calls are the ones recorded."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.inner = inner = getattr(self.module, self.name)
+
+        def record(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return inner(*args, **kwargs)
+
+        setattr(self.module, self.name, record)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def rewriter_scan_record(torch, card: str, what: str, calls: list) -> dict:
+    """#1 (``lstm_scan``) held against its plain version (``TOL``) on the
+    Rewriter encoder's own layer inputs, recorded in a main-path run
+    (``calls`` of ``bilstm_apply_kernel``: layer, x, lengths; both layers
+    take ``lstm_scan``, their inputs being wider than 128); timed, with its
+    bound and nn.LSTM on the same input, at the call of the most frames.
+    Returns the record, its launches to be filled in."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+    checked = []
+    with torch.inference_mode():
+        for (layer, x, lengths), _ in calls:
+            fwd, bwd, dtype = layer["fwd"], layer["bwd"], x.dtype
+            w_ih = torch.cat([fwd["w_ih"], bwd["w_ih"]], dim=1).to(dtype)
+            b = torch.cat([fwd["b"], bwd["b"]]).to(dtype)
+            args = (torch.matmul(x, w_ih) + b, torch.stack([fwd["w_hh"], bwd["w_hh"]]).to(dtype),
+                    lengths, (False, True))
+            got = lc.lstm_scan(*args)
+            err = (got.float() - lc.lstm_scan_plain(*args).float()).abs().max().item()
+            checked.append((int(lengths.sum()), err, x, args, got))
+    dtype_name = str(x.dtype).split(".")[-1]
+    err = max(c[1] for c in checked)
+    shapes = sorted({tuple(c[2].shape) for c in checked}, reverse=True)
+    frames, _, x, args, got = max(checked, key=lambda c: c[0])
+    batch, seq, hid = x.shape[0], x.shape[1], args[1].shape[1]
+    with torch.inference_mode():
+        ms = cuda_median_ms(torch, lambda: lc.lstm_scan(*args), 10)
+        plain_ms = cuda_median_ms(torch, lambda: lc.lstm_scan_plain(*args), 2)
+    bound, bound_by = bound_ms(2 * frames * 2 * 4 * hid * hid,
+                               valid_bytes(frames, args[0]) + nbytes(args[1], args[2], got))
+    library_ms = nn_lstm_ms(torch, x.clone(), args[2], x.dtype, "infer", hidden=hid)
+    log(f"[{card}] lstm_scan (Rewriter) {dtype_name}, {what}: {len(calls)} calls at layer "
+        f"inputs {shapes}: max_abs_err {err:.3e} (tol {TOL[dtype_name]:g}); timed at B={batch} "
+        f"T={seq} D={x.shape[2]} ({frames} frames): kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+        f"bound {bound:.3f} ms ({bound_by})  nn.LSTM {fmt_ms(library_ms)} ms")
+    if not calls or not err <= TOL[dtype_name]:
+        raise AssertionError(f"lstm_scan (Rewriter) {dtype_name}: {len(calls)} calls, "
+                             f"max_abs_err {err}")
+    name = f"lstm_scan (Rewriter H={hid}{', float32' if x.dtype == torch.float32 else ''})"
+    return {"name": name, "route": "cuda",
+            "source": SOURCE if x.dtype == torch.float32 else TC_SOURCE,
+            "replaces": KERNELS["lstm_scan"][2], "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def rewriter_decode_check(torch, card: str, what: str, operands: tuple, opts: dict,
+                          enc_frames: int) -> dict:
+    """#8's eval form at the Rewriter's decoder widths held against its plain
+    version (``SPELLER_TOL``): the logits forced along the kernel's own ids,
+    and the attention weights; timed, with its bound. Returns a record, its
+    launches to be filled in."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import RewriterConfig
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    spl = RewriterConfig(**REWRITER_MODEL).speller_config()
+    opts = {k: v for k, v in opts.items() if k != "forced"}
+    dtype_name = str(operands[0].dtype).split(".")[-1]
+    batch, seq = operands[0].shape[:2]
+    with torch.inference_mode():
+        before = sc.LAUNCHES["speller_decode"]
+        logits, wgts, ids = sc.speller_decode(*operands, **opts)
+        torch.cuda.synchronize()
+        n_launch = sc.LAUNCHES["speller_decode"] - before
+        forced = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+        p_logits, p_wgts, _ = sc.speller_decode_plain(*operands, **opts, forced=forced)
+        ms = cuda_median_ms(torch, lambda: sc.speller_decode(*operands, **opts), 5)
+        plain_ms = cuda_median_ms(torch, lambda: sc.speller_decode_plain(*operands, **opts), 1)
+    vocab = spl.dec_vocab_size
+    err = (logits[..., :vocab].float() - p_logits[..., :vocab].float()).abs().max().item()
+    w_err = (wgts.float() - p_wgts.float()).abs().max().item()
+    tol, w_tol = SPELLER_TOL[dtype_name]
+    proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
+    per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2 + h2 * proj + 2 * proj * vocab)
+    flops = opts["steps"] * (batch * per_row + 4 * proj * enc_frames)
+    moved = nbytes(*(t for t in operands if torch.is_tensor(t)), logits, wgts, ids)
+    bound, bound_by = bound_ms(flops, moved)
+    log(f"[{card}] speller_decode (Rewriter) {dtype_name}, {what}: B={batch} Te={seq} "
+        f"T={opts['steps']} H1={h1} H2={h2} P={proj}, {n_launch} launches: forced logits "
+        f"max_abs_err {err:.3e} (tol {tol:g}), weights {w_err:.3e} (tol {w_tol:g}); kernel "
+        f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({bound_by})")
+    if n_launch != (2 if dtype_name == "bfloat16" and batch > 128 else 1):
+        raise AssertionError(f"speller_decode (Rewriter) {dtype_name}: {n_launch} launches")
+    if not (err <= tol and w_err <= w_tol):
+        raise AssertionError(f"speller_decode (Rewriter) {dtype_name}: errors {err}, {w_err}")
+    name = f"speller_decode (Rewriter, {dtype_name})"
+    source = SPELLER_SOURCE if dtype_name == "float32" else SPELLER_TC_SOURCE
+    return {"name": name, "route": "cuda", "source": source, "replaces": SPELLER_REPLACES,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def rewriter_bf16_decode_check(torch, card: str) -> None:
+    """#8's bfloat16 eval form at the Rewriter's decoder widths, B=256 (two
+    launches), Te=608, against its plain version. No bfloat16 path of the
+    chain runs it (``lminfer`` decodes in float32, the ``Corrector`` never
+    through the eval decode); held for the kernel at these widths."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import RewriterConfig, rewriter_init
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    lm_cfg = RewriterConfig(**REWRITER_MODEL)
+    spl = lm_cfg.speller_config()
+    batch, seq = LM_BATCH, LM_TE
+    lengths = torch.randint(MIN_CHARS + 2, seq + 1, (batch,), generator=gen)
+    lengths[0], lengths[1] = seq, 3
+    params = rewriter_init(lm_cfg, gen)["decoder"].cuda()
+    enc = torch.randn(batch, seq, 2 * REWRITER_H, generator=gen) * 0.5
+    enc[torch.arange(seq)[None, :] >= lengths[:, None]] = 0.0
+    with torch.inference_mode():
+        operands, _ = sc.decode_operands(params, spl, enc.to(torch.bfloat16).cuda(),
+                                         lengths.to(torch.int32).cuda())
+    rewriter_decode_check(torch, card, "generated encodings", operands,
+                          sc.decode_options(spl), int(lengths.sum()))
+
+
+LM_MODES = {
+    # mode: the infer YAML's decode and gate keys
+    "early_stop: false": "early_stop: false\ngate_correction: false\n",
+    "greedy": "gate_correction: false\n",
+    f"beam_size: {BEAM}": f"beam_size: {BEAM}\ngate_correction: false\n",
+    "gate, margin 0.1": "confidence_margin: 0.1\n",
+    "auto + span_rewrite": 'confidence_margin: "auto"\nspan_rewrite: true\n',
+}
+
+
+def rewriter_phase(torch, card: str, las_exp: str, feats: list, work: str) -> tuple:
+    """The Rewriter chain at configs/rewriter.yml's width (phase 16):
+    ``lminfer`` in each of ``LM_MODES`` over ``N_LM_LINES`` generated lines
+    (float32, as the JAX CLI decodes), the ``Corrector`` (the experiment's
+    bfloat16) behind a ``Transcriber`` on phase 4's utterances, and one
+    ``tools/serve_http --corrector`` burst. #1 and #8 are held against their
+    plain versions on the inputs that ``lminfer``'s fixed decode and the
+    ``Corrector`` gave them, and the ``Corrector`` against one on the plain
+    loops. Returns the records of the forms the chain launches and their
+    launches, keyed by name."""
+    import shutil
+
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch import VOCAB, VOCAB_MAP, lminfer
+    from attention_based_e2e_asr_dnn_tpu_torch.models import las
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Corrector, Transcriber
+
+    rng = np.random.default_rng(SEED + 3)
+    lm_exp = make_lm_experiment(torch, os.path.join(work, "lm-exp"))
+    data = make_lm_data(os.path.join(work, "lm-data"), rng)
+    f32_rows = ("lstm_scan (Rewriter H=256, float32)", "speller_decode (Rewriter, float32)")
+    bf16_row = "lstm_scan (Rewriter H=256)"
+    launches = dict.fromkeys((*f32_rows, bf16_row), 0)
+    records = {}
+    idle = ("lstm_scan_fusedin", "lstm_scan_train", "lstm_scan_fusedin_train", "lstm_bwd_dw",
+            "lstm_bwd", "lstm_scan_cs", "bilstm_scan_fused", "speller_decode_train",
+            "speller_decode_bwd")
+    for mode, keys in LM_MODES.items():
+        cfg_path = os.path.join(work, "lm-infer.yml")
+        with open(cfg_path, "w") as fh:
+            fh.write(f"TST_DIR: {data['preds']}\nTST_FOLDER: {data['tst']}\n"
+                     f"exp_folder: {lm_exp}\nbatch_size: {LM_BATCH}\nrun_all: false\n"
+                     f"epoch_num: 1\nrun_avg: false\nCAL_PRED_DIR: {data['cal_pred']}\n"
+                     f"CAL_TRANS_DIR: {data['cal_trans']}\n{keys}")
+        las.reset_decode_routes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lc.reset_launch_counts()
+        sc.reset_launch_counts()
+        fixed = mode == "early_stop: false"
+        with contextlib.ExitStack() as stack:
+            if fixed:  # the kernels' inputs in this run, held below
+                enc_calls = stack.enter_context(capture(lc, "bilstm_apply_kernel"))
+                dec_calls = stack.enter_context(capture(sc, "speller_decode"))
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(Tee(sys.stdout)) as tee:
+                lminfer.main(lminfer.build_argparser().parse_args(["-c", cfg_path,
+                                                                   "--device", "cuda"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = tee.getvalue()
+        counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        if (counts["lstm_scan"] <= 0 or counts["speller_decode"] != int(fixed)
+                or any(counts[k] for k in idle)):
+            raise AssertionError(f"lminfer {mode}: launches {counts}")
+        routes = las.decode_route_report()
+        if fixed and set(routes.values()) != {"cuda"}:
+            raise AssertionError(f"lminfer {mode}: decode routes {routes}")
+        preds = check_preds(os.path.join(lm_exp, "ckpts", "min-loss-epoch[1]-pred.csv"),
+                            N_LM_LINES, f"lminfer {mode}")
+        gate = [ln.strip() for ln in out.splitlines() if "gate kept" in ln or "auto-cal" in ln]
+        launches[f32_rows[0]] += counts["lstm_scan"]
+        launches[f32_rows[1]] += counts["speller_decode"]
+        log(f"[{card}] lminfer Rewriter float32 {mode}: {N_LM_LINES} lines "
+            f"({data['chars']} chars, {MIN_CHARS}-{MAX_CHARS} a line) in {wall:.3f} s (whole CLI "
+            f"run{', the calibration set first' if 'auto' in mode else ''}), "
+            f"{N_LM_LINES / wall:.2f} lines/s, peak device memory {peak / 2**20:.1f} MiB; "
+            f"mean output {sum(map(len, preds)) / len(preds):.1f} chars; {gate}; routes "
+            f"{routes}; launches {counts}")
+    what = "lminfer early_stop: false"
+    records[f32_rows[0]] = rewriter_scan_record(torch, card, what, enc_calls)
+    (operands, opts), = dec_calls
+    records[f32_rows[1]] = rewriter_decode_check(torch, card, what, operands, opts,
+                                                 int(enc_calls[0][0][2].sum()))
+    del enc_calls, dec_calls, operands
+    rewriter_bf16_decode_check(torch, card)
+    torch.cuda.empty_cache()
+
+    # the calibration's host work: the pure-Python edit distance of each
+    # prediction to its gold transcript, once for the inputs and once a
+    # candidate family; one such pass timed here
+    from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import LmTestDataset, _npy_files
+    from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import ids_to_str, levenshtein
+
+    cal = [ids_to_str(x, VOCAB, 0, 29) for x in LmTestDataset(data["cal_pred"], VOCAB_MAP)]
+    golds = ["".join(str(c) for c in np.load(f)[1:-1]) for f in _npy_files(data["cal_trans"])]
+    t0 = time.perf_counter()
+    for a, g in zip(cal, golds):
+        levenshtein(a, g)
+    log(f"[{card}] calibration host work: one pass of Levenshtein over the {len(cal)} "
+        f"pairs ({sum(map(len, cal))} / {sum(map(len, golds))} chars) "
+        f"{time.perf_counter() - t0:.3f} s (the auto mode takes one pass for the inputs "
+        f"and one a candidate family)")
+
+    corrector = Corrector(lm_exp, device="cuda")
+    plain = Transcriber(las_exp, batch_size=B, pad_time_multiple=128, device="cuda")
+    t = Transcriber(las_exp, batch_size=B, pad_time_multiple=128, corrector=corrector,
+                    device="cuda")
+    texts = plain.transcribe(feats)
+    corrector.correct(texts[:B])  # warm
+    torch.cuda.synchronize()
+    lc.reset_launch_counts()
+    with capture(lc, "bilstm_apply_kernel") as enc_calls:
+        t0 = time.perf_counter()
+        corrected = corrector.correct(texts)
+        torch.cuda.synchronize()
+        corr_wall = time.perf_counter() - t0
+    corr_counts = dict(lc.LAUNCHES)
+    lc.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = t.transcribe(feats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(lc.LAUNCHES)
+    n_batches = -(-len(feats) // B)
+    if served != corrected:
+        raise AssertionError("Transcriber(corrector=...) differs from correct(transcribe)")
+    if counts["lstm_scan"] != 3 * n_batches + corr_counts["lstm_scan"] or not \
+            corr_counts["lstm_scan"] > 0:
+        raise AssertionError(f"corrector: launches {counts}, the correction's {corr_counts}")
+    launches[bf16_row] += corr_counts["lstm_scan"]
+    changed = sum(a != b for a, b in zip(texts, corrected))
+    log(f"[{card}] Corrector (Rewriter bf16, beam {BEAM}, gate margin 0) over "
+        f"{len(feats)} transcripts of base-LAS (mean {sum(map(len, texts)) / len(texts):.1f} "
+        f"chars) in {n_batches} batches of {B}: {corr_wall:.3f} s, "
+        f"{corr_wall / n_batches * 1e3:.1f} ms/batch; {changed} rewritten; Transcriber with "
+        f"it: {wall:.3f} s, {len(feats) / wall:.2f} utt/s, equal to correct(transcribe); "
+        f"launches of the correction {corr_counts}")
+    records[bf16_row] = rewriter_scan_record(torch, card, "the Corrector's batches", enc_calls)
+    del enc_calls
+    # the same experiment on the plain loops
+    scan_exp = os.path.join(work, "lm-exp-scan")
+    shutil.copytree(lm_exp, scan_exp)
+    with open(os.path.join(scan_exp, "config.json")) as fh:
+        snap = json.load(fh)
+    snap["model"]["configs"]["lstm_impl"] = "scan"
+    with open(os.path.join(scan_exp, "config.json"), "w") as fh:
+        json.dump(snap, fh)
+    corrector_parity(torch, card, corrector, Corrector(scan_exp, device="cuda"), texts,
+                     corrected)
+
+    launches[bf16_row] += http_corrector_burst(torch, card, las_exp, lm_exp, feats)
+    return records, launches
+
+
+def corrector_parity(torch, card: str, corrector, plain, texts: list, corrected: list) -> None:
+    """The ``Corrector`` on the kernels against ``plain``, the same experiment
+    on the plain loops, over the same batches of ``texts``: in the
+    experiment's bfloat16 the gate's margins of the kernel tier's rewrites,
+    scored by each, within ``TOL``, and the served strings counted equal; in
+    float32 (the chain of each tier on the same weights) the beam rewrite
+    ids equal and their margins within ``TOL``."""
+    import dataclasses
+
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch.constants import EOS_IDX, SOS_IDX, VOCAB_MAP
+    from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
+    from attention_based_e2e_asr_dnn_tpu_torch.decoding.rescore import (
+        RewriteChain,
+        gate_corrections,
+    )
+
+    ids = [np.array([SOS_IDX] + [VOCAB_MAP[c] for c in t if c in VOCAB_MAP] + [EOS_IDX],
+                    np.int32) for t in texts]
+    batches = [(bt.x, bt.lx.astype(np.int32)) for bt in BucketBatcher(
+        ids, corrector.batch_size, pad_time_multiple=32, has_labels=False,
+        label_pad_id=EOS_IDX).epoch(0)]
+    same = sum(a == b for a, b in zip(corrected, plain.correct(texts)))
+    bf16_err = 0.0
+    for x, lx in batches:
+        dec = np.asarray(corrector.chain.step(corrector.params, x, lx))
+        (ck, ik), (cp, ip) = (gate_corrections(c.chain.scorer, c.params, x, lx, dec, EOS_IDX,
+                                               SOS_IDX)[1:] for c in (corrector, plain))
+        bf16_err = max(bf16_err, float(np.abs((ck - ik) - (cp - ip)).max()))
+    chains = [RewriteChain(dataclasses.replace(corrector.lm_cfg, lstm_impl=impl),
+                           torch.float32, beam_size=BEAM) for impl in ("pallas", "scan")]
+    f32_err, rows = 0.0, 0
+    for x, lx in batches:
+        (ids_k, m_k), (ids_p, m_p) = (ch(corrector.params, x, lx)["rewrite"] for ch in chains)
+        if not np.array_equal(ids_k, ids_p):
+            raise AssertionError("Corrector float32: beam rewrite ids differ, kernels "
+                                 "against plain loops")
+        f32_err, rows = max(f32_err, float(np.abs(m_k - m_p).max())), rows + len(lx)
+    log(f"[{card}] Corrector kernels vs plain loops over {len(texts)} transcripts in "
+        f"{len(batches)} batches: bfloat16 gate margins of the same rewrites max_abs_err "
+        f"{bf16_err:.3e} (tol {TOL['bfloat16']:g}), served strings equal in {same}/"
+        f"{len(texts)}; float32 beam {BEAM} rewrite ids equal in {rows}/{rows} rows, margins "
+        f"max_abs_err {f32_err:.3e} (tol {TOL['float32']:g})")
+    if not (bf16_err <= TOL["bfloat16"] and f32_err <= TOL["float32"]):
+        raise AssertionError(f"Corrector: margins differ, bfloat16 {bf16_err}, "
+                             f"float32 {f32_err}")
+
+
+def http_corrector_burst(torch, card: str, las_exp: str, lm_exp: str, feats: list) -> int:
+    """``tools/serve_http --corrector`` in-process on a free loopback port:
+    six POSTs at once; every reply equal to ``Transcriber(corrector=...)``
+    on the same utterance alone; returns the Rewriter's ``lstm_scan``
+    launches."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import serve_http
+
+    args = serve_http.build_argparser().parse_args(
+        [las_exp, "--host", "127.0.0.1", "--port", "0", "--batch-size", str(B),
+         "--corrector", lm_exp, "--corrector-margin", "0.05"])
+    serve_http.check_ported(args)
+    t, server = serve_http.start(args)
+    url = f"http://127.0.0.1:{server.port}/v1/transcribe"
+    # the Rewriter's launches: the count's rise inside each correct() (the
+    # queue's one dispatcher thread runs the listener and the corrector in
+    # turn)
+    inner, rewriter = t.corrector.correct, []
+
+    def correct(texts):
+        before = lc.LAUNCHES["lstm_scan"]
+        out = inner(texts)
+        rewriter.append(lc.LAUNCHES["lstm_scan"] - before)
+        return out
+
+    t.corrector.correct = correct
+
+    def post(f):
+        req = urllib.request.Request(url, data=json.dumps({"features": f.tolist()}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/v1/meta",
+                                    timeout=60) as resp:
+            meta = json.loads(resp.read())
+        if not meta["corrector"]:
+            raise AssertionError(f"http --corrector: /v1/meta {meta}")
+        lc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(6) as pool:
+            replies = list(pool.map(post, feats[:6]))
+        wall = time.perf_counter() - t0
+        counts, per_call = dict(lc.LAUNCHES), list(rewriter)
+    finally:
+        server.close()
+    vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
+    if not all(code == 200 and set(body["transcript"]) <= vocab for code, body in replies):
+        raise AssertionError(f"http --corrector: replies {replies}")
+    alone = [t.transcribe([f])[0] for f in feats[:6]]
+    same = sum(body["transcript"] == a for (_, body), a in zip(replies, alone))
+    # each correct() encodes each batch twice (the rewrite, the gate's
+    # scorer), one launch a layer for up to 128 rows
+    layers = len(t.corrector.params["encoder"])
+    if not per_call or any(n <= 0 or n % layers for n in per_call):
+        raise AssertionError(f"http --corrector: the Rewriter's launches {per_call} a "
+                             f"correct(), {layers} layers; all {counts}")
+    log(f"[{card}] serve_http --corrector (margin 0.05) burst of 6 POSTs: {wall:.3f} s; "
+        f"{same}/6 equal to the same utterance corrected alone (the queue batches them "
+        f"together); the Rewriter's lstm_scan launches {per_call} in {len(per_call)} "
+        f"correct() calls; all launches {counts}")
+    return sum(per_call)
+
+
 def main() -> int:
     try:
         import torch
@@ -2190,6 +2938,10 @@ def main() -> int:
         data = make_test_set(os.path.join(root, "test-clean"), rng)
         with phase("14 infer CLI"):
             infer_launches = infer_phase(torch, card, exp, data, root)
+        with phase("15 beam search: serve, infer CLI, parity"):
+            beam_launches = beam_phase(torch, card, exp, feats, data, root)
+        with phase("16 Rewriter chain: lminfer, Corrector, HTTP, kernels on their inputs"):
+            rewriter_records, rewriter_launches = rewriter_phase(torch, card, exp, feats, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del t
@@ -2217,11 +2969,17 @@ def main() -> int:
         raise AssertionError("the port imported jax")
 
     # launches in the main-path runs: serving (direct, then over HTTP), then
-    # infer early_stop true/false; the training kernels in the timed steps of
-    # the train phase with both kernel tiers
+    # infer early_stop true/false, then beam search served and through the
+    # infer CLI; the training kernels in the timed steps of the train phase
+    # with both kernel tiers
     for name in records:
         records[name]["launches"] = (launches.get(name, 0) + http_launches.get(name, 0)
-                                     + infer_launches[name])
+                                     + infer_launches[name] + beam_launches.get(name, 0))
+    # the Rewriter's rows: lminfer's modes (float32), the Corrector behind a
+    # Transcriber and over HTTP (bfloat16)
+    for name, record in rewriter_records.items():
+        record["launches"] = rewriter_launches[name]
+    records.update(rewriter_records)
     for name, record in train_records.items():
         record["launches"] = train_launches[name]
     records.update(train_records)

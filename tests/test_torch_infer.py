@@ -113,11 +113,8 @@ def test_infer_main_refusals(toy, tmp_path, monkeypatch):
     missing = _infer_yaml(str(tmp_path), "missing", data, exp, epoch_num=7)
     with pytest.raises(FileNotFoundError, match=r"epoch\[7\]"):
         tinfer.main(tinfer.build_argparser().parse_args(["-c", missing, "--device", "cpu"]))
-    beam = _infer_yaml(str(tmp_path), "beam", data, exp, run_all=True, beam_size=4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tinfer.main(tinfer.build_argparser().parse_args(["-c", beam, "--device", "cpu"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    args = tinfer.build_argparser().parse_args(["-c", beam])
+    args = tinfer.build_argparser().parse_args(["-c", missing])
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tinfer.main(args)

@@ -475,3 +475,42 @@ def test_bf16_wide_adjoint_is_one_launch_of_both_directions_on_card(cuda_device,
     assert lstm_cuda.LAUNCHES["lstm_bwd"] == 1
     ref = lstm_cuda.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)
     torch.testing.assert_close(dpre.float(), ref.float(), atol=_tol(torch.bfloat16, ref), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,width", [(256, 160), (64, 352), (32, 352), (8, 96)],
+                         ids=["lminfer", "corrector-score", "corrector-beam", "http"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_rewriter_encoder_on_the_kernels_on_card(cuda_device, dtype, atol, batch, width):
+    """The Rewriter's encoder (configs/rewriter.yml: 2 BiLSTM layers of 256
+    over a 256-wide embedding, so both layers take ``lstm_scan`` over inputs
+    of 256 and 512) on the kernels against the plain loops, at the batches
+    ``lminfer`` (256) and the ``Corrector`` run (32 rows a beam batch, 64 for
+    the gate's stacked scorer, a few rows behind the HTTP queue) over texts
+    up to ``width`` characters: bf16 one launch a layer per 128 rows,
+    float32 one per 32."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
+        RewriterConfig,
+        rewriter_encode,
+        rewriter_init,
+    )
+
+    model = dict(emb_dim=256, enc_lstm_layers=2, enc_lstm_hid_dim=256, att_proj_dim=128,
+                 att_heads=1, dec_lstm_hid_dim=256, dec_lstm_out_dim=128)
+    kern_cfg = RewriterConfig(**model, lstm_impl="pallas")
+    plain_cfg = RewriterConfig(**model, lstm_impl="scan")
+    gen = torch.Generator().manual_seed(12)
+    params = rewriter_init(kern_cfg, gen).to(cuda_device)
+    lx = torch.randint(3, width + 1, (batch,), generator=gen).to(torch.int32)
+    lx[0], lx[-1] = width, 3
+    x = torch.randint(1, 29, (batch, width), generator=gen)
+    x[torch.arange(width)[None, :] >= lx[:, None].long()] = 29
+    lstm_cuda.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = rewriter_encode(params, kern_cfg, x, lx, dtype)
+        torch.cuda.synchronize()
+        per_layer = -(-batch // (128 if dtype == torch.bfloat16 else 32))
+        assert lstm_cuda.LAUNCHES == {**dict.fromkeys(lstm_cuda.LAUNCHES, 0),
+                                      "lstm_scan": 2 * per_layer}
+        ref, _ = rewriter_encode(params, plain_cfg, x, lx, dtype)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)

@@ -335,10 +335,6 @@ def test_readyz_gates_on_auto_warmup(http_server):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--corrector-span-family", "f90"], "item 9"),
-    (["--corrector-margin", "0.2"], "item 9"),
-    (["--corrector", "lm_experiments/x"], "item 9"),
-    (["--beam-size", "4"], "item 9"),
     (["--data-parallel", "2"], "item 11"),
     (["--artifact", "las.tlas"], "item 8b"),
 ])
@@ -347,6 +343,54 @@ def test_serve_http_names_the_roadmap_item_of_unported_flags(tmp_path, flags, it
     and name their ROADMAP item instead of serving without them."""
     with pytest.raises(NotImplementedError, match=item):
         cli.main([str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags", [["--corrector-span-family", "f90"],
+                                   ["--corrector-margin", "0.2"]])
+def test_serve_http_refuses_corrector_flags_without_a_corrector(tmp_path, flags):
+    """As the JAX tool: these flags without ``--corrector`` would serve no
+    correction at all, so the parser refuses them."""
+    with pytest.raises(SystemExit):
+        cli.main([str(tmp_path), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--beam-size", "4"], ["--corrector", "LM"],
+                                   ["--corrector", "LM", "--corrector-span-family", "conf",
+                                    "--corrector-margin", "-0.5"]],
+                         ids=["beam", "corrector", "corrector-span"])
+def test_serve_http_serves_beam_and_corrected_text(http_server, tmp_path, flags):
+    """``--beam-size`` and ``--corrector`` (with its flags) reach the
+    Transcriber: a POST returns what a Transcriber built with the same
+    options, beam search or the gated Rewriter, transcribes directly."""
+    from test_torch_lminfer import make_lm_experiment
+
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Corrector, Transcriber
+
+    server, _ = http_server
+    lm = make_lm_experiment(str(tmp_path / "lm")) if "LM" in flags else None
+    flags = [lm if f == "LM" else f for f in flags]
+    args = cli.build_argparser().parse_args(
+        [server.run_dir, "--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+         "--batch-size", "4", "--pad-time-multiple", "16", *flags])
+    cli.check_ported(args)
+    t2, srv = cli.start(args)
+    try:
+        corrector = None
+        if lm is not None:
+            assert t2.corrector is not None
+            span = args.corrector_span_family
+            corrector = Corrector(lm, confidence_margin=args.corrector_margin,
+                                  span_rewrite=span is not None, span_family=span or "best",
+                                  device="cpu")
+        direct = Transcriber(server.run_dir, batch_size=4, pad_time_multiple=16,
+                             beam_size=args.beam_size, corrector=corrector, device="cpu")
+        feats = [np.random.default_rng(i).standard_normal((12 + 5 * i, 15)).astype(np.float32)
+                 for i in range(3)]
+        code, body = _post(f"http://127.0.0.1:{srv.port}/v1/transcribe",
+                           {"instances": [{"features": f.tolist()} for f in feats]})
+        assert code == 200 and body["transcripts"] == direct.transcribe(feats)
+    finally:
+        srv.close()
 
 
 def test_serve_http_starts_a_server_on_the_cpu(http_server):

@@ -137,8 +137,7 @@ def test_transcriber_matches_jax_transcriber(tmp_path):
         stream.submit(feats[0])
 
 
-@pytest.mark.parametrize("kwargs", [{"beam_size": 4}, {"corrector": object()},
-                                    {"data_parallel": 2}])
+@pytest.mark.parametrize("kwargs", [{"data_parallel": 2}])
 def test_transcriber_rejects_unported_options(tmp_path, kwargs):
     exp = _make_experiment(str(tmp_path / "exp"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -578,11 +578,13 @@ def test_bf16_widened_blocks_on_the_tensor_core_forward_on_card(cuda_device, blo
             assert _rel_err(got, want) <= REL_TOL[torch.bfloat16], name
 
 
-def _bwd_case(device, batch, heads, drop, changes=None, steps=24, seed=0, hold_forward=False):
+def _bwd_case(device, batch, heads, drop, changes=None, steps=24, seed=0, hold_forward=False,
+              te=37, launches=1):
     """The adjoint's operands from a training forward in bfloat16 (with
     ``hold_forward``, that forward's logits, weights and streams held to its
-    plain version fed its ids, within four bf16 steps, one launch)."""
-    cfg, params, enc, lengths = _setup(device, batch=batch, te=37,
+    plain version fed its ids, within four bf16 steps, in ``launches``
+    launches)."""
+    cfg, params, enc, lengths = _setup(device, batch=batch, te=te,
                                        **{**(changes or {}), "att_heads": heads})
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -597,7 +599,7 @@ def _bwd_case(device, batch, heads, drop, changes=None, steps=24, seed=0, hold_f
     logits, wgts, _, saved = speller_cuda.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
     if hold_forward:
         torch.cuda.synchronize()
-        assert speller_cuda.LAUNCHES["speller_decode_train"] == 1
+        assert speller_cuda.LAUNCHES["speller_decode_train"] == launches
         p_logits, p_wgts, _, p_saved = speller_cuda.speller_decode_train_plain(
             *operands, **opts, forced=saved[0], m1=m1, m2=m2)
         v = cfg.dec_vocab_size
@@ -775,3 +777,91 @@ def test_bf16_bwd_refused_shape_raises_on_card(cuda_device):
     with pytest.raises(ValueError, match="multiples of 64"):
         speller_cuda.speller_decode_bwd(*operands(96, 64, 64), heads=1, scale=1.0)
     assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 0
+
+
+# decoder blocks the reference takes whose weight tiles leave too little
+# shared memory for four ring stages of 128 rows: the bfloat16 forward takes
+# a batch of 128 in two 64-row spans (the adjoint keeps one 128-row launch)
+SPANS_64 = {
+    "H1 768, H2 384, P 1024": {"att_proj_dim": 1024, "dec_emb_dim": 2048,
+                               "dec_lstm_hid_dim": 768, "dec_lstm_out_dim": 384},
+    "H1 1024, H2 512, P 512": {"att_proj_dim": 512, "dec_emb_dim": 1024,
+                               "dec_lstm_hid_dim": 1024, "dec_lstm_out_dim": 512},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", list(SPANS_64))
+def test_bf16_64_row_spans_on_card(cuda_device, block):
+    """B=128 at the two blocks, Te 192: the eval form and the training form
+    in two 64-row launches against their plain versions fed the kernel's
+    ids, then the adjoint of that training forward against its plain
+    version."""
+    changes = {**BASE_SPELLER, **SPANS_64[block]}
+    lim = speller_cuda.tc_kernel_limits(cuda_device.index or 0)
+    cfg, params, enc, lengths = _setup(cuda_device, batch=128, te=192, **changes)
+    plan = speller_cuda.plan_decode_tc(128, 192, cfg.att_proj_dim, 1, cfg.dec_lstm_hid_dim,
+                                       cfg.dec_lstm_out_dim, 32, lim["sms"], lim["smem_optin"])
+    assert [(ln.r0, ln.r1) for ln in plan.launches] == [(0, 64), (64, 128)]
+    vocab_tol, w_tol = TOL[torch.bfloat16]
+    with torch.inference_mode():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16), lengths)
+        opts = {**speller_cuda.decode_options(cfg), "steps": 24}
+        speller_cuda.reset_launch_counts()
+        logits, wgts, ids = speller_cuda.speller_decode(*operands, **opts)
+        torch.cuda.synchronize()
+        assert speller_cuda.LAUNCHES["speller_decode"] == 2
+        own = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+        ref_logits, ref_wgts, _ = speller_cuda.speller_decode_plain(*operands, **opts,
+                                                                     forced=own)
+    v = cfg.dec_vocab_size
+    torch.testing.assert_close(logits[..., :v].float(), ref_logits[..., :v].float(),
+                               atol=vocab_tol, rtol=0)
+    torch.testing.assert_close(wgts.float(), ref_wgts.float(), atol=w_tol, rtol=0)
+    args, dwup, kw = _bwd_case(cuda_device, 128, 1, 0.3, changes, hold_forward=True, te=192,
+                               launches=2)
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, dwup, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 1
+    want = speller_cuda.speller_decode_bwd_plain(*args, dwup, **kw)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], name
+
+
+# the Rewriter's decoder (configs/rewriter.yml): H1 256, H2 128, P 128, one
+# head, over a BiLSTM of 256 a direction; its encoder length is the text's
+REWRITER_SPELLER = {"att_proj_dim": 128, "att_heads": 1, "dec_emb_dim": 256,
+                    "dec_lstm_hid_dim": 256, "dec_lstm_out_dim": 128}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,batch,launches", [(torch.float32, 256, 1),
+                                                  (torch.bfloat16, 256, 2)])
+def test_eval_decode_at_the_rewriter_widths_on_card(cuda_device, dtype, batch, launches):
+    """The eval form at the Rewriter's widths over a text-length encoder
+    (Te 608, lengths down to 1), against the plain version fed the
+    kernel's ids."""
+    cfg = las_config_from_dicts({**LISTENER, "uniform_hid_dim": 256},
+                                {**SPELLER, **REWRITER_SPELLER})
+    gen = torch.Generator().manual_seed(11)
+    params = las_init(cfg, gen)["speller"].to(cuda_device)
+    lengths = torch.randint(1, 609, (batch,), generator=gen)
+    lengths[0] = 608
+    enc = (torch.randn(batch, 608, 512, generator=gen) * 0.5).to(cuda_device, dtype)
+    vocab_tol, w_tol = TOL[dtype]
+    with torch.inference_mode():
+        operands, _ = speller_cuda.decode_operands(params, cfg.speller, enc,
+                                                   lengths.to(cuda_device))
+        opts = {**speller_cuda.decode_options(cfg.speller), "steps": 32}
+        speller_cuda.reset_launch_counts()
+        logits, wgts, ids = speller_cuda.speller_decode(*operands, **opts)
+        torch.cuda.synchronize()
+        assert speller_cuda.LAUNCHES["speller_decode"] == launches
+        own = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+        ref_logits, ref_wgts, _ = speller_cuda.speller_decode_plain(*operands, **opts,
+                                                                     forced=own)
+    v = cfg.speller.dec_vocab_size
+    torch.testing.assert_close(logits[..., :v].float(), ref_logits[..., :v].float(),
+                               atol=vocab_tol, rtol=0)
+    torch.testing.assert_close(wgts.float(), ref_wgts.float(), atol=w_tol, rtol=0)

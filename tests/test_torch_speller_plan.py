@@ -129,11 +129,12 @@ def test_shared_memory_bytes():
     ((8, 192, 256, 1, 512, 256, 32, SMS, 100000), "device's limit is 100000"),
     # the widened geometry's limits: at most 8 cell-1 and 4 cell-2 units a
     # block, 8 query columns a block, the shared memory (H1 1024 with H2 512
-    # at 128 rows)
+    # and P 1024: the weight tiles leave no room for four stages even of 64
+    # rows; H1 1024, H2 512, P 256 at 128 rows now takes 64-row spans)
     ((8, 192, 256, 1, 512, 1024, 32, SMS, SMEM_LIMIT), "H2 1024 above 512"),
     ((8, 192, 256, 1, 512, 512, 32, 100, SMEM_LIMIT), "H2 512 above 256"),
     ((8, 192, 1024, 1, 256, 128, 32, 100, SMEM_LIMIT), "P 1024 above 8 x 64"),
-    ((128, 192, 256, 1, 1024, 512, 32, SMS, SMEM_LIMIT), "needs .* device's limit"),
+    ((128, 192, 1024, 1, 1024, 512, 32, SMS, SMEM_LIMIT), "needs .* device's limit"),
 ])
 def test_refused_shapes_raise(shape, match):
     if match is None:
@@ -141,6 +142,52 @@ def test_refused_shapes_raise(shape, match):
         return
     with pytest.raises(ValueError, match=match):
         speller_cuda.plan_decode_tc(*shape)
+
+
+def _span_classes():
+    """The decoder blocks of multiples of 128 the reference takes (H1 up to
+    1024, H2 up to 512, P up to 1024; 1 or 4 heads) at Te 192 whose weight
+    tiles leave too little room for the ring's stages of 128 rows: those that
+    fit four stages of 64 rows, and those that fit at no batch."""
+    fit64, never = [], []
+    for h1, h2, proj, heads in itertools.product(range(128, 1025, 128), range(128, 513, 128),
+                                                 range(128, 1025, 128), (1, 4)):
+        blocks = speller_cuda.tc_blocks(h1, h2, SMS)
+        at = {rows: speller_cuda.decode_tc_smem_bytes(rows, 192, proj, heads, h1, h2, blocks)
+              for rows in (128, 64)}
+        if at[128][1] >= 4 and at[128][0] <= SMEM_LIMIT:
+            continue
+        (fit64 if at[64][1] >= 4 else never).append((proj, heads, h1, h2))
+    return fit64, never
+
+
+FIT_64_ROWS, NEVER_FIT = _span_classes()
+
+
+def test_span_classes_are_counted():
+    assert (len(FIT_64_ROWS), len(NEVER_FIT)) == (61, 26)
+    assert {(1024, 1, 768, 384), (512, 1, 1024, 512), (1024, 1, 1024, 256)} <= set(FIT_64_ROWS)
+    assert {(1024, 1, 1024, 512), (768, 1, 896, 512), (640, 4, 1024, 384)} <= set(NEVER_FIT)
+
+
+@pytest.mark.parametrize("width", FIT_64_ROWS, ids=str)
+def test_wide_blocks_take_64_row_spans(width):
+    """Where a 128-row span does not fit the ring's four stages, the batch
+    goes in 64-row spans, each its own launch; narrower blocks keep 128."""
+    plan = _plan(128, width)
+    assert [(ln.r0, ln.r1) for ln in plan.launches] == [(0, 64), (64, 128)]
+    assert all(ln.stages >= 4 and ln.smem <= SMEM_LIMIT for ln in plan.launches)
+    assert [(ln.r0, ln.r1) for ln in _plan(130, width).launches] == \
+        [(0, 64), (64, 128), (128, 130)]
+    assert [(ln.r0, ln.r1) for ln in _plan(64, width).launches] == [(0, 64)]
+
+
+@pytest.mark.parametrize("width", NEVER_FIT, ids=str)
+def test_blocks_too_wide_for_any_span_raise(width):
+    """The weight tiles with the fixed buffers alone leave no room for four
+    stages even of 64 rows: the shared-memory ValueError at any batch."""
+    with pytest.raises(ValueError, match="shared memory a block .* device's limit"):
+        _plan(32, width)
 
 
 def test_limits_mirror_the_source():

@@ -38,7 +38,9 @@ def test_every_module_imports_without_jax():
     modules = _port_modules()
     assert len(modules) >= 25 and f"{port.__name__}.training.steps" in modules
     assert {f"{port.__name__}.{m}" for m in ("data.lazy", "data.native_loader", "server",
-                                             "tools.serve_http")} <= set(modules)
+                                             "tools.serve_http", "decoding.select",
+                                             "decoding.beam", "decoding.rescore",
+                                             "models.rewriter", "lminfer")} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         "for name in ('jax', 'jaxlib', 'optax', 'attention_based_e2e_asr_dnn_tpu'):\n"

@@ -302,7 +302,7 @@ def _batchers(corpus, dataset_cls, batcher_cls):
     return trn, dev
 
 
-def _jax_trainer(corpus, folder, extra=None):
+def _jax_trainer(corpus, folder, extra=None, **kwargs):
     def make_apply(scale):
         def apply_fn(params, rng, x, lx, dec_y=None, tf_rate=1.0, init_force=False,
                      train=False):
@@ -314,16 +314,17 @@ def _jax_trainer(corpus, folder, extra=None):
     return JTrainer(init_fn=lambda rng: jlas.las_init(jax.random.key(0), TINY),
                     make_apply=make_apply, trn_batcher=trn, dev_batcher=dev,
                     trncfgs=JConfig({**TRN, **(extra or {})}), saving_dir=str(folder),
-                    milestone_dir=str(folder / "milestones"), sos_idx=0, eos_idx=29)
+                    milestone_dir=str(folder / "milestones"), sos_idx=0, eos_idx=29,
+                    **kwargs)
 
 
-def _port_trainer(corpus, folder, extra=None):
+def _port_trainer(corpus, folder, extra=None, **kwargs):
     trn, dev = _batchers(corpus, AsrTrainDevDataset, BucketBatcher)
     return Trainer(init_fn=lambda generator: tlas.las_from_jax_params(_tiny_params()),
                    make_apply=ttrain.make_las_apply_factory(T_TINY), trn_batcher=trn,
                    dev_batcher=dev, trncfgs=Config({**TRN, **(extra or {})}),
                    saving_dir=str(folder), milestone_dir=str(folder / "milestones"),
-                   sos_idx=0, eos_idx=29, device="cpu")
+                   sos_idx=0, eos_idx=29, device="cpu", **kwargs)
 
 
 def _record(trainer):
@@ -484,16 +485,36 @@ def test_crash_save_and_ld_interval(corpus, tmp_path):
 # What is not ported raises, and names where it waits
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["shard_batch", "shard_state", "pipeline", "dp_mesh",
-                                  "eval_beam_step"])
+@pytest.mark.parametrize("name", ["shard_batch", "shard_state", "pipeline", "dp_mesh"])
 def test_trainer_arguments_not_ported_raise(corpus, tmp_path, name):
     trn, dev = _batchers(corpus, AsrTrainDevDataset, BucketBatcher)
     kwargs = dict(init_fn=None, make_apply=None, trn_batcher=trn, dev_batcher=dev,
                   trncfgs=Config(TRN), saving_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP queue 1, item (9|11)"):
+    with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP queue 1, item 11"):
         Trainer(**kwargs, **{name: object()})
     with pytest.raises(TypeError, match="unexpected argument"):
         Trainer(**kwargs, no_such_argument=1)
+
+
+def test_trainer_eval_beam_step_matches_jax(corpus, tmp_path):
+    """``eval_beam_step``: the dev pass takes its loss from the free-running
+    decode and its LD from beam search over one listener pass. One epoch of
+    each Trainer from the same parameters: the same dev loss and beam LD."""
+    from attention_based_e2e_asr_dnn_tpu.decoding.beam import make_las_eval_beam_step as j_step
+    from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import (
+        make_las_eval_beam_step as t_step,
+    )
+
+    records = {}
+    for name, build, step in (("jax", _jax_trainer, j_step(TINY, 4, length_alpha=0.5)),
+                              ("port", _port_trainer, t_step(T_TINY, 4, length_alpha=0.5))):
+        folder = tmp_path / name
+        folder.mkdir()
+        trainer = build(corpus, folder, eval_beam_step=step)
+        trainer.train_eval(1)
+        records[name] = _record(trainer)
+    _assert_records_close(records["port"], records["jax"])
+    assert records["port"]["dev"]["ld"][0] > 0
 
 
 def test_trainer_profile_block_and_missing_card_raise(corpus, tmp_path):
@@ -527,7 +548,6 @@ def _cli_config(corpus, exp, **extra):
      "parallel.*queue 1, item 11"),
     ({"parallel": {"use": True, "data": None, "model": 2}}, ValueError,
      "tensor parallelism.*lstm_impl and speller_configs.decoder_impl is 'pallas'"),
-    ({"eval_beam_size": 4}, NotImplementedError, "eval_beam_size.*queue 1, item 9"),
     ({"export_artifact": {"batch": 8}}, NotImplementedError, "export_artifact.*item 8"),
     ({"profile": {"use": True, "epoch": 0}}, NotImplementedError, "profile.*item 12"),
 ])
@@ -535,6 +555,24 @@ def test_cli_settings_not_ported_raise(corpus, tmp_path, extra, exc, match):
     path = _cli_config(corpus, tmp_path, **extra)
     with pytest.raises(exc, match=match):
         ttrain.main(ttrain.build_argparser().parse_args(["-c", path, "--device", "cpu"]))
+
+
+def test_cli_with_eval_beam_size_takes_the_beam_dev_ld(corpus, tmp_path):
+    """``eval_beam_size: 4`` wires the beam's eval step into the Trainer: the
+    epoch's dev LD is the beam's over the dev batches, recomputed here from
+    the trained parameters."""
+    from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import batch_levenshtein
+
+    path = _cli_config(corpus, tmp_path / "exp", eval_beam_size=4, length_alpha=0.5, epochs=1)
+    trainer = ttrain.main(ttrain.build_argparser().parse_args(["-c", path, "--device", "cpu"]))
+    assert trainer.eval_beam_step is not None
+    lds = []
+    for bt in trainer.dev_batcher.epoch(0):
+        args = [torch.from_numpy(a) for a in (bt.x, bt.lx, bt.y, bt.ly)]
+        _, ids = trainer.eval_beam_step(trainer.state.params, *args)
+        real = bt.indices >= 0
+        lds.append(batch_levenshtein(ids.numpy()[real], bt.y[real], bt.ly[real], 0, 29))
+    assert trainer.dev_history["ld"] == [pytest.approx(float(np.mean(lds)), abs=1e-9)]
 
 
 def test_cli_without_a_card_raises(corpus, tmp_path):
