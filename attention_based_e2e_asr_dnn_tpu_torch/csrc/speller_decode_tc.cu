@@ -76,6 +76,17 @@
 //     forced id >= 0, else the argmax) as a one-hot row into the exchange
 //     that cell 1 reads. The row's residual streams (gates, c) are stored
 //     after a cell's publish: no block reads them during the launch.
+//   * Streamed cell-1 weights (STREAM). Where the resident tiles with the
+//     fixed buffers leave the ring fewer than DT_MIN_STAGES stages even of 64
+//     rows (H1 896-1024 with H2 256-512 and P 640-1024: the cell-1 tile alone
+//     is up to 132 KB), cell 1's weight columns stream through the ring
+//     instead: each of its stages carries the input box and, behind it, the
+//     block's N1 weight rows of the same 64 k (a TMA box of the K-major copy
+//     ops/speller_cuda.py::stream_weights lays out, in the resident tile's
+//     order), both on the stage's `full` mbarrier, as speller_bwd_tc.cu
+//     streams its weights. Cell 2 and the query stay resident. The products,
+//     their k order and their sums are the resident form's, so the two forms
+//     give the same bits.
 //   * Synchronisation. No grid barrier: four monotonic counters, one a phase,
 //     each block adding one (release) when its part of the phase is stored,
 //     waited for (acquire) by one thread of a block. Writes that other
@@ -172,7 +183,10 @@ enum TcPtr {
   T_WHH2, T_B2, T_WQ, T_BQ, T_WCLS, T_CLSB, T_FORCED, T_LOGITS, T_WGTS, T_IDS,
   T_H1X, T_H2X, T_CTXX, T_SELX, T_QX,
   // the training form's masks (null: no dropout) and residual streams
-  T_M1, T_M2, T_SEL, T_GATES1, T_C1R, T_GATES2, T_C2R, N_TC_PTRS
+  T_M1, T_M2, T_SEL, T_GATES1, T_C1R, T_GATES2, T_C2R,
+  // the streamed form's cell-1 weights, (G N1, H1 + P + DT_SEL) K-major (null:
+  // the resident form)
+  T_W1S, N_TC_PTRS
 };
 // int slots
 enum TcDim { E_B, E_LDB, E_TE, E_T, E_P, E_HEADS, E_H1, E_H2, E_VP, E_SOS, E_G, N_TC_DIMS };
@@ -185,16 +199,21 @@ struct DecodeTcArgs {
 
 // The block's shared memory, in this order after the slack that puts it on
 // a 1024-byte boundary: the weight tiles of cell 1 (N1 = 8 NC1 columns, K =
-// H1 + P + DT_SEL), cell 2 (N2 = 8 NC2 columns, K = H2 + H1) and the query
-// (8 columns, K = H2); the ring, stages of the launch's rows rounded up to
-// 64 (64 or 128) x 64 columns; the gate tile (128 rows x the widest N + 8
-// fp32); the attention's fp32 buffers (q, ctx, classifier partials, the
-// context's group sums, the scores of every head); the mbarriers. The ring
-// takes what the rest leaves of TC_SMEM_LIMIT, at most DT_MAX_STAGES.
+// H1 + P + DT_SEL; not in the streamed form), cell 2 (N2 = 8 NC2 columns, K
+// = H2 + H1) and the query (8 columns, K = H2); the ring, stages of the
+// launch's rows rounded up to 64 (64 or 128) x 64 columns, then in the
+// streamed form N1 weight rows x 64 k; the gate tile (128 rows x the widest
+// N + 8 fp32); the attention's fp32 buffers (q, ctx, classifier partials,
+// the context's group sums, the scores of every head); the mbarriers. The
+// ring takes what the rest leaves of TC_SMEM_LIMIT, at most DT_MAX_STAGES.
 __host__ __device__ inline int dt_box_rows(int B) { return B > 64 ? 128 : 64; }
-__host__ __device__ inline size_t dt_w_bytes(int H1, int H2, int P, int NC1, int NC2) {
-  return (size_t)((H1 + P + DT_SEL) / DT_KC) * 8 * NC1 * 128 +
-         (size_t)((H2 + H1) / DT_KC) * 8 * NC2 * 128 + (size_t)(H2 / DT_KC) * DT_QCOLS * 128;
+__host__ __device__ inline size_t dt_w1_bytes(int H1, int P, int NC1) {
+  return (size_t)((H1 + P + DT_SEL) / DT_KC) * 8 * NC1 * 128;
+}
+__host__ __device__ inline size_t dt_w_bytes(int H1, int H2, int P, int NC1, int NC2,
+                                             bool stream) {
+  return (stream ? 0 : dt_w1_bytes(H1, P, NC1)) + (size_t)((H2 + H1) / DT_KC) * 8 * NC2 * 128 +
+         (size_t)(H2 / DT_KC) * DT_QCOLS * 128;
 }
 __host__ __device__ inline size_t dt_red_bytes(int NC1, int NC2) {
   return (size_t)DT_ROWS * (8 * (NC1 > NC2 ? NC1 : NC2) + 8) * sizeof(float);
@@ -203,23 +222,30 @@ __host__ __device__ inline size_t dt_att_bytes(int Te, int P, int heads) {
   return align16((2 * (size_t)P + NWARPS * DT_VMAX + NTHREADS * 8 + (size_t)heads * Te) *
                  sizeof(float));
 }
-__host__ __device__ inline size_t dt_stage_bytes(int B) { return (size_t)dt_box_rows(B) * 128; }
+// the input box of a stage, and the stage (the input box, then in the
+// streamed form the N1 weight rows of its 64 k)
+__host__ __device__ inline size_t dt_box_bytes(int B) { return (size_t)dt_box_rows(B) * 128; }
+__host__ __device__ inline size_t dt_stage_bytes(int B, int NC1, bool stream) {
+  return dt_box_bytes(B) + (stream ? (size_t)8 * NC1 * 128 : 0);
+}
 __host__ __device__ inline size_t dt_fixed_bytes(int Te, int P, int heads, int H1, int H2,
-                                                 int NC1, int NC2) {
-  return TC_ALIGN + dt_w_bytes(H1, H2, P, NC1, NC2) + dt_red_bytes(NC1, NC2) +
+                                                 int NC1, int NC2, bool stream) {
+  return TC_ALIGN + dt_w_bytes(H1, H2, P, NC1, NC2, stream) + dt_red_bytes(NC1, NC2) +
          dt_att_bytes(Te, P, heads) + DT_BAR_BYTES;
 }
 __host__ __device__ inline int dt_stages(int B, int Te, int P, int heads, int H1, int H2, int NC1,
-                                         int NC2) {
-  const size_t fixed = dt_fixed_bytes(Te, P, heads, H1, H2, NC1, NC2);
-  const int room =
-      fixed < (size_t)TC_SMEM_LIMIT ? (int)((TC_SMEM_LIMIT - fixed) / dt_stage_bytes(B)) : 0;
+                                         int NC2, bool stream) {
+  const size_t fixed = dt_fixed_bytes(Te, P, heads, H1, H2, NC1, NC2, stream);
+  const int room = fixed < (size_t)TC_SMEM_LIMIT
+                       ? (int)((TC_SMEM_LIMIT - fixed) / dt_stage_bytes(B, NC1, stream))
+                       : 0;
   return room < DT_MAX_STAGES ? room : DT_MAX_STAGES;
 }
 __host__ __device__ inline size_t dt_smem_bytes(int B, int Te, int P, int heads, int H1, int H2,
-                                                int NC1, int NC2) {
-  return dt_fixed_bytes(Te, P, heads, H1, H2, NC1, NC2) +
-         (size_t)dt_stages(B, Te, P, heads, H1, H2, NC1, NC2) * dt_stage_bytes(B);
+                                                int NC1, int NC2, bool stream) {
+  return dt_fixed_bytes(Te, P, heads, H1, H2, NC1, NC2, stream) +
+         (size_t)dt_stages(B, Te, P, heads, H1, H2, NC1, NC2, stream) *
+             dt_stage_bytes(B, NC1, stream);
 }
 
 // Attention, classifier and feedback of batch row r at step t (the per-row
@@ -424,12 +450,13 @@ __device__ __forceinline__ void attend_row(const DecodeTcArgs& a, int t, int r,
   named_barrier(1, DT_CONSUMERS);  // the row's shared buffers are reused by the next row
 }
 
-template <bool TRAIN, int NC1, int NC2>
+template <bool TRAIN, int NC1, int NC2, bool STREAM>
 __global__ void __launch_bounds__(DT_THREADS, 1)
     speller_decode_tc_kernel(DecodeTcArgs a, const __grid_constant__ CUtensorMap map_h1,
                              const __grid_constant__ CUtensorMap map_h2,
                              const __grid_constant__ CUtensorMap map_ctx,
-                             const __grid_constant__ CUtensorMap map_sel, unsigned* ctr) {
+                             const __grid_constant__ CUtensorMap map_sel,
+                             const __grid_constant__ CUtensorMap map_w1, unsigned* ctr) {
   using T = __nv_bfloat16;
   constexpr int N1 = 8 * NC1, N2 = 8 * NC2;
   constexpr int R1 = NC1, R2 = NC2;  // unit slots of one row a thread owns
@@ -445,14 +472,15 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
   const int q0 = blockIdx.x * DT_QCOLS;
   const int ch1 = H1 / DT_KC, ch2 = H2 / DT_KC, chc = P / DT_KC;
   const int K1 = H1 + P + DT_SEL, K2 = H2 + H1;
-  const int S = dt_stages(B, a.Te, P, a.heads, H1, H2, NC1, NC2);
-  const int stage_bytes = (int)dt_stage_bytes(B);
+  const int S = dt_stages(B, a.Te, P, a.heads, H1, H2, NC1, NC2, STREAM);
+  const int box_bytes = (int)dt_box_bytes(B);  // a stage's input box; its weight rows follow
+  const int stage_bytes = (int)dt_stage_bytes(B, NC1, STREAM);
 
-  unsigned char* w1_s =
+  unsigned char* w1_s =  // the resident cell-1 tile (none in the streamed form)
       smem_raw + ((TC_ALIGN - (smem_u32(smem_raw) & (TC_ALIGN - 1))) & (TC_ALIGN - 1));
-  unsigned char* w2_s = w1_s + (size_t)(K1 / DT_KC) * N1 * 128;
+  unsigned char* w2_s = w1_s + (STREAM ? 0 : dt_w1_bytes(H1, P, NC1));
   unsigned char* wq_s = w2_s + (size_t)(K2 / DT_KC) * N2 * 128;
-  unsigned char* ring = w1_s + dt_w_bytes(H1, H2, P, NC1, NC2);
+  unsigned char* ring = w1_s + dt_w_bytes(H1, H2, P, NC1, NC2, STREAM);
   float* red_s = reinterpret_cast<float*>(ring + (size_t)S * stage_bytes);
   float* q_s = red_s + dt_red_bytes(NC1, NC2) / sizeof(float);
   float* ctx_s = q_s + P;
@@ -481,7 +509,7 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
                             (kk & 7) * 2) = v;
     };
     const T zero = __float2bfloat16(0.0f);
-    for (int idx = tid; idx < K1 * N1; idx += DT_THREADS) {
+    for (int idx = tid; idx < (STREAM ? 0 : K1 * N1); idx += DT_THREADS) {
       const int n = idx % N1, k = idx / N1;
       const long long col = (long long)(n & 3) * H1 + u01 + (n >> 2);
       T v;
@@ -516,7 +544,7 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
     }
     mbar_init_fence();
   }
-  fence_proxy_async();  // the weights, written by st.shared, are read by wgmma
+  fence_proxy_async();  // the resident weights, written by st.shared, are read by wgmma
   __syncthreads();
 
   // the exchange slot of value s = step - 1 (read at step t) and of step t
@@ -524,16 +552,19 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
   auto slot_next = [&](int t) { return TRAIN ? t + 1 : ((t + 1) & 1); };
 
   // ---- the producer: lane 0 of the last warp fills the ring, in the order
-  // the consumers take the chunks
+  // the consumers take the chunks (in the streamed form cell 1's with the
+  // block's weight rows of the same 64 k behind the input box)
   if (warp == DT_CONSUMERS / 32) {
     if (lane == 0) {
       int slot = 0;
       unsigned phase = 0;
-      auto fill = [&](const CUtensorMap* map, int col, int slab) {
+      auto fill = [&](const CUtensorMap* map, int col, int slab, int wk = -1) {
         mbar_wait(empty0 + 8 * slot, phase ^ 1);
-        const uint32_t full = full0 + 8 * slot;
-        mbar_arrive_expect_tx(full, stage_bytes);
-        tma_load_3d(ring_addr + slot * stage_bytes, map, full, col, 0, slab);
+        const uint32_t full = full0 + 8 * slot, dst = ring_addr + slot * stage_bytes;
+        const bool with_w = STREAM && wk >= 0;
+        mbar_arrive_expect_tx(full, box_bytes + (with_w ? N1 * 128 : 0));
+        tma_load_3d(dst, map, full, col, 0, slab);
+        if (with_w) tma_load_3d(dst + box_bytes, &map_w1, full, wk, blockIdx.x * N1, 0);
         if (++slot == S) slot = 0, phase ^= 1;
       };
       auto await = [&](int c, unsigned target) {
@@ -545,11 +576,11 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
         const int sp = slot_prev(t), sn = slot_next(t);
         const unsigned done_prev = (unsigned)(t + 1) * G, done_now = (unsigned)(t + 2) * G;
         await(C_CELL1, done_prev);  // cell 1 (t): h1_{t-1}, then ctx_{t-1} and the one-hot
-        for (int c = 0; c < ch1; ++c) fill(&map_h1, c * DT_KC, sp);
+        for (int c = 0; c < ch1; ++c) fill(&map_h1, c * DT_KC, sp, c * DT_KC);
         await(C_ATTEND, done_prev);
         DT_STAMP(S_PRODUCER_ATTEND, t);
-        for (int c = 0; c < chc; ++c) fill(&map_ctx, c * DT_KC, sp);
-        fill(&map_sel, 0, t & 1);
+        for (int c = 0; c < chc; ++c) fill(&map_ctx, c * DT_KC, sp, H1 + c * DT_KC);
+        fill(&map_sel, 0, t & 1, H1 + P);
         await(C_CELL2, done_prev);  // cell 2 (t): h2_{t-1}, then h1_t
         for (int c = 0; c < ch2; ++c) fill(&map_h2, c * DT_KC, sp);
         await(C_CELL1, done_now);
@@ -640,10 +671,12 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
 
   int slot = 0;
   unsigned phase = 0;
+  constexpr uint32_t IN_RING = 0xffffffffu;  // no shared address
   // one product: the next `nk` chunks of the ring against the weight tile at
-  // w_addr (N columns), the warpgroups' sums into the gate tile: warpgroup
-  // wg's rows at tile rows 64 wg + (0..63) (its own rows past 64 rows of
-  // batch, the same rows 0..63 as the other warpgroup's up to 64)
+  // w_addr (N columns; IN_RING: the weight rows behind each stage's input
+  // box), the warpgroups' sums into the gate tile: warpgroup wg's rows at
+  // tile rows 64 wg + (0..63) (its own rows past 64 rows of batch, the same
+  // rows 0..63 as the other warpgroup's up to 64)
   auto product = [&](auto ncols, int nk, uint32_t w_addr) {
     constexpr int N = decltype(ncols)::value;
     constexpr int RS = N + 8;
@@ -655,7 +688,8 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
       mbar_wait(full0 + 8 * slot, phase);
       if (!split || (c & 1) == wg) {
         const uint32_t a_t = ring_addr + slot * stage_bytes + rg * 64 * 128;
-        const uint32_t b_t = w_addr + c * N * 128;
+        const uint32_t b_t =
+            w_addr != IN_RING ? w_addr + c * N * 128 : ring_addr + slot * stage_bytes + box_bytes;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -711,7 +745,8 @@ __global__ void __launch_bounds__(DT_THREADS, 1)
     named_barrier(1, DT_CONSUMERS);
     if (tid == 0) arrive_release(ctr + c);
   };
-  const uint32_t w1_addr = smem_u32(w1_s), w2_addr = smem_u32(w2_s), wq_addr = smem_u32(wq_s);
+  const uint32_t w1_addr = STREAM ? IN_RING : smem_u32(w1_s), w2_addr = smem_u32(w2_s),
+                 wq_addr = smem_u32(wq_s);
 
   for (int t = 0; t < nsteps; ++t) {
     const int sn = slot_next(t);
@@ -839,17 +874,31 @@ static bool encode_exchange(EncodeTiledFn encode, CUtensorMap* map, const void* 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool TRAIN, int NC1, int NC2>
+// the map of the streamed form's cell-1 weights (G N1, K1) bf16: boxes of 64
+// k x the block's N1 rows, the 128-byte swizzle (the resident tile's layout)
+static bool encode_weights(EncodeTiledFn encode, CUtensorMap* map, const void* base, int K1,
+                           int rows, int N1) {
+  const cuuint64_t dims[3] = {(cuuint64_t)K1, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)K1 * 2, (cuuint64_t)K1 * 2 * rows};
+  const cuuint32_t box[3] = {DT_KC, (cuuint32_t)N1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool TRAIN, int NC1, int NC2, bool STREAM>
 static cudaError_t dt_launch(const DecodeTcArgs& a, int G, const CUtensorMap* maps,
                              unsigned* ctr, cudaStream_t stream) {
-  auto kernel = speller_decode_tc_kernel<TRAIN, NC1, NC2>;
-  const size_t smem = dt_smem_bytes(a.B, a.Te, a.P, a.heads, a.H1, a.H2, NC1, NC2);
+  auto kernel = speller_decode_tc_kernel<TRAIN, NC1, NC2, STREAM>;
+  const size_t smem = dt_smem_bytes(a.B, a.Te, a.P, a.heads, a.H1, a.H2, NC1, NC2, STREAM);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   DecodeTcArgs args = a;
-  CUtensorMap m0 = maps[0], m1 = maps[1], m2 = maps[2], m3 = maps[3];
-  void* params[] = {&args, &m0, &m1, &m2, &m3, &ctr};
+  CUtensorMap m0 = maps[0], m1 = maps[1], m2 = maps[2], m3 = maps[3], m4 = maps[4];
+  void* params[] = {&args, &m0, &m1, &m2, &m3, &m4, &ctr};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(G), dim3(DT_THREADS),
                                     params, smem, stream);
   if (err != cudaSuccess) return err;
@@ -875,23 +924,28 @@ extern "C" int speller_decode_tc_limits(int device, long long* out) {
 // N / 8 of a product of U units a block (four gate columns a unit)
 __host__ __device__ inline int dt_nc(int U) { return (U + 1) / 2; }
 
-// bytes of dynamic shared memory of a launch of B rows on G blocks
+// bytes of dynamic shared memory of a launch of B rows on G blocks, of the
+// resident (streamed 0) or the streamed form
 extern "C" size_t speller_decode_tc_smem_bytes(int B, int Te, int P, int heads, int H1, int H2,
-                                               int G) {
-  return dt_smem_bytes(B, Te, P, heads, H1, H2, dt_nc(H1 / G), dt_nc(H2 / G));
+                                               int G, int streamed) {
+  return dt_smem_bytes(B, Te, P, heads, H1, H2, dt_nc(H1 / G), dt_nc(H2 / G), streamed != 0);
 }
 
-// One launch of B <= DT_ROWS rows on dims[E_G] blocks. ptrs: N_TC_PTRS device pointers in enum
+// One launch of B <= DT_ROWS rows on dims[E_G] blocks, of the resident
+// (streamed 0) or the streamed form. ptrs: N_TC_PTRS device pointers in enum
 // TcPtr order, each at the launch's first row (P_FORCED may be null; with
-// train == 0 the slots from T_M1 on are not read; with train != 0 T_M1 and
-// T_M2 may be null); the exchanges T_H1X, T_H2X, T_CTXX hold `slots` slots
+// train == 0 the slots from T_M1 to T_C2R are not read; with train != 0 T_M1
+// and T_M2 may be null; T_W1S only in the streamed form, where only the
+// (NC1, NC2) pairs of DT_SCASE are built: (4, 1) and (4, 2), the
+// blocks whose resident tiles do not fit); the exchanges T_H1X, T_H2X, T_CTXX hold `slots` slots
 // (2, or T + 1 in the training form, whose slot 0 is the t = -1 state and
 // the others the residual streams), T_SELX 2, each of ldb rows. dims:
 // N_TC_DIMS ints in enum TcDim order. ctr: N_CTRS zeroed counters. The
 // wrapper checks the shapes first (plan_decode_tc); what this refuses
 // returns cudaErrorInvalidValue. Returns a cudaError_t (0 on success).
-extern "C" int speller_decode_tc_launch(int train, const void* const* ptrs, const int* dims,
-                                        int slots, float scale, void* ctr, void* stream) {
+extern "C" int speller_decode_tc_launch(int train, int streamed, const void* const* ptrs,
+                                        const int* dims, int slots, float scale, void* ctr,
+                                        void* stream) {
   DecodeTcArgs a;
   for (int i = 0; i < N_TC_PTRS; ++i) a.p[i] = ptrs[i];
   a.B = dims[E_B];
@@ -914,29 +968,40 @@ extern "C" int speller_decode_tc_launch(int train, const void* const* ptrs, cons
       a.H1 % DT_KC == 0 && a.P % DT_KC == 0 && G >= 1 && G <= DT_MAX_GRID && U1 >= 1 &&
       U1 <= DT_MAX_UNITS1 && U2 >= 1 && U2 <= DT_MAX_UNITS2 && a.P / DT_QCOLS <= G &&
       a.heads >= 1 && a.P % a.heads == 0 && (a.P / a.heads) % 8 == 0 && a.Vp >= 1 &&
-      a.Vp <= DT_VMAX && dt_stages(a.B, a.Te, a.P, a.heads, a.H1, a.H2, nc1, nc2) >= DT_MIN_STAGES;
+      a.Vp <= DT_VMAX &&
+      dt_stages(a.B, a.Te, a.P, a.heads, a.H1, a.H2, nc1, nc2, streamed != 0) >= DT_MIN_STAGES &&
+      (streamed == 0) == (a.p[T_W1S] == nullptr);
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap maps[4];
+  CUtensorMap maps[5] = {};
   if (!encode_exchange(encode, &maps[0], a.p[T_H1X], a.H1, a.B, a.ldb, slots) ||
       !encode_exchange(encode, &maps[1], a.p[T_H2X], a.H2, a.B, a.ldb, slots) ||
       !encode_exchange(encode, &maps[2], a.p[T_CTXX], a.P, a.B, a.ldb, slots) ||
-      !encode_exchange(encode, &maps[3], a.p[T_SELX], DT_SEL, a.B, a.ldb, 2))
+      !encode_exchange(encode, &maps[3], a.p[T_SELX], DT_SEL, a.B, a.ldb, 2) ||
+      (streamed != 0 &&
+       !encode_weights(encode, &maps[4], a.p[T_W1S], a.H1 + a.P + DT_SEL, G * 8 * nc1, 8 * nc1)))
     return (int)cudaErrorInvalidValue;
   unsigned* c = static_cast<unsigned*>(ctr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // (form, NC1, NC2): every geometry of the limits above
+  // (streamed, form, NC1, NC2): every geometry of the limits above in the
+  // resident form (DT_CASE); in the streamed form (DT_SCASE) the pairs of the
+  // blocks it serves
 #define DT_CASE(TR, A, B2) \
-  case (TR) * 100 + (A) * 10 + (B2): return (int)dt_launch<TR, A, B2>(a, G, maps, c, s);
+  case (TR) * 100 + (A) * 10 + (B2): return (int)dt_launch<TR, A, B2, false>(a, G, maps, c, s);
+#define DT_SCASE(TR, A, B2)               \
+  case 1000 + (TR) * 100 + (A) * 10 + (B2): \
+    return (int)dt_launch<TR, A, B2, true>(a, G, maps, c, s);
 #define DT_CASES(TR) \
   DT_CASE(TR, 1, 1) DT_CASE(TR, 1, 2) DT_CASE(TR, 2, 1) DT_CASE(TR, 2, 2) \
-  DT_CASE(TR, 3, 1) DT_CASE(TR, 3, 2) DT_CASE(TR, 4, 1) DT_CASE(TR, 4, 2)
-  switch ((train ? 100 : 0) + nc1 * 10 + nc2) {
+  DT_CASE(TR, 3, 1) DT_CASE(TR, 3, 2) DT_CASE(TR, 4, 1) DT_CASE(TR, 4, 2) \
+  DT_SCASE(TR, 4, 1) DT_SCASE(TR, 4, 2)
+  switch ((streamed ? 1000 : 0) + (train ? 100 : 0) + nc1 * 10 + nc2) {
     DT_CASES(false)
     DT_CASES(true)
   }
 #undef DT_CASES
+#undef DT_SCASE
 #undef DT_CASE
   return (int)cudaErrorInvalidValue;
 }

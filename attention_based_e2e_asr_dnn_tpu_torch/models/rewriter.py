@@ -37,6 +37,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     speller_apply,
     speller_init,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.ops.dropout import draw_keep_mask
 from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import locked_lstm_stack_apply
 
 
@@ -145,18 +146,46 @@ def rewriter_encode(params, cfg: RewriterConfig, x, lx, compute_dtype=None,
         train=train, masks=masks)
 
 
+def draw_rewriter_noise(cfg: RewriterConfig, batch: int, steps: int,
+                        generator: Optional[torch.Generator], device) -> TrainDraws:
+    """Every random number of one Rewriter training pass, from ``generator``
+    on ``device`` (the JAX ``rewriter_apply`` draws the same from its key):
+    one (B, 1, 2H) locked-dropout keep mask per encoder layer, at
+    ``enc_dropouts[0]`` after layer 0 and ``enc_dropouts[-1]`` after the
+    rest (None at rate 0); the decoder's ``steps`` teacher-forcing coins; and
+    its cells' output masks m1 (L, B, H1) and m2 (L, B, H2) at
+    ``dec_lstm_dropout``. No SpecAugment: the inputs are ids."""
+    rates = [float(cfg.enc_dropouts[-1] if i else cfg.enc_dropouts[0])
+             for i in range(cfg.enc_lstm_layers)]
+    masks = [draw_keep_mask((batch, 1, cfg.enc_out_dim), r, generator, device) if r > 0.0
+             else None for r in rates]
+    coins = torch.rand((steps,), generator=generator, device=device)
+    rate = cfg.dec_lstm_dropout
+    m1 = m2 = None
+    if rate > 0.0:
+        m1 = draw_keep_mask((steps, batch, cfg.dec_lstm_hid_dim), rate, generator, device)
+        m2 = draw_keep_mask((steps, batch, cfg.dec_lstm_out_dim), rate, generator, device)
+    return TrainDraws(masks, coins, m1, m2)
+
+
 def rewriter_apply(params, cfg: RewriterConfig, x, lx, dec_y: Optional[torch.Tensor] = None,
                    tf_rate=1.0, init_force: bool = False, train: bool = False,
-                   compute_dtype=None, draws: Optional[TrainDraws] = None) -> SpellerOutput:
+                   compute_dtype=None, draws: Optional[TrainDraws] = None,
+                   generator: Optional[torch.Generator] = None) -> SpellerOutput:
     """(B, T) char ids -> the decoder's logits (the JAX ``rewriter_apply``).
 
     Eval: the free-running decode of ``CHR_MAX_STEPS`` steps. Training
     (``train=True``, ``dec_y`` given): the teacher-forced decode, whose coins
     and dropout masks come from ``draws`` (``listener_masks`` are the
-    encoder's, one a layer); without ``draws`` there is neither forcing nor
-    dropout, as in the JAX package without a key. ``init_force`` is taken
-    for the Trainer's interface and unused."""
+    encoder's, one a layer) or, when only a ``generator`` is given, are drawn
+    from it (``draw_rewriter_noise``); with neither there is neither forcing
+    nor dropout, as in the JAX package without a key (the gate's forced
+    scoring). ``init_force`` is taken for the Trainer's interface and
+    unused."""
     del init_force
+    if train and draws is None and generator is not None and dec_y is not None:
+        draws = draw_rewriter_noise(cfg, int(torch.as_tensor(lx).shape[0]), dec_y.shape[1],
+                                    generator, _param_device(params))
     masks = None if draws is None else draws.listener_masks
     enc_h, enc_l = rewriter_encode(params, cfg, x, lx, compute_dtype, train=train, masks=masks)
     if dec_y is not None:

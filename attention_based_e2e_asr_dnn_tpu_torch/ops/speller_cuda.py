@@ -330,9 +330,9 @@ def load_tc_library(defines: tuple = ()) -> ctypes.CDLL:
     ``tools/trace_speller_decode.py``) and bind its C entry points."""
     lib = ctypes.CDLL(cuda_build.build_library(TC_SOURCE, defines))
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.speller_decode_tc_launch.argtypes = [i, p, p, i, ctypes.c_float, p, p]
+    lib.speller_decode_tc_launch.argtypes = [i, i, p, p, i, ctypes.c_float, p, p]
     lib.speller_decode_tc_launch.restype = ctypes.c_int
-    lib.speller_decode_tc_smem_bytes.argtypes = [i] * 7
+    lib.speller_decode_tc_smem_bytes.argtypes = [i] * 8
     lib.speller_decode_tc_smem_bytes.restype = ctypes.c_size_t
     lib.speller_decode_tc_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
     lib.speller_decode_tc_limits.restype = ctypes.c_int
@@ -384,6 +384,10 @@ TC_LIMITS = {"rows": 128, "max_grid": 128, "max_units1": 8, "max_units2": 4, "kc
              "smem_limit": 232448, "nthreads": 288}
 _TC_ALIGN, _TC_BAR_BYTES = 1024, 2 * 8 * 8
 _TC_ATT_THREADS, _TC_ATT_WARPS = 256, 8  # the attention's threads (the consumers)
+# the (cell-1, cell-2) wgmma widths / 8 the streamed form is built for
+# (DT_SCASE in the source): the blocks whose resident tiles leave the
+# ring too little room, H1 896-1024 (7-8 units a block) and H2 256-512
+STREAM_NC = ((4, 1), (4, 2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -415,6 +419,7 @@ class DecodeTcPlan(NamedTuple):
     units2: int        # cell-2 units a block
     query_blocks: int  # blocks that own query columns (the first ones)
     cols: dict         # gate (or query) columns a block owns in each product
+    streamed: bool     # cell 1's weights stream through the ring (else resident)
 
 
 def _tc_cols(units: int) -> int:
@@ -433,29 +438,50 @@ def tc_blocks(h1dim: int, h2dim: int, sms: int) -> int:
 
 
 def decode_tc_smem_bytes(rows: int, te: int, proj: int, heads: int, h1dim: int,
-                         h2dim: int, blocks: int) -> tuple:
+                         h2dim: int, blocks: int, streamed: bool = False) -> tuple:
     """(shared memory a block uses, the ring's stages) in a launch of
     ``rows`` rows of the bfloat16 forward on ``blocks`` blocks
     (``dt_smem_bytes`` in csrc/speller_decode_tc.cu): the weight tiles of
-    cell 1 (N1 = 4 U1 rounded up to 8 columns, K = H1 + P + 64), cell 2 (N2,
-    K = H2 + H1) and the query (8, K = H2) as bf16; the ring, stages of the
-    rows rounded up to 64 (64 or 128) x 64 columns, in what the rest leaves
-    of the card's limit, at most 8; the gate tile, 128 rows x the wider N +
-    8 fp32; the attention's fp32 buffers; the mbarriers; and the slack that
-    puts the tiles on a 1024-byte boundary."""
+    cell 1 (N1 = 4 U1 rounded up to 8 columns, K = H1 + P + 64; not in the
+    ``streamed`` form), cell 2 (N2, K = H2 + H1) and the query (8, K = H2)
+    as bf16; the ring, stages of the rows rounded up to 64 (64 or 128) x 64
+    columns (streamed: and N1 weight rows x 64 k behind them), in what the
+    rest leaves of the card's limit, at most 8; the gate tile, 128 rows x the
+    wider N + 8 fp32; the attention's fp32 buffers; the mbarriers; and the
+    slack that puts the tiles on a 1024-byte boundary."""
     lim = TC_LIMITS
     kc = lim["kc"]
     n1, n2 = _tc_cols(h1dim // blocks), _tc_cols(h2dim // blocks)
-    weights = ((h1dim + proj + lim["sel"]) // kc * n1 * 128
+    weights = ((0 if streamed else (h1dim + proj + lim["sel"]) // kc * n1 * 128)
                + (h2dim + h1dim) // kc * n2 * 128
                + h2dim // kc * lim["qcols"] * 128)
     red = lim["rows"] * (max(n1, n2) + 8) * 4
     att = -(-(2 * proj + _TC_ATT_WARPS * lim["vmax"] + _TC_ATT_THREADS * 8
               + heads * te) * 4 // 16) * 16
     fixed = _TC_ALIGN + weights + red + att + _TC_BAR_BYTES
-    stage = (128 if rows > 64 else 64) * 128
+    stage = (128 if rows > 64 else 64) * 128 + (n1 * 128 if streamed else 0)
     stages = min(max(lim["smem_limit"] - fixed, 0) // stage, lim["max_stages"])
     return fixed + stages * stage, stages
+
+
+def _tc_spans(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+              blocks: int):
+    """(rows a span, streamed) of a bfloat16 forward call: the resident
+    form in 128-row spans where one fits ``min_stages`` ring stages, else in
+    64-row spans; where neither does, the streamed form (for the wgmma widths
+    it is built for, ``STREAM_NC``), 128 rows a span where that fits. None:
+    no form fits."""
+    lim = TC_LIMITS
+    most = min(batch, lim["rows"])
+    nc = (_tc_cols(h1dim // blocks) // 8, _tc_cols(h2dim // blocks) // 8)
+    forms = [False] + ([True] if nc in STREAM_NC else [])
+    for streamed in forms:
+        for span in (lim["rows"], 64):
+            rows = min(most, span)
+            if decode_tc_smem_bytes(rows, te, proj, heads, h1dim, h2dim, blocks,
+                                    streamed)[1] >= lim["min_stages"]:
+                return span, streamed
+    return None
 
 
 def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim: int,
@@ -492,17 +518,17 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
                          f"must be a whole multiple of 8")
     if vp > lim["vmax"]:
         raise ValueError(f"{name}: padded vocabulary {vp} must be at most {lim['vmax']}")
-    # 128-row spans where one fits ``min_stages`` ring stages; otherwise 64-row
-    # spans, whose ring stages are half the size (a block whose weight tiles
-    # leave too little room for four 128-row stages)
-    span = lim["rows"]
-    if batch > 64 and decode_tc_smem_bytes(min(batch, span), te, proj, heads, h1dim,
-                                           h2dim, blocks)[1] < lim["min_stages"]:
-        span = 64
+    # the resident form in 128-row spans where one fits ``min_stages`` ring
+    # stages, else in 64-row spans (whose stages are half the size); where
+    # the resident tiles leave no room for either, cell 1's weights stream
+    # through the ring (_tc_spans)
+    span, streamed = _tc_spans(batch, te, proj, heads, h1dim, h2dim, blocks) or (
+        lim["rows"], False)
     launches = []
     for r0 in range(0, batch, span):
         r1 = min(r0 + span, batch)
-        smem, stages = decode_tc_smem_bytes(r1 - r0, te, proj, heads, h1dim, h2dim, blocks)
+        smem, stages = decode_tc_smem_bytes(r1 - r0, te, proj, heads, h1dim, h2dim, blocks,
+                                            streamed)
         if stages < lim["min_stages"] or smem > smem_optin:
             raise ValueError(f"{name}: needs {smem} bytes of shared memory a block with "
                              f"{lim['min_stages']} ring stages or more (Te {te}, heads "
@@ -512,7 +538,26 @@ def plan_decode_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim
     units1, units2 = h1dim // blocks, h2dim // blocks
     return DecodeTcPlan(launches, blocks, units1, units2, query_blocks,
                         {"cell1": _tc_cols(units1), "cell2": _tc_cols(units2),
-                         "query": lim["qcols"]})
+                         "query": lim["qcols"]}, streamed)
+
+
+def stream_weights(whh1: torch.Tensor, wc1: torch.Tensor, embw1: torch.Tensor,
+                   blocks: int) -> torch.Tensor:
+    """Cell 1's weights for the streamed form, (G N1, H1 + P + 64): row g N1
+    + n holds, K-major over [h1; ctx; one-hot], the column of block g's
+    product column n that the resident form writes into its tile (``put`` in
+    csrc/speller_decode_tc.cu): gate n % 4 of the block's unit n // 4, i.e.
+    column (n % 4) H1 + g U1 + n // 4 of [whh1; wc1; embw1], embw1 padded
+    with zero rows to 64; a zero row for a unit slot past U1."""
+    h1dim, vp = whh1.shape[0], embw1.shape[0]
+    units = h1dim // blocks
+    n1 = _tc_cols(units)
+    w = torch.cat([whh1, wc1, embw1, embw1.new_zeros(TC_LIMITS["sel"] - vp, 4 * h1dim)])
+    w = torch.cat([w, w.new_zeros(w.shape[0], 1)], dim=1)  # column 4 H1: zeros
+    n = torch.arange(n1, device=w.device)
+    col = (n % 4) * h1dim + (n // 4) + units * torch.arange(blocks, device=w.device)[:, None]
+    col = torch.where(n // 4 < units, col, 4 * h1dim)
+    return w[:, col.reshape(-1)].t().contiguous()
 
 
 # the bfloat16 adjoint's geometry (csrc/speller_bwd_tc.cu), mirrored here so
@@ -810,12 +855,13 @@ def _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih
                    empty(steps, batch, h1dim), empty(steps, batch, 4 * h2dim),
                    empty(steps, batch, h2dim)]
     counters = torch.zeros(len(plan.launches), 4, dtype=torch.int32, device=k.device)
+    w1s = stream_weights(whh1, wc1, embw1, plan.blocks) if plan.streamed else None
     # the order of enum TcPtr in the source, each with its batch dimension
     # (None: no batch dimension)
     entries = ([(t, 0) for t in (k, v, bias, ctx0, h10, c10, h20, c20)]
                + [(t, None) for t in (embw1, wc1, whh1, wih2, whh2, b2, wq, bq, wcls, clsb)]
                + [(t, 1) for t in (forced, logits, wgts, ids, h1x, h2x, ctxx, selx)]
-               + [(qx, 0)] + [(t, 1) for t in (m1, m2, *streams)])
+               + [(qx, 0)] + [(t, 1) for t in (m1, m2, *streams)] + [(w1s, None)])
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         for i, ln in enumerate(plan.launches):
@@ -825,8 +871,9 @@ def _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih
                 for t, bdim in entries])
             dims = (ctypes.c_int * 11)(ln.r1 - ln.r0, batch, te, steps, proj, heads, h1dim,
                                        h2dim, vp, sos_idx, plan.blocks)
-            err = lib.speller_decode_tc_launch(int(train), ptrs, dims, slots, float(scale),
-                                               counters[i].data_ptr(), stream)
+            err = lib.speller_decode_tc_launch(int(train), int(plan.streamed), ptrs, dims,
+                                               slots, float(scale), counters[i].data_ptr(),
+                                               stream)
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed with cudaError {err}")
             LAUNCHES[name] += 1

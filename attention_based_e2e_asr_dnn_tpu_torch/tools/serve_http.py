@@ -1,11 +1,15 @@
-"""Serve a trained experiment over HTTP (counterpart of the JAX package's
-``tools/serve_http.py``).
+"""Serve a trained experiment, or exported artifacts, over HTTP
+(counterpart of the JAX package's ``tools/serve_http.py``).
 
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.serve_http \\
         experiments/<run> --port 8080 [--batch-size 32] \\
         [--warmup 256 512 1024 1536] [--beam-size 8] \\
         [--corrector lm_experiments/<run> [--corrector-margin M] \\
          [--corrector-span-family best]] [--device cuda]
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.serve_http \\
+        --artifact las-b8-t512.tlas [--artifact las-b8-t1536.tlas] \\
+        [--corrector-artifact corrector-b8-t608.tlas [--corrector-margin M]] \\
+        [--warmup] [--device cuda]
 
 Gates traffic on readiness when a warmup ladder is given: the server binds
 first, ``/healthz`` answers at once, and ``/readyz`` turns 200 when the
@@ -16,10 +20,14 @@ transcript through the gated Rewriter of that LM experiment
 (``serving.Corrector``); its ``--corrector-*`` flags without it are refused,
 as the JAX tool refuses them.
 
-The flags are the JAX tool's. Those whose modules are not ported raise
-``NotImplementedError`` and name their ROADMAP item: ``--artifact`` and
-``--corrector-artifact`` (item 8b, export.py), ``--data-parallel`` above 1
-(item 11).
+``--artifact`` (repeatable, one a decode bucket) serves artifacts written by
+``export.py`` through ``export.ArtifactTranscriber`` instead of an
+experiment folder, ``--corrector-artifact`` a corrector artifact after
+them; a bare ``--warmup`` warms every bucket before ``/readyz`` turns 200.
+The experiment-only flags are refused there, as the JAX tool refuses them.
+
+The flags are the JAX tool's. ``--data-parallel`` above 1 raises
+``NotImplementedError`` and names its ROADMAP item (queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -34,9 +42,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("exp_folder", nargs="?", default=None)
     ap.add_argument("--artifact", action="append", default=None,
-                    help="serve from exported .tlas bucket(s) (not ported)")
+                    help="serve from exported artifact bucket(s) (export.py)")
     ap.add_argument("--corrector-artifact", default=None,
-                    help="rewriter .tlas for gated auto-correction (not ported)")
+                    help="corrector artifact for gated auto-correction (--artifact mode)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--checkpoint", default=None)
@@ -68,21 +76,60 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise for the flags this package cannot serve yet."""
-    if args.artifact or args.corrector_artifact:
-        raise NotImplementedError(
-            "--artifact / --corrector-artifact are not ported yet (ROADMAP "
-            "queue 1, item 8b: export.py); serve an experiment folder")
     if args.data_parallel > 1:
         raise NotImplementedError(
             "--data-parallel > 1 is not ported yet (ROADMAP queue 1, item 11: "
             "parallel/)")
 
 
+def artifact_flag_errors(args) -> list:
+    """The experiment-only flags given in ``--artifact`` mode (refused, as
+    the JAX tool refuses them: beam and checkpoint are fixed at export)."""
+    ignored = [flag for flag, val in [
+        ("--corrector", args.corrector),
+        ("--corrector-span-family",
+         args.corrector_span_family if not args.corrector_artifact else None),
+        ("--corrector-margin", args.corrector_margin if not args.corrector_artifact else None),
+        ("--corrector-span-conf-tau",
+         args.corrector_span_conf_tau if args.corrector_span_conf_tau != 0.5 else None),
+        ("--corrector-span-fracs",
+         args.corrector_span_fracs if args.corrector_span_fracs != [0.25, 0.5, 0.75, 0.9]
+         else None),
+        ("--checkpoint", args.checkpoint),
+        ("--average", args.average or None),
+        ("--beam-size", args.beam_size or None),
+        ("--batch-size", args.batch_size if args.batch_size != 32 else None),
+        ("--pad-time-multiple",
+         args.pad_time_multiple if args.pad_time_multiple != 128 else None),
+    ] if val]
+    if args.warmup:  # frame counts mean something in experiment mode only
+        ignored.append("--warmup <values>")
+    return ignored
+
+
 def start(args):
-    """Build the Transcriber and the bound, started server for ``args``."""
+    """Build the Transcriber (or ``ArtifactTranscriber``) and the bound,
+    started server for ``args``."""
     from attention_based_e2e_asr_dnn_tpu_torch.server import AsrHttpServer
     from attention_based_e2e_asr_dnn_tpu_torch.serving import Corrector, Transcriber
 
+    if args.artifact:
+        from attention_based_e2e_asr_dnn_tpu_torch.export import (
+            ArtifactTranscriber,
+            ExportedCorrector,
+        )
+
+        corrector = (ExportedCorrector(args.corrector_artifact, device=args.device)
+                     if args.corrector_artifact else None)
+        transcriber = ArtifactTranscriber(args.artifact, corrector=corrector,
+                                          margin=args.corrector_margin,
+                                          span_family=args.corrector_span_family,
+                                          device=args.device)
+        if args.warmup is not None:  # background: the server binds first
+            transcriber.warmup(background=True)
+        server = AsrHttpServer(transcriber, host=args.host, port=args.port,
+                               max_wait_ms=args.max_wait_ms).start()
+        return transcriber, server
     corrector = None
     if args.corrector:
         span = args.corrector_span_family
@@ -116,14 +163,24 @@ def main(argv=None) -> int:
     ap = build_argparser()
     args = ap.parse_args(argv)
     check_ported(args)
-    if not args.exp_folder:
-        ap.error("give an experiment folder")
-    if args.corrector is None and (args.corrector_span_family is not None
-                                   or args.corrector_margin):
+    if bool(args.exp_folder) == bool(args.artifact):
+        ap.error("give exactly one of: an experiment folder, or --artifact")
+    if args.artifact:
+        ignored = artifact_flag_errors(args)
+        if ignored:
+            ap.error(f"{', '.join(ignored)} appl{'y' if len(ignored) > 1 else 'ies'} to "
+                     f"experiment-folder serving, not --artifact mode (use "
+                     f"--corrector-artifact for artifact correction; beam and "
+                     f"checkpoint are fixed at export)")
+    elif args.corrector_artifact:
+        ap.error("--corrector-artifact applies to --artifact mode; use --corrector "
+                 "<lm_experiment> here")
+    elif args.corrector is None and (args.corrector_span_family is not None
+                                     or args.corrector_margin):
         # without a corrector these flags would serve no correction at all
         ap.error("--corrector-span-family/--corrector-margin need "
                  "--corrector <lm_experiment> in experiment mode")
-    if args.warmup == []:
+    if args.exp_folder and args.warmup == []:
         ap.error("--warmup needs at least one bucket frame count "
                  "(e.g. --warmup 512 1024)")
     transcriber, server = start(args)
@@ -134,7 +191,7 @@ def main(argv=None) -> int:
         def announce():
             try:
                 transcriber.wait_ready()
-                print("ready: kernels built, first warmup bucket run", flush=True)
+                print("ready: kernels built, the warm-up run", flush=True)
             except RuntimeError as exc:
                 print(f"warmup FAILED: {exc}", flush=True)
 

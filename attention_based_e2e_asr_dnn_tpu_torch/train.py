@@ -7,9 +7,13 @@ injection -> experiment folder + config.json snapshot -> batchers -> model
 -> Trainer -> train_eval -> log.json. The YAML keys are the JAX CLI's.
 
 ``--device`` (default ``cuda``) names where the model trains; ``cuda``
-without a card fails. Settings whose modules are not ported raise
-``NotImplementedError`` and name their ROADMAP item before anything is
-trained: ``parallel.use: true`` and ``export_artifact``. ``eval_beam_size
+without a card fails. ``parallel.use: true``, whose modules are not ported,
+raises ``NotImplementedError`` and names its ROADMAP item before anything
+is trained. With an ``export_artifact`` block (``batch``, ``t_pad``,
+``beam_size``, ``average``, ``data_parallel``) the best checkpoint becomes
+a serving artifact (``export.export_from_experiment``) under
+``<experiment>/artifacts/``; a failed export warns and leaves the trained
+experiment in place, as in the JAX CLI. ``eval_beam_size
 > 1`` takes the dev LD from beam search (``decoding/beam.py::
 make_las_eval_beam_step``: one listener pass a dev batch for the loss decode
 and the beam). ``lazy_data: true`` keeps the features on disk and
@@ -23,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import torch
@@ -134,9 +139,30 @@ def check_ported(trncfgs, las_cfg: LASConfig) -> None:
         raise NotImplementedError(
             "parallel.use: true is not ported yet (ROADMAP queue 1, item 11: "
             "parallel/); train on one card with parallel.use: false")
-    if getattr(trncfgs, "export_artifact", None):
-        raise NotImplementedError(
-            "export_artifact is not ported yet (ROADMAP queue 1, item 8: export.py)")
+
+
+def export_hook(trncfgs, tgt_folder: str) -> None:
+    """``export_artifact: {batch, t_pad, beam_size, average,
+    data_parallel}``: the serving artifact of the best (or averaged)
+    checkpoint; a failure warns, it never fails the finished run."""
+    exp_cfg = getattr(trncfgs, "export_artifact", None)
+    if not exp_cfg:
+        return
+    from attention_based_e2e_asr_dnn_tpu_torch.export import export_from_experiment
+
+    try:
+        batch = int(getattr(exp_cfg, "batch", 8))
+        t_pad = int(getattr(exp_cfg, "t_pad", 512))
+        out = os.path.join(tgt_folder, "artifacts", f"las-b{batch}-t{t_pad}.tlas")
+        export_from_experiment(
+            tgt_folder, out, batch=batch, t_pad=t_pad,
+            average=bool(getattr(exp_cfg, "average", False)),
+            beam_size=int(getattr(exp_cfg, "beam_size", 0)),
+            data_parallel=int(getattr(exp_cfg, "data_parallel", 1)),
+        )
+        print(f"exported serving artifact: {out}")
+    except Exception as exc:  # noqa: BLE001 - the JAX hook's contract: warn
+        print(f"WARNING: export_artifact failed: {exc}", file=sys.stderr)
 
 
 def main(args):
@@ -245,6 +271,7 @@ def main(args):
     dump_log_json(os.path.join(tgt_folder, "log.json"),
                   trainer.train_history, trainer.dev_history)
     logger.finish()
+    export_hook(trncfgs, tgt_folder)
     return trainer
 
 

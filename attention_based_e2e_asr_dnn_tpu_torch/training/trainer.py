@@ -120,7 +120,8 @@ class Trainer:
         model_cfgs = getattr(getattr(trncfgs, "model", None), "configs", None) or {}
         cuda_build.build_for(
             self.device, (model_cfgs.get("listener_configs") or {}).get("lstm_impl"),
-            (model_cfgs.get("speller_configs") or {}).get("decoder_impl"))
+            (model_cfgs.get("speller_configs") or {}).get("decoder_impl"),
+            model_cfgs.get("lstm_impl"), model_cfgs.get("decoder_impl"))  # the Rewriter's
         self.trncfgs = trncfgs
         self.trn_batcher = trn_batcher
         self.dev_batcher = dev_batcher

@@ -77,7 +77,12 @@ on one NVIDIA card, from the root of a checkout:
    block whose weight tiles leave too little shared memory for four ring
    stages of 128 rows (H1 768, H2 384, P 1024), whose eval and training forms
    take B=128 in two 64-row launches (the plan's, asserted), then the adjoint
-   in one.
+   in one; and two blocks whose resident weight tiles leave no room for four
+   stages even of 64 rows (H1 1024, H2 512, P 1024, 1 and 4 heads), whose
+   eval and training forms stream cell 1's weights through the ring (the
+   plan's streamed form, asserted) and take B=128 in one launch, then the
+   adjoint; the eval forms of the spans and of the streamed blocks timed over
+   600 steps.
 8. A trainer that takes a few steps: seeded base-LAS weights, one seeded
    batch (B=128, T=1536, L=192, lengths ragged within the bucket), bfloat16
    compute, SpecAugment and dropout on, tf_rate 0.9, AdamW (amsgrad, lr 1e-3,
@@ -185,6 +190,26 @@ on one NVIDIA card, from the root of a checkout:
    (bfloat16, beam 8) behind a ``Transcriber`` on phase 4's utterances,
    equal to ``correct(transcribe(...))``; one ``tools/serve_http
    --corrector`` burst of six POSTs. Lines/s, ms per batch, launches.
+17. The Rewriter trains: the ``lmtrain`` CLI on a generated corpus (512
+   train and 64 dev pairs of 100-600 characters, gold transcripts and
+   predictions with one character in 20 replaced), ``configs/rewriter.yml``
+   as it stands but for its data paths and ``epochs: 3`` and with both
+   kernel tiers (bfloat16, batch 64, accu_grad 2): the train loss must fall;
+   a resumed epoch; ``lminfer`` (``early_stop: false``) from the folder it
+   wrote. ``lstm_scan_train`` and ``lstm_bwd_dw`` (H=256), the decode's
+   training form and its adjoint (H1 256, H2 128, P 128, Te and L to 608),
+   and the dev pass's eval form held against their plain versions on the
+   inputs the CLI gave them and timed; one float32 Rewriter step through the
+   kernels against one through the plain loops. s/step, epoch seconds, peak
+   memory.
+18. Export: phase 4's experiment as a greedy, a beam-8 and an int8 artifact
+   (one bucket of 32 rows over the serve utterances) and phase 17's Rewriter
+   as a gated corrector artifact (beam 8, Te 608). ``ArtifactTranscriber``'s
+   ids equal to the ``Transcriber``'s on the same padded batches, and
+   ``ExportedCorrector.correct`` equal to the ``Corrector``'s chain on the
+   same batches; the int8 agreement printed; a ``serve_http --artifact
+   --corrector-artifact`` burst over loopback; utt/s beside the
+   ``Transcriber``'s in the same run, s to ready.
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
@@ -820,7 +845,10 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
 # shape phase 10's step runs (full 128-row tiles, two groups of columns on
 # half the adjoint's blocks); and a block whose weight tiles leave too little
 # shared memory for four 128-row ring stages, whose forward takes the train
-# batch in two 64-row spans (the adjoint keeps one 128-row launch)
+# batch in two 64-row spans (the adjoint keeps one 128-row launch); and two
+# blocks whose resident weight tiles leave no room for four stages even of
+# 64 rows, whose forward streams cell 1's weights through the ring (one
+# launch of 128 rows; "streamed" in the label)
 BF16_SPELLER_CHECKS = {
     # label: (listener width, speller changes, batch, steps, with the eval
     # form, the forward's launches a call)
@@ -830,6 +858,12 @@ BF16_SPELLER_CHECKS = {
     "64-row spans, H1 768, H2 384, P 1024": (
         H, {"dec_lstm_hid_dim": 768, "dec_lstm_out_dim": 384, "att_proj_dim": 1024,
             "dec_emb_dim": 2048}, TRAIN_B, 32, True, 2),
+    "streamed cell-1 weights, H1 1024, H2 512, P 1024, 1 head": (
+        H, {"dec_lstm_hid_dim": 1024, "dec_lstm_out_dim": 512, "att_proj_dim": 1024,
+            "dec_emb_dim": 2048}, TRAIN_B, 32, True, 1),
+    "streamed cell-1 weights, H1 1024, H2 512, P 1024, 4 heads": (
+        H, {"dec_lstm_hid_dim": 1024, "dec_lstm_out_dim": 512, "att_proj_dim": 1024,
+            "dec_emb_dim": 2048, "att_heads": 4}, TRAIN_B, 32, True, 1),
 }
 
 
@@ -907,14 +941,20 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
                              spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim, operands[8].shape[0],
                              lim["sms"], lim["smem_optin"])
     spans = ""
-    if fwd_launches > 1:  # the eval form's spans timed against one span alone
+    # the streamed form exactly where the label says so: a block whose
+    # resident tiles fit keeps them
+    if plan.streamed != label.startswith("streamed"):
+        raise AssertionError(f"bf16 speller, {label}: the plan's form (streamed "
+                             f"{plan.streamed}) is not the check's")
+    if fwd_launches > 1 or plan.streamed:  # the eval form over the whole decode, timed
         with torch.no_grad():
             opts = {**opts, "steps": spl.CHR_MAX_STEPS}
             ms = cuda_median_ms(torch, lambda: sc.speller_decode(*operands, **opts), 5)
             span = plan.launches[0].r1
             # the batch-major operands (k .. c20) cut to the first span
             first = [t[:span].contiguous() for t in operands[:8]] + list(operands[8:])
-            ms_one = cuda_median_ms(torch, lambda: sc.speller_decode(*first, **opts), 5)
+            ms_one = (cuda_median_ms(torch, lambda: sc.speller_decode(*first, **opts), 5)
+                      if fwd_launches > 1 else ms)
             plain_ms = cuda_median_ms(
                 torch, lambda: sc.speller_decode_plain(*operands, **opts), 1)
         proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
@@ -924,8 +964,10 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
         out_bytes = spl.CHR_MAX_STEPS * batch * (operands[8].shape[0] * 2
                                                  + spl.att_heads * TE_DEC * 2 + 4)
         bound, bound_by = bound_ms(flops, nbytes(*operands) + out_bytes)
-        spans = (f"; eval form over {spl.CHR_MAX_STEPS} steps in spans "
-                 f"{[(ln.r0, ln.r1) for ln in plan.launches]}: {ms:.3f} ms, one "
+        spans = (f"; eval form ({'streamed' if plan.streamed else 'resident'} cell-1 "
+                 f"weights, {plan.launches[0].stages} ring stages of "
+                 f"{plan.launches[0].smem} bytes a block) over {spl.CHR_MAX_STEPS} steps in "
+                 f"spans {[(ln.r0, ln.r1) for ln in plan.launches]}: {ms:.3f} ms, one "
                  f"{span}-row span alone {ms_one:.3f} ms, plain {plain_ms:.3f} ms, bound "
                  f"{bound:.3f} ms ({bound_by})")
     worst = max(errs, key=lambda n: errs[n][1])
@@ -2388,6 +2430,7 @@ def eval_beam_check(torch, card: str, t, x, lx) -> dict:
 
 # the model block of configs/rewriter.yml, both kernel tiers configured (the
 # file sets neither, so both default to scan)
+KERNEL_TIERS = {"lstm_impl": "pallas", "decoder_impl": "pallas"}
 REWRITER_MODEL = {"emb_dim": 256, "enc_lstm_layers": 2, "enc_lstm_hid_dim": 256,
                   "enc_dropouts": [0.2, 0.2], "att_proj_dim": 128, "att_heads": 1,
                   "att_dropout": 0.2, "dec_lstm_layers": 2, "dec_lstm_hid_dim": 256,
@@ -2474,16 +2517,27 @@ class capture:
     """Records the arguments of every call of ``module.<name>`` inside the
     block it wraps, calling through; the block's value is the list of
     ``(args, kwargs)``. The module's own code looks the name up at each
-    call, so the main path's calls are the ones recorded."""
+    call, so the main path's calls are the ones recorded. With ``limit``,
+    only the first ``limit`` calls of the longest time axis seen (dimension
+    1 of positional argument ``arg``): a training run's longest batch."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name: str, limit: int = 0, arg: int = 0):
+        self.module, self.name, self.calls, self.limit, self.arg = module, name, [], limit, arg
+        self.longest = 0
 
     def __enter__(self):
         self.inner = inner = getattr(self.module, self.name)
 
         def record(*args, **kwargs):
-            self.calls.append((args, kwargs))
+            if not self.limit:
+                self.calls.append((args, kwargs))
+            else:
+                length = args[self.arg].shape[1]
+                if length > self.longest:
+                    self.longest = length
+                    self.calls.clear()
+                if length == self.longest and len(self.calls) < self.limit:
+                    self.calls.append((args, kwargs))
             return inner(*args, **kwargs)
 
         setattr(self.module, self.name, record)
@@ -2540,9 +2594,10 @@ def rewriter_scan_record(torch, card: str, what: str, calls: list) -> dict:
 
 
 def rewriter_decode_check(torch, card: str, what: str, operands: tuple, opts: dict,
-                          enc_frames: int) -> dict:
+                          enc_frames: int, relative: bool = False) -> dict:
     """#8's eval form at the Rewriter's decoder widths held against its plain
-    version (``SPELLER_TOL``): the logits forced along the kernel's own ids,
+    version (``SPELLER_TOL``; with ``relative``, ``SPELLER_TRAIN_TOL`` of the
+    largest value): the logits forced along the kernel's own ids,
     and the attention weights; timed, with its bound. Returns a record, its
     launches to be filled in."""
     from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import RewriterConfig
@@ -2562,9 +2617,13 @@ def rewriter_decode_check(torch, card: str, what: str, operands: tuple, opts: di
         ms = cuda_median_ms(torch, lambda: sc.speller_decode(*operands, **opts), 5)
         plain_ms = cuda_median_ms(torch, lambda: sc.speller_decode_plain(*operands, **opts), 1)
     vocab = spl.dec_vocab_size
-    err = (logits[..., :vocab].float() - p_logits[..., :vocab].float()).abs().max().item()
-    w_err = (wgts.float() - p_wgts.float()).abs().max().item()
+    (abs_err, err_rel), (w_err, w_rel) = (rel_err(logits[..., :vocab], p_logits[..., :vocab]),
+                                          rel_err(wgts, p_wgts))
+    err = abs_err
     tol, w_tol = SPELLER_TOL[dtype_name]
+    if relative:  # a trained model's logits: a bf16 step of them is past 0.25 above 64
+        tol = w_tol = SPELLER_TRAIN_TOL[dtype_name]
+        err, w_err = err_rel, w_rel
     proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
     per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2 + h2 * proj + 2 * proj * vocab)
     flops = opts["steps"] * (batch * per_row + 4 * proj * enc_frames)
@@ -2572,7 +2631,8 @@ def rewriter_decode_check(torch, card: str, what: str, operands: tuple, opts: di
     bound, bound_by = bound_ms(flops, moved)
     log(f"[{card}] speller_decode (Rewriter) {dtype_name}, {what}: B={batch} Te={seq} "
         f"T={opts['steps']} H1={h1} H2={h2} P={proj}, {n_launch} launches: forced logits "
-        f"max_abs_err {err:.3e} (tol {tol:g}), weights {w_err:.3e} (tol {w_tol:g}); kernel "
+        f"{'error of max' if relative else 'max_abs_err'} {err:.3e} (tol {tol:g}), weights "
+        f"{w_err:.3e} (tol {w_tol:g}); kernel "
         f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({bound_by})")
     if n_launch != (2 if dtype_name == "bfloat16" and batch > 128 else 1):
         raise AssertionError(f"speller_decode (Rewriter) {dtype_name}: {n_launch} launches")
@@ -2581,7 +2641,7 @@ def rewriter_decode_check(torch, card: str, what: str, operands: tuple, opts: di
     name = f"speller_decode (Rewriter, {dtype_name})"
     source = SPELLER_SOURCE if dtype_name == "float32" else SPELLER_TC_SOURCE
     return {"name": name, "route": "cuda", "source": source, "replaces": SPELLER_REPLACES,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": 0, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
@@ -2885,6 +2945,564 @@ def http_corrector_burst(torch, card: str, las_exp: str, lm_exp: str, feats: lis
     return sum(per_call)
 
 
+# ---------------------------------------------------------------------------
+# 17. The Rewriter trains: the lmtrain CLI, a resume, lminfer from its folder
+# ---------------------------------------------------------------------------
+
+# a generated (prediction, gold) corpus of lines of 100-600 characters, one
+# character in 20 of each prediction replaced; configs/rewriter.yml as it
+# stands but for its data paths and epochs (bfloat16, batch 64, accu_grad 2)
+N_LM_TRAIN, N_LM_DEV, LM_EPOCHS = 512, 64, 3
+
+
+def make_lm_train_data(root: str, rng) -> dict:
+    """Gold transcripts (reference layout: ``.npy`` character arrays with
+    <sos> and <eos>) and their predictions (a submission CSV), for train and
+    dev; a template of the dev split's rows for ``lminfer``."""
+    import numpy as np
+
+    tst = os.path.join(root, "test-clean")
+    os.makedirs(os.path.join(tst, "transcript"))
+    with open(os.path.join(tst, "transcript", "random_submission.csv"), "w") as fh:
+        fh.write("id,label\n" + "".join(f"{i},X\n" for i in range(N_LM_DEV)))
+    out = {"tst": tst}
+    for split, n in (("train", N_LM_TRAIN), ("dev", N_LM_DEV)):
+        trans = os.path.join(root, split, "transcript", "raw")
+        os.makedirs(trans)
+        preds = []
+        sizes = rng.integers(MIN_CHARS, MAX_CHARS + 1, n)
+        sizes[0] = MAX_CHARS
+        for i, size in enumerate(sizes):
+            gold = lm_line(rng, int(size))
+            np.save(os.path.join(trans, f"{i:04d}.npy"), np.array(["<sos>", *gold, "<eos>"]))
+            preds.append("".join(c if rng.random() > 0.05 else "Q" for c in gold))
+        pred = os.path.join(root, split, "pred.csv")
+        with open(pred, "w") as fh:
+            fh.write("id,label\n" + "".join(f"{i},{s}\n" for i, s in enumerate(preds)))
+        out[split] = (trans, pred)
+    return out
+
+
+def lm_lstm_train_records(torch, card: str, layer_calls: list, fwd_calls: list,
+                          bwd_calls: list) -> dict:
+    """#4 (``lstm_scan_train``) and #5 (``lstm_bwd_dw``) held against their
+    plain versions (``TRAIN_TOL``, of max) on the inputs the ``lmtrain``
+    CLI's step of its longest batch gave them (the encoder's two layers);
+    timed, with their
+    bounds and cuDNN's ``nn.LSTM`` on the layer's own input, at layer 1's
+    call (D=512). Returns the records, their launches to be filled in."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+    errs = {}
+    with torch.no_grad():
+        # the forward layer by layer; the adjoint runs the layers in reverse
+        for i, ((x_proj, w_hh, lengths, rev), _) in enumerate(fwd_calls):
+            got = lc.lstm_scan_train(x_proj, w_hh, lengths, rev)
+            want = lc.lstm_scan_train_plain(x_proj, w_hh, lengths, rev)
+            for n, a, b in zip(("hs", "cs", "gates"), got, want):
+                errs[f"layer {i} {n}"] = rel_err(a, b)
+            del want
+        for i, ((gates, cs, hs, dy, w_hh2, lengths2, rev2), _) in enumerate(bwd_calls):
+            dpre, dwhh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh2, lengths2, rev2)
+            p_dpre, p_dwhh = lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh2, lengths2, rev2)
+            errs[f"layer {len(bwd_calls) - 1 - i} dpre"] = rel_err(dpre, p_dpre)
+            errs[f"layer {len(bwd_calls) - 1 - i} dW_hh"] = rel_err(dwhh, p_dwhh)
+            del p_dpre, p_dwhh
+        # timed at the last layer (D = 2H): its forward, and its adjoint (the first)
+        (x_proj, w_hh, lengths, rev), _ = fwd_calls[-1]
+        got = lc.lstm_scan_train(x_proj, w_hh, lengths, rev)
+        (gates, cs, hs, dy, _, _, _), _ = bwd_calls[0]
+        dpre, dwhh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+        fwd_ms = cuda_median_ms(torch, lambda: lc.lstm_scan_train(x_proj, w_hh, lengths, rev), 10)
+        bwd_ms = cuda_median_ms(
+            torch, lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), 10)
+        plain_fwd_ms = cuda_median_ms(
+            torch, lambda: lc.lstm_scan_train_plain(x_proj, w_hh, lengths, rev), 1)
+        plain_bwd_ms = cuda_median_ms(
+            torch, lambda: lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev), 1)
+    hidden = w_hh.shape[1]
+    batch, seq = x_proj.shape[:2]
+    frames = int(lengths.sum())
+    flops = 2 * frames * 2 * 4 * hidden * hidden
+    fwd_bound = bound_ms(flops, valid_bytes(frames, x_proj) + nbytes(w_hh, lengths, *got))
+    bwd_bound = bound_ms(2 * flops, valid_bytes(frames, gates, cs, hs, dy)
+                         + nbytes(w_hh, lengths, dpre, dwhh))
+    (_, x, x_lengths), _ = layer_calls[-1]
+    lib_fwd = nn_lstm_ms(torch, x, x_lengths, x.dtype, "train", hidden)
+    lib_bwd = nn_lstm_ms(torch, x, x_lengths, x.dtype, "backward", hidden)
+    tol = TRAIN_TOL["bfloat16"]
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[{card}] lstm_scan_train + lstm_bwd_dw (Rewriter encoder, H={hidden}) bf16 on the "
+        f"lmtrain step's inputs (its longest batch), {len(fwd_calls)} layers: {len(errs)} tensors, largest "
+        f"{errs[worst][1]:.1e} of max ({worst}; tolerance {tol:g}); timed at layer "
+        f"{len(fwd_calls) - 1} B={batch} T={seq} ({frames} frames): forward {fwd_ms:.3f} ms  "
+        f"plain {plain_fwd_ms:.3f} ms  bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]})  nn.LSTM "
+        f"forward {fmt_ms(lib_fwd)} ms; adjoint {bwd_ms:.3f} ms  plain {plain_bwd_ms:.3f} ms  "
+        f"bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]})  nn.LSTM backward {fmt_ms(lib_bwd)} ms")
+    bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
+    if not fwd_calls or len(fwd_calls) != len(bwd_calls) or bad:
+        raise AssertionError(f"Rewriter LSTM training kernels: {len(fwd_calls)} / "
+                             f"{len(bwd_calls)} calls, over tolerance {bad}")
+    fwd_name, bwd_name = (f"lstm_scan_train (Rewriter H={hidden})",
+                          f"lstm_bwd_dw (Rewriter H={hidden})")
+    return {
+        fwd_name: {"name": fwd_name, "route": "cuda", "source": TC_SOURCE,
+                   "replaces": TRAIN_KERNELS["lstm_scan_train"][2], "launches": 0,
+                   "max_abs_err": max(errs[n][0] for n in errs if "dpre" not in n
+                                      and "dW" not in n),
+                   "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
+                   "bound_by": fwd_bound[1], "library_ms": lib_fwd},
+        bwd_name: {"name": bwd_name, "route": "cuda", "source": BWD_TC_SOURCE,
+                   "replaces": PALLAS + ":382", "launches": 0,
+                   "max_abs_err": max(errs[n][0] for n in errs if "dpre" in n),
+                   "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
+                   "bound_by": bwd_bound[1], "library_ms": lib_bwd},
+    }
+
+
+def lm_speller_train_records(torch, card: str, fwd_calls: list, bwd_calls: list) -> dict:
+    """#8's training form and #9 held against their plain versions
+    (``SPELLER_TRAIN_TOL``, of max) on the inputs the ``lmtrain`` CLI's step
+    of its longest batch gave them (the forward fed its own ids, its masks
+    and forcing as drawn); timed, with their bounds. Returns the records, their launches
+    to be filled in."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import RewriterConfig
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    (operands, opts), = fwd_calls
+    (bwd_args, kw), = bwd_calls
+    spl = RewriterConfig(**REWRITER_MODEL).speller_config()
+    vocab, proj = spl.dec_vocab_size, spl.att_proj_dim
+    h1, h2 = spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
+    with torch.no_grad():
+        logits, wgts, ids, saved = sc.speller_decode_train(*operands, **opts)
+        p_opts = {**opts, "forced": saved[0]}
+        p_logits, p_wgts, _, p_saved = sc.speller_decode_train_plain(*operands, **p_opts)
+        errs = {"logits": rel_err(logits[..., :vocab], p_logits[..., :vocab]),
+                "weights": rel_err(wgts, p_wgts)}
+        errs.update({n: rel_err(a, b) for n, a, b in
+                     zip(sc.RESIDUALS[1:], saved[1:], p_saved[1:])})
+        del p_logits, p_wgts, p_saved
+        got = sc.speller_decode_bwd(*bwd_args, **kw)
+        want = sc.speller_decode_bwd_plain(*bwd_args, **kw)
+        errs.update({n: rel_err(a, b) for n, a, b in zip(BWD_NAMES, got, want)})
+        del want
+        fwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_train(*operands, **opts), 10)
+        bwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_bwd(*bwd_args, **kw), 10)
+        plain_fwd_ms = cuda_median_ms(
+            torch, lambda: sc.speller_decode_train_plain(*operands, **p_opts), 1)
+        plain_bwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_bwd_plain(*bwd_args,
+                                                                                **kw), 1)
+    steps, batch = saved[0].shape
+    seq = operands[0].shape[1]
+    frames = int((operands[2] > -1.0).sum())  # the additive pad bias is 0 at valid frames
+    cells = (proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2 + h2 * proj
+    fwd_flops = steps * (2 * batch * (cells + 2 * proj * vocab) + 4 * proj * frames)
+    bwd_flops = steps * (2 * batch * cells + 4 * proj * frames)
+    masks = [t for t in (opts.get("forced"), opts.get("m1"), opts.get("m2")) if t is not None]
+    fwd_bound = bound_ms(fwd_flops, nbytes(*operands, *masks, logits, wgts, ids, *saved))
+    bwd_bound = bound_ms(bwd_flops, nbytes(*(t for t in bwd_args if t is not None), *got))
+    tol = SPELLER_TRAIN_TOL["bfloat16"]
+    worst = max(errs, key=lambda n: errs[n][1])
+    n_forced = int((opts["forced"][:, 0] >= 0).sum()) if opts.get("forced") is not None else 0
+    log(f"[{card}] speller_decode_train + speller_decode_bwd (Rewriter) bf16 on the lmtrain "
+        f"step's inputs (its longest batch): B={batch} Te={seq} L={steps} H1={h1} H2={h2} P={proj}, dropout masks "
+        f"{'on' if opts.get('m1') is not None else 'off'}, {n_forced} forced steps of {steps}: "
+        f"{len(errs)} tensors, largest {errs[worst][1]:.1e} of max ({worst}; tolerance "
+        f"{tol:g}); forward {fwd_ms:.3f} ms  plain {plain_fwd_ms:.3f} ms  bound "
+        f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]}); adjoint {bwd_ms:.3f} ms  plain "
+        f"{plain_bwd_ms:.3f} ms  bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]})")
+    bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
+    if bad:
+        raise AssertionError(f"Rewriter speller training kernels: over tolerance {bad}")
+    fwd_name, bwd_name = "speller_decode_train (Rewriter)", "speller_decode_bwd (Rewriter)"
+    return {
+        fwd_name: {"name": fwd_name, "route": "cuda", "source": SPELLER_TC_SOURCE,
+                   "replaces": SPELLER_REPLACES, "launches": 0,
+                   "max_abs_err": max(errs[n][0] for n in ("logits", *sc.RESIDUALS[1:])),
+                   "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
+                   "bound_by": fwd_bound[1], "library_ms": None},
+        bwd_name: {"name": bwd_name, "route": "cuda", "source": SPELLER_BWD_TC_SOURCE,
+                   "replaces": SPELLER_BWD_REPLACES, "launches": 0,
+                   "max_abs_err": max(errs[n][0] for n in BWD_NAMES),
+                   "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
+                   "bound_by": bwd_bound[1], "library_ms": None},
+    }
+
+
+def rewriter_train_parity(torch, card: str) -> None:
+    """One float32 Rewriter train step at ``configs/rewriter.yml``'s widths
+    through both kernel tiers against one through the plain loops, from the
+    same weights, batch and draws (dropout 0.2, tf_rate 0.9): the tolerances
+    of ``train_parity_phase``."""
+    import dataclasses
+
+    from attention_based_e2e_asr_dnn_tpu_torch.lmtrain import make_rewriter_apply_factory
+    from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
+        RewriterConfig,
+        draw_rewriter_noise,
+        rewriter_init,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.training import optim, steps
+
+    batch, seq, labels, lr = 32, 224, 224, 1e-3
+    gen = torch.Generator().manual_seed(SEED + 9)
+    lx = torch.randint(MIN_CHARS, seq + 1, (batch,), generator=gen)
+    lx[0] = seq
+    x = torch.randint(1, 28, (batch, seq), generator=gen)
+    x[:, 0] = 0
+    x[torch.arange(seq)[None, :] >= lx[:, None]] = 29
+    ly = torch.clamp(lx - 1, max=labels)
+    y = torch.randint(1, 28, (batch, labels), generator=gen)
+    y[torch.arange(labels)[None, :] >= ly[:, None]] = 29
+    x, lx, y, ly = (t.to(torch.int32).to(DEVICE) for t in (x, lx, y, ly))
+    cfg = RewriterConfig(**REWRITER_MODEL)
+    draws = draw_rewriter_noise(cfg, batch, labels,
+                                torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    results = {}
+    for name, impl in (("lstm_impl pallas + decoder_impl pallas", "pallas"), ("plain", "scan")):
+        c = dataclasses.replace(cfg, lstm_impl=impl, decoder_impl=impl)
+        opt = optim.build_optimizer("adamw", {"lr": lr, "weight_decay": 5e-6, "amsgrad": True},
+                                    grad_norm=10.0)
+        step = steps.make_train_step(make_rewriter_apply_factory(c, torch.float32)(1.0), opt)
+        params = rewriter_init(cfg, torch.Generator().manual_seed(SEED))  # the same weights
+        state = steps.create_train_state(params, opt, seed=SEED, device=DEVICE)
+        state, m, _ = step(state, x, lx, y, ly, 0.9, lr, draws=draws)
+        torch.cuda.synchronize()
+        results[name] = ({k: v.item() for k, v in m.items()},
+                         [p.detach().clone() for p in state.params.parameters()])
+    (mk, pk), (mp, pp) = results.values()
+    worst = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    off = sum(((a - b).abs() > 1e-5).sum().item() for a, b in zip(pk, pp))
+    total = sum(a.numel() for a in pk)
+    log(f"[{card}] train parity Rewriter float32 B={batch} T={seq} L={labels}, kernels vs "
+        f"plain loops, one step, shared draws: loss {mk['loss']:.6f} / {mp['loss']:.6f}, "
+        f"grad_norm {mk['grad_norm']:.6f} / {mp['grad_norm']:.6f}; parameters max_abs_diff "
+        f"{worst:.3e} (bound 2 x lr = {2 * lr:g}), {off} of {total} elements off by more "
+        f"than 1e-5 (allowed {total // 1000})")
+    for key in ("loss", "grad_norm"):
+        if not abs(mk[key] - mp[key]) <= 1e-4 * abs(mp[key]):
+            raise AssertionError(f"Rewriter train parity: {key} {mk[key]} vs {mp[key]}")
+    if not (mk["finite"] and mp["finite"] and worst <= 2 * lr * 1.01 and off <= total // 1000):
+        raise AssertionError(f"Rewriter train parity: {mk} {mp}, parameters {worst}, {off}")
+
+
+def lmtrain_phase(torch, card: str, work: str) -> tuple:
+    """The ``lmtrain`` CLI in-process on the card (phase 17): the generated
+    corpus, ``configs/rewriter.yml`` with both kernel tiers and its data
+    paths and epochs replaced, ``LM_EPOCHS`` epochs (the train loss must
+    fall); a resumed epoch; ``lminfer`` with ``early_stop: false`` from the
+    folder it wrote; #4, #5, #8's training form and #9 held against their
+    plain versions on the inputs the CLI's step of its longest batch (Te and
+    L 608) gave them, #8's eval
+    form on the dev pass's; one float32 Rewriter step through the kernels
+    against one through the plain loops. Returns (the experiment folder,
+    the corpus, the records, the launches of the first run)."""
+    import numpy as np
+    import yaml
+
+    from attention_based_e2e_asr_dnn_tpu_torch import lminfer, lmtrain
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import load_checkpoint
+
+    corpus = make_lm_train_data(os.path.join(work, "lm-corpus"), np.random.default_rng(SEED + 11))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "rewriter.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    model = cfg["model"]["configs"]
+    if {**model, **KERNEL_TIERS} != REWRITER_MODEL:
+        raise AssertionError("configs/rewriter.yml's model block is not the one the "
+                             "Rewriter phases run")
+    model.update(KERNEL_TIERS)
+    cfg.update(epochs=LM_EPOCHS, TRN_FOLDER=corpus["train"][0], DEV_FOLDER=corpus["dev"][0],
+               TRN_PRED_DIR=corpus["train"][1], DEV_PRED_DIR=corpus["dev"][1],
+               EXP_FOLDER=os.path.join(work, "experiments-lm"))
+
+    def run(name, cfg):
+        path = os.path.join(work, name)
+        with open(path, "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        return lmtrain.main(lmtrain.build_argparser().parse_args(["-c", path, "--device",
+                                                                  DEVICE]))
+
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(forbid_plain())
+        # the kernels' inputs in the step of the longest batch (T = 608)
+        layers = stack.enter_context(capture(lc, "bilstm_apply_kernel", 2, arg=1))
+        fwd = stack.enter_context(capture(lc, "lstm_scan_train", 2))
+        bwd = stack.enter_context(capture(lc, "lstm_bwd_dw", 2))
+        dfwd = stack.enter_context(capture(sc, "speller_decode_train", 1))
+        dbwd = stack.enter_context(capture(sc, "speller_decode_bwd", 1))
+        devs = stack.enter_context(capture(sc, "speller_decode", 1))
+        trainer = run("lmtrain.yml", cfg)
+    counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    folder = trainer.saving_dir
+    trn, dev = trainer.train_history, trainer.dev_history
+    finite = all(v == v and abs(v) != float("inf") for v in trn["loss"] + dev["loss"])
+    if not (len(trn["loss"]) == LM_EPOCHS and finite and trn["loss"][-1] < trn["loss"][0]):
+        raise AssertionError(f"lmtrain CLI: histories {trn} {dev}")
+    with open(os.path.join(folder, "config.json")) as fh:
+        snap = json.load(fh)
+    if snap["model"]["configs"]["CHR_PAD_IDX"] != 29 or snap["compute_dtype"] != "bfloat16":
+        raise AssertionError(f"lmtrain CLI: config snapshot {snap['model']}")
+    idle = [k for k in ("lstm_scan", "lstm_scan_train", "lstm_bwd_dw", "speller_decode",
+                        "speller_decode_train", "speller_decode_bwd") if counts[k] <= 0]
+    if idle or counts["lstm_bwd"] or counts["lstm_scan_fusedin_train"]:
+        raise AssertionError(f"lmtrain CLI: launches {counts}")
+    n_steps = len(trainer.trn_batcher)
+    log(f"[{card}] lmtrain CLI Rewriter bf16 ({N_LM_TRAIN} train / {N_LM_DEV} dev pairs of "
+        f"{MIN_CHARS}-{MAX_CHARS} chars, batch_size {cfg['batch_size']}, accu_grad "
+        f"{cfg['accu_grad']}: {n_steps} steps an epoch): train loss "
+        f"{[round(v, 4) for v in trn['loss']]}, dev loss {[round(v, 4) for v in dev['loss']]}, "
+        f"dev LD {[round(v, 3) for v in dev['ld']]}; epoch seconds "
+        f"{[round(t, 2) for t in trainer.epoch_seconds]} (train "
+        f"{[round(t, 2) for t in trainer.train_seconds]}, dev "
+        f"{[round(t, 2) for t in trainer.eval_seconds]}); s/step (an epoch's train seconds "
+        f"over its steps, the last epoch) {trainer.train_seconds[-1] / n_steps:.4f}; peak "
+        f"device memory {peak / 2**20:.1f} MiB; launches {counts}")
+    records = lm_lstm_train_records(torch, card, layers, fwd, bwd)
+    records.update(lm_speller_train_records(torch, card, dfwd, dbwd))
+    (operands, opts), = devs
+    records["speller_decode (Rewriter, bfloat16)"] = rewriter_decode_check(
+        torch, card, "the lmtrain dev pass", operands, opts,
+        int((operands[2] > -1.0).sum()), relative=True)
+    del layers, fwd, bwd, dfwd, dbwd, devs, operands
+    torch.cuda.empty_cache()
+
+    # resume: one more epoch from the last checkpoint
+    kept = sorted(os.listdir(os.path.join(folder, "ckpts")),
+                  key=lambda f: int(f.split("epoch[")[1].split("]")[0]))
+    last = os.path.join(folder, "ckpts", kept[-1])
+    saved = load_checkpoint(last)
+    cfg["finetune"] = {"use": True, "reinit_lr": False, "checkpoint": last}
+    cfg["epochs"] = saved["epoch"] + 1
+    cfg["EXP_FOLDER"] = os.path.join(work, "experiments-lm-resumed")
+    resumed = run("lmtrain-resume.yml", cfg)
+    if not (resumed.epoch == saved["epoch"] + 1
+            and resumed.train_history["loss"][:-1] == saved["train_loss"]
+            and int(resumed.state.opt_state.count) > 0):
+        raise AssertionError(f"lmtrain resume: {resumed.train_history}")
+    log(f"[{card}] lmtrain CLI resumed from {kept[-1]} at epoch {saved['epoch']}: one epoch "
+        f"in {resumed.epoch_seconds[-1]:.2f} s, train loss "
+        f"{resumed.train_history['loss'][-1]:.4f}")
+    del resumed
+
+    # lminfer from the folder the CLI wrote, the dev predictions
+    cfg_path = os.path.join(work, "lm-infer-trained.yml")
+    with open(cfg_path, "w") as fh:
+        fh.write(f"TST_DIR: {corpus['dev'][1]}\nTST_FOLDER: {corpus['tst']}\n"
+                 f"exp_folder: {folder}\nbatch_size: {N_LM_DEV}\nrun_all: true\n"
+                 f"epoch_num: null\nrun_avg: false\nearly_stop: false\n"
+                 f"gate_correction: false\n")
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    lminfer.main(lminfer.build_argparser().parse_args(["-c", cfg_path, "--device", DEVICE]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    infer_counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    outs = [f for f in os.listdir(os.path.join(folder, "ckpts")) if f.endswith("-pred.csv")]
+    lines = check_preds(os.path.join(folder, "ckpts", outs[0]), N_LM_DEV,
+                        "lminfer from the lmtrain folder") if outs else []
+    if not lines or infer_counts["lstm_scan"] <= 0 or infer_counts["speller_decode"] <= 0:
+        raise AssertionError(f"lmtrain -> lminfer: {outs}, launches {infer_counts}")
+    log(f"[{card}] lmtrain -> lminfer early_stop: false, float32: {N_LM_DEV} lines x "
+        f"{len(outs)} checkpoints in {wall:.3f} s; mean output "
+        f"{sum(map(len, lines)) / len(lines):.1f} chars; launches {infer_counts}")
+    rewriter_train_parity(torch, card)
+    del trainer
+    torch.cuda.empty_cache()
+    return folder, corpus, records, counts
+
+
+# ---------------------------------------------------------------------------
+# 18. Export, and serve from the artifacts
+# ---------------------------------------------------------------------------
+
+def export_phase(torch, card: str, las_exp: str, lm_exp: str, feats: list, work: str) -> dict:
+    """Phase 4's base-LAS experiment exported (greedy, beam 8; one bucket of
+    ``B`` rows covering the serve utterances) and phase 17's Rewriter as a
+    gated corrector (beam 8, ``B`` rows, Te 608): ``ArtifactTranscriber``'s
+    ids equal to the ``Transcriber``'s on the same padded batches, and
+    ``ExportedCorrector.correct`` equal to the ``Corrector``'s chain on the
+    same batches (the same kernels on the same weights); their agreement with
+    ``Transcriber.transcribe`` / ``Corrector.correct`` over their own
+    batches, and an int8 artifact's, printed; a ``serve_http --artifact
+    --corrector-artifact`` burst over loopback; utt/s and s to ready beside
+    the ``Transcriber``'s in the same run. Returns the kernels' launches in
+    the artifacts' transcribe and correct runs (the burst's are logged)."""
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch import export
+    from attention_based_e2e_asr_dnn_tpu_torch.data.batching import pad_to_multiple
+    from attention_based_e2e_asr_dnn_tpu_torch.decoding.rescore import gate_corrections
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Corrector, Transcriber
+    from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import ids_to_str
+
+    t_pad = pad_to_multiple(max(len(f) for f in feats), 128)
+    paths = {name: export.export_from_experiment(
+        las_exp, os.path.join(work, f"las-{name}.tlas"), batch=B, t_pad=t_pad, beam_size=beam)
+        for name, beam in (("greedy", 0), (f"beam {BEAM}", BEAM))}
+    paths["int8"] = export.export_from_experiment(
+        las_exp, os.path.join(work, "las-int8.tlas"), batch=B, t_pad=t_pad, quantize="int8")
+    corr_path = export.export_corrector_from_experiment(
+        lm_exp, os.path.join(work, "corrector.tlas"), batch=B, t_pad=LM_TE, beam_size=BEAM)
+    sizes = {n: os.path.getsize(p) for n, p in paths.items()}
+    launches = {"lstm_scan_fusedin": 0, "lstm_scan": 0}
+
+    def chunks(items):
+        return [items[i:i + B] for i in range(0, len(items), B)]
+
+    def padded(chunk):
+        x = np.zeros((B, t_pad, 15), np.float32)
+        lx = np.ones((B,), np.int32)
+        for r, f in enumerate(chunk):
+            x[r, : len(f)] = f
+            lx[r] = len(f)
+        return x, lx
+
+    served = {}
+    for name in ("greedy", f"beam {BEAM}"):
+        beam = BEAM if name != "greedy" else 0
+        t = Transcriber(las_exp, batch_size=B, pad_time_multiple=128, beam_size=beam,
+                        device=DEVICE)
+        t0 = time.perf_counter()
+        art = export.ArtifactTranscriber([paths[name]], device=DEVICE)
+        art.warmup()
+        ready = time.perf_counter() - t0
+        t.transcribe(feats[:B])  # warm
+        # the same padded batches through both
+        same = 0
+        for chunk in chunks(feats):
+            x, lx = padded(chunk)
+            got = art.buckets[0].decode_ids(x, lx)
+            want = t._decode(x, lx)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"artifact {name}: ids differ from the Transcriber's on "
+                                     f"the same batch")
+            same += len(chunk)
+        times = {"transcriber": [], "artifact": []}
+        for who in ("transcriber", "artifact", "artifact", "transcriber"):
+            torch.cuda.synchronize()
+            lc.reset_launch_counts()
+            t0 = time.perf_counter()
+            texts = (art if who == "artifact" else t).transcribe(feats)
+            torch.cuda.synchronize()
+            times[who].append(time.perf_counter() - t0)
+            if who == "artifact":
+                for k in launches:
+                    launches[k] += lc.LAUNCHES[k]
+                served[name] = texts
+            else:
+                direct = texts
+        mine = [ids_to_str(r, art.vocab, 0, 29) for c in chunks(feats)
+                for r in art.buckets[0].decode_ids(*padded(c))[: len(c)]]
+        if mine != served[name]:
+            raise AssertionError(f"artifact {name}: transcribe() is not its batches' ids")
+        agree = sum(a == b for a, b in zip(served[name], direct))
+        rates = {k: len(feats) / statistics.median(v) for k, v in times.items()}
+        log(f"[{card}] artifact {name} (B={B}, t_pad {t_pad}, {sizes[name]} bytes): ids equal "
+            f"to the Transcriber's on the same {same} padded rows; ready (load, kernels bound, "
+            f"one batch) in {ready:.3f} s; {len(feats)} utts: artifact "
+            f"{rates['artifact']:.2f} utt/s, Transcriber {rates['transcriber']:.2f} utt/s in "
+            f"the same run (median of two turns each); its own batches agree in "
+            f"{agree}/{len(feats)} transcripts")
+        del t, art
+    # int8: the agreement with the float32 artifact, printed
+    q = export.ExportedDecoder(paths["int8"], device=DEVICE)
+    ref = export.ExportedDecoder(paths["greedy"], device=DEVICE)
+    total = equal = 0
+    for chunk in chunks(feats):
+        x, lx = padded(chunk)
+        a, b = q.decode_ids(x, lx)[: len(chunk)], ref.decode_ids(x, lx)[: len(chunk)]
+        total, equal = total + a.size, equal + int((a == b).sum())
+    log(f"[{card}] artifact int8 ({sizes['int8']} bytes, float32 {sizes['greedy']}): "
+        f"{equal}/{total} ids equal to the float32 artifact's (not asserted)")
+    del q, ref
+
+    # the corrector: the artifact against the Corrector's chain on the same batches
+    corr = export.ExportedCorrector(corr_path, device=DEVICE)
+    corrector = Corrector(lm_exp, beam_size=BEAM, batch_size=B, device=DEVICE)
+    texts = served["greedy"]
+    lc.reset_launch_counts()
+    t0 = time.perf_counter()
+    corrected = corr.correct(texts)
+    torch.cuda.synchronize()
+    corr_wall = time.perf_counter() - t0
+    launches["lstm_scan (Rewriter H=256)"] = lc.LAUNCHES["lstm_scan"]
+    vm = {c: i for i, c in enumerate(corr.meta["vocab"])}
+    want = []
+    for chunk in chunks(texts):
+        x = np.full((B, LM_TE), 29, np.int32)
+        lx = np.ones((B,), np.int32)
+        for r, s in enumerate(chunk):
+            row = [0] + [vm[c] for c in s if c in vm] + [29]
+            x[r, : len(row)] = row
+            lx[r] = len(row)
+        dec = np.asarray(corrector.chain.step(corrector.params, x, lx))
+        use = gate_corrections(corrector.chain.scorer, corrector.params, x, lx, dec, 29, 0)[0]
+        want += [ids_to_str(dec[r], corr.meta["vocab"], 0, 29) if use[r] else s
+                 for r, s in enumerate(chunk)]
+    if corrected != want:
+        raise AssertionError("ExportedCorrector differs from the Corrector's chain on the "
+                             "same batches")
+    agree = sum(a == b for a, b in zip(corrected, corrector.correct(texts)))
+    log(f"[{card}] corrector artifact (beam {BEAM}, gate, B={B}, t_pad {LM_TE}): "
+        f"{len(texts)} transcripts in {corr_wall:.3f} s, equal to the Corrector's chain on "
+        f"the same batches; Corrector.correct over its own batches agrees in "
+        f"{agree}/{len(texts)}")
+    del corrector
+
+    # serve_http --artifact --corrector-artifact over loopback
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import serve_http
+
+    args = serve_http.build_argparser().parse_args(
+        ["--artifact", paths["greedy"], "--corrector-artifact", corr_path, "--host",
+         "127.0.0.1", "--port", "0", "--warmup", "--device", DEVICE])
+    serve_http.check_ported(args)
+    t0 = time.perf_counter()
+    art, server = serve_http.start(args)
+    try:
+        if not art.wait_ready(timeout=600):
+            raise AssertionError("serve_http --artifact: not ready")
+        ready = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{server.port}/v1/transcribe"
+
+        def post(f):
+            req = urllib.request.Request(
+                url, data=json.dumps({"features": f.tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, json.loads(resp.read())
+
+        lc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(6) as pool:
+            replies = list(pool.map(post, feats[:6]))
+        wall = time.perf_counter() - t0
+        counts = dict(lc.LAUNCHES)
+    finally:
+        server.close()
+    vocab = set("ABCDEFGHIJKLMNOPQRSTUVWXYZ' ")
+    if not all(code == 200 and set(body["transcript"]) <= vocab for code, body in replies):
+        raise AssertionError(f"serve_http --artifact: replies {replies}")
+    if counts["lstm_scan_fusedin"] <= 0 or counts["lstm_scan"] <= 0:
+        raise AssertionError(f"serve_http --artifact: launches {counts}")
+    log(f"[{card}] serve_http --artifact --corrector-artifact: ready in {ready:.3f} s "
+        f"(the server bound, the bucket and the corrector run once); a burst of 6 POSTs "
+        f"{wall:.3f} s; launches {counts}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2942,6 +3560,10 @@ def main() -> int:
             beam_launches = beam_phase(torch, card, exp, feats, data, root)
         with phase("16 Rewriter chain: lminfer, Corrector, HTTP, kernels on their inputs"):
             rewriter_records, rewriter_launches = rewriter_phase(torch, card, exp, feats, root)
+        with phase("17 Rewriter training: lmtrain CLI, resume, lminfer from its folder"):
+            lm_folder, _, lm_records, lm_launches = lmtrain_phase(torch, card, root)
+        with phase("18 export and serve from artifacts"):
+            export_launches = export_phase(torch, card, exp, lm_folder, feats, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del t
@@ -2974,12 +3596,20 @@ def main() -> int:
     # with both kernel tiers
     for name in records:
         records[name]["launches"] = (launches.get(name, 0) + http_launches.get(name, 0)
-                                     + infer_launches[name] + beam_launches.get(name, 0))
+                                     + infer_launches[name] + beam_launches.get(name, 0)
+                                     + export_launches.get(name, 0))
     # the Rewriter's rows: lminfer's modes (float32), the Corrector behind a
     # Transcriber and over HTTP (bfloat16)
     for name, record in rewriter_records.items():
         record["launches"] = rewriter_launches[name]
     records.update(rewriter_records)
+    # the Rewriter's training (phase 17: the lmtrain CLI's first run, its dev
+    # passes included) and the corrector artifact (phase 18)
+    records["lstm_scan (Rewriter H=256)"]["launches"] += (
+        lm_launches["lstm_scan"] + export_launches["lstm_scan (Rewriter H=256)"])
+    for name, record in lm_records.items():
+        record["launches"] = lm_launches[name.split(" (")[0]]
+    records.update(lm_records)
     for name, record in train_records.items():
         record["launches"] = train_launches[name]
     records.update(train_records)

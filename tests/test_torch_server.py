@@ -336,7 +336,6 @@ def test_readyz_gates_on_auto_warmup(http_server):
 
 @pytest.mark.parametrize("flags,item", [
     (["--data-parallel", "2"], "item 11"),
-    (["--artifact", "las.tlas"], "item 8b"),
 ])
 def test_serve_http_names_the_roadmap_item_of_unported_flags(tmp_path, flags, item):
     """The JAX tool's flags parse; those whose modules are not ported raise

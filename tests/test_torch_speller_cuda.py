@@ -492,8 +492,16 @@ def test_bf16_plan_mirrors_the_source_on_card(cuda_device):
                                           (64, 192, 256, 1, 128, 512),
                                           (128, 192, 1024, 1, 512, 128)]:
         blocks = speller_cuda.tc_blocks(h1, h2, sms)
-        assert lib.speller_decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks) == \
+        assert lib.speller_decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks, 0) == \
             speller_cuda.decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks)[0]
+    # the streamed form's layout (cell 1's weights in the ring's stages)
+    for rows, te, proj, heads, h1, h2 in [(128, 192, 1024, 1, 1024, 512),
+                                          (64, 192, 1024, 4, 1024, 512),
+                                          (128, 608, 896, 4, 896, 384),
+                                          (128, 192, 256, 4, 1024, 256)]:
+        blocks = speller_cuda.tc_blocks(h1, h2, sms)
+        assert lib.speller_decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks, 1) == \
+            speller_cuda.decode_tc_smem_bytes(rows, te, proj, heads, h1, h2, blocks, True)[0]
 
 
 @pytest.mark.cuda
@@ -865,3 +873,81 @@ def test_eval_decode_at_the_rewriter_widths_on_card(cuda_device, dtype, batch, l
     torch.testing.assert_close(logits[..., :v].float(), ref_logits[..., :v].float(),
                                atol=vocab_tol, rtol=0)
     torch.testing.assert_close(wgts.float(), ref_wgts.float(), atol=w_tol, rtol=0)
+
+
+# decoder blocks whose resident weight tiles leave the ring fewer than four
+# stages even of 64 rows: the bfloat16 forward streams cell 1's weights
+# through the ring (NC1 4 with NC2 2 and 1, the two pairs the streamed form
+# is built for)
+STREAMED = {
+    "H1 1024, H2 512, P 1024, 1 head": {"att_proj_dim": 1024, "dec_emb_dim": 2048,
+                                        "dec_lstm_hid_dim": 1024, "dec_lstm_out_dim": 512},
+    "H1 1024, H2 256, P 1024, 4 heads": {"att_proj_dim": 1024, "dec_emb_dim": 2048,
+                                         "dec_lstm_hid_dim": 1024, "dec_lstm_out_dim": 256,
+                                         "att_heads": 4},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", list(STREAMED))
+def test_bf16_streamed_cell1_weights_on_card(cuda_device, block):
+    """B=128 at the two blocks, Te 192: the eval form in one streamed launch
+    against its plain version fed the kernel's ids, then the training form
+    (held the same way) and the adjoint of it against its plain version."""
+    changes = {**BASE_SPELLER, **STREAMED[block]}
+    heads = changes.get("att_heads", 1)
+    lim = speller_cuda.tc_kernel_limits(cuda_device.index or 0)
+    cfg, params, enc, lengths = _setup(cuda_device, batch=128, te=192, **changes)
+    plan = speller_cuda.plan_decode_tc(128, 192, cfg.att_proj_dim, heads, cfg.dec_lstm_hid_dim,
+                                       cfg.dec_lstm_out_dim, 32, lim["sms"], lim["smem_optin"])
+    assert plan.streamed and [(ln.r0, ln.r1) for ln in plan.launches] == [(0, 128)]
+    vocab_tol, w_tol = TOL[torch.bfloat16]
+    with torch.inference_mode():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16), lengths)
+        opts = {**speller_cuda.decode_options(cfg), "steps": 24}
+        speller_cuda.reset_launch_counts()
+        logits, wgts, ids = speller_cuda.speller_decode(*operands, **opts)
+        torch.cuda.synchronize()
+        assert speller_cuda.LAUNCHES["speller_decode"] == 1
+        own = torch.cat([torch.full_like(ids[:1], -1), ids[:-1]]).contiguous()
+        ref_logits, ref_wgts, _ = speller_cuda.speller_decode_plain(*operands, **opts,
+                                                                     forced=own)
+    v = cfg.dec_vocab_size
+    torch.testing.assert_close(logits[..., :v].float(), ref_logits[..., :v].float(),
+                               atol=vocab_tol, rtol=0)
+    torch.testing.assert_close(wgts.float(), ref_wgts.float(), atol=w_tol, rtol=0)
+    args, dwup, kw = _bwd_case(cuda_device, 128, heads, 0.3, changes, hold_forward=True,
+                               te=192)
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, dwup, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 1
+    want = speller_cuda.speller_decode_bwd_plain(*args, dwup, **kw)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert _rel_err(a, b) <= REL_TOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_streamed_form_equals_the_resident_form_on_card(cuda_device, monkeypatch, train):
+    """At scaled-LAS's decoder (whose resident tiles fit) the streamed form,
+    forced by the plan, gives the resident form's bits: the same operands,
+    the same k order and the same sums, only the weights' way into shared
+    memory differs."""
+    cfg, params, enc, lengths = _setup(cuda_device, batch=100, te=64,
+                                       **{**SCALED_LAS_SPELLER, "att_heads": 4})
+    with torch.inference_mode():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc.to(torch.bfloat16), lengths)
+        opts = {**speller_cuda.decode_options(cfg), "steps": 16}
+        fn = speller_cuda.speller_decode_train if train else speller_cuda.speller_decode
+        resident = fn(*operands, **opts)
+        monkeypatch.setattr(speller_cuda, "_tc_spans", lambda *a: (128, True))
+        speller_cuda.reset_launch_counts()
+        streamed = fn(*operands, **opts)
+        torch.cuda.synchronize()
+    assert sum(speller_cuda.LAUNCHES.values()) == 1
+    for a, b in zip(resident[:3], streamed[:3]):
+        assert torch.equal(a, b)
+    if train:
+        for name, a, b in zip(speller_cuda.RESIDUALS, resident[3], streamed[3]):
+            assert torch.equal(a, b), name

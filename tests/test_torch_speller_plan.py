@@ -129,12 +129,17 @@ def test_shared_memory_bytes():
     ((8, 192, 256, 1, 512, 256, 32, SMS, 100000), "device's limit is 100000"),
     # the widened geometry's limits: at most 8 cell-1 and 4 cell-2 units a
     # block, 8 query columns a block, the shared memory (H1 1024 with H2 512
-    # and P 1024: the weight tiles leave no room for four stages even of 64
-    # rows; H1 1024, H2 512, P 256 at 128 rows now takes 64-row spans)
+    # and P 1024: the resident weight tiles leave no room for four stages
+    # even of 64 rows, so cell 1's weights stream through the ring; H1 1024,
+    # H2 512, P 256 at 128 rows takes 64-row spans)
     ((8, 192, 256, 1, 512, 1024, 32, SMS, SMEM_LIMIT), "H2 1024 above 512"),
     ((8, 192, 256, 1, 512, 512, 32, 100, SMEM_LIMIT), "H2 512 above 256"),
     ((8, 192, 1024, 1, 256, 128, 32, 100, SMEM_LIMIT), "P 1024 above 8 x 64"),
-    ((128, 192, 1024, 1, 1024, 512, 32, SMS, SMEM_LIMIT), "needs .* device's limit"),
+    ((128, 192, 1024, 1, 1024, 512, 32, SMS, SMEM_LIMIT), None),
+    # a block wider than the kernel takes in any form, and one whose
+    # attention buffers leave no room even for the streamed form's stages
+    ((8, 192, 256, 1, 512, 640, 32, SMS, SMEM_LIMIT), "H2 640 above 512"),
+    ((128, 40000, 1024, 1, 1024, 512, 32, SMS, SMEM_LIMIT), "needs .* device's limit"),
 ])
 def test_refused_shapes_raise(shape, match):
     if match is None:
@@ -146,9 +151,10 @@ def test_refused_shapes_raise(shape, match):
 
 def _span_classes():
     """The decoder blocks of multiples of 128 the reference takes (H1 up to
-    1024, H2 up to 512, P up to 1024; 1 or 4 heads) at Te 192 whose weight
-    tiles leave too little room for the ring's stages of 128 rows: those that
-    fit four stages of 64 rows, and those that fit at no batch."""
+    1024, H2 up to 512, P up to 1024; 1 or 4 heads) at Te 192 whose resident
+    weight tiles leave too little room for the ring's stages of 128 rows:
+    those that fit four stages of 64 rows, and those whose resident tiles fit
+    at no batch (the streamed form takes them)."""
     fit64, never = [], []
     for h1, h2, proj, heads in itertools.product(range(128, 1025, 128), range(128, 513, 128),
                                                  range(128, 1025, 128), (1, 4)):
@@ -184,10 +190,68 @@ def test_wide_blocks_take_64_row_spans(width):
 
 @pytest.mark.parametrize("width", NEVER_FIT, ids=str)
 def test_blocks_too_wide_for_any_span_raise(width):
-    """The weight tiles with the fixed buffers alone leave no room for four
-    stages even of 64 rows: the shared-memory ValueError at any batch."""
-    with pytest.raises(ValueError, match="shared memory a block .* device's limit"):
-        _plan(32, width)
+    """The resident weight tiles with the fixed buffers leave no room for
+    four stages even of 64 rows: cell 1's weights stream through the ring,
+    whose stages then fit a 128-row span, at every batch (each of these
+    blocks raised the shared-memory ValueError before the streamed form)."""
+    for batch, spans in ((32, [(0, 32)]), (64, [(0, 64)]), (128, [(0, 128)]),
+                         (130, [(0, 128), (128, 130)])):
+        plan = _plan(batch, width)
+        assert plan.streamed
+        assert [(ln.r0, ln.r1) for ln in plan.launches] == spans
+        assert all(4 <= ln.stages <= 8 and ln.smem <= SMEM_LIMIT for ln in plan.launches)
+        assert (plan.cols["cell1"] // 8, plan.cols["cell2"] // 8) in speller_cuda.STREAM_NC
+
+
+def test_blocks_that_fit_resident_keep_their_form():
+    """Every block of the reference's range whose resident tiles fit keeps
+    the resident form at every batch; the streamed form only where they do
+    not, and its 128-row stages leave the ring 6 to 8 stages."""
+    for h1, h2, proj, heads in itertools.product(range(128, 1025, 128), range(128, 513, 128),
+                                                 range(128, 1025, 128), (1, 4)):
+        for batch in (64, 128):
+            plan = _plan(batch, (proj, heads, h1, h2))
+            assert plan.streamed == ((proj, heads, h1, h2) in NEVER_FIT)
+            if plan.streamed and batch == 128:
+                assert 6 <= plan.launches[0].stages <= 8
+
+
+def test_streamed_shared_memory_bytes():
+    """H1 1024, H2 512, P 1024, 4 heads, 128 rows: no cell-1 tile; cell 2
+    24 tiles of 16 columns, the query 8 of 8; the gate tile 128 x 40 fp32;
+    each stage 128 x 64 inputs and 32 x 64 weights of bf16."""
+    align, bars = 1024, 128
+    weights = 24 * 16 * 128 + 8 * 8 * 128
+    att = (2 * 1024 + 8 * 32 + 256 * 8 + 4 * 192) * 4
+    fixed = align + weights + 128 * 40 * 4 + att + bars
+    stage = 128 * 128 + 32 * 128
+    smem, stages = speller_cuda.decode_tc_smem_bytes(128, 192, 1024, 4, 1024, 512, 128, True)
+    assert stages == (SMEM_LIMIT - fixed) // stage == 6
+    assert smem == fixed + 6 * stage
+    resident = speller_cuda.decode_tc_smem_bytes(128, 192, 1024, 4, 1024, 512, 128)
+    assert resident[1] == 0  # the cell-1 tile alone: 33 x 32 x 128 bytes
+
+
+def test_stream_weights_hold_the_resident_tiles_columns():
+    """Row g N1 + n of the streamed weights is block g's product column n
+    over [h1; ctx; one-hot] (``put`` in the source: gate n % 4 of unit n //
+    4), zeros for a unit slot past U1 and for the one-hot's rows past Vp."""
+    gen = torch.Generator().manual_seed(0)
+    h1, proj, vp, blocks = 192, 64, 5, 64  # U1 = 3: N1 = 16, slot 3 empty
+    whh1, wc1, embw1 = (torch.randn(r, 4 * h1, generator=gen) for r in (h1, proj, vp))
+    w = speller_cuda.stream_weights(whh1, wc1, embw1, blocks)
+    assert w.shape == (blocks * 16, h1 + proj + 64) and w.is_contiguous()
+    full = torch.cat([whh1, wc1, embw1])
+    for g in (0, 17, blocks - 1):
+        for n in range(16):
+            row = w[g * 16 + n]
+            unit, gate = n // 4, n % 4
+            if unit >= 3:
+                assert not row.any()
+                continue
+            col = gate * h1 + g * 3 + unit
+            assert torch.equal(row[: h1 + proj + vp], full[:, col])
+            assert not row[h1 + proj + vp:].any()
 
 
 def test_limits_mirror_the_source():
@@ -206,6 +270,9 @@ def test_limits_mirror_the_source():
     for nc1 in range(1, (lim["max_units1"] + 1) // 2 + 1):
         for nc2 in range(1, (lim["max_units2"] + 1) // 2 + 1):
             assert f"DT_CASE(TR, {nc1}, {nc2})" in text, (nc1, nc2)
+    # and for the pairs the streamed form serves
+    for nc1, nc2 in speller_cuda.STREAM_NC:
+        assert f"DT_SCASE(TR, {nc1}, {nc2})" in text, (nc1, nc2)
 
 
 # the decode's operands at the card tests' widths, on the CPU (no card: the

@@ -548,7 +548,6 @@ def _cli_config(corpus, exp, **extra):
      "parallel.*queue 1, item 11"),
     ({"parallel": {"use": True, "data": None, "model": 2}}, ValueError,
      "tensor parallelism.*lstm_impl and speller_configs.decoder_impl is 'pallas'"),
-    ({"export_artifact": {"batch": 8}}, NotImplementedError, "export_artifact.*item 8"),
     ({"profile": {"use": True, "epoch": 0}}, NotImplementedError, "profile.*item 12"),
 ])
 def test_cli_settings_not_ported_raise(corpus, tmp_path, extra, exc, match):
