@@ -1,13 +1,17 @@
-"""Reference-checkpoint import: PyTorch ``state_dict`` -> the params tree
-(the port's own copy of the import direction of the JAX package's
-``compat.py``; same names, same layout conversions).
+"""Reference-checkpoint interop: PyTorch ``state_dict`` <-> the params tree
+(the port's own copy of the JAX package's ``compat.py``; same names, same
+layout conversions, both directions; ``tools/import_reference_ckpt.py``
+drives them).
 
 torch ``nn.LSTM`` weights (4H, D) / (4H, H) are transposed to ``w_ih`` (D, 4H)
 / ``w_hh`` (H, 4H), gate order [i, f, g, o] matches, the two biases fold into
 one ``b``; ``nn.Linear`` weights transpose to ``w`` (in, out); the embedding
 carries over directly. The reference's created-but-never-applied
 ``final_map`` is dropped on import, and its unregistered ``init_hiddens``
-become zero ``init_h*/c*`` leaves.
+become zero ``init_h*/c*`` leaves. Export goes back to the reference's
+names, loadable with ``load_state_dict(strict=True)``: ``final_map`` as
+zeros, ``b`` as ``bias_ih`` beside a zero ``bias_hh``, the ``init_h*/c*``
+leaves dropped (with a warning where they are non-zero).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ __all__ = [
     "las_params_from_state_dict",
     "rewriter_params_from_state_dict",
     "params_from_state_dict",
+    "state_dict_from_las_params",
+    "state_dict_from_rewriter_params",
 ]
 
 
@@ -259,3 +265,110 @@ def rewriter_params_from_state_dict(sd: Mapping) -> dict:
     }
     _check_consumed(view, "Rewriter")
     return params
+
+
+# ---------------------------------------------------------------------------
+# export: our params -> reference naming (migration back / comparison runs)
+# ---------------------------------------------------------------------------
+
+
+def _lstm_dir_out(out: dict, prefix: str, layer: dict, suffix: str = "") -> None:
+    out[f"{prefix}.weight_ih_l0{suffix}"] = np.ascontiguousarray(_np(layer["w_ih"]).T)
+    out[f"{prefix}.weight_hh_l0{suffix}"] = np.ascontiguousarray(_np(layer["w_hh"]).T)
+    b = _np(layer["b"])
+    out[f"{prefix}.bias_ih_l0{suffix}"] = b
+    out[f"{prefix}.bias_hh_l0{suffix}"] = np.zeros_like(b)
+
+
+def _stack_out(out: dict, fmt: str, layers: list) -> None:
+    for i, layer in enumerate(layers):
+        if "fwd" in layer:
+            _lstm_dir_out(out, fmt.format(i), layer["fwd"])
+            _lstm_dir_out(out, fmt.format(i), layer["bwd"], "_reverse")
+        else:
+            _lstm_dir_out(out, fmt.format(i), layer)
+
+
+def _cell_out(out: dict, prefix: str, cell: dict) -> None:
+    out[f"{prefix}.weight_ih"] = np.ascontiguousarray(_np(cell["w_ih"]).T)
+    out[f"{prefix}.weight_hh"] = np.ascontiguousarray(_np(cell["w_hh"]).T)
+    b = _np(cell["b"])
+    out[f"{prefix}.bias_ih"] = b
+    out[f"{prefix}.bias_hh"] = np.zeros_like(b)
+
+
+def _linear_out(out: dict, prefix: str, lin: dict) -> None:
+    out[f"{prefix}.weight"] = np.ascontiguousarray(_np(lin["w"]).T)
+    out[f"{prefix}.bias"] = _np(lin["b"])
+
+
+def _speller_out(out: dict, spl: dict, p: dict) -> None:
+    att = spl["attention"]
+    for name in ("key_map", "value_map", "query_map"):
+        _linear_out(out, f"{p['att']}.{name}", att[name])
+    if "final_map" in att:
+        _linear_out(out, f"{p['att']}.final_map", att["final_map"])
+    else:
+        # reference creates-but-never-applies final_map; strict load needs it
+        proj = _np(att["key_map"]["w"]).shape[1]
+        out[f"{p['att']}.final_map.weight"] = np.zeros((proj, proj), np.float32)
+        out[f"{p['att']}.final_map.bias"] = np.zeros((proj,), np.float32)
+    emb = _np(spl["char_emb"])
+    out[p["emb"]] = emb
+    out[p["cls"] + ".weight"] = emb  # tied (src/models.py:287)
+    out[p["cls"] + ".bias"] = _np(spl["cls_b"])
+    _cell_out(out, p["cells"] + ".0", spl["cell1"])
+    _cell_out(out, p["cells"] + ".1", spl["cell2"])
+    out[p["init_query"]] = _np(spl["init_query"])
+    # our trained init_h/c have no registered reference slot — dropped, as
+    # the reference model would ignore them (src/models.py:275-281). If they
+    # actually trained away from zero, that is information loss: say so.
+    nonzero = [n for n in ("init_h1", "init_c1", "init_h2", "init_c2")
+               if np.any(_np(spl[n]))]
+    if nonzero:
+        import warnings
+
+        warnings.warn(
+            f"trained initial decoder states {nonzero} are non-zero but "
+            f"have no registered slot in the reference model "
+            f"(src/models.py:275-281) — they are dropped from the exported "
+            f"state_dict; re-importing it resets them to zeros",
+            stacklevel=3,
+        )
+
+
+def state_dict_from_las_params(params: dict) -> Dict[str, np.ndarray]:
+    """Our LAS tree -> reference-named state_dict (loadable strict=True)."""
+    out: Dict[str, np.ndarray] = {}
+    _stack_out(out, "listen.base.lstms.{}", params["listener"]["base"])
+    _stack_out(out, "listen.pyramid.plstms.{}", params["listener"]["pyramid"])
+    _speller_out(
+        out,
+        params["speller"],
+        {
+            "att": "spell.attention",
+            "emb": "spell.char_emb.weight",
+            "cells": "spell.lstms.lstms",
+            "init_query": "spell.init_query",
+            "cls": "spell.cls",
+        },
+    )
+    return out
+
+
+def state_dict_from_rewriter_params(params: dict) -> Dict[str, np.ndarray]:
+    """Our Rewriter tree -> reference-named state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    _stack_out(out, "enc_lstm.lstms.{}", params["encoder"])
+    _speller_out(
+        out,
+        params["decoder"],
+        {
+            "att": "mha",
+            "emb": "char_emb.weight",
+            "cells": "dec_lstm.lstms",
+            "init_query": "init_query",
+            "cls": "cls",
+        },
+    )
+    return out

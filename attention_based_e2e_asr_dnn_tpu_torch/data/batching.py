@@ -22,8 +22,9 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from dataclasses import dataclass
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -148,11 +149,15 @@ class ThreadedPrefetcher:
     worker thread (the role the reference gave DataLoader workers): numpy's
     file reads and padding release the GIL, so they overlap the main thread's
     work. Order is kept; an exception in the worker is raised in the
-    consumer; ``close`` stops the worker of an iterator left half-read."""
+    consumer; ``close`` stops the worker of an iterator left half-read.
+    ``on_span``, where given, is called on the worker's thread with (thread
+    id, start, end) on ``time.perf_counter_ns`` of its work on each batch,
+    for the Trainer's profile trace."""
 
     _DONE = object()
 
-    def __init__(self, batch_iter: Iterator, depth: int = 2):
+    def __init__(self, batch_iter: Iterator, depth: int = 2,
+                 on_span: Optional[Callable[[int, int, int], None]] = None):
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
 
@@ -168,10 +173,15 @@ class ThreadedPrefetcher:
             return False
 
         def worker():
+            tid = threading.get_native_id()
             try:
+                start = time.perf_counter_ns()
                 for item in batch_iter:
+                    if on_span is not None:
+                        on_span(tid, start, time.perf_counter_ns())
                     if not put(item):
                         return
+                    start = time.perf_counter_ns()
             except BaseException as exc:  # raised again on the consumer's side
                 put(exc)
                 return

@@ -30,7 +30,11 @@ import json
 import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
-from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import median_ms, require_card
+from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import (
+    median_ms,
+    require_device,
+    smi_name_and_power,
+)
 
 FORMS = ("lstm_scan_fusedin", "lstm_scan", "lstm_scan_fusedin_train", "lstm_scan_train",
          "lstm_scan_cs", "bilstm_scan_fused", "lstm_bwd_dw", "lstm_bwd")
@@ -44,7 +48,8 @@ def main() -> None:
                         help="comma-separated wrappers to time (default: all)")
     cli = parser.parse_args()
     reps, H = cli.reps, cli.hidden
-    card = require_card("time_lstm_kernels")
+    require_device("cuda", "time_lstm_kernels")
+    card = smi_name_and_power()
     wanted = set(cli.forms.split(","))
     # the wrappers this tree has, of those wanted
     fn = {name: getattr(lc, name, None) if name in wanted else None for name in FORMS}

@@ -30,7 +30,11 @@ import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_config_from_dicts, las_init
 from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
-from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import median_ms, require_card
+from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import (
+    median_ms,
+    require_device,
+    smi_name_and_power,
+)
 
 TE, TRAIN_STEPS = 192, 192
 LISTENER = {"input_dim": 15, "uniform_hid_dim": 512, "plstm_layers": 3}
@@ -54,7 +58,8 @@ def main() -> None:
     args = parser.parse_args()
     reps = args.reps
     forms = set(args.forms.split(","))
-    card = require_card("time_speller_kernels")
+    require_device("cuda", "time_speller_kernels")
+    card = smi_name_and_power()
     gen = torch.Generator().manual_seed(0)
     out = {"card": card, "reps": reps, "ms": {}}
     for width, (changes, listener_width, eval_batch, train_batches) in WIDTHS.items():

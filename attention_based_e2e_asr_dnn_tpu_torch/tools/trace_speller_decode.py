@@ -52,7 +52,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.tools.time_speller_kernels import (
     TRAIN_STEPS,
     WIDTHS,
 )
-from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import require_card
+from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import require_device, smi_name_and_power
 
 # enum Stamp of csrc/speller_decode_tc.cu, in order
 STAMPS = ("step", "cell1 product", "cell1 published", "cell2 product", "cell2 published",
@@ -164,7 +164,8 @@ def main() -> None:
     parser.add_argument("--adjoint", action="store_true",
                         help="split a step of the adjoint (csrc/speller_bwd_tc.cu)")
     args = parser.parse_args()
-    card = require_card("trace_speller_decode")
+    require_device("cuda", "trace_speller_decode")
+    card = smi_name_and_power()
     if args.adjoint:
         print(json.dumps(trace_adjoint(card)))
         return

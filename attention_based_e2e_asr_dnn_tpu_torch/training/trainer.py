@@ -28,9 +28,14 @@ package's ``Trainer`` resumes from the other's file.
 dev pass's loss and beam ids from one listener pass a batch, the beam only
 on the epochs that compute the LD.
 
+``profile: {use, epoch, batches}`` traces the first ``batches`` train steps
+of epoch ``epoch`` into ``<saving_dir>/profile`` (``utils/profiling.py``):
+the profiler stops after the step that reaches the count, at the end of a
+shorter epoch, or when a step raises; it changes no number the epoch
+computes.
+
 Not ported: ``pipeline``, ``dp_mesh``, ``shard_batch`` / ``shard_state``
-(ROADMAP queue 1, item 11) and the ``profile`` block (item 12); passing one
-raises ``NotImplementedError``.
+(ROADMAP queue 1, item 11); passing one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
 )
 from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import batch_levenshtein
 from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import MetricLogger
+from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import epoch_profiler
 from attention_based_e2e_asr_dnn_tpu_torch.utils.plotting import (
     have_matplotlib,
     pay_attention_multihead,
@@ -106,11 +112,6 @@ class Trainer:
             if value is not None:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: {_NOT_PORTED[name]}")
-        profile_cfg = getattr(trncfgs, "profile", None)
-        if profile_cfg is not None and profile_cfg.use:
-            raise NotImplementedError(
-                "the profile block is not ported yet: ROADMAP queue 1, item 12 "
-                "(a torch.profiler trace of the first batches)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Trainer(device={device!r}): no CUDA device here; "
@@ -254,10 +255,11 @@ class Trainer:
         host, y, ly, indices = self._host_batch(bt)
         return tuple(t.to(self.device) for t in host), y, ly, indices
 
-    def _prepared_batches(self, batch_iter):
+    def _prepared_batches(self, batch_iter, on_span=None):
         """Two stages ahead of the step. Stage 1: a worker thread assembles
-        padded host batches (``ThreadedPrefetcher``). Stage 2, on a card: each
-        batch goes through pinned memory and is copied on a side stream,
+        padded host batches (``ThreadedPrefetcher``, each batch's span to
+        ``on_span`` where given). Stage 2, on a card: each batch goes
+        through pinned memory and is copied on a side stream,
         ``prefetch_depth`` batches ahead; the step's stream waits for the
         copy's event, not the host. ``prefetch_depth: 0`` does both in line."""
         depth = int(getattr(self.trncfgs, "prefetch_depth", 2))
@@ -265,7 +267,7 @@ class Trainer:
             for bt in batch_iter:
                 yield self._convert_batch(bt)
             return
-        host_pf = ThreadedPrefetcher(batch_iter, depth=depth)
+        host_pf = ThreadedPrefetcher(batch_iter, depth=depth, on_span=on_span)
         try:
             if self.device.type != "cuda":
                 for bt in host_pf:
@@ -347,26 +349,44 @@ class Trainer:
         att_map = None
         sync_every = int(getattr(self.trncfgs, "metric_sync_every", 16))
         init_force = self.init_force_cfg and self.epoch < 10  # src/train.py:113
-        batch_src = (self._resident_batches("train", self.epoch) if self.device_resident
-                     else self._prepared_batches(self.trn_batcher.epoch(self.epoch)))
-        for batch, _, _, _ in self._progress(batch_src, f"train epoch[{self.epoch}]"):
-            self.state, metrics, att_map = self.train_step(
-                self.state, *batch, self.tf_rate, self.current_lr, init_force=init_force)
-            loss_parts.append(metrics["loss"])
-            ppl_parts.append(metrics["ppl"])
-            n_batches += 1
-            self.batch += 1
-            if sync_every > 0 and n_batches % sync_every == 0:
-                loss_parts = [torch.stack(loss_parts).sum()]
-                ppl_parts = [torch.stack(ppl_parts).sum()]
-                float(loss_parts[0])  # bounded in-flight work
-            # the per-update LR schedule, on accumulation boundaries (src/train.py:185-188)
-            if self.batch_scheduler and self.batch % self.accu_grad == 0:
-                self.current_lr = self.batch_scheduler.step()
-                self.logger.log({"learning-rate": self.current_lr})
+        profiler = epoch_profiler(getattr(self.trncfgs, "profile", None), self.epoch,
+                                  self.saving_dir, self.device)
+        try:
+            batch_src = (self._resident_batches("train", self.epoch) if self.device_resident
+                         else self._prepared_batches(
+                             self.trn_batcher.epoch(self.epoch),
+                             on_span=None if profiler is None else profiler.host_span))
+            for batch, _, _, _ in self._progress(batch_src, f"train epoch[{self.epoch}]"):
+                self.state, metrics, att_map = self.train_step(
+                    self.state, *batch, self.tf_rate, self.current_lr, init_force=init_force)
+                loss_parts.append(metrics["loss"])
+                ppl_parts.append(metrics["ppl"])
+                n_batches += 1
+                self.batch += 1
+                if sync_every > 0 and n_batches % sync_every == 0:
+                    loss_parts = [torch.stack(loss_parts).sum()]
+                    ppl_parts = [torch.stack(ppl_parts).sum()]
+                    float(loss_parts[0])  # bounded in-flight work
+                # the per-update LR schedule, on accumulation boundaries (src/train.py:185-188)
+                if self.batch_scheduler and self.batch % self.accu_grad == 0:
+                    self.current_lr = self.batch_scheduler.step()
+                    self.logger.log({"learning-rate": self.current_lr})
+                if profiler is not None and n_batches >= profiler.batches:
+                    self._end_profile(profiler)
+                    profiler = None
+            if profiler is not None:  # fewer batches than profile.batches
+                self._end_profile(profiler)
+                profiler = None
+        finally:
+            if profiler is not None:  # a step raised: stop, write nothing
+                profiler.stop(export=False)
         total_loss = float(torch.stack(loss_parts).sum()) if loss_parts else 0.0
         total_ppl = float(torch.stack(ppl_parts).sum()) if ppl_parts else 0.0
         return total_loss / max(n_batches, 1), total_ppl / max(n_batches, 1), att_map
+
+    def _end_profile(self, profiler) -> None:
+        profiler.stop()
+        self.logger.print(f"[profile] trace written to {self.saving_dir}/profile")
 
     def evaluate_epoch(self, compute_ld: bool = True):
         """Free-running dev eval. ``compute_ld=False`` skips the host's

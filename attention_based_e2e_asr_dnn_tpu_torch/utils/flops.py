@@ -2,10 +2,16 @@
 ``utils/flops.py``): matmul FLOPs (2 x MACs) of the dominant products, the
 LSTM gate products, the attention projections, scores and contexts, and the
 classifier. Gate math, embeddings and the optimizer are left out (<1% at
-these shapes). Feeds the model summary the ``train`` CLI prints.
+these shapes). Feeds the model summary the ``train`` CLI prints, and the
+model FLOP utilisation (MFU) of ``tools/bench.py`` and
+``tools/profile_step.py``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
+
+import torch
 
 
 def lstm_layer_flops(batch: int, time: int, in_dim: int, hid: int,
@@ -58,3 +64,30 @@ def las_train_step_flops(cfg, batch: int, time: int, label_len: int) -> int:
     """fwd + bwd ~ 3x forward (the usual dense-training approximation)."""
     return 3 * las_forward_flops(cfg, batch, time, dec_steps=label_len)
 
+
+
+# peak dense bf16 FLOP/s of a card, by the name torch.cuda.get_device_name
+# gives (NVIDIA's data sheet, SXM part, at its 700 W limit)
+_PEAK_BF16 = {
+    "NVIDIA H100 80GB HBM3": 989.4e12,
+}
+
+
+def peak_flops_per_chip(device=None) -> Optional[float]:
+    """Peak dense bf16 FLOP/s of ``device`` (a ``torch.device`` or a device
+    string such as ``"cuda:0"``; default the current card), looked up by the
+    name ``torch.cuda.get_device_name`` gives. None for the CPU and for a
+    card the table does not name, so that an MFU is never a guess."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return _PEAK_BF16.get(torch.cuda.get_device_name(dev))
+
+
+def mfu(flops: float, seconds: float, device=None) -> Optional[float]:
+    """``flops`` done in ``seconds`` over the device's peak; None where the
+    peak is unknown."""
+    peak = peak_flops_per_chip(device)
+    if peak is None or seconds <= 0:
+        return None
+    return flops / seconds / peak

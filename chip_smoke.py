@@ -210,6 +210,37 @@ on one NVIDIA card, from the root of a checkout:
    same batches; the int8 agreement printed; a ``serve_http --artifact
    --corrector-artifact`` burst over loopback; utt/s beside the
    ``Transcriber``'s in the same run, s to ready.
+19. The port's bench (``tools/bench.py``) in-process for base-LAS and
+   scaled-LAS: B=128, T=1536, L=192, bf16, 2 warm-up steps and 8 timed
+   steps, then ``bench.py``'s realistic bucket plan; both JSON lines
+   printed, every figure finite, the launches a dense step the plans'
+   (``forward_launches`` / ``adjoint_launches``), the dense s/step beside
+   phases 8 and 10's median step of the same run.
+20. Profiles. ``tools/profile_step``'s rows for both models (its table
+   printed). The Trainer's ``profile`` block: the ``train`` CLI for two
+   epochs of ``configs/base-las.yml`` at its batch (96) on a generated
+   long-form corpus (``make_synthetic_data --words 25 45``, the bench's
+   realistic lengths: 384 / 96 / 8 utterances) with ``profile: {use: true,
+   epoch: 1, batches: 3}`` (the second epoch: no first-use allocation in
+   the window); the trace must name the four bf16 kernels, hold 3 steps'
+   launches of the decode's adjoint, the pinned copies and the
+   prefetcher's thread. With this script's own
+   profiler: one ``infer.main`` call (``configs/infer.yml``'s keys on phase
+   14's test set) and one ``Transcriber.transcribe`` of phase 4's
+   utterances. For each trace the device's busy share of the window (the
+   union of its kernel intervals) and its 5 longest idle gaps.
+21. Tools: ``dev.extract_mini`` on phase 11's corpus; ``import_reference_ckpt``
+   from phase 4's checkpoint to a reference ``.pt``, back, and out again,
+   the tensors bit-equal; ``export_serving --check`` for the LAS (greedy,
+   beam 8, int8; 32 x 1536) and phase 17's Rewriter; ``serving_bench`` on
+   phase 4's experiment at the tool's default stream of 256 utterances
+   (latency over its first 128 requests; ``cold_warm_accuracy_match`` 1.0).
+22. The recipe and chain tools on a generated corpus of 64 / 16 / 16
+   utterances: ``full_recipe_run`` (base-LAS with both kernel tiers, 10
+   epochs to its first milestone, one Rewriter epoch, ``lminfer`` beam 8
+   with the gate), ``chain_refit`` on its run (one Rewriter epoch, three
+   ``lminfer`` modes), ``best_effort_eval`` from its artifacts; each record
+   printed.
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
@@ -1663,10 +1694,11 @@ def step_split(torch, cfg, state, opt, x, lx, y, ly, tf_rate, lr) -> tuple:
 
 
 def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
-                model: str = "base-LAS") -> dict:
+                model: str = "base-LAS") -> tuple:
     """A trainer that takes a few steps at the full width of ``model`` with
     the listener on its kernels and the decoder on ``decoder_impl``; returns
-    the launches of the timed steps. scaled-LAS trains with ``remat``: each
+    (the launches of the timed steps, {"s_per_step": their median,
+    "split_ms": the step's split}). scaled-LAS trains with ``remat``: each
     listener layer's first pass is a lean kernel, its backward pass the
     training forward again and then ``lstm_bwd`` with the outside dW_hh."""
     from attention_based_e2e_asr_dnn_tpu_torch.models import las
@@ -1803,7 +1835,7 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
             f"({(peak_off - peak) / 2**20:.1f} MiB saved), loss {m['loss'].item():.4f}")
         del state, step
         torch.cuda.empty_cache()
-    return counts
+    return counts, {"s_per_step": sec, "split_ms": split}
 
 
 def train_parity_phase(torch, card: str, model: str = "base-LAS") -> None:
@@ -3503,6 +3535,392 @@ def export_phase(torch, card: str, las_exp: str, lm_exp: str, feats: list, work:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-22: the measurement and tools surface
+# ---------------------------------------------------------------------------
+
+BENCH_ARCHS = ("base", "scaled")
+# the hand-written kernels as the profiler names them (bf16 forms)
+TRACE_KERNELS = ("lstm_scan_tc_kernel", "lstm_bwd_tc_kernel", "speller_decode_tc_kernel",
+                 "speller_bwd_tc_kernel")
+PROFILE_BATCHES = 3
+# the profiled train run: configs/base-las.yml at its batch on long-form
+# utterances (the bench's realistic lengths), four steps an epoch
+PROFILE_SPLITS, PROFILE_WORDS = (384, 96, 8), (25, 45)
+WINDOW = "chip_smoke window"
+RECIPE_SPLITS, RECIPE_EPOCHS, RECIPE_MAX_STEPS = (64, 16, 16), 10, 64
+
+
+def trace_stats(path: str, window: str) -> dict:
+    """From a Chrome trace: the window annotation's span, the union of the
+    kernel intervals inside it (the device's busy time), its share, the 5
+    longest gaps between kernels (start from the window's start, length;
+    ms), the kernels by name and the memcpy and host-prefetch events."""
+    with open(path) as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    # the host's annotation; the profiler mirrors it on the device's timeline
+    # as a "gpu_user_annotation"
+    spans = [e for e in events if e.get("name") == window and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise AssertionError(f"{path}: {len(spans)} '{window}' annotations")
+    w0 = float(spans[0]["ts"])
+    w1 = w0 + float(spans[0]["dur"])
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    intervals = sorted((max(float(e["ts"]), w0), min(float(e["ts"]) + float(e["dur"]), w1))
+                       for e in kernels)
+    busy, gaps, edge = 0.0, [], w0
+    for start, end in intervals:
+        if end <= edge:
+            continue
+        if start > edge:
+            gaps.append((start - edge, edge))
+        busy += end - max(start, edge)
+        edge = end
+    if w1 > edge:
+        gaps.append((w1 - edge, edge))
+    gaps.sort(reverse=True)
+    return {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / (w1 - w0),
+            "gaps_ms": [(round((at - w0) / 1e3, 3), round(length / 1e3, 3))
+                        for length, at in gaps[:5]],
+            "in_gaps": [host_in_gap(events, at, at + length) for length, at in gaps[:3]],
+            "kernels": len(kernels),
+            "by_name": {k: sum(1 for e in kernels if k in e["name"]) for k in TRACE_KERNELS},
+            "memcpy": sum(1 for e in events if str(e.get("cat", "")).lower() == "gpu_memcpy"),
+            "host_prefetch": sum(1 for e in events if e.get("cat") == "host_prefetch")}
+
+
+def host_in_gap(events: list, g0: float, g1: float, top: int = 4) -> list:
+    """The host's work during a device gap [g0, g1] (trace microseconds):
+    the operators, runtime calls and prefetcher spans that overlap it, by
+    name, each with its longest overlap in ms (nested operators each show)."""
+    longest: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("cpu_op", "cuda_runtime",
+                                                      "host_prefetch"):
+            continue
+        start = float(e["ts"])
+        overlap = min(start + float(e.get("dur", 0)), g1) - max(start, g0)
+        if overlap > 0:
+            longest[e["name"]] = max(longest.get(e["name"], 0.0), overlap)
+    ranked = sorted(longest.items(), key=lambda kv: -kv[1])[:top]
+    return [(name[:60], round(us / 1e3, 1)) for name, us in ranked]
+
+
+def profiled(torch, fn, path: str):
+    """``fn()`` under ``torch.profiler`` (CPU and the card) inside one
+    window annotation, the trace written to ``path``: (its result, its
+    ``trace_stats``). The phase's own profiler, not a feature of the port."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            result = fn()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    stats = trace_stats(path, WINDOW)
+    if stats["kernels"] == 0:
+        raise AssertionError(f"{path}: the profiler traced no kernel on the card")
+    return result, stats
+
+
+def fmt_trace(stats: dict) -> str:
+    return (f"window {stats['window_ms']:.1f} ms, device busy {stats['busy_ms']:.1f} ms "
+            f"({100 * stats['busy_share']:.1f}%, idle {100 * (1 - stats['busy_share']):.1f}%), "
+            f"{stats['kernels']} kernels, 5 longest idle gaps (at ms, ms) {stats['gaps_ms']}; "
+            f"the host in the 3 longest (operator, ms) {stats['in_gaps']}")
+
+
+def bench_launches(torch, arch: str) -> dict:
+    """The kernels' launches in one bench step, from the plans."""
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import bench
+
+    hidden = bench.MODELS[arch]["listener_configs"]["uniform_hid_dim"]
+    remat = bench.MODELS[arch]["listener_configs"].get("remat", False)
+    wide = hidden > H
+    fwd = forward_launches(torch, torch.bfloat16, TRAIN_B, hidden)
+    chunks = adjoint_launches(torch, torch.bfloat16, TRAIN_B, hidden, not wide)
+    want = {"lstm_scan_fusedin": fwd if remat else 0, "lstm_scan": 3 * fwd if remat else 0,
+            "lstm_scan_fusedin_train": fwd, "lstm_scan_train": 3 * fwd,
+            "lstm_bwd" if wide else "lstm_bwd_dw": 4 * chunks,
+            "speller_decode_train": 1, "speller_decode_bwd": 1}
+    return {k: v for k, v in want.items() if v}
+
+
+def bench_phase(torch, card: str, steps: dict) -> None:
+    """Phase 19: ``tools/bench.py`` in-process for both models, its JSON line
+    printed; every figure finite, the launches a dense step the plans'; the
+    dense s/step beside phases 8 and 10's step of this run."""
+    import math
+
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import bench
+
+    for arch, model in zip(BENCH_ARCHS, ("base-LAS", "scaled-LAS")):
+        rec = bench.run(arch, TRAIN_B, DEVICE)
+        print(json.dumps(rec), flush=True)
+        figures = {k: rec[k] for k in ("value", "s_per_step", "value_realistic",
+                                       "pad_waste_frac", "mfu", "flops_per_step", "peak_mib",
+                                       "power_limit_w")}
+        if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+                   for v in figures.values()):
+            raise AssertionError(f"bench {arch}: figures {figures}")
+        want = bench_launches(torch, arch)
+        if rec["launches_per_step"] != want:
+            raise AssertionError(f"bench {arch}: launches a step {rec['launches_per_step']} "
+                                 f"!= the plans' {want}")
+        phase8 = steps[model]
+        log(f"[{card}] bench {arch}: dense {rec['s_per_step']:.4f} s/step "
+            f"({rec['value']:.2f} utt/s, MFU {rec['mfu']:.4f}, peak {rec['peak_mib']:.1f} MiB) "
+            f"beside phase {8 if arch == 'base' else 10}'s median {phase8['s_per_step']:.4f} "
+            f"s/step (its split sums to {sum(phase8['split_ms']):.1f} ms); realistic "
+            f"{rec['value_realistic']:.2f} utt/s over {rec['realistic_shapes']} "
+            f"(pad waste {rec['pad_waste_frac']:.4f}); launches a step {want}")
+
+
+def trainer_profile_phase(torch, card: str, work: str) -> None:
+    """Phase 20, the Trainer's ``profile`` block: the ``train`` CLI for two
+    epochs of ``configs/base-las.yml`` at its batch on a generated long-form
+    corpus with ``profile: {use: true, epoch: 1, batches: 3}``; the trace
+    holds the kernels by name, 3 steps' launches of the decode's adjoint,
+    the pinned copies and the prefetcher's thread; the device's busy share
+    of the window and its longest idle gaps."""
+    import numpy as np
+    import yaml
+
+    from attention_based_e2e_asr_dnn_tpu_torch import train
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.make_synthetic_data import generate
+    from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import WINDOW as TRAIN_WINDOW
+
+    corpus = os.path.join(work, "longform-corpus")
+    n_train, n_dev, n_test = PROFILE_SPLITS
+    generate(corpus, n_train=n_train, n_dev=n_dev, n_test=n_test, words_min=PROFILE_WORDS[0],
+             words_max=PROFILE_WORDS[1], seed=SEED + 20)
+    mfcc = os.path.join(corpus, "train-clean-100", "mfcc")
+    frames = [np.load(os.path.join(mfcc, f), mmap_mode="r").shape[0] for f in os.listdir(mfcc)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "base-las.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["parallel"]["use"] = False
+    batch = cfg["batch_size"]
+    cfg.update(epochs=2, profile={"use": True, "epoch": 1, "batches": PROFILE_BATCHES},
+               TRN_FOLDER=os.path.join(corpus, "train-clean-100"),
+               DEV_FOLDER=os.path.join(corpus, "dev-clean"),
+               TST_FOLDER=os.path.join(corpus, "test-clean"),
+               EXP_FOLDER=os.path.join(work, "experiments-profile"),
+               MST_FOLDER=os.path.join(work, "milestones-profile"))
+    path = os.path.join(work, "profile.yml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        trainer = train.main(train.build_argparser().parse_args(["-c", path, "--device",
+                                                                 DEVICE]))
+    trace = os.path.join(trainer.saving_dir, "profile", "trace-epoch1.json")
+    if f"[profile] trace written to {trainer.saving_dir}/profile" not in tee.getvalue():
+        raise AssertionError("profile: the block did not report its trace")
+    stats = trace_stats(trace, TRAIN_WINDOW)
+    plan = -(-batch // 128)  # one launch a span of up to 128 rows (plan_decode_bwd_tc)
+    missing = [k for k, n in stats["by_name"].items() if n == 0]
+    if missing or stats["by_name"]["speller_bwd_tc_kernel"] != PROFILE_BATCHES * plan:
+        raise AssertionError(f"profile: kernels by name {stats['by_name']} (3 steps of "
+                             f"{plan} decode adjoint launches wanted)")
+    if stats["memcpy"] == 0 or stats["host_prefetch"] == 0:
+        raise AssertionError(f"profile: {stats['memcpy']} copies, {stats['host_prefetch']} "
+                             f"prefetcher spans in the trace")
+    log(f"[{card}] profile block, train CLI base-LAS bf16 batch {batch}, {PROFILE_BATCHES} "
+        f"steps of epoch 1 on {n_train} long-form utterances (frames {min(frames)}-"
+        f"{max(frames)}, mean {np.mean(frames):.1f}; pad_time_multiple "
+        f"{cfg['pad_time_multiple']}): {fmt_trace(stats)}; "
+        f"{stats['kernels'] / PROFILE_BATCHES:.0f} kernels a step; by name "
+        f"{stats['by_name']}; {stats['memcpy']} memcpy, {stats['host_prefetch']} prefetcher "
+        f"spans; trace {os.path.getsize(trace) / 2**20:.1f} MiB; epochs "
+        f"{[round(s, 2) for s in trainer.epoch_seconds]} s")
+
+
+def serve_infer_profile_phase(torch, card: str, t, feats: list, exp: str, data: str,
+                              work: str) -> None:
+    """Phase 20, with the phase's own profiler: one ``infer.main`` call
+    (``configs/infer.yml``'s keys on phase 14's test set) and one
+    ``Transcriber.transcribe`` of phase 4's utterances."""
+    from attention_based_e2e_asr_dnn_tpu_torch import infer
+
+    path = os.path.join(work, "infer-profile.yml")
+    with open(path, "w") as fh:
+        fh.write(f"SOME_FOLDER: {data}\nexp_folder: {exp}\nbatch_size: {INFER_BATCH}\n"
+                 f"pad_time_multiple: 256\nrun_all: true\nepoch_num: null\nrun_avg: false\n")
+    args = infer.build_argparser().parse_args(["-c", path, "--device", DEVICE])
+    _, infer_stats = profiled(torch, lambda: infer.main(args),
+                              os.path.join(work, "infer-trace.json"))
+    log(f"[{card}] profile infer CLI (early-stop greedy, {N_TEST_UTTS} utts x 2 checkpoints, "
+        f"batch {INFER_BATCH}): {fmt_trace(infer_stats)}; the host's share outside the "
+        f"device's work {100 * (1 - infer_stats['busy_share']):.1f}%")
+    texts, serve_stats = profiled(torch, lambda: t.transcribe(feats),
+                                  os.path.join(work, "serve-trace.json"))
+    if len(texts) != len(feats):
+        raise AssertionError("profile serve: transcripts missing")
+    log(f"[{card}] profile Transcriber.transcribe ({len(feats)} utts, batch {B}): "
+        f"{fmt_trace(serve_stats)}")
+
+
+def profile_step_phase(torch, card: str) -> None:
+    """Phase 20: ``tools/profile_step``'s rows for both models, the table
+    printed; every row finite."""
+    import math
+
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import profile_step
+
+    for arch in BENCH_ARCHS:
+        rows = profile_step.profile_rows(profile_step.model_for(arch), TRAIN_B, TRAIN_T,
+                                         TRAIN_L, DEVICE)
+        if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
+            raise AssertionError(f"profile_step {arch}: rows {rows}")
+        log(profile_step.format_table(rows, f"[{card}] profile_step {arch} B={TRAIN_B} "
+                                            f"T={TRAIN_T} L={TRAIN_L} bf16"))
+
+
+def dev_phase(card: str, corpus: str, work: str) -> None:
+    """Phase 21: ``dev.extract_mini`` on phase 11's generated corpus."""
+    from attention_based_e2e_asr_dnn_tpu_torch import dev
+
+    small = os.path.join(work, "small")
+    dev.extract_mini(corpus, small, ratio=0.05, seed=SEED)
+    got = {split: len(os.listdir(os.path.join(small, split, "mfcc")))
+           for split in ("train-clean-100", "dev-clean")}
+    if got != {"train-clean-100": max(int(0.05 * N_CLI_TRAIN), 1),
+               "dev-clean": max(int(0.05 * N_CLI_DEV), 1)}:
+        raise AssertionError(f"dev.extract_mini: {got}")
+    log(f"[{card}] dev.extract_mini: {got} utterances copied")
+
+
+def tools_phase(torch, card: str, exp: str, lm_exp: str, work: str) -> None:
+    """Phase 21: ``import_reference_ckpt`` from phase 4's checkpoint out to
+    a reference ``.pt``, in, and out again (bit-equal); ``export_serving
+    --check`` for the LAS (greedy, beam 8, int8) and the Rewriter;
+    ``serving_bench`` on phase 4's experiment."""
+    import math
+    import warnings
+
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import (
+        export_serving,
+        import_reference_ckpt,
+        serving_bench,
+    )
+
+    ckpt = os.path.join(exp, "ckpts", "min-loss-ld-ppl-epoch[2].ckpt")
+    pts = [os.path.join(work, f"ref{i}.pt") for i in range(2)]
+    imported = os.path.join(work, "imported.ckpt")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the learned initial states have no slot there
+        for argv in (["las", ckpt, "-o", pts[0], "--export"], ["las", pts[0], "-o", imported],
+                     ["las", imported, "-o", pts[1], "--export"]):
+            if import_reference_ckpt.main(argv) != 0:
+                raise AssertionError(f"import_reference_ckpt {argv}")
+    sds = [torch.load(p, weights_only=True)["model_state_dict"] for p in pts]
+    if sds[0].keys() != sds[1].keys() or not all(torch.equal(sds[0][k], sds[1][k])
+                                                 for k in sds[0]):
+        raise AssertionError("import_reference_ckpt: the round trip changed a tensor")
+    log(f"[{card}] import_reference_ckpt: {len(sds[0])} tensors out, in and out again, "
+        f"bit-equal")
+
+    for name, extra in (("greedy", []), ("beam8", ["--beam-size", "8"]),
+                        ("int8", ["--quantize", "int8"]),
+                        ("rewriter", ["--model", "rewriter", "--beam-size", "8"])):
+        folder = lm_exp if name == "rewriter" else exp
+        t_pad = "256" if name == "rewriter" else "1536"
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = export_serving.main([folder, "-o", os.path.join(work, f"{name}.tlas"),
+                                      "--batch", str(B), "--t-pad", t_pad, "--check",
+                                      "--device", DEVICE, *extra])
+        if rc != 0 or "check: artifact" not in tee.getvalue():
+            raise AssertionError(f"export_serving --check {name}: rc {rc}")
+        log(f"[{card}] export_serving --check {name}: "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    rec = serving_bench.run(exp, batch_size=B, device=DEVICE)  # the tool's default stream
+    print(json.dumps(rec), flush=True)
+    if rec["cold_warm_accuracy_match"] != 1.0 or not all(
+            math.isfinite(rec[k]) and rec[k] > 0 for k in ("ready_s", "cold_utt_s",
+                                                          "warm_utt_s", "p50_ms", "p99_ms")):
+        raise AssertionError(f"serving_bench: {rec}")
+    log(f"[{card}] serving_bench n={rec['n']}: ready {rec['ready_s']:.2f} s, cold "
+        f"{rec['cold_utt_s']:.2f} utt/s, warm {rec['warm_utt_s']:.2f} utt/s, p50 "
+        f"{rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} ms, match 1.0")
+
+
+def recipe_phase(torch, card: str, work: str) -> None:
+    """Phase 22: ``full_recipe_run`` (base-LAS, ``RECIPE_EPOCHS`` epochs to
+    its first milestone, one Rewriter epoch, ``lminfer`` beam 8 with the
+    gate), ``chain_refit`` on its run and milestone (one Rewriter epoch,
+    three ``lminfer`` modes), ``best_effort_eval`` from artifacts, on a small
+    generated corpus; each prints its record."""
+    import math
+
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import (
+        best_effort_eval,
+        chain_refit,
+        full_recipe_run,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.make_synthetic_data import generate
+
+    corpus = os.path.join(work, "recipe-corpus")
+    n_train, n_dev, n_test = RECIPE_SPLITS
+    generate(corpus, n_train=n_train, n_dev=n_dev, n_test=n_test, seed=SEED + 22)
+    quiet = io.StringIO()  # the CLIs' lines; the records are printed below
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        recipe = full_recipe_run.main([
+            "--data-dir", corpus, "--work-dir", os.path.join(work, "recipe"),
+            "--epochs", str(RECIPE_EPOCHS), "--lm-epochs", "1", "--batch-size", str(CLI_BATCH),
+            "--decoder-impl", "pallas", "--max-steps", str(RECIPE_MAX_STEPS),
+            "--device", DEVICE])
+    t_recipe = time.perf_counter() - t0
+    print(json.dumps(recipe), flush=True)
+    if not (len(recipe["las_dev_ld_history"]) == RECIPE_EPOCHS and all(
+            math.isfinite(v) for v in (recipe["milestone_dev_ld"],
+                                       recipe["rewriter_corrected_dev_ld"]))):
+        raise AssertionError(f"full_recipe_run: {recipe}")
+    run_dir = [os.path.join(work, "recipe", "las", d)
+               for d in os.listdir(os.path.join(work, "recipe", "las")) if d != "milestones"][0]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        chain = chain_refit.main([
+            "--data-dir", corpus, "--run-dir", run_dir, "--milestones", str(RECIPE_EPOCHS - 1),
+            "--lm-epochs", "1", "--batch-size", str(CLI_BATCH), "--lm-max-steps", "120",
+            "--work-dir", os.path.join(work, "chain"), "--device", DEVICE])
+    t_chain = time.perf_counter() - t0
+    print(json.dumps(chain), flush=True)
+    modes = chain["milestones"][0]["modes"] if chain["milestones"] else {}
+    if set(modes) != set(chain_refit.MODES) or not all(math.isfinite(m["test_ld"])
+                                                      for m in modes.values()):
+        raise AssertionError(f"chain_refit: {chain}")
+    lm_run = os.path.join(work, "chain", f"lm-m{RECIPE_EPOCHS - 1}")
+    lm_run = os.path.join(lm_run, sorted(os.listdir(lm_run))[-1])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        best = best_effort_eval.main([
+            "--data-dir", corpus, "--run-dir", run_dir, "--lm-run", lm_run,
+            "--batch", str(CLI_BATCH), "--work-dir", os.path.join(work, "best"),
+            "--device", DEVICE])
+    t_best = time.perf_counter() - t0
+    print(json.dumps(best), flush=True)
+    if not all(math.isfinite(best[k]) for k in ("greedy_dev_ld", "beam_dev_ld",
+                                                 "beam_corrector_dev_ld")):
+        raise AssertionError(f"best_effort_eval: {best}")
+    log(f"[{card}] full_recipe_run ({n_train}/{n_dev}/{n_test} utterances, "
+        f"{RECIPE_EPOCHS} epochs, milestone {recipe['milestone']}): dev LD "
+        f"{[round(v, 2) for v in recipe['las_dev_ld_history']]}, milestone "
+        f"{recipe['milestone_dev_ld']:.3f} -> corrected {recipe['rewriter_corrected_dev_ld']:.3f}; "
+        f"{t_recipe:.1f} s. chain_refit: test LD in "
+        f"{chain['milestones'][0]['input_test_ld']:.3f}, "
+        f"{ {k: round(m['test_ld'], 3) for k, m in modes.items()} }; {t_chain:.1f} s. "
+        f"best_effort_eval: greedy {best['greedy_dev_ld']:.3f} | beam "
+        f"{best['beam_dev_ld']:.3f} | beam + corrector {best['beam_corrector_dev_ld']:.3f}; "
+        f"{t_best:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3520,13 +3938,12 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.timing import smi_name_and_power
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    card = smi
+    card = smi_name_and_power()
+    log(card)
 
     t_start = time.perf_counter()
     with phase("1 build"):
@@ -3564,26 +3981,42 @@ def main() -> int:
             lm_folder, _, lm_records, lm_launches = lmtrain_phase(torch, card, root)
         with phase("18 export and serve from artifacts"):
             export_launches = export_phase(torch, card, exp, lm_folder, feats, root)
+        with phase("20 profile: the infer CLI and a serve call"):
+            serve_infer_profile_phase(torch, card, t, feats, exp, data, root)
+        with phase("21 tools: import_reference_ckpt, export_serving --check, serving_bench"):
+            tools_phase(torch, card, exp, lm_folder, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del t
     gc.collect()  # the HTTP server's reference cycles hold a model on the card
     torch.cuda.empty_cache()
     # base-LAS with every kernel tier engaged; then the earlier route
+    steps = {}
     with phase("8 + 9 base-LAS train steps, parity step"):
-        train_launches = train_phase(torch, card, "pallas", 3)
+        train_launches, steps["base-LAS"] = train_phase(torch, card, "pallas", 3)
         train_phase(torch, card, "scan", 2)
         train_parity_phase(torch, card)
     # scaled-LAS (H=1024, remat): train steps and the parity step, then the
     # train CLI, a resumed run and the infer CLI from the folder it wrote
     with phase("10 scaled-LAS train steps, parity step"):
-        wide_launches = train_phase(torch, card, "pallas", 3, "scaled-LAS")
+        wide_launches, steps["scaled-LAS"] = train_phase(torch, card, "pallas", 3,
+                                                         "scaled-LAS")
         train_parity_phase(torch, card, "scaled-LAS")
+    with phase("19 bench: base and scaled, dense and realistic"):
+        bench_phase(torch, card, steps)
+    with phase("20 profile_step: base and scaled"):
+        profile_step_phase(torch, card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         with phase("11 train CLI, resume, infer from its folder"):
             folder, corpus, cli_launches = train_cli_phase(torch, card, root)
             train_to_infer_phase(torch, card, folder, corpus, root)
+        with phase("20 profile block: train CLI epochs at base-LAS's batch, long-form"):
+            trainer_profile_phase(torch, card, root)
+        with phase("21 tools: dev.extract_mini on phase 11's corpus"):
+            dev_phase(card, corpus, root)
+        with phase("22 recipe and chain: full_recipe_run, chain_refit, best_effort_eval"):
+            recipe_phase(torch, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")

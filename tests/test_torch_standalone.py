@@ -40,7 +40,13 @@ def test_every_module_imports_without_jax():
     assert {f"{port.__name__}.{m}" for m in ("data.lazy", "data.native_loader", "server",
                                              "tools.serve_http", "decoding.select",
                                              "decoding.beam", "decoding.rescore",
-                                             "models.rewriter", "lminfer")} <= set(modules)
+                                             "models.rewriter", "lminfer", "dev",
+                                             "utils.profiling", "tools.bench",
+                                             "tools.profile_step",
+                                             "tools.import_reference_ckpt",
+                                             "tools.export_serving", "tools.serving_bench",
+                                             "tools.full_recipe_run", "tools.chain_refit",
+                                             "tools.best_effort_eval")} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         "for name in ('jax', 'jaxlib', 'optax', 'attention_based_e2e_asr_dnn_tpu'):\n"
@@ -76,6 +82,19 @@ def test_no_source_line_imports_the_jax_package():
                        or w.startswith(pattern + ".") for w in words):
                     hits.append(f"{path}:{n}: {stripped}")
     assert hits == []
+
+
+def test_dev_copy_is_the_original():
+    """The port's ``dev.py`` is the JAX package's but for its docstring."""
+    import ast
+
+    def body(path):
+        tree = ast.parse(open(path).read())
+        return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[]))
+
+    ours = os.path.join(PORT_DIR, "dev.py")
+    ref = os.path.join(REPO, "attention_based_e2e_asr_dnn_tpu", "dev.py")
+    assert body(ours) == body(ref)
 
 
 def test_constants_match():

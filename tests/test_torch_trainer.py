@@ -521,8 +521,12 @@ def test_trainer_profile_block_and_missing_card_raise(corpus, tmp_path):
     trn, dev = _batchers(corpus, AsrTrainDevDataset, BucketBatcher)
     kwargs = dict(init_fn=None, make_apply=None, trn_batcher=trn, dev_batcher=dev,
                   saving_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="profile.*ROADMAP queue 1, item 12"):
-        Trainer(**kwargs, trncfgs=Config({**TRN, "profile": {"use": True}}), device="cpu")
+    # the profile block is ported (tests/test_torch_profile.py): it builds
+    profiled = Trainer(init_fn=lambda g: tlas.las_from_jax_params(_tiny_params()),
+                       make_apply=ttrain.make_las_apply_factory(T_TINY),
+                       **{k: v for k, v in kwargs.items() if k not in ("init_fn", "make_apply")},
+                       trncfgs=Config({**TRN, "profile": {"use": True}}), device="cpu")
+    assert profiled.trncfgs.profile.use
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(**kwargs, trncfgs=Config(TRN))  # the default device is the card
@@ -548,7 +552,6 @@ def _cli_config(corpus, exp, **extra):
      "parallel.*queue 1, item 11"),
     ({"parallel": {"use": True, "data": None, "model": 2}}, ValueError,
      "tensor parallelism.*lstm_impl and speller_configs.decoder_impl is 'pallas'"),
-    ({"profile": {"use": True, "epoch": 0}}, NotImplementedError, "profile.*item 12"),
 ])
 def test_cli_settings_not_ported_raise(corpus, tmp_path, extra, exc, match):
     path = _cli_config(corpus, tmp_path, **extra)
