@@ -55,6 +55,9 @@ harness.
   utils/summary    the parameter table and shape/FLOP summary the CLI prints
   utils/flops      the analytic FLOPs model
   utils/plotting   attention-map PNGs (matplotlib at the call)
+  parallel/        data parallelism: the 1-D mesh over a torch.distributed
+                   group, the DP train and eval steps, ``spawn``, the
+                   serving split
   serving          Transcriber / StreamingTranscriber
   infer            the batch inference CLI
   train            the training CLI

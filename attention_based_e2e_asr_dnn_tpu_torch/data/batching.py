@@ -16,6 +16,14 @@ that exposes ``feature_lengths`` is not read to learn its lengths, and one
 that exposes ``assemble(indices, t_pad)`` and ``label(i)`` (the lazy datasets
 of ``data/lazy.py``) builds its own padded feature batch, so that no feature
 file is read before its batch is due.
+
+A data-parallel rank's batcher (``set_shard(rank, size)``) walks the same global
+plan from the same seed and assembles the features of its rows only, rows
+``[rank * B/size, (rank + 1) * B/size)`` of each global batch (the JAX shard
+order, ``parallel/multihost.py::process_slice``), padded in time as the
+global batch is: its ``Batch.x`` and ``lx`` hold those rows, ``rows`` says
+which, and ``y``, ``ly`` and ``indices`` stay the global batch's (the dev
+pass's edit distance reads them). A lazy dataset reads only its rows' files.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +50,7 @@ class Batch:
     y: Optional[np.ndarray] = None   # (B, L) int32
     ly: Optional[np.ndarray] = None  # (B,)
     indices: Optional[np.ndarray] = None
+    rows: Optional[slice] = None     # x and lx hold only these rows (a rank's)
 
 
 class BucketBatcher:
@@ -72,6 +81,7 @@ class BucketBatcher:
         self.shuffle_window = shuffle_window
         self.seed = seed
         self.drop_last = drop_last
+        self.shard: Optional[Tuple[int, int]] = None
         if hasattr(dataset, "feature_lengths"):
             self._lengths = np.asarray(dataset.feature_lengths, dtype=np.int64)
         else:
@@ -79,6 +89,14 @@ class BucketBatcher:
                 [len(dataset[i][0] if has_labels else dataset[i])
                  for i in range(len(dataset))], dtype=np.int64)
         self._sorted = np.argsort(-self._lengths, kind="stable")
+
+    def set_shard(self, rank: int, size: int) -> None:
+        """Assemble only the rows of data-parallel rank ``rank`` of
+        ``size`` (see the module docstring)."""
+        if self.batch_size % size:
+            raise ValueError(f"batch dim {self.batch_size} not divisible by "
+                             f"data-parallel degree {size}")
+        self.shard = (int(rank), int(size))
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -107,12 +125,19 @@ class BucketBatcher:
         take += [take[-1]] * (self.batch_size - n_real)  # repeat-pad
         indices = np.array(list(idx) + [-1] * (self.batch_size - n_real),
                            dtype=np.int64)
+        rows = None
+        mine = take
+        if self.shard is not None:
+            rank, size = self.shard
+            per = self.batch_size // size
+            rows = slice(rank * per, (rank + 1) * per)
+            mine = take[rows]
         if hasattr(self.dataset, "assemble"):
             # lazy path: the dataset reads and pads the features in one pass
             # (the native thread pool, or numpy); labels come from its
             # in-memory transcripts, so no item's features are loaded twice
             t_pad = pad_to_multiple(int(self._lengths[take].max()), self.pad_time_multiple)
-            x, lx = self.dataset.assemble(take, t_pad)
+            x, lx = self.dataset.assemble(mine, t_pad)
             ys = [self.dataset.label(i) for i in take] if self.has_labels else None
         else:
             items = [self.dataset[i] for i in take]
@@ -120,21 +145,23 @@ class BucketBatcher:
             ys = [it[1] for it in items] if self.has_labels else None
             lx = np.array([len(x) for x in xs], dtype=np.int32)
             t_pad = pad_to_multiple(int(lx.max()), self.pad_time_multiple)
+            if rows is not None:
+                xs, lx = xs[rows], lx[rows]
             if xs[0].ndim == 2:
-                x = np.zeros((self.batch_size, t_pad, xs[0].shape[1]), dtype=np.float32)
+                x = np.zeros((len(xs), t_pad, xs[0].shape[1]), dtype=np.float32)
             else:
-                x = np.full((self.batch_size, t_pad), self.label_pad_id, dtype=np.int32)
+                x = np.full((len(xs), t_pad), self.label_pad_id, dtype=np.int32)
             for b, ex in enumerate(xs):
                 x[b, : len(ex)] = ex
         if ys is None:
-            return Batch(x=x, lx=lx, indices=indices)
+            return Batch(x=x, lx=lx, indices=indices, rows=rows)
 
         ly = np.array([len(y) for y in ys], dtype=np.int32)
         l_pad = pad_to_multiple(int(ly.max()), self.pad_label_multiple)
         y = np.full((self.batch_size, l_pad), self.label_pad_id, dtype=np.int32)
         for b, ey in enumerate(ys):
             y[b, : len(ey)] = ey
-        return Batch(x=x, lx=lx, y=y, ly=ly, indices=indices)
+        return Batch(x=x, lx=lx, y=y, ly=ly, indices=indices, rows=rows)
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         for idx in self._batch_plan(epoch):

@@ -48,6 +48,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     speller_apply,
     speller_step,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import gather_rows, global_ce_metrics
 from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
     AttentionCache,
     cross_attention_precompute,
@@ -173,14 +174,16 @@ def make_las_eval_beam_step(las_cfg, beam_size: int, length_alpha: float = 0.0,
     (greedy logits at step t depend only on the decoded prefix, so the first
     ``y.shape[1]`` steps equal the full decode's), and the beam search.
     Under ``decoder_impl: pallas`` the loss decode is the fused decode
-    kernel's eval form. ``mesh`` (the JAX package's data-parallel mesh) is
-    not ported."""
+    kernel's eval form.
+
+    ``mesh`` (a ``parallel.mesh.DataMesh``; the JAX package's data-parallel
+    mesh): the step takes the rank's rows; the listener, the loss decode and
+    the beam run on them (on the kernels, per rank), the loss is the global
+    token mean (the CE sum and the raw token count all-reduced, a rank of
+    padding rows adding nothing), and the beam ids are gathered: every rank
+    gets the global batch's."""
     from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_las_eval_beam_step(mesh=...) is not ported yet (ROADMAP queue 1, "
-            "item 11: parallel/)")
     steps = max_steps or las_cfg.speller.CHR_MAX_STEPS
 
     @torch.inference_mode()
@@ -191,15 +194,20 @@ def make_las_eval_beam_step(las_cfg, beam_size: int, length_alpha: float = 0.0,
         n_steps = min(steps, int(y.shape[1]))
         sp_cfg = dataclasses.replace(las_cfg.speller, CHR_MAX_STEPS=n_steps)
         logits = speller_apply(params["speller"], sp_cfg, enc_h, enc_l).logits
-        loss, n_tokens = masked_ce_loss(logits[:, :n_steps], y[:, :n_steps],
-                                        torch.clamp(ly, max=n_steps))
-        metrics = {"loss": loss, "ppl": torch.exp(loss), "n_tokens": n_tokens}
+        args = (logits[:, :n_steps], y[:, :n_steps], torch.clamp(ly, max=n_steps))
+        if mesh is None:
+            loss, n_tokens = masked_ce_loss(*args)
+            metrics = {"loss": loss, "ppl": torch.exp(loss), "n_tokens": n_tokens}
+        else:
+            metrics = global_ce_metrics(*args, mesh)
         ids = None
         if want_ids:
-            ids = torch.from_numpy(beam_search(
+            ids = beam_search(
                 params["speller"], las_cfg.speller, enc_h, enc_l, beam_size=beam_size,
-                max_steps=steps, length_alpha=length_alpha,
-                max_len_factor=max_len_factor))
+                max_steps=steps, length_alpha=length_alpha, max_len_factor=max_len_factor)
+            if mesh is not None:
+                ids = gather_rows(mesh, ids)
+            ids = torch.from_numpy(ids)
         return metrics, ids
 
     return step

@@ -31,9 +31,12 @@ is refused with a ``ValueError`` that names both formats.
 ``RewriteChain``) and ``ArtifactTranscriber`` (the ``Transcriber``
 surface over one artifact a bucket, for ``server.AsrHttpServer``) take
 ``device`` (default ``cuda``; ``cuda`` without a card raises). The JAX
-``platforms`` argument has no meaning here and is not taken;
-``data_parallel > 1`` raises ``NotImplementedError`` (ROADMAP queue 1,
-item 11).
+``platforms`` argument has no meaning here and is not taken.
+``data_parallel > 1`` (a batch divisible by it, the JAX check) is recorded in
+``meta``; the loader then decodes each batch split over that many cards
+(``parallel/split.py``, as ``serving.Transcriber(data_parallel=n)`` does) and
+raises the JAX message where fewer are visible. The format holds no compiled
+program, so nothing else about such an artifact differs.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype as _dtype
+from attention_based_e2e_asr_dnn_tpu_torch.parallel import split
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import _decode_tree, _encode_tree
 from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import ids_to_str
 
@@ -71,12 +75,6 @@ def _quantized(params, quantize: Optional[str]):
     return quantize_tree(params)
 
 
-def _check_data_parallel(data_parallel: int) -> None:
-    if data_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel > 1 is not ported yet (ROADMAP queue 1, item 11: parallel/)")
-
-
 def _decode_meta(compute_dtype, beam_size, length_alpha, max_len_factor, max_steps,
                  quantize) -> dict:
     return {"compute_dtype": _dtype_name(compute_dtype), "beam_size": int(beam_size),
@@ -94,13 +92,15 @@ def export_las_decoder(params, las_cfg, batch: int, t_pad: int, *, vocab: Sequen
     decode. ``params``: the JAX params tree of numpy arrays (a checkpoint's,
     or ``models.las.las_to_jax_params`` of a module); ``las_cfg``:
     ``models.las.LASConfig``."""
-    _check_data_parallel(data_parallel)
+    if data_parallel > 1 and batch % data_parallel:
+        raise ValueError(f"batch {batch} not divisible by data_parallel {data_parallel}")
     meta = {
         "format": _FORMAT, "kind": "las", "batch": int(batch), "t_pad": int(t_pad),
         "input_dim": int(las_cfg.listener.input_dim), "vocab": list(vocab),
         "sos_idx": int(sos_idx), "eos_idx": int(eos_idx), "pad_idx": int(pad_idx),
         **_decode_meta(compute_dtype, beam_size, length_alpha, max_len_factor,
                        las_cfg.speller.CHR_MAX_STEPS, quantize),
+        "data_parallel": int(data_parallel),
         "model": dataclasses.asdict(las_cfg),
     }
     return {"meta": meta, "params": _quantized(params, quantize)}
@@ -193,6 +193,7 @@ class ExportedDecoder:
     more utterances than ``batch`` are refused."""
 
     _KIND = "las"
+    _split = None  # a data_parallel artifact's RowSplit
 
     def __init__(self, path: str, device: str = "cuda"):
         self.device = _device(device, type(self).__name__)
@@ -228,9 +229,15 @@ class ExportedDecoder:
         else:
             self._step = make_las_greedy_step(cfg, compute_dtype=self.compute_dtype,
                                               max_len_factor=m["max_len_factor"])
+        n = int(m.get("data_parallel", 1))
+        self._split = (split.RowSplit(self._step, self.params, split.dp_devices(self.device, n))
+                       if n > 1 else None)
 
     def decode_ids(self, x: np.ndarray, lx: np.ndarray) -> np.ndarray:
         """(batch, t_pad, input_dim) float32, (batch,) int32 -> int32 ids."""
+        if self._split is not None:
+            return np.asarray(self._split(np.asarray(x, np.float32), np.asarray(lx, np.int32)),
+                              np.int32)
         ids = self._step(self.params, torch.as_tensor(np.asarray(x)).to(self.device),
                          torch.as_tensor(np.asarray(lx)).to(self.device))
         return np.asarray(ids.cpu().numpy() if torch.is_tensor(ids) else ids, np.int32)
@@ -520,7 +527,6 @@ def export_from_experiment(exp_folder: str, out_path: str, batch: int = 8, t_pad
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_config_from_dicts
     from attention_based_e2e_asr_dnn_tpu_torch.serving import load_experiment
 
-    _check_data_parallel(data_parallel)
     snap, payload = load_experiment(exp_folder, checkpoint, average)
     model = snap["model"]["configs"]
     las_cfg = las_config_from_dicts(model["listener_configs"], model["speller_configs"])
@@ -529,7 +535,8 @@ def export_from_experiment(exp_folder: str, out_path: str, batch: int = 8, t_pad
         sos_idx=snap["SOS_IDX"], eos_idx=snap["EOS_IDX"],
         pad_idx=snap.get("PAD_IDX", snap["EOS_IDX"]),
         compute_dtype=snap.get("compute_dtype", "float32"), beam_size=beam_size,
-        length_alpha=length_alpha, max_len_factor=max_len_factor, quantize=quantize)
+        length_alpha=length_alpha, max_len_factor=max_len_factor,
+        data_parallel=data_parallel, quantize=quantize)
     return save_artifact(out_path, artifact)
 
 

@@ -18,8 +18,11 @@ block the encoder trains on the LSTM kernels (``lstm_scan_train`` forward,
 form and its adjoint; the dev pass decodes on ``lstm_scan`` and the eval
 form. ``parallel:`` is checked as the JAX CLI checks it: ``pipeline`` and
 ``sequence`` raise its ``ValueError``s, ``model > 1`` with a kernel tier
-its tensor-parallel ``ValueError``, and anything else with ``use: true``
-raises ``NotImplementedError`` (ROADMAP queue 1, item 11). With an
+its tensor-parallel ``ValueError`` and on the scan loops
+``NotImplementedError`` (ROADMAP queue 1, item 16); ``use: true`` with
+``data: N`` (or ``n_devices``; null: every visible card) trains
+data-parallel, as the ``train`` CLI does (one command; ``torchrun`` too).
+With an
 ``export_artifact`` block the best checkpoint becomes a corrector artifact
 (``export.export_corrector_from_experiment``) under
 ``<experiment>/artifacts/``; a failed export warns and leaves the trained
@@ -45,6 +48,12 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
     rewriter_init,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
+    launch,
+    rank_scope,
+    run_summary,
+    shared_folder,
+)
 from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
 from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import (
     MetricLogger,
@@ -97,12 +106,14 @@ def inject_lm_vocab(cfg_dict: dict) -> dict:
     return cfg_dict
 
 
-def check_parallel(trncfgs, lm_cfg: RewriterConfig) -> None:
-    """The JAX CLI's checks of the ``parallel:`` block; what passes them
-    raises ``NotImplementedError``: no mesh is ported yet."""
+def check_parallel(trncfgs, lm_cfg: RewriterConfig):
+    """The JAX CLI's checks of the ``parallel:`` block: False where it is
+    off, else the number of data-parallel ranks (None: every visible card);
+    tensor parallelism on the scan loops raises ``NotImplementedError``
+    (ROADMAP queue 1, item 16)."""
     par = getattr(trncfgs, "parallel", None)
     if par is None or not par.use:
-        return
+        return False
     if int(getattr(par, "pipeline", 0) or 0) > 0:
         raise ValueError("parallel: pipeline is LAS-only (the Rewriter has no "
                          "listener|speller stage split)")
@@ -119,9 +130,13 @@ def check_parallel(trncfgs, lm_cfg: RewriterConfig) -> None:
             f"implementations, but {' and '.join(pallas_flags)} is 'pallas'. Use scan "
             "impls with parallel.model, or keep the kernel tiers and scale with "
             "parallel.data.")
-    raise NotImplementedError(
-        "parallel.use: true is not ported yet (ROADMAP queue 1, item 11: parallel/); "
-        "train on one card with parallel.use: false")
+    if model_par > 1:
+        raise NotImplementedError(
+            f"parallel: model={model_par} (tensor parallelism, parallel/mesh.py's 2-D "
+            f"mesh) is not ported yet (ROADMAP queue 1, item 16); scale with "
+            f"parallel.data alone (data parallelism)")
+    n = getattr(par, "data", None) or getattr(par, "n_devices", None)
+    return None if n is None else int(n)
 
 
 def export_hook(trncfgs, tgt_folder: str) -> None:
@@ -149,24 +164,56 @@ def export_hook(trncfgs, tgt_folder: str) -> None:
 
 
 def main(args):
+    """Train as the YAML says. Returns the ``Trainer``, or under
+    ``parallel.use`` rank 0's ``parallel.dp.run_summary``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here; "
                            f"pass --device cpu to train on the CPU")
-    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    trncfgs = Config(inject_lm_vocab(load_yaml(args.config_file)))
+    lm_cfg = RewriterConfig(**trncfgs.model.configs)
+    n_ranks = check_parallel(trncfgs, lm_cfg)
+    if n_ranks is False:
+        return train(None, args)
+    return launch(train_rank, n_ranks, device, args=(args,),
+                  build="pallas" in (lm_cfg.lstm_impl, lm_cfg.decoder_impl))
+
+
+def train_rank(mesh, args):
+    """One data-parallel rank of ``main``."""
+    return run_summary(train(mesh, args))
+
+
+def train(mesh, args):
+    """The training run, on one rank of ``mesh`` where one is given."""
+    with rank_scope(mesh):
+        return _train(mesh, args)
+
+
+def _train(mesh, args):
+    device = args.device if mesh is None else mesh.device
+    print(f"device: {torch.cuda.get_device_name(device) if torch.device(device).type == 'cuda' else device}")
     trncfgs_dict = inject_lm_vocab(load_yaml(args.config_file))
     trncfgs = Config(trncfgs_dict)
     lm_cfg = RewriterConfig(**trncfgs.model.configs)
-    check_parallel(trncfgs, lm_cfg)
+    if mesh is not None:
+        print(f"[parallel] data-parallel mesh over {mesh.size} devices ({mesh.backend}: "
+              f"one process a rank, per-rank batch shards, explicit all_reduce)")
 
     wandb_cfg = getattr(trncfgs, "wandb", None)
+    writer = mesh is None or mesh.rank == 0
     logger = MetricLogger(
-        use_wandb=bool(wandb_cfg and wandb_cfg.use),
+        use_wandb=bool(wandb_cfg and wandb_cfg.use) and writer,
         wandb_configs=getattr(wandb_cfg, "configs", None),
         run_config=trncfgs_dict,
     )
-    tgt_folder = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
-    snapshot_config(trncfgs_dict, tgt_folder)
+
+    def make_folder() -> str:
+        tgt = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
+        snapshot_config(trncfgs_dict, tgt)
+        return tgt
+
+    tgt_folder = shared_folder(mesh, make_folder)
 
     trn_ds = LmTrainDevDataset(trncfgs.TRN_FOLDER, trncfgs.TRN_PRED_DIR, constants.VOCAB_MAP)
     dev_ds = LmTrainDevDataset(trncfgs.DEV_FOLDER, trncfgs.DEV_PRED_DIR, constants.VOCAB_MAP)
@@ -194,13 +241,15 @@ def main(args):
         eos_idx=constants.EOS_IDX,
         compute_dtype=dtype,
         logger=logger,
-        device=args.device,
+        device=device,
+        dp_mesh=mesh,
     )
     trainer.train_eval(int(trncfgs.epochs))
-    dump_log_json(os.path.join(tgt_folder, "log.json"),
-                  trainer.train_history, trainer.dev_history)
-    logger.finish()
-    export_hook(trncfgs, tgt_folder)
+    if writer:
+        dump_log_json(os.path.join(tgt_folder, "log.json"),
+                      trainer.train_history, trainer.dev_history)
+        logger.finish()
+        export_hook(trncfgs, tgt_folder)
     return trainer
 
 

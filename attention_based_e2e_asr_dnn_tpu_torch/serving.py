@@ -31,7 +31,12 @@ experiment's ``compute_dtype`` (as the JAX ``Corrector`` does); a
 ``Transcriber`` given one passes every transcript through it, so the
 ``StreamingTranscriber`` and the HTTP server return corrected text too.
 
-Not ported yet (ROADMAP queue 1, item 11): data-parallel decoding.
+``data_parallel=n`` decodes each batch split over the first n cards
+(``parallel/split.py``): the parameters are copied to each, a batch of
+``batch_size`` rows (divisible by n) is cut into n row blocks, each decoded
+on its card on a stream of its own, and the ids are put back in order. Beam
+search, the corrector and the ``StreamingTranscriber`` go through it
+unchanged.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
+from attention_based_e2e_asr_dnn_tpu_torch.parallel import split
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     average_checkpoints,
     list_best_checkpoints,
@@ -215,6 +221,8 @@ class Transcriber:
         auto_warmup: frame counts whose buckets a background thread warms,
             largest first (see the module docstring); ``wait_ready`` gates
             traffic on the largest.
+        data_parallel: split each decode batch over this many cards (see
+            the module docstring); ``batch_size`` must divide evenly.
         corrector: optional ``Corrector``; every ``transcribe`` result
             passes through it before it is returned.
         device: where the model runs ("cuda", "cuda:1", "cpu").
@@ -236,8 +244,7 @@ class Transcriber:
         device: str = "cuda",
     ):
         if data_parallel > 1:
-            raise NotImplementedError(
-                "data-parallel decoding is not ported yet (ROADMAP queue 1, item 11)")
+            split.check_divisible(batch_size, data_parallel)
         self.corrector = corrector
         self.length_alpha = length_alpha
         snap, payload = load_experiment(exp_folder, checkpoint, average)
@@ -264,6 +271,9 @@ class Transcriber:
             self._step = make_las_greedy_step(
                 self.cfg, compute_dtype=self.compute_dtype,
                 max_len_factor=max_len_factor)
+        self._split = (split.RowSplit(self._step, self.params,
+                                      split.dp_devices(self.device, data_parallel))
+                       if data_parallel > 1 else None)
 
         # warm-bucket registry (see the module docstring for what "warm" is)
         self._warm: set = set()
@@ -307,6 +317,8 @@ class Transcriber:
             self._ready_evt.set()
 
     def _decode(self, x: np.ndarray, lx: np.ndarray) -> np.ndarray:
+        if self._split is not None:
+            return self._split(x, lx)
         ids = self._step(self.params, torch.from_numpy(x).to(self.device),
                          torch.from_numpy(lx).to(self.device))
         return ids.cpu().numpy()

@@ -16,8 +16,9 @@ checkpoint (under ``--quantize``: on the artifact's dequantized weights,
 which the artifact must reproduce exactly). ``--device`` (default ``cuda``;
 ``cuda`` without a card raises) is where ``--check`` runs.
 
-Refused: ``--data-parallel`` above 1 (ROADMAP queue 1, item 11), and
-``--platforms``, which names the StableHLO targets of the JAX package's
+``--data-parallel N`` (LAS only) records an N-way split in the artifact:
+its loader decodes each batch over N cards (``export.py``), and ``--check``
+then needs them. Refused: ``--platforms``, which names the StableHLO targets of the JAX package's
 artifact; this format holds no compiled program and runs where it is
 loaded.
 """
@@ -67,7 +68,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="with --span-rewrite: the fixed-fraction anchor families; must "
                          "be lminfer's span_fracs of the fit")
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="not ported: above 1 raises (ROADMAP queue 1, item 11)")
+                    help="LAS only: split each decode batch over this many cards")
     ap.add_argument("--quantize", choices=["int8"], default=None,
                     help="weights-only int8 (quantize.py): large matrices int8 with "
                          "per-channel scales, dequantized when loaded")
@@ -163,9 +164,6 @@ def main(argv=None) -> int:
                                   or args.span_fracs != [0.25, 0.5, 0.75, 0.9]):
         ap.error("--span-conf-tau/--span-fracs only apply with --span-rewrite (they name "
                  "the candidate families the fitted policy points into)")
-    if args.data_parallel > 1:
-        raise NotImplementedError("--data-parallel > 1 is not ported yet (ROADMAP queue 1, "
-                                  "item 11: parallel/)")
     require_device(args.device, "export_serving")
 
     if args.model == "rewriter":
@@ -181,7 +179,7 @@ def main(argv=None) -> int:
             args.exp_folder, args.output, batch=args.batch, t_pad=args.t_pad,
             checkpoint=args.checkpoint, average=args.average, beam_size=args.beam_size,
             length_alpha=args.length_alpha, max_len_factor=args.max_len_factor,
-            quantize=args.quantize)
+            data_parallel=args.data_parallel, quantize=args.quantize)
     print(f"exported -> {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
     if args.check:
         ok = (check_rewriter if args.model == "rewriter" else check_las)(args, path)

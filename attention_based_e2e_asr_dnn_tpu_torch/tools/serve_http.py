@@ -26,8 +26,10 @@ experiment folder, ``--corrector-artifact`` a corrector artifact after
 them; a bare ``--warmup`` warms every bucket before ``/readyz`` turns 200.
 The experiment-only flags are refused there, as the JAX tool refuses them.
 
-The flags are the JAX tool's. ``--data-parallel`` above 1 raises
-``NotImplementedError`` and names its ROADMAP item (queue 1, item 11).
+The flags are the JAX tool's. ``--data-parallel N`` splits each decode
+batch over the first N cards (``serving.Transcriber(data_parallel=N)``); an
+artifact's split is fixed at export, so the flag is refused in ``--artifact``
+mode, as the JAX tool refuses it.
 """
 
 from __future__ import annotations
@@ -74,14 +76,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_ported(args) -> None:
-    """Raise for the flags this package cannot serve yet."""
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP queue 1, item 11: "
-            "parallel/)")
-
-
 def artifact_flag_errors(args) -> list:
     """The experiment-only flags given in ``--artifact`` mode (refused, as
     the JAX tool refuses them: beam and checkpoint are fixed at export)."""
@@ -101,6 +95,7 @@ def artifact_flag_errors(args) -> list:
         ("--batch-size", args.batch_size if args.batch_size != 32 else None),
         ("--pad-time-multiple",
          args.pad_time_multiple if args.pad_time_multiple != 128 else None),
+        ("--data-parallel", args.data_parallel if args.data_parallel != 1 else None),
     ] if val]
     if args.warmup:  # frame counts mean something in experiment mode only
         ignored.append("--warmup <values>")
@@ -162,7 +157,6 @@ def start(args):
 def main(argv=None) -> int:
     ap = build_argparser()
     args = ap.parse_args(argv)
-    check_ported(args)
     if bool(args.exp_folder) == bool(args.artifact):
         ap.error("give exactly one of: an experiment folder, or --artifact")
     if args.artifact:

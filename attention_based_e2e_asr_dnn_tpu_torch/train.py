@@ -7,9 +7,19 @@ injection -> experiment folder + config.json snapshot -> batchers -> model
 -> Trainer -> train_eval -> log.json. The YAML keys are the JAX CLI's.
 
 ``--device`` (default ``cuda``) names where the model trains; ``cuda``
-without a card fails. ``parallel.use: true``, whose modules are not ported,
-raises ``NotImplementedError`` and names its ROADMAP item before anything
-is trained. With an ``export_artifact`` block (``batch``, ``t_pad``,
+without a card fails.
+
+``parallel: {use: true}`` with ``model`` 1 or null, ``sequence`` 0 and
+``pipeline`` 0 trains data-parallel (``parallel/dp.py``): ``data`` (or
+``n_devices``; null: every visible card) ranks, one process each, each on
+its rows of every global batch. The same command starts them: one rank runs
+in this process and the others are spawned on ``cuda:1 ..`` (with ``--device
+cpu``, on the CPU over gloo). Under ``torchrun --nproc-per-node N -m
+attention_based_e2e_asr_dnn_tpu_torch.train -c <yml>`` each process joins
+the group it is given. Rank 0 writes the experiment folder. Tensor, sequence
+and pipeline parallelism raise ``NotImplementedError`` naming ROADMAP queue
+1, item 16, after the JAX CLI's ``ValueError``s for the settings it refuses.
+With an ``export_artifact`` block (``batch``, ``t_pad``,
 ``beam_size``, ``average``, ``data_parallel``) the best checkpoint becomes
 a serving artifact (``export.export_from_experiment``) under
 ``<experiment>/artifacts/``; a failed export warns and leaves the trained
@@ -17,9 +27,7 @@ experiment in place, as in the JAX CLI. ``eval_beam_size
 > 1`` takes the dev LD from beam search (``decoding/beam.py::
 make_las_eval_beam_step``: one listener pass a dev batch for the loss decode
 and the beam). ``lazy_data: true`` keeps the features on disk and
-assembles each batch when it is due (``data/lazy.py``). ``parallel.model > 1`` with a ``pallas`` tier raises
-the JAX CLI's ``ValueError``: tensor parallelism shards the LSTM gate
-matrices, which a fused kernel cannot take sharded.
+assembles each batch when it is due (``data/lazy.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import argparse
 import dataclasses
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -53,6 +62,12 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     las_init,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
+    launch,
+    rank_scope,
+    run_summary,
+    shared_folder,
+)
 from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
 from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import (
     MetricLogger,
@@ -116,29 +131,67 @@ def resolve_vocab(trncfgs_dict: dict):
     return use_mini, vocab, vocab_map, sos_key, eos_key
 
 
-def check_ported(trncfgs, las_cfg: LASConfig) -> None:
-    """Raise for the settings this package cannot serve yet."""
+def _pallas_flags(las_cfg: LASConfig) -> list:
+    return [name for name, v in (
+        ("listener_configs.lstm_impl", las_cfg.listener.lstm_impl),
+        ("speller_configs.decoder_impl", las_cfg.speller.decoder_impl),
+    ) if v == "pallas"]
+
+
+def _item16(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"parallel: {what} is not ported yet (ROADMAP queue 1, item 16); "
+        f"scale with parallel.data alone (data parallelism)")
+
+
+def check_ported(trncfgs, las_cfg: LASConfig):
+    """The ``parallel:`` block: False where it is off, else the number of
+    data-parallel ranks (None: every visible card). Raises, in the JAX CLI's
+    order, its ``ValueError``s (tensor, sequence or pipeline parallelism with
+    a kernel tier; sequence with pipeline), then ``NotImplementedError`` for
+    what is not ported (ROADMAP queue 1, item 16)."""
     par = getattr(trncfgs, "parallel", None)
-    if par is not None and par.use:
-        model_par = int(getattr(par, "model", 1) or 1)
-        pallas_flags = [
-            name for name, v in (
-                ("listener_configs.lstm_impl", las_cfg.listener.lstm_impl),
-                ("speller_configs.decoder_impl", las_cfg.speller.decoder_impl),
-            ) if v == "pallas"]
-        if model_par > 1 and pallas_flags:
+    if par is None or not par.use:
+        return False
+    model_par = int(getattr(par, "model", 1) or 1)
+    pipeline_mb = int(getattr(par, "pipeline", 0) or 0)
+    seq_par = int(getattr(par, "sequence", 0) or 0)
+    pallas_flags = _pallas_flags(las_cfg)
+    if model_par > 1 and pallas_flags:
+        raise ValueError(
+            f"parallel: model={model_par} (tensor parallelism) "
+            f"requires the scan implementations, but "
+            f"{' and '.join(pallas_flags)} is 'pallas'. TP shards "
+            "the LSTM gate matrices, which a fused kernel "
+            "cannot consume sharded. Use the scan impls with "
+            "parallel.model, or keep the kernel tiers and scale "
+            "with parallel.data (DP composes with both kernel "
+            "tiers).")
+    if seq_par > 1:
+        if pipeline_mb > 0:
+            raise ValueError("parallel: sequence and pipeline are mutually exclusive "
+                             "in this release")
+        if pallas_flags:
             raise ValueError(
-                f"parallel: model={model_par} (tensor parallelism) "
-                f"requires the scan implementations, but "
-                f"{' and '.join(pallas_flags)} is 'pallas'. TP shards "
-                "the LSTM gate matrices, which a fused kernel "
-                "cannot consume sharded. Use the scan impls with "
-                "parallel.model, or keep the kernel tiers and scale "
-                "with parallel.data (DP composes with both kernel "
-                "tiers).")
-        raise NotImplementedError(
-            "parallel.use: true is not ported yet (ROADMAP queue 1, item 11: "
-            "parallel/); train on one card with parallel.use: false")
+                f"parallel: sequence requires the scan implementations, "
+                f"but {' and '.join(pallas_flags)} is 'pallas'. Use the "
+                "scan impls with parallel.sequence, or keep the kernel "
+                "tiers and scale with parallel.data alone (pure DP runs "
+                "the kernels per rank).")
+        raise _item16("sequence (sequence parallelism, parallel/sequence.py)")
+    if pipeline_mb > 0:
+        if pallas_flags:
+            raise ValueError(
+                f"parallel: pipeline requires the scan implementations, "
+                f"but {' and '.join(pallas_flags)} is 'pallas'. Use the "
+                "scan impls with parallel.pipeline, or keep the kernel "
+                "tiers and scale with parallel.data alone (pure DP runs "
+                "the kernels per rank).")
+        raise _item16("pipeline (parallel/pipeline.py)")
+    if model_par > 1:
+        raise _item16(f"model={model_par} (tensor parallelism, parallel/mesh.py's 2-D mesh)")
+    n = getattr(par, "data", None) or getattr(par, "n_devices", None)
+    return None if n is None else int(n)
 
 
 def export_hook(trncfgs, tgt_folder: str) -> None:
@@ -166,11 +219,36 @@ def export_hook(trncfgs, tgt_folder: str) -> None:
 
 
 def main(args):
+    """Train as the YAML says. Returns the ``Trainer``, or under
+    ``parallel.use`` rank 0's ``run_summary``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here; "
                            f"pass --device cpu to train on the CPU")
-    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    cfg = load_yaml(args.config_file)
+    las_cfg = las_config_from_dicts(cfg["model"]["configs"]["listener_configs"],
+                                    cfg["model"]["configs"]["speller_configs"])
+    n_ranks = check_ported(Config(cfg), las_cfg)
+    if n_ranks is False:
+        return train(None, args)
+    return launch(train_rank, n_ranks, device, args=(args,),
+                  build=bool(_pallas_flags(las_cfg)))
+
+
+def train_rank(mesh, args) -> SimpleNamespace:
+    """One data-parallel rank of ``main``."""
+    return run_summary(train(mesh, args))
+
+
+def train(mesh, args):
+    """The training run, on one rank of ``mesh`` where one is given."""
+    with rank_scope(mesh):
+        return _train(mesh, args)
+
+
+def _train(mesh, args):
+    device = args.device if mesh is None else mesh.device
+    print(f"device: {torch.cuda.get_device_name(device) if torch.device(device).type == 'cuda' else device}")
     trncfgs_dict = load_yaml(args.config_file)
     use_mini, vocab, vocab_map, sos_key, eos_key = resolve_vocab(trncfgs_dict)
     trncfgs_dict = inject_vocab(trncfgs_dict, vocab, vocab_map, sos_key, eos_key)
@@ -181,17 +259,25 @@ def main(args):
         trncfgs.model.configs["listener_configs"],
         trncfgs.model.configs["speller_configs"],
     )
-    check_ported(trncfgs, las_cfg)
+    if mesh is not None:
+        print(f"[parallel] data-parallel mesh over {mesh.size} devices ({mesh.backend}: "
+              f"one process a rank, per-rank batch shards, explicit all_reduce)")
 
     # wandb-or-timestamp experiment folder + config snapshot (src/train.py:519-530)
     wandb_cfg = getattr(trncfgs, "wandb", None)
+    writer = mesh is None or mesh.rank == 0
     logger = MetricLogger(
-        use_wandb=bool(wandb_cfg and wandb_cfg.use),
+        use_wandb=bool(wandb_cfg and wandb_cfg.use) and writer,
         wandb_configs=getattr(wandb_cfg, "configs", None),
         run_config=trncfgs_dict,
     )
-    tgt_folder = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
-    snapshot_config(trncfgs_dict, tgt_folder)
+
+    def make_folder() -> str:
+        tgt = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
+        snapshot_config(trncfgs_dict, tgt)
+        return tgt
+
+    tgt_folder = shared_folder(mesh, make_folder)
     milestone_dir = getattr(trncfgs, "MST_FOLDER", None)
 
     # data
@@ -240,7 +326,7 @@ def main(args):
         eval_beam_step = make_las_eval_beam_step(
             las_cfg, beam_size=eval_beam, compute_dtype=dtype,
             length_alpha=float(getattr(trncfgs, "length_alpha", 0.0) or 0.0),
-            max_len_factor=cfg_float(trncfgs, "max_len_factor", 3.0))
+            max_len_factor=cfg_float(trncfgs, "max_len_factor", 3.0), mesh=mesh)
 
     trainer = Trainer(
         init_fn=lambda generator: las_init(las_cfg, generator),
@@ -254,8 +340,9 @@ def main(args):
         eos_idx=eos_idx,
         compute_dtype=dtype,
         logger=logger,
-        device=args.device,
+        device=device,
         eval_beam_step=eval_beam_step,
+        dp_mesh=mesh,
     )
     print(model_summary(trainer.state.params, trncfgs.model.tag))
     # shape and FLOP summary on the first real batch's shapes; a wiring
@@ -268,10 +355,11 @@ def main(args):
     ))
 
     trainer.train_eval(int(trncfgs.epochs))
-    dump_log_json(os.path.join(tgt_folder, "log.json"),
-                  trainer.train_history, trainer.dev_history)
-    logger.finish()
-    export_hook(trncfgs, tgt_folder)
+    if writer:
+        dump_log_json(os.path.join(tgt_folder, "log.json"),
+                      trainer.train_history, trainer.dev_history)
+        logger.finish()
+        export_hook(trncfgs, tgt_folder)
     return trainer
 
 

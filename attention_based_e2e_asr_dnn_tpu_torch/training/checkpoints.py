@@ -149,10 +149,13 @@ def average_checkpoints(paths: List[str]) -> dict:
 
 
 class CheckpointManager:
-    """Best/milestone checkpoint policy (reference: src/train.py:321-368)."""
+    """Best/milestone checkpoint policy (reference: src/train.py:321-368).
+    ``write=False`` (a data-parallel rank other than 0) keeps the policy's
+    state, the same on every rank, and writes nothing."""
 
     def __init__(self, ckpt_dir: str, milestone_dir: Optional[str] = None,
-                 max_savings: int = 3):
+                 max_savings: int = 3, write: bool = True):
+        self.write = write
         self.ckpt_dir = ckpt_dir
         self.milestone_dir = milestone_dir
         self.max_savings = max_savings
@@ -160,6 +163,8 @@ class CheckpointManager:
         self.min_loss = float("inf")
         self.min_ld = float("inf")
         self.min_ppl = float("inf")
+        if not write:
+            return
         os.makedirs(ckpt_dir, exist_ok=True)
         if milestone_dir:
             os.makedirs(milestone_dir, exist_ok=True)
@@ -169,8 +174,10 @@ class CheckpointManager:
         self.saved_files = []
 
     def maybe_save(self, epoch: int, dev_loss: float, dev_ld: float,
-                   dev_ppl: float, payload: dict) -> Optional[str]:
-        """Save on any new best (composite tag) and on 10-epoch milestones."""
+                   dev_ppl: float, payload) -> Optional[str]:
+        """Save on any new best (composite tag) and on 10-epoch milestones.
+        ``payload``: the checkpoint dict, or a function that makes it (called
+        only where something is written)."""
         tag = "min"
         if dev_loss <= self.min_loss:
             self.min_loss = dev_loss
@@ -185,20 +192,27 @@ class CheckpointManager:
         is_milestone = epoch > 0 and (epoch + 1) % 10 == 0
 
         saved = None
+        made: list = []
+
+        def write(path: str) -> None:
+            if self.write:
+                if not made:
+                    made.append(payload() if callable(payload) else payload)
+                save_checkpoint(path, made[0])
+
         if is_best:
             if len(self.saved_files) >= self.max_savings:
                 # by exact basename: a suffix match would also hit the
                 # emergency-epoch[N].ckpt crash saves
                 evict_path = os.path.join(self.ckpt_dir, self.saved_files.pop(0))
-                if os.path.exists(evict_path):
+                if self.write and os.path.exists(evict_path):
                     os.remove(evict_path)
             name = f"{tag}-epoch[{epoch}].ckpt"
             saved = os.path.join(self.ckpt_dir, name)
-            save_checkpoint(saved, payload)
+            write(saved)
             self.saved_files.append(name)
         if is_milestone and self.milestone_dir:
-            save_checkpoint(
-                os.path.join(self.milestone_dir, f"epoch[{epoch}].ckpt"), payload)
+            write(os.path.join(self.milestone_dir, f"epoch[{epoch}].ckpt"))
         return saved
 
     def list_checkpoints(self) -> List[str]:

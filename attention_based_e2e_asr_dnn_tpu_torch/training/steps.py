@@ -52,6 +52,9 @@ class TrainState:
         self.opt_state = opt_state
         self.generator = generator
         self.step = step
+        # a data-parallel rank's own stream, seeded by the generator's seed
+        # and the rank (``parallel/dp.py``), made at its first step
+        self.shard_generator: Optional[torch.Generator] = None
 
 
 def create_train_state(params: torch.nn.Module, opt: Optimizer, seed: int = 0,
@@ -104,37 +107,49 @@ def make_train_step(apply_fn, opt: Optimizer, accum_steps: int = 1,
                        tf_rate=tf_rate, init_force=init_force, train=True,
                        draws=draws, generator=state.generator)
         loss, n_tokens = masked_ce_loss(out.logits, y, ly)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-
-        with torch.no_grad():
-            grad_norm = global_norm(grads)
-            ok = torch.isfinite(grad_norm)
-            if not nan_guard:
-                ok = torch.ones_like(ok)
-            if nan_guard:
-                # a non-finite step must be a true no-op: zero update AND the
-                # previous optimizer state, or stale momentum and the
-                # decoupled weight decay would still move the parameters
-                grads = [torch.where(ok, g, 0.0) for g in grads]
-                updates, new_state = opt.update(grads, state.opt_state, params, lr)
-                updates = [torch.where(ok, u, 0.0) for u in updates]
-                new_state = OptState(*(
-                    None if new is None else
-                    torch.where(ok, new, old) if torch.is_tensor(new) else
-                    [torch.where(ok, n, o) for n, o in zip(new, old)]
-                    for new, old in zip(new_state, state.opt_state)))
-            else:
-                updates, new_state = opt.update(grads, state.opt_state, params, lr)
-            for p, u in zip(params, updates):
-                p.add_(u)
-        state.opt_state = new_state
-        state.step += 1
+        grads = param_grads(loss, params)
+        grad_norm, ok = apply_update(state, opt, params, grads, lr, nan_guard)
         metrics = {"loss": loss.detach(), "ppl": torch.exp(loss.detach()),
                    "grad_norm": grad_norm, "n_tokens": n_tokens, "finite": ok}
         return state, metrics, out.att_map.detach()
 
     return step
+
+
+def param_grads(loss: torch.Tensor, params: list) -> list:
+    """The gradient of ``loss`` for each of ``params`` (zeros where unused)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+
+@torch.no_grad()
+def apply_update(state: TrainState, opt: Optimizer, params: list, grads: list, lr,
+                 nan_guard: bool = True):
+    """The optimizer step on ``grads``, in place, behind the NaN guard; the
+    step counter advances. Returns (grad_norm, finite) as device tensors."""
+    grad_norm = global_norm(grads)
+    ok = torch.isfinite(grad_norm)
+    if not nan_guard:
+        ok = torch.ones_like(ok)
+    if nan_guard:
+        # a non-finite step must be a true no-op: zero update AND the
+        # previous optimizer state, or stale momentum and the
+        # decoupled weight decay would still move the parameters
+        grads = [torch.where(ok, g, 0.0) for g in grads]
+        updates, new_state = opt.update(grads, state.opt_state, params, lr)
+        updates = [torch.where(ok, u, 0.0) for u in updates]
+        new_state = OptState(*(
+            None if new is None else
+            torch.where(ok, new, old) if torch.is_tensor(new) else
+            [torch.where(ok, n, o) for n, o in zip(new, old)]
+            for new, old in zip(new_state, state.opt_state)))
+    else:
+        updates, new_state = opt.update(grads, state.opt_state, params, lr)
+    for p, u in zip(params, updates):
+        p.add_(u)
+    state.opt_state = new_state
+    state.step += 1
+    return grad_norm, ok
 
 
 def make_eval_step(apply_fn, compute_dtype=torch.float32):

@@ -34,8 +34,21 @@ the profiler stops after the step that reaches the count, at the end of a
 shorter epoch, or when a step raises; it changes no number the epoch
 computes.
 
-Not ported: ``pipeline``, ``dp_mesh``, ``shard_batch`` / ``shard_state``
-(ROADMAP queue 1, item 11); passing one raises ``NotImplementedError``.
+``dp_mesh`` (a ``parallel.mesh.DataMesh``; the JAX Trainer's 1-D ``'data'``
+mesh) trains data-parallel, one process a rank (``parallel/dp.py``): the
+Trainer runs on the mesh's device, its batchers assemble the rank's rows of
+each global batch (``BucketBatcher.set_shard``), the train and eval steps are
+``make_dp_train_step`` / ``make_dp_eval_step``, and the dev pass's ids are
+gathered to every rank for the edit distance. Parameters and optimizer state
+are broadcast from rank 0 at the start and at a resume. Every host-side
+decision (the schedulers, the plateau LR, ``eval_ld_interval``, the
+checkpoint policy) reads the all-reduced loss and the gathered LD, so it comes
+out the same on every rank. Rank 0 alone writes: checkpoints, milestones, the
+crash save, log lines, attention-map PNGs and the profile trace; the other
+ranks meet it at a barrier after each epoch's checkpoint.
+
+Not ported: ``pipeline``, ``shard_batch`` / ``shard_state`` (ROADMAP queue 1,
+item 16); passing one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,6 +65,13 @@ import torch
 from attention_based_e2e_asr_dnn_tpu_torch.data.batching import ThreadedPrefetcher
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_to_jax_params
 from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
+    broadcast_state,
+    gather_rows,
+    make_dp_eval_step,
+    make_dp_train_step,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import shard_rows
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     CheckpointManager,
     load_checkpoint,
@@ -73,7 +93,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
     make_train_step,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import batch_levenshtein
-from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import MetricLogger
+from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import MetricLogger, NullLogger
 from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import epoch_profiler
 from attention_based_e2e_asr_dnn_tpu_torch.utils.plotting import (
     have_matplotlib,
@@ -81,10 +101,10 @@ from attention_based_e2e_asr_dnn_tpu_torch.utils.plotting import (
 )
 
 _NOT_PORTED = {
-    "shard_batch": "ROADMAP queue 1, item 11 (parallel/)",
-    "shard_state": "ROADMAP queue 1, item 11 (parallel/)",
-    "pipeline": "ROADMAP queue 1, item 11 (parallel/pipeline.py)",
-    "dp_mesh": "ROADMAP queue 1, item 11 (parallel/dp.py)",
+    "shard_batch": "ROADMAP queue 1, item 16 (parallel/mesh.py's 2-D and 3-D meshes; "
+                   "data parallelism shards its batches through dp_mesh)",
+    "shard_state": "ROADMAP queue 1, item 16 (parallel/mesh.py's tensor-parallel placement)",
+    "pipeline": "ROADMAP queue 1, item 16 (parallel/pipeline.py)",
 }
 
 
@@ -104,6 +124,7 @@ class Trainer:
         logger: Optional[MetricLogger] = None,
         device: str = "cuda",
         eval_beam_step: Optional[Callable] = None,
+        dp_mesh=None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -112,7 +133,10 @@ class Trainer:
             if value is not None:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: {_NOT_PORTED[name]}")
-        self.device = torch.device(device)
+        self.dp_mesh = dp_mesh
+        # rank 0 (or the one process) writes checkpoints, logs and plots
+        self.is_writer = dp_mesh is None or dp_mesh.rank == 0
+        self.device = torch.device(device if dp_mesh is None else dp_mesh.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Trainer(device={device!r}): no CUDA device here; "
                                f"pass device='cpu' to train on the CPU")
@@ -130,7 +154,7 @@ class Trainer:
         self.sos_idx = sos_idx
         self.eos_idx = eos_idx
         self.compute_dtype = compute_dtype
-        self.logger = logger or MetricLogger()
+        self.logger = (logger or MetricLogger()) if self.is_writer else NullLogger()
         self.make_apply = make_apply
         self.eval_beam_step = eval_beam_step
 
@@ -186,7 +210,7 @@ class Trainer:
         # state: the parameters from ``seed``, the step's noise from ``seed + 1``
         seed = int(getattr(trncfgs, "seed", 0))
         params = init_fn(torch.Generator().manual_seed(seed))
-        self.state = create_train_state(params, self.tx, seed=seed + 1, device=device)
+        self.state = create_train_state(params, self.tx, seed=seed + 1, device=self.device)
         self.epoch = 0
         self.batch = 0
         self.train_history = {"loss": [], "ppl": []}
@@ -210,7 +234,11 @@ class Trainer:
 
         self.ckpt = CheckpointManager(
             os.path.join(saving_dir, "ckpts"), milestone_dir,
-            max_savings=int(getattr(trncfgs, "max_savings", 3)))
+            max_savings=int(getattr(trncfgs, "max_savings", 3)), write=self.is_writer)
+        if dp_mesh is not None:
+            for batcher in (trn_batcher, dev_batcher):
+                batcher.set_shard(dp_mesh.rank, dp_mesh.size)
+            broadcast_state(self.state, dp_mesh)
 
         self._build_steps()
 
@@ -225,6 +253,17 @@ class Trainer:
     # ------------------------------------------------------------------
     def _build_steps(self) -> None:
         apply_fn = self.make_apply(self.dropout_scale)
+        if self.dp_mesh is not None:
+            self.train_step = make_dp_train_step(
+                apply_fn, self.tx, self.dp_mesh, accum_steps=self.accu_grad,
+                compute_dtype=self.compute_dtype, use_specaug=self.use_specaug,
+                specaug_freq=int(getattr(self.trncfgs, "specaug_freq", 6)),
+                specaug_time=int(getattr(self.trncfgs, "specaug_time", 200)),
+                specaug_iid=bool(getattr(self.trncfgs, "specaug_iid", False)),
+            )
+            self.eval_step = make_dp_eval_step(apply_fn, self.dp_mesh,
+                                               compute_dtype=self.compute_dtype)
+            return
         self.train_step = make_train_step(
             apply_fn, self.tx, accum_steps=self.accu_grad,
             compute_dtype=self.compute_dtype, use_specaug=self.use_specaug,
@@ -239,15 +278,23 @@ class Trainer:
         """Host batch -> (host tensors (x, lx, y, ly), y, ly, indices): <sos>
         stripped (src/train.py:117), ``ly`` zero on repeat-padded rows so that
         they carry no loss, float features in the wire dtype (integer inputs,
-        the Rewriter's ids, pass through)."""
+        the Rewriter's ids, pass through). Under ``dp_mesh`` the tensors hold
+        the rank's rows, and ``y``, ``ly``, ``indices`` stay the global
+        batch's."""
         y, ly = bt.y[:, 1:], np.maximum(bt.ly - 1, 0)
         ly = np.where(bt.indices >= 0, ly, 0)
-        x = torch.from_numpy(np.ascontiguousarray(bt.x))
+        x, lx = bt.x, bt.lx
+        rows = slice(None)
+        if self.dp_mesh is not None:
+            rows = shard_rows(len(bt.indices), self.dp_mesh)
+            if bt.rows is None:  # a batcher that assembled the whole batch
+                x, lx = x[rows], lx[rows]
+        x = torch.from_numpy(np.ascontiguousarray(x))
         if self.feed_dtype is not None and x.is_floating_point():
             x = x.to(self.feed_dtype)
-        host = (x, torch.from_numpy(bt.lx.astype(np.int32)),
-                torch.from_numpy(np.ascontiguousarray(y.astype(np.int32))),
-                torch.from_numpy(ly.astype(np.int32)))
+        host = (x, torch.from_numpy(lx.astype(np.int32)),
+                torch.from_numpy(np.ascontiguousarray(y[rows].astype(np.int32))),
+                torch.from_numpy(ly[rows].astype(np.int32)))
         return host, y, ly, bt.indices
 
     def _convert_batch(self, bt):
@@ -349,8 +396,9 @@ class Trainer:
         att_map = None
         sync_every = int(getattr(self.trncfgs, "metric_sync_every", 16))
         init_force = self.init_force_cfg and self.epoch < 10  # src/train.py:113
-        profiler = epoch_profiler(getattr(self.trncfgs, "profile", None), self.epoch,
-                                  self.saving_dir, self.device)
+        profiler = (epoch_profiler(getattr(self.trncfgs, "profile", None), self.epoch,
+                                   self.saving_dir, self.device)
+                    if self.is_writer else None)
         try:
             batch_src = (self._resident_batches("train", self.epoch) if self.device_resident
                          else self._prepared_batches(
@@ -403,11 +451,15 @@ class Trainer:
                                                         want_ids=compute_ld)
             else:
                 metrics, pred_ids = self.eval_step(self.state.params, *batch)
+                if self.dp_mesh is not None and compute_ld:
+                    pred_ids = gather_rows(self.dp_mesh, pred_ids)
             total_loss += float(metrics["loss"])
             total_ppl += float(metrics["ppl"])
             if compute_ld:
+                if torch.is_tensor(pred_ids):
+                    pred_ids = pred_ids.cpu().numpy()
                 real = indices >= 0
-                total_ld += batch_levenshtein(pred_ids.cpu().numpy()[real], y[real],
+                total_ld += batch_levenshtein(pred_ids[real], y[real],
                                               ly[real], self.sos_idx, self.eos_idx)
             n_batches += 1
         n = max(n_batches, 1)
@@ -424,6 +476,8 @@ class Trainer:
         try:
             self._train_eval_loop(epochs)
         except (KeyboardInterrupt, Exception):
+            if not self.is_writer:
+                raise
             path = os.path.join(self.saving_dir, "ckpts",
                                 f"emergency-epoch[{self.epoch}].ckpt")
             try:
@@ -434,7 +488,7 @@ class Trainer:
             raise
 
     def _plot(self, att_map) -> None:
-        if att_map is None:
+        if att_map is None or not self.is_writer:
             return
         if not have_matplotlib():
             if not self._warned_no_plots:
@@ -491,7 +545,8 @@ class Trainer:
             })
 
             self.ckpt.maybe_save(self.epoch, dev_loss, dev_ld, dev_ppl,
-                                 self._payload(dev_loss, dev_ld, dev_ppl))
+                                 lambda: self._payload(dev_loss, dev_ld, dev_ppl))
+            self._barrier()
             self.epoch += 1
             # LD-gated plateau LR (src/train.py:294-297)
             if self.epoch_scheduler and self.dev_history["ld"][-1] <= 20:
@@ -530,7 +585,15 @@ class Trainer:
             },
         }
 
+    def _barrier(self) -> None:
+        """Under ``dp_mesh``: every rank waits here for rank 0's writes."""
+        if self.dp_mesh is not None:
+            torch.distributed.barrier(group=self.dp_mesh.group)
+
     def save(self, path: str) -> str:
+        """Write the state to ``path`` (rank 0 only under ``dp_mesh``)."""
+        if not self.is_writer:
+            return path
         return save_checkpoint(path, self._payload(
             self.dev_history["loss"][-1] if self.dev_history["loss"] else float("inf"),
             self.dev_history["ld"][-1] if self.dev_history["ld"] else float("inf"),
@@ -579,4 +642,6 @@ class Trainer:
             self.epoch_scheduler.load_state_dict(sched["epoch"])
         if self.tf_scheduler and sched.get("tf"):
             self.tf_scheduler.load_state_dict(sched["tf"])
+        if self.dp_mesh is not None:
+            broadcast_state(self.state, self.dp_mesh)
         self.logger.print(f"resumed from [{path}] at epoch[{self.epoch}]")

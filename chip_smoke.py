@@ -241,6 +241,28 @@ on one NVIDIA card, from the root of a checkout:
    with the gate), ``chain_refit`` on its run (one Rewriter epoch, three
    ``lminfer`` modes), ``best_effort_eval`` from its artifacts; each record
    printed.
+23. Data parallelism (``parallel/``). After phase 21: ``Transcriber(
+   data_parallel=2)`` refuses this one card; the split itself over
+   ``[cuda:0, cuda:0]`` (two row blocks on two streams) gives phase 4's
+   transcripts exactly, and a ``data_parallel=2`` artifact those of a
+   ``data_parallel=1`` one; ``lmtrain`` with ``parallel: {use: true, data:
+   1}`` for one epoch on phase 17's corpus. After phase 22: the DP train
+   step at base-LAS width, bf16, both kernel tiers, on two gloo ranks that
+   share this card (``parallel.dp.spawn``), global batch B=64 (32 rows a
+   rank), T=768, L=96: the DP eval step at the initial parameters and one DP
+   step on each rank's rows of the one-process step's draws, against the
+   one-process step and eval on the same 64 rows (loss and grad_norm within
+   ``TRAIN_TOL`` bf16, n_tokens equal, parameters within 2 lr); three more
+   steps on the ranks' own draws, after which the ranks' parameters and
+   optimizer states are bit-equal (sha256); a NaN in rank 0's rows, skipped
+   on both. Each rank's launch counters, set to 0 before its DP run and
+   read after, show every kernel of the step's and the dev pass's path. The
+   DP step's time a rank, the all-reduce of its gradient buffer alone (gloo
+   stages through the host: not NCCL's time across cards) and the
+   one-process step at 64 and at 32 rows. Then the ``train`` CLI with
+   ``parallel: {use: true, data: 1}`` (one rank, NCCL) on phase 11's corpus
+   at base-LAS for 2 epochs, its checkpoint resumed with ``parallel.use:
+   false``, ``infer`` from its folder; and ``tools/dp_probe.py``.
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
@@ -2923,7 +2945,6 @@ def http_corrector_burst(torch, card: str, las_exp: str, lm_exp: str, feats: lis
     args = serve_http.build_argparser().parse_args(
         [las_exp, "--host", "127.0.0.1", "--port", "0", "--batch-size", str(B),
          "--corrector", lm_exp, "--corrector-margin", "0.05"])
-    serve_http.check_ported(args)
     t, server = serve_http.start(args)
     url = f"http://127.0.0.1:{server.port}/v1/transcribe"
     # the Rewriter's launches: the count's rise inside each correct() (the
@@ -3500,7 +3521,6 @@ def export_phase(torch, card: str, las_exp: str, lm_exp: str, feats: list, work:
     args = serve_http.build_argparser().parse_args(
         ["--artifact", paths["greedy"], "--corrector-artifact", corr_path, "--host",
          "127.0.0.1", "--port", "0", "--warmup", "--device", DEVICE])
-    serve_http.check_ported(args)
     t0 = time.perf_counter()
     art, server = serve_http.start(args)
     try:
@@ -3921,6 +3941,418 @@ def recipe_phase(torch, card: str, work: str) -> None:
         f"{t_best:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 23: data parallelism (parallel/)
+# ---------------------------------------------------------------------------
+
+DP_B, DP_T, DP_L = 64, 768, 96  # the global batch; 32 rows a rank
+DP_RANKS = 2
+DP_LR = 1e-3
+DP_TIMEOUT_S = 300.0  # a rank stuck in a collective fails the phase
+DP_TIMED_STEPS = 3
+DP_PATH = ("lstm_scan_fusedin_train", "lstm_scan_train", "lstm_bwd_dw", "speller_decode_train",
+           "speller_decode_bwd", "lstm_scan_fusedin", "lstm_scan", "speller_decode")
+
+
+def state_digest(torch, state) -> str:
+    """sha256 of every parameter and optimizer-state tensor's bytes."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    tensors = list(state.params.parameters())
+    for leaf in state.opt_state:
+        tensors.extend([leaf] if torch.is_tensor(leaf) else leaf or [])
+    for t in tensors:
+        digest.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def dp_rank(mesh, inputs_path: str) -> dict:
+    """One rank of phase 23 (started by ``parallel.dp.spawn``): the DP eval
+    step at the initial parameters, one DP train step with its rows of the
+    one-process step's draws, its parameters against that step's, then
+    ``DP_TIMED_STEPS`` timed steps on its own draws (the state's digest),
+    the all-reduce of a gradient-sized buffer alone, and a step with a NaN
+    in rank 0's rows (tf 1.0). The kernels' launches over all of it."""
+    import numpy as np
+    import torch
+
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import TrainDraws, las_apply
+    from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import SpecAugDraws
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import dp
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import shard_rows
+
+    ref = torch.load(inputs_path, weights_only=False)
+    cfg = train_config()
+    opt, state, _ = build_trainer(torch, cfg, torch.bfloat16, SEED)
+
+    def apply_fn(p, x, lx, **kwargs):
+        return las_apply(p, cfg, x, lx, **kwargs)
+
+    step = dp.make_dp_train_step(apply_fn, opt, mesh, compute_dtype=torch.bfloat16,
+                                 use_specaug=True)
+    eval_step = dp.make_dp_eval_step(apply_fn, mesh, compute_dtype=torch.bfloat16)
+    rows = shard_rows(DP_B, mesh)
+    x, lx, y, ly = (t[rows].to(mesh.device) for t in ref["batch"])
+    d = ref["draws"]  # the global batch's; coins and SpecAugment's (1,) draws are shared
+    on = lambda t: None if t is None else t.to(mesh.device)  # noqa: E731
+    draws = TrainDraws([on(m[rows]) if m is not None else None for m in d.listener_masks],
+                       on(d.coins), on(None if d.m1 is None else d.m1[:, rows]),
+                       on(None if d.m2 is None else d.m2[:, rows]),
+                       SpecAugDraws(*(on(t) for t in d.specaug)))
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    with forbid_plain():
+        metrics, local_ids = eval_step(state.params, x, lx, y, ly)
+        out["eval"] = {k: float(v) for k, v in metrics.items()}
+        out["eval_ids"] = dp.gather_rows(mesh, local_ids)
+        state, m, _ = step(state, x, lx, y, ly, 0.9, DP_LR, draws=draws)
+        torch.cuda.synchronize()
+        out["parity"] = {k: float(v) for k, v in m.items()}
+        worst, off, total = 0.0, 0, 0
+        for p, q in zip(state.params.parameters(), ref["params"]):
+            diff = (p.detach() - q.to(p.device)).abs()
+            worst = max(worst, diff.max().item())
+            off += int((diff > 1e-5).sum())
+            total += diff.numel()
+        out["param_diff"] = (worst, off, total)
+        times = []
+        for _ in range(DP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m, _ = step(state, x, lx, y, ly, 0.9, DP_LR)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not bool(m["finite"]):
+                raise AssertionError(f"rank {mesh.rank}: a timed DP step was not finite")
+        out["step_s"] = times
+        out["digest"] = state_digest(torch, state)
+        # the gradients' all-reduce alone: one flat buffer of every parameter
+        # and the loss, as the step sends it
+        n = sum(p.numel() for p in state.params.parameters()) + 1
+        buf = torch.zeros(n, device=mesh.device)
+        ar = []
+        for _ in range(6):
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp.all_reduce_sum(buf, mesh)
+            torch.cuda.synchronize()
+            ar.append(time.perf_counter() - t0)
+        out["all_reduce_s"] = ar[1:]
+        out["all_reduce_bytes"] = 4 * n
+        before = out["digest"]
+        xn = x.clone()
+        if mesh.rank == 0:
+            xn[0, 0, 0] = float("nan")
+        state, m, _ = step(state, xn, lx, y, ly, 1.0, DP_LR)
+        out["nan_step"] = (bool(m["finite"]), before, state_digest(torch, state))
+        torch.cuda.synchronize()
+    out["launches"] = {**lc.LAUNCHES, **sc.LAUNCHES}
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def dp_train_phase(torch, card: str, work: str) -> dict:
+    """Phase 23's DP train step at base-LAS width: the one-process step and
+    eval here (the reference, and its times at 64 and 32 rows), then
+    ``DP_RANKS`` gloo ranks on this one card (``dp_rank``). Returns the
+    launches of the ranks' runs, summed."""
+    import numpy as np
+
+    from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise, las_apply
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import dp
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import make_eval_step
+
+    cfg = train_config()
+    x, lx, y, ly = train_batch(torch, DP_B, DP_T, DP_L, SEED + 23)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    draws = draw_train_noise(cfg, DP_B, DP_L, gen, DEVICE,
+                             specaug=draw_specaug(DP_B, 6, 200, False, gen, DEVICE))
+    _, state, step = build_trainer(torch, cfg, torch.bfloat16, SEED)
+    eval_step = make_eval_step(lambda p, xs, ls, **kw: las_apply(p, cfg, xs, ls, **kw),
+                               compute_dtype=torch.bfloat16)
+    with forbid_plain():
+        e_metrics, e_ids = eval_step(state.params, x, lx, y, ly)
+        state, m, _ = step(state, x, lx, y, ly, 0.9, DP_LR, draws=draws)
+        torch.cuda.synchronize()
+    one = {k: float(v) for k, v in m.items()}
+    one_eval = {k: float(v) for k, v in e_metrics.items()}
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    inputs = os.path.join(work, "dp_inputs.pt")
+    torch.save({"batch": [t.cpu() for t in (x, lx, y, ly)],
+                "draws": type(draws)([cpu(t) for t in draws.listener_masks], cpu(draws.coins),
+                                     cpu(draws.m1), cpu(draws.m2),
+                                     type(draws.specaug)(*map(cpu, draws.specaug))),
+                "params": [p.detach().cpu() for p in state.params.parameters()]}, inputs)
+    # the one-process step's time at the global batch and at a rank's rows
+    one_s = {}
+    with forbid_plain():
+        for rows in (DP_B, DP_B // DP_RANKS):
+            args = (x[:rows], lx[:rows], y[:rows], ly[:rows])
+            state, _, _ = step(state, *args, 0.9, DP_LR)
+            times = []
+            for _ in range(DP_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _, _ = step(state, *args, 0.9, DP_LR)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            one_s[rows] = statistics.median(times)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = dp.spawn(dp_rank, DP_RANKS, args=(inputs,), devices=[f"{DEVICE}:0"] * DP_RANKS,
+                     timeout_s=DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    tol = TRAIN_TOL["bfloat16"]
+    for r in ranks:
+        got = r["parity"]
+        for key in ("loss", "grad_norm"):
+            if not abs(got[key] - one[key]) <= tol * abs(one[key]):
+                raise AssertionError(f"DP rank {r['rank']}: {key} {got[key]} vs the "
+                                     f"one-process step's {one[key]} (rtol {tol})")
+        if not (got["finite"] and got["n_tokens"] == one["n_tokens"]):
+            raise AssertionError(f"DP rank {r['rank']}: metrics {got} vs {one}")
+        worst, off, total = r["param_diff"]
+        if not worst <= 2 * DP_LR * 1.01:
+            raise AssertionError(f"DP rank {r['rank']}: parameters differ by {worst}")
+        ev = r["eval"]
+        if not (abs(ev["loss"] - one_eval["loss"]) <= tol * abs(one_eval["loss"])
+                and ev["n_tokens"] == one_eval["n_tokens"]):
+            raise AssertionError(f"DP rank {r['rank']}: eval {ev} vs {one_eval}")
+        finite, before, after = r["nan_step"]
+        if finite or before != after:
+            raise AssertionError(f"DP rank {r['rank']}: the NaN step was not a global no-op")
+        idle = [k for k in DP_PATH if r["launches"][k] <= 0]
+        if idle or r["backend"] != "gloo":
+            raise AssertionError(f"DP rank {r['rank']} ({r['backend']}): never launched {idle}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("DP: the ranks' parameters or optimizer states differ after "
+                             f"{DP_TIMED_STEPS} steps")
+    same_ids = [float((r["eval_ids"] == e_ids.cpu().numpy()).all(axis=1).mean()) for r in ranks]
+    log(f"[{card}] DP base-LAS bf16, {DP_RANKS} gloo ranks sharing this card, global batch "
+        f"B={DP_B} T={DP_T} L={DP_L} ({DP_B // DP_RANKS} rows a rank), both kernel tiers, "
+        f"SpecAugment and dropout on, tf 0.9: one step on the one-process step's draws, "
+        f"loss {[round(r['parity']['loss'], 5) for r in ranks]} vs {one['loss']:.5f}, "
+        f"grad_norm {[round(r['parity']['grad_norm'], 4) for r in ranks]} vs "
+        f"{one['grad_norm']:.4f} (rtol {tol}), n_tokens {one['n_tokens']:.0f}; parameters "
+        f"max_abs_diff {[r['param_diff'][0] for r in ranks]} (bound 2 x lr), elements off "
+        f"by more than 1e-5 {[r['param_diff'][1] for r in ranks]} of "
+        f"{ranks[0]['param_diff'][2]}; DP eval loss {[round(r['eval']['loss'], 5) for r in ranks]}"
+        f" vs {one_eval['loss']:.5f}, rows with the one-process ids {same_ids}; after "
+        f"{DP_TIMED_STEPS} more steps the ranks' states bit-equal (sha256); a NaN in rank 0's "
+        f"rows skipped on both; spawn to results {wall:.1f} s")
+    step_ms = [1e3 * statistics.median(r["step_s"]) for r in ranks]
+    ar_ms = [1e3 * statistics.median(r["all_reduce_s"]) for r in ranks]
+    log(f"[{card}] DP times: the DP step a rank {[round(v, 1) for v in step_ms]} ms (median of "
+        f"{DP_TIMED_STEPS}; two processes time-slice the card); its all-reduce of "
+        f"{ranks[0]['all_reduce_bytes'] / 2**20:.1f} MiB alone {[round(v, 1) for v in ar_ms]} "
+        f"ms (gloo: staged through the host, on one card; not NCCL across cards); the "
+        f"one-process step at {DP_B} rows {1e3 * one_s[DP_B]:.1f} ms, at {DP_B // DP_RANKS} "
+        f"rows {1e3 * one_s[DP_B // DP_RANKS]:.1f} ms; peak device memory a rank "
+        f"{[round(r['peak_mib'], 1) for r in ranks]} MiB; launches a rank "
+        f"{[{k: r['launches'][k] for k in DP_PATH} for r in ranks]}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def dp_cli_phase(torch, card: str, corpus: str, work: str) -> dict:
+    """The ``train`` CLI with ``parallel: {use: true, data: 1}`` (one rank in
+    a group of its own, NCCL) on phase 11's corpus, base-LAS for 2 epochs;
+    its checkpoint resumed with ``parallel.use: false`` for one more epoch;
+    ``infer`` from its folder. Returns the DP run's launches."""
+    import yaml
+
+    from attention_based_e2e_asr_dnn_tpu_torch import infer, train
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
+        list_best_checkpoints,
+        load_checkpoint,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "base-las.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.update(batch_size=CLI_BATCH, epochs=2, parallel={"use": True, "data": 1},
+               TRN_FOLDER=os.path.join(corpus, "train-clean-100"),
+               DEV_FOLDER=os.path.join(corpus, "dev-clean"),
+               TST_FOLDER=os.path.join(corpus, "test-clean"),
+               EXP_FOLDER=os.path.join(work, "experiments-dp"),
+               MST_FOLDER=os.path.join(work, "milestones-dp"))
+
+    def run(name, cfg):
+        path = os.path.join(work, name)
+        with open(path, "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        return train.main(train.build_argparser().parse_args(["-c", path, "--device",
+                                                               DEVICE]))
+
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    tee = Tee(sys.stdout)
+    with forbid_plain(), contextlib.redirect_stdout(tee):
+        summary = run("train-dp.yml", cfg)
+    counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    said = [ln for ln in tee.getvalue().splitlines() if ln.startswith("[parallel]")]
+    trn, dev = summary.train_history, summary.dev_history
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if not (said and f"over 1 devices ({backend}" in said[0]):
+        raise AssertionError(f"train CLI DP: the [parallel] line is {said}")
+    if not (len(trn["loss"]) == 2 and all(v == v and abs(v) != float("inf")
+                                          for v in trn["loss"] + dev["loss"] + dev["ld"])):
+        raise AssertionError(f"train CLI DP: histories {trn} {dev}")
+    idle = [k for k in DP_PATH if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"train CLI DP: never launched {idle}")
+    kept = sorted(list_best_checkpoints(os.path.join(summary.saving_dir, "ckpts")))
+    last = os.path.join(summary.saving_dir, "ckpts", kept[-1])
+    saved = load_checkpoint(last)
+    cfg.update(parallel={"use": False}, epochs=saved["epoch"] + 1,
+               finetune={"use": True, "reinit_lr": False, "checkpoint": last},
+               EXP_FOLDER=os.path.join(work, "experiments-dp-resumed"))
+    with forbid_plain():
+        resumed = run("resume-dp.yml", cfg)
+    if not (resumed.epoch == saved["epoch"] + 1
+            and resumed.train_history["loss"][:-1] == saved["train_loss"]):
+        raise AssertionError("train CLI DP: the one-card resume did not continue the DP run")
+    infer_cfg = os.path.join(work, "infer-dp.yml")
+    with open(infer_cfg, "w") as fh:
+        fh.write(f"SOME_FOLDER: {os.path.join(corpus, 'test-clean')}\n"
+                 f"exp_folder: {summary.saving_dir}\nbatch_size: {CLI_BATCH}\n"
+                 f"pad_time_multiple: 256\nrun_all: false\nepoch_num: {saved['epoch']}\n"
+                 f"run_avg: false\n")
+    with forbid_plain():
+        infer.main(infer.build_argparser().parse_args(["-c", infer_cfg, "--device", DEVICE]))
+    preds = f"{os.path.splitext(kept[-1])[0]}-tst.csv"
+    with open(os.path.join(summary.saving_dir, "preds", preds)) as fh:
+        rows = fh.read().split("\n")[1:-1]
+    if len(rows) != N_CLI_TEST:
+        raise AssertionError(f"train CLI DP -> infer: {preds} has {len(rows)} rows")
+    log(f"[{card}] train CLI base-LAS bf16 parallel data 1 ({said[0]}): train loss "
+        f"{[round(v, 4) for v in trn['loss']]}, dev loss {[round(v, 4) for v in dev['loss']]}, "
+        f"dev LD {[round(v, 3) for v in dev['ld']]}; ckpts {kept}; resumed with "
+        f"parallel.use false at epoch {saved['epoch']}, train loss "
+        f"{resumed.train_history['loss'][-1]:.4f}; infer wrote {preds} ({len(rows)} rows); "
+        f"launches {counts}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dp_lmtrain_phase(torch, card: str, lm_corpus: dict, work: str) -> dict:
+    """The ``lmtrain`` CLI with ``parallel: {use: true, data: 1}`` on phase
+    17's corpus, both kernel tiers, one epoch. Returns its launches."""
+    import yaml
+
+    from attention_based_e2e_asr_dnn_tpu_torch import lmtrain
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "rewriter.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["model"]["configs"].update(KERNEL_TIERS)
+    cfg.update(epochs=1, parallel={"use": True, "data": 1},
+               TRN_FOLDER=lm_corpus["train"][0], DEV_FOLDER=lm_corpus["dev"][0],
+               TRN_PRED_DIR=lm_corpus["train"][1], DEV_PRED_DIR=lm_corpus["dev"][1],
+               EXP_FOLDER=os.path.join(work, "experiments-lm-dp"))
+    path = os.path.join(work, "lm-dp.yml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    with forbid_plain():
+        summary = lmtrain.main(lmtrain.build_argparser().parse_args(["-c", path, "--device",
+                                                                     DEVICE]))
+    counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    losses = summary.train_history["loss"] + summary.dev_history["loss"]
+    idle = [k for k in ("lstm_scan_train", "lstm_bwd_dw", "speller_decode_train",
+                        "speller_decode_bwd", "lstm_scan", "speller_decode") if counts[k] <= 0]
+    if idle or len(losses) != 2 or not all(v == v and abs(v) != float("inf") for v in losses):
+        raise AssertionError(f"lmtrain DP: losses {losses}, never launched {idle}")
+    log(f"[{card}] lmtrain Rewriter parallel data 1: one epoch, train loss {losses[0]:.4f}, "
+        f"dev loss {losses[1]:.4f}; launches {counts}")
+    return counts
+
+
+def dp_probe_phase(card: str) -> None:
+    """``tools/dp_probe.py`` in-process: its JSON line."""
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import dp_probe
+
+    out = dp_probe.probe()
+    if not (out["ok"] and out["backend"] == "nccl"):
+        raise AssertionError(f"dp_probe: {out}")
+    log(f"[{card}] dp_probe: {json.dumps(out)}")
+
+
+def dp_serve_phase(torch, card: str, t, exp: str, feats: list, work: str) -> dict:
+    """Data-parallel decoding on one card: ``Transcriber(data_parallel=2)``
+    refuses (one card visible); the split itself over ``[cuda:0, cuda:0]``
+    (two row blocks, two streams) gives phase 4's transcripts exactly, and a
+    ``data_parallel=2`` artifact over the same list those of a
+    ``data_parallel=1`` artifact. Returns the split runs' launches."""
+    from attention_based_e2e_asr_dnn_tpu_torch import export
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import split
+    from attention_based_e2e_asr_dnn_tpu_torch.serving import Transcriber
+
+    if torch.cuda.device_count() == 1:
+        try:
+            Transcriber(exp, batch_size=B, data_parallel=2, device=DEVICE)
+        except ValueError as exc:
+            if "data_parallel=2 but only 1 devices visible" not in str(exc):
+                raise
+        else:
+            raise AssertionError("Transcriber(data_parallel=2) did not refuse one card")
+    want = t.transcribe(feats)
+    t_pad = -(-max(map(len, feats)) // 256) * 256
+    paths = {n: export.export_from_experiment(exp, os.path.join(work, f"las-dp{n}.tlas"),
+                                              batch=B, t_pad=t_pad, data_parallel=n)
+             for n in (1, 2)}
+    saved = split.dp_devices
+    split.dp_devices = lambda device, n: [torch.device(DEVICE, 0)] * n
+    try:
+        t2 = Transcriber(exp, batch_size=B, pad_time_multiple=128, data_parallel=2,
+                         device=DEVICE)
+        lc.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = t2.transcribe(feats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(lc.LAUNCHES)
+        arts = {n: export.ArtifactTranscriber([p], device=DEVICE) for n, p in paths.items()}
+        lc.reset_launch_counts()
+        art_texts = {n: a.transcribe(feats) for n, a in arts.items()}
+        for k, v in lc.LAUNCHES.items():
+            counts[k] += v
+    finally:
+        split.dp_devices = saved
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"the split over two blocks changed {bad} of phase 4's transcripts")
+    if art_texts[2] != art_texts[1] or arts[2].buckets[0]._split is None:
+        raise AssertionError("the data_parallel=2 artifact's transcripts differ from the "
+                             "data_parallel=1 artifact's")
+    if not all(counts[k] > 0 for k in ("lstm_scan_fusedin", "lstm_scan")):
+        raise AssertionError(f"the split ran no kernel: {counts}")
+    agree = sum(a == b for a, b in zip(art_texts[2], want))
+    log(f"[{card}] Transcriber(data_parallel=2) refuses one card; the split over [cuda:0, "
+        f"cuda:0] ({B // 2} rows a block, a stream each): {len(feats)} utts in {wall:.3f} s, "
+        f"transcripts equal to phase 4's; artifact data_parallel=2 (B={B}, t_pad {t_pad}) "
+        f"equal to data_parallel=1's ({agree}/{len(feats)} equal to phase 4's own batches); "
+        f"launches {counts}")
+    del t2, arts
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3978,13 +4410,16 @@ def main() -> int:
         with phase("16 Rewriter chain: lminfer, Corrector, HTTP, kernels on their inputs"):
             rewriter_records, rewriter_launches = rewriter_phase(torch, card, exp, feats, root)
         with phase("17 Rewriter training: lmtrain CLI, resume, lminfer from its folder"):
-            lm_folder, _, lm_records, lm_launches = lmtrain_phase(torch, card, root)
+            lm_folder, lm_corpus, lm_records, lm_launches = lmtrain_phase(torch, card, root)
         with phase("18 export and serve from artifacts"):
             export_launches = export_phase(torch, card, exp, lm_folder, feats, root)
         with phase("20 profile: the infer CLI and a serve call"):
             serve_infer_profile_phase(torch, card, t, feats, exp, data, root)
         with phase("21 tools: import_reference_ckpt, export_serving --check, serving_bench"):
             tools_phase(torch, card, exp, lm_folder, root)
+        with phase("23 data parallelism: the serving split, lmtrain parallel data 1"):
+            dp_serve_launches = dp_serve_phase(torch, card, t, exp, feats, root)
+            dp_lmtrain_phase(torch, card, lm_corpus, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del t
@@ -4017,6 +4452,10 @@ def main() -> int:
             dev_phase(card, corpus, root)
         with phase("22 recipe and chain: full_recipe_run, chain_refit, best_effort_eval"):
             recipe_phase(torch, card, root)
+        with phase("23 data parallelism: DP steps on two ranks, train CLI, dp_probe"):
+            dp_launches = dp_train_phase(torch, card, root)
+            dp_cli_phase(torch, card, corpus, root)
+            dp_probe_phase(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
@@ -4053,6 +4492,12 @@ def main() -> int:
         if wide_launches[kernel] <= 0 or cli_launches[kernel] <= 0:
             raise AssertionError(f"{name} never launched in the scaled-LAS steps or the CLI")
     records.update(wide_records)
+    # the data-parallel path (phase 23): the ranks' DP steps and eval step,
+    # and the serving split's blocks
+    for name in DP_PATH:
+        records[name]["launches"] += dp_launches[name]
+    for name in ("lstm_scan_fusedin", "lstm_scan"):
+        records[name]["launches"] += dp_serve_launches[name]
     # the last two kernels: no YAML key of either package routes to them, so
     # their main path is the op itself, in the driven run at each row's shape
     records.update(fused_records)

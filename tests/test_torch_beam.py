@@ -155,8 +155,20 @@ def test_las_beam_steps_match_jax():
             np.testing.assert_array_equal(t_ids.numpy(), j_ids)
         else:
             assert t_ids is None and j_ids is None
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tbeam.make_las_eval_beam_step(t_cfg, 4, mesh=object())
+    # with a mesh (data parallelism, here one rank in a gloo group of its
+    # own): the same metrics and the gathered ids
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import mesh as tmesh
+
+    mesh = tmesh.make_mesh(1, device="cpu")
+    try:
+        m_metrics, m_ids = tbeam.make_las_eval_beam_step(t_cfg, 4, length_alpha=0.5,
+                                                         mesh=mesh)(t_params, *args)
+    finally:
+        tmesh.close_mesh()
+    metrics, t_ids = t_step(t_params, *args)
+    for key in ("loss", "ppl", "n_tokens"):
+        assert float(m_metrics[key]) == float(metrics[key]), key
+    np.testing.assert_array_equal(m_ids.numpy(), t_ids.numpy())
 
 
 def test_transcriber_with_beam_matches_jax(toy):  # noqa: F811

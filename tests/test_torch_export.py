@@ -273,8 +273,16 @@ def test_int8_artifact_reports_its_agreement(arts, tmp_path):
     print(f"int8 artifact: {float((a == b).mean()):.3f} of ids agree with float32")
     with pytest.raises(ValueError, match="only 'int8'"):
         texport.export_from_experiment(arts["exp"], str(tmp_path / "q4.tlas"), quantize="int4")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        texport.export_from_experiment(arts["exp"], str(tmp_path / "dp.tlas"), data_parallel=2)
+    # data_parallel: the JAX divisibility check, then the split recorded; a
+    # loader without two devices raises the JAX message
+    with pytest.raises(ValueError, match="batch 3 not divisible by data_parallel 2"):
+        texport.export_from_experiment(arts["exp"], str(tmp_path / "dp.tlas"), batch=3,
+                                       data_parallel=2)
+    dp_path = texport.export_from_experiment(arts["exp"], str(tmp_path / "dp.tlas"),
+                                             data_parallel=2)
+    assert texport.load_artifact(dp_path)[0]["data_parallel"] == 2
+    with pytest.raises(ValueError, match="data_parallel=2 but only 1 devices visible"):
+        texport.ExportedDecoder(dp_path, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +336,6 @@ def test_serve_http_serves_artifacts(arts):
     args = cli.build_argparser().parse_args(
         ["--artifact", arts["greedy"], "--corrector-artifact", arts["corrector"],
          "--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--warmup"])
-    cli.check_ported(args)
     art, srv = cli.start(args)
     try:
         assert art.wait_ready(timeout=120)

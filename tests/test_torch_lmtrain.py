@@ -389,8 +389,12 @@ def test_scale_dropouts_and_the_vocab_injection():
     ({"use": True, "sequence": 2}, None, ValueError, "sequence is LAS-only"),
     ({"use": True, "model": 2}, KERNELS, ValueError,
      "tensor parallelism.*lstm_impl and decoder_impl is 'pallas'"),
-    ({"use": True, "data": 4}, None, NotImplementedError, "parallel.*queue 1, item 11"),
-], ids=["pipeline", "sequence", "tensor-parallel-kernels", "data"])
+    # data parallelism is ported (tests/test_torch_dp_cli.py trains it): three
+    # ranks cannot split a batch of 4, and the spawned ranks say so
+    ({"use": True, "data": 3}, None, RuntimeError,
+     "batch dim 4 not divisible by data-parallel degree 3"),
+    ({"use": True, "model": 2}, None, NotImplementedError, "parallel.*queue 1, item 16"),
+], ids=["pipeline", "sequence", "tensor-parallel-kernels", "data", "tensor-parallel-scan"])
 def test_parallel_settings_raise(tmp_path, parallel, model, exc, match):
     corpus = _corpus(str(tmp_path / "c"), n_train=4, n_dev=2)
     cfg = _config(corpus, str(tmp_path / "exp"), model, parallel=parallel)

@@ -139,9 +139,14 @@ def test_transcriber_matches_jax_transcriber(tmp_path):
 
 @pytest.mark.parametrize("kwargs", [{"data_parallel": 2}])
 def test_transcriber_rejects_unported_options(tmp_path, kwargs):
+    """``data_parallel`` is ported (tests/test_torch_dp_cli.py holds the
+    split): it raises the JAX messages where the CPU, one device, cannot
+    hold two blocks and where the batch does not divide."""
     exp = _make_experiment(str(tmp_path / "exp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserving.Transcriber(exp, device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="data_parallel=2 but only 1 devices visible"):
+        tserving.Transcriber(exp, device="cpu", batch_size=4, **kwargs)
+    with pytest.raises(ValueError, match="batch_size 5 not divisible by data_parallel 2"):
+        tserving.Transcriber(exp, device="cpu", batch_size=5, **kwargs)
 
 
 def test_port_serves_without_jax(tmp_path):

@@ -46,7 +46,10 @@ def test_every_module_imports_without_jax():
                                              "tools.import_reference_ckpt",
                                              "tools.export_serving", "tools.serving_bench",
                                              "tools.full_recipe_run", "tools.chain_refit",
-                                             "tools.best_effort_eval")} <= set(modules)
+                                             "tools.best_effort_eval", "parallel",
+                                             "parallel.mesh", "parallel.multihost",
+                                             "parallel.dp", "parallel.split",
+                                             "tools.dp_probe")} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         "for name in ('jax', 'jaxlib', 'optax', 'attention_based_e2e_asr_dnn_tpu'):\n"

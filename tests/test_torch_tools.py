@@ -213,8 +213,14 @@ def test_export_serving_check_rewriter(lm_exp, tmp_path, capsys, extra):
 def test_export_serving_refusals(toy, tmp_path):  # noqa: F811
     _, _, exp = toy
     out = str(tmp_path / "x.tlas")
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        export_serving.main([exp, "-o", out, "--data-parallel", "2", "--device", "cpu"])
+    # --data-parallel is ported: the split is recorded in the artifact, whose
+    # loader needs that many devices (tests/test_torch_dp_cli.py decodes one)
+    dp_out = str(tmp_path / "dp.tlas")
+    assert export_serving.main([exp, "-o", dp_out, "--data-parallel", "2",
+                                "--device", "cpu"]) == 0
+    from attention_based_e2e_asr_dnn_tpu_torch.export import load_artifact
+
+    assert load_artifact(dp_out)[0]["data_parallel"] == 2
     for argv in (["--platforms", "cpu"], ["--span-rewrite"], ["--span-conf-tau", "0.3"]):
         with pytest.raises(SystemExit):
             export_serving.main([exp, "-o", out, "--device", "cpu", *argv])

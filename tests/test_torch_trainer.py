@@ -490,7 +490,22 @@ def test_trainer_arguments_not_ported_raise(corpus, tmp_path, name):
     trn, dev = _batchers(corpus, AsrTrainDevDataset, BucketBatcher)
     kwargs = dict(init_fn=None, make_apply=None, trn_batcher=trn, dev_batcher=dev,
                   trncfgs=Config(TRN), saving_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP queue 1, item 11"):
+    if name == "dp_mesh":
+        # ported (tests/test_torch_dp_cli.py): a one-rank mesh trains as one
+        # process does, on the mesh's device, its batchers sharded
+        from attention_based_e2e_asr_dnn_tpu_torch.parallel import mesh as tmesh
+
+        mesh = tmesh.make_mesh(1, device="cpu")
+        try:
+            trainer = Trainer(**{**kwargs, "init_fn": lambda g: tlas.las_from_jax_params(
+                _tiny_params()), "make_apply": ttrain.make_las_apply_factory(T_TINY),
+                "device": "cuda"}, dp_mesh=mesh)
+            assert trainer.device == mesh.device and trn.shard == dev.shard == (0, 1)
+            assert trainer.is_writer
+        finally:
+            tmesh.close_mesh()
+        return
+    with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP queue 1, item 16"):
         Trainer(**kwargs, **{name: object()})
     with pytest.raises(TypeError, match="unexpected argument"):
         Trainer(**kwargs, no_such_argument=1)
@@ -548,8 +563,8 @@ def _cli_config(corpus, exp, **extra):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    ({"parallel": {"use": True, "data": 4, "model": 1}}, NotImplementedError,
-     "parallel.*queue 1, item 11"),
+    ({"parallel": {"use": True, "data": 4, "sequence": 2}}, ValueError,
+     "sequence requires the scan implementations"),
     ({"parallel": {"use": True, "data": None, "model": 2}}, ValueError,
      "tensor parallelism.*lstm_impl and speller_configs.decoder_impl is 'pallas'"),
 ])
