@@ -32,9 +32,11 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
+
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import row_block
 
 
 def pad_to_multiple(value: int, multiple: int) -> int:
@@ -81,7 +83,7 @@ class BucketBatcher:
         self.shuffle_window = shuffle_window
         self.seed = seed
         self.drop_last = drop_last
-        self.shard: Optional[Tuple[int, int]] = None
+        self.shard: Optional[slice] = None  # a data-parallel rank's rows
         if hasattr(dataset, "feature_lengths"):
             self._lengths = np.asarray(dataset.feature_lengths, dtype=np.int64)
         else:
@@ -93,10 +95,7 @@ class BucketBatcher:
     def set_shard(self, rank: int, size: int) -> None:
         """Assemble only the rows of data-parallel rank ``rank`` of
         ``size`` (see the module docstring)."""
-        if self.batch_size % size:
-            raise ValueError(f"batch dim {self.batch_size} not divisible by "
-                             f"data-parallel degree {size}")
-        self.shard = (int(rank), int(size))
+        self.shard = row_block(self.batch_size, int(rank), int(size))
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -125,13 +124,8 @@ class BucketBatcher:
         take += [take[-1]] * (self.batch_size - n_real)  # repeat-pad
         indices = np.array(list(idx) + [-1] * (self.batch_size - n_real),
                            dtype=np.int64)
-        rows = None
-        mine = take
-        if self.shard is not None:
-            rank, size = self.shard
-            per = self.batch_size // size
-            rows = slice(rank * per, (rank + 1) * per)
-            mine = take[rows]
+        rows = self.shard
+        mine = take if rows is None else take[rows]
         if hasattr(self.dataset, "assemble"):
             # lazy path: the dataset reads and pads the features in one pass
             # (the native thread pool, or numpy); labels come from its

@@ -39,7 +39,7 @@ import sys
 import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch import constants
-from attention_based_e2e_asr_dnn_tpu_torch.config import Config, load_yaml, snapshot_config
+from attention_based_e2e_asr_dnn_tpu_torch.config import Config, load_yaml
 from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
 from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import LmTrainDevDataset
 from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
@@ -49,17 +49,11 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
 from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
-    launch,
-    rank_scope,
-    run_summary,
-    shared_folder,
+    close_experiment,
+    open_experiment,
+    run_training,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
-from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import (
-    MetricLogger,
-    dump_log_json,
-    experiment_folder,
-)
 
 
 def scale_rewriter_dropouts(cfg: RewriterConfig, scale: float) -> RewriterConfig:
@@ -165,7 +159,7 @@ def export_hook(trncfgs, tgt_folder: str) -> None:
 
 def main(args):
     """Train as the YAML says. Returns the ``Trainer``, or under
-    ``parallel.use`` rank 0's ``parallel.dp.run_summary``."""
+    ``parallel.use`` rank 0's histories (``parallel.dp.run_training``)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here; "
@@ -173,21 +167,8 @@ def main(args):
     trncfgs = Config(inject_lm_vocab(load_yaml(args.config_file)))
     lm_cfg = RewriterConfig(**trncfgs.model.configs)
     n_ranks = check_parallel(trncfgs, lm_cfg)
-    if n_ranks is False:
-        return train(None, args)
-    return launch(train_rank, n_ranks, device, args=(args,),
-                  build="pallas" in (lm_cfg.lstm_impl, lm_cfg.decoder_impl))
-
-
-def train_rank(mesh, args):
-    """One data-parallel rank of ``main``."""
-    return run_summary(train(mesh, args))
-
-
-def train(mesh, args):
-    """The training run, on one rank of ``mesh`` where one is given."""
-    with rank_scope(mesh):
-        return _train(mesh, args)
+    return run_training(_train, args, n_ranks,
+                        build="pallas" in (lm_cfg.lstm_impl, lm_cfg.decoder_impl))
 
 
 def _train(mesh, args):
@@ -196,24 +177,8 @@ def _train(mesh, args):
     trncfgs_dict = inject_lm_vocab(load_yaml(args.config_file))
     trncfgs = Config(trncfgs_dict)
     lm_cfg = RewriterConfig(**trncfgs.model.configs)
-    if mesh is not None:
-        print(f"[parallel] data-parallel mesh over {mesh.size} devices ({mesh.backend}: "
-              f"one process a rank, per-rank batch shards, explicit all_reduce)")
 
-    wandb_cfg = getattr(trncfgs, "wandb", None)
-    writer = mesh is None or mesh.rank == 0
-    logger = MetricLogger(
-        use_wandb=bool(wandb_cfg and wandb_cfg.use) and writer,
-        wandb_configs=getattr(wandb_cfg, "configs", None),
-        run_config=trncfgs_dict,
-    )
-
-    def make_folder() -> str:
-        tgt = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
-        snapshot_config(trncfgs_dict, tgt)
-        return tgt
-
-    tgt_folder = shared_folder(mesh, make_folder)
+    logger, tgt_folder = open_experiment(mesh, trncfgs, trncfgs_dict)
 
     trn_ds = LmTrainDevDataset(trncfgs.TRN_FOLDER, trncfgs.TRN_PRED_DIR, constants.VOCAB_MAP)
     dev_ds = LmTrainDevDataset(trncfgs.DEV_FOLDER, trncfgs.DEV_PRED_DIR, constants.VOCAB_MAP)
@@ -245,11 +210,8 @@ def _train(mesh, args):
         dp_mesh=mesh,
     )
     trainer.train_eval(int(trncfgs.epochs))
-    if writer:
-        dump_log_json(os.path.join(tgt_folder, "log.json"),
-                      trainer.train_history, trainer.dev_history)
-        logger.finish()
-        export_hook(trncfgs, tgt_folder)
+    close_experiment(mesh, trainer, logger, tgt_folder,
+                     lambda: export_hook(trncfgs, tgt_folder))
     return trainer
 
 

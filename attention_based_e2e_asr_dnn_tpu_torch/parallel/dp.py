@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from attention_based_e2e_asr_dnn_tpu_torch.config import snapshot_config
 from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug, specaugment
 from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import length_mask
 from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import (
@@ -61,6 +62,11 @@ from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
     _cast_features,
     apply_update,
     param_grads,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import (
+    MetricLogger,
+    dump_log_json,
+    experiment_folder,
 )
 
 _FOLD = 0x9E3779B97F4A7C15  # the golden-ratio multiplier of a 64-bit hash
@@ -219,31 +225,61 @@ def global_ce_metrics(logits, y, ly, mesh: DataMesh) -> dict:
 # The CLIs' ranks
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def rank_scope(mesh):
-    """Rank 0 prints; the other ranks' standard output goes nowhere."""
-    if mesh is None or mesh.rank == 0:
-        yield
+def run_training(body: Callable, args, n_ranks, build: bool = True):
+    """The ``train`` and ``lmtrain`` CLIs' run of ``body(mesh, args)``, which
+    trains and returns its ``Trainer``. ``n_ranks`` False (``parallel.use``
+    off): ``body(None, args)`` here, its ``Trainer`` returned. Otherwise on
+    the ranks of ``launch`` (``n_ranks`` None: every visible card; ``build``
+    is ``launch``'s): each rank prints the ``[parallel]`` line, the ranks
+    other than 0 with their standard output sent nowhere, and rank 0's
+    histories and folder are returned (a ``Trainer`` does not cross
+    processes)."""
+    if n_ranks is False:
+        return body(None, args)
+    return launch(_training_rank, n_ranks, args.device, args=(body, args), build=build)
+
+
+def _training_rank(mesh: DataMesh, body: Callable, args) -> SimpleNamespace:
+    with contextlib.ExitStack() as scope:
+        if mesh.rank != 0:
+            sink = scope.enter_context(open(os.devnull, "w"))
+            scope.enter_context(contextlib.redirect_stdout(sink))
+        print(f"[parallel] data-parallel mesh over {mesh.size} devices ({mesh.backend}: "
+              f"one process a rank, per-rank batch shards, explicit all_reduce)")
+        trainer = body(mesh, args)
+        return SimpleNamespace(saving_dir=trainer.saving_dir, epoch=trainer.epoch,
+                               train_history=trainer.train_history,
+                               dev_history=trainer.dev_history)
+
+
+def open_experiment(mesh: Optional[DataMesh], trncfgs, trncfgs_dict: dict):
+    """A training run's (logger, experiment folder): wandb on rank 0 only
+    (or the one process); the folder and its ``config.json`` made by rank 0,
+    its path broadcast to the other ranks (src/train.py:519-530)."""
+    wandb_cfg = getattr(trncfgs, "wandb", None)
+    writer = mesh is None or mesh.rank == 0
+    logger = MetricLogger(use_wandb=bool(wandb_cfg and wandb_cfg.use) and writer,
+                          wandb_configs=getattr(wandb_cfg, "configs", None),
+                          run_config=trncfgs_dict)
+    box = [None]
+    if writer:
+        box[0] = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
+        snapshot_config(trncfgs_dict, box[0])
+    if mesh is not None:
+        dist.broadcast_object_list(box, src=0, group=mesh.group)
+    return logger, box[0]
+
+
+def close_experiment(mesh: Optional[DataMesh], trainer, logger, folder: str,
+                     export: Callable[[], None]) -> None:
+    """The end of a training run on rank 0 (or the one process): the
+    histories' ``log.json``, the logger's finish, then ``export()``."""
+    if mesh is not None and mesh.rank != 0:
         return
-    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
-        yield
-
-
-def shared_folder(mesh, make) -> str:
-    """``make()`` (the experiment folder) on rank 0, its path on every rank."""
-    if mesh is None:
-        return make()
-    box = [make() if mesh.rank == 0 else None]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
-    return box[0]
-
-
-def run_summary(trainer) -> SimpleNamespace:
-    """What a data-parallel run returns from rank 0 (a trainer does not
-    cross processes)."""
-    return SimpleNamespace(saving_dir=trainer.saving_dir, epoch=trainer.epoch,
-                           train_history=trainer.train_history,
-                           dev_history=trainer.dev_history)
+    dump_log_json(os.path.join(folder, "log.json"), trainer.train_history,
+                  trainer.dev_history)
+    logger.finish()
+    export()
 
 
 # ---------------------------------------------------------------------------
@@ -353,10 +389,11 @@ def launch(run_fn: Callable, n_ranks: Optional[int], device="cuda", args: tuple 
     rank, rank 0's result returned.
 
     Under ``torchrun`` this process is one rank and joins the group of its
-    environment. Otherwise one rank runs here, in a group of its own, and
-    more are started with ``spawn``: ``n_ranks`` of them (None: every
-    visible card), on ``cuda:0 .. cuda:n-1``, or all on the CPU where
-    ``device`` is ``cpu``. ``build`` is ``spawn``'s."""
+    environment. Otherwise ``n_ranks`` (None: every visible card) decides:
+    one rank runs here, in a group of its own; more are all started with
+    ``spawn``, on ``cuda:0 .. cuda:n-1`` (or all on the CPU where ``device``
+    is ``cpu``), while this process waits for them. ``build`` is
+    ``spawn``'s."""
     device = torch.device(device)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         mesh = make_mesh(n_ranks, device=None if device.type == "cuda" else device)

@@ -151,15 +151,21 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> DataMesh:
     return init_rank(0, 1, device, f"tcp://127.0.0.1:{free_port()}", choose_backend([device]))
 
 
-def shard_rows(n_rows: int, mesh: DataMesh) -> slice:
-    """Rows ``[r * B/n, (r + 1) * B/n)`` of a global batch of ``n_rows``: the
-    JAX shard order. A batch not divisible by the mesh raises with the JAX
+def row_block(n_rows: int, rank: int, size: int,
+              names: Tuple[str, str] = ("batch dim", "data-parallel degree")) -> slice:
+    """Rows ``[rank * B/size, (rank + 1) * B/size)`` of a global batch of
+    ``n_rows``: the JAX shard order. A batch that ``size`` does not divide
+    raises ``"<names[0]> B not divisible by <names[1]> size"``, the JAX
     message."""
-    if n_rows % mesh.size:
-        raise ValueError(f"batch dim {n_rows} not divisible by data-parallel "
-                         f"degree {mesh.size}")
-    per = n_rows // mesh.size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    if n_rows % size:
+        raise ValueError(f"{names[0]} {n_rows} not divisible by {names[1]} {size}")
+    per = n_rows // size
+    return slice(rank * per, (rank + 1) * per)
+
+
+def shard_rows(n_rows: int, mesh: DataMesh) -> slice:
+    """``row_block`` of ``mesh``'s rank."""
+    return row_block(n_rows, mesh.rank, mesh.size)
 
 
 def shard_batch_fn(mesh: DataMesh):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import DataMesh
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import DataMesh, row_block
 
 
 def _rank_and_size() -> Tuple[int, int]:
@@ -29,13 +29,9 @@ def _rank_and_size() -> Tuple[int, int]:
 
 def process_slice(n_examples: int, mesh: Optional[DataMesh] = None) -> slice:
     """The half-open [start, stop) range of the global batch this rank owns
-    (contiguous blocks by rank), of ``mesh`` or of the process group."""
+    (``row_block``), of ``mesh`` or of the process group."""
     idx, n_proc = (mesh.rank, mesh.size) if mesh is not None else _rank_and_size()
-    if n_examples % n_proc:
-        raise ValueError(
-            f"global batch {n_examples} not divisible by process count {n_proc}")
-    per = n_examples // n_proc
-    return slice(idx * per, (idx + 1) * per)
+    return row_block(n_examples, idx, n_proc, ("global batch", "process count"))
 
 
 def global_batch_from_local(mesh: DataMesh, local) -> torch.Tensor:

@@ -17,6 +17,7 @@ smoke test over ``[cuda:0, cuda:0]``.
 from __future__ import annotations
 
 import contextlib
+import copy
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Sequence
 
@@ -42,25 +43,48 @@ def dp_devices(device, n: int) -> List[torch.device]:
     return [dev] * n
 
 
+def _placed(device: torch.device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def replicate(params: torch.nn.Module, devices: Sequence) -> List[torch.nn.Module]:
+    """``params`` on each of ``devices``: ``params`` itself where it already
+    sits there, else one copy of its own a distinct device. ``params`` is
+    never moved (``Module.to`` moves a module in place and returns it)."""
+    home = next(iter(params.parameters())).device
+    copies: dict = {}
+    out = []
+    for d in devices:
+        d = _placed(torch.device(d))
+        if d not in copies:
+            copies[d] = params if d == home else copy.deepcopy(params).to(d)
+        out.append(copies[d])
+    return out
+
+
 class RowSplit:
     """``split(x, lx) -> ids``: ``step(params, x, lx)`` on each of
     ``len(devices)`` row blocks of the host batch, block i on ``devices[i]``
-    with the parameters copied there (one copy a device), the ids (host
-    arrays) concatenated in row order."""
+    with the parameters there (``replicate``), the ids (host arrays)
+    concatenated in row order."""
 
     def __init__(self, step: Callable, params: torch.nn.Module, devices: Sequence):
         self.step = step
         self.devices = [torch.device(d) for d in devices]
-        copies: dict = {}
-        self.params = [copies.setdefault(str(d), params.to(d)) for d in self.devices]
+        self.params = replicate(params, self.devices)
         self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                         for d in self.devices]
         self._pool = ThreadPoolExecutor(len(self.devices))
 
     def _block(self, i: int, x: np.ndarray, lx: np.ndarray) -> np.ndarray:
         dev, stream = self.devices[i], self.streams[i]
-        scope = (torch.cuda.stream(stream) if stream is not None
-                 else contextlib.nullcontext())
+        scope = contextlib.ExitStack()
+        if stream is not None:  # this thread launches on block i's card and stream
+            scope.enter_context(torch.cuda.device(dev))
+            scope.enter_context(torch.cuda.stream(stream))
         with scope:
             ids = self.step(self.params[i], torch.from_numpy(x).to(dev),
                             torch.from_numpy(lx).to(dev))

@@ -13,8 +13,8 @@ without a card fails.
 ``pipeline`` 0 trains data-parallel (``parallel/dp.py``): ``data`` (or
 ``n_devices``; null: every visible card) ranks, one process each, each on
 its rows of every global batch. The same command starts them: one rank runs
-in this process and the others are spawned on ``cuda:1 ..`` (with ``--device
-cpu``, on the CPU over gloo). Under ``torchrun --nproc-per-node N -m
+in this process; more are spawned, one process each, on ``cuda:0 ..
+cuda:N-1`` (with ``--device cpu``, all on the CPU over gloo). Under ``torchrun --nproc-per-node N -m
 attention_based_e2e_asr_dnn_tpu_torch.train -c <yml>`` each process joins
 the group it is given. Rank 0 writes the experiment folder. Tensor, sequence
 and pipeline parallelism raise ``NotImplementedError`` naming ROADMAP queue
@@ -36,7 +36,6 @@ import argparse
 import dataclasses
 import os
 import sys
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -47,7 +46,6 @@ from attention_based_e2e_asr_dnn_tpu_torch.config import (
     cfg_float,
     inject_vocab,
     load_yaml,
-    snapshot_config,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
 from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import (
@@ -63,17 +61,11 @@ from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.precision import compute_dtype
 from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
-    launch,
-    rank_scope,
-    run_summary,
-    shared_folder,
+    close_experiment,
+    open_experiment,
+    run_training,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
-from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import (
-    MetricLogger,
-    dump_log_json,
-    experiment_folder,
-)
 from attention_based_e2e_asr_dnn_tpu_torch.utils.summary import (
     model_summary,
     shape_flop_summary,
@@ -220,7 +212,7 @@ def export_hook(trncfgs, tgt_folder: str) -> None:
 
 def main(args):
     """Train as the YAML says. Returns the ``Trainer``, or under
-    ``parallel.use`` rank 0's ``run_summary``."""
+    ``parallel.use`` rank 0's histories (``parallel.dp.run_training``)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here; "
@@ -229,21 +221,7 @@ def main(args):
     las_cfg = las_config_from_dicts(cfg["model"]["configs"]["listener_configs"],
                                     cfg["model"]["configs"]["speller_configs"])
     n_ranks = check_ported(Config(cfg), las_cfg)
-    if n_ranks is False:
-        return train(None, args)
-    return launch(train_rank, n_ranks, device, args=(args,),
-                  build=bool(_pallas_flags(las_cfg)))
-
-
-def train_rank(mesh, args) -> SimpleNamespace:
-    """One data-parallel rank of ``main``."""
-    return run_summary(train(mesh, args))
-
-
-def train(mesh, args):
-    """The training run, on one rank of ``mesh`` where one is given."""
-    with rank_scope(mesh):
-        return _train(mesh, args)
+    return run_training(_train, args, n_ranks, build=bool(_pallas_flags(las_cfg)))
 
 
 def _train(mesh, args):
@@ -259,25 +237,9 @@ def _train(mesh, args):
         trncfgs.model.configs["listener_configs"],
         trncfgs.model.configs["speller_configs"],
     )
-    if mesh is not None:
-        print(f"[parallel] data-parallel mesh over {mesh.size} devices ({mesh.backend}: "
-              f"one process a rank, per-rank batch shards, explicit all_reduce)")
 
     # wandb-or-timestamp experiment folder + config snapshot (src/train.py:519-530)
-    wandb_cfg = getattr(trncfgs, "wandb", None)
-    writer = mesh is None or mesh.rank == 0
-    logger = MetricLogger(
-        use_wandb=bool(wandb_cfg and wandb_cfg.use) and writer,
-        wandb_configs=getattr(wandb_cfg, "configs", None),
-        run_config=trncfgs_dict,
-    )
-
-    def make_folder() -> str:
-        tgt = experiment_folder(trncfgs.EXP_FOLDER, logger.run_name)
-        snapshot_config(trncfgs_dict, tgt)
-        return tgt
-
-    tgt_folder = shared_folder(mesh, make_folder)
+    logger, tgt_folder = open_experiment(mesh, trncfgs, trncfgs_dict)
     milestone_dir = getattr(trncfgs, "MST_FOLDER", None)
 
     # data
@@ -355,11 +317,8 @@ def _train(mesh, args):
     ))
 
     trainer.train_eval(int(trncfgs.epochs))
-    if writer:
-        dump_log_json(os.path.join(tgt_folder, "log.json"),
-                      trainer.train_history, trainer.dev_history)
-        logger.finish()
-        export_hook(trncfgs, tgt_folder)
+    close_experiment(mesh, trainer, logger, tgt_folder,
+                     lambda: export_hook(trncfgs, tgt_folder))
     return trainer
 
 

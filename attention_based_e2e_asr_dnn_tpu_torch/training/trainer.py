@@ -44,8 +44,10 @@ are broadcast from rank 0 at the start and at a resume. Every host-side
 decision (the schedulers, the plateau LR, ``eval_ld_interval``, the
 checkpoint policy) reads the all-reduced loss and the gathered LD, so it comes
 out the same on every rank. Rank 0 alone writes: checkpoints, milestones, the
-crash save, log lines, attention-map PNGs and the profile trace; the other
-ranks meet it at a barrier after each epoch's checkpoint.
+crash save, attention-map PNGs and the profile trace; the other ranks meet it
+at a barrier after each epoch's checkpoint. Every rank prints its log lines
+(the ``train`` and ``lmtrain`` CLIs send the other ranks' standard output
+nowhere, ``parallel.dp.run_training``).
 
 Not ported: ``pipeline``, ``shard_batch`` / ``shard_state`` (ROADMAP queue 1,
 item 16); passing one raises ``NotImplementedError``.
@@ -71,7 +73,6 @@ from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
     make_dp_eval_step,
     make_dp_train_step,
 )
-from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import shard_rows
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     CheckpointManager,
     load_checkpoint,
@@ -93,7 +94,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
     make_train_step,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.utils.levenshtein import batch_levenshtein
-from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import MetricLogger, NullLogger
+from attention_based_e2e_asr_dnn_tpu_torch.utils.logging import MetricLogger
 from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import epoch_profiler
 from attention_based_e2e_asr_dnn_tpu_torch.utils.plotting import (
     have_matplotlib,
@@ -154,7 +155,7 @@ class Trainer:
         self.sos_idx = sos_idx
         self.eos_idx = eos_idx
         self.compute_dtype = compute_dtype
-        self.logger = (logger or MetricLogger()) if self.is_writer else NullLogger()
+        self.logger = logger or MetricLogger()
         self.make_apply = make_apply
         self.eval_beam_step = eval_beam_step
 
@@ -283,16 +284,11 @@ class Trainer:
         batch's."""
         y, ly = bt.y[:, 1:], np.maximum(bt.ly - 1, 0)
         ly = np.where(bt.indices >= 0, ly, 0)
-        x, lx = bt.x, bt.lx
-        rows = slice(None)
-        if self.dp_mesh is not None:
-            rows = shard_rows(len(bt.indices), self.dp_mesh)
-            if bt.rows is None:  # a batcher that assembled the whole batch
-                x, lx = x[rows], lx[rows]
-        x = torch.from_numpy(np.ascontiguousarray(x))
+        rows = slice(None) if bt.rows is None else bt.rows
+        x = torch.from_numpy(np.ascontiguousarray(bt.x))
         if self.feed_dtype is not None and x.is_floating_point():
             x = x.to(self.feed_dtype)
-        host = (x, torch.from_numpy(lx.astype(np.int32)),
+        host = (x, torch.from_numpy(bt.lx.astype(np.int32)),
                 torch.from_numpy(np.ascontiguousarray(y[rows].astype(np.int32))),
                 torch.from_numpy(ly[rows].astype(np.int32)))
         return host, y, ly, bt.indices

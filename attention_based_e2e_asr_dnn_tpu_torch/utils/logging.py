@@ -40,20 +40,6 @@ class MetricLogger:
             self.wandb.finish()
 
 
-class NullLogger(MetricLogger):
-    """The logger of a data-parallel rank other than 0: prints and logs
-    nothing (rank 0 does)."""
-
-    def __init__(self):
-        super().__init__()
-
-    def log(self, metrics: dict, step: Optional[int] = None) -> None:
-        pass
-
-    def print(self, message: str) -> None:
-        pass
-
-
 def dump_log_json(path: str, train_history: dict, dev_history: dict) -> None:
     """Final log.json of metric histories (reference: src/train.py:630-632)."""
     with open(path, "w") as fh:

@@ -3967,6 +3967,21 @@ def state_digest(torch, state) -> str:
     return digest.hexdigest()
 
 
+def moment_rel_err(torch, mu, ref_mu) -> tuple:
+    """After one AdamW step the first moment is (1 - b1) times the clipped
+    gradient, so ||mu - ref_mu|| / ||ref_mu|| is the step's relative gradient
+    error against the one-process step's. Returns it, and the same reading of
+    a fault control made from ``mu`` itself: the flat gradient buffer handed
+    back shifted by one parameter's size (each gradient scattered to another
+    parameter's place)."""
+    flat = torch.cat([m.detach().float().reshape(-1) for m in mu])
+    ref = torch.cat([m.float().reshape(-1) for m in ref_mu]).to(flat.device)
+    den = torch.linalg.vector_norm(ref)
+    shifted = torch.roll(flat, mu[0].numel())
+    return (float(torch.linalg.vector_norm(flat - ref) / den),
+            float(torch.linalg.vector_norm(shifted - ref) / den))
+
+
 def dp_rank(mesh, inputs_path: str) -> dict:
     """One rank of phase 23 (started by ``parallel.dp.spawn``): the DP eval
     step at the initial parameters, one DP train step with its rows of the
@@ -4019,6 +4034,8 @@ def dp_rank(mesh, inputs_path: str) -> dict:
             off += int((diff > 1e-5).sum())
             total += diff.numel()
         out["param_diff"] = (worst, off, total)
+        out["mu_rel"], out["mu_rel_shifted"] = moment_rel_err(torch, state.opt_state.mu,
+                                                              ref["mu"])
         times = []
         for _ in range(DP_TIMED_STEPS):
             torch.cuda.synchronize()
@@ -4088,7 +4105,8 @@ def dp_train_phase(torch, card: str, work: str) -> dict:
                 "draws": type(draws)([cpu(t) for t in draws.listener_masks], cpu(draws.coins),
                                      cpu(draws.m1), cpu(draws.m2),
                                      type(draws.specaug)(*map(cpu, draws.specaug))),
-                "params": [p.detach().cpu() for p in state.params.parameters()]}, inputs)
+                "params": [p.detach().cpu() for p in state.params.parameters()],
+                "mu": [m.detach().cpu() for m in state.opt_state.mu]}, inputs)
     # the one-process step's time at the global batch and at a rank's rows
     one_s = {}
     with forbid_plain():
@@ -4120,9 +4138,22 @@ def dp_train_phase(torch, card: str, work: str) -> dict:
                                      f"one-process step's {one[key]} (rtol {tol})")
         if not (got["finite"] and got["n_tokens"] == one["n_tokens"]):
             raise AssertionError(f"DP rank {r['rank']}: metrics {got} vs {one}")
+        # Parameters: the first AdamW step moves every element by about
+        # +-lr whatever its gradient, so the parameters alone cannot show a
+        # gradient scattered to the wrong place (max_abs_diff <= 2 lr holds
+        # for any gradient; elements off by more than 1e-5 are printed, not
+        # bounded: the sign of a gradient that is bf16 rounding noise around
+        # zero may flip). The first moment holds the gradient itself: its
+        # relative error against the one-process step's must stay within the
+        # bf16 rtol of loss and grad_norm (the shifted-buffer control reads
+        # ~1.4 there; a gradient averaged over the ranks halves grad_norm).
         worst, off, total = r["param_diff"]
         if not worst <= 2 * DP_LR * 1.01:
             raise AssertionError(f"DP rank {r['rank']}: parameters differ by {worst}")
+        if not r["mu_rel"] <= tol < r["mu_rel_shifted"]:
+            raise AssertionError(f"DP rank {r['rank']}: the first moment's relative error "
+                                 f"{r['mu_rel']} (shifted-buffer control "
+                                 f"{r['mu_rel_shifted']}) against rtol {tol}")
         ev = r["eval"]
         if not (abs(ev["loss"] - one_eval["loss"]) <= tol * abs(one_eval["loss"])
                 and ev["n_tokens"] == one_eval["n_tokens"]):
@@ -4145,8 +4176,10 @@ def dp_train_phase(torch, card: str, work: str) -> dict:
         f"{one['grad_norm']:.4f} (rtol {tol}), n_tokens {one['n_tokens']:.0f}; parameters "
         f"max_abs_diff {[r['param_diff'][0] for r in ranks]} (bound 2 x lr), elements off "
         f"by more than 1e-5 {[r['param_diff'][1] for r in ranks]} of "
-        f"{ranks[0]['param_diff'][2]}; DP eval loss {[round(r['eval']['loss'], 5) for r in ranks]}"
-        f" vs {one_eval['loss']:.5f}, rows with the one-process ids {same_ids}; after "
+        f"{ranks[0]['param_diff'][2]}; first moment (the gradient) relative error "
+        f"{[r['mu_rel'] for r in ranks]} (rtol {tol}; shifted-buffer control "
+        f"{[r['mu_rel_shifted'] for r in ranks]}); DP eval loss "
+        f"{[round(r['eval']['loss'], 5) for r in ranks]} vs {one_eval['loss']:.5f}, rows with the one-process ids {same_ids}; after "
         f"{DP_TIMED_STEPS} more steps the ranks' states bit-equal (sha256); a NaN in rank 0's "
         f"rows skipped on both; spawn to results {wall:.1f} s")
     step_ms = [1e3 * statistics.median(r["step_s"]) for r in ranks]
@@ -4211,8 +4244,11 @@ def dp_cli_phase(torch, card: str, corpus: str, work: str) -> dict:
     idle = [k for k in DP_PATH if counts[k] <= 0]
     if idle:
         raise AssertionError(f"train CLI DP: never launched {idle}")
-    kept = sorted(list_best_checkpoints(os.path.join(summary.saving_dir, "ckpts")))
-    last = os.path.join(summary.saving_dir, "ckpts", kept[-1])
+    kept = list_best_checkpoints(os.path.join(summary.saving_dir, "ckpts"))
+    # the newest checkpoint kept, so that the resume continues the DP run as
+    # far as it can
+    newest = max(kept, key=lambda name: int(name.rsplit("epoch[", 1)[1].split("]")[0]))
+    last = os.path.join(summary.saving_dir, "ckpts", newest)
     saved = load_checkpoint(last)
     cfg.update(parallel={"use": False}, epochs=saved["epoch"] + 1,
                finetune={"use": True, "reinit_lr": False, "checkpoint": last},
@@ -4230,14 +4266,14 @@ def dp_cli_phase(torch, card: str, corpus: str, work: str) -> dict:
                  f"run_avg: false\n")
     with forbid_plain():
         infer.main(infer.build_argparser().parse_args(["-c", infer_cfg, "--device", DEVICE]))
-    preds = f"{os.path.splitext(kept[-1])[0]}-tst.csv"
+    preds = f"{os.path.splitext(newest)[0]}-tst.csv"
     with open(os.path.join(summary.saving_dir, "preds", preds)) as fh:
         rows = fh.read().split("\n")[1:-1]
     if len(rows) != N_CLI_TEST:
         raise AssertionError(f"train CLI DP -> infer: {preds} has {len(rows)} rows")
     log(f"[{card}] train CLI base-LAS bf16 parallel data 1 ({said[0]}): train loss "
         f"{[round(v, 4) for v in trn['loss']]}, dev loss {[round(v, 4) for v in dev['loss']]}, "
-        f"dev LD {[round(v, 3) for v in dev['ld']]}; ckpts {kept}; resumed with "
+        f"dev LD {[round(v, 3) for v in dev['ld']]}; ckpts {kept}; resumed from {newest} with "
         f"parallel.use false at epoch {saved['epoch']}, train loss "
         f"{resumed.train_history['loss'][-1]:.4f}; infer wrote {preds} ({len(rows)} rows); "
         f"launches {counts}")

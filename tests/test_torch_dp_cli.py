@@ -279,6 +279,22 @@ def two_cpus(monkeypatch):
     monkeypatch.setattr(tsplit, "dp_devices", lambda device, n: [torch.device("cpu")] * n)
 
 
+def test_the_split_copies_the_parameters_once_a_distinct_device(tmp_path):
+    """``RowSplit`` never moves the module it is given: the blocks on the
+    module's own device share it, and each other device gets one copy of its
+    own there (``meta`` stands in for a second card)."""
+    params = tlas.las_from_jax_params(tserving.load_experiment(
+        _make_experiment(str(tmp_path / "exp")), None, False)[1]["params"])
+    before = [p.detach().clone() for p in params.parameters()]
+    rs = tsplit.RowSplit(None, params, ["cpu", "meta", "cpu", "meta"])
+    assert rs.params[0] is params and rs.params[2] is params
+    assert rs.params[1] is rs.params[3] and rs.params[1] is not params
+    assert all(p.device.type == "cpu" for p in params.parameters())
+    assert all(p.device.type == "meta" for p in rs.params[1].parameters())
+    assert all(torch.equal(a, b) for a, b in zip(before, params.parameters()))
+    assert tsplit.replicate(params, ["cpu", "cpu"]) == [params, params]
+
+
 def _features(n, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((int(rng.integers(6, 40)), 15)).astype(np.float32)
