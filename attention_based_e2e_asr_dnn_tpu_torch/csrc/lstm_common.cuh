@@ -1,6 +1,7 @@
 // Shared by the LSTM recurrence kernels (lstm_scan.cu, lstm_scan_streams.cu,
 // lstm_scan_tc.cu, lstm_scan_tc_streams.cu, lstm_bwd.cu, lstm_bwd_tc.cu): the
-// fixed block geometry of the float32 forms, dtype conversions, the
+// fixed block geometry of the float32 adjoint (the float32 forward's is in
+// lstm_scan_body.cuh), dtype conversions, the
 // forward recurrence's arguments and output forms, and the loader that stages
 // rows of a (rows, H) slab from global memory into padded float32 shared
 // memory.

@@ -1,7 +1,8 @@
 // Persistent LSTM recurrence for Hopper (sm_90a), float32: one cooperative
-// launch runs the whole time loop of one listener layer, one or both
-// directions, for up to 32 batch rows. bfloat16 runs on tensor cores in
-// lstm_scan_tc.cu (all rows up to 128 and both directions in one launch).
+// launch runs the whole time loop of one listener layer, every batch row
+// the card can hold at once and one or both directions. bfloat16 runs on
+// tensor cores in lstm_scan_tc.cu (all rows up to 128 and both directions in
+// one launch).
 //
 // Replaces (attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py), in float32:
 //   FUSED_IN = false: _lstm_scan_nocs_kernel (:87), launched by
@@ -22,42 +23,39 @@
 // fp32 gates [i, f, g, o], the carry frozen where t >= length, h written as
 // zero at padded frames, outputs in the input dtype. A reverse direction
 // walks time descending from a zero carry, so every row starts at its own
-// last valid frame.
+// last valid frame. Plain fmaf on the CUDA cores, no TF32: float32 keeps its
+// 1e-4 tolerance against the plain version (TF32 tensor cores would not).
 //
 // What bounds it: every step depends on the previous step's h, so a layer
-// costs T x (one grid-wide barrier + reading h from L2 + this block's share
-// of the (B, H) x (H, 4H) product + the gates). At H = 512, B = 32 that share
-// is 0.5M FMAs per block per step. The kernel is latency-bound, not
-// bandwidth-bound: on an H100 (700 W power limit) a step takes ~11 us, of
-// which removing the dot saves ~5 us and the grid barrier ~2 us (PERF.md).
-//
-// Design. A persistent grid of ndir * H / UNITS blocks (128 blocks at
-// H = 512 with both directions, on 132 SMs; a layer too wide for that, as
-// H = 1024 with its 2 x 128 blocks, is launched once a direction by the
-// wrapper: the directions are independent, and one block an SM keeps the
-// whole of shared memory for the block's W_hh columns). Block j of direction d owns
-// hidden units [UNITS*j, UNITS*j + UNITS) and keeps their four gates' columns
-// of W_hh (H x 4*UNITS, as fp32) in shared memory for the whole sequence.
-// Thread (warp u, lane b) owns batch row b of unit u and keeps its c and h in
-// registers. Each step:
-//   1. the block copies h_{t-1} (B x H, already rounded to the weight dtype)
-//      from a double-buffered global exchange buffer into shared memory;
-//   2. warp w computes partial dots over k in [w*H/8, (w+1)*H/8) for its lane's
-//      batch row and all UNITS x 4 columns (32 fp32 accumulators a thread);
-//   3. the partials are summed across the 8 warps through shared memory;
-//   4. thread (u, b) applies the gates, updates its carry, writes its output
-//      and its rounded h into the other half of the exchange buffer;
-//   5. one grid-wide barrier (cooperative groups) publishes h_t.
-// WIDE = true (512 < H <= 1024): the block's W_hh columns alone take
-// H x 32 x 4 bytes (128 KB at H = 1024), so h_{t-1} no longer fits beside
-// them in one piece (32 x (H + 4) x 4 bytes more would pass the 227 KB a
-// block may use). Steps 1 and 2 then run twice, over one half of the k range
-// at a time (66 KB of staging at H = 1024, 194 KB in all). WIDE = false is
-// the single pass, as compiled before there was a wide form.
-// The cooperative launch refuses a grid that cannot be co-resident, so a
-// shape too wide for the card fails at launch instead of deadlocking.
-// Plain FMA on the CUDA cores, which keeps float32's 1e-4 tolerance against
-// the plain version (TF32 tensor cores would not).
+// costs T x (the wait for h_{t-1} + staging it + this block's share of the
+// (B, H) x (H, 4H) product + the gates). At the Rewriter's H = 256, B = 256,
+// both directions, that product is 134M FMAs a step, ~4 us at the card's
+// 67 TFLOP/s float32 peak; every block reads its rows of h_{t-1} from L2
+// (8.4 MB a step over the card); and the blocks of a row group meet once a
+// step. The design's answers, in that order:
+//   - the product: every SM busy and every FMA from registers. A block owns
+//     R batch rows x U hidden units (4U gate columns) of one direction, so a
+//     launch holds every row and both directions (R = 64, U = 16 at H = 256,
+//     B = 256: 2 x 4 x 16 = 128 blocks of 256 threads; the Python plan picks
+//     R and U from B, H, the directions and the card's SMs). Its W_hh
+//     columns (H x 4U, 64 KB there) stay in shared memory for the whole
+//     sequence; each thread keeps a 4-row x 4-gate tile of one unit in
+//     registers over the whole k range (16 FMAs for two 16-byte shared
+//     loads, no cross-warp reduction) and applies the gates to it directly;
+//   - the staging: h_{t-1}'s R rows stream through a ring of up to four
+//     64-column stages (cp.async, L2 only), the next chunks in flight while
+//     one is multiplied; the step's input term (the x_proj entries, or the
+//     narrow input projection under FUSED_IN) is computed before the wait,
+//     while the other blocks finish;
+//   - the meeting: one release-counter a (direction, row group), the grid
+//     barrier restricted to the H / U blocks that exchange h (16 at the
+//     Rewriter's width), polled by one thread with an acquire load.
+// A batch whose row groups the card cannot hold at once takes more launches,
+// one after another (the only split); so does a layer whose directions
+// together need more blocks than the card has SMs (H = 1024: a launch a
+// direction). The cooperative launch refuses a grid that cannot be
+// co-resident, so a shape too wide for the card fails at launch instead of
+// deadlocking.
 //
 // The kernel's body is lstm_scan_body.cuh; this source instantiates its lean
 // and training forms, lstm_scan_streams.cu the hs + cs form and the fused
@@ -65,39 +63,29 @@
 
 #include "lstm_scan_body.cuh"
 
-// Shapes are checked by the Python wrapper (ops/lstm_cuda.py): B <= 32,
-// H % 32 == 0 up to 512 and H % 64 == 0 from there to 1024 (the wide form),
-// ndir * H / 8 blocks no more than the card's SMs, D <= 128 for the fused
-// input. A grid that still cannot be co-resident (shared memory)
-// is refused by the cooperative launch and reported here.
+// Shapes are checked by the Python wrapper (ops/lstm_cuda.py::plan_launches):
+// H a multiple of 32 up to 1024, D <= 128 for the fused input, the geometry
+// (units, rows, stages) of f32_geometry_ok; a grid that still cannot be
+// co-resident is refused by the cooperative launch and reported here.
 // dtype: 0 = float32 (bfloat16 is lstm_scan_tc_launch's). train != 0 also
-// writes cs and gates.
+// writes cs and gates. sync: ndir x ceil(B / rows) zeroed counters.
 // Returns a cudaError_t (0 on success).
-template <typename T, bool WIDE>
-static cudaError_t dispatch_form(int fused, int train, ScanArgs a, cudaStream_t s) {
-  if (train)
-    return fused ? launch<T, true, STREAMS_TRAIN, WIDE>(a, s)
-                 : launch<T, false, STREAMS_TRAIN, WIDE>(a, s);
-  return fused ? launch<T, true, STREAMS_HS, WIDE>(a, s)
-               : launch<T, false, STREAMS_HS, WIDE>(a, s);
-}
-
-template <typename T>
-static cudaError_t dispatch(int fused, int train, ScanArgs a, cudaStream_t s) {
-  if (a.H > WIDE_FROM) return dispatch_form<T, true>(fused, train, a, s);
-  return dispatch_form<T, false>(fused, train, a, s);
-}
-
 extern "C" int lstm_scan_launch(int dtype, int fused, int train, int ndir, int rev_bits, int B,
                                 int T, int D, int H, const void* x, long long x_sd,
                                 long long x_sb, long long x_st, const void* w_ih,
                                 const void* bias, const void* w_hh, const int* lengths,
                                 void* out, long long o_sd, long long o_sb, long long o_st,
                                 void* hbuf, void* cs, void* gates, long long g_sd,
-                                long long g_sb, long long g_st, void* stream) {
+                                long long g_sb, long long g_st, int units, int rows,
+                                int stages, void* sync, void* stream) {
   ScanArgs a{x,    x_sd, x_sb, x_st,  w_ih, bias, w_hh, lengths, out,      o_sd, o_sb, o_st,
              hbuf, cs,   gates, g_sd, g_sb, g_st, ndir, rev_bits, B,       T,    D,    H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(fused, train, a, s);
-  return (int)cudaErrorInvalidValue;
+  unsigned* ctr = static_cast<unsigned*>(sync);
+  if (dtype != 0 || !f32_geometry_ok(a, units, rows, stages)) return (int)cudaErrorInvalidValue;
+  if (train)
+    return fused ? launch<true, STREAMS_TRAIN>(a, units, rows, stages, ctr, s)
+                 : launch<false, STREAMS_TRAIN>(a, units, rows, stages, ctr, s);
+  return fused ? launch<true, STREAMS_HS>(a, units, rows, stages, ctr, s)
+               : launch<false, STREAMS_HS>(a, units, rows, stages, ctr, s);
 }

@@ -15,233 +15,319 @@
 //   STREAMS_BI     cs, and hs as the carry itself (_bilstm_scan_kernel,
 //                  lstm_pallas.py:1063): see lstm_scan_streams.cu.
 // Every switch is a compile-time constant, so an instance holds only its own
-// form's code: the STREAMS_HS and STREAMS_TRAIN instances compile to what
-// they were before the other two forms existed.
+// form's code.
+//
+// The geometry is its own (lstm_common.cuh's UNITS / BMAX are the float32
+// adjoint's): a block owns `rows` batch rows (R) and `units` hidden units
+// (U) of one direction; thread (g, u), g < R / 4, u < U, owns unit u of rows
+// g, g + R / 4, g + R / 2, g + 3R / 4 (F32_RT = 4 rows, strided so that a
+// warp's rows are adjacent: conflict-free float4 reads of the staged h) and
+// accumulates their 4 x 4 gate columns in registers over the whole k range.
+// Four rows, not two or eight: on an H100 that ran these products faster
+// than two (more shared loads per FMA) or eight (too few threads to keep
+// the SM's four schedulers busy).
+// ops/lstm_cuda.py::plan_launches picks R, U and the ring's stages.
 #pragma once
 
-#include <cooperative_groups.h>
+#include <stdint.h>
 
 #include "lstm_common.cuh"
+#include "wgmma_common.cuh"  // smem_u32, arrive_release, load_acquire
 
-namespace cg = cooperative_groups;
+constexpr int F32_RT = 4;            // batch rows a thread carries
+constexpr int F32_MAX_THREADS = 256;  // (R / 4) x U, at most
+constexpr int F32_KC = 64;           // columns of h a ring stage holds (the last: 32 or 64)
+constexpr int F32_MAX_STAGES = 4;    // ring stages, at most
+constexpr int F32_PAD = 4;           // floats of padding after a staged row
 
-template <typename T, bool FUSED_IN, int STREAMS, bool WIDE>
-__global__ void __launch_bounds__(NTHREADS, 1) lstm_scan_kernel(ScanArgs a) {
+__device__ __forceinline__ void f32_cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void f32_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// at most n (0 .. F32_MAX_STAGES - 1) groups still pending
+__device__ __forceinline__ void f32_cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// a compile-time span of k, handed to a generic lambda
+template <int V>
+struct Span {
+  static constexpr int value = V;
+};
+
+// shared memory of a block (ops/lstm_cuda.py::f32_smem_bytes mirrors it):
+// W_hh's columns [H][U][4]; the ring, `stages` x R rows x (F32_KC + F32_PAD);
+// under FUSED_IN W_ih's columns [D][U][4], the bias [U][4] and x_t's rows
+// [D][R]
+__host__ __device__ inline size_t f32_smem_bytes(int H, int D, int units, int rows, int stages,
+                                                 bool fused) {
+  size_t floats = (size_t)H * units * 4 + (size_t)stages * rows * (F32_KC + F32_PAD);
+  if (fused) floats += (size_t)D * units * 4 + units * 4 + (size_t)D * rows;
+  return floats * sizeof(float);
+}
+
+// a.B rows in groups of `rows`; grid (ndir x row groups x H / units) blocks,
+// block (d, rg, j) = (d * RG + rg) * (H / units) + j; sync: ndir x RG zeroed
+// counters, one a (direction, row group), whose H / units blocks exchange h
+// through hbuf (2, ndir, RG * rows, H)
+template <bool FUSED_IN, int STREAMS>
+__global__ void __launch_bounds__(F32_MAX_THREADS, 1)
+    lstm_scan_kernel(ScanArgs a, int units, int rows, int stages, unsigned* sync) {
   constexpr bool TRAIN = STREAMS == STREAMS_TRAIN;
   constexpr bool WITH_CS = STREAMS != STREAMS_HS;
   constexpr bool BI = STREAMS == STREAMS_BI;
   extern __shared__ __align__(16) float smem[];
-  const int H = a.H, B = a.B, seq_len = a.T, D = a.D;
-  const int blocks_per_dir = H / UNITS;
-  const int d = blockIdx.x / blocks_per_dir;
-  const int u0 = (blockIdx.x % blocks_per_dir) * UNITS;
+  const int H = a.H, B = a.B, seq_len = a.T, D = a.D, U = units, R = rows;
+  const int blocks_per_group = H / U;
+  const int n_groups = (B + R - 1) / R;
+  const int group = blockIdx.x / blocks_per_group;  // d * n_groups + rg
+  const int d = group / n_groups, rg = group % n_groups;
+  const int u0 = (blockIdx.x % blocks_per_group) * U;
+  const int r0 = rg * R;
   const bool rev = (a.rev_bits >> d) & 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int PASSES = WIDE ? 2 : 1;  // pieces of the k range staged in turn
-  const int SW = H / PASSES;            // columns of h staged at a time
-  const int hs_stride = SW + 4;  // padded rows: conflict-free float4 reads
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int u = tid % U, g = tid / U;  // this thread's unit and row slot
+  const int rstride = R / F32_RT;      // its rows: g + i * rstride
+  constexpr int LDX = F32_KC + F32_PAD;
+  const int n_chunks = (H + F32_KC - 1) / F32_KC;  // H a multiple of 32
 
-  // shared memory: W_hh slice [H][UNITS][4]; h rows [BMAX][SW + 4], reused as
-  // the cross-warp reduction buffer [NWARPS][UNITS][4][32]; then the fused
-  // input projection's W_ih slice [D][UNITS][4] and bias [UNITS][4].
   float* w_s = smem;
-  float* h_s = w_s + H * UNITS * 4;
-  float* red_s = h_s;
-  const int h_region = max(BMAX * hs_stride, NWARPS * UNITS * 4 * 32);
-  float* wih_s = h_s + h_region;
-  float* b_s = wih_s + D * UNITS * 4;
+  float* ring = w_s + H * U * 4;
+  float* wih_s = ring + stages * R * LDX;
+  float* b_s = wih_s + D * U * 4;
+  float* x_s = b_s + U * 4;
 
-  const T* w_hh = static_cast<const T*>(a.w_hh) + (long long)d * H * 4 * H;
-  for (int idx = threadIdx.x; idx < H * UNITS * 4; idx += NTHREADS) {
-    const int k = idx / (UNITS * 4), u = (idx / 4) % UNITS, g = idx % 4;
-    w_s[idx] = to_f(w_hh[(long long)k * 4 * H + g * H + u0 + u]);
+  const float* w_hh = static_cast<const float*>(a.w_hh) + (long long)d * H * 4 * H;
+  for (int idx = tid; idx < H * U * 4; idx += nthreads) {
+    const int k = idx / (U * 4), uu = (idx / 4) % U, gate = idx % 4;
+    w_s[idx] = w_hh[(long long)k * 4 * H + gate * H + u0 + uu];
   }
   if (FUSED_IN) {
-    const T* w_ih = static_cast<const T*>(a.w_ih) + (long long)d * D * 4 * H;
-    const T* bias = static_cast<const T*>(a.bias) + (long long)d * 4 * H;
-    for (int idx = threadIdx.x; idx < D * UNITS * 4; idx += NTHREADS) {
-      const int k = idx / (UNITS * 4), u = (idx / 4) % UNITS, g = idx % 4;
-      wih_s[idx] = to_f(w_ih[(long long)k * 4 * H + g * H + u0 + u]);
+    const float* w_ih = static_cast<const float*>(a.w_ih) + (long long)d * D * 4 * H;
+    const float* bias = static_cast<const float*>(a.bias) + (long long)d * 4 * H;
+    for (int idx = tid; idx < D * U * 4; idx += nthreads) {
+      const int k = idx / (U * 4), uu = (idx / 4) % U, gate = idx % 4;
+      wih_s[idx] = w_ih[(long long)k * 4 * H + gate * H + u0 + uu];
     }
-    if (threadIdx.x < UNITS * 4) {
-      const int u = threadIdx.x / 4, g = threadIdx.x % 4;
-      b_s[threadIdx.x] = to_f(bias[g * H + u0 + u]);
-    }
+    for (int idx = tid; idx < U * 4; idx += nthreads)
+      b_s[idx] = bias[(idx % 4) * H + u0 + idx / 4];
   }
 
-  // the cell-update thread: unit u0 + warp, batch row lane
-  const int cu = warp, cb = lane;
-  const bool row_live = cb < B;
-  const int len = row_live ? a.lengths[cb] : 0;
-  float h_carry = 0.0f, c_carry = 0.0f;
+  int row[F32_RT], len[F32_RT];
+  bool live[F32_RT];
+#pragma unroll
+  for (int i = 0; i < F32_RT; ++i) {
+    row[i] = r0 + g + i * rstride;
+    live[i] = row[i] < B;
+    len[i] = live[i] ? a.lengths[row[i]] : 0;
+  }
+  float h_carry[F32_RT], c_carry[F32_RT];
+#pragma unroll
+  for (int i = 0; i < F32_RT; ++i) h_carry[i] = c_carry[i] = 0.0f;
 
-  const T* x = static_cast<const T*>(a.x);
-  T* out = static_cast<T*>(a.out);
-  T* cs = static_cast<T*>(a.cs);
-  T* gates = static_cast<T*>(a.gates);
-  T* hbuf = static_cast<T*>(a.hbuf);
-  const long long hbuf_half = (long long)a.ndir * B * H;
-  const int k_chunk = SW / NWARPS;
-  const int k0 = warp * k_chunk;
-  cg::grid_group grid = cg::this_grid();
+  const float* x = static_cast<const float*>(a.x);
+  float* out = static_cast<float*>(a.out);
+  float* cs = static_cast<float*>(a.cs);
+  float* gates = static_cast<float*>(a.gates);
+  float* hbuf = static_cast<float*>(a.hbuf);
+  const long long rows_pad = (long long)n_groups * R;
+  const long long hbuf_half = (long long)a.ndir * rows_pad * H;
+  unsigned* ctr = sync + group;
+
+  // the step's input term, xin[i][gate]: under FUSED_IN (x_t . W_ih + b),
+  // x_t's rows staged transposed; else the x_proj entries. Computed before
+  // the wait for h_{t-1}, so it overlaps the other blocks' step.
+  float xin[F32_RT][4];
+  auto input_term = [&](int t) {
+    if (FUSED_IN) {
+      __syncthreads();  // x_s is free
+      for (int idx = tid; idx < R * D; idx += nthreads) {
+        const int rr = idx / D, k = idx % D;
+        x_s[k * R + rr] = r0 + rr < B
+                              ? x[(long long)(r0 + rr) * a.x_sb + (long long)t * a.x_st + k]
+                              : 0.0f;
+      }
+      __syncthreads();
+      float xw[F32_RT][4];
+#pragma unroll
+      for (int i = 0; i < F32_RT; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xw[i][q] = 0.0f;
+      for (int k = 0; k < D; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(wih_s + (k * U + u) * 4);
+#pragma unroll
+        for (int i = 0; i < F32_RT; ++i) {
+          const float xk = x_s[k * R + g + i * rstride];
+          xw[i][0] = fmaf(xk, w.x, xw[i][0]);
+          xw[i][1] = fmaf(xk, w.y, xw[i][1]);
+          xw[i][2] = fmaf(xk, w.z, xw[i][2]);
+          xw[i][3] = fmaf(xk, w.w, xw[i][3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < F32_RT; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xin[i][q] = xw[i][q] + b_s[u * 4 + q];
+    } else {
+#pragma unroll
+      for (int i = 0; i < F32_RT; ++i) {
+        const float* xrow =
+            x + (long long)d * a.x_sd + (long long)row[i] * a.x_sb + (long long)t * a.x_st + u0 + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xin[i][q] = live[i] ? __ldg(xrow + q * H) : 0.0f;
+      }
+    }
+  };
+  __syncthreads();  // the weights are in shared memory
+  input_term(rev ? seq_len - 1 : 0);
 
   for (int s = 0; s < seq_len; ++s) {
     const int t = rev ? seq_len - 1 - s : s;
-    float acc[UNITS][4];
+    float acc[F32_RT][4];
 #pragma unroll
-    for (int u = 0; u < UNITS; ++u)
+    for (int i = 0; i < F32_RT; ++i)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[u][g] = 0.0f;
-#pragma unroll
-    for (int p = 0; p < PASSES; ++p) {
-      // 1. h_{t-1} (rows < B, columns [p * SW, p * SW + SW)) into shared
-      //    memory: zero at the first step, else 16-byte loads that bypass L1
-      //    (other blocks wrote them), all in flight before any is converted.
-      //    Rows >= B hold stale values; their lanes compute on them and write
-      //    nothing.
-      if (s == 0) {
-        for (int idx = threadIdx.x; idx < B * SW; idx += NTHREADS)
-          h_s[(idx / SW) * hs_stride + idx % SW] = 0.0f;
-      } else if (WIDE) {
-        stage_rows(h_s, hs_stride, hbuf + (s & 1) * hbuf_half + (long long)d * B * H + p * SW,
-                   (long long)H, B, SW);
-      } else {
-        const uint4* h_prev = reinterpret_cast<const uint4*>(
-            hbuf + (s & 1) * hbuf_half + (long long)d * B * H);
-        const int chunks_per_row = H / VEC;
-        const int n_chunks = B * chunks_per_row;
-        for (int base = threadIdx.x; base < n_chunks; base += NTHREADS * LOAD_BATCH) {
-          uint4 buf[LOAD_BATCH];
-#pragma unroll
-          for (int j = 0; j < LOAD_BATCH; ++j) {
-            const int c = base + j * NTHREADS;
-            if (c < n_chunks) buf[j] = __ldcg(h_prev + c);
-          }
-#pragma unroll
-          for (int j = 0; j < LOAD_BATCH; ++j) {
-            const int c = base + j * NTHREADS;
-            if (c < n_chunks)
-              unpack16(buf[j], h_s + (c / chunks_per_row) * hs_stride + (c % chunks_per_row) * VEC,
-                       static_cast<const T*>(nullptr));
-          }
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+    if (s > 0) {  // h_{-1} = 0: no product at the first step
+      // 1. wait until every block of this (direction, row group) has
+      //    published h_{t-1}
+      if (tid == 0) {
+        const unsigned target = (unsigned)s * blocks_per_group;
+        while (load_acquire(ctr) < target) {
         }
       }
       __syncthreads();
-
-      // 2. partial recurrent dots for batch row `lane`, k in this warp's chunk
-      const float* hrow = h_s + lane * hs_stride;
-      const float* w_p = w_s + (long long)p * SW * UNITS * 4;
-      for (int k = k0; k < k0 + k_chunk; k += 4) {
-        const float4 hv = *reinterpret_cast<const float4*>(hrow + k);
-        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+      // 2. the block's R rows of h_{t-1} stream through the ring, F32_KC
+      //    columns a stage, the next stages in flight while one is multiplied
+      const float* h_prev = hbuf + (s & 1) * hbuf_half + (long long)d * rows_pad * H +
+                            (long long)r0 * H;
+      auto issue = [&](int c) {
+        float* st = ring + (c % stages) * R * LDX;
+        const int pieces = min(F32_KC, H - c * F32_KC) / 4;
+        for (int p = tid; p < R * pieces; p += nthreads) {
+          const int rr = p / pieces, piece = p % pieces;
+          f32_cp_async16(st + rr * LDX + piece * 4,
+                         h_prev + (long long)rr * H + c * F32_KC + piece * 4);
+        }
+        f32_cp_async_commit();
+      };
+      // 3. the register tile: acc[i][gate] += h[row i][k] * W_hh[k][u, gate]
+      //    over the chunk's span (fully unrolled)
+      auto product = [&](const float* st, const float* wp, auto span) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4* wrow = reinterpret_cast<const float4*>(w_p + (k + kk) * UNITS * 4);
+        for (int k = 0; k < decltype(span)::value; k += 4) {
+          float4 hv[F32_RT];
 #pragma unroll
-          for (int u = 0; u < UNITS; ++u) {
-            const float4 w = wrow[u];
-            acc[u][0] = fmaf(hk[kk], w.x, acc[u][0]);
-            acc[u][1] = fmaf(hk[kk], w.y, acc[u][1]);
-            acc[u][2] = fmaf(hk[kk], w.z, acc[u][2]);
-            acc[u][3] = fmaf(hk[kk], w.w, acc[u][3]);
+          for (int i = 0; i < F32_RT; ++i)
+            hv[i] = *reinterpret_cast<const float4*>(st + i * rstride * LDX + k);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w = *reinterpret_cast<const float4*>(wp + (k + kk) * U * 4);
+#pragma unroll
+            for (int i = 0; i < F32_RT; ++i) {
+              const float hk = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+              acc[i][0] = fmaf(hk, w.x, acc[i][0]);
+              acc[i][1] = fmaf(hk, w.y, acc[i][1]);
+              acc[i][2] = fmaf(hk, w.z, acc[i][2]);
+              acc[i][3] = fmaf(hk, w.w, acc[i][3]);
+            }
           }
         }
+      };
+      for (int c = 0; c < stages && c < n_chunks; ++c) issue(c);
+      for (int c = 0; c < n_chunks; ++c) {
+        const int pending = min(stages, n_chunks - c) - 1;
+        f32_cp_async_wait(pending);
+        __syncthreads();
+        const float* st = ring + (c % stages) * R * LDX + g * LDX;
+        const float* wp = w_s + ((long long)c * F32_KC * U + u) * 4;
+        if (H - c * F32_KC >= F32_KC)
+          product(st, wp, Span<F32_KC>());
+        else
+          product(st, wp, Span<F32_KC / 2>());
+        __syncthreads();  // the stage is read: refill it
+        if (c + stages < n_chunks) issue(c + stages);
       }
-      __syncthreads();  // h_s is refilled by the next pass, then reused as red_s
     }
 
-    // 3. cross-warp reduction through shared memory
+    // 4. gates, the masked carry and the form's stores for (row i, unit u)
+    float* h_next = hbuf + ((s + 1) & 1) * hbuf_half + (long long)d * rows_pad * H;
 #pragma unroll
-    for (int u = 0; u < UNITS; ++u)
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        red_s[((warp * UNITS + u) * 4 + g) * 32 + lane] = acc[u][g];
-    __syncthreads();
-
-    // 4. gates and the masked carry for (unit u0 + cu, row cb)
-    if (row_live) {
-      float pre[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float sum = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) sum += red_s[((w * UNITS + cu) * 4 + g) * 32 + cb];
-        pre[g] = sum;
-      }
-      float out_v = 0.0f;
-      float gate_v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < F32_RT; ++i) {
       // STREAMS_BI: direction 1's stream is flipped in time as a whole, so
       // its padded frames come first
-      bool valid = t < len;
-      if (BI) valid = d == 0 ? t < len : t >= seq_len - len;
+      bool valid = t < len[i];
+      if (BI) valid = d == 0 ? t < len[i] : t >= seq_len - len[i];
+      float out_v = 0.0f;
+      float gate_v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (valid) {
-        if (FUSED_IN) {
-          const T* xrow = x + (long long)cb * a.x_sb + (long long)t * a.x_st;
-          float xw[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          for (int k = 0; k < D; ++k) {
-            const float xk = to_f(xrow[k]);
+        float pre[4];
 #pragma unroll
-            for (int g = 0; g < 4; ++g) xw[g] = fmaf(xk, wih_s[(k * UNITS + cu) * 4 + g], xw[g]);
-          }
-#pragma unroll
-          for (int g = 0; g < 4; ++g) pre[g] = (xw[g] + b_s[cu * 4 + g]) + pre[g];
-        } else {
-          const T* xrow = x + (long long)d * a.x_sd + (long long)cb * a.x_sb + (long long)t * a.x_st;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) pre[g] = to_f(xrow[g * H + u0 + cu]) + pre[g];
-        }
+        for (int q = 0; q < 4; ++q) pre[q] = xin[i][q] + acc[i][q];
         const float ig = sigmoidf(pre[0]);
         const float fg = sigmoidf(pre[1]);
         const float gg = tanhf(pre[2]);
         const float og = sigmoidf(pre[3]);
-        c_carry = fg * c_carry + ig * gg;
-        h_carry = og * tanhf(c_carry);
-        out_v = h_carry;
+        c_carry[i] = fg * c_carry[i] + ig * gg;
+        h_carry[i] = og * tanhf(c_carry[i]);
+        out_v = h_carry[i];
+        if (TRAIN) gate_v[0] = ig, gate_v[1] = fg, gate_v[2] = gg, gate_v[3] = og;
+      }
+      if (BI) out_v = h_carry[i];  // the carry itself, frozen at a padded frame
+      if (live[i]) {
+        const long long o_idx = (long long)d * a.o_sd + (long long)row[i] * a.o_sb +
+                                (long long)t * a.o_st + u0 + u;
+        out[o_idx] = out_v;
+        if (WITH_CS) cs[o_idx] = c_carry[i];
         if (TRAIN) {
-          gate_v[0] = ig, gate_v[1] = fg, gate_v[2] = gg, gate_v[3] = og;
+          float* grow = gates + (long long)d * a.g_sd + (long long)row[i] * a.g_sb +
+                        (long long)t * a.g_st + u0 + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) grow[q * H] = gate_v[q];
         }
       }
-      if (BI) out_v = h_carry;  // the carry itself, frozen at a padded frame
-      const long long o_idx =
-          (long long)d * a.o_sd + (long long)cb * a.o_sb + (long long)t * a.o_st + u0 + cu;
-      out[o_idx] = from_f<T>(out_v);
-      if (WITH_CS) cs[o_idx] = from_f<T>(c_carry);
-      if (TRAIN) {
-        T* grow = gates + (long long)d * a.g_sd + (long long)cb * a.g_sb +
-                  (long long)t * a.g_st + u0 + cu;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) grow[g * H] = from_f<T>(gate_v[g]);
-      }
-      T* h_next = hbuf + ((s + 1) & 1) * hbuf_half + (long long)d * B * H;
-      h_next[(long long)cb * H + u0 + cu] = from_f<T>(h_carry);
+      h_next[(long long)row[i] * H + u0 + u] = h_carry[i];  // rows past B carry 0
     }
-    // 5. publish h_t to every block
-    grid.sync();
+    if (s + 1 < seq_len) {
+      // 5. publish h_t to this group's blocks, then the next input term
+      __syncthreads();  // the block's h_t is written
+      if (tid == 0) arrive_release(ctr);
+      input_term(rev ? seq_len - 2 - s : s + 1);
+    }
   }
 }
 
-static size_t smem_bytes(int D, int H, bool fused, bool wide) {
-  const int hs_stride = (wide ? H / 2 : H) + 4;
-  const int h_region = BMAX * hs_stride > NWARPS * UNITS * 4 * 32 ? BMAX * hs_stride
-                                                                 : NWARPS * UNITS * 4 * 32;
-  size_t floats = (size_t)H * UNITS * 4 + h_region;
-  if (fused) floats += (size_t)D * UNITS * 4 + UNITS * 4;
-  return floats * sizeof(float);
-}
-
-template <typename T, bool FUSED_IN, int STREAMS, bool WIDE>
-static cudaError_t launch(ScanArgs a, cudaStream_t stream) {
-  auto kernel = lstm_scan_kernel<T, FUSED_IN, STREAMS, WIDE>;
-  const size_t smem = smem_bytes(a.D, a.H, FUSED_IN, WIDE);
+template <bool FUSED_IN, int STREAMS>
+static cudaError_t launch(ScanArgs a, int units, int rows, int stages, unsigned* sync,
+                          cudaStream_t stream) {
+  auto kernel = lstm_scan_kernel<FUSED_IN, STREAMS>;
+  const size_t smem = f32_smem_bytes(a.H, a.D, units, rows, stages, FUSED_IN);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  void* params[] = {&a};
-  const dim3 grid(a.ndir * a.H / UNITS), block(NTHREADS);
+  void* params[] = {&a, &units, &rows, &stages, &sync};
+  const int groups = (a.B + rows - 1) / rows;
+  const dim3 grid(a.ndir * groups * (a.H / units)), block(rows / F32_RT * units);
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid, block, params, smem,
                                     stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The geometry this body takes (the Python plan checks it first): H a
+// multiple of F32_KC / 2 and of `units`; rows a multiple of F32_RT; (rows /
+// F32_RT) x units a multiple of 32 up to F32_MAX_THREADS; 1 <= stages <= F32_MAX_STAGES.
+inline bool f32_geometry_ok(const ScanArgs& a, int units, int rows, int stages) {
+  const int threads = units > 0 && rows > 0 ? rows / F32_RT * units : 0;
+  return a.B >= 1 && a.H >= F32_KC / 2 && a.H % (F32_KC / 2) == 0 && a.H % units == 0 &&
+         rows % F32_RT == 0 && threads % 32 == 0 && threads >= 32 &&
+         threads <= F32_MAX_THREADS && stages >= 1 && stages <= F32_MAX_STAGES;
 }

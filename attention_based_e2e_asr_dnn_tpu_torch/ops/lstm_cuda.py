@@ -71,15 +71,18 @@ the sources' headers say what bounds them and how they are laid out.
 directions and SMs) say which launches a forward and an adjoint call make.
 bfloat16: up to 128 batch rows and both directions in one launch at every
 width up to H = 1024 (8 hidden units a block up to H = 512, 16 above: at most
-128 blocks); a wider batch takes one launch per 128 rows. float32: at most 32
-rows a launch (``row_chunks``), 8 units a block, and a layer whose
-directions together need more blocks than the card has SMs (H = 1024: 2 x
-128) takes one launch a direction (``_direction_groups``). Rows are
-independent; the adjoint's per-launch partial ``dW_hh`` are summed in launch
-order. Limits, checked by the wrappers: H a multiple of 32 up to 512, a
-multiple of 64 from there to 1024, the shared memory a block may use,
-``lstm_bwd_dw`` only up to H = 512, ``bilstm_scan_fused`` only up to H =
-512.
+128 blocks); a wider batch takes one launch per 128 rows. The float32
+forward: blocks of R rows x U units (``_plan_f32``: R = 64, U = 16 at H =
+256, B = 256), every row group and both directions in one launch up to the
+card's SMs, more launches only for a batch the card cannot hold at once.
+The float32 adjoint: at most 32 rows a launch (``row_chunks``), 8 units a
+block. A float32 layer whose directions together need more blocks than the
+card has SMs (H = 1024: 2 x 128) takes one launch a direction
+(``_direction_groups``). Rows are independent; the adjoint's per-launch
+partial ``dW_hh`` are summed in launch order. Limits, checked by the
+wrappers: H a multiple of 32 up to 512, a multiple of 64 from there to 1024,
+the shared memory a block may use, ``lstm_bwd_dw`` only up to H = 512,
+``bilstm_scan_fused`` only up to H = 512.
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor or raises, and counts its launches in ``LAUNCHES``.
 
@@ -119,10 +122,19 @@ BWD_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd.cu")
 BWD_TC_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd_tc.cu")
 SOURCES = (SOURCE, STREAMS_SOURCE, TC_SOURCE, TC_STREAMS_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 
-# the float32 kernels' and the adjoint's fixed geometry (csrc/lstm_common.cuh):
-# hidden units per block, batch rows per launch (one per lane)
+# the float32 adjoint's fixed geometry (csrc/lstm_common.cuh): hidden units
+# per block, batch rows per launch (one per lane)
 _UNITS = 8
 _BMAX = 32
+# the float32 forward's (csrc/lstm_scan_body.cuh): batch rows a thread
+# carries, threads a block at most, columns of h a ring stage, the ring's
+# most stages, a staged row's padding; the units a block the plan tries
+_F32_RT = 4
+_F32_MAX_THREADS = 256
+_F32_KC = 64
+_F32_MAX_STAGES = 4
+_F32_PAD = 4
+_F32_UNITS = (8, 16, 32, 64)
 # the bfloat16 forward's (csrc/lstm_scan_tc_body.cuh): batch rows a launch,
 # columns of h a ring stage, rows of the reduction tile, the tiles' alignment
 _TC_ROWS = 128
@@ -174,8 +186,10 @@ _STREAMS_ARGS = [_i, _i, _i, _i, _i, _i, _i,       # dtype bi ndir rev B T H
                  _p, _ll, _ll, _ll,                # out and its strides
                  _p, _p]                           # exchange buffer, cs
 # the bfloat16 entries add the plan's units a block and the per-direction
-# counters
+# counters; the float32 entries the plan's units and rows a block, the ring's
+# stages and the counters of each direction and row group
 _TC_ARGS = [_i, _p]
+_F32_ARGS = [_i, _i, _i, _p]
 
 
 def _bind(source: str, entry: str, argtypes) -> ctypes.CDLL:
@@ -191,14 +205,14 @@ def _bind(source: str, entry: str, argtypes) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """``csrc/lstm_scan.cu``: the float32 lean and training forms."""
-    return _bind(SOURCE, "lstm_scan_launch", _SCAN_ARGS)
+    return _bind(SOURCE, "lstm_scan_launch", _SCAN_ARGS + _F32_ARGS)
 
 
 @functools.lru_cache(maxsize=None)
 def load_streams_library() -> ctypes.CDLL:
     """``csrc/lstm_scan_streams.cu``: the float32 hs + cs and fused
     bidirectional forms."""
-    return _bind(STREAMS_SOURCE, "lstm_scan_streams_launch", _STREAMS_ARGS)
+    return _bind(STREAMS_SOURCE, "lstm_scan_streams_launch", _STREAMS_ARGS + _F32_ARGS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,15 +323,15 @@ def tc_smem_bytes(hidden: int, units: int, in_dim: int = 0) -> int:
     return _TC_ALIGN + w + ring + inputs
 
 
-def f32_smem_bytes(hidden: int, in_dim: int = 0) -> int:
-    """Shared memory a block of the float32 forward uses (``smem_bytes`` in
-    csrc/lstm_scan_body.cuh): W_hh's columns as fp32, the staged h (reused
-    for the cross-warp sums), under the fused input W_ih's columns and the
-    bias."""
-    floats = (hidden * _UNITS * 4
-              + max(_BMAX * (_staged_width(hidden) + 4), 8 * _UNITS * 4 * 32))
+def f32_smem_bytes(hidden: int, units: int, rows: int, stages: int, in_dim: int = 0) -> int:
+    """Shared memory a block of the float32 forward uses (``f32_smem_bytes``
+    in csrc/lstm_scan_body.cuh): W_hh's 4U columns as fp32, the ring of
+    ``stages`` stages of ``rows`` rows x 64 columns of h (rows padded by 4
+    floats); under the fused input W_ih's columns, the bias and x_t's
+    rows."""
+    floats = hidden * units * 4 + stages * rows * (_F32_KC + _F32_PAD)
     if in_dim:
-        floats += in_dim * _UNITS * 4 + _UNITS * 4
+        floats += in_dim * units * 4 + units * 4 + in_dim * rows
     return 4 * floats
 
 
@@ -330,6 +344,69 @@ class Launch(NamedTuple):
     units: int   # hidden units a block
     blocks: int
     smem: int    # shared memory a block, bytes
+    rows: int = 0    # float32 forward: batch rows a block (its row group)
+    stages: int = 0  # float32 forward: the ring's stages
+
+
+def _f32_candidates(hidden: int, in_dim: int):
+    """(units, rows, stages, smem) of every float32 forward block that takes
+    ``hidden``: U dividing H, R a multiple of 4 with (R / 4) x U threads a
+    multiple of 32 up to 256, and the most ring stages (up to four, at least
+    two where h has two chunks) that fit the shared memory a block may use."""
+    chunks = -(-hidden // _F32_KC)
+    for units in _F32_UNITS:
+        if hidden % units:
+            continue
+        rows = _F32_RT
+        while rows // _F32_RT * units <= _F32_MAX_THREADS:
+            threads = rows // _F32_RT * units
+            if threads % 32 == 0:
+                for stages in range(min(_F32_MAX_STAGES, chunks), min(2, chunks) - 1, -1):
+                    smem = f32_smem_bytes(hidden, units, rows, stages, in_dim)
+                    if smem <= _SMEM_LIMIT:
+                        yield units, rows, stages, smem
+                        break
+            rows *= 2
+
+
+def _f32_step_us(units: int, rows: int, hidden: int) -> float:
+    """A rough time of one step of a float32 forward launch, to rank plans:
+    the block's R x 4U x H FMAs at 32 a clock for each of its warps up to
+    four (an SM's four schedulers) at 1.7 GHz, plus ~2 us that every step
+    pays whatever its size (the wait for h, the first chunk's latency, the
+    gates)."""
+    warps = rows // _F32_RT * units // 32
+    return rows * 4 * units * hidden / (32 * min(warps, 4)) / 1.7e3 + 2.0
+
+
+def _plan_f32(name: str, batch: int, hidden: int, ndir: int, sms: int,
+              in_dim: int) -> List[Launch]:
+    """The float32 forward's launches: of the blocks ``_f32_candidates``
+    gives, the plan whose launches x ``_f32_step_us`` (launches run one after
+    another) is least, then the fewest launches, the fewest blocks, and 16
+    units a block nearest. A launch holds every row group of R rows and
+    every direction the card's SMs hold at once, one block an SM."""
+    best = None
+    for units, rows, stages, smem in _f32_candidates(hidden, in_dim):
+        try:
+            groups = _direction_groups(name, ndir, hidden, sms, units)
+        except ValueError:
+            continue
+        per_group = groups[0][1] * hidden // units  # blocks of one row group
+        row_groups = max(1, sms // per_group)
+        span = row_groups * rows
+        plan = [Launch(r0, min(r0 + span, batch), d0, nd, units,
+                       nd * hidden // units * -(-(min(r0 + span, batch) - r0) // rows),
+                       smem, rows, stages)
+                for r0 in range(0, batch, span) for d0, nd in groups]
+        key = (round(len(plan) * _f32_step_us(units, rows, hidden), 6), len(plan),
+               max(ln.blocks for ln in plan), abs(units.bit_length() - 5))
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"{name}: hidden {hidden}, in_dim {in_dim}: no float32 block fits "
+                         f"{_SMEM_LIMIT} bytes of shared memory on {sms} SMs")
+    return best[1]
 
 
 def plan_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, ndir: int,
@@ -339,23 +416,23 @@ def plan_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, ndir: 
 
     bfloat16 (the tensor-core body): up to 128 rows a launch, ``tc_units``
     units a block, all directions in one launch wherever their blocks fit
-    the SMs. float32: the CUDA-core body,
-    32 rows a launch, 8 units a block, a launch a direction where both do
-    not fit. Every (row, direction) is in exactly one launch. Raises a
-    ``ValueError`` naming the limit for a width or a shared-memory need the
-    kernels do not take."""
+    the SMs. float32 (the CUDA-core body, ``_plan_f32``): blocks of R rows x
+    U units, every row group and both directions in one launch wherever the
+    SMs hold them (B=256 at H=256: one launch of 128 blocks); a launch a
+    direction where both do not fit. Every (row, direction) is in exactly one
+    launch. Raises a ``ValueError`` naming the limit for a width or a
+    shared-memory need the kernels do not take."""
     _check_hidden(name, hidden)
     if in_dim > FUSED_IN_MAX_DIM:
         raise ValueError(f"{name}: in_dim {in_dim} > {FUSED_IN_MAX_DIM}")
-    if dtype == torch.bfloat16:
-        units = tc_units(hidden)
-        rows, smem = _TC_ROWS, tc_smem_bytes(hidden, units, in_dim)
-    else:
-        units, rows, smem = _UNITS, _BMAX, f32_smem_bytes(hidden, in_dim)
+    if dtype != torch.bfloat16:
+        return _plan_f32(name, batch, hidden, ndir, sms, in_dim)
+    units = tc_units(hidden)
+    smem = tc_smem_bytes(hidden, units, in_dim)
     _check_smem(name, hidden, smem)
     groups = _direction_groups(name, ndir, hidden, sms, units)
     return [Launch(r0, r1, d0, nd, units, nd * hidden // units, smem)
-            for r0, r1 in row_chunks(batch, rows) for d0, nd in groups]
+            for r0, r1 in row_chunks(batch, _TC_ROWS) for d0, nd in groups]
 
 
 def bwd_tc_smem_bytes(rows: int, hidden: int, units: int, with_dw: bool) -> int:
@@ -449,18 +526,25 @@ def _check_recurrence(name: str, ref: torch.Tensor, tensors, w_hh: torch.Tensor,
 
 def _forward_call(plan: List[Launch], name: str, dtype: torch.dtype, hidden: int, device,
                   call) -> None:
-    """Run ``plan``: for each launch an exchange buffer (2, nd, rows, H) and,
-    in bfloat16, nd zeroed counters; ``call(launch, hbuf, extra, stream)``
-    makes the C call, ``extra`` being the bfloat16 entry's (units, counters)
-    and empty in float32. Counts the launches."""
+    """Run ``plan``: for each launch an exchange buffer (2, nd, rows, H) (in
+    float32 its rows padded to whole row groups) and zeroed counters (nd in
+    bfloat16, one a direction and row group in float32); ``call(launch,
+    hbuf, extra, stream)`` makes the C call, ``extra`` being the entry's
+    geometry and counters: (units, counters) in bfloat16, (units, rows,
+    stages, counters) in float32. Counts the launches."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         for ln in plan:
-            hbuf = torch.empty(2, ln.nd, ln.r1 - ln.r0, hidden, dtype=dtype, device=device)
-            extra = ()
+            rows = ln.r1 - ln.r0
             if dtype == torch.bfloat16:
                 sync = torch.zeros(ln.nd, dtype=torch.int32, device=device)
                 extra = (ln.units, sync.data_ptr())
+            else:
+                groups = -(-rows // ln.rows)
+                rows = groups * ln.rows
+                sync = torch.zeros(ln.nd * groups, dtype=torch.int32, device=device)
+                extra = (ln.units, ln.rows, ln.stages, sync.data_ptr())
+            hbuf = torch.empty(2, ln.nd, rows, hidden, dtype=dtype, device=device)
             err = call(ln, hbuf.data_ptr(), extra, stream)
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed with cudaError {err}")

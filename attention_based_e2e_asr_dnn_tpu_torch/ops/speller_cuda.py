@@ -24,7 +24,8 @@ tensor cores; ``csrc/speller_decode.cu``, the forward in float32;
 ``csrc/speller_bwd_tc.cu``, the adjoint in bfloat16 on tensor cores;
 ``csrc/speller_bwd.cu``, the adjoint in float32) say what bounds the kernels
 and how they are laid out; ``plan_decode_tc`` and ``plan_decode_bwd_tc`` say
-which launches a bfloat16 call makes (pure, tested on the CPU). Each wrapper runs its plain
+which launches a bfloat16 call makes, ``plan_decode_f32`` the geometry of a
+float32 forward call's one launch (pure, tested on the CPU). Each wrapper runs its plain
 PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor or
 raises, and counts its launches in ``LAUNCHES``. On the card the TPU's
 routing (``pick_chunk``, the Te pad to 64, the lane gates of
@@ -72,6 +73,9 @@ SOURCES = (SOURCE, TC_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 NEG = -1e9  # additive pad bias; exp(NEG - max) underflows to exactly 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the shared memory a block may use on the card (sm_90)
+_SMEM_LIMIT_F32 = 232448
 
 # launches since the last reset
 LAUNCHES = {"speller_decode": 0, "speller_decode_train": 0, "speller_decode_bwd": 0}
@@ -294,14 +298,16 @@ def speller_decode_bwd_plain(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
+def load_library(defines: tuple = ()) -> ctypes.CDLL:
     """Build ``csrc/speller_decode.cu`` (the float32 forward; once per source
-    version) and bind its C entry points."""
-    lib = ctypes.CDLL(cuda_build.build_library(SOURCE))
+    version; with the macros ``defines``: ``("DF_TRACE",)`` is the
+    phase-stamped build of ``tools/trace_speller_decode.py``) and bind its C
+    entry points."""
+    lib = ctypes.CDLL(cuda_build.build_library(SOURCE, defines))
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.speller_decode_launch.argtypes = [i, i, i, p, p, ctypes.c_float, p]
+    lib.speller_decode_launch.argtypes = [i, i, p, p, p, ctypes.c_float, p]
     lib.speller_decode_launch.restype = ctypes.c_int
-    lib.speller_decode_smem_bytes.argtypes = [i] * 7
+    lib.speller_decode_smem_bytes.argtypes = [i] * 9
     lib.speller_decode_smem_bytes.restype = ctypes.c_size_t
     lib.speller_decode_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
     lib.speller_decode_limits.restype = ctypes.c_int
@@ -360,20 +366,168 @@ def load_bwd_tc_library(defines: tuple = ()) -> ctypes.CDLL:
 LOADERS = (load_library, load_tc_library, load_bwd_library, load_bwd_tc_library)
 
 
+# the float32 forward's geometry (csrc/speller_decode.cu), mirrored here so
+# that its plan is pure; kernel_limits reads the source's, and a card test
+# holds the two equal: blocks at most, threads a block, padded vocabulary,
+# rows of a thread's product tile, columns a ring stage, a staged row's
+# padding, the ring's most stages, attention rows a block takes at once
+F32_LIMITS = {"max_grid": 128, "nthreads": 256, "vmax": 32, "rt": 4, "kc": 128, "pad": 4,
+              "max_stages": 4, "att_rows": 4}
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_limits(device: int) -> dict:
-    """The float32 forward kernel's geometry as ``csrc/speller_decode.cu``
-    defines it (at most ``max_grid`` blocks of ``nthreads`` threads, each
-    owning 1, 2, 4 ... ``max_units`` units of each cell and query columns;
-    ``vmax`` padded vocabulary entries) and the shared memory a block of
-    ``device`` may opt into."""
-    out = (ctypes.c_longlong * 5)()
+    """The float32 forward's geometry as ``csrc/speller_decode.cu`` defines
+    it (``F32_LIMITS``' keys), with the shared memory a block of ``device``
+    may opt into and its SMs."""
+    out = (ctypes.c_longlong * 10)()
     err = load_library().speller_decode_limits(device, out)
     if err != 0:
         raise RuntimeError(f"speller_decode: reading the limits of device "
                            f"{device} failed with cudaError {err}")
-    return dict(zip(("max_grid", "max_units", "nthreads", "vmax",
-                     "smem_optin"), out))
+    return dict(zip((*F32_LIMITS, "smem_optin", "sms"), out))
+
+
+class DecodeF32Plan(NamedTuple):
+    """The one launch of a float32 forward call and its geometry."""
+    blocks: int
+    col_groups: int  # CG: each owns H1 / CG, H2 / CG and P / CG columns
+    row_groups: int  # RG: each owns ``rows`` batch rows
+    rows: int
+    sub: int         # rows of a product's sub-tile (its staged input)
+    stages: int      # the ring's stages
+    att_rows: int    # attention rows a block takes at once
+    smem: int        # shared memory a block, bytes
+
+
+def _query_width(nq: int) -> int:
+    """Columns of a group of the query's product (``df_query_width``): 4, 2
+    or 1, the widest that divides the block's NQ query columns."""
+    return 4 if nq % 4 == 0 else 2 if nq % 2 == 0 else 1
+
+
+def _groups(h1dim: int, h2dim: int, proj: int, col_groups: int) -> tuple:
+    """((column groups, width) of cell 1, cell 2 and the query a block
+    owns: a cell's unit is a group of its four gates."""
+    nq = proj // col_groups
+    return ((h1dim // col_groups, 4), (h2dim // col_groups, 4),
+            (nq // _query_width(nq), _query_width(nq)))
+
+
+def decode_f32_smem_bytes(te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+                          col_groups: int, sub: int, stages: int, att_rows: int) -> int:
+    """Shared memory a block of the float32 forward uses (``df_smem_bytes``
+    in csrc/speller_decode.cu): its columns of [wc1; whh1], [wih2; whh2] and
+    wq as fp32; then one region that the products' ring (``stages`` x
+    ``sub`` rows x 132 floats) and the attention's buffers (``att_rows`` rows
+    of q, ctx, the classifier's partials and the scores, and 1024 floats of
+    the context's group sums) take in turn."""
+    lim = F32_LIMITS
+    u1, u2, nq = h1dim // col_groups, h2dim // col_groups, proj // col_groups
+    weights = 4 * u1 * (proj + h1dim) + 4 * u2 * (h1dim + h2dim) + nq * h2dim
+    ring = stages * sub * (lim["kc"] + lim["pad"])
+    attn = (att_rows * (2 * proj + lim["nthreads"] // 32 * lim["vmax"] + heads * te)
+            + lim["nthreads"] * 4)
+    return 4 * (weights + max(ring, attn))
+
+
+def _tile_rows(sub: int, groups: int) -> int:
+    """Rows of a thread's product tile (``df_tile_rows``): 4 where that
+    keeps 128 threads busy, else 2 or 1."""
+    return 4 if sub // 4 * groups >= 128 else 2 if sub // 2 * groups >= 128 else 1
+
+
+def _f32_step_us(batch: int, proj: int, h1dim: int, h2dim: int, col_groups: int,
+                 row_groups: int, rows: int, sub: int, att_rows: int) -> float:
+    """A rough time of one decode step on a float32 geometry, to rank plans:
+    each product's FMAs a block at 20 a clock for each warp it keeps busy,
+    up to four (an SM's schedulers), at 1.7 GHz; ~4 us an attention pass of
+    fixed latency; and the inputs every column group stages from L2 (B x
+    (K1 + K2 + H2) floats each) at ~5 TB/s."""
+    clocks = 0.0
+    for (groups, width), k in zip(_groups(h1dim, h2dim, proj, col_groups),
+                                  (proj + h1dim, h1dim + h2dim, h2dim)):
+        warps = -(-(sub // _tile_rows(sub, groups) * groups) // 32)
+        clocks += rows * width * groups * k / (20 * min(warps, 4))
+    passes = -(-(-(-batch // (col_groups * row_groups))) // att_rows)
+    staging_us = col_groups * batch * (proj + 2 * h1dim + 2 * h2dim) * 4 / 5e6
+    return clocks / 1.7e3 + 4.0 * passes + staging_us
+
+
+def plan_decode_f32(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+                    vp: int, sms: int, smem_optin: int,
+                    name: str = "speller_decode") -> DecodeF32Plan:
+    """The launch of a float32 ``speller_decode`` / ``speller_decode_train``
+    call (one a call, the whole batch) on a card of ``sms`` SMs whose blocks
+    may opt into ``smem_optin`` bytes of shared memory: CG column groups x RG
+    row groups of blocks (powers of two, at most 128 and the SMs), of the
+    geometries whose shared memory fits the one ``_f32_step_us`` ranks
+    fastest (then the fewest column groups, whose inputs every one of them
+    stages). For each (CG, RG) the widest product sub-tile (a multiple of 4
+    rows whose tiles the block's threads hold), then the most attention rows
+    and ring stages that fit; down to 4-row sub-tiles, one stage and one
+    attention row, whose block uses no more than the earlier float32 body
+    did on the same columns, so every shape that body took is taken.
+    Raises a ``ValueError`` naming the limit for a shape the kernel does not
+    take."""
+    lim = F32_LIMITS
+    if batch < 1 or te < 1:
+        raise ValueError(f"{name}: batch {batch} and encoder length {te} must be at least 1")
+    if h1dim % 8 or h2dim % 8 or proj % 8 or min(h1dim, h2dim, proj) < 8:
+        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must be multiples "
+                         f"of 8")
+    if proj % heads or (proj // heads) % 8:
+        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
+                         f"must be a whole multiple of 8")
+    if proj > lim["nthreads"] * 4:
+        raise ValueError(f"{name}: P {proj} above {lim['nthreads'] * 4} "
+                         f"(the context takes one 16-byte slice a thread)")
+    if vp > lim["vmax"]:
+        raise ValueError(f"{name}: padded vocabulary {vp} must be at most {lim['vmax']}")
+    most = 1 << (min(lim["max_grid"], sms).bit_length() - 1)
+    limit = min(smem_optin, _SMEM_LIMIT_F32)
+    rt, best, least = lim["rt"], None, None
+    cg = 1
+    while cg <= most and not (h1dim % cg or h2dim % cg or proj % cg):
+        groups = [g for g, _ in _groups(h1dim, h2dim, proj, cg)]
+
+        def holds(sub):  # the block's threads hold every product's tiles
+            return all(sub // rt * g <= lim["nthreads"] for g in groups)
+
+        rg = 1
+        while cg * rg <= most and rg <= max(1, batch // 2) and holds(rt):
+            rows = -(-batch // rg)
+            subs = [s for s in (rt << i for i in range(6)) if holds(s)]
+            subs = sorted({min(s, -(-rows // rt) * rt) for s in subs}, reverse=True)
+            chunks = -(-max(proj + h1dim, h1dim + h2dim) // lim["kc"])
+            fit = None
+            for sub in subs:
+                for att in range(min(lim["att_rows"], lim["nthreads"] * 4 // proj,
+                                     -(-batch // (cg * rg))), 0, -1):
+                    for stages in range(min(lim["max_stages"], chunks), 0, -1):
+                        smem = decode_f32_smem_bytes(te, proj, heads, h1dim, h2dim, cg, sub,
+                                                     stages, att)
+                        least = smem if least is None else min(least, smem)
+                        if smem <= limit:
+                            fit = (sub, att, stages, smem)
+                            break
+                    if fit:
+                        break
+                if fit:
+                    break
+            if fit:
+                sub, att, stages, smem = fit
+                key = (round(_f32_step_us(batch, proj, h1dim, h2dim, cg, rg, rows, sub, att), 6),
+                       cg)
+                if best is None or key < best[0]:
+                    best = (key, DecodeF32Plan(cg * rg, cg, rg, rows, sub, stages, att, smem))
+            rg *= 2
+        cg *= 2
+    if best is None:
+        raise ValueError(f"{name}: needs {least} bytes of shared memory a block at the "
+                         f"least (Te {te}, heads {heads}, H1 {h1dim}, float32), the device's "
+                         f"limit is {limit}")
+    return best[1]
 
 
 # the bfloat16 forward's geometry (csrc/speller_decode_tc.cu), mirrored here
@@ -675,7 +829,9 @@ def plan_decode_bwd_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h
 
 @functools.lru_cache(maxsize=None)
 def bwd_kernel_limits(device: int) -> dict:
-    """The adjoint kernel's geometry, as ``kernel_limits`` (no vocabulary)."""
+    """The float32 adjoint's geometry (csrc/speller_bwd.cu: blocks at most,
+    units a block at most, threads a block) and the shared memory a block of
+    ``device`` may opt into."""
     out = (ctypes.c_longlong * 4)()
     err = load_bwd_library().speller_bwd_limits(device, out)
     if err != 0:
@@ -712,7 +868,9 @@ def _check_operands(name, ref, operands):
 
 def _check_geometry(name, lim, smem_fn, dtype, batch, te, steps, proj, heads,
                     h1dim, h2dim):
-    """The limits both kernels share; returns the blocks of the launch."""
+    """The float32 adjoint's limits (csrc/speller_bwd.cu: its G blocks each
+    own 1, 2, 4 ... units of each cell and query columns); returns the
+    blocks of the launch."""
     if batch < 1 or te < 1 or steps < 1:
         raise ValueError(f"{name}: batch {batch}, encoder length {te} and "
                          f"steps {steps} must be at least 1")
@@ -781,12 +939,9 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
                           wih2, whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx,
                           steps, forced, m1, m2, train)
     lim = kernel_limits(k.device.index)
+    plan = plan_decode_f32(batch, te, proj, heads, h1dim, h2dim, vp, lim["sms"],
+                           lim["smem_optin"], name)
     lib = load_library()
-    grid = _check_geometry(name, lim, lib.speller_decode_smem_bytes, dtype, batch,
-                           te, steps, proj, heads, h1dim, h2dim)
-    if vp > lim["vmax"]:
-        raise ValueError(f"{name}: padded vocabulary {vp} must be at most "
-                         f"{lim['vmax']}")
 
     def empty(*shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=k.device)
@@ -807,17 +962,21 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
                  empty(steps, batch, h1dim), empty(steps, batch, h1dim),
                  empty(steps, batch, 4 * h2dim), empty(steps, batch, h2dim),
                  empty(steps, batch, h2dim), empty(steps, batch, proj))
-    # the order of enum Ptr in the source
+    # the order of enum Ptr in the source; last each row's extent and the
+    # rows in order of it (scratch)
     tensors = ([k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
                 whh2, b2, wq, bq, wcls, clsb, forced, logits, wgts, ids]
-               + scratch + [m1, m2, *saved] + [None] * (8 - len(saved)))
+               + scratch + [m1, m2, *saved] + [None] * (8 - len(saved))
+               + [empty(batch, dt=torch.int32), empty(batch, dt=torch.int32)])
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     dims = (ctypes.c_int * 9)(batch, te, steps, proj, heads, h1dim, h2dim, vp,
                               sos_idx)
+    geom = (ctypes.c_int * 6)(plan.col_groups, plan.row_groups, plan.rows, plan.sub,
+                              plan.stages, plan.att_rows)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.speller_decode_launch(_DTYPE_CODES[dtype], int(train), grid, ptrs,
+        err = lib.speller_decode_launch(_DTYPE_CODES[dtype], int(train), geom, ptrs,
                                         dims, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")

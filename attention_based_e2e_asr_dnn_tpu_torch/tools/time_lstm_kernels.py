@@ -2,7 +2,7 @@
 paths' shapes and print one JSON line.
 
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_lstm_kernels \
-        [--reps 20] [--hidden 512] [--forms lstm_bwd,lstm_bwd_dw]
+        [--reps 20] [--hidden 512] [--forms lstm_bwd,lstm_bwd_dw] [--rewriter]
 
 Shapes: ``--hidden`` 512 (base-LAS) or 1024 (scaled-LAS), bfloat16 and
 float32; the serve, infer and train batches (B=32, 64 and 128: layer 0 at
@@ -20,6 +20,14 @@ the adjoint too; float32: one per 32 rows, and a direction at H=1024). The line 
 card and its power limit, so two trees can be compared within one run on one
 card (run them in turns: parent, change, change, parent). ``--forms`` times
 only the named wrappers (and, with ``lstm_bwd``, the outside product).
+
+``--rewriter`` times instead the float32 ``lstm_scan`` at the Rewriter
+encoder's layer as ``lminfer`` runs it (``configs/rewriter.yml``: H=256, both
+directions; ``configs/lm-infer.yml``'s batch of 256; T=608, lines of 100-600
+characters with <sos> and <eos>; layer 0's projection of the 256-wide
+embedding), its launches, and beside it cuDNN's float32 LSTM through
+``nn.LSTM`` on the packed batch with TF32 off (the yardstick; the port never
+calls it).
 """
 
 from __future__ import annotations
@@ -40,16 +48,55 @@ FORMS = ("lstm_scan_fusedin", "lstm_scan", "lstm_scan_fusedin_train", "lstm_scan
          "lstm_scan_cs", "bilstm_scan_fused", "lstm_bwd_dw", "lstm_bwd")
 
 
+def rewriter_ms(reps: int) -> dict:
+    """The float32 ``lstm_scan`` and cuDNN's float32 LSTM (TF32 off) at the
+    Rewriter encoder's layer 0 in ``lminfer``: B=256, T=608, H=256, D=256."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    batch, seq_len, hidden, in_dim = 256, 608, 256, 256
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    lengths = torch.randint(102, 603, (batch,), generator=gen)
+    lengths[0] = 602
+    k = hidden ** -0.5
+    x = torch.randn(batch, seq_len, in_dim, generator=gen).to("cuda")
+    x[torch.arange(seq_len)[None, :] >= lengths[:, None]] = 0.0
+    w_ih = ((torch.rand(in_dim, 2 * 4 * hidden, generator=gen) * 2 - 1) * k).cuda()
+    w_hh = ((torch.rand(2, hidden, 4 * hidden, generator=gen) * 2 - 1) * k).cuda()
+    x_proj = x @ w_ih
+    lengths = lengths.to(torch.int32).cuda()
+    rev = (False, True)
+    with torch.no_grad():
+        lc.reset_launch_counts()
+        lc.lstm_scan(x_proj, w_hh, lengths, rev)
+        launches = lc.LAUNCHES["lstm_scan"]
+        ms = median_ms(lambda: lc.lstm_scan(x_proj, w_hh, lengths, rev), reps)
+        lstm = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=True).cuda()
+        packed = pack_padded_sequence(x, lengths.cpu().long(), batch_first=True,
+                                      enforce_sorted=False)
+        cudnn_ms = median_ms(lambda: lstm(packed), reps)
+    return {"shape": f"float32 B={batch} T={seq_len} H={hidden} D={in_dim} 2 dirs",
+            "frames": int(lengths.sum()), "ms": {"lstm_scan": ms, "nn.LSTM (cuDNN, TF32 off)":
+                                                 cudnn_ms},
+            "launches": launches}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--hidden", type=int, default=512)
     parser.add_argument("--forms", default=",".join(FORMS),
                         help="comma-separated wrappers to time (default: all)")
+    parser.add_argument("--rewriter", action="store_true",
+                        help="time the float32 lstm_scan at lminfer's shapes, and cuDNN")
     cli = parser.parse_args()
     reps, H = cli.reps, cli.hidden
     require_device("cuda", "time_lstm_kernels")
     card = smi_name_and_power()
+    if cli.rewriter:
+        print(json.dumps({"card": card, "reps": reps, **rewriter_ms(reps)}))
+        return
     wanted = set(cli.forms.split(","))
     # the wrappers this tree has, of those wanted
     fn = {name: getattr(lc, name, None) if name in wanted else None for name in FORMS}

@@ -3,7 +3,7 @@ the main paths' shapes and print one JSON line.
 
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.time_speller_kernels \
         [--reps 10] [--eval-only] [--dtypes bfloat16,float32] \
-        [--forms eval,train,bwd]
+        [--forms eval,train,bwd] [--rewriter]
 
 Shapes: encoder length 192 with lengths mixed from 1 to 192, at two decoder
 widths: base-LAS (proj 256, 1 head, H1 512, H2 256) and scaled-LAS (H1 1024,
@@ -19,6 +19,12 @@ run on one card (copy this tool into the other tree: it times only what that
 tree has). Run them in turns, each in several fresh processes
 (``--eval-only`` keeps a process short): the float32 ``speller_decode``
 settles into one of two speeds a process.
+
+``--rewriter`` times instead the eval form at the Rewriter's decoder widths
+as ``lminfer`` runs it (``configs/rewriter.yml``: H1 256, H2 128, P 128, 1
+head; ``configs/lm-infer.yml``'s batch of 256; an encoder of 608 frames,
+lines of 100-600 characters with <sos> and <eos>; 600 steps), in
+``--dtypes``, with its launches.
 """
 
 from __future__ import annotations
@@ -48,6 +54,37 @@ WIDTHS = {
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+REWRITER_SPELLER = {"att_proj_dim": 128, "att_heads": 1, "dec_emb_dim": 256,
+                    "dec_lstm_hid_dim": 256, "dec_lstm_out_dim": 128}
+
+
+def rewriter_ms(dtypes: str, reps: int) -> dict:
+    """The eval form at the Rewriter's decoder widths, B=256, Te=608, 600
+    steps, in each of ``dtypes``; with the launches of one call."""
+    cfg = las_config_from_dicts({**LISTENER, "uniform_hid_dim": 256},
+                                {**SPELLER, **REWRITER_SPELLER})
+    gen = torch.Generator().manual_seed(0)
+    params = las_init(cfg, gen)["speller"].cuda()
+    batch, te = 256, 608
+    lengths = torch.randint(102, 603, (batch,), generator=gen)
+    lengths[0] = 602
+    enc = torch.randn(batch, te, 512, generator=gen) * 0.5
+    enc[torch.arange(te)[None, :] >= lengths[:, None]] = 0.0
+    out = {"shape": f"B={batch} Te={te} H1 256 H2 128 P 128 T=600",
+           "frames": int(lengths.sum()), "ms": {}, "launches": {}}
+    for dtype_name in dtypes.split(","):
+        with torch.no_grad():
+            operands, _ = sc.decode_operands(params, cfg.speller,
+                                             enc.to(DTYPES[dtype_name]).cuda(), lengths.cuda())
+            opts = sc.decode_options(cfg.speller)
+            sc.reset_launch_counts()
+            sc.speller_decode(*operands, **opts)
+            out["launches"][dtype_name] = sc.LAUNCHES["speller_decode"]
+            out["ms"][f"speller_decode {dtype_name}"] = median_ms(
+                lambda: sc.speller_decode(*operands, **opts), reps)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=10)
@@ -55,11 +92,16 @@ def main() -> None:
                         help="time speller_decode alone, twice (on operands allocated anew)")
     parser.add_argument("--dtypes", default="bfloat16,float32")
     parser.add_argument("--forms", default="eval,train,bwd")
+    parser.add_argument("--rewriter", action="store_true",
+                        help="time the eval form at lminfer's widths and batch")
     args = parser.parse_args()
     reps = args.reps
     forms = set(args.forms.split(","))
     require_device("cuda", "time_speller_kernels")
     card = smi_name_and_power()
+    if args.rewriter:
+        print(json.dumps({"card": card, "reps": reps, **rewriter_ms(args.dtypes, reps)}))
+        return
     gen = torch.Generator().manual_seed(0)
     out = {"card": card, "reps": reps, "ms": {}}
     for width, (changes, listener_width, eval_batch, train_batches) in WIDTHS.items():

@@ -2,7 +2,8 @@
 or of its adjoint (``csrc/speller_bwd_tc.cu``, ``--adjoint``), into its
 phases on the card and print one JSON line.
 
-    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.trace_speller_decode [--adjoint]
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.trace_speller_decode \
+        [--adjoint | --float32]
 
 Builds the source with ``-DDT_TRACE`` beside the normal library (the same
 kernels with ``%globaltimer`` stamps at each phase boundary of blocks 0,
@@ -32,6 +33,14 @@ Every block also stamps its attention adjoint's publish: "attend spread"
 gives, per case, the median over the steps of the earliest and the latest
 block's publish after block 0's step start and the blocks that were latest
 most often (the phase (b) waits for the latest).
+
+With ``--float32`` it builds ``csrc/speller_decode.cu`` with ``-DDF_TRACE``
+instead and splits a step of the float32 eval form at the Rewriter's widths
+as ``lminfer`` runs it (B=256, Te=608, 600 steps; the shapes of
+``time_speller_kernels --rewriter``) and at base-LAS, B=64, stamps in the
+order of ``F32_STAMPS`` (enum Stamp in that source): each phase's end in
+the block and after its grid barrier ("synced"), and the attention's
+sub-phases (of the block's last pass of rows).
 """
 
 from __future__ import annotations
@@ -64,7 +73,11 @@ BWD_STAMPS = ("step", "back acquired", "attend published", "cell2 product",
               "cell2 published", "cell1 product", "cell1 published", "back product",
               "back published", "producer: attend acquired", "producer: cell2 acquired",
               "producer: cell1 acquired")
-TRACE_STEPS = 1024  # DT_TRACE_STEPS, DB_TRACE_STEPS
+# enum Stamp of csrc/speller_decode.cu, in order
+F32_STAMPS = ("step", "cell1", "cell1 synced", "cell2", "cell2 synced", "query",
+              "query synced", "q loaded", "scores", "softmax", "context", "classifier",
+              "attend")
+TRACE_STEPS = 1024  # DT_TRACE_STEPS, DB_TRACE_STEPS, DF_TRACE_STEPS
 MAX_GRID = 128  # DB_MAX_GRID
 BLOCKS = ("block 0", "block G/2", "block G-1")
 CASES = (("base-LAS", "eval", 64), ("base-LAS", "train", 32), ("base-LAS", "train", 128),
@@ -159,15 +172,66 @@ def trace_adjoint(card: str) -> dict:
     return out
 
 
+def trace_float32(card: str) -> dict:
+    """The float32 eval form's step split (``--float32``)."""
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.time_speller_kernels import (
+        REWRITER_SPELLER,
+    )
+
+    traced = sc.load_library(("DF_TRACE",))
+    traced.speller_decode_trace.argtypes = [ctypes.c_void_p]
+    traced.speller_decode_trace.restype = ctypes.c_int
+    sc.load_library = lambda defines=(): traced  # this process launches the traced build
+    stamps = np.zeros((len(BLOCKS), len(F32_STAMPS), TRACE_STEPS), dtype=np.uint64)
+
+    def read_stamps():  # and zero them on the card
+        err = traced.speller_decode_trace(stamps.ctypes.data)
+        if err != 0:
+            raise RuntimeError(f"trace_speller_decode: reading the stamps failed with "
+                               f"cudaError {err}")
+        return stamps.astype(np.int64)
+
+    read_stamps()
+    gen = torch.Generator().manual_seed(0)
+    out = {"card": card, "kernel": "speller_decode float32",
+           "unit": "us after block 0's step start", "cases": {}}
+    for width, batch, te, low in (("Rewriter", 256, 608, 102), ("base-LAS", 64, TE, 1)):
+        changes, listener_width = (REWRITER_SPELLER, 256) if width == "Rewriter" else \
+            WIDTHS[width][:2]
+        cfg = las_config_from_dicts({**LISTENER, "uniform_hid_dim": listener_width},
+                                    {**SPELLER, **changes})
+        params = las_init(cfg, gen)["speller"].cuda()
+        lengths = torch.randint(low, te - 5, (batch,), generator=gen)
+        lengths[0] = te - 6
+        enc = torch.randn(batch, te, cfg.listener.enc_out_dim, generator=gen) * 0.5
+        with torch.no_grad():
+            operands, _ = sc.decode_operands(params, cfg.speller, enc.cuda(), lengths.cuda())
+            opts = sc.decode_options(cfg.speller)
+            sc.speller_decode(*operands, **opts)  # a warm-up call, its stamps dropped
+            torch.cuda.synchronize()
+            read_stamps()
+            sc.speller_decode(*operands, **opts)
+            torch.cuda.synchronize()
+        steps = min(opts["steps"], TRACE_STEPS)
+        out["cases"][f"eval {width} B={batch} Te={te} T={steps}"] = _split(
+            read_stamps(), steps, F32_STAMPS)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--adjoint", action="store_true",
                         help="split a step of the adjoint (csrc/speller_bwd_tc.cu)")
+    parser.add_argument("--float32", action="store_true",
+                        help="split a step of the float32 eval form (csrc/speller_decode.cu)")
     args = parser.parse_args()
     require_device("cuda", "trace_speller_decode")
     card = smi_name_and_power()
     if args.adjoint:
         print(json.dumps(trace_adjoint(card)))
+        return
+    if args.float32:
+        print(json.dumps(trace_float32(card)))
         return
     traced = sc.load_tc_library(("DT_TRACE",))
     traced.speller_decode_tc_trace.argtypes = [ctypes.c_void_p]

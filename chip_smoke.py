@@ -11,12 +11,13 @@ on one NVIDIA card, from the root of a checkout:
    tensors at the shapes the infer CLI gives it (B=64; H=512; listener layer
    0 at T=1536 with D=15, pyramid layer 1 at T=768 over a 2 x 4H
    projection), both directions in one launch, lengths mixed from 1 to T,
-   float32 (the CUDA-core kernels, two launches of 32 rows) and bfloat16 (the
-   tensor-core kernels, one launch of all rows): max-abs error against a
-   stated tolerance and the median time of each (CUDA events). Every forward
-   launch count below is the plan's (``lstm_cuda.plan_launches``), asserted:
-   in bfloat16 one launch per 128 rows with both directions at H=512 and
-   H=1024; in float32 one per 32 rows, and one a direction at H=1024.
+   float32 (the CUDA-core kernels, one launch of all rows) and
+   bfloat16 (the tensor-core kernels, one launch of all rows): max-abs error
+   against a stated tolerance and the median time of each (CUDA events).
+   Every forward launch count below is the plan's
+   (``lstm_cuda.plan_launches``), asserted: in bfloat16 one launch per 128
+   rows with both directions at H=512 and H=1024; in float32 one launch of
+   every row and both directions up to H=512, one a direction at H=1024.
 3. ``speller_decode`` on the operands the eval decode builds from seeded
    full-width parameters: base-LAS at B=64 and scaled-LAS (H1 1024, 4
    heads) at B=32, Te=192 with lengths mixed from 1 to Te, 600 steps,
@@ -40,8 +41,9 @@ on one NVIDIA card, from the root of a checkout:
    forward) and ``lstm_bwd_dw`` (its adjoint) at the train step's shapes
    (B=128, H=512; layer 0 at T=1536 with D=15, layer 1 at T=768 over a
    2 x 4H projection), float32 and bfloat16 (the bf16 adjoint the
-   tensor-core kernel, one launch of all rows and both directions; float32
-   four launches of 32 rows; the plan's counts asserted), ragged
+   tensor-core kernel, one launch of all rows and both directions; the
+   float32 training forward one launch of all rows, its adjoint four
+   launches of 32 rows; the plan's counts asserted), ragged
    lengths with a length-1 row and a full row in every launch: hs bit-equal
    to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
    Function's d_x, d_wih, d_b against the plain versions; ``lstm_bwd`` (the
@@ -266,8 +268,9 @@ on one NVIDIA card, from the root of a checkout:
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
-valid frames need over 989 TFLOP/s (bf16, dense) and the bytes the function
-must move over 3.35 TB/s (of a padded input stream only the rows at valid
+valid frames need over the peak of their type (bf16 989 TFLOP/s dense on the
+tensor cores; float32 67 TFLOP/s, the CUDA cores' exact FMAs)
+and the bytes the function must move over 3.35 TB/s (of a padded input stream only the rows at valid
 frames, which are all a kernel needs to read; the weights, the lengths and
 every output whole, pads being written as zeros); and ``library_ms``, the time of
 one PyTorch call for the same function (cuDNN's LSTM through ``nn.LSTM`` on
@@ -328,8 +331,10 @@ BWD_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_bwd.cu"
 # the bfloat16 adjoint (the records' dtype): tensor cores, dpre streamed by TMA
 BWD_TC_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/lstm_bwd_tc.cu"
 PALLAS = "attention_based_e2e_asr_dnn_tpu/ops/lstm_pallas.py"
-# the card's published peaks (H100 SXM): dense bf16 FLOP/s, bytes/s
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# the card's published peaks (H100 SXM): dense bf16 FLOP/s on the tensor
+# cores, float32 FLOP/s outside them (the float32 kernels' exact FMAs), bytes/s
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 # the train step's shapes
 TRAIN_B, TRAIN_T, TRAIN_L = 128, 1536, 192
 TRAIN_KERNELS = {
@@ -415,9 +420,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    """(least time in ms, "operations" or "bytes") at the card's peaks."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
+    """(least time in ms, "operations" or "bytes") at the card's peaks for
+    operations in ``dtype`` ("bfloat16" or "float32", or a torch dtype)."""
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -534,8 +541,7 @@ def environment(torch, card: str) -> float:
 
 def kernel_phase(torch, card: str) -> dict:
     """Each kernel against its plain version at the infer CLI's batch (one
-    launch in bfloat16, two of 32 rows in float32); returns the JSON
-    records."""
+    launch in either dtype); returns the JSON records."""
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 
     gen = torch.Generator().manual_seed(SEED)
@@ -544,7 +550,7 @@ def kernel_phase(torch, card: str) -> dict:
     for name, (seq_len, in_dim, replaces) in KERNELS.items():
         lengths = torch.randint(1, seq_len + 1, (B,), generator=gen)
         lengths[0], lengths[1] = seq_len, 1
-        lengths[-2], lengths[-1] = 1, seq_len  # both extremes in the second launch too
+        lengths[-2], lengths[-1] = 1, seq_len  # both extremes in the last row group too
         lengths = lengths.to(torch.int32).cuda()
         k = 1.0 / H ** 0.5
         w_hh32 = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).cuda()
@@ -585,7 +591,7 @@ def kernel_phase(torch, card: str) -> dict:
             frames = int(lengths.sum())
             flops = 2 * frames * 2 * 4 * H * (H + (in_dim if name == "lstm_scan_fusedin" else 0))
             bound, bound_by = bound_ms(
-                flops, valid_bytes(frames, args[0]) + nbytes(*args[1:-2], lengths, got))
+                flops, valid_bytes(frames, args[0]) + nbytes(*args[1:-2], lengths, got), dtype)
             library_ms = nn_lstm_ms(torch, x, lengths, dtype, "infer")
             log(f"[{card}] {name} {dtype_name} B={B} T={seq_len} D={in_dim} H={H} 2 dirs: "
                 f"max_abs_err {err:.3e} (tol {TOL[dtype_name]:g})  kernel {ms:.3f} ms  "
@@ -687,7 +693,7 @@ def speller_kernel_phase(torch, card: str) -> dict:
                                + h2 * proj + 2 * proj * vocab)
                 flops = spl.CHR_MAX_STEPS * (batch * per_row + 4 * proj * int(lengths.sum()))
                 moved = nbytes(*(t for t in operands if torch.is_tensor(t)), logits, wgts, ids)
-                bound, bound_by = bound_ms(flops, moved)
+                bound, bound_by = bound_ms(flops, moved, dtype_name)
                 log(f"[{card}] speller_decode {case} {dtype_name}: bound {bound:.3f} ms "
                     f"({bound_by}; {flops:.3e} operations, {moved:.3e} bytes)")
                 record = {"name": "speller_decode", "route": "cuda",
@@ -847,9 +853,9 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
             fwd_flops = steps * (2 * batch * (cells + 2 * proj * vocab) + 4 * proj * frames)
             bwd_flops = steps * (2 * batch * cells + 4 * proj * frames)
             fwd_bound = bound_ms(fwd_flops, nbytes(*operands, forced, m1, m2, logits, wgts, ids,
-                                                   *saved))
+                                                   *saved), dtype_name)
             bwd_outs = sc.speller_decode_bwd(*bwd_args, None, **kw)
-            bwd_bound = bound_ms(bwd_flops, nbytes(*bwd_args, *bwd_outs))
+            bwd_bound = bound_ms(bwd_flops, nbytes(*bwd_args, *bwd_outs), dtype_name)
             del bwd_outs
             worst = max(errs, key=lambda n: errs[n][1])
             log(f"[{card}] speller_decode_train + speller_decode_bwd {case} {dtype_name} "
@@ -1016,7 +1022,7 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
         flops = spl.CHR_MAX_STEPS * (batch * per_row + 4 * proj * int(lengths.sum()))
         out_bytes = spl.CHR_MAX_STEPS * batch * (operands[8].shape[0] * 2
                                                  + spl.att_heads * TE_DEC * 2 + 4)
-        bound, bound_by = bound_ms(flops, nbytes(*operands) + out_bytes)
+        bound, bound_by = bound_ms(flops, nbytes(*operands) + out_bytes, "bfloat16")
         spans = (f"; eval form ({'streamed' if plan.streamed else 'resident'} cell-1 "
                  f"weights, {plan.launches[0].stages} ring stages of "
                  f"{plan.launches[0].smem} bytes a block) over {spl.CHR_MAX_STEPS} steps in "
@@ -1041,19 +1047,26 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
 
 
 def forward_launches(torch, dtype, batch: int, hidden: int, in_dim: int = 0) -> int:
-    """Launches of a two-direction forward call: bfloat16 one per 128 rows,
-    both directions in each at every width up to 1024 (asserted against
-    the plan); float32 one per 32 rows, and one a direction at H=1024."""
+    """Launches of a two-direction forward call, from the plan
+    (``lstm_cuda.plan_launches``): bfloat16 one per 128 rows, both
+    directions in each at every width up to 1024; float32 every row and both
+    directions in one launch up to H=512 at the main paths' batches (B <=
+    256; the Rewriter's B=256 at H=256 included), one a direction at H=1024.
+    Both asserted against the plan."""
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = lc.plan_launches("forward", dtype, batch, hidden, 2, sms, in_dim)
-    rows = len(lc.row_chunks(batch, 128 if dtype == torch.bfloat16 else 32))
-    want = rows if dtype == torch.bfloat16 else rows * (2 if hidden > H else 1)
-    if len(plan) != want or (dtype == torch.bfloat16 and any(ln.nd != 2 for ln in plan)):
+    if dtype == torch.bfloat16:
+        want = len(lc.row_chunks(batch, 128))
+        ok = len(plan) == want and all(ln.nd == 2 for ln in plan)
+    else:
+        want = 2 if hidden > H else 1
+        ok = batch > 256 or (len(plan) == want and all(ln.r1 - ln.r0 == batch for ln in plan))
+    if not ok:
         raise AssertionError(f"forward B={batch} H={hidden} {dtype}: plan {plan}, not "
                              f"{want} launches")
-    return want
+    return len(plan)
 
 
 def adjoint_launches(torch, dtype, batch: int, hidden: int, with_dw: bool) -> int:
@@ -1205,14 +1218,14 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
             frames = int(lengths.sum())
             fwd_flops = 2 * frames * 2 * four_h * (hidden + (in_dim if fused else 0))
             fwd_bound = bound_ms(fwd_flops, valid_bytes(frames, args[0])
-                                 + nbytes(*args[1:], lengths, hs, cs, gates))
+                                 + nbytes(*args[1:], lengths, hs, cs, gates), dtype)
             # dh_prev = dpre @ W_hh^T: 2 * 4H * H a frame and direction; the
             # kernel that also sums dW_hh += h^T dpre does as much again
             nodw_flops = 2 * frames * 2 * four_h * hidden
             nodw_bound = bound_ms(nodw_flops, valid_bytes(frames, gates, cs, dy)
-                                  + nbytes(w_hh, lengths, dpre))
+                                  + nbytes(w_hh, lengths, dpre), dtype)
             dw_bound = bound_ms(2 * nodw_flops, valid_bytes(frames, gates, cs, hs, dy)
-                                + nbytes(w_hh, lengths, dpre, d_whh))
+                                + nbytes(w_hh, lengths, dpre, d_whh), dtype)
             lib_fwd = nn_lstm_ms(torch, x, lengths, dtype, "train", hidden)
             lib_bwd = nn_lstm_ms(torch, x, lengths, dtype, "backward", hidden)
             shown = ", ".join(f"{k} {a:.3e} ({r:.1e} of max)" for k, (a, r) in errs.items())
@@ -1246,7 +1259,7 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                     lean_plain_ms = cuda_median_ms(
                         torch, lambda: lean_plain(*args, lengths, rev), 1)
                 lean_bound = bound_ms(fwd_flops, valid_bytes(frames, args[0])
-                                      + nbytes(*args[1:], lengths, hs))
+                                      + nbytes(*args[1:], lengths, hs), dtype)
                 lib_lean = nn_lstm_ms(torch, x, lengths, dtype, "infer", hidden)
                 log(f"    lean kernel {lean_name} {lean_ms:.3f} ms  plain "
                     f"{lean_plain_ms:.3f} ms  bound {lean_bound[0]:.3f} ms "
@@ -1434,8 +1447,10 @@ def fused_kernel_phase(torch, card: str) -> tuple:
                 torch, lambda: op_grads(torch, lc.bilstm_apply_kernel, params, x, lengths, r), 5)
             frames = int(lengths.sum())
             flops = 2 * frames * 2 * 4 * H * H
-            bound3 = bound_ms(flops, valid_bytes(frames, x_proj) + nbytes(w_hh, lengths, hs3, cs3))
-            bound7 = bound_ms(flops, valid_bytes(frames, x_proj) + nbytes(w_hh, lengths, hs7, cs7))
+            bound3 = bound_ms(flops, valid_bytes(frames, x_proj)
+                              + nbytes(w_hh, lengths, hs3, cs3), dtype)
+            bound7 = bound_ms(flops, valid_bytes(frames, x_proj)
+                              + nbytes(w_hh, lengths, hs7, cs7), dtype)
             library_ms = nn_lstm_ms(torch, x, lengths, dtype, "infer")
             shown = ", ".join(f"{k} {a:.2e} ({rr:.1e})" for k, (a, rr) in errs.items())
             log(f"[{card}] lstm_scan_cs + bilstm_scan_fused + bilstm_apply_fused {dtype_name} "
@@ -2618,7 +2633,13 @@ def rewriter_scan_record(torch, card: str, what: str, calls: list) -> dict:
             b = torch.cat([fwd["b"], bwd["b"]]).to(dtype)
             args = (torch.matmul(x, w_ih) + b, torch.stack([fwd["w_hh"], bwd["w_hh"]]).to(dtype),
                     lengths, (False, True))
+            before = lc.LAUNCHES["lstm_scan"]
             got = lc.lstm_scan(*args)
+            n_launch = lc.LAUNCHES["lstm_scan"] - before
+            # a two-direction layer call: the plan's launches (float32 up to
+            # B=256 at H=256: one, every row and both directions)
+            if n_launch != forward_launches(torch, dtype, x.shape[0], args[1].shape[1]):
+                raise AssertionError(f"lstm_scan (Rewriter) B={x.shape[0]}: {n_launch} launches")
             err = (got.float() - lc.lstm_scan_plain(*args).float()).abs().max().item()
             checked.append((int(lengths.sum()), err, x, args, got))
     dtype_name = str(x.dtype).split(".")[-1]
@@ -2630,7 +2651,8 @@ def rewriter_scan_record(torch, card: str, what: str, calls: list) -> dict:
         ms = cuda_median_ms(torch, lambda: lc.lstm_scan(*args), 10)
         plain_ms = cuda_median_ms(torch, lambda: lc.lstm_scan_plain(*args), 2)
     bound, bound_by = bound_ms(2 * frames * 2 * 4 * hid * hid,
-                               valid_bytes(frames, args[0]) + nbytes(args[1], args[2], got))
+                               valid_bytes(frames, args[0]) + nbytes(args[1], args[2], got),
+                               x.dtype)
     library_ms = nn_lstm_ms(torch, x.clone(), args[2], x.dtype, "infer", hidden=hid)
     log(f"[{card}] lstm_scan (Rewriter) {dtype_name}, {what}: {len(calls)} calls at layer "
         f"inputs {shapes}: max_abs_err {err:.3e} (tol {TOL[dtype_name]:g}); timed at B={batch} "
@@ -2682,7 +2704,7 @@ def rewriter_decode_check(torch, card: str, what: str, operands: tuple, opts: di
     per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2 + h2 * proj + 2 * proj * vocab)
     flops = opts["steps"] * (batch * per_row + 4 * proj * enc_frames)
     moved = nbytes(*(t for t in operands if torch.is_tensor(t)), logits, wgts, ids)
-    bound, bound_by = bound_ms(flops, moved)
+    bound, bound_by = bound_ms(flops, moved, dtype_name)
     log(f"[{card}] speller_decode (Rewriter) {dtype_name}, {what}: B={batch} Te={seq} "
         f"T={opts['steps']} H1={h1} H2={h2} P={proj}, {n_launch} launches: forced logits "
         f"{'error of max' if relative else 'max_abs_err'} {err:.3e} (tol {tol:g}), weights "
@@ -3077,9 +3099,10 @@ def lm_lstm_train_records(torch, card: str, layer_calls: list, fwd_calls: list,
     batch, seq = x_proj.shape[:2]
     frames = int(lengths.sum())
     flops = 2 * frames * 2 * 4 * hidden * hidden
-    fwd_bound = bound_ms(flops, valid_bytes(frames, x_proj) + nbytes(w_hh, lengths, *got))
+    fwd_bound = bound_ms(flops, valid_bytes(frames, x_proj) + nbytes(w_hh, lengths, *got),
+                         x_proj.dtype)
     bwd_bound = bound_ms(2 * flops, valid_bytes(frames, gates, cs, hs, dy)
-                         + nbytes(w_hh, lengths, dpre, dwhh))
+                         + nbytes(w_hh, lengths, dpre, dwhh), gates.dtype)
     (_, x, x_lengths), _ = layer_calls[-1]
     lib_fwd = nn_lstm_ms(torch, x, x_lengths, x.dtype, "train", hidden)
     lib_bwd = nn_lstm_ms(torch, x, x_lengths, x.dtype, "backward", hidden)
@@ -3153,8 +3176,10 @@ def lm_speller_train_records(torch, card: str, fwd_calls: list, bwd_calls: list)
     fwd_flops = steps * (2 * batch * (cells + 2 * proj * vocab) + 4 * proj * frames)
     bwd_flops = steps * (2 * batch * cells + 4 * proj * frames)
     masks = [t for t in (opts.get("forced"), opts.get("m1"), opts.get("m2")) if t is not None]
-    fwd_bound = bound_ms(fwd_flops, nbytes(*operands, *masks, logits, wgts, ids, *saved))
-    bwd_bound = bound_ms(bwd_flops, nbytes(*(t for t in bwd_args if t is not None), *got))
+    fwd_bound = bound_ms(fwd_flops, nbytes(*operands, *masks, logits, wgts, ids, *saved),
+                         operands[0].dtype)
+    bwd_bound = bound_ms(bwd_flops, nbytes(*(t for t in bwd_args if t is not None), *got),
+                         operands[0].dtype)
     tol = SPELLER_TRAIN_TOL["bfloat16"]
     worst = max(errs, key=lambda n: errs[n][1])
     n_forced = int((opts["forced"][:, 0] >= 0).sum()) if opts.get("forced") is not None else 0

@@ -113,17 +113,18 @@ def replay_dp_draws(state_rng, cfg, use_specaug):
     return out
 
 
-def _jax_dp_steps(cfg, params, batch, tf_rates, use_specaug):
-    """JAX DP steps on a 2-device mesh; (final state, metrics of each step,
-    each step's replayed draws, the optimizer's start leaves)."""
-    tx = joptim.build_optimizer("adamw", OPT_CONFIGS, grad_norm=5.0)
+def _jax_dp_steps(cfg, params, batch, tf_rates, use_specaug, accum_steps=1):
+    """JAX DP steps on a 2-device mesh, ``accum_steps`` of them an update;
+    (final state, metrics of each step, each step's replayed draws, the
+    optimizer's start leaves)."""
+    tx = joptim.build_optimizer("adamw", OPT_CONFIGS, grad_norm=5.0, accum_steps=accum_steps)
 
     def apply_fn(p, rng, x, lx, dec_y=None, tf_rate=1.0, init_force=False, train=False):
         return jlas.las_apply(p, cfg, rng, x, lx, dec_y, tf_rate, init_force, train)
 
     mesh = jmesh.make_mesh(N)
-    step = jdp.make_dp_train_step(apply_fn, tx, mesh, use_specaug=use_specaug,
-                                  specaug_time=SPEC_TIME, donate=False)
+    step = jdp.make_dp_train_step(apply_fn, tx, mesh, accum_steps=accum_steps,
+                                  use_specaug=use_specaug, specaug_time=SPEC_TIME, donate=False)
     state = jsteps.create_train_state(_jax(params), tx, jax.random.key(1))
     ams = _amsgrad_state(state.opt_state)
     start = (int(ams.count), *(jax.tree.map(np.asarray, t) for t in (ams.mu, ams.nu, ams.nu_max)))
@@ -136,21 +137,27 @@ def _jax_dp_steps(cfg, params, batch, tf_rates, use_specaug):
     return state, metrics, draws, start
 
 
-@pytest.mark.parametrize("random", [False, True], ids=["deterministic", "replayed-draws"])
-def test_dp_train_step_matches_jax_shard_map(random):
+@pytest.mark.parametrize("random,accum", [(False, 1), (True, 1), (False, 2)],
+                         ids=["deterministic", "replayed-draws", "deterministic-accu_grad-2"])
+def test_dp_train_step_matches_jax_shard_map(random, accum):
     """Two gloo ranks against the JAX shard_map step on two virtual devices,
     scan tier there, the kernels' plain versions here, float32. Without
     randomness (dropout off, tf 1.0, no SpecAugment: ``test_parallel.py``'s
     setting), and with dropout, SpecAugment and tf 0.5, each rank's draws
-    replayed from its folded JAX keys."""
+    replayed from its folded JAX keys; and with ``accu_grad: 2``
+    (``configs/rewriter.yml:13``): two steps, one update of the mean of
+    their all-reduced gradients."""
     cfg = CFG if random else NO_DROPOUT
-    tf_rates = [0.5, 0.5] if random else [1.0]
+    tf_rates = [0.5, 0.5] if random else [1.0] * accum
     params = _params(cfg)
     batch = _global_batch()
-    j_state, j_metrics, j_draws, start = _jax_dp_steps(cfg, params, batch, tf_rates, random)
+    j_state, j_metrics, j_draws, start = _jax_dp_steps(cfg, params, batch, tf_rates, random,
+                                                       accum)
     steps = [(tf, LR, d if random else None) for tf, d in zip(tf_rates, j_draws)]
+    # accumulating, both sides start from their own fresh state (the optax
+    # leaves hold no accumulator)
     out = _spawn(ranks.train_steps, params, _port_cfg(cfg), OPT_CONFIGS, batch, steps,
-                 random, SPEC_TIME, 0, start)
+                 random, SPEC_TIME, 0, start if accum == 1 else None, None, 5.0, accum)
     for rank in out:
         for got, want in zip(rank["metrics"], j_metrics):
             np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
@@ -162,14 +169,14 @@ def test_dp_train_step_matches_jax_shard_map(random):
         assert (coins <= 0.5).any() and not (coins <= 0.5).all()
 
 
-def _one_process_step(cfg, params, batch, n_steps=1):
-    opt = toptim.build_optimizer("adamw", OPT_CONFIGS, grad_norm=5.0)
+def _one_process_step(cfg, params, batch, n_steps=1, accum_steps=1):
+    opt = toptim.build_optimizer("adamw", OPT_CONFIGS, grad_norm=5.0, accum_steps=accum_steps)
     t_cfg = _port_cfg(cfg)
 
     def apply_fn(p, x, lx, **kwargs):
         return tlas.las_apply(p, t_cfg, x, lx, **kwargs)
 
-    step = tsteps.make_train_step(apply_fn, opt)
+    step = tsteps.make_train_step(apply_fn, opt, accum_steps=accum_steps)
     state = tsteps.create_train_state(tlas.las_from_jax_params(params), opt, device="cpu")
     metrics = []
     for _ in range(n_steps):
@@ -178,24 +185,28 @@ def _one_process_step(cfg, params, batch, n_steps=1):
     return state, metrics
 
 
+@pytest.mark.parametrize("accum", [1, 2], ids=["accu_grad-1", "accu_grad-2"])
 @pytest.mark.parametrize("ly", [np.full((B,), 7, np.int32), LY], ids=["equal", "unequal"])
-def test_dp_step_matches_the_one_process_step(ly):
+def test_dp_step_matches_the_one_process_step(ly, accum):
     """Two ranks against the port's one-process ``make_train_step`` on the
-    whole batch. With unequal token counts between the shards (16 and 19)
+    whole batch, two steps, with ``accu_grad`` 1 and 2
+    (``configs/rewriter.yml:13``: the two steps' gradients accumulated into
+    one update). With unequal token counts between the shards (16 and 19)
     an average over ranks, as ``DistributedDataParallel`` takes it, would
     give another loss; the global token mean does not."""
     params = _params(NO_DROPOUT)
     batch = _global_batch(ly)
-    state, metrics = _one_process_step(NO_DROPOUT, params, batch, n_steps=2)
+    state, metrics = _one_process_step(NO_DROPOUT, params, batch, n_steps=2,
+                                       accum_steps=accum)
     out = _spawn(ranks.train_steps, params, _port_cfg(NO_DROPOUT), OPT_CONFIGS, batch,
-                 [(1.0, LR, None)] * 2)
+                 [(1.0, LR, None)] * 2, False, 200, 0, None, None, 5.0, accum)
     for rank in out:
         for got, want in zip(rank["metrics"], metrics):
             np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
             np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-5)
             assert got["n_tokens"] == want["n_tokens"] == float(ly.sum())
         _assert_params_close(rank["params"], tlas.las_to_jax_params(state.params), 2)
-    if ly is LY:
+    if ly is LY and accum == 1:
         # the shards' own token means, averaged, differ from the global mean
         shard_means = []
         for rows in (slice(0, B // 2), slice(B // 2, B)):

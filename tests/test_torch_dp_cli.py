@@ -253,14 +253,17 @@ def test_train_cli_parallel_refusals(corpus, tmp_path, parallel, impl, exc, matc
 # lmtrain
 # ---------------------------------------------------------------------------
 
-def test_lmtrain_data_parallel_matches_one_process(tmp_path):
+@pytest.mark.parametrize("accu_grad", [1, 2])
+def test_lmtrain_data_parallel_matches_one_process(tmp_path, accu_grad):
     """``lmtrain`` with ``data: 2``: one epoch whose train and dev losses are
     the one-process run's (the Rewriter's integer inputs pass the feature
-    cast untouched)."""
+    cast untouched); with ``accu_grad`` 1 and 2 (``configs/rewriter.yml:13``:
+    two batches' gradients an update)."""
     corpus = _lm_corpus(str(tmp_path / "c"), n_train=8, n_dev=4)
     runs = {}
     for name, parallel in (("one", {"use": False}), ("dp", {"use": True, "data": 2})):
-        cfg = _lm_config(corpus, str(tmp_path / name), parallel=parallel, epochs=1)
+        cfg = _lm_config(corpus, str(tmp_path / name), parallel=parallel, epochs=1,
+                         accu_grad=accu_grad)
         runs[name] = tlmtrain.main(tlmtrain.build_argparser().parse_args(
             ["-c", cfg, "--device", "cpu"]))
     _assert_history_close(runs["dp"], runs["one"])

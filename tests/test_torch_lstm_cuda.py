@@ -83,11 +83,12 @@ def test_kernel_rejects_float16_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [40, 64])
+@pytest.mark.parametrize("batch", [40, 64, 2000])
 @pytest.mark.parametrize("fused", [True, False])
 def test_kernels_take_batches_past_32_rows_on_card(cuda_device, batch, fused):
-    """A batch wider than one launch's 32 rows runs as one launch per 32 rows
-    and equals the plain version."""
+    """A batch wider than the earlier float32 kernel's 32 rows a launch runs
+    as the plan's launches (one up to the rows the card holds at once, two
+    at B=2000) and equals the plain version."""
     gen = torch.Generator().manual_seed(batch)
     seq_len, hidden = 23, 64
     in_dim = 15 if fused else 2 * 4 * hidden
@@ -109,7 +110,9 @@ def test_kernels_take_batches_past_32_rows_on_card(cuda_device, batch, fused):
     lstm_cuda.reset_launch_counts()
     got = kern(*args)
     torch.cuda.synchronize()
-    assert lstm_cuda.LAUNCHES[kern.__name__] == len(lstm_cuda.row_chunks(batch)) == 2
+    assert lstm_cuda.LAUNCHES[kern.__name__] == _forward_launches(
+        cuda_device, torch.float32, batch, hidden, 2, in_dim if fused else 0) == (
+        2 if batch > 1024 else 1)
     assert got.shape == (batch, seq_len, 2 * hidden)
     torch.testing.assert_close(got, plain(*args), atol=1e-4, rtol=0)
 
@@ -127,9 +130,11 @@ def _batch_dtypes(batches):
             + [(b, torch.bfloat16) for b in (96, 128, 129)])
 
 
-def _forward_launches(device, dtype, batch, hidden, ndir):
+def _forward_launches(device, dtype, batch, hidden, ndir, in_dim=0):
+    """The plan's launches for a call (``in_dim``: the fused input's width,
+    whose shared memory the float32 plan counts)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return len(lstm_cuda.plan_launches("test", dtype, batch, hidden, ndir, sms))
+    return len(lstm_cuda.plan_launches("test", dtype, batch, hidden, ndir, sms, in_dim))
 
 
 def _adjoint_launches(device, dtype, batch, hidden, ndir, with_dw):
@@ -203,7 +208,7 @@ def _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused):
     dpre, d_whh = lstm_cuda._adjoint(gates, cs, hs, dy, args[-1], lengths, reverse)
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES[train.__name__] == _forward_launches(
-        cuda_device, dtype, batch, hidden, ndir)
+        cuda_device, dtype, batch, hidden, ndir, 15 if fused else 0)
     assert lstm_cuda.LAUNCHES["lstm_bwd" if wide else "lstm_bwd_dw"] == n_adjoint
     assert lstm_cuda.LAUNCHES["lstm_bwd_dw" if wide else "lstm_bwd"] == 0
     # hs of the training forward is the lean forward's, bit for bit
@@ -244,14 +249,15 @@ def test_functions_backward_on_card(cuda_device, fused):
     got = torch.autograd.grad(out, leaves, dy)
     torch.cuda.synchronize()
     name = "lstm_scan_fusedin_train" if fused else "lstm_scan_train"
+    n_fwd = _forward_launches(cuda_device, torch.float32, 40, 64, 2, 15 if fused else 0)
     assert lstm_cuda.LAUNCHES == {**dict.fromkeys(lstm_cuda.LAUNCHES, 0),
-                                  name: 2, "lstm_bwd_dw": 2}
+                                  name: n_fwd, "lstm_bwd_dw": 2}
     want = torch.autograd.grad(fn(*cpu_leaves, lengths.cpu(), reverse), cpu_leaves, dy.cpu())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
     with torch.no_grad():  # no gradient wanted: the lean kernel
         fn(*leaves, lengths, reverse)
-    assert lstm_cuda.LAUNCHES[name] == 2
+    assert lstm_cuda.LAUNCHES[name] == n_fwd
 
 
 @pytest.mark.cuda
@@ -488,7 +494,7 @@ def test_rewriter_encoder_on_the_kernels_on_card(cuda_device, dtype, atol, batch
     ``lminfer`` (256) and the ``Corrector`` run (32 rows a beam batch, 64 for
     the gate's stacked scorer, a few rows behind the HTTP queue) over texts
     up to ``width`` characters: bf16 one launch a layer per 128 rows,
-    float32 one per 32."""
+    float32 one launch a layer (every row and both directions)."""
     from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
         RewriterConfig,
         rewriter_encode,
@@ -509,7 +515,8 @@ def test_rewriter_encoder_on_the_kernels_on_card(cuda_device, dtype, atol, batch
     with torch.inference_mode():
         got, _ = rewriter_encode(params, kern_cfg, x, lx, dtype)
         torch.cuda.synchronize()
-        per_layer = -(-batch // (128 if dtype == torch.bfloat16 else 32))
+        per_layer = -(-batch // 128) if dtype == torch.bfloat16 else 1
+        assert per_layer == _forward_launches(cuda_device, dtype, batch, 256, 2)
         assert lstm_cuda.LAUNCHES == {**dict.fromkeys(lstm_cuda.LAUNCHES, 0),
                                       "lstm_scan": 2 * per_layer}
         ref, _ = rewriter_encode(params, plain_cfg, x, lx, dtype)

@@ -5,6 +5,8 @@ with the units a block and the shared memory each block needs. Pure Python:
 no card, no kernel."""
 
 import itertools
+import os
+import re
 
 import pytest
 import torch
@@ -38,15 +40,97 @@ def test_bf16_batch_past_128_rows_takes_a_second_launch():
     assert _spans(plan) == [(0, 128, 0, 2), (128, 129, 0, 2)]
 
 
+# the float32 forward (csrc/lstm_scan_body.cuh): blocks of R rows x U units
 @pytest.mark.parametrize("batch,hidden,ndir", [
-    (5, 64, 2), (40, 512, 2), (128, 512, 2), (128, 1024, 2), (129, 768, 2), (64, 1024, 1)])
-def test_fp32_keeps_rows_of_32_and_direction_groups(batch, hidden, ndir):
+    (5, 64, 2), (40, 512, 2), (128, 512, 2), (128, 1024, 2), (129, 768, 2), (64, 1024, 1),
+    (256, 256, 2), (300, 256, 2), (1, 32, 1), (2000, 64, 2)])
+def test_fp32_plan_holds_every_row_in_whole_row_groups(batch, hidden, ndir):
     plan = lstm_cuda.plan_launches("k", torch.float32, batch, hidden, ndir, SMS)
-    want = [(r0, r1, d0, nd) for r0, r1 in lstm_cuda.row_chunks(batch)
-            for d0, nd in lstm_cuda._direction_groups("k", ndir, hidden, SMS)]
-    assert _spans(plan) == want
-    assert {(ln.units, ln.blocks) for ln in plan} == {
-        (8, nd * hidden // 8) for _, _, _, nd in want}
+    cells = [(r, d) for ln in plan for r in range(ln.r0, ln.r1)
+             for d in range(ln.d0, ln.d0 + ln.nd)]
+    assert sorted(cells) == list(itertools.product(range(batch), range(ndir)))
+    for ln in plan:
+        threads = ln.rows // lstm_cuda._F32_RT * ln.units
+        groups = -(-(ln.r1 - ln.r0) // ln.rows)
+        assert hidden % ln.units == 0 and ln.rows % lstm_cuda._F32_RT == 0
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        assert ln.blocks == ln.nd * hidden // ln.units * groups <= SMS
+        assert 1 <= ln.stages <= 4 and ln.smem <= SMEM_LIMIT
+        assert ln.smem == lstm_cuda.f32_smem_bytes(hidden, ln.units, ln.rows, ln.stages)
+    # launches one after another only where the card cannot hold the rows:
+    # all but the last of a direction group are full
+    spans = sorted({(ln.r0, ln.r1) for ln in plan})
+    assert all(r1 - r0 == spans[0][1] - spans[0][0] for r0, r1 in spans[:-1])
+
+
+@pytest.mark.parametrize("batch", [1, 2, 5, 8, 31, 33, 64, 96, 100, 128, 129, 200, 256, 300])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256, 384, 512, 640, 768, 1024])
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_fp32_every_row_and_direction_is_in_one_launch(batch, hidden, ndir):
+    """B 1-300, H 32-1024: every (row, direction) in exactly one launch,
+    no launch past the card's SMs or the shared memory a block may use."""
+    plan = lstm_cuda.plan_launches("k", torch.float32, batch, hidden, ndir, SMS)
+    cells = [(r, d) for ln in plan for r in range(ln.r0, ln.r1)
+             for d in range(ln.d0, ln.d0 + ln.nd)]
+    assert sorted(cells) == list(itertools.product(range(batch), range(ndir)))
+    assert all(ln.blocks <= SMS and ln.smem <= SMEM_LIMIT for ln in plan)
+    # both directions share a launch wherever their blocks fit: up to H=512
+    if hidden <= 512:
+        assert all(ln.nd == ndir for ln in plan)
+
+
+@pytest.mark.parametrize("batch,hidden,in_dim", [
+    (256, 256, 0), (256, 256, 128), (64, 512, 15), (64, 512, 0), (128, 512, 15),
+    (128, 512, 0), (96, 512, 15)])
+def test_fp32_main_path_batches_are_one_launch(batch, hidden, in_dim):
+    """The Rewriter's lminfer layer (B=256, H=256) and the listener's
+    batches up to H=512: one launch of every row and both directions."""
+    plan = lstm_cuda.plan_launches("k", torch.float32, batch, hidden, 2, SMS, in_dim)
+    assert _spans(plan) == [(0, batch, 0, 2)]
+
+
+def test_fp32_rewriter_layer_is_128_blocks_of_64_rows_by_16_units():
+    (ln,) = lstm_cuda.plan_launches("k", torch.float32, 256, 256, 2, SMS)
+    assert (ln.rows, ln.units, ln.blocks, ln.stages) == (64, 16, 128, 4)
+
+
+@pytest.mark.parametrize("hidden", [768, 1024])
+def test_fp32_splits_directions_only_past_the_card(hidden):
+    """H=1024 (2 x 128 blocks at 8 units) takes a launch a direction; a
+    narrower card splits where a wider one does not."""
+    plan = lstm_cuda.plan_launches("k", torch.float32, 128, hidden, 2, SMS)
+    assert {(ln.d0, ln.nd) for ln in plan} == ({(0, 1), (1, 1)} if hidden == 1024 else {(0, 2)})
+    assert {(ln.d0, ln.nd) for ln in lstm_cuda.plan_launches(
+        "k", torch.float32, 128, 512, 2, 60)} == {(0, 1), (1, 1)}
+
+
+@pytest.mark.parametrize("batch", [8, 32, 128, 256])
+@pytest.mark.parametrize("hidden", [64, 256, 512])
+def test_fp32_bilstm_keeps_both_directions_in_each_launch(batch, hidden):
+    """#7 (``bilstm_scan_fused``) takes both directions in one launch up to
+    H=512: the plan never splits them there."""
+    plan = lstm_cuda.plan_launches("bilstm_scan_fused", torch.float32, batch, hidden, 2, SMS)
+    assert all((ln.d0, ln.nd) == (0, 2) for ln in plan)
+
+
+def test_fp32_shared_memory_bytes():
+    # W_hh 256 x 16 units x 4 gates fp32, four stages of 64 rows x (64 + 4)
+    assert lstm_cuda.f32_smem_bytes(256, 16, 64, 4) == 4 * (256 * 64 + 4 * 64 * 68)
+    # the fused input: W_ih 15 x 64, the bias 64, x_t 15 x 64 rows
+    assert lstm_cuda.f32_smem_bytes(512, 16, 64, 4, 15) == 4 * (
+        512 * 64 + 4 * 64 * 68 + 15 * 64 + 64 + 15 * 64)
+
+
+def test_fp32_constants_mirror_the_source():
+    """The plan's constants are the float32 body's (read from its text)."""
+    with open(os.path.join(os.path.dirname(lstm_cuda.SOURCE), "lstm_scan_body.cuh")) as fh:
+        text = fh.read()
+    for name, value in (("F32_RT", lstm_cuda._F32_RT),
+                        ("F32_MAX_THREADS", lstm_cuda._F32_MAX_THREADS),
+                        ("F32_KC", lstm_cuda._F32_KC),
+                        ("F32_MAX_STAGES", lstm_cuda._F32_MAX_STAGES),
+                        ("F32_PAD", lstm_cuda._F32_PAD)):
+        assert re.search(rf"constexpr int {name} = {value};", text), name
 
 
 @pytest.mark.parametrize("dtype,batch,hidden,ndir,sms", [

@@ -123,11 +123,11 @@ def test_kernel_rejects_unsupported_shapes_on_card(cuda_device):
             speller_cuda.speller_decode(*operands, **opts,
                                         forced=torch.zeros(3, 2, dtype=torch.int32,
                                                            device=cuda_device))
-        # H1 96 = 32 blocks x 3 units
+        # H1 100: not a multiple of 8
         cfg3, params3, enc3, lengths3 = _setup(cuda_device, batch=2, te=8,
-                                               dec_lstm_hid_dim=96)
+                                               dec_lstm_hid_dim=100)
         operands3, _ = speller_cuda.decode_operands(params3, cfg3, enc3, lengths3)
-        with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        with pytest.raises(ValueError, match="must be multiples of 8"):
             speller_cuda.speller_decode(*operands3, **opts)
         # the scores of every frame above the device's shared memory
         cfg4, params4, enc4, lengths4 = _setup(cuda_device, batch=1, te=60000)
@@ -140,8 +140,13 @@ def test_kernel_rejects_unsupported_shapes_on_card(cuda_device):
 def test_kernel_limits_on_card(cuda_device):
     lim = speller_cuda.kernel_limits(torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert lim["max_grid"] <= sms and lim["max_units"] >= 1 and lim["vmax"] >= 32
+    assert {k: lim[k] for k in speller_cuda.F32_LIMITS} == speller_cuda.F32_LIMITS
+    assert lim["max_grid"] <= sms == lim["sms"] and lim["vmax"] >= 32
     assert lim["nthreads"] % 32 == 0 and lim["smem_optin"] >= 48 * 1024
+    # the plan's shared-memory formula is the source's
+    lib = speller_cuda.load_library()
+    for geo in ((608, 128, 1, 256, 128, 16, 32, 3, 2), (192, 256, 4, 1024, 256, 128, 4, 1, 1)):
+        assert lib.speller_decode_smem_bytes(*geo) == speller_cuda.decode_f32_smem_bytes(*geo)
 
 
 # -- the training form and the adjoint ---------------------------------------

@@ -471,3 +471,103 @@ def test_bwd_source_is_built_and_bound():
     assert speller_cuda.load_bwd_tc_library in speller_cuda.LOADERS
     with open(speller_cuda.BWD_SOURCE) as fh:  # float32 only there now
         assert "launch<__nv_bfloat16>" not in fh.read()
+
+
+# ---------------------------------------------------------------------------
+# The float32 forward's plan (``plan_decode_f32``, csrc/speller_decode.cu)
+# ---------------------------------------------------------------------------
+
+def _earlier_f32_takes(batch, te, proj, heads, h1, h2, vp):
+    """Whether the earlier float32 forward (128 blocks at most, each owning
+    1, 2, 4 or 8 of each cell's units and query columns, every block walking
+    every row) took a shape: its checks and its shared memory, mirrored."""
+    grid = speller_cuda.grid_size(h1, h2, proj, 128)
+    if any(n % 8 or n // grid not in (1, 2, 4, 8) for n in (h1, h2, proj)):
+        return False
+    if proj % heads or (proj // heads) % 8 or proj > 1024 or vp > 32:
+        return False
+    weights = (4 * (h1 // grid) * (proj + h1) + 4 * (h2 // grid) * (h1 + h2)
+               + proj // grid * h2) * 4
+    return -(-weights // 16) * 16 + (2 * proj + 256 + 1024 + heads * te) * 4 <= SMEM_LIMIT
+
+
+# (H1, H2, P) the earlier float32 forward took at some heads and length; it
+# took none of (768, 384, P), (1024, 512, P), (640, 128, P) or P 1024 below
+# H1 256
+EARLIER_F32_WIDTHS = [(h1, h2, p) for h1, h2 in ((64, 64), (128, 64), (256, 128), (512, 256))
+                      for p in (64, 128, 256, 512)] + [
+    (256, 128, 1024), (512, 256, 1024), (1024, 256, 128), (1024, 256, 256)]
+
+
+@pytest.mark.parametrize("h1,h2,proj", EARLIER_F32_WIDTHS)
+def test_f32_plan_takes_every_shape_the_earlier_kernel_took(h1, h2, proj):
+    """Every shape the earlier float32 forward took, over heads, encoder
+    lengths up to its shared-memory limit and batches of 1-300, the plan
+    takes: one launch, every block resident, within the limit."""
+    taken = 0
+    for heads, te, batch in itertools.product((1, 2, 4, 8), (1, 37, 192, 608, 4096, 20000),
+                                              (1, 5, 64, 256, 300)):
+        if not _earlier_f32_takes(batch, te, proj, heads, h1, h2, 32):
+            continue
+        taken += 1
+        plan = speller_cuda.plan_decode_f32(batch, te, proj, heads, h1, h2, 32, SMS,
+                                            SMEM_LIMIT)
+        assert plan.blocks == plan.col_groups * plan.row_groups <= 128
+        assert plan.rows * plan.row_groups >= batch and plan.smem <= SMEM_LIMIT
+        assert plan.smem == speller_cuda.decode_f32_smem_bytes(
+            te, proj, heads, h1, h2, plan.col_groups, plan.sub, plan.stages, plan.att_rows)
+    assert taken
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"h1": 100}, "H1 100, H2 128 and P 128 must be multiples of 8"),
+    ({"heads": 3}, "head width P / heads = 128 / 3"),
+    ({"heads": 32}, "head width P / heads = 128 / 32"),
+    ({"proj": 2048, "h1": 256}, "P 2048 above 1024"),
+    ({"vp": 33}, "padded vocabulary 33 must be at most 32"),
+    ({"te": 60000}, "shared memory a block at the least .* the device's limit is 232448"),
+    ({"batch": 0}, "batch 0 and encoder length 608 must be at least 1"),
+])
+def test_f32_plan_raises_naming_the_limit(kwargs, match):
+    args = {"batch": 256, "te": 608, "proj": 128, "heads": 1, "h1": 256, "h2": 128, "vp": 32}
+    args.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        speller_cuda.plan_decode_f32(args["batch"], args["te"], args["proj"], args["heads"],
+                                     args["h1"], args["h2"], args["vp"], SMS, SMEM_LIMIT)
+
+
+def test_f32_plan_at_the_rewriter_widths():
+    """lminfer's batch of 256 at the Rewriter's decoder widths: 16 column
+    groups x 8 row groups of 32 rows, the products in one sub-tile, two
+    attention rows a block at once."""
+    plan = speller_cuda.plan_decode_f32(256, 608, 128, 1, 256, 128, 32, SMS, SMEM_LIMIT)
+    assert (plan.blocks, plan.col_groups, plan.row_groups, plan.rows, plan.sub,
+            plan.att_rows) == (128, 16, 8, 32, 32, 2)
+    assert plan.smem <= SMEM_LIMIT
+
+
+def test_f32_shared_memory_bytes():
+    # 16 column groups: 16 cell-1 units over K 384, 8 cell-2 units over K 384,
+    # 8 query columns over 128; the region the larger of the ring (3 stages
+    # of 32 rows x 132) and the attention (2 rows of q, ctx, partials,
+    # scores, and 1024 group sums)
+    weights = 4 * 16 * 384 + 4 * 8 * 384 + 8 * 128
+    attn = 2 * (2 * 128 + 256 + 608) + 1024
+    assert speller_cuda.decode_f32_smem_bytes(608, 128, 1, 256, 128, 16, 32, 3, 2) == 4 * (
+        weights + max(3 * 32 * 132, attn))
+    # one query column a block: the earlier kernel's columns, the region the
+    # attention's
+    assert speller_cuda.decode_f32_smem_bytes(8, 128, 1, 128, 128, 128, 8, 1, 1) == 4 * (
+        4 * 1 * 256 + 4 * 1 * 256 + 1 * 128 + 2 * 128 + 256 + 8 + 1024)
+
+
+def test_f32_limits_mirror_the_source():
+    """The plan's constants are the float32 source's (the card test reads
+    them from the built library; here from the source's text)."""
+    with open(speller_cuda.SOURCE) as fh:
+        text = fh.read()
+    for key, name in (("max_grid", "DF_MAX_GRID"), ("nthreads", "DF_THREADS"),
+                      ("vmax", "DF_VMAX"), ("rt", "DF_RT"), ("kc", "DF_KC"),
+                      ("pad", "DF_PAD"), ("max_stages", "DF_MAX_STAGES"),
+                      ("att_rows", "DF_ATT_ROWS")):
+        assert f"constexpr int {name} = {speller_cuda.F32_LIMITS[key]};" in text, name

@@ -62,21 +62,24 @@ def _apply(cfg):
 
 
 def train_steps(mesh, params, cfg, opt_configs, batch, steps, use_specaug=False,
-                specaug_time=200, seed=0, opt_start=None, nan_rows=None, grad_norm=5.0):
+                specaug_time=200, seed=0, opt_start=None, nan_rows=None, grad_norm=5.0,
+                accum_steps=1):
     """The DP train step on this rank's rows of ``batch`` (global numpy
     arrays x, lx, y, ly), once for each (tf_rate, lr, draws for each rank or
-    None) of ``steps``. ``opt_start``: optax leaves (count, mu, nu, nu_max)
-    to start from. ``nan_rows``: before the last step, a NaN is planted in
-    these global rows. Returns the metrics of every step, the parameters as
-    the JAX tree, the state's leaves and the first row's attention map."""
+    None) of ``steps``, accumulating ``accum_steps`` steps' gradients an
+    update. ``opt_start``: optax leaves (count, mu, nu, nu_max) to start
+    from. ``nan_rows``: before the last step, a NaN is planted in these
+    global rows. Returns the metrics of every step, the parameters as the
+    JAX tree, the state's leaves and the first row's attention map."""
     rows = shard_rows(batch[0].shape[0], mesh)
     module = tlas.las_from_jax_params(params)
-    opt = toptim.build_optimizer("adamw", opt_configs, grad_norm=grad_norm)
+    opt = toptim.build_optimizer("adamw", opt_configs, grad_norm=grad_norm,
+                                 accum_steps=accum_steps)
     state = tsteps.create_train_state(module, opt, seed=seed, device=mesh.device)
     if opt_start is not None:
         state.opt_state = toptim.opt_state_from_optax(state.params, *opt_start)
-    step = dp.make_dp_train_step(_apply(cfg), opt, mesh, use_specaug=use_specaug,
-                                 specaug_time=specaug_time)
+    step = dp.make_dp_train_step(_apply(cfg), opt, mesh, accum_steps=accum_steps,
+                                 use_specaug=use_specaug, specaug_time=specaug_time)
     x, lx, y, ly = (torch.from_numpy(np.ascontiguousarray(a[rows])) for a in batch)
     metrics, before = [], None
     for i, (tf_rate, lr, draws) in enumerate(steps):
