@@ -75,14 +75,15 @@ width up to H = 1024 (8 hidden units a block up to H = 512, 16 above: at most
 forward: blocks of R rows x U units (``_plan_f32``: R = 64, U = 16 at H =
 256, B = 256), every row group and both directions in one launch up to the
 card's SMs, more launches only for a batch the card cannot hold at once.
-The float32 adjoint: at most 32 rows a launch (``row_chunks``), 8 units a
-block. A float32 layer whose directions together need more blocks than the
-card has SMs (H = 1024: 2 x 128) takes one launch a direction
-(``_direction_groups``). Rows are independent; the adjoint's per-launch
-partial ``dW_hh`` are summed in launch order. Limits, checked by the
-wrappers: H a multiple of 32 up to 512, a multiple of 64 from there to 1024,
-the shared memory a block may use, ``lstm_bwd_dw`` only up to H = 512,
-``bilstm_scan_fused`` only up to H = 512.
+The float32 adjoint likewise (``_plan_bwd_f32``): blocks of R rows x U
+units (R = 64, U = 16 at H = 512, B = 128: one launch of 128 blocks for both
+directions; U = 8, R = 128 at H = 1024, one launch a direction), each row
+group's partial ``dW_hh`` summed in a fixed order. A float32 layer whose
+directions together need more blocks than the card has SMs (H = 1024: 2 x
+128) takes one launch a direction (``_direction_groups``). Limits, checked
+by the wrappers: H a multiple of 32 up to 512, a multiple of 64 from there
+to 1024, the shared memory a block may use, ``lstm_bwd_dw`` only up to H =
+512, ``bilstm_scan_fused`` only up to H = 512.
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor or raises, and counts its launches in ``LAUNCHES``.
 
@@ -122,10 +123,9 @@ BWD_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd.cu")
 BWD_TC_SOURCE = os.path.join(cuda_build.CSRC, "lstm_bwd_tc.cu")
 SOURCES = (SOURCE, STREAMS_SOURCE, TC_SOURCE, TC_STREAMS_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
 
-# the float32 adjoint's fixed geometry (csrc/lstm_common.cuh): hidden units
-# per block, batch rows per launch (one per lane)
-_UNITS = 8
-_BMAX = 32
+# the bfloat16 forward's and adjoint's hidden units a block up to H = 512
+# (twice that above)
+_TC_UNITS = 8
 # the float32 forward's (csrc/lstm_scan_body.cuh): batch rows a thread
 # carries, threads a block at most, columns of h a ring stage, the ring's
 # most stages, a staged row's padding; the units a block the plan tries
@@ -142,6 +142,24 @@ _TC_KC = 64
 _TC_RED_ROWS = 128
 _TC_ALIGN = 1024
 _TC_MAX_STAGES = 4
+# the float32 adjoint's (csrc/lstm_bwd.cu): batch rows and hidden units of a
+# thread's product tile, lanes that split its k range, threads a block at
+# most, a narrow ring stage's columns (a plan's stages hold 1 or 2 x that),
+# the ring's most stages, the rows of a TMA box of dpre at most, the padding
+# of a unit's W_hh row, the (row, frame) pairs a dW stage holds, the floats
+# of the rings' bookkeeping (mbarriers and counters); the units a block the
+# plan tries
+_B32_RT = 8
+_B32_UT = 8
+_B32_KS = 16
+_B32_MAX_THREADS = 256
+_B32_KC = 64
+_B32_MAX_STAGES = 6
+_B32_BOX_ROWS = 64
+_B32_WPAD = 4
+_B32_DW_PAIRS = 16
+_B32_HEAD_FLOATS = 64
+_B32_UNITS = (8, 16)
 # the bfloat16 adjoint's (csrc/lstm_bwd_tc_body.cuh): columns of dpre a ring
 # stage holds, its most stages, the mbarriers' bytes
 _BT_SC = 128
@@ -149,9 +167,9 @@ _BT_MAX_STAGES = 6
 _BT_BAR_BYTES = 2 * _BT_MAX_STAGES * 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # widest hidden size of the adjoint with dW_hh in the kernel (the JAX package's
-# in-kernel-dW route ends there too, lstm_pallas.py:550); above it the kernels
-# stage their exchange in two halves (WIDE_FROM in csrc/lstm_common.cuh), up to
-# _MAX_HIDDEN; and the shared memory a block may use on the card
+# in-kernel-dW route ends there too, lstm_pallas.py:550; WIDE_FROM in
+# csrc/lstm_common.cuh); the widest layer of any kernel; and the shared memory
+# a block may use on the card
 _BWD_DW_MAX_HIDDEN = 512
 _MAX_HIDDEN = 1024
 _SMEM_LIMIT = 232448
@@ -229,19 +247,15 @@ def load_tc_streams_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def load_bwd_library() -> ctypes.CDLL:
-    """Build ``csrc/lstm_bwd.cu`` and bind its two C entry points."""
-    lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
-    fn = lib.lstm_bwd_dw_launch
-    i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, i, i, i,      # dtype ndir rev B T H
-                   p, p, p, p, p, p,      # gates cs hs dy w_hh lengths
-                   p, p, p]               # dpre dw stream
-    fn.restype = ctypes.c_int
-    fn = lib.lstm_bwd_launch
-    fn.argtypes = [i, i, i, i, i, i, i, i,  # dtype ndir rev dir0 grid_dirs B T H
-                   p, p, p, p, p,           # gates cs dy w_hh lengths
-                   p, p]                    # dpre stream
+def load_bwd_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """``csrc/lstm_bwd.cu``: the float32 adjoint, both forms (``defines``:
+    an instrumented build's macros, as ``tools/trace_lstm_bwd.py`` asks)."""
+    lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE, defines))
+    fn = lib.lstm_bwd_f32_launch
+    fn.argtypes = [_i, _i, _i, _i, _i, _i, _i, _i,  # with_dw ndir rev dir0 grid_dirs B T H
+                   _p, _p, _p, _p, _p, _p,          # gates cs hs dy w_hh lengths
+                   _p, _p, _p,                      # dpre xbuf dw
+                   _i, _i, _i, _i, _p, _p]          # units rows stages chunk, counters, stream
     fn.restype = ctypes.c_int
     return lib
 
@@ -259,13 +273,13 @@ LOADERS = (load_library, load_streams_library, load_tc_library, load_tc_streams_
            load_bwd_library, load_bwd_tc_library)
 
 
-def row_chunks(batch: int, rows: int = _BMAX) -> List[Tuple[int, int]]:
+def row_chunks(batch: int, rows: int = 32) -> List[Tuple[int, int]]:
     """[start, end) row ranges of at most ``rows`` rows covering ``batch``."""
     return [(r0, min(r0 + rows, batch)) for r0 in range(0, batch, rows)]
 
 
 def _direction_groups(name: str, ndir: int, hidden: int, sms: int,
-                      units: int = _UNITS) -> List[Tuple[int, int]]:
+                      units: int = _TC_UNITS) -> List[Tuple[int, int]]:
     """(first direction, count) of each launch: all directions in one
     cooperative launch where their ``ndir * H / units`` blocks are
     co-resident at one block an SM, else one launch a direction; raises
@@ -276,11 +290,6 @@ def _direction_groups(name: str, ndir: int, hidden: int, sms: int,
         return [(d, 1) for d in range(ndir)]
     raise ValueError(f"{name}: H={hidden} needs {hidden // units} co-resident "
                      f"blocks a direction, the card has {sms} SMs")
-
-
-def _staged_width(hidden: int) -> int:
-    """Columns of the exchanged slab a block stages at a time (WIDE_FROM)."""
-    return hidden if hidden <= _BWD_DW_MAX_HIDDEN else hidden // 2
 
 
 def _check_smem(name: str, hidden: int, smem: int) -> None:
@@ -302,7 +311,7 @@ def tc_units(hidden: int) -> int:
     """Hidden units a block of the bfloat16 forward takes: 8 up to H = 512,
     16 above, so that a direction needs at most 64 blocks and both fit one
     launch on a card of 128 SMs or more."""
-    return _UNITS if hidden <= _BWD_DW_MAX_HIDDEN else 2 * _UNITS
+    return _TC_UNITS if hidden <= _BWD_DW_MAX_HIDDEN else 2 * _TC_UNITS
 
 
 def tc_smem_bytes(hidden: int, units: int, in_dim: int = 0) -> int:
@@ -344,8 +353,9 @@ class Launch(NamedTuple):
     units: int   # hidden units a block
     blocks: int
     smem: int    # shared memory a block, bytes
-    rows: int = 0    # float32 forward: batch rows a block (its row group)
-    stages: int = 0  # float32 forward: the ring's stages
+    rows: int = 0    # float32: batch rows a block (its row group)
+    stages: int = 0  # float32: the ring's stages
+    chunk: int = 0   # float32 adjoint: columns of dpre a ring stage holds
 
 
 def _f32_candidates(hidden: int, in_dim: int):
@@ -454,14 +464,106 @@ def bwd_tc_smem_bytes(rows: int, hidden: int, units: int, with_dw: bool) -> int:
     return fixed + max(stages, 1) * stage
 
 
-def f32_bwd_smem_bytes(hidden: int, with_dw: bool) -> int:
-    """Shared memory a block of the float32 adjoint uses (``smem_bytes`` in
-    csrc/lstm_bwd.cu): W_hh's rows as fp32, the staged piece of the previous
-    dpre, the cross-warp sums, with dW_hh the block's own dpre."""
-    width = hidden if with_dw else _staged_width(hidden)
-    floats = (4 * hidden * _UNITS + _BMAX * (width + 4) + 8 * _UNITS * 32
-              + (_BMAX * 4 * _UNITS if with_dw else 0))
+def f32_bwd_smem_bytes(hidden: int, units: int, rows: int, stages: int, chunk: int,
+                       with_dw: bool) -> int:
+    """Shared memory a block of the float32 adjoint uses (``b32_smem_bytes``
+    in csrc/lstm_bwd.cu): the rings' bookkeeping (64 floats); the time
+    loop's W_hh rows of the U units, each 4H + 4 floats, the ring of
+    ``stages`` stages of R rows x ``chunk`` floats of dpre, and the row
+    group's order by length (2R ints); with dW_hh at least what the product
+    after the loop needs in the same memory, the rows' stage counts (R + 1
+    ints rounded up to 32) and two stages of 16 (row, frame) pairs x (H + 4U)
+    floats."""
+    floats = (_B32_HEAD_FLOATS + units * (4 * hidden + _B32_WPAD)
+              + stages * rows * chunk + 2 * rows)
+    if with_dw:
+        floats = max(floats, _B32_HEAD_FLOATS + _b32_pre_floats(rows)
+                     + 2 * _B32_DW_PAIRS * (hidden + 4 * units))
     return 4 * floats
+
+
+def _b32_pre_floats(rows: int) -> int:
+    """The row's dW stage counts, R + 1 ints rounded up to 128 bytes."""
+    return (rows + 32) & ~31
+
+
+def _b32_dw_stages(hidden: int, units: int, rows: int, stages: int, chunk: int) -> int:
+    """The dW ring's stages (``b32_dw_stages``): as many as the block's
+    memory holds beside the stage counts, at most 6."""
+    room = (f32_bwd_smem_bytes(hidden, units, rows, stages, chunk, True) // 4
+            - _B32_HEAD_FLOATS - _b32_pre_floats(rows))
+    return min(room // (_B32_DW_PAIRS * (hidden + 4 * units)), _B32_MAX_STAGES)
+
+
+def _b32_threads(rows: int, units: int) -> int:
+    """Threads a block of the float32 adjoint: (R / 8) x (U / 8) tiles of 16
+    lanes, R x U / 4 (``b32_threads``)."""
+    return rows // _B32_RT * (units // _B32_UT) * _B32_KS
+
+
+def _bwd_f32_candidates(hidden: int, with_dw: bool):
+    """(units, rows, stages, chunk, smem) of every float32 adjoint block that
+    takes ``hidden``: U of 8 or 16 dividing H, R a power of two from 8 with R
+    x U / 4 threads a multiple of 32 up to 256, ring stages of 128 or 64
+    columns, and for each the most stages (two to six) that fit the shared
+    memory a block may use."""
+    for units in _B32_UNITS:
+        if hidden % units:
+            continue
+        rows = _B32_RT
+        while _b32_threads(rows, units) <= _B32_MAX_THREADS:
+            for chunk in (2 * _B32_KC, _B32_KC) if _b32_threads(rows, units) % 32 == 0 else ():
+                for stages in range(min(_B32_MAX_STAGES, 4 * hidden // chunk), 1, -1):
+                    smem = f32_bwd_smem_bytes(hidden, units, rows, stages, chunk, with_dw)
+                    if smem <= _SMEM_LIMIT and (not with_dw or _b32_dw_stages(
+                            hidden, units, rows, stages, chunk) >= 2):
+                        yield units, rows, stages, chunk, smem
+                        break
+            rows *= 2
+
+
+def _plan_bwd_f32(name: str, batch: int, hidden: int, ndir: int, sms: int,
+                  with_dw: bool) -> List[Launch]:
+    """The float32 adjoint's launches: of the blocks ``_bwd_f32_candidates``
+    gives, the plan of the fewest launches, then of 16 units a block nearest,
+    then of the most blocks, i.e. the fewest rows a block (on an H100 at
+    H=256, B=128, 128 blocks of 32 rows ran ``lstm_bwd_dw`` 1.4x and
+    ``lstm_bwd`` 1.2x faster than 64 blocks of 64, ``tools/time_lstm_kernels.py
+    --hidden 256``); the first candidate of those (128-column stages before
+    64). A launch holds every row group of R rows and every direction the
+    card's SMs hold at once, one block an SM; with dW_hh only plans with every
+    direction in one launch. Raises where no block fits."""
+    best = None
+    for units, rows, stages, chunk, smem in _bwd_f32_candidates(hidden, with_dw):
+        try:
+            groups = _direction_groups(name, ndir, hidden, sms, units)
+        except ValueError:
+            continue
+        if with_dw and len(groups) > 1:
+            continue
+        per_group = groups[0][1] * hidden // units  # blocks of one row group
+        row_groups = max(1, sms // per_group)
+        span = row_groups * rows
+        plan = [Launch(r0, min(r0 + span, batch), d0, nd, units,
+                       nd * hidden // units * -(-(min(r0 + span, batch) - r0) // rows),
+                       smem, rows, stages, chunk)
+                for r0 in range(0, batch, span) for d0, nd in groups]
+        key = (len(plan), abs(units.bit_length() - 5), -max(ln.blocks for ln in plan))
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        if with_dw:
+            raise _dw_limit_error(name, ndir, hidden)
+        raise ValueError(f"{name}: hidden {hidden}: no float32 adjoint block fits "
+                         f"{_SMEM_LIMIT} bytes of shared memory on {sms} SMs")
+    return best[1]
+
+
+def _dw_limit_error(name: str, ndir: int, hidden: int) -> ValueError:
+    return ValueError(
+        f"{name}: {ndir} x hidden {hidden}: the adjoint with dW_hh in the kernel takes "
+        f"H <= {_BWD_DW_MAX_HIDDEN} with all directions in one launch; a wider layer is "
+        f"lstm_bwd's, with dw_hh_outside for dW_hh")
 
 
 def plan_bwd_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, ndir: int,
@@ -471,24 +573,27 @@ def plan_bwd_launches(name: str, dtype: torch.dtype, batch: int, hidden: int, nd
 
     bfloat16 (the tensor-core body): up to 128 rows a launch, ``tc_units``
     units a block, all directions in one launch wherever their blocks fit
-    the SMs. float32 (the CUDA-core body): 32 rows a launch, 8 units a block,
-    a launch a direction where both do not fit. Every (row, direction) is in
-    exactly one launch. The adjoint with dW_hh takes H <= 512 with all
-    directions in one launch. Raises a ``ValueError`` naming the limit for a
-    width or a shared-memory need the kernels do not take."""
+    the SMs. float32 (the CUDA-core body, ``_plan_bwd_f32``): blocks of R
+    rows x U units, every row group and both directions in one launch
+    wherever the SMs hold them (B=128 at H=512: one launch of 128 blocks, R
+    = 64, U = 16), a launch a direction where both do not fit (H=1024: U = 8,
+    R = 128), more launches only for a batch the card cannot hold at once.
+    Every (row, direction) is in exactly one launch. The adjoint with dW_hh
+    takes H <= 512 with all directions in one launch. Raises a
+    ``ValueError`` naming the limit for a width or a shared-memory need the
+    kernels do not take."""
     _check_hidden(name, hidden)
-    bf16 = dtype == torch.bfloat16
-    units = tc_units(hidden) if bf16 else _UNITS
+    if with_dw and hidden > _BWD_DW_MAX_HIDDEN:
+        raise _dw_limit_error(name, ndir, hidden)
+    if dtype != torch.bfloat16:
+        return _plan_bwd_f32(name, batch, hidden, ndir, sms, with_dw)
+    units = tc_units(hidden)
     groups = _direction_groups(name, ndir, hidden, sms, units)
-    if with_dw and (hidden > _BWD_DW_MAX_HIDDEN or len(groups) > 1):
-        raise ValueError(
-            f"{name}: {ndir} x hidden {hidden}: the adjoint with dW_hh in the kernel "
-            f"takes H <= {_BWD_DW_MAX_HIDDEN} with all directions in one launch; a "
-            f"wider layer is lstm_bwd's, with dw_hh_outside for dW_hh")
+    if with_dw and len(groups) > 1:
+        raise _dw_limit_error(name, ndir, hidden)
     plan = []
-    for r0, r1 in row_chunks(batch, _TC_ROWS if bf16 else _BMAX):
-        smem = (bwd_tc_smem_bytes(r1 - r0, hidden, units, with_dw) if bf16
-                else f32_bwd_smem_bytes(hidden, with_dw))
+    for r0, r1 in row_chunks(batch, _TC_ROWS):
+        smem = bwd_tc_smem_bytes(r1 - r0, hidden, units, with_dw)
         _check_smem(name, hidden, smem)
         plan += [Launch(r0, r1, d0, nd, units, nd * hidden // units, smem) for d0, nd in groups]
     return plan
@@ -670,8 +775,9 @@ def _launch_adjoint(name: str, with_dw: bool, gates: torch.Tensor, cs: torch.Ten
     """Check shapes and launch the adjoint as ``plan_bwd_launches`` plans it:
     bfloat16 on the tensor-core body (csrc/lstm_bwd_tc.cu), float32 on the
     CUDA-core body (csrc/lstm_bwd.cu). Returns dpre (B, T, ndir * 4H) and,
-    ``with_dw``, d_whh (ndir, H, 4H) float32, the launches' partial sums
-    added in launch order (runs repeat bit for bit)."""
+    ``with_dw``, d_whh (ndir, H, 4H) float32: the partial sums of the
+    launches (bfloat16) or of the row groups (float32) added in row order
+    (runs repeat bit for bit)."""
     ndir, hidden, sms = _check_recurrence(
         name, gates, [gates, cs, dy, w_hh] + ([hs] if with_dw else []), w_hh, lengths, reverse)
     streams = {"cs": cs, "dy": dy, **({"hs": hs} if with_dw else {})}
@@ -683,42 +789,43 @@ def _launch_adjoint(name: str, with_dw: bool, gates: torch.Tensor, cs: torch.Ten
     lib = load_bwd_tc_library() if tc else load_bwd_library()
     lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
     dpre = torch.empty_like(gates)
-    spans = sorted({(ln.r0, ln.r1) for ln in plan})
-    dw_parts = (torch.empty(len(spans), ndir, hidden, 4 * hidden, dtype=torch.float32,
+    # a launch's partial dW_hh: bfloat16 one a launch, float32 one a row group
+    # (with dW_hh every launch holds every direction: one span each)
+    parts = [-(-(ln.r1 - ln.r0) // ln.rows) if ln.rows else 1 for ln in plan]
+    dw_parts = (torch.empty(sum(parts), ndir, hidden, 4 * hidden, dtype=torch.float32,
                             device=gates.device) if with_dw else None)
     rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for ln in plan:
+        for n, ln in enumerate(plan):
             r0, r1 = ln.r0, ln.r1
             rows = (gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr())
+            h_ptr = hs[r0:r1].data_ptr() if with_dw else None
             tail = (dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
                     dpre[r0:r1].data_ptr())
-            h_ptr = hs[r0:r1].data_ptr() if with_dw else None
-            dw_ptr = dw_parts[spans.index((r0, r1))].data_ptr() if with_dw else None
+            dw_ptr = dw_parts[sum(parts[:n])].data_ptr() if with_dw else None
+            # the exchange: each step's dpre, double-buffered, a direction's rows
+            # compact (float32: padded to whole row groups)
+            xbuf = torch.empty(2, ln.nd, parts[n] * ln.rows if ln.rows else r1 - r0,
+                               4 * hidden, dtype=gates.dtype, device=gates.device)
+            sync = torch.zeros(ln.nd * parts[n], dtype=torch.int32, device=gates.device)
             if tc:
-                # the exchange: each step's dpre, double-buffered, a direction's rows compact
-                xbuf = torch.empty(2, ln.nd, r1 - r0, 4 * hidden, dtype=gates.dtype,
-                                   device=gates.device)
-                sync = torch.zeros(ln.nd, dtype=torch.int32, device=gates.device)
                 err = lib.lstm_bwd_tc_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
                                              r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
                                              xbuf.data_ptr(), dw_ptr, ln.units, sync.data_ptr(),
                                              stream)
-            elif with_dw:
-                err = lib.lstm_bwd_dw_launch(_DTYPE_CODES[gates.dtype], ndir, rev_bits, r1 - r0,
-                                             seq_len, hidden, *rows, h_ptr, *tail, dw_ptr,
-                                             stream)
             else:
-                err = lib.lstm_bwd_launch(_DTYPE_CODES[gates.dtype], ndir, rev_bits, ln.d0, ln.nd,
-                                          r1 - r0, seq_len, hidden, *rows, *tail, stream)
+                err = lib.lstm_bwd_f32_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
+                                              r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
+                                              xbuf.data_ptr(), dw_ptr, ln.units, ln.rows,
+                                              ln.stages, ln.chunk, sync.data_ptr(), stream)
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed with cudaError {err}")
             LAUNCHES[name] += 1
     if not with_dw:
         return dpre
     d_whh = dw_parts[0]
-    for n in range(1, len(spans)):  # a fixed order: runs repeat bit for bit
+    for n in range(1, dw_parts.shape[0]):  # a fixed order: runs repeat bit for bit
         d_whh = d_whh + dw_parts[n]
     return dpre, d_whh
 
@@ -995,7 +1102,7 @@ def lstm_scan_cs(x_proj: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor
 
 def bilstm_scan_fused(xp: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
     """Both directions of a BiLSTM layer in one launch (a launch per 128 rows
-    in bfloat16, per 32 in float32).
+    in bfloat16; in float32 every row the card holds at once).
 
     xp (T, 2, B, 4H): each direction's ``x @ W_ih + b``, direction 1 flipped
     in time as a whole (so a row's padded frames come first in it); w_hh

@@ -4,12 +4,15 @@ repository's ``bench.py``, the same step and the same shapes.
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.bench
     BENCH_ARCH=scaled python -m attention_based_e2e_asr_dnn_tpu_torch.tools.bench
     python -m attention_based_e2e_asr_dnn_tpu_torch.tools.bench --device cpu   # a toy check
+    python -m attention_based_e2e_asr_dnn_tpu_torch.tools.bench --dtype float32
 
 ``BENCH_ARCH`` is ``base`` (``configs/base-las.yml``'s model block) or
 ``scaled`` (``configs/scaled-las.yml``'s: H=1024, 4 heads, ``remat``);
 ``BENCH_BATCH`` the batch (default 128). The step is ``bench.py``'s: seeded
-parameters, AdamW (amsgrad, lr 1e-3, wd 5e-6), clip 5, bfloat16 compute,
-SpecAugment and dropout on, tf_rate 0.9, both kernel tiers.
+parameters, AdamW (amsgrad, lr 1e-3, wd 5e-6), clip 5, bfloat16 compute
+(``--dtype float32``: the float32 step, the configs' default and the path of
+the float32 kernels), SpecAugment and dropout on, tf_rate 0.9, both kernel
+tiers.
 
 Dense: one seeded batch of B=128, T=1536, L=192 on the card, 2 warm-up
 steps, then 8 timed steps (host clock, ending in
@@ -24,7 +27,8 @@ Prints one JSON line: ``metric``, ``value`` (utt/s dense), ``unit``,
 analytic FLOPs of ``utils/flops.py`` over the card's bf16 peak; None where
 the peak is unknown), ``flops_per_step``, ``peak_mib`` (dense),
 ``launches_per_step`` (the kernels' launches in a dense step), ``arch``,
-``batch``, ``device``, ``card`` and ``power_limit_w`` (``nvidia-smi``).
+``batch``, ``compute_dtype``, ``device``, ``card`` and ``power_limit_w``
+(``nvidia-smi``).
 There is no ``vs_baseline``: no TPU or CPU number is a yardstick for the
 card. A failure in either mode raises.
 """
@@ -109,10 +113,11 @@ def plan_realistic_batches(batch: int, pad_time: int = 256, pad_label: int = 32,
     return plans, 1.0 - real_frames / padded_frames
 
 
-def build_step_and_state(model: dict, device: str = "cuda", seed: int = 0):
-    """``bench.py``'s step on ``model`` (a model block): parameters from
-    ``seed``, the step's noise from ``seed + 1``. Returns (cfg, step, state,
-    optimizer)."""
+def build_step_and_state(model: dict, device: str = "cuda", seed: int = 0,
+                         compute_dtype: torch.dtype = torch.bfloat16):
+    """``bench.py``'s step on ``model`` (a model block) in
+    ``compute_dtype``: parameters from ``seed``, the step's noise from
+    ``seed + 1``. Returns (cfg, step, state, optimizer)."""
     cfg = las_config_from_dicts(model["listener_configs"], model["speller_configs"])
     cuda_build.build_for(torch.device(device), cfg.listener.lstm_impl,
                          cfg.speller.decoder_impl)
@@ -124,7 +129,7 @@ def build_step_and_state(model: dict, device: str = "cuda", seed: int = 0):
     def apply_fn(p, x, lx, **kwargs):
         return las_apply(p, cfg, x, lx, **kwargs)
 
-    step = make_train_step(apply_fn, opt, compute_dtype=torch.bfloat16, use_specaug=True)
+    step = make_train_step(apply_fn, opt, compute_dtype=compute_dtype, use_specaug=True)
     return cfg, step, state, opt
 
 
@@ -181,13 +186,15 @@ def measure_realistic(step, state, batch: int, device):
     return batch * len(plans) / total, waste, sorted(counts.items())
 
 
-def run(arch: str, batch: int, device: str = "cuda") -> dict:
-    """The bench's record for ``arch`` at ``batch`` on ``device``."""
+def run(arch: str, batch: int, device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """The bench's record for ``arch`` at ``batch`` on ``device``, the step
+    computing in ``dtype``."""
     time_steps, label_len = TIME_STEPS, LABEL_LEN
     if arch not in MODELS:
         raise ValueError(f"BENCH_ARCH must be 'base' or 'scaled', got {arch!r}")
     dev = require_device(device, "bench")
-    cfg, step, state, _ = build_step_and_state(MODELS[arch], device)
+    cfg, step, state, _ = build_step_and_state(MODELS[arch], device,
+                                               compute_dtype=getattr(torch, dtype))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(0)
@@ -212,6 +219,7 @@ def run(arch: str, batch: int, device: str = "cuda") -> dict:
         "launches_per_step": launches,
         "arch": arch,
         "batch": batch,
+        "compute_dtype": dtype,
         "shape": [batch, time_steps, label_len],
         "device": str(dev),
         "card": card,
@@ -223,9 +231,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="training throughput of the port on one card")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu; cuda without a card raises")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the step's compute dtype (default bfloat16)")
     args = ap.parse_args(argv)
     result = run(os.environ.get("BENCH_ARCH", "base"),
-                 int(os.environ.get("BENCH_BATCH", "128")), args.device)
+                 int(os.environ.get("BENCH_BATCH", "128")), args.device, args.dtype)
     print(json.dumps(result))
     return 0
 

@@ -16,10 +16,15 @@ the route that would replace ``lstm_bwd_dw`` there);
 projection laid out as (T, 2, B, 4H)) beside ``lstm_scan``. Times are
 CUDA-event medians of ``--reps`` calls after one warm-up call, each call all
 the launches its wrapper makes (bfloat16: one per 128 rows, both directions,
-the adjoint too; float32: one per 32 rows, and a direction at H=1024). The line names the
-card and its power limit, so two trees can be compared within one run on one
-card (run them in turns: parent, change, change, parent). ``--forms`` times
-only the named wrappers (and, with ``lstm_bwd``, the outside product).
+the adjoint too; float32: every row the card holds, and a launch a direction
+at H=1024), with each call's launches beside the adjoints' times. Beside the
+float32 adjoints, cuDNN's float32 backward at the same shape (``nn.LSTM``,
+bidirectional, on the packed batch of the layer's input, 15 or 4H wide;
+every parameter's gradient from a given output gradient; TF32 off): the
+yardstick, which the port never calls. The line names the card and its power
+limit, so two trees can be compared within one run on one card (run them in
+turns: parent, change, change, parent). ``--forms`` times only the named
+wrappers (and, with ``lstm_bwd``, the outside product).
 
 ``--rewriter`` times instead the float32 ``lstm_scan`` at the Rewriter
 encoder's layer as ``lminfer`` runs it (``configs/rewriter.yml``: H=256, both
@@ -82,6 +87,22 @@ def rewriter_ms(reps: int) -> dict:
             "launches": launches}
 
 
+def cudnn_backward_ms(x: torch.Tensor, lengths: torch.Tensor, hidden: int, reps: int) -> float:
+    """cuDNN's backward of one bidirectional LSTM layer over ``x`` (B, T, D)
+    packed by ``lengths``: every parameter's gradient from a random output
+    gradient, in x's dtype (float32: TF32 off)."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    lstm = torch.nn.LSTM(x.shape[2], hidden, batch_first=True, bidirectional=True)
+    lstm = lstm.to(x.device, x.dtype)
+    packed = pack_padded_sequence(x, lengths.cpu().long(), batch_first=True,
+                                  enforce_sorted=False)
+    out = lstm(packed)[0].data
+    dy = torch.randn_like(out)
+    params = list(lstm.parameters())
+    return median_ms(lambda: torch.autograd.grad(out, params, dy, retain_graph=True), reps)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
@@ -93,6 +114,8 @@ def main() -> None:
     cli = parser.parse_args()
     reps, H = cli.reps, cli.hidden
     require_device("cuda", "time_lstm_kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = smi_name_and_power()
     if cli.rewriter:
         print(json.dumps({"card": card, "reps": reps, **rewriter_ms(reps)}))
@@ -103,7 +126,7 @@ def main() -> None:
     gen = torch.Generator().manual_seed(0)
     k = H ** -0.5
     rev = (False, True)
-    out = {"card": card, "reps": reps, "hidden": H, "ms": {}}
+    out = {"card": card, "reps": reps, "hidden": H, "ms": {}, "launches": {}}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         w_hh = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
         w_ih = ((torch.rand(2, 15, 4 * H, generator=gen) * 2 - 1) * k).to("cuda", dtype)
@@ -145,10 +168,21 @@ def main() -> None:
                         out["ms"][f"{train} {key}"] = median_ms(
                             lambda: fn[train](*args, lengths, rev), reps)
                     if H <= 512 and fn["lstm_bwd_dw"] is not None:
+                        lc.reset_launch_counts()
+                        lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+                        out["launches"][f"lstm_bwd_dw {key}"] = lc.LAUNCHES["lstm_bwd_dw"]
                         out["ms"][f"lstm_bwd_dw {key}"] = median_ms(
                             lambda: lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev), reps)
+                    if adjoints and dtype == torch.float32:
+                        x = (args[0] if name == "fusedin" else torch.randn(
+                            batch, seq_len, 4 * H, generator=gen).to("cuda", dtype))
+                        out["ms"][f"nn.LSTM backward (cuDNN, TF32 off) {key}"] = (
+                            cudnn_backward_ms(x, lengths, H, reps))
+                        del x
                     if fn["lstm_bwd"] is not None:
+                        lc.reset_launch_counts()
                         dpre = lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+                        out["launches"][f"lstm_bwd {key}"] = lc.LAUNCHES["lstm_bwd"]
                         out["ms"][f"lstm_bwd {key}"] = median_ms(
                             lambda: lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev), reps)
                         out["ms"][f"dw_hh_outside {key}"] = median_ms(

@@ -26,8 +26,8 @@ on one NVIDIA card, from the root of a checkout:
    asserted). The plain version forced along the kernel's own fed-back ids
    must agree at every step within the stated tolerance; the plain version
    run free must pick the same ids wherever the top two logits are further
-   apart than the tolerance (float32). Median kernel time and the plain
-   time.
+   apart than the tolerance (float32). Median kernel time, the plain time
+   and each case's bound.
 4. A base-LAS experiment folder (config.json with the base-las model block,
    two seeded full-width random checkpoints) served on the card through
    ``Transcriber.transcribe`` and ``StreamingTranscriber.submit``, with the
@@ -42,17 +42,17 @@ on one NVIDIA card, from the root of a checkout:
    (B=128, H=512; layer 0 at T=1536 with D=15, layer 1 at T=768 over a
    2 x 4H projection), float32 and bfloat16 (the bf16 adjoint the
    tensor-core kernel, one launch of all rows and both directions; the
-   float32 training forward one launch of all rows, its adjoint four
-   launches of 32 rows; the plan's counts asserted), ragged
-   lengths with a length-1 row and a full row in every launch: hs bit-equal
+   float32 training forward one launch of all rows, its adjoint too: R=64
+   rows x U=16 units a block, 128 blocks; the plan's counts asserted), ragged
+   lengths with a length-1 row and a full row in every 32 rows: hs bit-equal
    to the lean kernels'; cs, gates, dpre, dW_hh and the fused-input
    Function's d_x, d_wih, d_b against the plain versions; ``lstm_bwd`` (the
    adjoint without dW_hh) at the same shapes, its dpre against
    ``lstm_bwd_dw``'s and against its own plain version, and the outside dW_hh
-   product against the sum inside the kernel; in bfloat16 the two forms'
+   product against the sum inside the kernel; in both dtypes the two forms'
    dpre bit-equal (asserted). Then the same at scaled-LAS's H=1024 (float32:
-   the wide form, one launch a direction, ``lstm_bwd`` eight launches a call;
-   bfloat16 one): the training forward, ``lstm_bwd`` with the
+   the wide form, one launch a direction, ``lstm_bwd`` too, U=8 units x R=128
+   rows a block; bfloat16 one): the training forward, ``lstm_bwd`` with the
    outside product (timed on its own) as the adjoint, and the lean forward
    kernels, which are a ``remat`` layer's first pass (timed at B=128 at both
    widths).
@@ -108,7 +108,9 @@ on one NVIDIA card, from the root of a checkout:
    three routes on the card: both kernel tiers, the listener kernels with the
    scan decoder, and the plain loops (``lstm_impl: scan``, ``decoder_impl:
    scan``): loss, grad_norm and every updated parameter of the first two
-   against the third.
+   against the third. The float32 adjoint's launches in the kernel routes'
+   steps (here and in phase 10's) are its rows' in the JSON line, a float32
+   train run being its main path.
 10. scaled-LAS (the model block of ``configs/scaled-las.yml``: listener
    H=1024, ``remat: true``; speller 4 heads, hid 1024) on the same batch and
    recipe as 8, both kernel tiers: one warm-up and 3 timed steps, every one
@@ -352,6 +354,16 @@ WIDE_H = 1024
 def at_width(name: str, hidden: int) -> str:
     """The record's name: the kernel's, with the width where it is not 512."""
     return name if hidden == H else f"{name} (H={hidden})"
+
+
+def f32_adjoint_name(hidden: int) -> str:
+    """The float32 adjoint's record: ``lstm_bwd_dw`` up to H=512, ``lstm_bwd``
+    above, as ``_adjoint`` routes them."""
+    if hidden > H:
+        return f"lstm_bwd (H={hidden}, float32)"
+    return "lstm_bwd_dw (float32)"
+
+
 # The training forward and the adjoint against their plain versions: the
 # largest error over the largest magnitude of the plain tensor. float32:
 # summation order over up to 1536 steps (dW_hh sums T x B terms).
@@ -684,18 +696,18 @@ def speller_kernel_phase(torch, card: str) -> dict:
             if dtype_name == "float32" and any(g > tol for g in gaps):
                 raise AssertionError(f"speller_decode {case}: free-run ids differ where the "
                                      f"top two logits are {max(gaps)} apart")
+            # the bound of every case: per row and step, cell 1 over [context;
+            # h1] (the embedding arrives pre-projected), cell 2, the query,
+            # scores and context over the row's valid frames, the classifier
+            proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
+            per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2
+                           + h2 * proj + 2 * proj * vocab)
+            flops = spl.CHR_MAX_STEPS * (batch * per_row + 4 * proj * int(lengths.sum()))
+            moved = nbytes(*(t for t in operands if torch.is_tensor(t)), logits, wgts, ids)
+            bound, bound_by = bound_ms(flops, moved, dtype_name)
+            log(f"[{card}] speller_decode {case} {dtype_name} B={batch}: bound {bound:.3f} ms "
+                f"({bound_by}; {flops:.3e} operations, {moved:.3e} bytes)")
             if case == "base-LAS" and dtype_name == "bfloat16":  # the infer path's
-                # per row and step: cell 1 over [context; h1] (the embedding
-                # arrives pre-projected), cell 2, the query, scores and context
-                # over the row's valid frames, the classifier
-                proj, h1, h2 = spl.att_proj_dim, spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim
-                per_row = 2 * ((proj + h1) * 4 * h1 + (h1 + h2) * 4 * h2
-                               + h2 * proj + 2 * proj * vocab)
-                flops = spl.CHR_MAX_STEPS * (batch * per_row + 4 * proj * int(lengths.sum()))
-                moved = nbytes(*(t for t in operands if torch.is_tensor(t)), logits, wgts, ids)
-                bound, bound_by = bound_ms(flops, moved, dtype_name)
-                log(f"[{card}] speller_decode {case} {dtype_name}: bound {bound:.3f} ms "
-                    f"({bound_by}; {flops:.3e} operations, {moved:.3e} bytes)")
                 record = {"name": "speller_decode", "route": "cuda",
                           "source": SPELLER_TC_SOURCE, "replaces": SPELLER_REPLACES,
                           "launches": 0, "max_abs_err": err, "ms": ms,
@@ -1072,21 +1084,28 @@ def forward_launches(torch, dtype, batch: int, hidden: int, in_dim: int = 0) -> 
 def adjoint_launches(torch, dtype, batch: int, hidden: int, with_dw: bool) -> int:
     """Launches of a two-direction adjoint call, from the plan
     (``lstm_cuda.plan_bwd_launches``): bfloat16 one per 128 rows with both
-    directions (asserted); float32 one per 32 rows, and one a direction at
-    H=1024."""
+    directions; float32 every row in one launch up to the train batch (B <=
+    128), both directions in it up to H=512 and one launch a direction at
+    H=1024. Both asserted against the plan."""
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = lc.plan_bwd_launches("adjoint", dtype, batch, hidden, 2, sms, with_dw)
-    if dtype == torch.bfloat16 and (len(plan) != len(lc.row_chunks(batch, 128))
-                                    or any(ln.nd != 2 for ln in plan)):
-        raise AssertionError(f"adjoint B={batch} H={hidden}: plan {plan}")
+    spans = [(ln.r0, ln.r1, ln.d0, ln.nd) for ln in plan]
+    if dtype == torch.bfloat16:
+        ok = len(plan) == len(lc.row_chunks(batch, 128)) and all(ln.nd == 2 for ln in plan)
+    else:
+        ok = batch > TRAIN_B or spans == (
+            [(0, batch, 0, 2)] if hidden <= H else [(0, batch, 0, 1), (0, batch, 1, 1)])
+    if not ok:
+        raise AssertionError(f"adjoint B={batch} H={hidden} {dtype}: plan {plan}")
     return len(plan)
 
 
 def ragged_lengths(torch, gen, batch: int, low: int, high: int):
     """Lengths in [low, high] with a full row and a length-``low`` row in
-    every 32-row launch."""
+    every B (32) rows: in every row group of the float32 kernels and every
+    launch of the bfloat16 ones."""
     lengths = torch.randint(low, high + 1, (batch,), generator=gen)
     for r0 in range(0, batch, B):
         lengths[r0], lengths[min(r0 + 1, batch - 1)] = high, low
@@ -1188,9 +1207,9 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                 errs["lstm_bwd dpre"] = rel_err(nodw, p_dpre)
                 if lc.LAUNCHES["lstm_bwd"] != adjoint_launches(torch, dtype, batch, hidden, False):
                     raise AssertionError(f"lstm_bwd: {dict(lc.LAUNCHES)} launches")
-                # bfloat16: one body for both forms, the dW products apart from dh's sums
-                if dtype_name == "bfloat16" and not same_dpre:
-                    raise AssertionError(f"{name}: bf16 lstm_bwd's dpre differs from "
+                # one body for both forms in each dtype: dW_hh never touches dh's sums
+                if not same_dpre:
+                    raise AssertionError(f"{name}: {dtype_name} lstm_bwd's dpre differs from "
                                          f"lstm_bwd_dw's")
                 del nodw
             if fused:
@@ -1246,6 +1265,17 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
             bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
             if bad:
                 raise AssertionError(f"{name} {dtype_name}: errors over {tol} of max: {bad}")
+            if dtype_name == "float32" and fused:
+                # the float32 adjoint's record at its largest shape; its launches
+                # are the float32 parity steps' (phases 9 and 10)
+                records[f32_adjoint_name(hidden)] = {
+                    "name": f32_adjoint_name(hidden), "route": "cuda", "source": BWD_SOURCE,
+                    "replaces": PALLAS + (":311" if wide else ":382"), "launches": 0,
+                    "max_abs_err": errs["dpre"][0], "ms": bwd_ms if wide else bwd_dw_ms,
+                    "plain_ms": plain_bwd_ms,
+                    "bound_ms": (nodw_bound if wide else dw_bound)[0],
+                    "bound_by": (nodw_bound if wide else dw_bound)[1],
+                    "library_ms": lib_bwd}
             if dtype_name == "bfloat16":
                 records[at_width(name, hidden)] = {
                     "name": at_width(name, hidden), "route": "cuda", "source": TC_SOURCE,
@@ -1875,13 +1905,14 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
     return counts, {"s_per_step": sec, "split_ms": split}
 
 
-def train_parity_phase(torch, card: str, model: str = "base-LAS") -> None:
+def train_parity_phase(torch, card: str, model: str = "base-LAS") -> dict:
     """One float32 step at the full width of ``model`` through both kernel
     tiers, (base-LAS) through the listener kernels with the scan decoder, and
     through the plain loops under autograd, from the same weights, batch and
-    draws."""
+    draws. Returns the LSTM kernels' launches in the kernel routes' steps."""
     from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
 
     batch, seq_len, labels, lr = 40, 256, 32, 1e-3
     x, lx, y, ly = train_batch(torch, batch, seq_len, labels, SEED + 2)
@@ -1893,11 +1924,14 @@ def train_parity_phase(torch, card: str, model: str = "base-LAS") -> None:
               "plain": ("scan", "scan")}
     if model != "base-LAS":
         del routes["lstm_impl pallas + decoder_impl scan"]
-    results = {}
+    results, launches = {}, {}
     for name, impls in routes.items():
         _, state, step = build_trainer(torch, train_config(*impls, model), torch.float32, SEED)
+        lc.reset_launch_counts()
         state, m, _ = step(state, x, lx, y, ly, 0.9, lr, draws=draws)
         torch.cuda.synchronize()
+        for kernel, n in lc.LAUNCHES.items():
+            launches[kernel] = launches.get(kernel, 0) + n
         results[name] = ({k: v.item() for k, v in m.items()},
                          [p.detach() for p in state.params.parameters()])
     mp, pp = results.pop("plain")
@@ -1926,6 +1960,7 @@ def train_parity_phase(torch, card: str, model: str = "base-LAS") -> None:
         if not (worst <= 2 * lr * 1.01 and off <= total // 1000):
             raise AssertionError(f"train parity {name}: parameters differ by {worst}, {off} "
                                  f"elements off")
+    return launches
 
 
 def make_experiment(torch, root: str) -> str:
@@ -4446,6 +4481,9 @@ def main() -> int:
     with phase("6 LSTM training kernels, H=512 and H=1024"):
         train_records = train_kernel_phase(torch, card)
         wide_records = train_kernel_phase(torch, card, WIDE_H)
+    # the float32 adjoint's rows, whose main path is the float32 train step
+    f32_records = {f32_adjoint_name(h): recs.pop(f32_adjoint_name(h))
+                   for h, recs in ((H, train_records), (WIDE_H, wide_records))}
     with phase("12 lstm_scan_cs, bilstm_scan_fused, bilstm_apply_fused"):
         fused_records = fused_kernel_phase(torch, card)
 
@@ -4491,13 +4529,13 @@ def main() -> int:
     with phase("8 + 9 base-LAS train steps, parity step"):
         train_launches, steps["base-LAS"] = train_phase(torch, card, "pallas", 3)
         train_phase(torch, card, "scan", 2)
-        train_parity_phase(torch, card)
+        f32_launches = {H: train_parity_phase(torch, card)}
     # scaled-LAS (H=1024, remat): train steps and the parity step, then the
     # train CLI, a resumed run and the infer CLI from the folder it wrote
     with phase("10 scaled-LAS train steps, parity step"):
         wide_launches, steps["scaled-LAS"] = train_phase(torch, card, "pallas", 3,
                                                          "scaled-LAS")
-        train_parity_phase(torch, card, "scaled-LAS")
+        f32_launches[WIDE_H] = train_parity_phase(torch, card, "scaled-LAS")
     with phase("19 bench: base and scaled, dense and realistic"):
         bench_phase(torch, card, steps)
     with phase("20 profile_step: base and scaled"):
@@ -4559,6 +4597,12 @@ def main() -> int:
         records[name]["launches"] += dp_launches[name]
     for name in ("lstm_scan_fusedin", "lstm_scan"):
         records[name]["launches"] += dp_serve_launches[name]
+    # the float32 adjoint: the float32 parity steps through the kernels (a
+    # float32 train run's step), lstm_bwd_dw at H=512 and lstm_bwd at H=1024
+    for h in (H, WIDE_H):
+        f32_records[f32_adjoint_name(h)]["launches"] = f32_launches[h][
+            "lstm_bwd" if h > H else "lstm_bwd_dw"]
+    records.update(f32_records)
     # the last two kernels: no YAML key of either package routes to them, so
     # their main path is the op itself, in the driven run at each row's shape
     records.update(fused_records)

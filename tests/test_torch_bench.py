@@ -80,7 +80,16 @@ def test_model_blocks_are_the_configs(arch, config):
 def test_bench_step_is_make_train_steps():
     """One step of the bench's step at toy widths against one of a step
     built from the recipe it names: the same loss, norm and parameters."""
-    cfg, step, state, _ = bench.build_step_and_state(TOY, "cpu")
+    _check_step_against_recipe(torch.bfloat16)
+
+
+def test_bench_float32_step_is_make_train_steps():
+    """``--dtype float32``'s step is the same recipe computing in float32."""
+    _check_step_against_recipe(torch.float32)
+
+
+def _check_step_against_recipe(dtype):
+    cfg, step, state, _ = bench.build_step_and_state(TOY, "cpu", compute_dtype=dtype)
     ref_cfg = las_config_from_dicts(TOY["listener_configs"], TOY["speller_configs"])
     assert ref_cfg == cfg
     opt = build_optimizer("adamw", {"lr": 1e-3, "weight_decay": 5e-6, "amsgrad": True},
@@ -88,7 +97,7 @@ def test_bench_step_is_make_train_steps():
     ref_state = create_train_state(las_init(ref_cfg, torch.Generator().manual_seed(0)), opt,
                                    seed=1, device="cpu")
     ref_step = make_train_step(lambda p, x, lx, **kw: las_apply(p, ref_cfg, x, lx, **kw), opt,
-                               compute_dtype=torch.bfloat16, use_specaug=True)
+                               compute_dtype=dtype, use_specaug=True)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(4, 32, 15)).astype(np.float32))
     lx = torch.tensor([32, 30, 25, 17], dtype=torch.int32)
@@ -108,9 +117,7 @@ def _tiny_plan(batch, pad_time=256, pad_label=32, n_utts=1024, seed=0):
     return [(32, 8, lx, ly), (32, 8, lx, ly), (16, 8, np.minimum(lx, 16), ly)], 0.25
 
 
-def test_json_line_and_its_keys(monkeypatch, capsys):
-    """``main`` at toy widths and shapes: one JSON line with every key, the
-    realistic mode weighted over the plan's shapes."""
+def _toy_bench(monkeypatch):
     for name, value in (("TIME_STEPS", 32), ("LABEL_LEN", 8), ("WARMUP_STEPS", 1),
                         ("MEASURE_STEPS", 1)):
         monkeypatch.setattr(bench, name, value)
@@ -118,10 +125,17 @@ def test_json_line_and_its_keys(monkeypatch, capsys):
     monkeypatch.setattr(bench, "plan_realistic_batches", _tiny_plan)
     monkeypatch.setenv("BENCH_ARCH", "scaled")
     monkeypatch.setenv("BENCH_BATCH", "4")
+
+
+def test_json_line_and_its_keys(monkeypatch, capsys):
+    """``main`` at toy widths and shapes: one JSON line with every key, the
+    realistic mode weighted over the plan's shapes."""
+    _toy_bench(monkeypatch)
     assert bench.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     rec = json.loads(lines[0])
+    assert rec["compute_dtype"] == "bfloat16"
     assert {"metric", "value", "unit", "s_per_step", "value_realistic", "pad_waste_frac",
             "mfu", "flops_per_step", "peak_mib", "arch", "card", "power_limit_w",
             "launches_per_step"} <= set(rec)
@@ -137,6 +151,22 @@ def test_json_line_and_its_keys(monkeypatch, capsys):
             rec["power_limit_w"]) == (None, None, {}, "cpu", None)
     with pytest.raises(ValueError, match="BENCH_ARCH"):
         bench.run("small", 4, "cpu")
+
+
+def test_dtype_flag_times_the_float32_step(monkeypatch, capsys):
+    """``--dtype float32`` builds the float32 step and names it in the line;
+    another dtype is refused."""
+    _toy_bench(monkeypatch)
+    built = []
+    real = bench.build_step_and_state
+    monkeypatch.setattr(bench, "build_step_and_state",
+                        lambda *a, **kw: built.append(kw["compute_dtype"]) or real(*a, **kw))
+    assert bench.main(["--device", "cpu", "--dtype", "float32"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert built == [torch.float32] and rec["compute_dtype"] == "float32"
+    assert math.isfinite(rec["value"]) and math.isfinite(rec["value_realistic"])
+    with pytest.raises(SystemExit):
+        bench.main(["--device", "cpu", "--dtype", "float16"])
 
 
 def test_peak_table_and_mfu(monkeypatch):

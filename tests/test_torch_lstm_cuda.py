@@ -201,7 +201,8 @@ def _check_train_kernels(cuda_device, batch, hidden, ndir, dtype, fused):
         (lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_train, lstm_cuda.lstm_scan_train_plain))
     wide = hidden > 512
     # the adjoint's plan: bfloat16 one launch per 128 rows with every
-    # direction; float32 per 32 rows, a launch a direction where both do not fit
+    # direction; float32 every row the card holds, a launch a direction where
+    # both do not fit
     n_adjoint = _adjoint_launches(cuda_device, dtype, batch, hidden, ndir, not wide)
     lstm_cuda.reset_launch_counts()
     hs, cs, gates = train(*args, lengths, reverse)
@@ -250,8 +251,9 @@ def test_functions_backward_on_card(cuda_device, fused):
     torch.cuda.synchronize()
     name = "lstm_scan_fusedin_train" if fused else "lstm_scan_train"
     n_fwd = _forward_launches(cuda_device, torch.float32, 40, 64, 2, 15 if fused else 0)
+    n_adjoint = _adjoint_launches(cuda_device, torch.float32, 40, 64, 2, True)
     assert lstm_cuda.LAUNCHES == {**dict.fromkeys(lstm_cuda.LAUNCHES, 0),
-                                  name: n_fwd, "lstm_bwd_dw": 2}
+                                  name: n_fwd, "lstm_bwd_dw": n_adjoint}
     want = torch.autograd.grad(fn(*cpu_leaves, lengths.cpu(), reverse), cpu_leaves, dy.cpu())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
@@ -411,9 +413,10 @@ def test_bilstm_scan_fused_refuses_a_wide_layer_on_card(cuda_device):
 # The bfloat16 adjoint on tensor cores (csrc/lstm_bwd_tc.cu)
 # ---------------------------------------------------------------------------
 
-def _adjoint_case(device, batch, hidden, ndir, seq_len, seed=3):
+def _adjoint_case(device, batch, hidden, ndir, seq_len, seed=3,
+                  dtype=torch.bfloat16):
     """Saved streams as the training forward leaves them (gates i, f, o in
-    (0, 1) and g in (-1, 1)), bfloat16, ragged lengths with a full and a
+    (0, 1) and g in (-1, 1)), in ``dtype``, ragged lengths with a full and a
     length-1 row."""
     gen = torch.Generator().manual_seed(seed + 1000 * batch + hidden)
     four_h = 4 * hidden
@@ -424,9 +427,9 @@ def _adjoint_case(device, batch, hidden, ndir, seq_len, seed=3):
     streams = [torch.randn(batch, seq_len, ndir * hidden, generator=gen) for _ in range(3)]
     w_hh = (torch.rand(ndir, hidden, four_h, generator=gen) * 2 - 1) * hidden ** -0.5
     lengths = _ragged(batch, seq_len, gen).to(device)
-    cs, hs, dy = (t.to(device, torch.bfloat16) for t in streams)
-    return (gates.to(device, torch.bfloat16), cs, hs, dy, w_hh.to(device, torch.bfloat16),
-            lengths, (False, True)[:ndir])
+    cs, hs, dy = (t.to(device, dtype) for t in streams)
+    return (gates.to(device, dtype), cs, hs, dy, w_hh.to(device, dtype), lengths,
+            (False, True)[:ndir])
 
 
 @pytest.mark.cuda
@@ -481,6 +484,70 @@ def test_bf16_wide_adjoint_is_one_launch_of_both_directions_on_card(cuda_device,
     assert lstm_cuda.LAUNCHES["lstm_bwd"] == 1
     ref = lstm_cuda.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)
     torch.testing.assert_close(dpre.float(), ref.float(), atol=_tol(torch.bfloat16, ref), rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The float32 adjoint on the CUDA cores (csrc/lstm_bwd.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (128, 512), (129, 512), (300, 256),
+                                          (40, 1024)])
+def test_fp32_adjoint_repeats_bit_for_bit_on_card(cuda_device, batch, hidden):
+    """Two calls on the same inputs give the same bits: a fixed summation
+    order, no atomics, the row groups' partial dW_hh summed in order."""
+    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, batch, hidden, 2, 11,
+                                                          dtype=torch.float32)
+    first = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+    assert torch.equal(first, lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev))
+    if hidden <= 512:
+        dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+        again = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+        assert torch.equal(dpre, again[0]) and torch.equal(d_whh, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [40, 128, 300])
+def test_fp32_adjoint_forms_give_the_same_dpre_on_card(cuda_device, batch):
+    """``lstm_bwd``'s dpre is ``lstm_bwd_dw``'s bit for bit (one time loop;
+    dW_hh is summed after it), at B=40 and 128 (one launch) and B=300 (more
+    row groups and launches, their partial dW_hh summed in order), and both
+    agree with the plain versions."""
+    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, batch, 512, 2, 13,
+                                                          dtype=torch.float32)
+    lstm_cuda.reset_launch_counts()
+    nodw = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+    dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+    torch.cuda.synchronize()
+    n = _adjoint_launches(cuda_device, torch.float32, batch, 512, 2, True)
+    assert lstm_cuda.LAUNCHES["lstm_bwd"] == lstm_cuda.LAUNCHES["lstm_bwd_dw"] == n
+    assert torch.equal(nodw, dpre)
+    p_dpre, p_dwhh = lstm_cuda.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
+    for got, ref in ((dpre, p_dpre), (d_whh, p_dwhh)):
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    pads = torch.arange(gates.shape[1], device=cuda_device)[None, :] >= lengths[:, None]
+    assert dpre[pads].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [512, 1024])
+def test_fp32_adjoint_is_one_launch_at_the_train_batch_on_card(cuda_device, hidden):
+    """At B=128 the float32 adjoint takes every row in one launch: both
+    directions at H=512 (R=64 rows x U=16 units a block, 128 blocks), one
+    launch a direction at H=1024 (U=8 by shared memory); and it agrees with
+    its plain version."""
+    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, 128, hidden, 2, 9,
+                                                          dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = lstm_cuda.plan_bwd_launches("test", torch.float32, 128, hidden, 2, sms, False)
+    want = [(0, 128, 0, 2)] if hidden <= 512 else [(0, 128, 0, 1), (0, 128, 1, 1)]
+    assert [(ln.r0, ln.r1, ln.d0, ln.nd) for ln in plan] == want
+    lstm_cuda.reset_launch_counts()
+    dpre = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES["lstm_bwd"] == len(want)
+    ref = lstm_cuda.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)
+    assert (dpre - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 @pytest.mark.cuda

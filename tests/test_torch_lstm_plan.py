@@ -210,17 +210,146 @@ def test_bwd_bf16_batch_past_128_rows_takes_a_second_launch(hidden, with_dw):
     assert plan[1].smem < plan[0].smem
 
 
-@pytest.mark.parametrize("batch,hidden,ndir,with_dw", [
-    (5, 64, 2, True), (40, 512, 2, True), (128, 512, 2, True), (128, 512, 2, False),
-    (128, 1024, 2, False), (129, 768, 2, False), (64, 1024, 1, False)])
-def test_bwd_fp32_keeps_rows_of_32_and_direction_groups(batch, hidden, ndir, with_dw):
-    plan = lstm_cuda.plan_bwd_launches("k", torch.float32, batch, hidden, ndir, SMS, with_dw)
-    want = [(r0, r1, d0, nd) for r0, r1 in lstm_cuda.row_chunks(batch)
-            for d0, nd in lstm_cuda._direction_groups("k", ndir, hidden, SMS)]
-    assert _spans(plan) == want
-    assert {(ln.units, ln.blocks) for ln in plan} == {
-        (8, nd * hidden // 8) for _, _, _, nd in want}
-    assert {ln.smem for ln in plan} == {lstm_cuda.f32_bwd_smem_bytes(hidden, with_dw)}
+# the float32 adjoint (csrc/lstm_bwd.cu): blocks of R rows x U units
+@pytest.mark.parametrize("with_dw", [False, True])
+@pytest.mark.parametrize("batch", [40, 64, 96, 128])
+def test_bwd_fp32_main_path_is_one_launch_of_both_directions(batch, with_dw):
+    """base-LAS's listener (H=512) at the train batch and the parity step's:
+    one launch of every row and both directions, with and without dW_hh."""
+    plan = lstm_cuda.plan_bwd_launches("k", torch.float32, batch, 512, 2, SMS, with_dw)
+    assert _spans(plan) == [(0, batch, 0, 2)]
+
+
+@pytest.mark.parametrize("with_dw", [False, True])
+def test_bwd_fp32_train_batch_is_128_blocks_of_64_rows_by_16_units(with_dw):
+    (ln,) = lstm_cuda.plan_bwd_launches("k", torch.float32, 128, 512, 2, SMS, with_dw)
+    assert (ln.rows, ln.units, ln.blocks, ln.stages, ln.chunk) == (64, 16, 128, 3, 128)
+
+
+@pytest.mark.parametrize("with_dw", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(128, 256), (40, 512)])
+def test_bwd_fp32_one_launch_takes_the_most_blocks(batch, hidden, with_dw):
+    """Of the one-launch plans of 16 units a block, the one with the most
+    blocks, i.e. the fewest rows a block: 128 blocks of 32 rows, not 64 of 64
+    (at H=256, B=128 they ran the adjoint 1.2-1.4x faster on the card)."""
+    (ln,) = lstm_cuda.plan_bwd_launches("k", torch.float32, batch, hidden, 2, SMS, with_dw)
+    assert (ln.rows, ln.units, ln.blocks) == (32, 16, 128)
+
+
+@pytest.mark.parametrize("batch", [32, 96, 128])
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_bwd_fp32_wide_is_one_launch_a_direction_of_every_row(batch, ndir):
+    """H=1024: 8 units a block by shared memory, so a direction fills the
+    card; each launch holds every row."""
+    plan = lstm_cuda.plan_bwd_launches("k", torch.float32, batch, 1024, ndir, SMS, False)
+    assert _spans(plan) == [(0, batch, d, 1) for d in range(ndir)]
+    assert all(ln.units == 8 and ln.blocks <= SMS for ln in plan)
+    if batch > 64:
+        assert plan[0].rows == 128
+
+
+@pytest.mark.parametrize("batch", [1, 2, 5, 8, 31, 33, 64, 96, 100, 128, 129, 200, 256, 300])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256, 384, 512, 640, 768, 1024])
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_bwd_fp32_every_row_and_direction_is_in_one_launch(batch, hidden, ndir):
+    """B 1-300, H 32-1024, with dW_hh up to H=512: every (row, direction)
+    in exactly one launch, whole row groups, blocks no more than the SMs,
+    shared memory within what a block may use and as the source computes
+    it, and launches one after another only where the card cannot hold the
+    rows."""
+    for with_dw in (False, True) if hidden <= 512 else (False,):
+        plan = lstm_cuda.plan_bwd_launches("k", torch.float32, batch, hidden, ndir, SMS,
+                                           with_dw)
+        cells = [(r, d) for ln in plan for r in range(ln.r0, ln.r1)
+                 for d in range(ln.d0, ln.d0 + ln.nd)]
+        assert sorted(cells) == list(itertools.product(range(batch), range(ndir)))
+        for ln in plan:
+            threads = ln.rows * ln.units // 4
+            groups = -(-(ln.r1 - ln.r0) // ln.rows)
+            assert threads == lstm_cuda._b32_threads(ln.rows, ln.units)
+            assert ln.units in (8, 16) and hidden % ln.units == 0
+            assert ln.rows % lstm_cuda._B32_RT == 0 and threads % 32 == 0
+            assert 32 <= threads <= 256
+            assert ln.blocks == ln.nd * hidden // ln.units * groups <= SMS
+            assert 2 <= ln.stages <= 6 and ln.smem <= SMEM_LIMIT
+            assert ln.chunk in (64, 128) and 4 * hidden % ln.chunk == 0
+            assert ln.smem == lstm_cuda.f32_bwd_smem_bytes(hidden, ln.units, ln.rows,
+                                                           ln.stages, ln.chunk, with_dw)
+            if with_dw:
+                assert ln.nd == ndir
+                assert lstm_cuda._b32_dw_stages(hidden, ln.units, ln.rows, ln.stages,
+                                                ln.chunk) >= 2
+        spans = sorted({(ln.r0, ln.r1) for ln in plan})
+        assert all(r1 - r0 == spans[0][1] - spans[0][0] for r0, r1 in spans[:-1])
+
+
+@pytest.mark.parametrize("sms", [SMS, 100, 60])
+@pytest.mark.parametrize("with_dw", [False, True])
+def test_bwd_fp32_plan_takes_every_shape_the_parent_took(sms, with_dw):
+    """The earlier float32 plan (32 rows and 8 units a block) took every
+    width the wrappers take where H / 8 blocks fit the SMs, and with dW_hh
+    H <= 512 with all ndir x H / 8 blocks in one launch; the plan takes each
+    of those shapes."""
+    for hidden, ndir, batch in itertools.product(WIDTHS, (1, 2), (1, 33, 128, 300)):
+        took = hidden // 8 <= sms and (not with_dw or (hidden <= 512 and ndir * hidden // 8 <= sms))
+        if took:
+            assert lstm_cuda.plan_bwd_launches("k", torch.float32, batch, hidden, ndir, sms,
+                                               with_dw)
+
+
+def test_bwd_fp32_dw_refuses_split_directions():
+    # 2 x 32 blocks of 16 units at H=512 do not fit 60 SMs: lstm_bwd splits,
+    # lstm_bwd_dw raises
+    plan = lstm_cuda.plan_bwd_launches("k", torch.float32, 8, 512, 2, 60, False)
+    assert {(ln.d0, ln.nd) for ln in plan} == {(0, 1), (1, 1)}
+    with pytest.raises(ValueError, match="all directions in one launch"):
+        lstm_cuda.plan_bwd_launches("k", torch.float32, 8, 512, 2, 60, True)
+
+
+def test_bwd_fp32_shared_memory_bytes():
+    # H=512, 16 units: the rings' bookkeeping (64 floats), W_hh rows 16 x
+    # (2048 + 4), three stages of 64 rows x 128, the order of the 64 rows and
+    # their lengths
+    assert lstm_cuda.f32_bwd_smem_bytes(512, 16, 64, 3, 128, False) == 4 * (
+        64 + 16 * 2052 + 3 * 64 * 128 + 2 * 64)
+    # with dW_hh the product after the loop fits the same memory: 96 ints of
+    # stage counts and six stages of 16 pairs x (512 + 64)
+    assert lstm_cuda.f32_bwd_smem_bytes(512, 16, 64, 3, 128, True) == 4 * (
+        64 + 16 * 2052 + 3 * 64 * 128 + 2 * 64)
+    assert lstm_cuda._b32_dw_stages(512, 16, 64, 3, 128) == 6
+    assert lstm_cuda._b32_dw_stages(512, 16, 64, 4, 64) == 5
+    # H=1024, 8 units: three stages of 128 rows x 64
+    assert lstm_cuda.f32_bwd_smem_bytes(1024, 8, 128, 3, 64, False) == 4 * (
+        64 + 8 * 4100 + 3 * 128 * 64 + 2 * 128)
+    # H=32, 16 units, 8 rows: the time loop's memory, 64 + 16 x 132 + 2 x 8 x
+    # 64 + 16 floats, holds 32 ints of stage counts and two dW stages of 16 x 96
+    assert lstm_cuda.f32_bwd_smem_bytes(32, 16, 8, 2, 64, True) == 4 * (
+        64 + 16 * 132 + 2 * 8 * 64 + 16)
+    assert lstm_cuda._b32_dw_stages(32, 16, 8, 2, 64) == 2
+
+
+def test_bwd_fp32_takes_128_column_stages_where_they_fit():
+    """Fewer, wider ring stages a step ran faster on the card: 128 columns
+    wherever two stages of them fit beside W_hh's rows (H=512), else 64
+    (H=1024, whose 128-row stages of 128 columns leave room for one)."""
+    (ln,) = lstm_cuda.plan_bwd_launches("k", torch.float32, 128, 512, 2, SMS, False)
+    assert ln.chunk == 128
+    assert {ln.chunk for ln in lstm_cuda.plan_bwd_launches(
+        "k", torch.float32, 128, 1024, 2, SMS, False)} == {64}
+    assert lstm_cuda.f32_bwd_smem_bytes(1024, 8, 128, 2, 128, False) > SMEM_LIMIT
+
+
+def test_bwd_fp32_constants_mirror_the_source():
+    """The plan's constants are the float32 adjoint's (read from its text)."""
+    with open(lstm_cuda.BWD_SOURCE) as fh:
+        text = fh.read()
+    for name in ("RT", "UT", "KS", "MAX_THREADS", "KC", "MAX_STAGES", "BOX_ROWS", "WPAD",
+                 "DW_PAIRS"):
+        value = getattr(lstm_cuda, f"_B32_{name}")
+        assert re.search(rf"constexpr int B32_{name} = {value};", text), name
+    assert re.search(rf"constexpr int B32_HEAD_FLOATS = {lstm_cuda._B32_HEAD_FLOATS};", text)
+    # a lane keeps four cells of its tile after the sums
+    assert lstm_cuda._B32_RT * lstm_cuda._B32_UT // lstm_cuda._B32_KS == 4
 
 
 @pytest.mark.parametrize("dtype,batch,hidden,ndir,sms,with_dw", [
@@ -232,8 +361,11 @@ def test_bwd_every_row_and_direction_is_in_one_launch(dtype, batch, hidden, ndir
     cells = [(r, d) for ln in plan for r in range(ln.r0, ln.r1)
              for d in range(ln.d0, ln.d0 + ln.nd)]
     assert sorted(cells) == list(itertools.product(range(batch), range(ndir)))
-    assert all(ln.blocks <= sms and ln.r1 - ln.r0 <= (128 if dtype == torch.bfloat16 else 32)
-               for ln in plan)
+    # bfloat16: up to 128 rows a launch; float32: the row groups of R rows
+    # that the SMs hold beside the launch's directions
+    assert all(ln.blocks <= sms and ln.r1 - ln.r0 <= (
+        128 if dtype == torch.bfloat16
+        else ln.rows * max(1, sms // (ln.nd * hidden // ln.units))) for ln in plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -187,7 +187,6 @@ def test_adjoint_without_dw_raises_off_cpu_without_cuda():
 ])
 def test_direction_groups(ndir, hidden, sms, want):
     assert lstm_cuda._direction_groups("k", ndir, hidden, sms) == want
-    assert lstm_cuda._staged_width(hidden) == (hidden if hidden <= 512 else hidden // 2)
 
 
 def test_direction_groups_raise_past_the_card():
