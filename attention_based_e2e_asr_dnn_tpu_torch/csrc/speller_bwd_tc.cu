@@ -30,9 +30,9 @@
 // adjoint (its K and V rows, 192 KB at base-LAS) and the bytes each block
 // of a product phase reads from L2: phase (d) reads all of dpre1[t] (B x 4
 // H1 bf16, 512 KB at base-LAS, 1 MB at scaled-LAS, B=128) in every block
-// that owns (d) columns. speller_bwd.cu walks the batch two rows a warp on
-// the CUDA cores in each product phase and ends each phase with a grid
-// barrier (~76 us a step at base-LAS, B=128; PERF.md).
+// that owns (d) columns. The first float32 body walked the batch two rows a
+// warp on the CUDA cores in each product phase and ended each phase with a
+// grid barrier (~76 us a step at base-LAS, B=128; PERF.md).
 //
 // What the design does about it:
 //   * Ownership by unit, not by phase. The outputs are one column a unit, so
@@ -60,7 +60,7 @@
 //     groups with the ring and the attention's buffers pass the card's 227
 //     KB, and the weight boxes add ~6% to the bytes of the input stream each
 //     (d) block reads anyway. So every shape the bf16 forward takes fits.
-//   * Attention adjoint (per row, as speller_bwd.cu): block r takes batch row
+//   * Attention adjoint (per row): block r takes batch row
 //     r (r += G): d_ctx from the fp32 dctx exchange, dw over V, the softmax
 //     adjoint a warp a head, dq_att over K with 8 frames' loads in flight a
 //     thread, d_q stored into the dq stream for (b).
@@ -223,8 +223,7 @@ __host__ __device__ inline size_t db_smem_bytes(int B, int Te, int P, int heads,
          (size_t)db_stages(B, Te, P, heads, gmax) * db_stage_bytes(B, gmax);
 }
 
-// Phase (a) for batch row r at step t (speller_bwd.cu's attend_adjoint, on
-// the consumers' named barrier): d_ctx = dctx + dctxup[t] (stored, and
+// Phase (a) for batch row r at step t (on the consumers' named barrier): d_ctx = dctx + dctxup[t] (stored, and
 // rounded for the product with V), dw = round(d_ctx) . V (+ dwup[t]), the
 // softmax adjoint dsc = w * (dw - sum(dw * w)) (stored), dq_att =
 // round(dsc * scale) . K, and d_q = dq_att + dqup[t] into the dq stream.
@@ -335,7 +334,7 @@ __device__ __forceinline__ void attend_adjoint_row(const DecodeBwdTcArgs& a, int
 }
 
 // The gate adjoint of 4 adjacent units u .. u + 3 of batch row `row` at step
-// t (speller_bwd.cu's cell_adjoint): sum is their product column (the d_h of
+// t (speller_bwd.cu's gate_adjoint): sum is their product column (the d_h of
 // the dropped output less the dh carry), dh and dc their carries; stores the
 // four gates' dpre (rounded to bf16) and leaves the new dc in dc.
 __device__ __forceinline__ void gate_adjoint4(const __nv_bfloat16* gates, const __nv_bfloat16* c,

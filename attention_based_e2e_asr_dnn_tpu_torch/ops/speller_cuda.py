@@ -24,8 +24,9 @@ tensor cores; ``csrc/speller_decode.cu``, the forward in float32;
 ``csrc/speller_bwd_tc.cu``, the adjoint in bfloat16 on tensor cores;
 ``csrc/speller_bwd.cu``, the adjoint in float32) say what bounds the kernels
 and how they are laid out; ``plan_decode_tc`` and ``plan_decode_bwd_tc`` say
-which launches a bfloat16 call makes, ``plan_decode_f32`` the geometry of a
-float32 forward call's one launch (pure, tested on the CPU). Each wrapper runs its plain
+which launches a bfloat16 call makes, ``plan_decode_f32`` and
+``plan_decode_bwd_f32`` the geometry of a float32 forward and adjoint call's
+one launch (pure, tested on the CPU). Each wrapper runs its plain
 PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor or
 raises, and counts its launches in ``LAUNCHES``. On the card the TPU's
 routing (``pick_chunk``, the Te pad to 64, the lane gates of
@@ -50,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 import os
 from typing import List, NamedTuple, Optional
@@ -315,14 +317,15 @@ def load_library(defines: tuple = ()) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def load_bwd_library() -> ctypes.CDLL:
-    """Build ``csrc/speller_bwd.cu`` (the float32 adjoint) and bind its C
-    entry points."""
-    lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE))
+def load_bwd_library(defines: tuple = ()) -> ctypes.CDLL:
+    """Build ``csrc/speller_bwd.cu`` (the float32 adjoint; with the macros
+    ``defines``: ``("DA_TRACE",)`` is the phase-stamped build of
+    ``tools/trace_speller_decode.py``) and bind its C entry points."""
+    lib = ctypes.CDLL(cuda_build.build_library(BWD_SOURCE, defines))
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.speller_bwd_launch.argtypes = [i, i, p, p, ctypes.c_float, p]
+    lib.speller_bwd_launch.argtypes = [p, p, p, ctypes.c_float, p, p]
     lib.speller_bwd_launch.restype = ctypes.c_int
-    lib.speller_bwd_smem_bytes.argtypes = [i] * 7
+    lib.speller_bwd_smem_bytes.argtypes = [p, p]
     lib.speller_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.speller_bwd_limits.argtypes = [i, ctypes.POINTER(ctypes.c_longlong)]
     lib.speller_bwd_limits.restype = ctypes.c_int
@@ -827,26 +830,223 @@ def plan_decode_bwd_tc(batch: int, te: int, proj: int, heads: int, h1dim: int, h
     return DecodeBwdTcPlan(launches, blocks, groups, max_groups, phase_blocks, phase_cols)
 
 
+# the float32 adjoint's geometry (csrc/speller_bwd.cu), mirrored here so
+# that its plan is pure; bwd_kernel_limits reads the source's, and a card
+# test holds the two equal: blocks at most, consumer threads a block, k of a
+# TMA box, floats of a box's (and a staged) row, boxes a ring stage, stages, k
+# slices and rows of a box at most, the ring's alignment slack
+BWD_F32_LIMITS = {"max_grid": 128, "nthreads": 256, "box_k": 128, "ldx": 132, "max_boxes": 2,
+                  "max_stages": 8, "max_ks": 16, "max_box_rows": 256, "align": 128}
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_kernel_limits(device: int) -> dict:
-    """The float32 adjoint's geometry (csrc/speller_bwd.cu: blocks at most,
-    units a block at most, threads a block) and the shared memory a block of
-    ``device`` may opt into."""
-    out = (ctypes.c_longlong * 4)()
+    """The float32 adjoint's geometry as ``csrc/speller_bwd.cu`` defines it
+    (``BWD_F32_LIMITS``' keys), the shared memory a block of ``device`` may
+    opt into, and its SMs."""
+    keys = (*BWD_F32_LIMITS, "smem_optin", "sms")
+    out = (ctypes.c_longlong * len(keys))()
     err = load_bwd_library().speller_bwd_limits(device, out)
     if err != 0:
         raise RuntimeError(f"speller_decode_bwd: reading the limits of device "
                            f"{device} failed with cudaError {err}")
-    return dict(zip(("max_grid", "max_units", "nthreads", "smem_optin"), out))
+    return dict(zip(keys, out))
 
 
-def grid_size(h1dim: int, h2dim: int, proj: int, max_grid: int) -> int:
-    """Blocks of the launch: the largest power of two up to ``max_grid``
-    that divides both cells' widths and the projection width."""
-    grid = max_grid
-    while grid > 1 and (h1dim % grid or h2dim % grid or proj % grid):
-        grid //= 2
-    return grid
+class DecodeBwdF32Plan(NamedTuple):
+    """The one launch of a float32 adjoint call and its geometry."""
+    blocks: int
+    col_groups: int  # CG: each owns H1 / CG, H2 / CG units and P / CG context columns
+    row_groups: int  # RG: each owns ``rows`` batch rows
+    rows: int
+    sub: int         # rows of a product's sub-tile (a ring stage's rows)
+    boxes: int       # TMA boxes (128 k) a ring stage
+    stages: int      # the ring's stages
+    ks: int          # k slices of a product, at most
+    att_groups: int  # frame groups of the attention's dq_att, at most
+    stream: int      # 1: (d)'s weight rows stream through the ring each step
+    smem: int        # shared memory a block, bytes
+
+
+def bwd_f32_tiling(sub: int, cols: int, ks_max: int, quads: int) -> tuple:
+    """A product's thread tiles over ``sub`` rows x ``cols`` columns
+    (``da_tiling``): (columns a tile WD, the widest of 4, 2, 1 dividing
+    ``cols``; rows a tile RT = 8; tiles; k slices KS, up to ``ks_max``, the
+    stage's ``quads`` 16-byte pieces and what fills the 256 threads)."""
+    wd = 4 if cols % 4 == 0 else 2 if cols % 2 == 0 else 1
+    tiles = cols // wd * (sub // 8)
+    return wd, 8, tiles, min(BWD_F32_LIMITS["nthreads"] // tiles if tiles else 0, ks_max, quads)
+
+
+def _bwd_f32_phases(proj: int, h1dim: int, h2dim: int, col_groups: int) -> tuple:
+    """(columns, K) of the three products a block forms: (b) its cell-2
+    units over P, (c) its cell-1 and cell-2 units over 4 H2, (d) its cell-1
+    units and context columns over 4 H1."""
+    u1, u2, nq = h1dim // col_groups, h2dim // col_groups, proj // col_groups
+    return ((u2, proj), (u1 + u2, 4 * h2dim), (u1 + nq, 4 * h1dim))
+
+
+def _bwd_att_groups(proj: int, heads: int, att: int) -> int:
+    return min(att, BWD_F32_LIMITS["nthreads"] // (proj // heads // 4))
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _bwd_f32_wrows(proj: int, h1dim: int, col_groups: int) -> int:
+    """(d)'s weight rows of a block where they stream, each kind padded to 8."""
+    return _pad8(h1dim // col_groups) + _pad8(proj // col_groups)
+
+
+def decode_bwd_f32_smem_bytes(te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+                              col_groups: int, sub: int, boxes: int, stages: int, ks: int,
+                              att_groups: int, stream: int = 0) -> int:
+    """Shared memory a block of the float32 adjoint uses (``da_smem_bytes``
+    in csrc/speller_bwd.cu): 128 bytes of alignment slack; the ring,
+    ``stages`` x ``boxes`` x (``sub`` rows, and with ``stream`` the block's
+    (d) weight rows, each kind padded to 8) x 132 floats; two mbarriers a
+    stage (rounded up to 16 bytes); the block's resident weight rows, fp32
+    ((d)'s only without ``stream``); and one region that the attention
+    (d_ctx of a head, dw of Te frames, the dq_att group sums, 8 warp sums)
+    and the products' partial tiles (KS x ``sub`` x columns of the widest
+    phase) take in turn."""
+    lim = BWD_F32_LIMITS
+    d = proj // heads
+    att = d + te + _bwd_att_groups(proj, heads, att_groups) * d + lim["nthreads"] // 32
+    red = 0
+    for cols, k in _bwd_f32_phases(proj, h1dim, h2dim, col_groups):
+        quads = min(boxes * lim["box_k"], k) // 4
+        red = max(red, bwd_f32_tiling(sub, cols, ks, quads)[3] * sub * cols)
+    u1, u2, nq = h1dim // col_groups, h2dim // col_groups, proj // col_groups
+    weights = u2 * proj + (u1 + u2) * 4 * h2dim + (0 if stream else (u1 + nq) * 4 * h1dim)
+    ring = stages * boxes * (sub + (_bwd_f32_wrows(proj, h1dim, col_groups) if stream else 0)) \
+        * lim["ldx"] * 4
+    bars = stages * 16
+    return lim["align"] + ring + bars + 4 * (weights + max(att, red))
+
+
+# a ring's shapes in the order taken where they fit: (boxes a stage, the
+# fewest stages); measured on an H100 at base- and scaled-LAS: as many k
+# slices as fit first, then the widest stages, as many as fit but at least
+# one in flight behind the one read, and a ring of one stage (no load behind
+# the product) last
+_BWD_RINGS = ((2, 2), (1, 2), (2, 1), (1, 1))
+
+
+def _bwd_f32_inner(te: int, proj: int, heads: int, h1dim: int, h2dim: int, col_groups: int,
+                   sub: int, stream: int, limit: int):
+    """(k slices, the ring's index in ``_BWD_RINGS``, boxes, stages,
+    attention groups, shared memory) of a block of ``col_groups`` and
+    ``sub``-row sub-tiles: the most k slices (16, 8, ... 1) and attention
+    groups (all, 16, 1) with which a ring of ``_BWD_RINGS`` fits ``limit``
+    bytes, the first such ring, and as many stages as fit up to 8; or, where
+    none fits, the least shared memory a block needs (an int)."""
+    lim = BWD_F32_LIMITS
+
+    def smem(boxes, stages, ks, att):
+        return decode_bwd_f32_smem_bytes(te, proj, heads, h1dim, h2dim, col_groups, sub, boxes,
+                                         stages, ks, att, stream)
+
+    least = smem(1, 1, 1, 1)
+    if least > limit:
+        return least
+    atts = sorted({_bwd_att_groups(proj, heads, a) for a in (lim["nthreads"], 16, 1)},
+                  reverse=True)
+    for ks, att in itertools.product((16, 8, 4, 2, 1), atts):
+        if smem(1, 1, ks, att) > limit:  # no ring fits beside these
+            continue
+        for i, (boxes, fewest) in enumerate(_BWD_RINGS):
+            base = smem(boxes, 0, ks, att)
+            stages = min(lim["max_stages"], (limit - base) // (smem(boxes, 1, ks, att) - base))
+            if stages >= fewest:
+                return ks, i, boxes, stages, att, smem(boxes, stages, ks, att)
+    return least
+
+
+def plan_decode_bwd_f32(batch: int, te: int, proj: int, heads: int, h1dim: int, h2dim: int,
+                        sms: int, smem_optin: int,
+                        name: str = "speller_decode_bwd") -> DecodeBwdF32Plan:
+    """The launch of a float32 ``speller_decode_bwd`` call (one a call, the
+    whole batch) on a card of ``sms`` SMs whose blocks may opt into
+    ``smem_optin`` bytes of shared memory: CG column groups (a power of two
+    dividing H1, H2 and P) x RG row groups of R rows. For each split and
+    each form of (d)'s weights (resident, or streamed with its input where a
+    block's rows of them fit a TMA box), the widest sub-tile (the whole row
+    group where it fits) with the k slices, ring and attention groups of
+    ``_bwd_f32_inner``. Of these it takes the most blocks (at most 128 and
+    the SMs), then the most k slices and the ring first in ``_BWD_RINGS``,
+    then the fewest bytes into a block a step (the rows its ring carries of
+    the three products' inputs, and (d)'s weight rows where they stream: at
+    the same blocks every split forms the same FMAs a block, and the
+    products are bound by their feed), then the most column groups (the
+    fewest rows padded to 8). Down to 8-row sub-tiles, one stage of one box,
+    one k slice and one attention group, a block uses no more shared memory
+    than the float32 forward's (``plan_decode_f32``) least on the same
+    columns, so every shape the forward takes is taken. Raises a
+    ``ValueError`` naming the limit for a shape the kernel does not take."""
+    lim = BWD_F32_LIMITS
+    if batch < 1 or te < 1:
+        raise ValueError(f"{name}: batch {batch} and encoder length {te} must be at least 1")
+    if h1dim % 8 or h2dim % 8 or proj % 8 or min(h1dim, h2dim, proj) < 8:
+        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must be multiples "
+                         f"of 8")
+    if heads < 1 or proj % heads or (proj // heads) % 8:
+        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
+                         f"must be a whole multiple of 8")
+    if proj // heads > lim["nthreads"] * 4:
+        raise ValueError(f"{name}: head width {proj // heads} above {lim['nthreads'] * 4} "
+                         f"(the attention takes one 16-byte slice a thread)")
+    most = min(lim["max_grid"], sms)
+    limit = min(smem_optin, _SMEM_LIMIT_F32)
+    splits = {}  # blocks -> {(CG, RG, R)}
+    cg = 1
+    while cg <= most and not (h1dim % cg or h2dim % cg or proj % cg):
+        rg_try = 1
+        while cg * rg_try <= most and rg_try <= batch:
+            rows = -(-batch // rg_try)
+            rg = -(-batch // rows)
+            splits.setdefault(cg * rg, set()).add((cg, rg, rows))
+            rg_try *= 2
+        cg *= 2
+    least, tiled = None, False
+    for blocks in sorted(splits, reverse=True):
+        best = None
+        for cg, rg, rows in splits[blocks]:
+            phases = _bwd_f32_phases(proj, h1dim, h2dim, cg)
+            # (d)'s weights may stream where a block's rows of each fit a TMA box
+            streams = (0, 1) if max(h1dim, proj) // cg <= lim["max_box_rows"] else (0,)
+            atoms = _pad8(rows)
+            subs = sorted({min(atoms, lim["max_box_rows"]), *(8 << i for i in range(6))},
+                          reverse=True)
+            for stream in streams:
+                for sub in (s for s in subs if s <= atoms):
+                    if any(bwd_f32_tiling(sub, cols, 1, 1)[2] > lim["nthreads"]
+                           for cols, _ in phases):
+                        continue
+                    tiled = True
+                    inner = _bwd_f32_inner(te, proj, heads, h1dim, h2dim, cg, sub, stream, limit)
+                    if isinstance(inner, int):
+                        least = min(least or inner, inner)
+                        continue
+                    ks, ring, boxes, stages, att, smem = inner
+                    fed = -(-rows // sub) * sub * (proj + 4 * h2dim + 4 * h1dim) + \
+                        (_bwd_f32_wrows(proj, h1dim, cg) * 4 * h1dim if stream else 0)
+                    key = (-ks, ring, fed, -cg)
+                    if best is None or key < best[0]:
+                        best = (key, DecodeBwdF32Plan(blocks, cg, rg, rows, sub, boxes, stages,
+                                                      ks, _bwd_att_groups(proj, heads, att),
+                                                      stream, smem))
+                    break
+        if best is not None:
+            return best[1]
+    if not tiled:
+        raise ValueError(f"{name}: H1 / CG + P / CG columns of a block above "
+                         f"{lim['nthreads']} tiles at every column group (H1 {h1dim}, "
+                         f"H2 {h2dim}, P {proj})")
+    raise ValueError(f"{name}: needs {least} bytes of shared memory a block at the "
+                     f"least (Te {te}, heads {heads}, H1 {h1dim}, float32), the device's "
+                     f"limit is {limit}")
 
 
 def _check_operands(name, ref, operands):
@@ -864,36 +1064,6 @@ def _check_operands(name, ref, operands):
         if t.device != ref.device or t.dtype != ref.dtype or not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous {ref.dtype} on "
                              f"{ref.device}")
-
-
-def _check_geometry(name, lim, smem_fn, dtype, batch, te, steps, proj, heads,
-                    h1dim, h2dim):
-    """The float32 adjoint's limits (csrc/speller_bwd.cu: its G blocks each
-    own 1, 2, 4 ... units of each cell and query columns); returns the
-    blocks of the launch."""
-    if batch < 1 or te < 1 or steps < 1:
-        raise ValueError(f"{name}: batch {batch}, encoder length {te} and "
-                         f"steps {steps} must be at least 1")
-    grid = grid_size(h1dim, h2dim, proj, lim["max_grid"])
-    allowed = [1 << i for i in range(lim["max_units"].bit_length())]
-    if any(n % 8 or n // grid not in allowed for n in (h1dim, h2dim, proj)):
-        raise ValueError(f"{name}: H1 {h1dim}, H2 {h2dim} and P {proj} must "
-                         f"be multiples of 8 and each {grid} x "
-                         f"{', '.join(map(str, allowed[:-1]))} or "
-                         f"{allowed[-1]} (one launch of {grid} blocks)")
-    if proj % heads or (proj // heads) % 8:
-        raise ValueError(f"{name}: head width P / heads = {proj} / {heads} "
-                         f"must be a whole multiple of 8")
-    vec = 16 // dtype.itemsize  # elements in a 16-byte load
-    if proj > lim["nthreads"] * vec:
-        raise ValueError(f"{name}: P {proj} above {lim['nthreads'] * vec} "
-                         f"(the context takes one 16-byte slice a thread)")
-    smem = smem_fn(_DTYPE_CODES[dtype], grid, te, proj, heads, h1dim, h2dim)
-    if smem > lim["smem_optin"]:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory a "
-                         f"block (Te {te}, heads {heads}, H1 {h1dim}, "
-                         f"{dtype}), the device's limit is {lim['smem_optin']}")
-    return grid
 
 
 def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
@@ -1088,24 +1258,46 @@ def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
     if dtype == torch.bfloat16:
         return _launch_bwd_tc(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
                               c2, wgts, m1, m2, dqup, dctxup, dwup, heads, scale, outs)
-    lim = bwd_kernel_limits(k.device.index)
+    if steps < 1:
+        raise ValueError(f"{name}: steps {steps} must be at least 1")
+    plan = bwd_f32_plan_for(k, heads, h1dim, h2dim, name)
     lib = load_bwd_library()
-    grid = _check_geometry(name, lim, lib.speller_bwd_smem_bytes, dtype, batch, te,
-                           steps, proj, heads, h1dim, h2dim)
-    # the order of enum Ptr in the source
-    tensors = [k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
-               wgts, m1, m2, dqup, dctxup, dwup] + outs
+    counters = torch.zeros(2 + 4 * plan.row_groups, dtype=torch.int32, device=k.device)
+    # the order of enum Ptr in the source; last each (row, head) item's extent
+    # and the items in order of it (scratch)
+    tensors = ([k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
+                wgts, m1, m2, dqup, dctxup, dwup] + outs
+               + [empty(batch * heads, dt=torch.int32), empty(batch * heads, dt=torch.int32)])
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     dims = (ctypes.c_int * 7)(batch, te, steps, proj, heads, h1dim, h2dim)
+    geom = bwd_f32_geometry(plan)
+    geom = (ctypes.c_int * len(geom))(*geom)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.speller_bwd_launch(_DTYPE_CODES[dtype], grid, ptrs, dims,
-                                     float(scale), stream)
+        err = lib.speller_bwd_launch(ptrs, dims, geom, float(scale), counters.data_ptr(),
+                                     stream)
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+        raise RuntimeError(f"{name}: launch failed with cudaError {err} ({plan})")
     LAUNCHES[name] += 1
     return tuple(outs)
+
+
+def bwd_f32_plan_for(k: torch.Tensor, heads: int, h1dim: int, h2dim: int,
+                     name: str = "speller_decode_bwd") -> DecodeBwdF32Plan:
+    """The plan a float32 adjoint call on K ``k`` (B, Te, P) takes on its
+    card: ``plan_decode_bwd_f32`` on the card's SMs and shared memory."""
+    lim = bwd_kernel_limits(k.device.index)
+    batch, te, proj = k.shape
+    return plan_decode_bwd_f32(batch, te, proj, heads, h1dim, h2dim, lim["sms"],
+                               lim["smem_optin"], name)
+
+
+def bwd_f32_geometry(plan: DecodeBwdF32Plan) -> tuple:
+    """The plan's geometry in the order of enum GeomSlot in
+    csrc/speller_bwd.cu."""
+    return (plan.col_groups, plan.row_groups, plan.rows, plan.sub, plan.boxes, plan.stages,
+            plan.ks, plan.att_groups, plan.stream)
 
 
 def _launch_bwd_tc(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts,

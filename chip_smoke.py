@@ -68,7 +68,14 @@ on one NVIDIA card, from the root of a checkout:
    adjoint, with and without a cotangent on the weights; every operand's
    gradient through the autograd Function on the kernels against the same
    Function on the plain versions; the training form without dropout and
-   forcing bit-equal to ``speller_decode``. Then, in bfloat16, against their
+   forcing bit-equal to ``speller_decode``. The float32 adjoint
+   (``csrc/speller_bwd.cu``) prints its plan (column and row groups, ring
+   stages) beside its time and repeats bit for bit over two calls; then a
+   small float32 case at each of two shapes the earlier float32 adjoint
+   refused ((H1 640, H2 128, P 256) and scaled-LAS at Te=704, B=8): the
+   training forward against its plain version, the adjoint against its own,
+   and every operand's gradient through the Function. Then, in bfloat16,
+   against their
    plain versions with one launch a call asserted: a decoder block past the
    narrower geometry of 2 cell-2 units a block (``dec_lstm_out_dim: 512``,
    four cell-2 units a block) on the base-LAS decoder's other widths, the eval
@@ -848,6 +855,10 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
             if (n_fwd, n_bwd) != (3, 3):
                 raise AssertionError(f"speller kernels {case}: {dict(sc.LAUNCHES)} launches, "
                                      f"not 3 of the forward and 3 of the adjoint")
+            plan_note = ""
+            if dtype_name == "float32":
+                plan_note = f32_bwd_checks(torch, sc, f"{case} B={batch}", bwd_args, dwup, kw,
+                                           h1, h2)
             fwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_train(
                 *operands, **opts, forced=forced, m1=m1, m2=m2), 10)
             bwd_ms = cuda_median_ms(torch, lambda: sc.speller_decode_bwd(*bwd_args, None, **kw),
@@ -880,11 +891,18 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
             log(f"    forward kernel {fwd_ms:.3f} ms  plain {plain_fwd_ms:.3f} ms  bound "
                 f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]}; {fwd_flops:.3e} operations)")
             log(f"    adjoint kernel {bwd_ms:.3f} ms  plain {plain_bwd_ms:.3f} ms  bound "
-                f"{bwd_bound[0]:.3f} ms ({bwd_bound[1]}; {bwd_flops:.3e} operations)")
+                f"{bwd_bound[0]:.3f} ms ({bwd_bound[1]}; {bwd_flops:.3e} operations){plan_note}")
             bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
             if bad:
                 raise AssertionError(f"speller kernels {case} {dtype_name}: errors over {tol} "
                                      f"of max: {bad}")
+            if case == "base-LAS" and dtype_name == "float32":  # a float32 train step's
+                records["speller_decode_bwd (float32)"] = {
+                    "name": "speller_decode_bwd (float32)", "route": "cuda",
+                    "source": SPELLER_BWD_SOURCE, "replaces": SPELLER_BWD_REPLACES,
+                    "launches": 0, "max_abs_err": max(errs[n][0] for n in BWD_NAMES),
+                    "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound[0],
+                    "bound_by": bwd_bound[1], "library_ms": None}
             if case == "base-LAS" and dtype_name == "bfloat16":  # the train step's
                 records["speller_decode_train"] = {
                     "name": "speller_decode_train", "route": "cuda",
@@ -902,10 +920,126 @@ def speller_train_kernel_phase(torch, card: str) -> dict:
                     "bound_by": bwd_bound[1], "library_ms": None}
             del logits, wgts, ids, saved, p_logits, p_wgts, p_saved, lean, bare
             torch.cuda.empty_cache()
+    for label in F32_NEW_SHAPES:
+        f32_new_shape_check(torch, card, label)
+        torch.cuda.empty_cache()
     for label in BF16_SPELLER_CHECKS:
         bf16_speller_check(torch, card, label)
         torch.cuda.empty_cache()
     return records
+
+
+def f32_bwd_checks(torch, sc, label: str, bwd_args: tuple, dwup, kw: dict, h1: int,
+                   h2: int) -> str:
+    """The float32 adjoint on ``bwd_args``: two calls bit-equal; returns the
+    plan for the log line."""
+    plan = sc.bwd_f32_plan_for(bwd_args[0], kw["heads"], h1, h2)
+    first = sc.speller_decode_bwd(*bwd_args, dwup, **kw)
+    again = sc.speller_decode_bwd(*bwd_args, dwup, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"speller_decode_bwd float32 {label}: two calls differ")
+    return (f"; plan {plan.col_groups} column x {plan.row_groups} row groups of {plan.rows} "
+            f"rows, sub-tiles {plan.sub}, {plan.stages} stages of {plan.boxes} boxes, k slices "
+            f"{plan.ks}, (d)'s weights {'streamed' if plan.stream else 'resident'}, "
+            f"{plan.smem} B; two calls bit-equal")
+
+
+# float32 shapes the earlier float32 adjoint refused (5 cell-1 units a block
+# on its grid of 128; its shared memory past Te=640 at scaled-LAS), taken by
+# the plan: (speller config changes, listener width, batch, encoder length,
+# label steps)
+F32_NEW_SHAPES = {
+    "H1 640, H2 128, P 256": ({"dec_lstm_hid_dim": 640, "dec_lstm_out_dim": 128}, H, 8,
+                              TE_DEC, 48),
+    "scaled-LAS at Te=704": ({"dec_lstm_hid_dim": 1024, "att_heads": 4}, WIDE_H, 8, 704, 48),
+}
+
+
+def f32_new_shape_check(torch, card: str, label: str) -> None:
+    """The float32 training forward, adjoint and Function at
+    ``F32_NEW_SHAPES[label]`` against their plain versions (the forward fed
+    its own ids; ``SPELLER_TRAIN_TOL``), dsc 0 at padded frames, one launch a
+    call."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        las_config_from_dicts,
+        las_init,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+
+    changes, width, batch, te, steps = F32_NEW_SHAPES[label]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cfg = las_config_from_dicts(
+        {**BASE_LAS_MODEL["listener_configs"], "uniform_hid_dim": width},
+        {**BASE_LAS_MODEL["speller_configs"], **changes})
+    spl = cfg.speller
+    params = las_init(cfg, gen)["speller"].to(DEVICE)
+    h1, h2, heads, proj = spl.dec_lstm_hid_dim, spl.dec_lstm_out_dim, spl.att_heads, \
+        spl.att_proj_dim
+    lengths = torch.randint(1, te + 1, (batch,), generator=gen)
+    lengths[0], lengths[1] = te, 1
+    enc = torch.randn(batch, te, cfg.listener.enc_out_dim, generator=gen) * 0.5
+    with torch.no_grad():
+        operands, _ = sc.decode_operands(params, spl, enc.to(DEVICE), lengths.to(DEVICE))
+    opts = {**sc.decode_options(spl), "steps": steps}
+    keep = 1.0 - spl.dec_lstm_dropout
+    m1, m2 = (((torch.rand(steps, batch, n, generator=gen) < keep).float() / keep).to(DEVICE)
+              for n in (h1, h2))
+    tol = SPELLER_TRAIN_TOL["float32"]
+    sc.reset_launch_counts()
+    logits, wgts, _, saved = sc.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
+    p_logits, p_wgts, _, p_saved = sc.speller_decode_train_plain(
+        *operands, **opts, forced=saved[0], m1=m1, m2=m2)
+    vocab = spl.dec_vocab_size
+    errs = {"logits": rel_err(logits[..., :vocab], p_logits[..., :vocab]),
+            "weights": rel_err(wgts, p_wgts)}
+    errs.update({n: rel_err(a, b) for n, a, b in zip(sc.RESIDUALS[1:], saved[1:], p_saved[1:])})
+    k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+    _, gates1, c1, _, gates2, c2, _, _ = saved
+    dqup, dctxup = ((torch.randn(steps, batch, proj, generator=gen) * 0.1).to(DEVICE)
+                    for _ in range(2))
+    dwup = (torch.randn(*wgts.shape, generator=gen) * 0.1).to(DEVICE)
+    bwd_args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts, m1, m2,
+                dqup, dctxup)
+    kw = {"heads": heads, "scale": opts["scale"]}
+    got = sc.speller_decode_bwd(*bwd_args, dwup, **kw)
+    want = sc.speller_decode_bwd_plain(*bwd_args, dwup, **kw)
+    errs.update({n: rel_err(a, b) for n, a, b in zip(BWD_NAMES, got, want)})
+    if got[4][wgts == 0].abs().max().item() != 0.0:
+        raise AssertionError(f"speller_decode_bwd float32 {label}: a score gradient at a "
+                             f"padded frame")
+    d_logits = (torch.randn(steps, batch, logits.shape[-1], generator=gen) * 0.1).to(DEVICE)
+    d_logits[..., vocab:] = 0.0
+    grads = {}
+    for route in ("kernels", "plain"):
+        saved_fns = (sc.speller_decode_train, sc.speller_decode_bwd)
+        if route == "plain":
+            sc.speller_decode_train = sc.speller_decode_train_plain
+            sc.speller_decode_bwd = sc.speller_decode_bwd_plain
+        try:
+            leaves = [t.detach().requires_grad_(n != "bias")
+                      for n, t in zip(OPERAND_NAMES, operands)]
+            outs = sc.fused_decode(leaves, **opts, forced=saved[0], m1=m1, m2=m2)
+            grads[route] = torch.autograd.grad(outs, [t for t in leaves if t.requires_grad],
+                                               [d_logits, dwup])
+        finally:
+            sc.speller_decode_train, sc.speller_decode_bwd = saved_fns
+    errs.update({"d_" + n: rel_err(a, b) for n, a, b in zip(
+        [n for n in OPERAND_NAMES if n != "bias"], grads["kernels"], grads["plain"])})
+    if dict(sc.LAUNCHES) != {"speller_decode": 0, "speller_decode_train": 2,
+                             "speller_decode_bwd": 2}:
+        raise AssertionError(f"speller kernels float32 {label}: {dict(sc.LAUNCHES)} launches, "
+                             f"not one a call")
+    plan = sc.bwd_f32_plan_for(k, heads, h1, h2)
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[{card}] float32 speller_decode_train + speller_decode_bwd at {label} (H1 {h1}, H2 "
+        f"{h2}, P {proj}, {heads} heads), B={batch} Te={te} L={steps}, a shape the earlier "
+        f"float32 adjoint refused: {len(errs)} tensors against the plain versions, largest "
+        f"error {errs[worst][0]:.3e} ({errs[worst][1]:.1e} of max, {worst}; tolerance {tol:g} "
+        f"of max); the adjoint's plan {plan.col_groups} x {plan.row_groups} groups, "
+        f"{plan.stages} stages, {plan.smem} B")
+    bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
+    if bad:
+        raise AssertionError(f"speller kernels float32 {label}: errors over {tol} of max: {bad}")
 
 
 # the bf16 speller kernels at shapes the comparisons above do not reach,
@@ -1909,10 +2043,12 @@ def train_parity_phase(torch, card: str, model: str = "base-LAS") -> dict:
     """One float32 step at the full width of ``model`` through both kernel
     tiers, (base-LAS) through the listener kernels with the scan decoder, and
     through the plain loops under autograd, from the same weights, batch and
-    draws. Returns the LSTM kernels' launches in the kernel routes' steps."""
+    draws. Returns the LSTM and speller kernels' launches in the kernel routes'
+    steps."""
     from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
     from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
 
     batch, seq_len, labels, lr = 40, 256, 32, 1e-3
     x, lx, y, ly = train_batch(torch, batch, seq_len, labels, SEED + 2)
@@ -1928,9 +2064,10 @@ def train_parity_phase(torch, card: str, model: str = "base-LAS") -> dict:
     for name, impls in routes.items():
         _, state, step = build_trainer(torch, train_config(*impls, model), torch.float32, SEED)
         lc.reset_launch_counts()
+        sc.reset_launch_counts()
         state, m, _ = step(state, x, lx, y, ly, 0.9, lr, draws=draws)
         torch.cuda.synchronize()
-        for kernel, n in lc.LAUNCHES.items():
+        for kernel, n in (*lc.LAUNCHES.items(), *sc.LAUNCHES.items()):
             launches[kernel] = launches.get(kernel, 0) + n
         results[name] = ({k: v.item() for k, v in m.items()},
                          [p.detach() for p in state.params.parameters()])
@@ -4481,7 +4618,7 @@ def main() -> int:
     with phase("6 LSTM training kernels, H=512 and H=1024"):
         train_records = train_kernel_phase(torch, card)
         wide_records = train_kernel_phase(torch, card, WIDE_H)
-    # the float32 adjoint's rows, whose main path is the float32 train step
+    # the float32 adjoints' rows, whose main path is the float32 train step
     f32_records = {f32_adjoint_name(h): recs.pop(f32_adjoint_name(h))
                    for h, recs in ((H, train_records), (WIDE_H, wide_records))}
     with phase("12 lstm_scan_cs, bilstm_scan_fused, bilstm_apply_fused"):
@@ -4493,6 +4630,8 @@ def main() -> int:
     with phase("3 + 7 speller kernels"):
         records["speller_decode"] = speller_kernel_phase(torch, card)
         train_records.update(speller_train_kernel_phase(torch, card))
+        f32_records["speller_decode_bwd (float32)"] = train_records.pop(
+            "speller_decode_bwd (float32)")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         exp = make_experiment(torch, os.path.join(root, "exp"))
@@ -4597,11 +4736,14 @@ def main() -> int:
         records[name]["launches"] += dp_launches[name]
     for name in ("lstm_scan_fusedin", "lstm_scan"):
         records[name]["launches"] += dp_serve_launches[name]
-    # the float32 adjoint: the float32 parity steps through the kernels (a
-    # float32 train run's step), lstm_bwd_dw at H=512 and lstm_bwd at H=1024
+    # the float32 adjoints: the float32 parity steps through the kernels (a
+    # float32 train run's step), lstm_bwd_dw at H=512 and lstm_bwd at H=1024,
+    # the decoder's adjoint in both
     for h in (H, WIDE_H):
         f32_records[f32_adjoint_name(h)]["launches"] = f32_launches[h][
             "lstm_bwd" if h > H else "lstm_bwd_dw"]
+    f32_records["speller_decode_bwd (float32)"]["launches"] = sum(
+        f32_launches[h]["speller_decode_bwd"] for h in (H, WIDE_H))
     records.update(f32_records)
     # the last two kernels: no YAML key of either package routes to them, so
     # their main path is the op itself, in the driven run at each row's shape

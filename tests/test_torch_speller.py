@@ -114,10 +114,16 @@ def test_forced_ids_match_pallas_gold():
 
 
 def test_grid_size_and_te_chunk():
-    assert speller_cuda.grid_size(512, 256, 256, 128) == 128   # base-LAS
-    assert speller_cuda.grid_size(1024, 256, 256, 128) == 128  # scaled-LAS
-    assert speller_cuda.grid_size(64, 32, 48, 128) == 16
-    assert speller_cuda.grid_size(512, 256, 256, 64) == 64
+    """The float32 adjoint's blocks (``plan_decode_bwd_f32``: at most 128
+    and the card's SMs, column groups dividing H1, H2 and P) and the Te
+    chunk."""
+    def plan(batch, heads, h1, h2, proj, sms=132):
+        return speller_cuda.plan_decode_bwd_f32(batch, 192, proj, heads, h1, h2, sms, 232448)
+
+    assert plan(128, 1, 512, 256, 256).blocks == 128   # base-LAS
+    assert plan(32, 4, 1024, 256, 256).blocks == 128   # scaled-LAS
+    assert (plan(64, 1, 64, 32, 48).blocks, plan(64, 1, 64, 32, 48).col_groups) == (128, 16)
+    assert plan(128, 1, 512, 256, 256, sms=64).blocks == 64
     assert [speller_cuda.pick_te_chunk(t) for t in (192, 96, 11)] == \
         [jsp._pick_te_chunk(t) for t in (192, 96, 11)] == [64, 32, 11]
 

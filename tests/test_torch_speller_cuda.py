@@ -252,6 +252,9 @@ def test_bwd_kernel_matches_plain_on_card(cuda_device, dtype, heads, with_dw, dr
         assert _rel_err(a, b) <= REL_TOL[dtype], name
     # pads carry no weight, so no score gradient
     assert bool((got[4][wgts == 0] == 0).all())
+    # a fixed order of every sum: a second call is bit-equal
+    again = speller_cuda.speller_decode_bwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -956,3 +959,72 @@ def test_bf16_streamed_form_equals_the_resident_form_on_card(cuda_device, monkey
     if train:
         for name, a, b in zip(speller_cuda.RESIDUALS, resident[3], streamed[3]):
             assert torch.equal(a, b), name
+
+
+# -- the float32 adjoint's plan (csrc/speller_bwd.cu, plan_decode_bwd_f32) ----
+
+@pytest.mark.cuda
+def test_f32_bwd_plan_mirrors_the_source_on_card(cuda_device):
+    """The float32 adjoint plan's constants and shared-memory count are the
+    built source's."""
+    lib = speller_cuda.load_bwd_library()
+    lim = speller_cuda.bwd_kernel_limits(torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert {k: lim[k] for k in speller_cuda.BWD_F32_LIMITS} == speller_cuda.BWD_F32_LIMITS
+    assert lim["sms"] == sms and lim["smem_optin"] >= 48 * 1024
+    for shape in [(128, 192, 256, 1, 512, 256), (32, 192, 256, 4, 1024, 256),
+                  (5, 37, 64, 2, 128, 64), (8, 704, 256, 4, 1024, 256),
+                  (8, 192, 256, 1, 640, 128), (64, 608, 128, 1, 256, 128)]:
+        plan = speller_cuda.plan_decode_bwd_f32(*shape, lim["sms"], lim["smem_optin"])
+        batch, te, proj, heads, h1, h2 = shape
+        dims = (ctypes.c_int * 7)(batch, te, 1, proj, heads, h1, h2)
+        geom = speller_cuda.bwd_f32_geometry(plan)
+        geom = (ctypes.c_int * len(geom))(*geom)
+        assert lib.speller_bwd_smem_bytes(dims, geom) == plan.smem, (shape, plan)
+
+
+def _f32_bwd_case(device, batch, te, steps, changes, seed=0):
+    """The float32 adjoint's operands from a float32 training forward with
+    dropout, and cotangents of q, the context and the weights."""
+    cfg, params, enc, lengths = _setup(device, batch=batch, te=te, **changes)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        operands, _ = speller_cuda.decode_operands(params, cfg, enc, lengths)
+    opts = {**speller_cuda.decode_options(cfg), "steps": steps}
+    m1, m2 = (((torch.rand(steps, batch, h, generator=gen) < 0.7).float() / 0.7).to(device)
+              for h in (cfg.dec_lstm_hid_dim, cfg.dec_lstm_out_dim))
+    _, wgts, _, saved = speller_cuda.speller_decode_train(*operands, **opts, m1=m1, m2=m2)
+    k, v, _, _, _, c10, _, c20, _, wc1, whh1, wih2, whh2, _, wq = operands[:15]
+    _, gates1, c1, _, gates2, c2, _, _ = saved
+    proj = k.shape[2]
+    dqup, dctxup = ((torch.randn(steps, batch, proj, generator=gen) * 0.1).to(device)
+                    for _ in range(2))
+    dwup = (torch.randn(*wgts.shape, generator=gen) * 0.1).to(device)
+    args = (k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2, wgts, m1, m2,
+            dqup, dctxup, dwup)
+    return args, {"heads": opts["heads"], "scale": opts["scale"]}
+
+
+# speller blocks the earlier float32 adjoint refused: 5 cell-1 units a block
+# on its grid of 128; scaled-LAS's widths past Te = 640 (its shared memory)
+F32_REFUSED_BEFORE = {
+    "H1 640, H2 128, P 256": (8, 16, {"att_proj_dim": 256, "dec_emb_dim": 512,
+                                      "dec_lstm_hid_dim": 640, "dec_lstm_out_dim": 128,
+                                      "att_heads": 1}),
+    "scaled-LAS at Te=704": (4, 704, {**SCALED_LAS_SPELLER, "att_heads": 4}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", list(F32_REFUSED_BEFORE))
+def test_f32_bwd_at_shapes_the_earlier_adjoint_refused_on_card(cuda_device, block):
+    batch, te, changes = F32_REFUSED_BEFORE[block]
+    args, kw = _f32_bwd_case(cuda_device, batch, te, 12, changes)
+    speller_cuda.reset_launch_counts()
+    got = speller_cuda.speller_decode_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert speller_cuda.LAUNCHES["speller_decode_bwd"] == 1
+    want = speller_cuda.speller_decode_bwd_plain(*args, **kw)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert _rel_err(a, b) <= REL_TOL[torch.float32], name
+    assert bool((got[4][args[13] == 0] == 0).all())

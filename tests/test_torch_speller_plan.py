@@ -1,9 +1,10 @@
 """PyTorch port, the launch plans of the bfloat16 fused speller decode
 (``ops/speller_cuda.py::plan_decode_tc``) and of its adjoint
-(``plan_decode_bwd_tc``): which cooperative launches a call takes on a card
-of a given number of SMs, the columns each block owns in each product, the
-ring's stages and the shared memory a block needs; and which source each
-dtype takes. Pure Python: no card, no kernel."""
+(``plan_decode_bwd_tc``), and of the float32 forward (``plan_decode_f32``)
+and adjoint (``plan_decode_bwd_f32``): which cooperative launches a call
+takes on a card of a given number of SMs, the columns each block owns in each
+product, the ring's stages and the shared memory a block needs; and which
+source each dtype takes. Pure Python: no card, no kernel."""
 
 import itertools
 
@@ -454,15 +455,28 @@ def _bwd_operands(dtype, batch=2, te=8, proj=64, h1=128, h2=64, steps=3, heads=1
                                          (torch.float32, "bwd_kernel_limits")])
 def test_bwd_bf16_takes_the_tensor_core_source_and_fp32_the_old_one(monkeypatch, dtype, route):
     """Past the operand checks, a bfloat16 adjoint goes to ``_launch_bwd_tc``
-    (the new source) and float32 to ``csrc/speller_bwd.cu``'s limits and
-    launch; nothing is launched here."""
+    (the tensor-core source) and float32 to ``csrc/speller_bwd.cu``: its
+    limits (the card's SMs and shared memory), the plan of
+    ``plan_decode_bwd_f32`` on them, then its library; nothing is launched
+    here."""
     def routed(*args, **kwargs):
         raise _Routed(route)
 
-    monkeypatch.setattr(speller_cuda, route, routed)
+    planned = []
+    if dtype == torch.float32:
+        real_plan = speller_cuda.plan_decode_bwd_f32
+        monkeypatch.setattr(speller_cuda, "bwd_kernel_limits", lambda device: {
+            "sms": SMS, "smem_optin": SMEM_LIMIT})
+        monkeypatch.setattr(speller_cuda, "plan_decode_bwd_f32",
+                            lambda *a, **k: planned.append(real_plan(*a, **k)) or planned[-1])
+        monkeypatch.setattr(speller_cuda, "load_bwd_library", routed)
+    else:
+        monkeypatch.setattr(speller_cuda, route, routed)
     monkeypatch.setattr(speller_cuda, "_check_operands", lambda *args: None)
     with pytest.raises(_Routed, match=route):
         speller_cuda._launch_bwd(*_bwd_operands(dtype), 1, 0.125)
+    if dtype == torch.float32:
+        assert planned == [real_plan(2, 8, 64, 1, 128, 64, SMS, SMEM_LIMIT)]
 
 
 def test_bwd_source_is_built_and_bound():
@@ -477,11 +491,21 @@ def test_bwd_source_is_built_and_bound():
 # The float32 forward's plan (``plan_decode_f32``, csrc/speller_decode.cu)
 # ---------------------------------------------------------------------------
 
+def _earlier_grid(h1, h2, proj, max_grid=128):
+    """The blocks of the earlier float32 kernels' launch: the largest power
+    of two up to ``max_grid`` that divides both cells' widths and the
+    projection width."""
+    grid = max_grid
+    while grid > 1 and (h1 % grid or h2 % grid or proj % grid):
+        grid //= 2
+    return grid
+
+
 def _earlier_f32_takes(batch, te, proj, heads, h1, h2, vp):
     """Whether the earlier float32 forward (128 blocks at most, each owning
     1, 2, 4 or 8 of each cell's units and query columns, every block walking
     every row) took a shape: its checks and its shared memory, mirrored."""
-    grid = speller_cuda.grid_size(h1, h2, proj, 128)
+    grid = _earlier_grid(h1, h2, proj)
     if any(n % 8 or n // grid not in (1, 2, 4, 8) for n in (h1, h2, proj)):
         return False
     if proj % heads or (proj // heads) % 8 or proj > 1024 or vp > 32:
@@ -571,3 +595,211 @@ def test_f32_limits_mirror_the_source():
                       ("pad", "DF_PAD"), ("max_stages", "DF_MAX_STAGES"),
                       ("att_rows", "DF_ATT_ROWS")):
         assert f"constexpr int {name} = {speller_cuda.F32_LIMITS[key]};" in text, name
+
+
+# ---------------------------------------------------------------------------
+# The float32 adjoint's plan (``plan_decode_bwd_f32``, csrc/speller_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _earlier_f32_bwd_takes(batch, te, proj, heads, h1, h2):
+    """Whether the earlier float32 adjoint (the largest power-of-two grid up
+    to 128 dividing H1, H2 and P, each block owning 1, 2, 4 or 8 of each
+    cell's units and context columns, every block walking every row) took a
+    shape: its checks (``_check_geometry``) and its shared memory
+    (``smem_bytes``: the weight rows, then d_ctx, 1024 floats of group sums
+    and dw and w of every head), mirrored."""
+    grid = _earlier_grid(h1, h2, proj)
+    if any(n % 8 or n // grid not in (1, 2, 4, 8) for n in (h1, h2, proj)):
+        return False
+    if proj % heads or (proj // heads) % 8 or proj > 1024:
+        return False
+    u1, u2, nq = h1 // grid, h2 // grid, proj // grid
+    weights = ((u1 + nq) * 4 * h1 + (u1 + u2) * 4 * h2 + u2 * proj) * 4
+    return -(-weights // 16) * 16 + (proj + 1024 + 2 * heads * te) * 4 <= SMEM_LIMIT
+
+
+def _check_bwd_f32_plan(plan, batch, te, proj, heads, h1, h2):
+    """The plan is a geometry the source takes (geometry_ok mirrored) and
+    fits the card."""
+    lim = speller_cuda.BWD_F32_LIMITS
+    assert plan.blocks == plan.col_groups * plan.row_groups <= min(lim["max_grid"], SMS)
+    assert not (h1 % plan.col_groups or h2 % plan.col_groups or proj % plan.col_groups)
+    assert plan.rows * plan.row_groups >= batch > plan.rows * (plan.row_groups - 1)
+    assert plan.sub % 8 == 0 and 8 <= plan.sub <= lim["max_box_rows"]
+    assert 1 <= plan.boxes <= lim["max_boxes"] and 1 <= plan.stages <= lim["max_stages"]
+    assert 1 <= plan.ks <= lim["max_ks"] and plan.att_groups >= 1
+    for cols, _ in speller_cuda._bwd_f32_phases(proj, h1, h2, plan.col_groups):
+        assert speller_cuda.bwd_f32_tiling(plan.sub, cols, 1, 1)[2] <= lim["nthreads"]
+    assert plan.smem == speller_cuda.decode_bwd_f32_smem_bytes(
+        te, proj, heads, h1, h2, plan.col_groups, plan.sub, plan.boxes, plan.stages, plan.ks,
+        plan.att_groups, plan.stream) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("h1,h2,proj", EARLIER_F32_WIDTHS)
+def test_bwd_f32_plan_takes_every_shape_the_earlier_adjoint_took(h1, h2, proj):
+    """Every shape the earlier float32 adjoint took, over heads, encoder
+    lengths up to its shared-memory limit and batches, the plan takes: one
+    launch, every block resident, within the limit."""
+    taken = 0
+    for heads, te, batch in itertools.product((1, 2, 4, 8), (1, 37, 192, 640, 4096, 20000),
+                                              (1, 5, 64, 300)):
+        if not _earlier_f32_bwd_takes(batch, te, proj, heads, h1, h2):
+            continue
+        taken += 1
+        plan = speller_cuda.plan_decode_bwd_f32(batch, te, proj, heads, h1, h2, SMS, SMEM_LIMIT)
+        _check_bwd_f32_plan(plan, batch, te, proj, heads, h1, h2)
+    assert taken
+
+
+# (H1, H2, P) the float32 forward takes at some heads, length and batch: the
+# earlier ones, the card tests', base- and scaled-LAS's, the Rewriter's, and
+# blocks the earlier adjoint refused (5 units a block at (640, 128, 256); 6
+# and 3 at (768, 384, P); 3 at (384, 128, 256))
+F32_BWD_WIDTHS = sorted(set(EARLIER_F32_WIDTHS + [
+    (128, 64, 64), (512, 256, 256), (1024, 256, 256), (256, 128, 128), (640, 128, 256),
+    (768, 384, 256), (768, 384, 512), (384, 128, 256), (512, 512, 256)]))
+
+
+@pytest.mark.parametrize("h1,h2,proj", F32_BWD_WIDTHS)
+def test_bwd_f32_plan_takes_every_shape_the_forward_takes(h1, h2, proj):
+    """Wherever the float32 forward plans a call, over heads, encoder
+    lengths and batches, the float32 adjoint plans it too."""
+    taken = 0
+    for heads, te, batch in itertools.product((1, 2, 4), (1, 192, 700, 1024, 4096, 20000),
+                                              (1, 8, 64, 300)):
+        if (proj // heads) % 8:
+            continue
+        try:
+            speller_cuda.plan_decode_f32(batch, te, proj, heads, h1, h2, 32, SMS, SMEM_LIMIT)
+        except ValueError:
+            continue
+        taken += 1
+        plan = speller_cuda.plan_decode_bwd_f32(batch, te, proj, heads, h1, h2, SMS, SMEM_LIMIT)
+        _check_bwd_f32_plan(plan, batch, te, proj, heads, h1, h2)
+    assert taken
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 192, 256, 1, 640, 128),   # 5 cell-1 units a block on the earlier grid of 128
+    (8, 700, 256, 4, 1024, 256),  # scaled-LAS past the earlier adjoint's shared memory
+    (8, 1024, 256, 4, 1024, 256),
+    (32, 704, 256, 4, 1024, 256)])
+def test_bwd_f32_plan_takes_shapes_the_earlier_adjoint_refused(shape):
+    batch, te, proj, heads, h1, h2 = shape
+    assert not _earlier_f32_bwd_takes(*shape)
+    speller_cuda.plan_decode_f32(*shape, 32, SMS, SMEM_LIMIT)  # the forward takes it
+    plan = speller_cuda.plan_decode_bwd_f32(*shape, SMS, SMEM_LIMIT)
+    _check_bwd_f32_plan(plan, batch, te, proj, heads, h1, h2)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"h1": 100}, "H1 100, H2 128 and P 128 must be multiples of 8"),
+    ({"heads": 3}, "head width P / heads = 128 / 3"),
+    ({"heads": 32}, "head width P / heads = 128 / 32"),
+    ({"proj": 2048, "h1": 256}, "head width 2048 above 1024"),
+    ({"te": 60000}, "shared memory a block at the least .* the device's limit is 232448"),
+    ({"te": 608, "smem_optin": 12000}, "the device's limit is 12000"),
+    ({"batch": 0}, "batch 0 and encoder length 608 must be at least 1"),
+])
+def test_bwd_f32_plan_raises_naming_the_limit(kwargs, match):
+    args = {"batch": 64, "te": 608, "proj": 128, "heads": 1, "h1": 256, "h2": 128,
+            "smem_optin": SMEM_LIMIT}
+    args.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        speller_cuda.plan_decode_bwd_f32(args["batch"], args["te"], args["proj"], args["heads"],
+                                         args["h1"], args["h2"], SMS, args["smem_optin"])
+
+
+# the plans the A/B calls measured on an H100 (PERF.md): (batch, P, heads, H1,
+# H2) at Te 192 -> (blocks, CG, RG, rows, sub-tile, boxes, stages, k slices,
+# (d)'s weights streamed); base-LAS B=128 and scaled-LAS B=32 are the main
+# path's
+MEASURED_BWD_F32_PLANS = {
+    "base-LAS B=128": ((128, 256, 1, 512, 256), (128, 32, 4, 32, 32, 1, 3, 16, 1)),
+    "base-LAS B=64": ((64, 256, 1, 512, 256), (128, 32, 4, 16, 16, 2, 2, 16, 1)),
+    "base-LAS B=32": ((32, 256, 1, 512, 256), (128, 64, 2, 16, 16, 2, 4, 16, 0)),
+    "scaled-LAS B=128": ((128, 256, 4, 1024, 256), (128, 64, 2, 64, 64, 1, 2, 16, 1)),
+    "scaled-LAS B=32": ((32, 256, 4, 1024, 256), (128, 64, 2, 16, 16, 2, 2, 16, 1)),
+}
+
+
+@pytest.mark.parametrize("shape", list(MEASURED_BWD_F32_PLANS))
+def test_bwd_f32_plan_at_the_measured_shapes(shape):
+    (batch, proj, heads, h1, h2), want = MEASURED_BWD_F32_PLANS[shape]
+    plan = speller_cuda.plan_decode_bwd_f32(batch, 192, proj, heads, h1, h2, SMS, SMEM_LIMIT)
+    assert (plan.blocks, plan.col_groups, plan.row_groups, plan.rows, plan.sub, plan.boxes,
+            plan.stages, plan.ks, plan.stream) == want
+    _check_bwd_f32_plan(plan, batch, 192, proj, heads, h1, h2)
+
+
+@pytest.mark.parametrize("shape,sms,blocks", [
+    ((128, 192, 256, 1, 512, 256), SMS, 128),  # base-LAS: at most 128
+    ((128, 192, 256, 1, 512, 256), 64, 64),    # at most the SMs
+    ((1, 192, 256, 1, 512, 256), SMS, 128),    # one row: 128 column groups
+    ((1, 37, 48, 1, 64, 32), SMS, 16),         # one row: 16 column groups divide P 48
+    ((64, 37, 48, 1, 64, 32), SMS, 128),      # 16 column groups x 8 row groups
+])
+def test_bwd_f32_plan_takes_the_most_blocks(shape, sms, blocks):
+    plan = speller_cuda.plan_decode_bwd_f32(*shape, sms, SMEM_LIMIT)
+    assert plan.blocks == blocks
+
+
+def test_bwd_f32_plan_takes_the_least_feed_at_the_most_blocks():
+    """At base-LAS B=32 two splits of 128 blocks fit with the widest ring:
+    64 x 2 row groups of 16 rows, (d)'s weights resident (16 rows x 3328
+    floats a step into a block), and 32 x 4 of 8 rows, (d)'s 24 weight rows
+    streamed (8 x 3328 + 24 x 2048); the first reads fewer bytes."""
+    plan = speller_cuda.plan_decode_bwd_f32(32, 192, 256, 1, 512, 256, SMS, SMEM_LIMIT)
+    assert (plan.col_groups, plan.stream) == (64, 0)
+    assert 16 * 3328 < 8 * 3328 + 24 * 2048
+    for cg, sub, stream in ((64, 16, 0), (32, 8, 1)):
+        ks, ring, boxes, _, _, _ = speller_cuda._bwd_f32_inner(192, 256, 1, 512, 256, cg, sub,
+                                                                stream, SMEM_LIMIT)
+        assert (ks, ring, boxes) == (16, 0, 2)
+
+
+def test_bwd_f32_shared_memory_bytes():
+    # base-LAS, 32 column groups: 16 cell-1, 8 cell-2 units and 8 context
+    # columns a block; 32-row sub-tiles, 3 stages of 2 boxes (128 k each, rows
+    # of 132 floats), (d)'s 16 + 8 weight rows streamed a box, 8 k slices, 4
+    # attention groups
+    weights = 8 * 256 + 24 * 4 * 256
+    att = 256 + 192 + 4 * 256 + 8
+    # the partial tiles of the widest phase: (c) and (d), 24 columns of 8 x 4
+    # tiles over 32 rows, 24 tiles, 8 k slices (10 would fill the threads)
+    red = 8 * 32 * 24
+    assert speller_cuda.bwd_f32_tiling(32, 24, 8, 32) == (4, 8, 24, 8)
+    assert speller_cuda.bwd_f32_tiling(32, 24, 16, 32) == (4, 8, 24, 10)
+    ring = 3 * 2 * (32 + 16 + 8) * 132 * 4
+    assert speller_cuda.decode_bwd_f32_smem_bytes(192, 256, 1, 512, 256, 32, 32, 2, 3, 8, 4,
+                                                  1) == 128 + ring + 3 * 16 + 4 * (
+        weights + max(att, red))
+    # the same with (d)'s weight rows resident
+    weights += 24 * 4 * 512
+    assert speller_cuda.decode_bwd_f32_smem_bytes(192, 256, 1, 512, 256, 32, 32, 2, 1, 8, 4,
+                                                  0) == 128 + 2 * 32 * 132 * 4 + 16 + 4 * (
+        weights + max(att, red))
+    # scaled-LAS, 4 heads of 64: the attention's groups cap at 256 / 16 slices
+    assert speller_cuda._bwd_att_groups(256, 4, 256) == 16
+    # a phase with few columns: (b)'s 8 cell-2 units make 8 tiles of 8 x 4
+    # on 32 rows, the k slices up to 16 and the stage's pieces
+    assert speller_cuda.bwd_f32_tiling(32, 8, 16, 32) == (4, 8, 8, 16)
+    assert speller_cuda.bwd_f32_tiling(32, 8, 16, 2) == (4, 8, 8, 2)
+    # 10 columns take tiles 2 wide; 1024 columns over 8 rows fill the threads
+    assert speller_cuda.bwd_f32_tiling(16, 10, 16, 32) == (2, 8, 10, 16)
+    assert speller_cuda.bwd_f32_tiling(8, 1024, 16, 32)[:3] == (4, 8, 256)
+
+
+def test_bwd_f32_limits_mirror_the_source():
+    """The plan's constants are the float32 adjoint source's (the card test
+    reads them from the built library; here from the source's text)."""
+    with open(speller_cuda.BWD_SOURCE) as fh:
+        text = fh.read()
+    for key, name in (("max_grid", "DA_MAX_GRID"), ("nthreads", "DA_CONSUMERS"),
+                      ("box_k", "DA_BOX_K"), ("max_boxes", "DA_MAX_BOXES"),
+                      ("max_stages", "DA_MAX_STAGES"), ("max_ks", "DA_MAX_KS"),
+                      ("max_box_rows", "DA_MAX_BOX_ROWS"), ("align", "DA_ALIGN")):
+        assert f"constexpr int {name} = {speller_cuda.BWD_F32_LIMITS[key]};" in text, name
+    assert "constexpr int DA_LDX = DA_BOX_K + 4;" in text
+    assert speller_cuda.BWD_F32_LIMITS["ldx"] == speller_cuda.BWD_F32_LIMITS["box_k"] + 4
+    assert "grid.sync" not in text and "cooperative_groups" not in text
