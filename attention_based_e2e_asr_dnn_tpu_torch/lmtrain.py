@@ -16,12 +16,16 @@ on. With ``lstm_impl: pallas`` and ``decoder_impl: pallas`` in the model
 block the encoder trains on the LSTM kernels (``lstm_scan_train`` forward,
 ``lstm_bwd_dw`` backward) and the decoder on the fused decode's training
 form and its adjoint; the dev pass decodes on ``lstm_scan`` and the eval
-form. ``parallel:`` is checked as the JAX CLI checks it: ``pipeline`` and
-``sequence`` raise its ``ValueError``s, ``model > 1`` with a kernel tier
-its tensor-parallel ``ValueError`` and on the scan loops
-``NotImplementedError`` (ROADMAP queue 1, item 16); ``use: true`` with
-``data: N`` (or ``n_devices``; null: every visible card) trains
-data-parallel, as the ``train`` CLI does (one command; ``torchrun`` too).
+form. ``parallel:`` is checked and routed as the JAX CLI does it:
+``pipeline`` and ``sequence`` raise its ``ValueError``s (LAS-only),
+``model > 1`` with a kernel tier its tensor-parallel ``ValueError``;
+``model: M`` on the scan loops trains tensor-parallel in this process over a
+``(data, model)`` grid (``parallel/mesh.py``: the encoder's and the
+decoder's ``w_ih`` / ``w_hh``, the attention maps and ``char_emb``
+column-sharded by the LAS rule; the visible cards, or with ``--device cpu``
+the CPU at every position); ``use: true`` with ``data: N`` alone (or
+``n_devices``; null: every visible card) trains data-parallel, as the
+``train`` CLI does (one command; ``torchrun`` too).
 With an
 ``export_artifact`` block the best checkpoint becomes a corrector artifact
 (``export.export_corrector_from_experiment``) under
@@ -35,6 +39,7 @@ import argparse
 import dataclasses
 import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -44,6 +49,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
 from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import LmTrainDevDataset
 from attention_based_e2e_asr_dnn_tpu_torch.models.rewriter import (
     RewriterConfig,
+    draw_rewriter_noise,
     rewriter_apply,
     rewriter_init,
 )
@@ -52,6 +58,12 @@ from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
     close_experiment,
     open_experiment,
     run_training,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.grid import grid_devices
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import (
+    make_mesh_2d,
+    shard_batch_fn,
+    shard_train_state,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
 
@@ -72,7 +84,9 @@ def make_rewriter_apply_factory(base_cfg: RewriterConfig, compute_dtype=None):
     """``make_apply(dropout_scale) -> apply_fn`` for the Trainer:
     ``rewriter_apply`` with the config, its dropout rates scaled, and the
     compute dtype bound. A training pass handed a ``generator`` and no
-    ``draws`` draws its dropout masks and forcing coins from it."""
+    ``draws`` draws its dropout masks and forcing coins from it;
+    ``apply_fn.draw(batch, steps, generator, device)`` draws them for a
+    whole batch (the steps over a device grid)."""
 
     def make_apply(dropout_scale: float):
         cfg = scale_rewriter_dropouts(base_cfg, dropout_scale)
@@ -83,6 +97,8 @@ def make_rewriter_apply_factory(base_cfg: RewriterConfig, compute_dtype=None):
                                   compute_dtype=compute_dtype, draws=draws,
                                   generator=generator)
 
+        apply_fn.draw = lambda batch, steps, generator, device: draw_rewriter_noise(
+            cfg, batch, steps, generator, device)
         return apply_fn
 
     return make_apply
@@ -102,9 +118,9 @@ def inject_lm_vocab(cfg_dict: dict) -> dict:
 
 def check_parallel(trncfgs, lm_cfg: RewriterConfig):
     """The JAX CLI's checks of the ``parallel:`` block: False where it is
-    off, else the number of data-parallel ranks (None: every visible card);
-    tensor parallelism on the scan loops raises ``NotImplementedError``
-    (ROADMAP queue 1, item 16)."""
+    off, the number of data-parallel ranks (None: every visible card) for
+    ``data`` alone, else ``{"model": M, "data": D}`` for tensor
+    parallelism."""
     par = getattr(trncfgs, "parallel", None)
     if par is None or not par.use:
         return False
@@ -125,10 +141,8 @@ def check_parallel(trncfgs, lm_cfg: RewriterConfig):
             "impls with parallel.model, or keep the kernel tiers and scale with "
             "parallel.data.")
     if model_par > 1:
-        raise NotImplementedError(
-            f"parallel: model={model_par} (tensor parallelism, parallel/mesh.py's 2-D "
-            f"mesh) is not ported yet (ROADMAP queue 1, item 16); scale with "
-            f"parallel.data alone (data parallelism)")
+        data = getattr(par, "data", None)
+        return {"model": model_par, "data": None if data is None else int(data)}
     n = getattr(par, "data", None) or getattr(par, "n_devices", None)
     return None if n is None else int(n)
 
@@ -167,11 +181,13 @@ def main(args):
     trncfgs = Config(inject_lm_vocab(load_yaml(args.config_file)))
     lm_cfg = RewriterConfig(**trncfgs.model.configs)
     n_ranks = check_parallel(trncfgs, lm_cfg)
+    if isinstance(n_ranks, dict):  # tensor parallelism: this process, over a grid
+        return _train(None, args, n_ranks)
     return run_training(_train, args, n_ranks,
                         build="pallas" in (lm_cfg.lstm_impl, lm_cfg.decoder_impl))
 
 
-def _train(mesh, args):
+def _train(mesh, args, tp_plan: Optional[dict] = None):
     device = args.device if mesh is None else mesh.device
     print(f"device: {torch.cuda.get_device_name(device) if torch.device(device).type == 'cuda' else device}")
     trncfgs_dict = inject_lm_vocab(load_yaml(args.config_file))
@@ -195,6 +211,14 @@ def _train(mesh, args):
     print(f"[data] {len(trn_batcher)} train batches, {len(dev_batcher)} dev batches")
 
     dtype = compute_dtype(getattr(trncfgs, "compute_dtype", "float32"))
+    parallel = {}
+    if tp_plan is not None:
+        model_par, data = tp_plan["model"], tp_plan["data"]
+        grid = make_mesh_2d(data, model_par,
+                            devices=grid_devices(device, (data or 1) * model_par))
+        print(f"[parallel] 2-D mesh: data={grid.shape['data']} x model={grid.shape['model']}")
+        parallel = {"shard_batch": shard_batch_fn(grid),
+                    "shard_state": lambda st: shard_train_state(st, grid)}
     trainer = Trainer(
         init_fn=lambda generator: rewriter_init(lm_cfg, generator),
         make_apply=make_rewriter_apply_factory(lm_cfg, compute_dtype=dtype),
@@ -208,6 +232,7 @@ def _train(mesh, args):
         logger=logger,
         device=device,
         dp_mesh=mesh,
+        **parallel,
     )
     trainer.train_eval(int(trncfgs.epochs))
     close_experiment(mesh, trainer, logger, tgt_folder,

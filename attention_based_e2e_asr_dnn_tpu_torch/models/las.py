@@ -342,13 +342,16 @@ class DecodeState(NamedTuple):
 
 
 def speller_start(params, cfg: SpellerConfig, enc_h: torch.Tensor,
-                  enc_l: torch.Tensor):
+                  enc_l: torch.Tensor, cache_hook=None):
     """Attention cache and the t = -1 decoder state (learned initial
     states, context of the learned initial query); also the t = -1
-    attention weights."""
+    attention weights. ``cache_hook(cache)`` replaces the cache where given
+    (sequence parallelism: ``parallel/sequence.py::shard_cache_over_time``)."""
     batch, dtype = enc_h.shape[0], enc_h.dtype
     cache = cross_attention_precompute(params["attention"], enc_h, enc_l,
                                        cfg.att_heads)
+    if cache_hook is not None:
+        cache = cache_hook(cache)
 
     def init(name, width):
         return params[name].to(dtype).expand(batch, width)
@@ -439,7 +442,7 @@ def reset_decode_routes() -> None:
 def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
                   enc_l: torch.Tensor, dec_y: Optional[torch.Tensor] = None,
                   tf_rate=1.0, init_force: bool = False, train: bool = False,
-                  draws: Optional[TrainDraws] = None) -> SpellerOutput:
+                  draws: Optional[TrainDraws] = None, cache_hook=None) -> SpellerOutput:
     """The autoregressive decode (the JAX ``speller_apply``).
 
     Eval (``train=False``, ``dec_y=None``): free-running greedy for
@@ -459,10 +462,15 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
     CPU, warns once a shape, records the route ``"scan"`` and takes the step
     loop: the JAX package's own route for a pass its kernel does not compute
     (its ``models/las.py``; the loop ignores ``dec_y`` outside training).
-    Training without ``dec_y`` raises."""
+    Training without ``dec_y`` raises. ``cache_hook`` (the step loop only;
+    the JAX package's ``enc_hook`` route refuses the kernels) shards the
+    attention cache over time: sequence parallelism."""
     batch, enc_len, _ = enc_h.shape
     key = (_decoder_key(cfg), batch, enc_len)
     if cfg.decoder_impl == "pallas":
+        if cache_hook is not None:
+            raise ValueError("a time-sharded attention cache (sequence parallelism) "
+                             "requires decoder_impl: scan")
         if train and dec_y is None:
             raise ValueError("training decode requires dec_y")
         if init_force:
@@ -501,7 +509,7 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
     prior_rows = (block_diagonal_prior(enc_len, steps, device=enc_h.device).T
                   if init_force else None)
 
-    cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l)
+    cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l, cache_hook)
     char = torch.full((batch,), cfg.CHR_SOS_IDX, dtype=torch.long,
                       device=enc_h.device)
     logits_t, wgts_t = [], []
@@ -525,15 +533,17 @@ def las_apply(params, cfg: LASConfig, x: torch.Tensor, lx: torch.Tensor,
               dec_y: Optional[torch.Tensor] = None, tf_rate=1.0,
               init_force: bool = False, train: bool = False,
               draws: Optional[TrainDraws] = None,
-              generator: Optional[torch.Generator] = None) -> SpellerOutput:
+              generator: Optional[torch.Generator] = None,
+              cache_hook=None) -> SpellerOutput:
     """listen -> spell (the JAX ``las_apply``). Eval: (B, T, input_dim)
     features and lengths -> the free-running decode. Training: the
     teacher-forced decode over ``dec_y``, its randomness from ``draws`` or,
-    when only a ``generator`` is given, drawn from it."""
+    when only a ``generator`` is given, drawn from it. ``cache_hook``: see
+    ``speller_apply``."""
     if train and draws is None and generator is not None:
         draws = draw_train_noise(cfg, x.shape[0], dec_y.shape[1], generator, x.device)
     enc_h, enc_l = listener_apply(
         params["listener"], cfg.listener, x, lx, train,
         masks=None if draws is None else draws.listener_masks)
     return speller_apply(params["speller"], cfg.speller, enc_h, enc_l, dec_y,
-                         tf_rate, init_force, train, draws)
+                         tf_rate, init_force, train, draws, cache_hook)

@@ -9,6 +9,11 @@ an ``init_wgts_row`` (the early-epoch alignment forcing) the weights are
 multiplied by the prior's row and renormalised by a second softmax, as the
 reference does; the weights recorded for the attention map stay the
 pre-forcing ones.
+
+A cache whose time axis is sharded over devices
+(``parallel/sequence.py::shard_cache_over_time``) brings its own step:
+``cross_attention_step`` hands such a cache the query
+(``sequence_parallel_attention_step``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ def cross_attention_step(params, cache: AttentionCache, dec_h: torch.Tensor,
     (context (B, proj_dim), weights (B, heads, T), q_proj (B, proj_dim)).
     ``init_wgts_row`` (T,): this step's row of the diagonal-forcing prior;
     the returned weights are then the pre-forcing ones."""
+    if not isinstance(cache, AttentionCache):  # time-sharded (parallel/sequence.py)
+        return cache.attention_step(params, dec_h, heads, legacy_scale, init_wgts_row)
     batch = dec_h.shape[0]
     proj_dim = params["query_map"]["w"].shape[1]
     d_head = proj_dim // heads

@@ -27,6 +27,12 @@ cs nor the gates), and the backward pass launches the training forward and
 then the adjoint. The layer has no randomness of its own (the dropout masks
 are the stack's inputs), so the second forward repeats the first bit for bit
 and the gradients equal those without ``remat``.
+
+The plain loops run direction by direction, so a layer whose ``w_ih`` /
+``w_hh`` are column-sharded (``ops/shards.py::ColumnShards``, tensor
+parallelism) takes them as they are, each product column-parallel. The
+kernels' route (``directions_apply``) refuses such a weight, as the JAX
+CLIs refuse the kernel tiers under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops.dropout import locked_dropout
+from attention_based_e2e_asr_dnn_tpu_torch.ops.shards import ColumnShards, refuse_sharded
 
 
 def _gates(pre: torch.Tensor, c: torch.Tensor, hidden_dim: int):
@@ -64,9 +71,11 @@ def directions_apply(dirs: Sequence, x: torch.Tensor, lengths: torch.Tensor,
     wider than ``FUSED_IN_MAX_DIM`` is projected inside the recurrence
     (``fusedin_fn``, float32 projection); a wider one takes ``x @ W_ih + b``
     as one product in the compute dtype, all directions at once, then the
-    recurrence (``scan_fn``).
+    recurrence (``scan_fn``). A kernel cannot take a column-sharded weight:
+    one raises the JAX CLIs' tensor-parallel ``ValueError``.
     """
     dtype = x.dtype
+    refuse_sharded(list(dirs), "lstm_impl")
     w_hh = torch.stack([p["w_hh"] for p in dirs]).to(dtype)
     if dirs[0]["w_ih"].shape[0] <= FUSED_IN_MAX_DIM:
         w_ih = torch.stack([p["w_ih"] for p in dirs]).to(dtype)
@@ -78,28 +87,36 @@ def directions_apply(dirs: Sequence, x: torch.Tensor, lengths: torch.Tensor,
     return scan_fn(x_proj, w_hh, lengths, tuple(reverse))
 
 
+def _plain_directions(dirs: Sequence, x: torch.Tensor, lengths: torch.Tensor,
+                      reverse: Sequence[bool]) -> torch.Tensor:
+    """The plain loops over LSTM directions ``dirs``, with the kernels' route
+    (``directions_apply``) and sums, direction by direction: an input no
+    wider than ``FUSED_IN_MAX_DIM`` projected in float32, a wider one as
+    ``x @ W_ih + b`` in the compute dtype. A weight may be column-sharded."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import _directions_plain
+
+    dtype = x.dtype
+    w_hh = [p["w_hh"].to(dtype) for p in dirs]
+    if dirs[0]["w_ih"].shape[0] <= FUSED_IN_MAX_DIM:
+        def pre_x(d):
+            return (x.float() @ dirs[d]["w_ih"].to(dtype).float()
+                    + dirs[d]["b"].to(dtype).float())
+    else:
+        def pre_x(d):
+            return (x @ dirs[d]["w_ih"].to(dtype) + dirs[d]["b"].to(dtype)).float()
+    return _directions_plain(pre_x, w_hh, lengths, x.shape[1], tuple(reverse), dtype,
+                             train=False)
+
+
 def lstm_apply(params, x: torch.Tensor, lengths: torch.Tensor,
                reverse: bool = False) -> torch.Tensor:
     """One LSTM direction, plain: (B, T, D) -> (B, T, H), zero at pads."""
-    from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
-        lstm_scan_fusedin_plain,
-        lstm_scan_plain,
-    )
-
-    return directions_apply([params], x, lengths, (reverse,),
-                            lstm_scan_fusedin_plain, lstm_scan_plain)
+    return _plain_directions([params], x, lengths, (reverse,))
 
 
 def bilstm_apply(params, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM, plain: (B, T, D) -> (B, T, 2H) = [fwd, bwd]."""
-    from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
-        lstm_scan_fusedin_plain,
-        lstm_scan_plain,
-    )
-
-    return directions_apply([params["fwd"], params["bwd"]], x, lengths,
-                            (False, True), lstm_scan_fusedin_plain,
-                            lstm_scan_plain)
+    return _plain_directions([params["fwd"], params["bwd"]], x, lengths, (False, True))
 
 
 class _RematLayer(torch.autograd.Function):
@@ -142,16 +159,38 @@ def _layer_leaves(layer, bidirectional: bool):
     return leaves, rebuild
 
 
+def _shard_tensors(leaves):
+    """A layer's leaves as plain tensors (a column-sharded weight's blocks in
+    its place), and the function that puts them back."""
+    tensors, spans = [], []
+    for leaf in leaves:
+        if isinstance(leaf, ColumnShards):
+            spans.append((len(leaf.shards), leaf.gather))
+            tensors.extend(leaf.shards)
+        else:
+            spans.append(None)
+            tensors.append(leaf)
+
+    def unflatten(flat):
+        it = iter(flat)
+        return [next(it) if span is None else ColumnShards([next(it) for _ in range(span[0])],
+                                                          span[1])
+                for span in spans]
+
+    return tensors, unflatten
+
+
 def _layer_apply(layer, x, lengths, bidirectional: bool, impl: str, remat: bool = False):
     """One (Bi)LSTM layer: the CUDA kernels ("pallas") or the plain loops;
     with ``remat`` (and a gradient wanted) through ``_RematLayer``."""
     if remat and torch.is_grad_enabled():
         leaves, rebuild = _layer_leaves(layer, bidirectional)
-        if x.requires_grad or any(t.requires_grad for t in leaves):
+        tensors, unflatten = _shard_tensors(leaves)
+        if x.requires_grad or any(t.requires_grad for t in tensors):
             def fn(xx, ll, flat):
-                return _layer_apply(rebuild(flat), xx, ll, bidirectional, impl)
+                return _layer_apply(rebuild(unflatten(flat)), xx, ll, bidirectional, impl)
 
-            return _RematLayer.apply(fn, x, lengths, *leaves)
+            return _RematLayer.apply(fn, x, lengths, *tensors)
     if impl == "pallas":
         from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import (
             bilstm_apply_kernel,

@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
+from attention_based_e2e_asr_dnn_tpu_torch.ops.shards import refuse_sharded
 from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
     cross_attention_precompute,
     cross_attention_step,
@@ -1598,6 +1599,7 @@ def speller_apply_fused(params, cfg, enc_h: torch.Tensor, enc_l: torch.Tensor,
     attention map of sample 0 with the t = -1 step first."""
     from attention_based_e2e_asr_dnn_tpu_torch.models.las import SpellerOutput
 
+    refuse_sharded(params, "decoder_impl")
     operands, wgts0 = decode_operands(params, cfg, enc_h, enc_l)
     opts = decode_options(cfg)
     if dec_y is not None:

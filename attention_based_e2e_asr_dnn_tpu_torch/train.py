@@ -16,9 +16,19 @@ its rows of every global batch. The same command starts them: one rank runs
 in this process; more are spawned, one process each, on ``cuda:0 ..
 cuda:N-1`` (with ``--device cpu``, all on the CPU over gloo). Under ``torchrun --nproc-per-node N -m
 attention_based_e2e_asr_dnn_tpu_torch.train -c <yml>`` each process joins
-the group it is given. Rank 0 writes the experiment folder. Tensor, sequence
-and pipeline parallelism raise ``NotImplementedError`` naming ROADMAP queue
-1, item 16, after the JAX CLI's ``ValueError``s for the settings it refuses.
+the group it is given. Rank 0 writes the experiment folder.
+
+Tensor, sequence and pipeline parallelism run in this one process over a
+grid of devices (``parallel/mesh.py``, ``grid.py``, ``sequence.py``,
+``pipeline.py``), routed as the JAX CLI routes them: ``sequence: S`` (with
+``model: M``, a 3-D ``(data, seq, model)`` grid) time-shards the attention;
+else ``pipeline: N`` trains the two-stage pipeline with N microbatches, each
+stage over a ``(data, model)`` grid; else ``model: M`` a ``(data, model)``
+grid. The grid takes the visible cards (``data: null``: every card divided
+by the inner axes; more than are present raises the JAX ``make_mesh_2d`` /
+``make_mesh_3d`` message); with ``--device cpu`` every position is the CPU
+(``data: null`` is 1). Each refuses the kernel tiers with the JAX CLI's
+``ValueError``, and so does ``sequence`` with ``pipeline``.
 With an ``export_artifact`` block (``batch``, ``t_pad``,
 ``beam_size``, ``average``, ``data_parallel``) the best checkpoint becomes
 a serving artifact (``export.export_from_experiment``) under
@@ -36,6 +46,7 @@ import argparse
 import dataclasses
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,6 +66,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import (
 from attention_based_e2e_asr_dnn_tpu_torch.decoding.beam import make_las_eval_beam_step
 from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
     LASConfig,
+    draw_train_noise,
     las_apply,
     las_config_from_dicts,
     las_init,
@@ -64,6 +76,13 @@ from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
     close_experiment,
     open_experiment,
     run_training,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.grid import grid_devices
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import (
+    make_mesh_2d,
+    make_mesh_3d,
+    shard_batch_fn,
+    shard_train_state,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
 from attention_based_e2e_asr_dnn_tpu_torch.utils.summary import (
@@ -94,7 +113,9 @@ def scale_las_dropouts(cfg: LASConfig, scale: float) -> LASConfig:
 
 def make_las_apply_factory(base_cfg: LASConfig):
     """``make_apply(dropout_scale) -> apply_fn`` for the Trainer: ``las_apply``
-    with the config, its dropout rates scaled, bound."""
+    with the config, its dropout rates scaled, bound; ``apply_fn.draw(batch,
+    steps, generator, device)`` draws one training pass's ``TrainDraws``
+    (the steps over a device grid draw the whole batch's)."""
 
     def make_apply(dropout_scale: float):
         cfg = scale_las_dropouts(base_cfg, dropout_scale)
@@ -102,6 +123,8 @@ def make_las_apply_factory(base_cfg: LASConfig):
         def apply_fn(params, x, lx, **kwargs):
             return las_apply(params, cfg, x, lx, **kwargs)
 
+        apply_fn.draw = lambda batch, steps, generator, device: draw_train_noise(
+            cfg, batch, steps, generator, device)
         return apply_fn
 
     return make_apply
@@ -130,18 +153,13 @@ def _pallas_flags(las_cfg: LASConfig) -> list:
     ) if v == "pallas"]
 
 
-def _item16(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"parallel: {what} is not ported yet (ROADMAP queue 1, item 16); "
-        f"scale with parallel.data alone (data parallelism)")
-
-
 def check_ported(trncfgs, las_cfg: LASConfig):
-    """The ``parallel:`` block: False where it is off, else the number of
-    data-parallel ranks (None: every visible card). Raises, in the JAX CLI's
-    order, its ``ValueError``s (tensor, sequence or pipeline parallelism with
-    a kernel tier; sequence with pipeline), then ``NotImplementedError`` for
-    what is not ported (ROADMAP queue 1, item 16)."""
+    """The ``parallel:`` block: False where it is off, the number of
+    data-parallel ranks (None: every visible card) for pure data
+    parallelism, else a dict of the grid's degrees for tensor, sequence or
+    pipeline parallelism (``{"model", "sequence", "pipeline", "data"}``).
+    Raises, in the JAX CLI's order, its ``ValueError``s: tensor, sequence or
+    pipeline parallelism with a kernel tier; sequence with pipeline."""
     par = getattr(trncfgs, "parallel", None)
     if par is None or not par.use:
         return False
@@ -159,6 +177,9 @@ def check_ported(trncfgs, las_cfg: LASConfig):
             "parallel.model, or keep the kernel tiers and scale "
             "with parallel.data (DP composes with both kernel "
             "tiers).")
+    data = getattr(par, "data", None)
+    plan = {"model": model_par, "sequence": seq_par, "pipeline": pipeline_mb,
+            "data": None if data is None else int(data)}
     if seq_par > 1:
         if pipeline_mb > 0:
             raise ValueError("parallel: sequence and pipeline are mutually exclusive "
@@ -170,7 +191,7 @@ def check_ported(trncfgs, las_cfg: LASConfig):
                 "scan impls with parallel.sequence, or keep the kernel "
                 "tiers and scale with parallel.data alone (pure DP runs "
                 "the kernels per rank).")
-        raise _item16("sequence (sequence parallelism, parallel/sequence.py)")
+        return plan
     if pipeline_mb > 0:
         if pallas_flags:
             raise ValueError(
@@ -179,11 +200,45 @@ def check_ported(trncfgs, las_cfg: LASConfig):
                 "scan impls with parallel.pipeline, or keep the kernel "
                 "tiers and scale with parallel.data alone (pure DP runs "
                 "the kernels per rank).")
-        raise _item16("pipeline (parallel/pipeline.py)")
+        return plan
     if model_par > 1:
-        raise _item16(f"model={model_par} (tensor parallelism, parallel/mesh.py's 2-D mesh)")
-    n = getattr(par, "data", None) or getattr(par, "n_devices", None)
+        return plan
+    n = data or getattr(par, "n_devices", None)
     return None if n is None else int(n)
+
+
+def grid_parallelism(plan: dict, las_cfg: LASConfig, device) -> dict:
+    """The Trainer's ``shard_batch`` / ``shard_state`` / ``pipeline`` for a
+    grid plan of ``check_ported``, and the JAX CLI's ``[parallel]`` line."""
+    model_par, seq_par = plan["model"], plan["sequence"]
+    data = plan["data"]
+    if seq_par > 1:
+        inner = seq_par * model_par
+        devices = grid_devices(device, (data or 1) * inner)
+        if model_par > 1:
+            grid = make_mesh_3d(data, seq_par, model_par, devices=devices)
+            print(f"[parallel] 3-D mesh: data={grid.shape['data']} x seq={seq_par} x "
+                  f"model={model_par} (sequence-parallel attention + tensor parallelism)")
+            return {"shard_batch": shard_batch_fn(grid),
+                    "shard_state": lambda st: shard_train_state(st, grid)}
+        grid = make_mesh_2d(data, seq_par, axis_names=("data", "seq"), devices=devices)
+        print(f"[parallel] 2-D mesh: data={grid.shape['data']} x seq={grid.shape['seq']} "
+              f"(sequence-parallel attention)")
+        return {"shard_batch": shard_batch_fn(grid)}
+    if plan["pipeline"] > 0:
+        pp_dp = int(data or 1)
+        n_dev = 2 * pp_dp * model_par
+        devices = grid_devices(device, n_dev)[:n_dev]
+        extra = "".join([f" x dp={pp_dp}" if pp_dp > 1 else "",
+                         f" x tp={model_par}" if model_par > 1 else ""])
+        print(f"[parallel] 2-stage pipeline, {plan['pipeline']} microbatches" + extra
+              + f" over devices {[str(d) for d in devices]}")
+        return {"pipeline": {"cfg": las_cfg, "n_microbatches": plan["pipeline"],
+                             "data": pp_dp, "model": model_par, "devices": devices}}
+    grid = make_mesh_2d(data, model_par, devices=grid_devices(device, (data or 1) * model_par))
+    print(f"[parallel] 2-D mesh: data={grid.shape['data']} x model={grid.shape['model']}")
+    return {"shard_batch": shard_batch_fn(grid),
+            "shard_state": lambda st: shard_train_state(st, grid)}
 
 
 def export_hook(trncfgs, tgt_folder: str) -> None:
@@ -221,10 +276,12 @@ def main(args):
     las_cfg = las_config_from_dicts(cfg["model"]["configs"]["listener_configs"],
                                     cfg["model"]["configs"]["speller_configs"])
     n_ranks = check_ported(Config(cfg), las_cfg)
+    if isinstance(n_ranks, dict):  # tensor / sequence / pipeline: this process
+        return _train(None, args, n_ranks)
     return run_training(_train, args, n_ranks, build=bool(_pallas_flags(las_cfg)))
 
 
-def _train(mesh, args):
+def _train(mesh, args, grid_plan: Optional[dict] = None):
     device = args.device if mesh is None else mesh.device
     print(f"device: {torch.cuda.get_device_name(device) if torch.device(device).type == 'cuda' else device}")
     trncfgs_dict = load_yaml(args.config_file)
@@ -281,6 +338,7 @@ def _train(mesh, args):
     print(f"[data] {len(trn_batcher)} train batches, {len(dev_batcher)} dev batches")
 
     dtype = compute_dtype(getattr(trncfgs, "compute_dtype", "float32"))
+    parallel = {} if grid_plan is None else grid_parallelism(grid_plan, las_cfg, device)
     # the beam's dev LD (eval_beam_size > 1)
     eval_beam_step = None
     eval_beam = int(getattr(trncfgs, "eval_beam_size", 0) or 0)
@@ -305,16 +363,19 @@ def _train(mesh, args):
         device=device,
         eval_beam_step=eval_beam_step,
         dp_mesh=mesh,
+        **parallel,
     )
-    print(model_summary(trainer.state.params, trncfgs.model.tag))
+    whole = trainer.whole_params()
+    print(model_summary(whole, trncfgs.model.tag))
     # shape and FLOP summary on the first real batch's shapes; a wiring
     # mistake raises here, before the first epoch
     first = next(iter(trn_batcher.epoch(0)))
     print(shape_flop_summary(
-        trainer.state.params, las_cfg, batch=first.x.shape[0],
+        whole, las_cfg, batch=first.x.shape[0],
         time_steps=first.x.shape[1], label_len=max(first.y.shape[1] - 1, 1),
         feat_dim=first.x.shape[2],
     ))
+    del whole
 
     trainer.train_eval(int(trncfgs.epochs))
     close_experiment(mesh, trainer, logger, tgt_folder,

@@ -16,10 +16,14 @@ differ:
     gradient before the moments.
 
 ``Optimizer.update`` is functional: (grads, state, params, lr) -> (updates,
-new state), all float32 tensors on the parameters' device, the step count a
-0-d tensor, so a train step can keep or drop a whole update with
-``torch.where`` and no host synchronisation. The learning rate is a runtime
-scalar. The state is (count, mu, nu, nu_max) with one tensor per parameter.
+new state), all float32 tensors on the parameters' devices, the step count a
+0-d tensor on the first parameter's, so a train step can keep or drop a whole
+update with ``torch.where`` and no host synchronisation. The learning rate is
+a runtime scalar. The state is (count, mu, nu, nu_max) with one tensor per
+parameter. The parameters may lie on several devices (tensor parallelism,
+``parallel/mesh.py``): each moment stays with its parameter, and the 0-d
+scalars (the global norm, the bias corrections, the count) are moved to each
+tensor's device where they meet it.
 
 Gradient accumulation (``accum_steps > 1``) follows ``optax.MultiSteps``: a
 running mean of the mini-steps' gradients, the inner optimizer applied to
@@ -38,6 +42,8 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from attention_based_e2e_asr_dnn_tpu_torch.ops.shards import on_device
+
 
 # ---------------------------------------------------------------------------
 # Optimizer registry
@@ -52,9 +58,17 @@ class OptState(NamedTuple):
     acc_grads: Optional[List[torch.Tensor]] = None  # accumulation: running mean
 
 
+def sum_of_squares(tensors) -> torch.Tensor:
+    """The sum of squares over all tensors, float32, on the first tensor's
+    device (each tensor's sum taken where it lies)."""
+    tensors = list(tensors)
+    home = tensors[0]
+    return sum(on_device((t.float() ** 2).sum(), home.device) for t in tensors)
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, float32, on device."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    """sqrt of ``sum_of_squares``."""
+    return torch.sqrt(sum_of_squares(tensors))
 
 
 class Optimizer:
@@ -108,7 +122,7 @@ class Optimizer:
         # optax.MultiSteps: the inner update runs on the running mean at every
         # call and is adopted only on the emitting one
         mini = state.mini_step
-        acc = [a + (g - a) / (mini + 1) for g, a in zip(grads, state.acc_grads)]
+        acc = [a + (g - a) / on_device(mini + 1, a.device) for g, a in zip(grads, state.acc_grads)]
         updates, new = self._update(acc, state, params, lr)
         emit = mini == self.accum_steps - 1
 
@@ -117,18 +131,21 @@ class Optimizer:
                 return None
             if torch.is_tensor(new_leaf):
                 return torch.where(emit, new_leaf, old_leaf)
-            return [torch.where(emit, n, o) for n, o in zip(new_leaf, old_leaf)]
+            return [torch.where(on_device(emit, n.device), n, o)
+                    for n, o in zip(new_leaf, old_leaf)]
 
         inner = [adopt(n, o) for n, o in zip(new[:4], state[:4])]
-        return ([torch.where(emit, u, 0.0) for u in updates],
+        return ([torch.where(on_device(emit, u.device), u, 0.0) for u in updates],
                 OptState(*inner, (mini + 1) % self.accum_steps,
-                         [torch.where(emit, 0.0, a) for a in acc]))
+                         [torch.where(on_device(emit, a.device), 0.0, a) for a in acc]))
 
     def _update(self, grads, state: OptState, params, lr):
         """The inner optimizer: clip, then adam / adamw / sgd."""
         g_norm = global_norm(grads)
         keep = g_norm < self.grad_norm
-        grads = [torch.where(keep, g, (g / g_norm) * self.grad_norm) for g in grads]
+        grads = [torch.where(on_device(keep, g.device), g,
+                             (g / on_device(g_norm, g.device)) * self.grad_norm)
+                 for g in grads]
         count = state.count + 1
         if self.name == "sgd":
             if self.weight_decay:
@@ -147,8 +164,8 @@ class Optimizer:
         nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
         steps = count.float()
         bc1, bc2 = 1 - b1 ** steps, 1 - b2 ** steps
-        mu_hat = [m / bc1 for m in mu]
-        nu_hat = [v / bc2 for v in nu]
+        mu_hat = [m / on_device(bc1, m.device) for m in mu]
+        nu_hat = [v / on_device(bc2, v.device) for v in nu]
         nu_max = None
         if self.amsgrad:
             nu_max = [torch.maximum(a, b) for a, b in zip(state.nu_max, nu_hat)]

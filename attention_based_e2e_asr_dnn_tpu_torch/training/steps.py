@@ -27,6 +27,7 @@ from typing import Any, Optional
 import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.data.specaug import draw_specaug, specaugment
+from attention_based_e2e_asr_dnn_tpu_torch.ops.shards import on_device
 from attention_based_e2e_asr_dnn_tpu_torch.training.loss import masked_ce_loss
 from attention_based_e2e_asr_dnn_tpu_torch.training.optim import (
     Optimizer,
@@ -131,25 +132,34 @@ def apply_update(state: TrainState, opt: Optimizer, params: list, grads: list, l
     ok = torch.isfinite(grad_norm)
     if not nan_guard:
         ok = torch.ones_like(ok)
-    if nan_guard:
-        # a non-finite step must be a true no-op: zero update AND the
-        # previous optimizer state, or stale momentum and the
-        # decoupled weight decay would still move the parameters
-        grads = [torch.where(ok, g, 0.0) for g in grads]
-        updates, new_state = opt.update(grads, state.opt_state, params, lr)
-        updates = [torch.where(ok, u, 0.0) for u in updates]
-        new_state = OptState(*(
-            None if new is None else
-            torch.where(ok, new, old) if torch.is_tensor(new) else
-            [torch.where(ok, n, o) for n, o in zip(new, old)]
-            for new, old in zip(new_state, state.opt_state)))
-    else:
-        updates, new_state = opt.update(grads, state.opt_state, params, lr)
-    for p, u in zip(params, updates):
-        p.add_(u)
-    state.opt_state = new_state
+    state.opt_state = guarded_update(opt, params, grads, state.opt_state, lr,
+                                     ok if nan_guard else None)
     state.step += 1
     return grad_norm, ok
+
+
+@torch.no_grad()
+def guarded_update(opt: Optimizer, params: list, grads: list, opt_state: OptState, lr,
+                   ok=None) -> OptState:
+    """``opt``'s update of ``params`` in place; returns the new optimizer
+    state. With ``ok`` (a 0-d bool tensor) the update is a true no-op where
+    ``ok`` is False: a zero update AND the previous optimizer state, or
+    stale momentum and the decoupled weight decay would still move the
+    parameters. The parameters may lie on several devices."""
+    if ok is None:
+        updates, new_state = opt.update(grads, opt_state, params, lr)
+    else:
+        grads = [torch.where(on_device(ok, g.device), g, 0.0) for g in grads]
+        updates, new_state = opt.update(grads, opt_state, params, lr)
+        updates = [torch.where(on_device(ok, u.device), u, 0.0) for u in updates]
+        new_state = OptState(*(
+            None if new is None else
+            torch.where(on_device(ok, new.device), new, old) if torch.is_tensor(new) else
+            [torch.where(on_device(ok, n.device), n, o) for n, o in zip(new, old)]
+            for new, old in zip(new_state, opt_state)))
+    for p, u in zip(params, updates):
+        p.add_(u)
+    return new_state
 
 
 def make_eval_step(apply_fn, compute_dtype=torch.float32):

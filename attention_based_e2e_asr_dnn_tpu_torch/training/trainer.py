@@ -49,8 +49,30 @@ at a barrier after each epoch's checkpoint. Every rank prints its log lines
 (the ``train`` and ``lmtrain`` CLIs send the other ranks' standard output
 nowhere, ``parallel.dp.run_training``).
 
-Not ported: ``pipeline``, ``shard_batch`` / ``shard_state`` (ROADMAP queue 1,
-item 16); passing one raises ``NotImplementedError``.
+``shard_state`` (``lambda s: parallel.mesh.shard_train_state(s, grid)``)
+and ``shard_batch`` (``parallel.mesh.shard_batch_fn(grid)``) train over a
+``DeviceGrid`` of one controller, as the JAX Trainer's 2-D and 3-D meshes do:
+tensor parallelism on its ``model`` axis, sequence parallelism on its
+``seq`` axis, the batch's rows on its ``data`` axis (``parallel/grid.py``'s
+train and eval steps; the Trainer runs on the grid's first device). The
+global-norm clip sums the squares of each shard once. ``shard_batch`` alone
+keeps every parameter whole on the grid's first device, as the JAX Trainer
+keeps the state replicated then.
+
+``pipeline`` (``{"cfg", "n_microbatches", "data", "model", "devices"}``)
+trains the two-stage listener | speller pipeline (``parallel/pipeline.py``),
+each stage over a (data, model) grid of the device list (default: the
+visible cards, or the CPU); refused with ``dp_mesh``, ``init_force`` or the
+dropout scheduler, as in the JAX Trainer. Its optimizer has neither a clip
+nor accumulation of its own: the step clips by the global norm across the
+stages and accumulates inside. The dev pass reads the parameters gathered
+onto the first device (``_eval_params``).
+
+Checkpoints are written whole in every mode, in the format above, so that
+either package and the one-device Trainer resume from them; a checkpoint
+whose optimizer state does not fit the live one (a pipeline's two states
+against one, another optimizer) resumes the parameters with a fresh
+optimizer state, with a warning.
 """
 
 from __future__ import annotations
@@ -59,6 +81,7 @@ import collections
 import os
 import sys
 import time
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import numpy as np
@@ -72,6 +95,22 @@ from attention_based_e2e_asr_dnn_tpu_torch.parallel.dp import (
     gather_rows,
     make_dp_eval_step,
     make_dp_train_step,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.grid import (
+    grid_devices,
+    make_grid_eval_step,
+    make_grid_train_step,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.mesh import (
+    GridParams,
+    gather_opt_state,
+    shard_train_state,
+    unshard_train_state,
+)
+from attention_based_e2e_asr_dnn_tpu_torch.parallel.pipeline import (
+    init_pipeline_state,
+    make_pipeline_train_step,
+    place_pipeline_state,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.training.checkpoints import (
     CheckpointManager,
@@ -101,14 +140,6 @@ from attention_based_e2e_asr_dnn_tpu_torch.utils.plotting import (
     pay_attention_multihead,
 )
 
-_NOT_PORTED = {
-    "shard_batch": "ROADMAP queue 1, item 16 (parallel/mesh.py's 2-D and 3-D meshes; "
-                   "data parallelism shards its batches through dp_mesh)",
-    "shard_state": "ROADMAP queue 1, item 16 (parallel/mesh.py's tensor-parallel placement)",
-    "pipeline": "ROADMAP queue 1, item 16 (parallel/pipeline.py)",
-}
-
-
 class Trainer:
     def __init__(
         self,
@@ -126,18 +157,32 @@ class Trainer:
         device: str = "cuda",
         eval_beam_step: Optional[Callable] = None,
         dp_mesh=None,
-        **not_ported,
+        shard_batch: Optional[Callable] = None,
+        shard_state: Optional[Callable] = None,
+        pipeline: Optional[dict] = None,
     ):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"Trainer got an unexpected argument {name!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet: {_NOT_PORTED[name]}")
         self.dp_mesh = dp_mesh
+        self.shard_batch = shard_batch
+        self.shard_state = shard_state
+        self.pipeline_cfg = pipeline
+        if dp_mesh is not None and pipeline is not None:
+            raise ValueError("dp_mesh (data parallelism, one process a rank) and pipeline are "
+                             "mutually exclusive — pipeline takes in-stage DP via parallel.data "
+                             "instead")
+        # the grid of shard_batch (shard_state's is known once it has placed
+        # the state)
+        self.grid = getattr(shard_batch, "grid", None)
         # rank 0 (or the one process) writes checkpoints, logs and plots
         self.is_writer = dp_mesh is None or dp_mesh.rank == 0
         self.device = torch.device(device if dp_mesh is None else dp_mesh.device)
+        if self.grid is not None:
+            self.device = self.grid.gather_device(0)
+        if pipeline is not None:
+            dp, tp = int(pipeline.get("data", 1) or 1), int(pipeline.get("model", 1) or 1)
+            self.pipeline_devices = grid_devices(self.device, 2 * dp * tp,
+                                                 pipeline.get("devices"))
+            if self.pipeline_devices:
+                self.device = torch.device(self.pipeline_devices[0])
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Trainer(device={device!r}): no CUDA device here; "
                                f"pass device='cpu' to train on the CPU")
@@ -178,10 +223,20 @@ class Trainer:
         self.init_force_cfg = bool(getattr(trncfgs, "init_force", False))
         self.use_specaug = bool(getattr(trncfgs, "use_specaug", False))
         self.tf_rate = float(getattr(trncfgs, "tf_rate", 1.0))
+        if pipeline is not None:
+            if self.init_force_cfg:
+                raise ValueError("pipeline parallelism does not support init_force (disable "
+                                 "one of them)")
+            if getattr(trncfgs, "dropout_scheduler", None) and trncfgs.dropout_scheduler.use:
+                raise ValueError("pipeline parallelism does not support the dropout scheduler "
+                                 "(stage programs use the static model config)")
         self.base_lr = float(trncfgs.optimizer.configs["lr"])
         self.current_lr = self.base_lr
+        # the pipeline clips by the global norm across its stages and
+        # accumulates inside its step: its optimizer does neither
         self.tx = build_optimizer(trncfgs.optimizer.name, trncfgs.optimizer.configs,
-                                  grad_norm=self.grad_norm, accum_steps=self.accu_grad)
+                                  grad_norm=1e30 if pipeline is not None else self.grad_norm,
+                                  accum_steps=1 if pipeline is not None else self.accu_grad)
 
         # schedulers (src/train.py:79-101, 448-474)
         self.batch_scheduler = None
@@ -211,7 +266,16 @@ class Trainer:
         # state: the parameters from ``seed``, the step's noise from ``seed + 1``
         seed = int(getattr(trncfgs, "seed", 0))
         params = init_fn(torch.Generator().manual_seed(seed))
-        self.state = create_train_state(params, self.tx, seed=seed + 1, device=self.device)
+        if pipeline is not None:
+            if set(dict(params.named_children())) != {"listener", "speller"}:
+                raise ValueError("pipeline parallelism expects a listener|speller model, got "
+                                 f"param groups {sorted(dict(params.named_children()))}")
+            self.state = init_pipeline_state(
+                params, self.tx, seed + 1, self.pipeline_devices,
+                dp=int(pipeline.get("data", 1) or 1), tp=int(pipeline.get("model", 1) or 1))
+        else:
+            self.state = self._placed(create_train_state(params, self.tx, seed=seed + 1,
+                                                         device=self.device))
         self.epoch = 0
         self.batch = 0
         self.train_history = {"loss": [], "ppl": []}
@@ -251,27 +315,60 @@ class Trainer:
             if getattr(finetune, "reinit_lr", False):
                 self.current_lr = self.base_lr
 
+    def _placed(self, state):
+        """A one-device state placed as this Trainer trains: by
+        ``shard_state``, on ``shard_batch``'s grid (every parameter whole),
+        or as it is."""
+        if self.shard_state is not None:
+            state = self.shard_state(state)
+        elif self.grid is not None:
+            state = shard_train_state(state, self.grid, model_axis=None)
+        if isinstance(state.params, GridParams):
+            self.grid = state.params.grid
+            self.device = self.grid.gather_device(0)
+        return state
+
     # ------------------------------------------------------------------
     def _build_steps(self) -> None:
         apply_fn = self.make_apply(self.dropout_scale)
+        specaug = dict(use_specaug=self.use_specaug,
+                       specaug_freq=int(getattr(self.trncfgs, "specaug_freq", 6)),
+                       specaug_time=int(getattr(self.trncfgs, "specaug_time", 200)),
+                       specaug_iid=bool(getattr(self.trncfgs, "specaug_iid", False)))
+        if self.pipeline_cfg is not None:
+            pipe = self.pipeline_cfg
+            pipe_step = make_pipeline_train_step(
+                pipe["cfg"], self.tx, self.pipeline_devices,
+                n_microbatches=int(pipe.get("n_microbatches", 2)),
+                compute_dtype=self.compute_dtype, grad_norm=self.grad_norm,
+                accum_steps=self.accu_grad, dp=int(pipe.get("data", 1) or 1),
+                tp=int(pipe.get("model", 1) or 1), **specaug)
+
+            def train_step(state, x, lx, y, ly, tf_rate, lr, init_force=False):
+                del init_force  # refused at construction
+                state, metrics = pipe_step(state, x, lx, y, ly, tf_rate, lr)
+                return state, metrics, None
+
+            self.train_step = train_step
+            self.eval_step = make_eval_step(apply_fn, compute_dtype=self.compute_dtype)
+            return
+        if self.grid is not None:
+            self.train_step = make_grid_train_step(
+                apply_fn, self.tx, self.grid, accum_steps=self.accu_grad,
+                compute_dtype=self.compute_dtype, **specaug)
+            self.eval_step = make_grid_eval_step(apply_fn, self.grid,
+                                                 compute_dtype=self.compute_dtype)
+            return
         if self.dp_mesh is not None:
             self.train_step = make_dp_train_step(
                 apply_fn, self.tx, self.dp_mesh, accum_steps=self.accu_grad,
-                compute_dtype=self.compute_dtype, use_specaug=self.use_specaug,
-                specaug_freq=int(getattr(self.trncfgs, "specaug_freq", 6)),
-                specaug_time=int(getattr(self.trncfgs, "specaug_time", 200)),
-                specaug_iid=bool(getattr(self.trncfgs, "specaug_iid", False)),
-            )
+                compute_dtype=self.compute_dtype, **specaug)
             self.eval_step = make_dp_eval_step(apply_fn, self.dp_mesh,
                                                compute_dtype=self.compute_dtype)
             return
         self.train_step = make_train_step(
             apply_fn, self.tx, accum_steps=self.accu_grad,
-            compute_dtype=self.compute_dtype, use_specaug=self.use_specaug,
-            specaug_freq=int(getattr(self.trncfgs, "specaug_freq", 6)),
-            specaug_time=int(getattr(self.trncfgs, "specaug_time", 200)),
-            specaug_iid=bool(getattr(self.trncfgs, "specaug_iid", False)),
-        )
+            compute_dtype=self.compute_dtype, **specaug)
         self.eval_step = make_eval_step(apply_fn, compute_dtype=self.compute_dtype)
 
     # ------------------------------------------------------------------
@@ -293,10 +390,17 @@ class Trainer:
                 torch.from_numpy(ly[rows].astype(np.int32)))
         return host, y, ly, bt.indices
 
+    def _on_device(self, tensors) -> tuple:
+        """The batch's tensors on the Trainer's device, through
+        ``shard_batch`` where given (which refuses rows the grid cannot
+        split)."""
+        dev = tuple(t.to(self.device) for t in tensors)
+        return dev if self.shard_batch is None else tuple(self.shard_batch(dev))
+
     def _convert_batch(self, bt):
         """Host batch -> (device tuple, y, ly, indices), copied in line."""
         host, y, ly, indices = self._host_batch(bt)
-        return tuple(t.to(self.device) for t in host), y, ly, indices
+        return self._on_device(host), y, ly, indices
 
     def _prepared_batches(self, batch_iter, on_span=None):
         """Two stages ahead of the step. Stage 1: a worker thread assembles
@@ -334,7 +438,7 @@ class Trainer:
                 current.wait_event(done)
                 for t in dev:
                     t.record_stream(current)
-                return dev, y, ly, indices
+                return self._on_device(dev), y, ly, indices
 
             for bt in host_pf:
                 start(bt)
@@ -437,16 +541,21 @@ class Trainer:
         Levenshtein pass (``eval_ld_interval``) and repeats the last LD."""
         total_loss = total_ppl = total_ld = 0.0
         n_batches = 0
+        eval_params = self._eval_params()
+        beam_params = None
+        if self.eval_beam_step is not None:
+            beam_params = (eval_params.whole_module() if isinstance(eval_params, GridParams)
+                           else eval_params)
         eval_src = (self._resident_batches("dev", 0) if self.device_resident
                     else self._prepared_batches(self.dev_batcher.epoch(0)))
         for batch, y, ly, indices in eval_src:
             if self.eval_beam_step is not None:
                 # one listener pass for the loss and the beam; no beam on an
                 # epoch without the LD
-                metrics, pred_ids = self.eval_beam_step(self.state.params, *batch,
+                metrics, pred_ids = self.eval_beam_step(beam_params, *batch,
                                                         want_ids=compute_ld)
             else:
-                metrics, pred_ids = self.eval_step(self.state.params, *batch)
+                metrics, pred_ids = self.eval_step(eval_params, *batch)
                 if self.dp_mesh is not None and compute_ld:
                     pred_ids = gather_rows(self.dp_mesh, pred_ids)
             total_loss += float(metrics["loss"])
@@ -549,17 +658,52 @@ class Trainer:
                 self.current_lr = self.epoch_scheduler.step(dev_ld)
                 self.logger.log({"learning-rate": self.current_lr})
 
+    def _eval_params(self):
+        """What the dev pass reads: the pipeline's stages gathered onto the
+        first device (moved device to device); else the state's parameters
+        (``GridParams`` over a grid, read by the grid's eval step)."""
+        if self.pipeline_cfg is not None:
+            return self.state.whole_params(self.device)
+        return self.state.params
+
+    def whole_params(self) -> torch.nn.Module:
+        """The parameters as one module on the Trainer's device: the state's
+        own, or in a grid or pipeline run a gathered copy."""
+        if self.pipeline_cfg is not None:
+            return self.state.whole_params(self.device)
+        if isinstance(self.state.params, GridParams):
+            return self.state.params.whole_module()
+        return self.state.params
+
+    def _whole(self):
+        """(parameter module, its optimizer leaves as a checkpoint stores
+        them): the state gathered whole in every mode."""
+        if self.pipeline_cfg is not None:
+            st = self.state
+            module = self.whole_params()
+            leaves = []
+            for name, gp, opt in (("listener", st.params_listener, st.opt_listener),
+                                  ("speller", st.params_speller, st.opt_speller)):
+                leaves += opt_state_to_leaves(module[name], gather_opt_state(gp, opt, self.device),
+                                              self.current_lr)
+            return module, leaves
+        state = self.state
+        if isinstance(state.params, GridParams):
+            state = unshard_train_state(state)
+        return state.params, opt_state_to_leaves(state.params, state.opt_state,
+                                                 self.current_lr)
+
     # ------------------------------------------------------------------
     def _payload(self, dev_loss: float, dev_ld: float, dev_ppl: float) -> dict:
+        module, opt_leaves = self._whole()
         return {
             "epoch": self.epoch,
             "batch": self.batch,
             "loss": dev_loss,
             "ld": dev_ld,
             "ppl": dev_ppl,
-            "params": las_to_jax_params(self.state.params),
-            "opt_state": opt_state_to_leaves(self.state.params, self.state.opt_state,
-                                             self.current_lr),
+            "params": las_to_jax_params(module),
+            "opt_state": opt_leaves,
             "train_loss": list(self.train_history["loss"]),
             "train_ppl": list(self.train_history["ppl"]),
             "dev_loss": list(self.dev_history["loss"]),
@@ -600,8 +744,20 @@ class Trainer:
         """Resume from a checkpoint of either package, or from a reference
         ``.pt`` (parameters only; reference load_model, src/train.py:372-391)."""
         loaded = load_checkpoint(path)
+        # the state whole on one device, loaded, then placed again
+        pipe = self.pipeline_cfg is not None
+        grid = not pipe and isinstance(self.state.params, GridParams)
+        if pipe:
+            st = self.state
+            whole = SimpleNamespace(params=st.whole_params(self.device), opt=[
+                gather_opt_state(gp, opt, self.device)
+                for gp, opt in ((st.params_listener, st.opt_listener),
+                                (st.params_speller, st.opt_speller))])
+        else:
+            state = unshard_train_state(self.state) if grid else self.state
+            whole = SimpleNamespace(params=state.params, opt=[state.opt_state])
         with torch.no_grad():
-            for name, param in self.state.params.named_parameters():
+            for name, param in whole.params.named_parameters():
                 leaf = np.asarray(_tree_get(loaded["params"], name), dtype=np.float32)
                 if leaf.shape != tuple(param.shape):
                     raise ValueError(f"{path}: parameter {name} is {leaf.shape}, the "
@@ -609,16 +765,25 @@ class Trainer:
                 param.copy_(torch.from_numpy(leaf))
         if loaded.get("opt_state") is not None:
             try:
-                self.state.opt_state = opt_state_from_leaves(
-                    self.state.params, loaded["opt_state"], self.state.opt_state)
+                whole.opt = self._opt_from_leaves(whole, loaded["opt_state"], pipe)
             except ValueError as exc:
                 self.logger.print(
                     f"WARNING: {exc}; resuming the parameters only, with a fresh "
                     f"optimizer state.")
+        if pipe:
+            pipe_cfg = self.pipeline_cfg
+            self.state = place_pipeline_state(
+                whole.params, self.tx, self.state.generator, self.pipeline_devices,
+                dp=int(pipe_cfg.get("data", 1) or 1), tp=int(pipe_cfg.get("model", 1) or 1),
+                opt_listener=whole.opt[0], opt_speller=whole.opt[1])
+            self.state.step = int(self.state.opt_listener.count)
+        else:
+            state.opt_state = whole.opt[0]
+            self.state = self._placed(state) if grid else state
+            self.state.step = int(self.state.opt_state.count)
         # params-only payloads (reference .pt imports) carry no counters
         self.epoch = loaded.get("epoch", self.epoch)
         self.batch = loaded.get("batch", self.batch)
-        self.state.step = int(self.state.opt_state.count)
         self.train_history["loss"] = list(loaded.get("train_loss", []))
         self.train_history["ppl"] = list(loaded.get("train_ppl", []))
         self.dev_history["loss"] = list(loaded.get("dev_loss", []))
@@ -641,3 +806,19 @@ class Trainer:
         if self.dp_mesh is not None:
             broadcast_state(self.state, self.dp_mesh)
         self.logger.print(f"resumed from [{path}] at epoch[{self.epoch}]")
+
+    @staticmethod
+    def _opt_from_leaves(whole, leaves: list, pipe: bool) -> list:
+        """A checkpoint's optimizer leaves -> the whole state(s) shaped like
+        ``whole.opt``: one, or the pipeline's listener and speller states, the
+        listener's leaves first (the JAX tree's key order). Raises
+        ``ValueError`` where they do not fit."""
+        if not pipe:
+            return [opt_state_from_leaves(whole.params, leaves, whole.opt[0])]
+        n_l = len(opt_state_to_leaves(whole.params["listener"], whole.opt[0], 0.0))
+        n_s = len(opt_state_to_leaves(whole.params["speller"], whole.opt[1], 0.0))
+        if len(leaves) != n_l + n_s:
+            raise ValueError(f"checkpoint has {len(leaves)} optimizer leaves, the live "
+                             f"pipeline state has {n_l + n_s}")
+        return [opt_state_from_leaves(whole.params["listener"], leaves[:n_l], whole.opt[0]),
+                opt_state_from_leaves(whole.params["speller"], leaves[n_l:], whole.opt[1])]

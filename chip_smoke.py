@@ -274,6 +274,36 @@ on one NVIDIA card, from the root of a checkout:
    ``parallel: {use: true, data: 1}`` (one rank, NCCL) on phase 11's corpus
    at base-LAS for 2 epochs, its checkpoint resumed with ``parallel.use:
    false``, ``infer`` from its folder; and ``tools/dp_probe.py``.
+24. The two remaining drivers (``tools/fullscale_run.py``,
+   ``tools/speller_control.py``). ``fullscale_run`` in both modes
+   (``resident``, ``streamed``) on a long-form corpus from
+   ``make_synthetic_data --words 25 45`` (256 / 32 / 32 utterances), 2
+   epochs at batch 32 each, its JSON line printed; with the counters set to
+   0 before each run and read after, its path's kernels launched: the
+   listener's training forms (``lstm_scan_fusedin_train``,
+   ``lstm_scan_train``, ``lstm_bwd_dw``) and the dev decode's
+   (``lstm_scan_fusedin``, ``lstm_scan``, ``speller_decode``), and the
+   fused decoder's training pair not at all (the speller trains on the scan
+   loop under ``init_force``, as in the JAX package); dev LD and losses
+   finite. ``speller_control`` at its full widths
+   (B=128, Te=192, L=192, H1 1024, H2 256, P 256, emb 512, 4 heads, bf16):
+   the five variants' walls and MFU and the fused tier's forward and
+   forward + backward; on the tool's own operands and draws, #8's train
+   form and #9 through the autograd Function against the Function over
+   their plain versions (logits and every operand's gradient, fed the
+   kernel's ids, within the bf16 ``SPELLER_TRAIN_TOL``).
+25. Tensor, sequence and pipeline parallelism (``parallel/``) on
+   ``[cuda:0] * n``, base-LAS width, the scan tiers, float32, TF32 off,
+   B=16, T=256, L=32, randomness quiesced (tf_rate 1, dropout 0, no
+   SpecAugment): one train step each of TP (1 x 2), DP x TP (2 x 2), SP
+   (seq 2), SP x TP (1 x 2 x 2), PP (2 microbatches) and PP x DP x TP (dp 2,
+   tp 2) against the one-device scan step on the card: loss, grad norm and
+   the first Adam moment (its relative error) within 2e-5; each step's
+   seconds and the parameter bytes one device holds at model 1 and 2. One
+   ``Trainer`` epoch with ``shard_state`` at model 2 and one with
+   ``pipeline`` (2 microbatches), each given its device list, on a small
+   generated corpus; each checkpoint resumed in the one-device Trainer with
+   the same parameters.
 
 Beside each kernel's time the record holds ``bound_ms``, the least time the
 card could take for the same work: the larger of the operations this run's
@@ -4586,6 +4616,361 @@ def dp_serve_phase(torch, card: str, t, exp: str, feats: list, work: str) -> dic
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the two remaining drivers
+# ---------------------------------------------------------------------------
+
+FULLSCALE_CORPUS = (256, 32, 32)  # train / dev / test utterances, 25-45 words
+FULLSCALE_WORDS = (25, 45)        # make_synthetic_data --words 25 45: long-form
+FULLSCALE_BATCH, FULLSCALE_EPOCHS = 32, 2
+FULLSCALE_PATH = ("lstm_scan_fusedin_train", "lstm_scan_train", "lstm_bwd_dw",
+                  "lstm_scan_fusedin", "lstm_scan", "speller_decode")
+CONTROL_PATH = ("speller_decode_train", "speller_decode_bwd")
+
+
+def fullscale_phase(torch, card: str, work: str) -> dict:
+    """``tools/fullscale_run.py`` in both modes on a generated long-form
+    corpus; returns the launches of both runs, summed."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        decode_route_report,
+        reset_decode_routes,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import fullscale_run
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.make_synthetic_data import generate
+
+    data = os.path.join(work, "fullscale-data")
+    n_train, n_dev, n_test = FULLSCALE_CORPUS
+    generate(data, n_train=n_train, n_dev=n_dev, n_test=n_test,
+             words_min=FULLSCALE_WORDS[0], words_max=FULLSCALE_WORDS[1], seed=SEED + 24)
+    total = {}
+    for mode in ("resident", "streamed"):
+        lc.reset_launch_counts()
+        sc.reset_launch_counts()
+        reset_decode_routes()
+        t0 = time.perf_counter()
+        with forbid_plain():
+            result = fullscale_run.main([
+                "--data-dir", data, "--epochs", str(FULLSCALE_EPOCHS), "--batch-size",
+                str(FULLSCALE_BATCH), "--mode", mode, "--device", DEVICE,
+                "--work-dir", os.path.join(work, f"fullscale-{mode}")])
+        seconds = time.perf_counter() - t0
+        counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+        idle = [k for k in FULLSCALE_PATH if counts[k] <= 0]
+        if idle:
+            raise AssertionError(f"fullscale_run {mode}: never launched {idle}")
+        routes = decode_route_report()
+        if counts["speller_decode_train"] or counts["speller_decode_bwd"]:
+            raise AssertionError(f"fullscale_run {mode}: the fused decoder trained under "
+                                 f"init_force ({counts}); the JAX package takes the scan loop")
+        values = (result["train_loss_history"] + result["dev_loss_history"]
+                  + result["dev_ld_history"])
+        if not (len(result["train_loss_history"]) == FULLSCALE_EPOCHS
+                and all(v == v and abs(v) != float("inf") for v in values)):
+            raise AssertionError(f"fullscale_run {mode}: histories not finite: {result}")
+        log(f"[{card}] fullscale_run --mode {mode}: {n_train} utterances, batch "
+            f"{FULLSCALE_BATCH}, {FULLSCALE_EPOCHS} epochs in {seconds:.1f} s; train_utt_s "
+            f"{result['train_utt_s']:.2f}, epoch_utt_s_end_to_end "
+            f"{result['epoch_utt_s_end_to_end']:.2f}, best dev LD {result['best_dev_ld']:.3f}; "
+            f"routes {routes}; launches {counts}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def control_fused_check(torch, card: str) -> None:
+    """#8's train form and #9 at ``speller_control``'s shapes, on the tool's
+    own parameters, inputs and draws: logits and every operand's gradient
+    through ``fused_decode`` on the kernels against the same Function over
+    the plain versions, both fed the kernel's ids."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import draw_train_noise
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import speller_control as ctl
+
+    cfg = ctl.scaled_cfg("pallas", ctl.H1, ctl.H2, ctl.PROJ, ctl.EMB, ctl.HEADS)
+    spl = cfg.speller
+    params, enc_h, enc_l, y, _ = ctl.inputs(cfg, DEVICE, ctl.B, ctl.TE, ctl.L)
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    draws = draw_train_noise(cfg, ctl.B, ctl.L, gen, DEVICE)
+    with torch.no_grad():
+        operands, _ = sc.decode_operands(params, spl, enc_h, enc_l)
+    forced, m1, m2 = sc.decode_draws(spl, y, 0.9, True, draws, enc_h.dtype)
+    opts = {**sc.decode_options(spl), "steps": ctl.L}
+    logits, _, _, saved = sc.speller_decode_train(*operands, **opts, forced=forced, m1=m1, m2=m2)
+    sel = saved[0]
+    gen = torch.Generator().manual_seed(SEED + 24)
+    d_logits = (torch.randn(logits.shape, generator=gen) * 0.1).to(DEVICE).to(enc_h.dtype)
+    d_logits[..., spl.dec_vocab_size:] = 0.0
+    outs, grads = {}, {}
+    for route in ("kernels", "plain"):
+        fns = (sc.speller_decode_train, sc.speller_decode_bwd)
+        if route == "plain":
+            sc.speller_decode_train = sc.speller_decode_train_plain
+            sc.speller_decode_bwd = sc.speller_decode_bwd_plain
+        try:
+            leaves = [t.detach().requires_grad_(n != "bias")
+                      for n, t in zip(OPERAND_NAMES, operands)]
+            out = sc.fused_decode(leaves, **opts, forced=sel, m1=m1, m2=m2)
+            outs[route] = out[0].detach()
+            grads[route] = torch.autograd.grad(out[0], [t for t in leaves if t.requires_grad],
+                                               d_logits)
+        finally:
+            sc.speller_decode_train, sc.speller_decode_bwd = fns
+    tol = SPELLER_TRAIN_TOL["bfloat16"]
+    vocab = spl.dec_vocab_size
+    errs = {"logits": rel_err(outs["kernels"][..., :vocab], outs["plain"][..., :vocab])}
+    errs.update({"d_" + n: rel_err(a, b) for n, a, b in zip(
+        [n for n in OPERAND_NAMES if n != "bias"], grads["kernels"], grads["plain"])})
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[{card}] speller_control's fused tier (B={ctl.B}, Te={ctl.TE}, L={ctl.L}, H1 "
+        f"{ctl.H1}, {ctl.HEADS} heads, bf16, tf 0.9, dropout 0.3): #8 train form + #9 through the "
+        f"Function against the plain versions, {len(errs)} tensors, largest "
+        f"{errs[worst][1]:.1e} of max ({worst}; tolerance {tol:g})")
+    bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
+    if bad:
+        raise AssertionError(f"speller_control fused tier: errors over {tol} of max: {bad}")
+
+
+def fmt_mfu(value) -> str:
+    return "not measured" if value is None else f"{value:.4f}"
+
+
+def speller_control_phase(torch, card: str) -> dict:
+    """``tools/speller_control.py`` at its full widths; the fused tier held
+    to its plain versions. Returns the launches of the tool's run."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.tools import speller_control as ctl
+
+    lc.reset_launch_counts()
+    sc.reset_launch_counts()
+    with forbid_plain():
+        result = ctl.main(["--device", DEVICE, "--steps", "4", "--windows", "2"])
+    counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+    idle = [k for k in CONTROL_PATH if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"speller_control: never launched {idle}")
+    walls = result["walls_ms"]
+    log(f"[{card}] speller_control (bf16, B={ctl.B}, Te={ctl.TE}, L={ctl.L}, peak "
+        f"{result['peak_flops']}): " + ", ".join(
+            f"{k} {v:.2f} ms (MFU {fmt_mfu(result['mfu'][k])})" for k, v in walls.items())
+        + f"; launches {counts}")
+    control_fused_check(torch, card)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: tensor, sequence and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+PAR_B, PAR_T, PAR_L = 16, 256, 32
+PAR_TOL = 2e-5
+PAR_MODES = {
+    # name: (grid axes and sizes, or a pipeline's (microbatches, dp, tp))
+    "TP 1x2": ("2d", (1, 2)),
+    "DPxTP 2x2": ("2d", (2, 2)),
+    "SP seq 2": ("seq", (1, 2)),
+    "SPxTP 1x2x2": ("3d", (1, 2, 2)),
+    "PP 2 microbatches": ("pipe", (2, 1, 1)),
+    "PPxDPxTP 2x2": ("pipe", (2, 2, 2)),
+}
+
+
+def par_config(steps: int = 600):
+    """base-LAS at full width on the scan tiers, every dropout 0."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_config_from_dicts
+
+    return las_config_from_dicts(
+        {**BASE_LAS_MODEL["listener_configs"], "lstm_impl": "scan", "init_dropout": 0.0,
+         "mid_dropout": 0.0, "final_dropout": 0.0},
+        {**BASE_LAS_MODEL["speller_configs"], "decoder_impl": "scan", "dec_lstm_dropout": 0.0,
+         "att_dropout": 0.0, "dec_emb_dropout": 0.0, "CHR_MAX_STEPS": steps})
+
+
+def par_mode_step(torch, name: str, cfg, params, batch, lr: float) -> tuple:
+    """One step of mode ``name`` on ``[cuda:0] * n`` from ``params``:
+    (metrics, the first moment whole in the module's order, seconds, the
+    parameter bytes a device holds)."""
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import grid as pgrid
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import mesh as pmesh
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import pipeline as ppipe
+    from attention_based_e2e_asr_dnn_tpu_torch.train import make_las_apply_factory
+    from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import create_train_state
+
+    import numpy as np
+
+    kind, sizes = PAR_MODES[name]
+    card = torch.device(DEVICE, 0) if torch.device(DEVICE).type == "cuda" else DEVICE
+    if kind == "pipe":
+        n_mb, dp, tp = sizes
+        devices = [card] * (2 * dp * tp)
+        opt = build_optimizer("adamw", {"lr": lr, "amsgrad": True}, grad_norm=1e30)
+        state = ppipe.init_pipeline_state(params, opt, SEED, devices, dp=dp, tp=tp)
+        step = ppipe.make_pipeline_train_step(cfg, opt, devices, n_mb,
+                                              grad_norm=5.0, dp=dp, tp=tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch, 1.0, lr)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        mu = []
+        for gp, o in ((state.params_listener, state.opt_listener),
+                      (state.params_speller, state.opt_speller)):
+            mu += pmesh.gather_opt_state(gp, o, card).mu
+        return metrics, mu, seconds, (state.params_listener.per_device_bytes()
+                                      + state.params_speller.per_device_bytes())
+    if kind == "3d":
+        grid = pmesh.make_mesh_3d(*sizes, devices=[card] * int(np.prod(sizes)))
+    elif kind == "seq":
+        grid = pmesh.make_mesh_2d(*sizes, axis_names=("data", "seq"), devices=[card] * 2)
+    else:
+        grid = pmesh.make_mesh_2d(*sizes, devices=[card] * int(np.prod(sizes)))
+    opt = build_optimizer("adamw", {"lr": lr, "amsgrad": True}, grad_norm=5.0)
+    state = pmesh.shard_train_state(create_train_state(params, opt, seed=SEED, device=card),
+                                    grid)
+    step = pgrid.make_grid_train_step(make_las_apply_factory(cfg)(1.0), opt, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics, _ = step(state, *batch, 1.0, lr)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mu = pmesh.gather_opt_state(state.params, state.opt_state, card).mu
+    return metrics, mu, seconds, state.params.per_device_bytes()
+
+
+def par_trainer_check(torch, card: str, cfg, work: str) -> None:
+    """One ``Trainer`` epoch with ``shard_state`` at model 2 and one with
+    ``pipeline`` (2 microbatches), each on its device list; each checkpoint
+    resumed by the one-device Trainer, the parameters equal."""
+    from attention_based_e2e_asr_dnn_tpu_torch import constants
+    from attention_based_e2e_asr_dnn_tpu_torch.config import Config
+    from attention_based_e2e_asr_dnn_tpu_torch.data.batching import BucketBatcher
+    from attention_based_e2e_asr_dnn_tpu_torch.data.datasets import AsrTrainDevDataset
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_init
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import mesh as pmesh
+    from attention_based_e2e_asr_dnn_tpu_torch.tools.make_synthetic_data import generate
+    from attention_based_e2e_asr_dnn_tpu_torch.train import make_las_apply_factory
+    from attention_based_e2e_asr_dnn_tpu_torch.training.trainer import Trainer
+
+    data = os.path.join(work, "par-data")
+    generate(data, n_train=32, n_dev=16, n_test=8, words_min=2, words_max=4, seed=SEED + 25)
+    trn_cfg = {"seed": 3, "epochs": 1, "batch_size": 16, "accu_grad": 1, "grad_norm": 5.0,
+               "init_force": False, "tf_rate": 1.0, "max_savings": 2, "use_specaug": False,
+               "eval_ld_interval": 1, "optimizer": {"name": "adamw", "configs": {"lr": 1e-3}}}
+    card_dev = torch.device(DEVICE, 0) if torch.device(DEVICE).type == "cuda" else DEVICE
+
+    def trainer(name, **kwargs):
+        sets = [AsrTrainDevDataset(std_dir=os.path.join(data, split),
+                                   label_to_idx=constants.VOCAB_MAP, keep_tags=True)
+                for split in ("train-clean-100", "dev-clean")]
+        trn = BucketBatcher(sets[0], 16, 128, 32, label_pad_id=29, shuffle=True, seed=3)
+        dev = BucketBatcher(sets[1], 16, 128, 32, label_pad_id=29)
+        return Trainer(init_fn=lambda g: las_init(cfg, g),
+                       make_apply=make_las_apply_factory(cfg), trn_batcher=trn,
+                       dev_batcher=dev, trncfgs=Config(trn_cfg),
+                       saving_dir=os.path.join(work, f"par-{name}"), sos_idx=0, eos_idx=29,
+                       device=DEVICE, **kwargs)
+
+    grid = pmesh.make_mesh_2d(1, 2, devices=[card_dev] * 2)
+    runs = {
+        "shard_state model 2": dict(shard_batch=pmesh.shard_batch_fn(grid),
+                                    shard_state=lambda s: pmesh.shard_train_state(s, grid)),
+        "pipeline 2 microbatches": dict(pipeline={"cfg": cfg, "n_microbatches": 2,
+                                                  "devices": [card_dev] * 2}),
+    }
+    for name, kwargs in runs.items():
+        t0 = time.perf_counter()
+        tr = trainer(name.split()[0], **kwargs)
+        tr.train_eval(1)
+        ckpt = os.path.join(tr.saving_dir, "ckpts", "last.ckpt")
+        tr.save(ckpt)
+        seconds = time.perf_counter() - t0
+        hist = tr.train_history["loss"] + tr.dev_history["loss"] + tr.dev_history["ld"]
+        if not all(v == v and abs(v) != float("inf") for v in hist):
+            raise AssertionError(f"Trainer {name}: histories {hist}")
+        one = trainer(name.split()[0] + "-resumed")
+        one.load(ckpt)
+        whole = tr.whole_params()
+        if not all(torch.equal(p, q.to(p.device)) for p, q in
+                   zip(one.state.params.parameters(), whole.parameters())):
+            raise AssertionError(f"Trainer {name}: the one-device resume's parameters differ")
+        log(f"[{card}] Trainer epoch, {name}: train loss {tr.train_history['loss'][0]:.4f}, "
+            f"dev loss {tr.dev_history['loss'][0]:.4f}, dev LD {tr.dev_history['ld'][0]:.3f}, "
+            f"{seconds:.1f} s; its checkpoint resumed by the one-device Trainer at epoch "
+            f"{one.epoch}, the parameters equal")
+        del tr, one, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def parallel_phase(torch, card: str, work: str) -> None:
+    """Phase 25: each mode's step against the one-device scan step; the
+    Trainer's epochs and resumes."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import las_init
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import mesh as pmesh
+    from attention_based_e2e_asr_dnn_tpu_torch.train import make_las_apply_factory
+    from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = par_config()
+    batch = train_batch(torch, PAR_B, PAR_T, PAR_L, SEED + 25)
+    lr = 1e-3
+
+    def fresh():
+        return las_init(cfg, torch.Generator().manual_seed(SEED))
+
+    opt = build_optimizer("adamw", {"lr": lr, "amsgrad": True}, grad_norm=5.0)
+    state = create_train_state(fresh(), opt, seed=SEED, device=DEVICE)
+    step = make_train_step(make_las_apply_factory(cfg)(1.0), opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, ref, _ = step(state, *batch, 1.0, lr)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref = {k: float(v) for k, v in ref.items()}
+    ref_mu = torch.cat([m.reshape(-1) for m in state.opt_state.mu])
+    bytes_one = pmesh.GridParams(fresh(), pmesh.make_mesh_2d(1, 1, devices=[DEVICE])
+                                 ).per_device_bytes()
+    bytes_two = pmesh.GridParams(fresh(), pmesh.make_mesh_2d(1, 2, devices=[DEVICE] * 2)
+                                 ).per_device_bytes()
+    log(f"[{card}] parallel steps, base-LAS scan tiers float32 (TF32 off), B={PAR_B}, "
+        f"T={PAR_T}, L={PAR_L}: one-device step {ref_s:.3f} s, loss {ref['loss']:.6f}, "
+        f"grad norm {ref['grad_norm']:.6f}; parameter bytes a device holds: model 1 "
+        f"{bytes_one}, model 2 {bytes_two}")
+    del state
+    failures = []
+    for name in PAR_MODES:
+        metrics, mu, seconds, dev_bytes = par_mode_step(torch, name, cfg, fresh(), batch, lr)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        flat = torch.cat([m.reshape(-1) for m in mu]).to(ref_mu.device)
+        if flat.numel() != ref_mu.numel():
+            raise AssertionError(f"{name}: {flat.numel()} moment entries, not {ref_mu.numel()}")
+        errs = {"loss": abs(metrics["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1.0),
+                "grad_norm": abs(metrics["grad_norm"] - ref["grad_norm"])
+                / max(abs(ref["grad_norm"]), 1.0),
+                "mu": float(torch.linalg.vector_norm(flat - ref_mu)
+                            / torch.linalg.vector_norm(ref_mu))}
+        log(f"    {name}: step {seconds:.3f} s, loss {metrics['loss']:.6f}, grad norm "
+            f"{metrics['grad_norm']:.6f}; errors against the one-device step " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()) + f"; parameter bytes a device holds "
+            f"{dev_bytes}")
+        bad = {k: v for k, v in errs.items() if not v <= PAR_TOL}
+        if bad:
+            failures.append((name, bad))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"parallel steps off the one-device step by more than "
+                             f"{PAR_TOL}: {failures}")
+    par_trainer_check(torch, card, par_config(64), work)
+
+
 def main() -> int:
     try:
         import torch
@@ -4694,6 +5079,11 @@ def main() -> int:
             dp_launches = dp_train_phase(torch, card, root)
             dp_cli_phase(torch, card, corpus, root)
             dp_probe_phase(card)
+        with phase("24 drivers: fullscale_run (resident, streamed), speller_control"):
+            fullscale_launches = fullscale_phase(torch, card, root)
+            control_launches = speller_control_phase(torch, card)
+        with phase("25 tensor, sequence and pipeline parallelism"):
+            parallel_phase(torch, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
@@ -4736,6 +5126,12 @@ def main() -> int:
         records[name]["launches"] += dp_launches[name]
     for name in ("lstm_scan_fusedin", "lstm_scan"):
         records[name]["launches"] += dp_serve_launches[name]
+    # the two drivers (phase 24): fullscale_run's training and dev passes,
+    # speller_control's fused tier
+    for name in FULLSCALE_PATH:
+        records[name]["launches"] += fullscale_launches[name]
+    for name in CONTROL_PATH:
+        records[name]["launches"] += control_launches[name]
     # the float32 adjoints: the float32 parity steps through the kernels (a
     # float32 train run's step), lstm_bwd_dw at H=512 and lstm_bwd at H=1024,
     # the decoder's adjoint in both

@@ -226,9 +226,14 @@ def test_only_rank_0_writes(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("parallel,impl,exc,match", [
-    ({"use": True, "model": 2}, "scan", NotImplementedError, "model=2.*queue 1, item 16"),
-    ({"use": True, "sequence": 2}, "scan", NotImplementedError, "sequence.*queue 1, item 16"),
-    ({"use": True, "pipeline": 2}, "scan", NotImplementedError, "pipeline.*queue 1, item 16"),
+    # tensor, sequence and pipeline parallelism train on the scan loops
+    # (tests/test_torch_tp.py, test_torch_sp.py, test_torch_pipeline.py); a
+    # batch their grids cannot split raises the JAX message
+    ({"use": True, "model": 2, "data": 3}, "scan", ValueError,
+     "batch dim 8 not divisible by data-parallel degree 3"),
+    ({"use": True, "sequence": 2, "data": 3}, "scan", ValueError,
+     "batch dim 8 not divisible by data-parallel degree 3"),
+    ({"use": True, "pipeline": 3}, "scan", ValueError, "batch 8 not divisible by 3 microbatches"),
     ({"use": True, "sequence": 2}, "pallas", ValueError,
      "sequence requires the scan implementations"),
     ({"use": True, "pipeline": 2}, "pallas", ValueError,
@@ -241,8 +246,9 @@ def test_only_rank_0_writes(corpus, tmp_path):
         "pipeline-kernels", "sequence-and-pipeline", "indivisible"])
 def test_train_cli_parallel_refusals(corpus, tmp_path, parallel, impl, exc, match):
     """Tensor, sequence and pipeline parallelism: the JAX CLI's ValueErrors
-    first, then item 16; a batch the ranks cannot split raises the JAX
-    message (from the spawned rank)."""
+    for the kernel tiers and for sequence with pipeline; a batch the grid's
+    rows, the microbatches or the ranks cannot split raises the JAX message
+    (from the spawned rank under data parallelism)."""
     path = _cli_config(corpus, tmp_path, parallel, impl=impl, epochs=1)
     with pytest.raises((exc, RuntimeError), match=match) as err:
         _train(path)

@@ -4,8 +4,8 @@ optimizer state's flat leaves in the JAX order, the utilities the CLI
 prints, the port's ``Trainer`` against the JAX ``Trainer`` on a tiny
 generated corpus (float32, dropout and SpecAugment off, tf_rate 1.0, so that
 no random draw enters), resume, checkpoints loaded across the packages both
-ways, the CLI end to end on the CPU into the port's ``infer``, and every
-setting that raises because its module is not ported."""
+ways, the CLI end to end on the CPU into the port's ``infer``, and the
+Trainer's parallel arguments."""
 
 import filecmp
 import glob
@@ -482,7 +482,7 @@ def test_crash_save_and_ld_interval(corpus, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported raises, and names where it waits
+# The parallel arguments: each builds its Trainer; an unknown one raises
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["shard_batch", "shard_state", "pipeline", "dp_mesh"])
@@ -508,9 +508,27 @@ def test_trainer_arguments_not_ported_raise(corpus, tmp_path, name):
         finally:
             tmesh.close_mesh()
         return
-    with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP queue 1, item 16"):
-        Trainer(**kwargs, **{name: object()})
-    with pytest.raises(TypeError, match="unexpected argument"):
+    # ported: a grid's shard_batch and shard_state, and the pipeline, build
+    # on the CPU (their steps: tests/test_torch_tp.py, test_torch_pipeline.py)
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import mesh as tmesh
+    from attention_based_e2e_asr_dnn_tpu_torch.parallel import pipeline as tpipe
+
+    grid = tmesh.make_mesh_2d(2, 2, devices=["cpu"] * 4)
+    scan = tlas.LASConfig(listener=tlas.ListenerConfig(**{**T_TINY.listener.__dict__,
+                                                          "lstm_impl": "scan"}),
+                          speller=T_TINY.speller)
+    given = {"shard_batch": tmesh.shard_batch_fn(grid),
+             "shard_state": lambda s: tmesh.shard_train_state(s, grid),
+             "pipeline": {"cfg": scan, "n_microbatches": 2, "devices": ["cpu"] * 2}}[name]
+    trainer = Trainer(**{**kwargs, "init_fn": lambda g: tlas.las_from_jax_params(
+        _tiny_params()), "make_apply": ttrain.make_las_apply_factory(scan)}, **{name: given})
+    if name == "pipeline":
+        assert isinstance(trainer.state, tpipe.PipelineState)
+        assert trainer.tx.grad_norm == 1e30 and trainer.tx.accum_steps == 1
+    else:
+        assert isinstance(trainer.state.params, tmesh.GridParams)
+        assert bool(trainer.state.params.sharded_names()) == (name == "shard_state")
+    with pytest.raises(TypeError, match="unexpected keyword argument"):
         Trainer(**kwargs, no_such_argument=1)
 
 
