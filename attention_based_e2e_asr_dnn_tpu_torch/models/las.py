@@ -48,6 +48,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
     pyramidal_lstm_stack_apply,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.speller_cuda import speller_apply_fused
+from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -317,16 +318,17 @@ def listener_apply(params, cfg: ListenerConfig, x: torch.Tensor,
     In training, locked dropout after every layer from ``masks`` (one per
     layer, base then pyramid) or drawn from ``generator``."""
     n_base = cfg.lstm_layers
-    h, lengths = locked_lstm_stack_apply(
-        params["base"], x, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
-        init_dropout=cfg.init_dropout, mid_dropout=cfg.mid_dropout, train=train,
-        masks=None if masks is None else masks[:n_base], generator=generator,
-        remat=cfg.remat)
-    return pyramidal_lstm_stack_apply(
-        params["pyramid"], h, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
-        mid_dropout=cfg.mid_dropout, final_dropout=cfg.final_dropout, train=train,
-        masks=None if masks is None else masks[n_base:], generator=generator,
-        remat=cfg.remat)
+    with span("las.listener"):
+        h, lengths = locked_lstm_stack_apply(
+            params["base"], x, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
+            init_dropout=cfg.init_dropout, mid_dropout=cfg.mid_dropout, train=train,
+            masks=None if masks is None else masks[:n_base], generator=generator,
+            remat=cfg.remat)
+        return pyramidal_lstm_stack_apply(
+            params["pyramid"], h, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
+            mid_dropout=cfg.mid_dropout, final_dropout=cfg.final_dropout, train=train,
+            masks=None if masks is None else masks[n_base:], generator=generator,
+            remat=cfg.remat)
 
 
 # ---------------------------------------------------------------------------
@@ -509,24 +511,26 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
     prior_rows = (block_diagonal_prior(enc_len, steps, device=enc_h.device).T
                   if init_force else None)
 
-    cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l, cache_hook)
-    char = torch.full((batch,), cfg.CHR_SOS_IDX, dtype=torch.long,
-                      device=enc_h.device)
-    logits_t, wgts_t = [], []
-    for t in range(steps):
-        logits, wgts, state = speller_step(
-            params, cfg, cache, char, state,
-            gold_prev=None if use_gold is None else gold_prev[:, t],
-            use_gold=None if use_gold is None else use_gold[t],
-            keep1=None if keep1 is None else keep1[t],
-            keep2=None if keep2 is None else keep2[t],
-            prior_row=None if prior_rows is None else prior_rows[t])
-        char = torch.argmax(logits, dim=-1)
-        logits_t.append(logits)
-        wgts_t.append(wgts[0])
-    att_map = torch.stack([wgts0[0]] + wgts_t, dim=1)  # (heads, steps+1, T)
-    return SpellerOutput(logits=torch.stack(logits_t, dim=1),
-                         att_map=att_map.transpose(-2, -1))
+    with span("las.speller.operands"):
+        cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l, cache_hook)
+    with span("las.speller.decode"):  # the whole loop: no span a step
+        char = torch.full((batch,), cfg.CHR_SOS_IDX, dtype=torch.long,
+                          device=enc_h.device)
+        logits_t, wgts_t = [], []
+        for t in range(steps):
+            logits, wgts, state = speller_step(
+                params, cfg, cache, char, state,
+                gold_prev=None if use_gold is None else gold_prev[:, t],
+                use_gold=None if use_gold is None else use_gold[t],
+                keep1=None if keep1 is None else keep1[t],
+                keep2=None if keep2 is None else keep2[t],
+                prior_row=None if prior_rows is None else prior_rows[t])
+            char = torch.argmax(logits, dim=-1)
+            logits_t.append(logits)
+            wgts_t.append(wgts[0])
+        att_map = torch.stack([wgts0[0]] + wgts_t, dim=1)  # (heads, steps+1, T)
+        return SpellerOutput(logits=torch.stack(logits_t, dim=1),
+                             att_map=att_map.transpose(-2, -1))
 
 
 def las_apply(params, cfg: LASConfig, x: torch.Tensor, lx: torch.Tensor,

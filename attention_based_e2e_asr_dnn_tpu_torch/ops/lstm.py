@@ -43,6 +43,7 @@ import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops.dropout import locked_dropout
 from attention_based_e2e_asr_dnn_tpu_torch.ops.shards import ColumnShards, refuse_sharded
+from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import span
 
 
 def _gates(pre: torch.Tensor, c: torch.Tensor, hidden_dim: int):
@@ -132,16 +133,17 @@ class _RematLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_y):
-        x, lengths, *leaves = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip([x, *leaves], ctx.needs_input_grad[1:2]
-                                     + ctx.needs_input_grad[3:])]
-        with torch.enable_grad():
-            y = ctx.fn(inputs[0], lengths, inputs[1:])
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, d_y))
-        d_x, *d_leaves = [next(grads) if t.requires_grad else None for t in inputs]
-        return (None, d_x, None, *d_leaves)
+        with span("las.backward.listener"):
+            x, lengths, *leaves = ctx.saved_tensors
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip([x, *leaves], ctx.needs_input_grad[1:2]
+                                         + ctx.needs_input_grad[3:])]
+            with torch.enable_grad():
+                y = ctx.fn(inputs[0], lengths, inputs[1:])
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, d_y))
+            d_x, *d_leaves = [next(grads) if t.requires_grad else None for t in inputs]
+            return (None, d_x, None, *d_leaves)
 
 
 def _layer_leaves(layer, bidirectional: bool):

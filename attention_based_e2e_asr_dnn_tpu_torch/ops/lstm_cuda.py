@@ -86,6 +86,9 @@ to 1024, the shared memory a block may use, ``lstm_bwd_dw`` only up to H =
 512, ``bilstm_scan_fused`` only up to H = 512.
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor or raises, and counts its launches in ``LAUNCHES``.
+A running profiler sees each kernel call, from its checks and plan to its
+last launch, as the span ``las.launch.<key>`` (``<key>`` its ``LAUNCHES``
+counter), and each adjoint as ``las.backward.listener``.
 
 ``lstm_scan`` and ``lstm_scan_fusedin`` are differentiable: where a gradient
 is wanted they go through a ``torch.autograd.Function`` whose forward is the
@@ -114,6 +117,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm import (
     directions_apply,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import length_mask
+from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import LAUNCH, span
 
 SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan.cu")
 STREAMS_SOURCE = os.path.join(cuda_build.CSRC, "lstm_scan_streams.cu")
@@ -662,53 +666,54 @@ def _launch(name: str, fused: bool, train: bool, x: torch.Tensor, w_ih, b,
     """Check shapes and launch the forward kernel as ``plan_launches`` plans
     it. Returns hs (B, T, ndir * H), and with ``train`` also cs (same shape)
     and gates (B, T, ndir * 4H)."""
-    ndir, hidden, sms = _check_recurrence(
-        name, x, [x, w_hh] + ([w_ih, b] if fused else []), w_hh, lengths, reverse)
-    dtype, four_h = x.dtype, 4 * hidden
-    batch, seq_len = x.shape[0], x.shape[1]
-    in_dim = x.shape[2] if fused else 0
-    if fused:
-        if w_ih.shape != (ndir, in_dim, four_h) or b.shape != (ndir, four_h):
-            raise ValueError(f"{name}: w_ih/b shapes {tuple(w_ih.shape)}, "
-                             f"{tuple(b.shape)} do not match")
-        x_strides = (0, seq_len * in_dim, in_dim)
-    else:
-        if x.shape[2] != ndir * four_h:
-            raise ValueError(f"{name}: x_proj width {x.shape[2]} != "
-                             f"{ndir} x 4H")
-        x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
-    plan = plan_launches(name, dtype, batch, hidden, ndir, sms, in_dim)
+    with span(LAUNCH + name):
+        ndir, hidden, sms = _check_recurrence(
+            name, x, [x, w_hh] + ([w_ih, b] if fused else []), w_hh, lengths, reverse)
+        dtype, four_h = x.dtype, 4 * hidden
+        batch, seq_len = x.shape[0], x.shape[1]
+        in_dim = x.shape[2] if fused else 0
+        if fused:
+            if w_ih.shape != (ndir, in_dim, four_h) or b.shape != (ndir, four_h):
+                raise ValueError(f"{name}: w_ih/b shapes {tuple(w_ih.shape)}, "
+                                 f"{tuple(b.shape)} do not match")
+            x_strides = (0, seq_len * in_dim, in_dim)
+        else:
+            if x.shape[2] != ndir * four_h:
+                raise ValueError(f"{name}: x_proj width {x.shape[2]} != "
+                                 f"{ndir} x 4H")
+            x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
+        plan = plan_launches(name, dtype, batch, hidden, ndir, sms, in_dim)
 
-    tc = dtype == torch.bfloat16
-    fn = load_tc_library().lstm_scan_tc_launch if tc else load_library().lstm_scan_launch
-    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
-    cs = torch.empty_like(out) if train else None
-    gates = (torch.empty(batch, seq_len, ndir * four_h, dtype=dtype, device=x.device)
-             if train else None)
-    size = x.element_size()
+        tc = dtype == torch.bfloat16
+        fn = load_tc_library().lstm_scan_tc_launch if tc else load_library().lstm_scan_launch
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
+        cs = torch.empty_like(out) if train else None
+        gates = (torch.empty(batch, seq_len, ndir * four_h, dtype=dtype, device=x.device)
+                 if train else None)
+        size = x.element_size()
 
-    def call(ln, hbuf, extra, stream):
-        # a launch sees its rows as rows 0.. and its directions as directions
-        # 0.. of tensors that start at its first row and direction
-        r0, r1, d0, nd = ln.r0, ln.r1, ln.d0, ln.nd
-        rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
-        return fn(
-            _DTYPE_CODES[dtype], int(fused), int(train), nd, rev_bits,
-            r1 - r0, seq_len, in_dim, hidden,
-            x[r0:r1].data_ptr() + d0 * x_strides[0] * size, *x_strides,
-            w_ih[d0].data_ptr() if fused else None,
-            b[d0].data_ptr() if fused else None,
-            w_hh[d0].data_ptr(), lengths[r0:r1].data_ptr(),
-            out[r0:r1].data_ptr() + d0 * hidden * size,
-            hidden, seq_len * ndir * hidden, ndir * hidden,
-            hbuf,
-            cs[r0:r1].data_ptr() + d0 * hidden * size if train else None,
-            gates[r0:r1].data_ptr() + d0 * four_h * size if train else None,
-            four_h, seq_len * ndir * four_h, ndir * four_h, *extra, stream)
+        def call(ln, hbuf, extra, stream):
+            # a launch sees its rows as rows 0.. and its directions as directions
+            # 0.. of tensors that start at its first row and direction
+            r0, r1, d0, nd = ln.r0, ln.r1, ln.d0, ln.nd
+            rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
+            return fn(
+                _DTYPE_CODES[dtype], int(fused), int(train), nd, rev_bits,
+                r1 - r0, seq_len, in_dim, hidden,
+                x[r0:r1].data_ptr() + d0 * x_strides[0] * size, *x_strides,
+                w_ih[d0].data_ptr() if fused else None,
+                b[d0].data_ptr() if fused else None,
+                w_hh[d0].data_ptr(), lengths[r0:r1].data_ptr(),
+                out[r0:r1].data_ptr() + d0 * hidden * size,
+                hidden, seq_len * ndir * hidden, ndir * hidden,
+                hbuf,
+                cs[r0:r1].data_ptr() + d0 * hidden * size if train else None,
+                gates[r0:r1].data_ptr() + d0 * four_h * size if train else None,
+                four_h, seq_len * ndir * four_h, ndir * four_h, *extra, stream)
 
-    _forward_call(plan, name, dtype, hidden, x.device, call)
-    return (out, cs, gates) if train else out
+        _forward_call(plan, name, dtype, hidden, x.device, call)
+        return (out, cs, gates) if train else out
 
 
 def _launch_streams(name: str, bi: bool, x: torch.Tensor, w_hh: torch.Tensor,
@@ -718,55 +723,56 @@ def _launch_streams(name: str, bi: bool, x: torch.Tensor, w_hh: torch.Tensor,
     it. ``bi``: x is xp (T, 2, B, 4H) and the outputs are (T, 2, B, H), both
     directions in every launch; else x is x_proj (B, T, ndir * 4H) and the
     outputs (B, T, ndir * H). Returns (hs, cs)."""
-    if x.dim() != (4 if bi else 3):
-        raise ValueError(f"{name}: input {tuple(x.shape)} must have "
-                         f"{'(T, 2, B, 4H)' if bi else '(B, T, ndir x 4H)'} axes")
-    by_row = x.permute(2, 0, 1, 3) if bi else x  # batch first, then time
-    ndir, hidden, sms = _check_recurrence(name, by_row, [x, w_hh], w_hh, lengths, reverse)
-    dtype, four_h = x.dtype, 4 * hidden
-    batch, seq_len = by_row.shape[0], by_row.shape[1]
-    if bi:
-        if x.shape[1] != 2 or x.shape[3] != four_h or ndir != 2:
-            raise ValueError(f"{name}: xp {tuple(x.shape)} must be (T, 2, B, 4H) for "
-                             f"w_hh {tuple(w_hh.shape)}")
-        plan = plan_launches(name, dtype, batch, hidden, ndir, sms)
-        if hidden > _BWD_DW_MAX_HIDDEN or len({(ln.d0, ln.nd) for ln in plan}) > 1:
-            raise ValueError(
-                f"{name}: hidden {hidden}: both directions in one launch are taken up to "
-                f"H = {_BWD_DW_MAX_HIDDEN}; a wider layer is bilstm_apply_kernel's, a "
-                f"launch a direction in float32")
-        x_strides = (batch * four_h, four_h, 2 * batch * four_h)
-        o_strides = (batch * hidden, hidden, 2 * batch * hidden)
-        out = torch.empty(seq_len, 2, batch, hidden, dtype=dtype, device=x.device)
-    else:
-        if x.shape[2] != ndir * four_h:
-            raise ValueError(f"{name}: x_proj {tuple(x.shape)} must be (B, T, {ndir} x 4H)")
-        plan = plan_launches(name, dtype, batch, hidden, ndir, sms)
-        x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
-        o_strides = (hidden, seq_len * ndir * hidden, ndir * hidden)
-        out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
+    with span(LAUNCH + name):
+        if x.dim() != (4 if bi else 3):
+            raise ValueError(f"{name}: input {tuple(x.shape)} must have "
+                             f"{'(T, 2, B, 4H)' if bi else '(B, T, ndir x 4H)'} axes")
+        by_row = x.permute(2, 0, 1, 3) if bi else x  # batch first, then time
+        ndir, hidden, sms = _check_recurrence(name, by_row, [x, w_hh], w_hh, lengths, reverse)
+        dtype, four_h = x.dtype, 4 * hidden
+        batch, seq_len = by_row.shape[0], by_row.shape[1]
+        if bi:
+            if x.shape[1] != 2 or x.shape[3] != four_h or ndir != 2:
+                raise ValueError(f"{name}: xp {tuple(x.shape)} must be (T, 2, B, 4H) for "
+                                 f"w_hh {tuple(w_hh.shape)}")
+            plan = plan_launches(name, dtype, batch, hidden, ndir, sms)
+            if hidden > _BWD_DW_MAX_HIDDEN or len({(ln.d0, ln.nd) for ln in plan}) > 1:
+                raise ValueError(
+                    f"{name}: hidden {hidden}: both directions in one launch are taken up to "
+                    f"H = {_BWD_DW_MAX_HIDDEN}; a wider layer is bilstm_apply_kernel's, a "
+                    f"launch a direction in float32")
+            x_strides = (batch * four_h, four_h, 2 * batch * four_h)
+            o_strides = (batch * hidden, hidden, 2 * batch * hidden)
+            out = torch.empty(seq_len, 2, batch, hidden, dtype=dtype, device=x.device)
+        else:
+            if x.shape[2] != ndir * four_h:
+                raise ValueError(f"{name}: x_proj {tuple(x.shape)} must be (B, T, {ndir} x 4H)")
+            plan = plan_launches(name, dtype, batch, hidden, ndir, sms)
+            x_strides = (four_h, seq_len * ndir * four_h, ndir * four_h)
+            o_strides = (hidden, seq_len * ndir * hidden, ndir * hidden)
+            out = torch.empty(batch, seq_len, ndir * hidden, dtype=dtype, device=x.device)
 
-    tc = dtype == torch.bfloat16
-    fn = (load_tc_streams_library().lstm_scan_tc_streams_launch if tc
-          else load_streams_library().lstm_scan_streams_launch)
-    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    cs = torch.empty_like(out)
-    size = x.element_size()
+        tc = dtype == torch.bfloat16
+        fn = (load_tc_streams_library().lstm_scan_tc_streams_launch if tc
+              else load_streams_library().lstm_scan_streams_launch)
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        cs = torch.empty_like(out)
+        size = x.element_size()
 
-    def call(ln, hbuf, extra, stream):
-        # a launch sees rows r0.. as rows 0.. and its directions as directions
-        # 0..: both are offsets of whole strides
-        r0, r1, d0, nd = ln.r0, ln.r1, ln.d0, ln.nd
-        rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
-        x_off = (r0 * x_strides[1] + d0 * x_strides[0]) * size
-        o_off = (r0 * o_strides[1] + d0 * o_strides[0]) * size
-        return fn(_DTYPE_CODES[dtype], int(bi), nd, rev_bits, r1 - r0, seq_len, hidden,
-                  x.data_ptr() + x_off, *x_strides, w_hh[d0].data_ptr(),
-                  lengths[r0:r1].data_ptr(), out.data_ptr() + o_off, *o_strides,
-                  hbuf, cs.data_ptr() + o_off, *extra, stream)
+        def call(ln, hbuf, extra, stream):
+            # a launch sees rows r0.. as rows 0.. and its directions as directions
+            # 0..: both are offsets of whole strides
+            r0, r1, d0, nd = ln.r0, ln.r1, ln.d0, ln.nd
+            rev_bits = sum(1 << d for d in range(nd) if reverse[d0 + d])
+            x_off = (r0 * x_strides[1] + d0 * x_strides[0]) * size
+            o_off = (r0 * o_strides[1] + d0 * o_strides[0]) * size
+            return fn(_DTYPE_CODES[dtype], int(bi), nd, rev_bits, r1 - r0, seq_len, hidden,
+                      x.data_ptr() + x_off, *x_strides, w_hh[d0].data_ptr(),
+                      lengths[r0:r1].data_ptr(), out.data_ptr() + o_off, *o_strides,
+                      hbuf, cs.data_ptr() + o_off, *extra, stream)
 
-    _forward_call(plan, name, dtype, hidden, x.device, call)
-    return out, cs
+        _forward_call(plan, name, dtype, hidden, x.device, call)
+        return out, cs
 
 
 def _launch_adjoint(name: str, with_dw: bool, gates: torch.Tensor, cs: torch.Tensor, hs,
@@ -778,56 +784,57 @@ def _launch_adjoint(name: str, with_dw: bool, gates: torch.Tensor, cs: torch.Ten
     ``with_dw``, d_whh (ndir, H, 4H) float32: the partial sums of the
     launches (bfloat16) or of the row groups (float32) added in row order
     (runs repeat bit for bit)."""
-    ndir, hidden, sms = _check_recurrence(
-        name, gates, [gates, cs, dy, w_hh] + ([hs] if with_dw else []), w_hh, lengths, reverse)
-    streams = {"cs": cs, "dy": dy, **({"hs": hs} if with_dw else {})}
-    _check_stream_shapes(name, gates, streams, ndir, hidden)
-    batch, seq_len = gates.shape[0], gates.shape[1]
-    plan = plan_bwd_launches(name, gates.dtype, batch, hidden, ndir, sms, with_dw)
+    with span(LAUNCH + name):
+        ndir, hidden, sms = _check_recurrence(
+            name, gates, [gates, cs, dy, w_hh] + ([hs] if with_dw else []), w_hh, lengths, reverse)
+        streams = {"cs": cs, "dy": dy, **({"hs": hs} if with_dw else {})}
+        _check_stream_shapes(name, gates, streams, ndir, hidden)
+        batch, seq_len = gates.shape[0], gates.shape[1]
+        plan = plan_bwd_launches(name, gates.dtype, batch, hidden, ndir, sms, with_dw)
 
-    tc = gates.dtype == torch.bfloat16
-    lib = load_bwd_tc_library() if tc else load_bwd_library()
-    lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
-    dpre = torch.empty_like(gates)
-    # a launch's partial dW_hh: bfloat16 one a launch, float32 one a row group
-    # (with dW_hh every launch holds every direction: one span each)
-    parts = [-(-(ln.r1 - ln.r0) // ln.rows) if ln.rows else 1 for ln in plan]
-    dw_parts = (torch.empty(sum(parts), ndir, hidden, 4 * hidden, dtype=torch.float32,
-                            device=gates.device) if with_dw else None)
-    rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
-    with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for n, ln in enumerate(plan):
-            r0, r1 = ln.r0, ln.r1
-            rows = (gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr())
-            h_ptr = hs[r0:r1].data_ptr() if with_dw else None
-            tail = (dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
-                    dpre[r0:r1].data_ptr())
-            dw_ptr = dw_parts[sum(parts[:n])].data_ptr() if with_dw else None
-            # the exchange: each step's dpre, double-buffered, a direction's rows
-            # compact (float32: padded to whole row groups)
-            xbuf = torch.empty(2, ln.nd, parts[n] * ln.rows if ln.rows else r1 - r0,
-                               4 * hidden, dtype=gates.dtype, device=gates.device)
-            sync = torch.zeros(ln.nd * parts[n], dtype=torch.int32, device=gates.device)
-            if tc:
-                err = lib.lstm_bwd_tc_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
-                                             r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
-                                             xbuf.data_ptr(), dw_ptr, ln.units, sync.data_ptr(),
-                                             stream)
-            else:
-                err = lib.lstm_bwd_f32_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
-                                              r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
-                                              xbuf.data_ptr(), dw_ptr, ln.units, ln.rows,
-                                              ln.stages, ln.chunk, sync.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-            LAUNCHES[name] += 1
-    if not with_dw:
-        return dpre
-    d_whh = dw_parts[0]
-    for n in range(1, dw_parts.shape[0]):  # a fixed order: runs repeat bit for bit
-        d_whh = d_whh + dw_parts[n]
-    return dpre, d_whh
+        tc = gates.dtype == torch.bfloat16
+        lib = load_bwd_tc_library() if tc else load_bwd_library()
+        lengths = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
+        dpre = torch.empty_like(gates)
+        # a launch's partial dW_hh: bfloat16 one a launch, float32 one a row group
+        # (with dW_hh every launch holds every direction: one span each)
+        parts = [-(-(ln.r1 - ln.r0) // ln.rows) if ln.rows else 1 for ln in plan]
+        dw_parts = (torch.empty(sum(parts), ndir, hidden, 4 * hidden, dtype=torch.float32,
+                                device=gates.device) if with_dw else None)
+        rev_bits = sum(1 << d for d, r in enumerate(reverse) if r)
+        with torch.cuda.device(gates.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for n, ln in enumerate(plan):
+                r0, r1 = ln.r0, ln.r1
+                rows = (gates[r0:r1].data_ptr(), cs[r0:r1].data_ptr())
+                h_ptr = hs[r0:r1].data_ptr() if with_dw else None
+                tail = (dy[r0:r1].data_ptr(), w_hh.data_ptr(), lengths[r0:r1].data_ptr(),
+                        dpre[r0:r1].data_ptr())
+                dw_ptr = dw_parts[sum(parts[:n])].data_ptr() if with_dw else None
+                # the exchange: each step's dpre, double-buffered, a direction's rows
+                # compact (float32: padded to whole row groups)
+                xbuf = torch.empty(2, ln.nd, parts[n] * ln.rows if ln.rows else r1 - r0,
+                                   4 * hidden, dtype=gates.dtype, device=gates.device)
+                sync = torch.zeros(ln.nd * parts[n], dtype=torch.int32, device=gates.device)
+                if tc:
+                    err = lib.lstm_bwd_tc_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
+                                                 r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
+                                                 xbuf.data_ptr(), dw_ptr, ln.units, sync.data_ptr(),
+                                                 stream)
+                else:
+                    err = lib.lstm_bwd_f32_launch(int(with_dw), ndir, rev_bits, ln.d0, ln.nd,
+                                                  r1 - r0, seq_len, hidden, *rows, h_ptr, *tail,
+                                                  xbuf.data_ptr(), dw_ptr, ln.units, ln.rows,
+                                                  ln.stages, ln.chunk, sync.data_ptr(), stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+                LAUNCHES[name] += 1
+        if not with_dw:
+            return dpre
+        d_whh = dw_parts[0]
+        for n in range(1, dw_parts.shape[0]):  # a fixed order: runs repeat bit for bit
+            d_whh = d_whh + dw_parts[n]
+        return dpre, d_whh
 
 
 def _launch_bwd(gates, cs, hs, dy, w_hh, lengths, reverse):
@@ -1140,10 +1147,11 @@ class _LstmScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_hs):
-        w_hh, lengths, hs, cs, gates = ctx.saved_tensors
-        dpre, d_whh = _adjoint(gates, cs, hs, d_hs.to(gates.dtype).contiguous(),
-                               w_hh, lengths, ctx.reverse)
-        return dpre, d_whh.to(w_hh.dtype), None, None
+        with span("las.backward.listener"):
+            w_hh, lengths, hs, cs, gates = ctx.saved_tensors
+            dpre, d_whh = _adjoint(gates, cs, hs, d_hs.to(gates.dtype).contiguous(),
+                                   w_hh, lengths, ctx.reverse)
+            return dpre, d_whh.to(w_hh.dtype), None, None
 
 
 class _LstmScanFusedin(torch.autograd.Function):
@@ -1162,22 +1170,23 @@ class _LstmScanFusedin(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_hs):
-        x, w_ih, w_hh, lengths, hs, cs, gates = ctx.saved_tensors
-        dtype = gates.dtype
-        dpre, d_whh = _adjoint(gates, cs, hs, d_hs.to(dtype).contiguous(),
-                               w_hh, lengths, ctx.reverse)
-        ndir, in_dim, four_h = w_ih.shape
-        x2 = x.reshape(-1, in_dim)
-        d_x, d_wih, d_b = None, [], []
-        for d in range(ndir):
-            dp = dpre[..., d * four_h:(d + 1) * four_h].reshape(-1, four_h)
-            d_wih.append(x2.T @ dp)
-            d_b.append(dp.sum(0, dtype=torch.float32).to(dtype))
-            if ctx.needs_input_grad[0]:
-                part = (dp @ w_ih[d].T).reshape(x.shape)
-                d_x = part if d_x is None else d_x + part
-        return (d_x, torch.stack(d_wih), torch.stack(d_b), d_whh.to(w_hh.dtype),
-                None, None)
+        with span("las.backward.listener"):
+            x, w_ih, w_hh, lengths, hs, cs, gates = ctx.saved_tensors
+            dtype = gates.dtype
+            dpre, d_whh = _adjoint(gates, cs, hs, d_hs.to(dtype).contiguous(),
+                                   w_hh, lengths, ctx.reverse)
+            ndir, in_dim, four_h = w_ih.shape
+            x2 = x.reshape(-1, in_dim)
+            d_x, d_wih, d_b = None, [], []
+            for d in range(ndir):
+                dp = dpre[..., d * four_h:(d + 1) * four_h].reshape(-1, four_h)
+                d_wih.append(x2.T @ dp)
+                d_b.append(dp.sum(0, dtype=torch.float32).to(dtype))
+                if ctx.needs_input_grad[0]:
+                    part = (dp @ w_ih[d].T).reshape(x.shape)
+                    d_x = part if d_x is None else d_x + part
+            return (d_x, torch.stack(d_wih), torch.stack(d_b), d_whh.to(w_hh.dtype),
+                    None, None)
 
 
 def _streams_to_natural(t: torch.Tensor) -> torch.Tensor:
@@ -1218,40 +1227,41 @@ class _BilstmScanFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_hs):
-        xp, w_hh, lengths, hs, cs = ctx.saved_tensors
-        dtype, (seq_len, _, batch, four_h) = xp.dtype, xp.shape
-        hidden = four_h // 4
-        reverse = (False, True)
-        xp_n, hs_n, cs_n = (_streams_to_natural(t) for t in (xp, hs, cs))
-        valid = length_mask(lengths, seq_len)
+        with span("las.backward.listener"):
+            xp, w_hh, lengths, hs, cs = ctx.saved_tensors
+            dtype, (seq_len, _, batch, four_h) = xp.dtype, xp.shape
+            hidden = four_h // 4
+            reverse = (False, True)
+            xp_n, hs_n, cs_n = (_streams_to_natural(t) for t in (xp, hs, cs))
+            valid = length_mask(lengths, seq_len)
 
-        # direction 0's cotangents at padded frames, onto the last valid frame
-        dy = _streams_to_natural(d_hs.float())
-        tail = torch.where(valid[:, :, None], 0.0, dy[..., :hidden]).sum(1)
-        last = (lengths.long() - 1).clamp(min=0)
-        rows = torch.arange(batch, device=dy.device)
-        dy[rows, last, :hidden] += torch.where((lengths > 0)[:, None], tail, 0.0)
-        dy = dy.to(dtype)
+            # direction 0's cotangents at padded frames, onto the last valid frame
+            dy = _streams_to_natural(d_hs.float())
+            tail = torch.where(valid[:, :, None], 0.0, dy[..., :hidden]).sum(1)
+            last = (lengths.long() - 1).clamp(min=0)
+            rows = torch.arange(batch, device=dy.device)
+            dy[rows, last, :hidden] += torch.where((lengths > 0)[:, None], tail, 0.0)
+            dy = dy.to(dtype)
 
-        # the gates of every frame from the saved hs: the scan-previous frame
-        # of t is t - 1 for direction 0 and t + 1 for direction 1
-        zero = hs_n.new_zeros(batch, 1, hidden)
-        gates = []
-        for d in range(2):
-            h_d = hs_n[..., d * hidden:(d + 1) * hidden]
-            h_prev = (torch.cat([h_d[:, 1:], zero], dim=1) if d
-                      else torch.cat([zero, h_d[:, :-1]], dim=1))
-            pre = (xp_n[..., d * four_h:(d + 1) * four_h].float()
-                   + _mm_f32(h_prev.reshape(-1, hidden), w_hh[d]).view(batch, seq_len, four_h))
-            act = torch.cat([torch.sigmoid(pre[..., :2 * hidden]),
-                             torch.tanh(pre[..., 2 * hidden:3 * hidden]),
-                             torch.sigmoid(pre[..., 3 * hidden:])], dim=-1)
-            gates.append(torch.where(valid[:, :, None], act, 0.0).to(dtype))
-        gates = torch.cat(gates, dim=-1)
+            # the gates of every frame from the saved hs: the scan-previous frame
+            # of t is t - 1 for direction 0 and t + 1 for direction 1
+            zero = hs_n.new_zeros(batch, 1, hidden)
+            gates = []
+            for d in range(2):
+                h_d = hs_n[..., d * hidden:(d + 1) * hidden]
+                h_prev = (torch.cat([h_d[:, 1:], zero], dim=1) if d
+                          else torch.cat([zero, h_d[:, :-1]], dim=1))
+                pre = (xp_n[..., d * four_h:(d + 1) * four_h].float()
+                       + _mm_f32(h_prev.reshape(-1, hidden), w_hh[d]).view(batch, seq_len, four_h))
+                act = torch.cat([torch.sigmoid(pre[..., :2 * hidden]),
+                                 torch.tanh(pre[..., 2 * hidden:3 * hidden]),
+                                 torch.sigmoid(pre[..., 3 * hidden:])], dim=-1)
+                gates.append(torch.where(valid[:, :, None], act, 0.0).to(dtype))
+            gates = torch.cat(gates, dim=-1)
 
-        dpre = lstm_bwd(gates, cs_n, dy, w_hh, lengths, reverse)
-        d_whh = dw_hh_outside(hs_n, dpre, reverse)
-        return _natural_to_streams(dpre), d_whh.to(w_hh.dtype), None
+            dpre = lstm_bwd(gates, cs_n, dy, w_hh, lengths, reverse)
+            d_whh = dw_hh_outside(hs_n, dpre, reverse)
+            return _natural_to_streams(dpre), d_whh.to(w_hh.dtype), None
 
 
 def _wants_grad(*tensors) -> bool:

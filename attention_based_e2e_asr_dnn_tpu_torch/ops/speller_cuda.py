@@ -28,7 +28,9 @@ which launches a bfloat16 call makes, ``plan_decode_f32`` and
 ``plan_decode_bwd_f32`` the geometry of a float32 forward and adjoint call's
 one launch (pure, tested on the CPU). Each wrapper runs its plain
 PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor or
-raises, and counts its launches in ``LAUNCHES``. On the card the TPU's
+raises, and counts its launches in ``LAUNCHES``; a running profiler sees
+each kernel call as the span ``las.launch.<key>`` (``<key>`` its
+``LAUNCHES`` counter). On the card the TPU's
 routing (``pick_chunk``, the Te pad to 64, the lane gates of
 ``fused_decode_unavailable_reason``) does not apply: a shape a kernel cannot
 take raises a ``ValueError`` that names the limit, where the JAX package
@@ -42,9 +44,11 @@ otherwise it stays on the eval kernel.
 
 ``speller_apply_fused`` is the JAX ``speller_apply_fused`` (:862), the
 teacher-forced training decode and the free-running eval decode: the operands
-(``decode_operands``), the forced-id stream and the dropout masks from the
-pass's draws, ``fused_decode``, and the ``SpellerOutput`` of
-``models/las.py::speller_apply``.
+(``decode_operands``, the span ``las.speller.operands``), the forced-id
+stream and the dropout masks from the pass's draws, ``fused_decode``, and the
+``SpellerOutput`` of ``models/las.py::speller_apply`` (the span
+``las.speller.decode``); ``_FusedDecode``'s backward is
+``las.backward.speller``.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
     cross_attention_step,
 )
 from attention_based_e2e_asr_dnn_tpu_torch.ops.lstm_cuda import _wants_grad
+from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import LAUNCH, span
 
 SOURCE = os.path.join(cuda_build.CSRC, "speller_decode.cu")
 TC_SOURCE = os.path.join(cuda_build.CSRC, "speller_decode_tc.cu")
@@ -1075,84 +1080,85 @@ def _launch(k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
     Returns (logits, weights, ids), and with ``train`` also the tuple of
     residual streams."""
     name = "speller_decode_train" if train else "speller_decode"
-    dtype = k.dtype
-    batch, te, proj = k.shape
-    h1dim, h2dim, vp = whh1.shape[0], whh2.shape[0], embw1.shape[0]
-    operands = {"k": (k, (batch, te, proj)), "v": (v, (batch, te, proj)),
-                "bias": (bias, (batch, te)), "ctx0": (ctx0, (batch, proj)),
-                "h10": (h10, (batch, h1dim)), "c10": (c10, (batch, h1dim)),
-                "h20": (h20, (batch, h2dim)), "c20": (c20, (batch, h2dim)),
-                "embw1": (embw1, (vp, 4 * h1dim)),
-                "wc1": (wc1, (proj, 4 * h1dim)),
-                "whh1": (whh1, (h1dim, 4 * h1dim)),
-                "wih2": (wih2, (h1dim, 4 * h2dim)),
-                "whh2": (whh2, (h2dim, 4 * h2dim)), "b2": (b2, (4 * h2dim,)),
-                "wq": (wq, (h2dim, proj)), "bq": (bq, (proj,)),
-                "wcls": (wcls, (2 * proj, vp)), "clsb": (clsb, (vp,))}
-    if m1 is not None or m2 is not None:
-        if not train or m1 is None or m2 is None:
-            raise ValueError(f"{name}: the dropout masks m1 and m2 come "
-                             f"together, and only in the training form")
-        operands["m1"] = (m1, (steps, batch, h1dim))
-        operands["m2"] = (m2, (steps, batch, h2dim))
-    _check_operands(name, k, operands)
-    if forced is not None and (
-            tuple(forced.shape) != (steps, batch) or forced.dtype != torch.int32
-            or forced.device != k.device or not forced.is_contiguous()):
-        raise ValueError(f"{name}: forced ids must be contiguous int32 "
-                         f"({steps}, {batch}) on {k.device}")
-    if steps < 1:
-        raise ValueError(f"{name}: steps {steps} must be at least 1")
-    if not 0 <= sos_idx < vp:
-        raise ValueError(f"{name}: padded vocabulary {vp} must hold <sos> {sos_idx}")
-    if dtype == torch.bfloat16:
-        return _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
-                          wih2, whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx,
-                          steps, forced, m1, m2, train)
-    lim = kernel_limits(k.device.index)
-    plan = plan_decode_f32(batch, te, proj, heads, h1dim, h2dim, vp, lim["sms"],
-                           lim["smem_optin"], name)
-    lib = load_library()
+    with span(LAUNCH + name):
+        dtype = k.dtype
+        batch, te, proj = k.shape
+        h1dim, h2dim, vp = whh1.shape[0], whh2.shape[0], embw1.shape[0]
+        operands = {"k": (k, (batch, te, proj)), "v": (v, (batch, te, proj)),
+                    "bias": (bias, (batch, te)), "ctx0": (ctx0, (batch, proj)),
+                    "h10": (h10, (batch, h1dim)), "c10": (c10, (batch, h1dim)),
+                    "h20": (h20, (batch, h2dim)), "c20": (c20, (batch, h2dim)),
+                    "embw1": (embw1, (vp, 4 * h1dim)),
+                    "wc1": (wc1, (proj, 4 * h1dim)),
+                    "whh1": (whh1, (h1dim, 4 * h1dim)),
+                    "wih2": (wih2, (h1dim, 4 * h2dim)),
+                    "whh2": (whh2, (h2dim, 4 * h2dim)), "b2": (b2, (4 * h2dim,)),
+                    "wq": (wq, (h2dim, proj)), "bq": (bq, (proj,)),
+                    "wcls": (wcls, (2 * proj, vp)), "clsb": (clsb, (vp,))}
+        if m1 is not None or m2 is not None:
+            if not train or m1 is None or m2 is None:
+                raise ValueError(f"{name}: the dropout masks m1 and m2 come "
+                                 f"together, and only in the training form")
+            operands["m1"] = (m1, (steps, batch, h1dim))
+            operands["m2"] = (m2, (steps, batch, h2dim))
+        _check_operands(name, k, operands)
+        if forced is not None and (
+                tuple(forced.shape) != (steps, batch) or forced.dtype != torch.int32
+                or forced.device != k.device or not forced.is_contiguous()):
+            raise ValueError(f"{name}: forced ids must be contiguous int32 "
+                             f"({steps}, {batch}) on {k.device}")
+        if steps < 1:
+            raise ValueError(f"{name}: steps {steps} must be at least 1")
+        if not 0 <= sos_idx < vp:
+            raise ValueError(f"{name}: padded vocabulary {vp} must hold <sos> {sos_idx}")
+        if dtype == torch.bfloat16:
+            return _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1,
+                              wih2, whh2, b2, wq, bq, wcls, clsb, heads, scale, sos_idx,
+                              steps, forced, m1, m2, train)
+        lim = kernel_limits(k.device.index)
+        plan = plan_decode_f32(batch, te, proj, heads, h1dim, h2dim, vp, lim["sms"],
+                               lim["smem_optin"], name)
+        lib = load_library()
 
-    def empty(*shape, dt=dtype):
-        return torch.empty(shape, dtype=dt, device=k.device)
+        def empty(*shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=k.device)
 
-    logits = empty(steps, batch, vp)
-    wgts = empty(steps, batch, heads, te)
-    ids = empty(steps, batch, dt=torch.int32)
-    # the exchange buffers of the eval form (the training form exchanges
-    # through its h1d, h2d and context streams), then q, the fp32 c carries
-    # and the fed-back id
-    scratch = ([None] * 3 if train else
-               [empty(2, batch, h1dim), empty(2, batch, h2dim), empty(batch, proj)])
-    scratch += [empty(batch, proj), empty(batch, h1dim, dt=torch.float32),
-                empty(batch, h2dim, dt=torch.float32), empty(batch, dt=torch.int32)]
-    saved = ()
-    if train:  # the order of RESIDUALS
-        saved = (empty(steps, batch, dt=torch.int32), empty(steps, batch, 4 * h1dim),
-                 empty(steps, batch, h1dim), empty(steps, batch, h1dim),
-                 empty(steps, batch, 4 * h2dim), empty(steps, batch, h2dim),
-                 empty(steps, batch, h2dim), empty(steps, batch, proj))
-    # the order of enum Ptr in the source; last each row's extent and the
-    # rows in order of it (scratch)
-    tensors = ([k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
-                whh2, b2, wq, bq, wcls, clsb, forced, logits, wgts, ids]
-               + scratch + [m1, m2, *saved] + [None] * (8 - len(saved))
-               + [empty(batch, dt=torch.int32), empty(batch, dt=torch.int32)])
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *[None if t is None else t.data_ptr() for t in tensors])
-    dims = (ctypes.c_int * 9)(batch, te, steps, proj, heads, h1dim, h2dim, vp,
-                              sos_idx)
-    geom = (ctypes.c_int * 6)(plan.col_groups, plan.row_groups, plan.rows, plan.sub,
-                              plan.stages, plan.att_rows)
-    with torch.cuda.device(k.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.speller_decode_launch(_DTYPE_CODES[dtype], int(train), geom, ptrs,
-                                        dims, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-    LAUNCHES[name] += 1
-    return (logits, wgts, ids, saved) if train else (logits, wgts, ids)
+        logits = empty(steps, batch, vp)
+        wgts = empty(steps, batch, heads, te)
+        ids = empty(steps, batch, dt=torch.int32)
+        # the exchange buffers of the eval form (the training form exchanges
+        # through its h1d, h2d and context streams), then q, the fp32 c carries
+        # and the fed-back id
+        scratch = ([None] * 3 if train else
+                   [empty(2, batch, h1dim), empty(2, batch, h2dim), empty(batch, proj)])
+        scratch += [empty(batch, proj), empty(batch, h1dim, dt=torch.float32),
+                    empty(batch, h2dim, dt=torch.float32), empty(batch, dt=torch.int32)]
+        saved = ()
+        if train:  # the order of RESIDUALS
+            saved = (empty(steps, batch, dt=torch.int32), empty(steps, batch, 4 * h1dim),
+                     empty(steps, batch, h1dim), empty(steps, batch, h1dim),
+                     empty(steps, batch, 4 * h2dim), empty(steps, batch, h2dim),
+                     empty(steps, batch, h2dim), empty(steps, batch, proj))
+        # the order of enum Ptr in the source; last each row's extent and the
+        # rows in order of it (scratch)
+        tensors = ([k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
+                    whh2, b2, wq, bq, wcls, clsb, forced, logits, wgts, ids]
+                   + scratch + [m1, m2, *saved] + [None] * (8 - len(saved))
+                   + [empty(batch, dt=torch.int32), empty(batch, dt=torch.int32)])
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[None if t is None else t.data_ptr() for t in tensors])
+        dims = (ctypes.c_int * 9)(batch, te, steps, proj, heads, h1dim, h2dim, vp,
+                                  sos_idx)
+        geom = (ctypes.c_int * 6)(plan.col_groups, plan.row_groups, plan.rows, plan.sub,
+                                  plan.stages, plan.att_rows)
+        with torch.cuda.device(k.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.speller_decode_launch(_DTYPE_CODES[dtype], int(train), geom, ptrs,
+                                            dims, float(scale), stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+        LAUNCHES[name] += 1
+        return (logits, wgts, ids, saved) if train else (logits, wgts, ids)
 
 
 def _launch_tc(name, k, v, bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2,
@@ -1220,68 +1226,69 @@ def _launch_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
     ``csrc/speller_bwd.cu``, the whole batch in one launch (the source says
     why)."""
     name = "speller_decode_bwd"
-    dtype = k.dtype
-    batch, te, proj = k.shape
-    h1dim, h2dim = whh1.shape[0], whh2.shape[0]
-    steps = gates1.shape[0]
-    operands = {"k": (k, (batch, te, proj)), "v": (v, (batch, te, proj)),
-                "wc1": (wc1, (proj, 4 * h1dim)),
-                "whh1": (whh1, (h1dim, 4 * h1dim)),
-                "wih2": (wih2, (h1dim, 4 * h2dim)),
-                "whh2": (whh2, (h2dim, 4 * h2dim)), "wq": (wq, (h2dim, proj)),
-                "c10": (c10, (batch, h1dim)), "c20": (c20, (batch, h2dim)),
-                "gates1": (gates1, (steps, batch, 4 * h1dim)),
-                "c1": (c1, (steps, batch, h1dim)),
-                "gates2": (gates2, (steps, batch, 4 * h2dim)),
-                "c2": (c2, (steps, batch, h2dim)),
-                "wgts": (wgts, (steps, batch, heads, te)),
-                "dqup": (dqup, (steps, batch, proj)),
-                "dctxup": (dctxup, (steps, batch, proj))}
-    if (m1 is None) != (m2 is None):
-        raise ValueError(f"{name}: the dropout masks m1 and m2 come together")
-    if m1 is not None:
-        operands["m1"] = (m1, (steps, batch, h1dim))
-        operands["m2"] = (m2, (steps, batch, h2dim))
-    if dwup is not None:
-        operands["dwup"] = (dwup, (steps, batch, heads, te))
-    _check_operands(name, k, operands)
+    with span(LAUNCH + name):
+        dtype = k.dtype
+        batch, te, proj = k.shape
+        h1dim, h2dim = whh1.shape[0], whh2.shape[0]
+        steps = gates1.shape[0]
+        operands = {"k": (k, (batch, te, proj)), "v": (v, (batch, te, proj)),
+                    "wc1": (wc1, (proj, 4 * h1dim)),
+                    "whh1": (whh1, (h1dim, 4 * h1dim)),
+                    "wih2": (wih2, (h1dim, 4 * h2dim)),
+                    "whh2": (whh2, (h2dim, 4 * h2dim)), "wq": (wq, (h2dim, proj)),
+                    "c10": (c10, (batch, h1dim)), "c20": (c20, (batch, h2dim)),
+                    "gates1": (gates1, (steps, batch, 4 * h1dim)),
+                    "c1": (c1, (steps, batch, h1dim)),
+                    "gates2": (gates2, (steps, batch, 4 * h2dim)),
+                    "c2": (c2, (steps, batch, h2dim)),
+                    "wgts": (wgts, (steps, batch, heads, te)),
+                    "dqup": (dqup, (steps, batch, proj)),
+                    "dctxup": (dctxup, (steps, batch, proj))}
+        if (m1 is None) != (m2 is None):
+            raise ValueError(f"{name}: the dropout masks m1 and m2 come together")
+        if m1 is not None:
+            operands["m1"] = (m1, (steps, batch, h1dim))
+            operands["m2"] = (m2, (steps, batch, h2dim))
+        if dwup is not None:
+            operands["dwup"] = (dwup, (steps, batch, heads, te))
+        _check_operands(name, k, operands)
 
-    def empty(*shape, dt=dtype):
-        return torch.empty(shape, dtype=dt, device=k.device)
+        def empty(*shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=k.device)
 
-    f32 = torch.float32
-    outs = [empty(steps, batch, 4 * h1dim), empty(steps, batch, 4 * h2dim),
-            empty(steps, batch, proj), empty(steps, batch, proj),
-            empty(steps, batch, heads, te),
-            empty(batch, h1dim, dt=f32), empty(batch, h1dim, dt=f32),
-            empty(batch, h2dim, dt=f32), empty(batch, h2dim, dt=f32),
-            empty(batch, proj, dt=f32)]
-    if dtype == torch.bfloat16:
-        return _launch_bwd_tc(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
-                              c2, wgts, m1, m2, dqup, dctxup, dwup, heads, scale, outs)
-    if steps < 1:
-        raise ValueError(f"{name}: steps {steps} must be at least 1")
-    plan = bwd_f32_plan_for(k, heads, h1dim, h2dim, name)
-    lib = load_bwd_library()
-    counters = torch.zeros(2 + 4 * plan.row_groups, dtype=torch.int32, device=k.device)
-    # the order of enum Ptr in the source; last each (row, head) item's extent
-    # and the items in order of it (scratch)
-    tensors = ([k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
-                wgts, m1, m2, dqup, dctxup, dwup] + outs
-               + [empty(batch * heads, dt=torch.int32), empty(batch * heads, dt=torch.int32)])
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *[None if t is None else t.data_ptr() for t in tensors])
-    dims = (ctypes.c_int * 7)(batch, te, steps, proj, heads, h1dim, h2dim)
-    geom = bwd_f32_geometry(plan)
-    geom = (ctypes.c_int * len(geom))(*geom)
-    with torch.cuda.device(k.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.speller_bwd_launch(ptrs, dims, geom, float(scale), counters.data_ptr(),
-                                     stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {err} ({plan})")
-    LAUNCHES[name] += 1
-    return tuple(outs)
+        f32 = torch.float32
+        outs = [empty(steps, batch, 4 * h1dim), empty(steps, batch, 4 * h2dim),
+                empty(steps, batch, proj), empty(steps, batch, proj),
+                empty(steps, batch, heads, te),
+                empty(batch, h1dim, dt=f32), empty(batch, h1dim, dt=f32),
+                empty(batch, h2dim, dt=f32), empty(batch, h2dim, dt=f32),
+                empty(batch, proj, dt=f32)]
+        if dtype == torch.bfloat16:
+            return _launch_bwd_tc(k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2,
+                                  c2, wgts, m1, m2, dqup, dctxup, dwup, heads, scale, outs)
+        if steps < 1:
+            raise ValueError(f"{name}: steps {steps} must be at least 1")
+        plan = bwd_f32_plan_for(k, heads, h1dim, h2dim, name)
+        lib = load_bwd_library()
+        counters = torch.zeros(2 + 4 * plan.row_groups, dtype=torch.int32, device=k.device)
+        # the order of enum Ptr in the source; last each (row, head) item's extent
+        # and the items in order of it (scratch)
+        tensors = ([k, v, wc1, whh1, wih2, whh2, wq, c10, c20, gates1, c1, gates2, c2,
+                    wgts, m1, m2, dqup, dctxup, dwup] + outs
+                   + [empty(batch * heads, dt=torch.int32), empty(batch * heads, dt=torch.int32)])
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[None if t is None else t.data_ptr() for t in tensors])
+        dims = (ctypes.c_int * 7)(batch, te, steps, proj, heads, h1dim, h2dim)
+        geom = bwd_f32_geometry(plan)
+        geom = (ctypes.c_int * len(geom))(*geom)
+        with torch.cuda.device(k.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.speller_bwd_launch(ptrs, dims, geom, float(scale), counters.data_ptr(),
+                                         stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: launch failed with cudaError {err} ({plan})")
+        LAUNCHES[name] += 1
+        return tuple(outs)
 
 
 def bwd_f32_plan_for(k: torch.Tensor, heads: int, h1dim: int, h2dim: int,
@@ -1430,61 +1437,62 @@ class _FusedDecode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_logits, d_wgts, _d_ids):
-        heads, scale = ctx.options
-        tensors = ctx.saved_tensors
-        (k, v, _bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2, whh2, b2,
-         wq, bq, wcls, clsb) = tensors[:18]
-        sel, gates1, c1, h1d, gates2, c2, h2d, ctxs, wgts = tensors[18:27]
-        m1, m2 = tensors[27:] if ctx.has_masks else (None, None)
-        dt = k.dtype
-        steps, batch, vp = gates1.shape[0], k.shape[0], embw1.shape[0]
-        proj = k.shape[2]
-        if d_logits is None:
-            d_logits = torch.zeros(steps, batch, vp, dtype=dt, device=k.device)
-        d_logits = d_logits.to(dt)
-        # upstream through the tied classifier
-        d_dec = d_logits @ wcls.T
-        dqup = d_dec[..., :proj].contiguous()
-        dctxup = d_dec[..., proj:].contiguous()
-        dwup = None if d_wgts is None else d_wgts.to(dt).contiguous()
-        (dpre1, dpre2, dq, dctxtot, dsc, d_h10, d_c10, d_h20, d_c20,
-         d_ctx0) = speller_decode_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20,
-                                      gates1, c1, gates2, c2, wgts, m1, m2, dqup,
-                                      dctxup, dwup, heads=heads, scale=scale)
+        with span("las.backward.speller"):
+            heads, scale = ctx.options
+            tensors = ctx.saved_tensors
+            (k, v, _bias, ctx0, h10, c10, h20, c20, embw1, wc1, whh1, wih2, whh2, b2,
+             wq, bq, wcls, clsb) = tensors[:18]
+            sel, gates1, c1, h1d, gates2, c2, h2d, ctxs, wgts = tensors[18:27]
+            m1, m2 = tensors[27:] if ctx.has_masks else (None, None)
+            dt = k.dtype
+            steps, batch, vp = gates1.shape[0], k.shape[0], embw1.shape[0]
+            proj = k.shape[2]
+            if d_logits is None:
+                d_logits = torch.zeros(steps, batch, vp, dtype=dt, device=k.device)
+            d_logits = d_logits.to(dt)
+            # upstream through the tied classifier
+            d_dec = d_logits @ wcls.T
+            dqup = d_dec[..., :proj].contiguous()
+            dctxup = d_dec[..., proj:].contiguous()
+            dwup = None if d_wgts is None else d_wgts.to(dt).contiguous()
+            (dpre1, dpre2, dq, dctxtot, dsc, d_h10, d_c10, d_h20, d_c20,
+             d_ctx0) = speller_decode_bwd(k, v, wc1, whh1, wih2, whh2, wq, c10, c20,
+                                          gates1, c1, gates2, c2, wgts, m1, m2, dqup,
+                                          dctxup, dwup, heads=heads, scale=scale)
 
-        def rows(x):  # (T, B, X) -> (T * B, X)
-            return x.reshape(-1, x.shape[-1])
+            def rows(x):  # (T, B, X) -> (T * B, X)
+                return x.reshape(-1, x.shape[-1])
 
-        def shifted(x0, xs):  # the stream one step earlier, the t = -1 value first
-            return rows(torch.cat([x0[None], xs[:-1]]))
+            def shifted(x0, xs):  # the stream one step earlier, the t = -1 value first
+                return rows(torch.cat([x0[None], xs[:-1]]))
 
-        def col_sum(x):
-            return rows(x).sum(0, dtype=torch.float32).to(dt)
+            def col_sum(x):
+                return rows(x).sum(0, dtype=torch.float32).to(dt)
 
-        dpre1_r, dpre2_r, dq_r, dl_r = rows(dpre1), rows(dpre2), rows(dq), rows(d_logits)
-        # the one-hot the Pallas kernel stores is rebuilt from the fed ids
-        sel_1h = F.one_hot(sel.reshape(-1).long(), vp).to(dt)
-        d_embw1 = sel_1h.T @ dpre1_r
-        d_wc1 = shifted(ctx0, ctxs).T @ dpre1_r
-        d_whh1 = shifted(h10, h1d).T @ dpre1_r
-        d_wih2 = rows(h1d).T @ dpre2_r
-        d_whh2 = shifted(h20, h2d).T @ dpre2_r
-        d_wq = rows(h2d).T @ dq_r
-        # the classifier: q recomputed once as one product
-        q_all = h2d @ wq + bq
-        d_wcls = rows(torch.cat([q_all, ctxs], dim=-1)).T @ dl_r
-        # the attention cache, per head as products over time in float32
-        d_head = proj // heads
-        d_k = scale * torch.einsum(
-            "tbhe,tbhd->behd", dsc.float(),
-            q_all.float().reshape(steps, batch, heads, d_head))
-        d_v = torch.einsum("tbhe,tbhd->behd", wgts.float(),
-                           dctxtot.float().reshape(steps, batch, heads, d_head))
-        return (None,) * 7 + (
-            d_k.reshape(k.shape).to(dt), d_v.reshape(v.shape).to(dt), None,
-            d_ctx0.to(dt), d_h10.to(dt), d_c10.to(dt), d_h20.to(dt), d_c20.to(dt),
-            d_embw1, d_wc1, d_whh1, d_wih2, d_whh2, col_sum(dpre2), d_wq,
-            col_sum(dq), d_wcls, col_sum(d_logits))
+            dpre1_r, dpre2_r, dq_r, dl_r = rows(dpre1), rows(dpre2), rows(dq), rows(d_logits)
+            # the one-hot the Pallas kernel stores is rebuilt from the fed ids
+            sel_1h = F.one_hot(sel.reshape(-1).long(), vp).to(dt)
+            d_embw1 = sel_1h.T @ dpre1_r
+            d_wc1 = shifted(ctx0, ctxs).T @ dpre1_r
+            d_whh1 = shifted(h10, h1d).T @ dpre1_r
+            d_wih2 = rows(h1d).T @ dpre2_r
+            d_whh2 = shifted(h20, h2d).T @ dpre2_r
+            d_wq = rows(h2d).T @ dq_r
+            # the classifier: q recomputed once as one product
+            q_all = h2d @ wq + bq
+            d_wcls = rows(torch.cat([q_all, ctxs], dim=-1)).T @ dl_r
+            # the attention cache, per head as products over time in float32
+            d_head = proj // heads
+            d_k = scale * torch.einsum(
+                "tbhe,tbhd->behd", dsc.float(),
+                q_all.float().reshape(steps, batch, heads, d_head))
+            d_v = torch.einsum("tbhe,tbhd->behd", wgts.float(),
+                               dctxtot.float().reshape(steps, batch, heads, d_head))
+            return (None,) * 7 + (
+                d_k.reshape(k.shape).to(dt), d_v.reshape(v.shape).to(dt), None,
+                d_ctx0.to(dt), d_h10.to(dt), d_c10.to(dt), d_h20.to(dt), d_c20.to(dt),
+                d_embw1, d_wc1, d_whh1, d_wih2, d_whh2, col_sum(dpre2), d_wq,
+                col_sum(dq), d_wcls, col_sum(d_logits))
 
 
 def fused_decode(operands, *, heads: int, scale: float, sos_idx: int, steps: int,
@@ -1515,44 +1523,45 @@ def decode_operands(params, cfg, enc_h: torch.Tensor, enc_l: torch.Tensor):
     from the plain attention step), the pre-projected char embedding and the
     padded tied classifier. Returns (operands, the t = -1 attention
     weights (B, heads, Te))."""
-    batch, enc_len, _ = enc_h.shape
-    dtype = enc_h.dtype
-    heads, proj = cfg.att_heads, cfg.att_proj_dim
-    h1dim, h2dim = cfg.dec_lstm_hid_dim, cfg.dec_lstm_out_dim
-    vocab = cfg.dec_vocab_size
-    vp = max(32, ((vocab + 7) // 8) * 8)
+    with span("las.speller.operands"):
+        batch, enc_len, _ = enc_h.shape
+        dtype = enc_h.dtype
+        heads, proj = cfg.att_heads, cfg.att_proj_dim
+        h1dim, h2dim = cfg.dec_lstm_hid_dim, cfg.dec_lstm_out_dim
+        vocab = cfg.dec_vocab_size
+        vp = max(32, ((vocab + 7) // 8) * 8)
 
-    def cast(x):
-        return x.to(dtype)
+        def cast(x):
+            return x.to(dtype)
 
-    def init(name, width):
-        return cast(params[name]).expand(batch, width).contiguous()
+        def init(name, width):
+            return cast(params[name]).expand(batch, width).contiguous()
 
-    emb = cast(params["char_emb"])
-    cache = cross_attention_precompute(params["attention"], enc_h, enc_l, heads)
-    bias = torch.zeros(batch, enc_len, dtype=dtype,
-                       device=enc_h.device).masked_fill(cache.mask, NEG)
-    init_query = cast(params["init_query"]).expand(batch, h2dim)
-    context0, wgts0, _ = cross_attention_step(params["attention"], cache,
-                                              init_query, heads,
-                                              cfg.legacy_scale)
-    w_ih1 = cast(params["cell1"]["w_ih"])
-    embw1 = (F.pad(emb, (0, 0, 0, vp - vocab)) @ w_ih1[:cfg.dec_emb_dim]
-             + cast(params["cell1"]["b"]))
-    operands = (
-        cache.keys.transpose(1, 2).reshape(batch, enc_len, proj),
-        cache.values.transpose(1, 2).reshape(batch, enc_len, proj),
-        bias, context0.contiguous(),
-        init("init_h1", h1dim), init("init_c1", h1dim),
-        init("init_h2", h2dim), init("init_c2", h2dim),
-        embw1, w_ih1[cfg.dec_emb_dim:], cast(params["cell1"]["w_hh"]),
-        cast(params["cell2"]["w_ih"]), cast(params["cell2"]["w_hh"]),
-        cast(params["cell2"]["b"]),
-        cast(params["attention"]["query_map"]["w"]),
-        cast(params["attention"]["query_map"]["b"]),
-        F.pad(emb.T, (0, vp - vocab)).contiguous(),
-        F.pad(cast(params["cls_b"]), (0, vp - vocab), value=NEG))
-    return operands, wgts0
+        emb = cast(params["char_emb"])
+        cache = cross_attention_precompute(params["attention"], enc_h, enc_l, heads)
+        bias = torch.zeros(batch, enc_len, dtype=dtype,
+                           device=enc_h.device).masked_fill(cache.mask, NEG)
+        init_query = cast(params["init_query"]).expand(batch, h2dim)
+        context0, wgts0, _ = cross_attention_step(params["attention"], cache,
+                                                  init_query, heads,
+                                                  cfg.legacy_scale)
+        w_ih1 = cast(params["cell1"]["w_ih"])
+        embw1 = (F.pad(emb, (0, 0, 0, vp - vocab)) @ w_ih1[:cfg.dec_emb_dim]
+                 + cast(params["cell1"]["b"]))
+        operands = (
+            cache.keys.transpose(1, 2).reshape(batch, enc_len, proj),
+            cache.values.transpose(1, 2).reshape(batch, enc_len, proj),
+            bias, context0.contiguous(),
+            init("init_h1", h1dim), init("init_c1", h1dim),
+            init("init_h2", h2dim), init("init_c2", h2dim),
+            embw1, w_ih1[cfg.dec_emb_dim:], cast(params["cell1"]["w_hh"]),
+            cast(params["cell2"]["w_ih"]), cast(params["cell2"]["w_hh"]),
+            cast(params["cell2"]["b"]),
+            cast(params["attention"]["query_map"]["w"]),
+            cast(params["attention"]["query_map"]["b"]),
+            F.pad(emb.T, (0, vp - vocab)).contiguous(),
+            F.pad(cast(params["cls_b"]), (0, vp - vocab), value=NEG))
+        return operands, wgts0
 
 
 def decode_options(cfg) -> dict:
@@ -1601,12 +1610,13 @@ def speller_apply_fused(params, cfg, enc_h: torch.Tensor, enc_l: torch.Tensor,
 
     refuse_sharded(params, "decoder_impl")
     operands, wgts0 = decode_operands(params, cfg, enc_h, enc_l)
-    opts = decode_options(cfg)
-    if dec_y is not None:
-        opts["steps"] = dec_y.shape[1]
-    forced, m1, m2 = decode_draws(cfg, dec_y, tf_rate, train, draws, enc_h.dtype)
-    logits_t, wgts_t = fused_decode(operands, **opts, forced=forced, m1=m1, m2=m2)
-    logits = logits_t.transpose(0, 1)[:, :, :cfg.dec_vocab_size]
-    w_sample0 = wgts_t[:, 0].transpose(0, 1)  # (heads, steps, Te)
-    att_map = torch.cat([wgts0[0][:, None, :], w_sample0], dim=1)
-    return SpellerOutput(logits=logits, att_map=att_map.transpose(-2, -1))
+    with span("las.speller.decode"):
+        opts = decode_options(cfg)
+        if dec_y is not None:
+            opts["steps"] = dec_y.shape[1]
+        forced, m1, m2 = decode_draws(cfg, dec_y, tf_rate, train, draws, enc_h.dtype)
+        logits_t, wgts_t = fused_decode(operands, **opts, forced=forced, m1=m1, m2=m2)
+        logits = logits_t.transpose(0, 1)[:, :, :cfg.dec_vocab_size]
+        w_sample0 = wgts_t[:, 0].transpose(0, 1)  # (heads, steps, Te)
+        att_map = torch.cat([wgts0[0][:, None, :], w_sample0], dim=1)
+        return SpellerOutput(logits=logits, att_map=att_map.transpose(-2, -1))

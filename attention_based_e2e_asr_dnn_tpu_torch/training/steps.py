@@ -12,7 +12,9 @@ gradient norm is not finite is a true no-op: parameters and the whole
 optimizer state, its count included, keep their values. That choice is made
 with ``torch.where`` on device tensors, and the metrics stay device tensors,
 so the step itself never waits for the device. Parameters are updated in
-place.
+place. A running profiler sees the step's layers as spans
+(``utils/profiling.py::span``): ``las.train_step`` around the whole step,
+``las.specaug``, ``las.loss``, ``las.backward`` and ``las.optimizer``.
 
 The eval and inference steps run under ``torch.inference_mode``: features
 are cast to the compute dtype (integer inputs pass through), the model
@@ -34,6 +36,7 @@ from attention_based_e2e_asr_dnn_tpu_torch.training.optim import (
     OptState,
     global_norm,
 )
+from attention_based_e2e_asr_dnn_tpu_torch.utils.profiling import span
 
 
 def _cast_features(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -98,29 +101,33 @@ def make_train_step(apply_fn, opt: Optimizer, accum_steps: int = 1,
 
     def step(state: TrainState, x, lx, y, ly, tf_rate, lr,
              init_force: bool = False, draws: Any = None):
-        params = list(state.params.parameters())
-        if use_specaug:
-            spec = (draws.specaug if draws is not None else
-                    draw_specaug(x.shape[0], specaug_freq, specaug_time, specaug_iid,
-                                 state.generator, x.device))
-            x = specaugment(x, spec)
-        out = apply_fn(state.params, _cast_features(x, compute_dtype), lx, dec_y=y,
-                       tf_rate=tf_rate, init_force=init_force, train=True,
-                       draws=draws, generator=state.generator)
-        loss, n_tokens = masked_ce_loss(out.logits, y, ly)
-        grads = param_grads(loss, params)
-        grad_norm, ok = apply_update(state, opt, params, grads, lr, nan_guard)
-        metrics = {"loss": loss.detach(), "ppl": torch.exp(loss.detach()),
-                   "grad_norm": grad_norm, "n_tokens": n_tokens, "finite": ok}
-        return state, metrics, out.att_map.detach()
+        with span("las.train_step"):
+            params = list(state.params.parameters())
+            if use_specaug:
+                with span("las.specaug"):
+                    spec = (draws.specaug if draws is not None else
+                            draw_specaug(x.shape[0], specaug_freq, specaug_time, specaug_iid,
+                                         state.generator, x.device))
+                    x = specaugment(x, spec)
+            out = apply_fn(state.params, _cast_features(x, compute_dtype), lx, dec_y=y,
+                           tf_rate=tf_rate, init_force=init_force, train=True,
+                           draws=draws, generator=state.generator)
+            with span("las.loss"):
+                loss, n_tokens = masked_ce_loss(out.logits, y, ly)
+            grads = param_grads(loss, params)
+            grad_norm, ok = apply_update(state, opt, params, grads, lr, nan_guard)
+            metrics = {"loss": loss.detach(), "ppl": torch.exp(loss.detach()),
+                       "grad_norm": grad_norm, "n_tokens": n_tokens, "finite": ok}
+            return state, metrics, out.att_map.detach()
 
     return step
 
 
 def param_grads(loss: torch.Tensor, params: list) -> list:
     """The gradient of ``loss`` for each of ``params`` (zeros where unused)."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    with span("las.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
 
 
 @torch.no_grad()
@@ -128,12 +135,13 @@ def apply_update(state: TrainState, opt: Optimizer, params: list, grads: list, l
                  nan_guard: bool = True):
     """The optimizer step on ``grads``, in place, behind the NaN guard; the
     step counter advances. Returns (grad_norm, finite) as device tensors."""
-    grad_norm = global_norm(grads)
-    ok = torch.isfinite(grad_norm)
-    if not nan_guard:
-        ok = torch.ones_like(ok)
-    state.opt_state = guarded_update(opt, params, grads, state.opt_state, lr,
-                                     ok if nan_guard else None)
+    with span("las.optimizer"):
+        grad_norm = global_norm(grads)
+        ok = torch.isfinite(grad_norm)
+        if not nan_guard:
+            ok = torch.ones_like(ok)
+        state.opt_state = guarded_update(opt, params, grads, state.opt_state, lr,
+                                         ok if nan_guard else None)
     state.step += 1
     return grad_norm, ok
 

@@ -19,18 +19,43 @@ trace as events of the worker's thread, aligned through the ``profile
 window`` annotation that spans the whole window on the main thread. The pinned copies on the side
 stream are in the trace as they are (``aten::pin_memory``, ``aten::copy_``
 and the device's memcpy on its own stream).
+
+``span(name)`` names a stretch of the train step in any running profiler's
+trace (this block's, or the benchmark's): ``las.train_step`` and, inside it,
+``las.specaug``, ``las.listener``, ``las.speller.operands``,
+``las.speller.decode``, ``las.loss``, ``las.backward`` (with
+``las.backward.listener`` and ``las.backward.speller`` on the autograd
+engine's thread) and ``las.optimizer``; ``las.launch.<key>`` covers one call
+of a ``csrc/`` kernel, ``<key>`` being its ``LAUNCHES`` counter. The spans
+sit on the same clock as the card's kernels, so an idle stretch of the card
+can be read against the span open on the host at the time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import List, Optional, Tuple
 
 import torch
+from torch.autograd.profiler import record_function
 
 WINDOW = "profile window"
+LAUNCH = "las.launch."  # the prefix of a csrc/ kernel call's span
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler is running, else one shared
+    null context: an unguarded ``record_function`` pays for its own enter and
+    exit even with no profiler on, this costs one test. Spans sit at layer
+    boundaries only, never inside a per-timestep loop."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 class EpochProfiler:
@@ -39,7 +64,7 @@ class EpochProfiler:
     its path."""
 
     def __init__(self, out_dir: str, device: torch.device, batches: int, epoch: int):
-        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.profiler import ProfilerActivity, profile
 
         self.out_dir = out_dir
         self.device = torch.device(device)

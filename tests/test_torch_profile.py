@@ -1,7 +1,8 @@
 """PyTorch port, the Trainer's ``profile`` block (``utils/profiling.py``) on
 the CPU at toy widths: one Chrome trace under ``<saving_dir>/profile`` in
 epoch ``profile.epoch`` only, over ``profile.batches`` steps (or the
-epoch's, if it has fewer), the prefetcher's thread in it; the same losses
+epoch's, if it has fewer), one ``las.train_step`` span a step, the
+prefetcher's thread in it; the same losses
 and parameters as an epoch without it; the profiler stopped when a step
 raises; nothing written with ``profile.use: false``; on a card, a trace
 without a device event raises; the ``train`` CLI with the block on."""
@@ -78,6 +79,9 @@ def test_profile_traces_its_epoch_only(short, tmp_path, capsys, batches, want):
     assert sorted(os.listdir(folder)) == ["trace-epoch1.json"]
     events = _events(folder / "trace-epoch1.json")
     assert _steps(events) == want
+    # the step's own span, once a traced step (its device mirror aside)
+    assert sum(1 for e in events if e.get("name") == "las.train_step" and e.get("ph") == "X"
+               and e.get("cat") == "user_annotation") == want
     assert capsys.readouterr().out.count(f"[profile] trace written to {tmp_path}/profile") == 1
     # the prefetcher's thread, as events of its own, beside the main thread's
     host = [e for e in events if e.get("cat") == "host_prefetch"]
