@@ -177,6 +177,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap, uint
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// the registers each thread of the calling warpgroup holds from here on
+// (setmaxnreg, every warp of the warpgroup): a producer gives them up so that
+// the consumers can take them; a multiple of 8 from 24 to 256
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 // a named barrier over `threads` threads (id 0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");

@@ -55,7 +55,13 @@ on one NVIDIA card, from the root of a checkout:
    rows a block; bfloat16 one): the training forward, ``lstm_bwd`` with the
    outside product (timed on its own) as the adjoint, and the lean forward
    kernels, which are a ``remat`` layer's first pass (timed at B=128 at both
-   widths).
+   widths). At H=512 also the benchmark cell's batch, B=96 at T=1536
+   (bfloat16; the adjoint's two row groups of 48 rows, each a chain of its
+   own): ``lstm_bwd_dw`` and ``lstm_bwd`` against their plain versions at
+   the same tolerance, twice, each row group in turn the one whose rows run
+   to at most two thirds of the frames, with a length-1 and a longest row in
+   each group; both forms' dpre bit-equal, the launches and the launches by
+   row groups ({2: 1} a call) asserted.
 7. Kernels ``speller_decode_train`` (the fused decoder's training forward)
    and ``speller_decode_bwd`` (its adjoint) at the train step's shapes: the
    base-LAS decoder at B=128 and the scaled-LAS decoder (H1 1024, 4 heads) at
@@ -100,7 +106,8 @@ on one NVIDIA card, from the root of a checkout:
    timed steps (up to 10 if the loss has not fallen below the warm-up
    step's). Every step finite, the loss falls, a step launches the listener's
    training forward 4 times (a layer's whole batch and both directions in
-   one launch), its adjoint 4 times (one launch a layer), the decoder's
+   one launch), its adjoint 4 times (one launch a layer, in two row groups:
+   the launches by row groups printed and asserted), the decoder's
    training forward once
    and its adjoint once, none of the lean or eval kernels, and calls no
    plain version; the decode route is ``cuda``. An ``init_force`` pass and
@@ -1282,6 +1289,68 @@ def rel_err(got, ref) -> tuple:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
+CELL_B = 96  # the benchmark cell's batch (benchmark/configs/base-las.json)
+
+
+def cell_adjoint_check(torch, card: str, hidden: int) -> None:
+    """The bfloat16 adjoint at the benchmark cell's batch, B=96, T=1536:
+    two row groups of 48 rows, each a chain of its own (its own counter and
+    tensor map; group 1's partial dW_hh added by group 0). ``lstm_bwd_dw``
+    and ``lstm_bwd`` against their plain versions within ``TRAIN_TOL``, the
+    two forms' dpre bit-equal, one launch a call in two row groups; twice,
+    each group in turn the shorter chain (its rows run to at most two thirds
+    of the frames), with a length-1 and a longest row in each group."""
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda as lc
+
+    batch, seq_len, rev, dtype = CELL_B, TRAIN_T, (False, True), torch.bfloat16
+    tol = TRAIN_TOL["bfloat16"]
+    gen = torch.Generator().manual_seed(SEED + 7 + hidden)
+    k = 1.0 / hidden ** 0.5
+    four_h = 4 * hidden
+    w_hh = ((torch.rand(2, hidden, four_h, generator=gen) * 2 - 1) * k).to(DEVICE, dtype)
+    x_proj = ((torch.rand(batch, seq_len, 2 * four_h, generator=gen) - 0.5)).to(DEVICE, dtype)
+    dy = torch.randn(batch, seq_len, 2 * hidden, generator=gen).to(DEVICE, dtype)
+    n_adjoint = adjoint_launches(torch, dtype, batch, hidden, True)
+    half = batch // 2
+    for short in (0, 1):
+        lengths = torch.randint(1, seq_len + 1, (batch,), generator=gen)
+        for g in (0, 1):
+            high = seq_len * 2 // 3 if g == short else seq_len
+            rows = lengths[g * half:(g + 1) * half]
+            rows.clamp_(max=high)
+            rows[0], rows[-1] = high, 1
+        lengths = lengths.to(torch.int32).to(DEVICE)
+        hs, cs, gates = lc.lstm_scan_train(x_proj, w_hh, lengths, rev)
+        lc.reset_launch_counts()
+        dpre, d_whh = lc.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+        nodw = lc.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
+        torch.cuda.synchronize()
+        counts, row_groups = dict(lc.LAUNCHES), dict(lc.ADJOINT_ROW_GROUPS)
+        if (counts["lstm_bwd_dw"] != n_adjoint or counts["lstm_bwd"] != n_adjoint
+                or n_adjoint != 1
+                or row_groups != {**dict.fromkeys(row_groups, 0), 2: 2 * n_adjoint}):
+            raise AssertionError(f"adjoint B={batch} H={hidden}: launches {counts}, by row "
+                                 f"groups {row_groups}; not one a call in two row groups")
+        p_dpre, p_dwhh = lc.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
+        p_nodw = lc.lstm_bwd_plain(gates, cs, dy, w_hh, lengths, rev)
+        pads = torch.arange(seq_len, device=DEVICE)[None, :] >= lengths[:, None].long()
+        errs = {"dpre": rel_err(dpre, p_dpre), "dW_hh": rel_err(d_whh, p_dwhh),
+                "lstm_bwd dpre": rel_err(nodw, p_nodw)}
+        log(f"[{card}] lstm_bwd_dw + lstm_bwd bfloat16 B={batch} T={seq_len} H={hidden} "
+            f"(the cell's batch; row group {short} the shorter chain): launches {counts}, by "
+            f"row groups {row_groups}; max_abs_err "
+            + ", ".join(f"{n} {a:.3e} ({r:.1e} of max)" for n, (a, r) in errs.items())
+            + f"; tolerance {tol:g} of max")
+        if not torch.equal(nodw, dpre):
+            raise AssertionError(f"B={batch}: lstm_bwd's dpre differs from lstm_bwd_dw's")
+        if dpre[pads].abs().max().item() != 0.0:
+            raise AssertionError(f"B={batch}: non-zero dpre at padded frames")
+        bad = {n: r for n, (_, r) in errs.items() if not r <= tol}
+        if bad:
+            raise AssertionError(f"adjoint B={batch}: errors over {tol} of max: {bad}")
+        del hs, cs, gates, dpre, d_whh, nodw, p_dpre, p_dwhh, p_nodw
+
+
 def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
     """The training forward and the adjoint against their plain versions at
     the train step's shapes and listener width ``hidden``; returns the JSON
@@ -1481,6 +1550,9 @@ def train_kernel_phase(torch, card: str, hidden: int = H) -> dict:
                         "library_ms": lib_bwd}
             del hs, cs, gates, dpre, d_whh, p_hs, p_cs, p_gates, p_dpre, p_dwhh
             torch.cuda.empty_cache()
+    if not wide:
+        cell_adjoint_check(torch, card, hidden)
+        torch.cuda.empty_cache()
     return records
 
 
@@ -1970,6 +2042,7 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
             times.append(time.perf_counter() - t0)
             metrics.append({k: v.item() for k, v in m.items()})
         counts = {**lc.LAUNCHES, **sc.LAUNCHES}
+        row_groups = dict(lc.ADJOINT_ROW_GROUPS)
         peak = torch.cuda.max_memory_allocated()
         routes = las.decode_route_report()
     n_steps = len(metrics)
@@ -1989,6 +2062,12 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
             "speller_decode_bwd": n_steps if fused else 0}
     if counts != want:
         raise AssertionError(f"train: launches {counts} != {want} for {n_steps} steps")
+    # the adjoint's launches by row groups: at B=128 two chains of 64 rows a
+    # launch up to H=512, one chain of all rows above
+    groups = 1 if wide else 2
+    if row_groups != {**dict.fromkeys(row_groups, 0), groups: 4 * chunks * n_steps}:
+        raise AssertionError(f"train: adjoint launches by row groups {row_groups}, not "
+                             f"{4 * chunks * n_steps} of {groups}")
     if routes != {f"B={TRAIN_B},Te={TRAIN_T // 8}": "cuda" if fused else "scan"}:
         raise AssertionError(f"train decoder_impl {decoder_impl}: decode routes {routes}")
     if fused:
@@ -2026,7 +2105,7 @@ def train_phase(torch, card: str, decoder_impl: str, min_steps: int,
         f"{TRAIN_B / sec:.2f} utt/s, peak device memory {peak / 2**20:.1f} MiB")
     log(f"    loss warm-up {first_loss:.4f}, then {[round(v, 4) for v in losses]}; "
         f"grad_norm {[round(m['grad_norm'], 3) for m in metrics]}; decode routes {routes}; "
-        f"launches {counts}")
+        f"launches {counts}; adjoint launches by row groups {row_groups}")
 
     # where a step's time goes: the same pieces the step runs, CUDA events
     # between them; one pass untimed, then the median of three

@@ -446,26 +446,106 @@ def test_bf16_adjoint_repeats_bit_for_bit_on_card(cuda_device, batch, hidden):
         assert torch.equal(dpre, again[0]) and torch.equal(d_whh, again[1])
 
 
+def _lengths_across_groups(batch, seq_len, gen):
+    """Lengths ragged within each row group of the adjoint's launches (a
+    longest and a length-1 row in each) and across them: every group's rows
+    at most half the frames but a launch's last group's, which reach all."""
+    lengths = torch.empty(batch, dtype=torch.int32)
+    for r0, r1 in lstm_cuda.row_chunks(batch, 128):
+        groups = lstm_cuda.bwd_tc_row_groups(r1 - r0, 2 if r1 - r0 > 64 else 1)
+        for g, (g0, g1) in enumerate(groups):
+            high = seq_len if g == len(groups) - 1 else max(1, seq_len // 2)
+            lengths[r0 + g0:r0 + g1] = torch.randint(1, high + 1, (g1 - g0,), generator=gen)
+            lengths[r0 + g0], lengths[r0 + g1 - 1] = high, 1
+    return lengths
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [128, 129])
-def test_bf16_adjoint_forms_give_the_same_dpre_on_card(cuda_device, batch):
+@pytest.mark.parametrize("batch,hidden", [(128, 512), (129, 512), (96, 512), (65, 512),
+                                          (64, 512), (33, 512), (96, 256), (128, 64)])
+def test_bf16_adjoint_forms_give_the_same_dpre_on_card(cuda_device, batch, hidden):
     """``lstm_bwd``'s dpre is ``lstm_bwd_dw``'s bit for bit (the dW products
-    never touch dh's sums), at B=128 (one launch) and B=129 (two, their
-    partial dW_hh summed in order), and both agree with the plain versions."""
-    gates, cs, hs, dy, w_hh, lengths, rev = _adjoint_case(cuda_device, batch, 512, 2, 13)
+    never touch dh's sums), each form repeats bit for bit, and both agree
+    with the plain versions. Past 64 rows up to H=512 a launch runs two row
+    groups, each a chain of its own, as the counter of launches by row groups
+    shows (B=129: a launch of 128 rows in two groups, one of a row in one,
+    their partial dW_hh summed in order); the lengths differ within and
+    across the groups."""
+    seq_len = 13
+    gates, cs, hs, dy, w_hh, _, rev = _adjoint_case(cuda_device, batch, hidden, 2, seq_len)
+    lengths = _lengths_across_groups(batch, seq_len,
+                                     torch.Generator().manual_seed(batch)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = lstm_cuda.plan_bwd_launches("test", torch.bfloat16, batch, hidden, 2, sms, True)
     lstm_cuda.reset_launch_counts()
     nodw = lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev)
     dpre, d_whh = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
     torch.cuda.synchronize()
     n = 1 if batch <= 128 else 2
     assert lstm_cuda.LAUNCHES["lstm_bwd"] == lstm_cuda.LAUNCHES["lstm_bwd_dw"] == n
+    want = dict.fromkeys(lstm_cuda.ADJOINT_ROW_GROUPS, 0)
+    for ln in plan:
+        want[ln.groups] += 2
+    assert lstm_cuda.ADJOINT_ROW_GROUPS == want
+    assert plan[0].groups == (2 if batch > 64 and hidden <= 512 else 1)
     assert torch.equal(nodw, dpre)
+    assert torch.equal(nodw, lstm_cuda.lstm_bwd(gates, cs, dy, w_hh, lengths, rev))
+    again = lstm_cuda.lstm_bwd_dw(gates, cs, hs, dy, w_hh, lengths, rev)
+    assert torch.equal(dpre, again[0]) and torch.equal(d_whh, again[1])
     p_dpre, p_dwhh = lstm_cuda.lstm_bwd_dw_plain(gates, cs, hs, dy, w_hh, lengths, rev)
     torch.testing.assert_close(dpre.float(), p_dpre.float(), atol=_tol(torch.bfloat16, p_dpre),
                                rtol=0)
     torch.testing.assert_close(d_whh, p_dwhh, atol=_tol(torch.bfloat16, p_dwhh), rtol=0)
-    pads = torch.arange(gates.shape[1], device=cuda_device)[None, :] >= lengths[:, None]
+    pads = torch.arange(seq_len, device=cuda_device)[None, :] >= lengths[:, None]
     assert dpre[pads].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,groups", [(96, 2), (64, 1)])
+def test_base_las_train_step_adjoint_row_groups_on_card(cuda_device, batch, groups):
+    """A bfloat16 base-LAS train step on the kernel tiers launches the
+    listener's adjoint four times, one launch a layer: in two row groups at
+    B=96, in one at B=64."""
+    import os
+
+    import yaml
+
+    from attention_based_e2e_asr_dnn_tpu_torch.models.las import (
+        las_apply,
+        las_config_from_dicts,
+        las_init,
+    )
+    from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
+        create_train_state,
+        make_train_step,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "base-las.yml")) as fh:
+        model = yaml.safe_load(fh)["model"]["configs"]
+    cfg = las_config_from_dicts({**model["listener_configs"], "lstm_impl": "pallas"},
+                                {**model["speller_configs"], "decoder_impl": "pallas"})
+    opt = build_optimizer("adamw", {"lr": 1e-3, "amsgrad": True}, grad_norm=5.0)
+    state = create_train_state(las_init(cfg, torch.Generator().manual_seed(3)), opt, seed=4,
+                               device=str(cuda_device))
+    step = make_train_step(lambda p, xx, ll, **kw: las_apply(p, cfg, xx, ll, **kw), opt,
+                           compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(batch)
+    frames, labels = 128, 16
+    lx = torch.randint(frames // 2, frames + 1, (batch,), generator=gen).to(torch.int32)
+    lx[0] = frames
+    x = torch.randn(batch, frames, 15, generator=gen)
+    y = torch.randint(1, 29, (batch, labels), generator=gen).to(torch.int32)
+    ly = torch.randint(1, labels + 1, (batch,), generator=gen).to(torch.int32)
+    args = tuple(t.to(cuda_device) for t in (x, lx, y, ly))
+    lstm_cuda.reset_launch_counts()
+    _, metrics, _ = step(state, *args, 0.9, 1e-3)
+    torch.cuda.synchronize()
+    assert bool(metrics["finite"])
+    assert lstm_cuda.LAUNCHES["lstm_bwd_dw"] == 4
+    assert lstm_cuda.ADJOINT_ROW_GROUPS == {**dict.fromkeys(lstm_cuda.ADJOINT_ROW_GROUPS, 0),
+                                            groups: 4}
 
 
 @pytest.mark.cuda

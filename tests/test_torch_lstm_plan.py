@@ -191,6 +191,16 @@ def test_refused_shapes_raise(dtype, hidden, in_dim, match):
 # and ``lstm_bwd_dw`` (with_dw True)
 # ---------------------------------------------------------------------------
 
+def _bwd_bf16_geometry(batch, hidden):
+    """(row groups, units a block) of the bfloat16 adjoint at two directions
+    on 132 SMs: past 64 rows up to H=512 two row groups, 8 units where their
+    2 x 2 x H / 8 blocks fit (H <= 256), else 16; otherwise one group of
+    the forward's units."""
+    if batch > 64 and hidden <= 512:
+        return 2, (8 if 2 * 2 * hidden // 8 <= SMS else 16)
+    return 1, lstm_cuda.tc_units(hidden)
+
+
 @pytest.mark.parametrize("hidden,with_dw", [
     (64, False), (64, True), (512, False), (512, True), (768, False), (1024, False)])
 @pytest.mark.parametrize("batch", [5, 64, 96, 128])
@@ -198,8 +208,98 @@ def test_bwd_bf16_is_one_launch_with_every_direction(hidden, with_dw, batch):
     plan = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, batch, hidden, 2, SMS, with_dw)
     assert _spans(plan) == [(0, batch, 0, 2)]
     (ln,) = plan
-    assert ln.units == lstm_cuda.tc_units(hidden)
-    assert ln.blocks == 2 * hidden // ln.units <= SMS
+    groups, units = _bwd_bf16_geometry(batch, hidden)
+    assert (ln.groups, ln.units) == (groups, units)
+    assert ln.blocks == groups * 2 * hidden // ln.units <= SMS
+
+
+@pytest.mark.parametrize("rows,groups", [
+    (96, [(0, 48), (48, 96)]), (128, [(0, 64), (64, 128)]), (65, [(0, 33), (33, 65)]),
+    (66, [(0, 33), (33, 66)]), (64, [(0, 64)]), (33, [(0, 33)]), (1, [(0, 1)])])
+def test_bwd_bf16_row_groups_are_balanced(rows, groups):
+    (ln,) = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, rows, 512, 2, SMS, True)
+    assert lstm_cuda.bwd_tc_row_groups(rows, ln.groups) == groups
+    # the block's shared memory is sized for the larger group's rows
+    longest = max(r1 - r0 for r0, r1 in groups)
+    assert ln.smem == lstm_cuda.bwd_tc_smem_bytes(longest, 512, ln.units, True)
+
+
+@pytest.mark.parametrize("sms", [SMS, 128, 100, 60])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("with_dw", [False, True])
+def test_bwd_bf16_row_group_launches_fit_the_card(sms, ndir, with_dw):
+    """Every launch's blocks fit the SMs and its shared memory the limit; a
+    launch of two row groups holds every direction, and each group at most
+    64 rows."""
+    for hidden in WIDTHS:
+        if with_dw and hidden > 512:
+            continue
+        for batch in (1, 33, 64, 65, 96, 127, 128, 129, 200, 256):
+            try:
+                plan = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, batch, hidden, ndir, sms,
+                                                   with_dw)
+            except ValueError:  # refused where the parent refused: too few SMs
+                per_dir = hidden // lstm_cuda.tc_units(hidden)
+                assert per_dir > sms or (with_dw and ndir * per_dir > sms)
+                continue
+            for ln in plan:
+                assert ln.blocks == ln.groups * ln.nd * hidden // ln.units <= sms
+                assert ln.smem <= SMEM_LIMIT, (hidden, batch, ln)
+                assert ln.groups in (1, 2)
+                longest = -(-(ln.r1 - ln.r0) // ln.groups)
+                # the kernel sums dW_hh only in chains of at most 64 rows
+                assert not with_dw or longest <= 64
+                if ln.groups == 2:
+                    assert ln.nd == ndir and hidden <= 512
+                    assert all(r1 - r0 <= 64 for r0, r1 in
+                               lstm_cuda.bwd_tc_row_groups(ln.r1 - ln.r0, ln.groups))
+
+
+def _parent_bwd_bf16_plan(batch, hidden, ndir, sms, with_dw):
+    """The bfloat16 adjoint's plan before row groups, where the mechanism
+    does not engage: ``tc_units`` units, one group, all directions in one
+    launch where they fit, else one a direction (None: refused)."""
+    units = lstm_cuda.tc_units(hidden)
+    if ndir * hidden // units <= sms:
+        dirs = [(0, ndir)]
+    elif hidden // units <= sms and not with_dw:
+        dirs = [(d, 1) for d in range(ndir)]
+    else:
+        return None
+    return [lstm_cuda.Launch(r0, r1, d0, nd, units, nd * hidden // units,
+                             lstm_cuda.bwd_tc_smem_bytes(r1 - r0, hidden, units, with_dw))
+            for r0, r1 in lstm_cuda.row_chunks(batch, 128) for d0, nd in dirs]
+
+
+@pytest.mark.parametrize("sms", [SMS, 100, 60])
+@pytest.mark.parametrize("with_dw", [False, True])
+def test_bwd_bf16_keeps_the_parent_plan_where_it_bypasses_row_groups(sms, with_dw):
+    """Up to 64 rows and above H=512 the plan is the parent's launch for
+    launch; past 64 rows it takes every shape the parent took."""
+    for hidden in WIDTHS:
+        if with_dw and hidden > 512:
+            continue
+        for batch in (1, 5, 24, 33, 48, 64, 65, 96, 128):
+            want = _parent_bwd_bf16_plan(batch, hidden, 2, sms, with_dw)
+            try:
+                got = lstm_cuda.plan_bwd_launches("k", torch.bfloat16, batch, hidden, 2, sms,
+                                                  with_dw)
+            except ValueError:
+                got = None
+            if batch <= 64 or hidden > 512:
+                assert got == want, (hidden, batch)
+            else:
+                assert want is None or got is not None, (hidden, batch)
+
+
+@pytest.mark.parametrize("dtype,batch,hidden", [
+    (torch.bfloat16, 64, 512), (torch.bfloat16, 48, 512), (torch.bfloat16, 24, 512),
+    (torch.bfloat16, 64, 256), (torch.bfloat16, 96, 768), (torch.bfloat16, 128, 1024),
+    (torch.float32, 96, 512), (torch.float32, 128, 512), (torch.float32, 128, 256)])
+def test_bwd_one_row_group_where_rows_width_or_dtype_bypass_it(dtype, batch, hidden):
+    for with_dw in (False, True) if hidden <= 512 else (False,):
+        plan = lstm_cuda.plan_bwd_launches("k", dtype, batch, hidden, 2, SMS, with_dw)
+        assert [ln.groups for ln in plan] == [1] * len(plan)
 
 
 @pytest.mark.parametrize("hidden,with_dw", [(512, False), (512, True), (1024, False)])
@@ -396,6 +496,13 @@ def test_bwd_bf16_shared_memory_bytes():
     # H=32: one stage a step, so one stage
     assert lstm_cuda.bwd_tc_smem_bytes(5, 32, 8, True) == (
         align + 2048 + stage64 + 1024 + 2048 + bars)
+    # a row group of 64 rows at H=512, 16 units, with dW_hh: W_hh rows 16 x
+    # 2048 bf16, six 64-row stages, the 64 x 16 hs tile and the 64 x 16 fp32
+    # reduction tile
+    assert lstm_cuda.bwd_tc_smem_bytes(64, 512, 16, True) == (
+        align + 65536 + 6 * stage64 + 2048 + 4096 + bars)
+    assert lstm_cuda.bwd_tc_smem_bytes(48, 512, 16, False) == (
+        align + 65536 + 6 * stage64 + 4096 + bars)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
