@@ -3,13 +3,15 @@
     python3 benchmark/calibrate.py --workload base-las.train-longform --seeds 1 2 3 \
         --control-seeds 1 2 3 --fault-seeds 1 2 3 --out cal.jsonl
 
-For each seed: the program's compared numbers (its checked steps against the
-float32 reference). For each control seed: the same numbers with the
-reference, in the nearest precision below the configuration's
-(``las_ref.control_precision``: float8 e4m3 operands for bfloat16, TF32 for
-float32), standing in the program's place. For each fault seed: the program
-with half of the batch left out. One JSON line a reading on standard output
-and in ``--out``, with the leaf each number is worst at.
+Any cell of BENCHMARK.json, through its entry (``harness.entry``) and its
+configuration's family (``harness.family``). For each seed: the program's
+compared numbers (its checked steps against the family's float32
+reference). For each control seed: the same numbers with that reference, in
+the nearest precision below the configuration's (the family's
+``control_precision``; for ``las`` float8 e4m3 operands for bfloat16, TF32
+for float32), standing in the program's place. For each fault seed: the
+program with half of the batch left out. One JSON line a reading on
+standard output and in ``--out``, with the leaf each number is worst at.
 """
 
 import argparse
@@ -25,8 +27,6 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from benchmark import harness, mixes, weights  # noqa: E402
-from benchmark.entries import train as train_entry  # noqa: E402
-from benchmark.reference import las_ref  # noqa: E402
 
 
 def train_control(cell, seed, device):
@@ -36,16 +36,18 @@ def train_control(cell, seed, device):
 
     cfg, mix = cell.config, cell.mix
     model = cfg["model"]
-    flat = weights.make_flat(model, mixes.sub_seed(seed, 0), device)
+    entry, fam = harness.entry(cell), harness.family(cell)
+    flat = weights.make_flat(fam.leaf_specs(model), mixes.sub_seed(seed, 0), device)
     plans = mixes.plan_batches(mix, cfg)
-    batches = mixes.make_batches(plans, seed, device)
+    batches = mixes.make_batches(plans, seed, device, fam.feature_width(model))
     gen = torch.Generator(device=device).manual_seed(mixes.sub_seed(seed, 3))
     checked = mixes.step_order(len(plans), seed, 100000)[:mix["checked_steps"]]
-    steps = [(batches[i], train_entry.draw_step(model, len(plans[i].lx), plans[i].l_pad, gen,
-                                                device, TrainDraws)) for i in checked]
-    low = train_entry.reference_readings(cfg, flat, steps,
-                                         las_ref.control_precision(cfg["compute_dtype"]))
-    return train_entry.reference_numbers(cfg, flat, steps, *low)
+    rates = fam.dropout_rates(model)
+    steps = [(batches[i], entry.draw_step(model, rates, len(plans[i].lx), plans[i].l_pad, gen,
+                                          device, TrainDraws)) for i in checked]
+    low = entry.reference_readings(fam, cfg, flat, steps,
+                                   fam.control_precision(cfg["compute_dtype"]))
+    return entry.reference_numbers(fam, cfg, flat, steps, *low)
 
 
 def main():
@@ -79,7 +81,7 @@ def main():
             else:
                 faults = ("half_batch",) if what == "fault" else ()
                 run = harness.Run(cell, seed, 0.0, False, device, time.perf_counter(), faults)
-                outcome = train_entry.run(run)
+                outcome = harness.entry(cell).run(run)
                 numbers = {c.name: (c.value, note) for c, note in
                            zip(outcome.checks, outcome.notes)}
             emit(what, seed, numbers, t)

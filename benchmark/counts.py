@@ -23,6 +23,9 @@ PEAK_FLOPS = {"bfloat16": 989.4e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 VOCAB, VOCAB_PADDED = 30, 32
 ELEM = {"bfloat16": 2, "float32": 4}
+# the widest input the port's listener projects inside the recurrence (its
+# ``ops/lstm.py::FUSED_IN_MAX_DIM``); a wider one is projected before it
+FUSED_IN_MAX_DIM = 128
 
 
 class Launch(NamedTuple):
@@ -160,12 +163,15 @@ def _speller_adjoint(d, batch, te, enc_frames, steps, dt) -> Launch:
 
 def train_step_launches(model: dict, dtype: str, t_pad: int, l_pad: int,
                         lx: np.ndarray) -> List[Launch]:
-    """The kernel launches of one train step on a batch: the listener's
-    forward (the training forms; under ``remat`` the lean forms first and
-    the training forms again in the backward pass), the decode's training
-    form and its adjoint, and each layer's adjoint (with the dW_hh sum up to
-    H = 512, without it above). One launch a call: every batch here has at
-    most 128 rows."""
+    """The kernel launches of one train step on a batch, on the route the
+    port takes for ``model``: the listener's forward (the training forms;
+    under ``remat`` the lean forms first and the training forms again in the
+    backward pass; layer 0 in the fused-in form where its input is at most
+    ``FUSED_IN_MAX_DIM`` wide, else on a projected input as the other
+    layers), each layer's adjoint (with the dW_hh sum up to H = 512, without
+    it above), and under ``decoder_impl: pallas`` the decode's training form
+    and its adjoint (the scan route's decode launches no kernel of the
+    port's). One launch a call: every batch here has at most 128 rows."""
     d = _dims(model)
     hid, ndir = d["hid"], d["ndir"]
     remat = model["listener_configs"].get("remat", False)
@@ -173,7 +179,7 @@ def train_step_launches(model: dict, dtype: str, t_pad: int, l_pad: int,
     layers = layer_lengths(lx, d["npy"], d["nb"])
     batch = len(lx)
     for i, frames in enumerate(layers):
-        fused = i == 0
+        fused = i == 0 and d["d0"] <= FUSED_IN_MAX_DIM
         t = t_pad >> max(0, i - d["nb"] + 1)
         n = float(frames.sum())
         in_dim = d["d0"] if fused else 0
@@ -184,9 +190,10 @@ def train_step_launches(model: dict, dtype: str, t_pad: int, l_pad: int,
         with_dw = hid <= 512
         out.append(_lstm_adjoint("lstm_bwd_dw" if with_dw else "lstm_bwd", n, batch, t,
                                  hid, ndir, with_dw, dtype))
-    te = t_pad >> d["npy"]
-    enc_frames = float(layers[-1].sum())
-    out.append(_speller_forward(d, batch, te, enc_frames, l_pad, dtype))
-    out.append(_speller_adjoint(d, batch, te, enc_frames, l_pad, dtype))
+    if model["speller_configs"].get("decoder_impl", "scan") == "pallas":
+        te = t_pad >> d["npy"]
+        enc_frames = float(layers[-1].sum())
+        out.append(_speller_forward(d, batch, te, enc_frames, l_pad, dtype))
+        out.append(_speller_adjoint(d, batch, te, enc_frames, l_pad, dtype))
     return out
 

@@ -4,16 +4,18 @@ bfloat16 compute, both kernel tiers) driven over the mix's batches, which
 live on the card, in a seeded shuffled order pass after pass.
 
 Set-up builds the kernels (``ops/cuda_build.py::build_for``), the weights
-(``benchmark/weights.py``), the state and the step, then runs the first
+(``benchmark/weights.py``, the leaves of the configuration's family,
+``harness.family``), the state and the step, then runs the first
 ``checked_steps`` steps of the order through the step, on batches that all
 differ, keeping their losses, the first step's gradient (from the first
 moment) and the parameters' change; then one step of every batch shape not
 yet run. The window then steps on from that same state, in whole passes over
 every batch, each pass in a fresh order, until the run's seconds are up, and
-ends in a synchronize; a traced run profiles the window's first pass. After it the state is freed and the
-reference follows the checked steps from the same weights, batches and
-draws. Every random number of a step (SpecAugment, dropout, the
-teacher-forcing coins) is drawn here on the card and handed to the step.
+ends in a synchronize; a traced run profiles the window's first pass. After
+it the state is freed and the family's reference follows the checked steps
+from the same weights, batches and draws. Every random number of a step
+(SpecAugment, dropout, the teacher-forcing coins) is drawn here on the card
+and handed to the step.
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ from typing import List, NamedTuple
 import torch
 from torch.profiler import record_function
 
-from benchmark import checks, counts, harness, mixes, traces, weights
-from benchmark.reference import las_ref
+from benchmark import checks, harness, mixes, traces, weights
 
 
 class SpecDraws(NamedTuple):
@@ -42,11 +43,12 @@ class SpecDraws(NamedTuple):
 SPECAUG_FREQ, SPECAUG_TIME = 6, 200
 
 
-def draw_step(model: dict, batch: int, steps: int, gen: torch.Generator, device, draws_type):
-    """One training pass's randomness, in the port's ``TrainDraws`` layout."""
+def draw_step(model: dict, rates: list, batch: int, steps: int, gen: torch.Generator, device,
+              draws_type):
+    """One training pass's randomness, in the port's ``TrainDraws`` layout;
+    ``rates``: the listener layers' dropout rates (the family's)."""
     lc, sc = model["listener_configs"], model["speller_configs"]
     width = lc["uniform_hid_dim"] * (2 if lc["bidirectional"] else 1)
-    rates = [r for _, _, r in las_ref.listener_layers(model)]
 
     def keep(shape, rate):
         return torch.rand(shape, generator=gen, device=device) < (1.0 - rate)
@@ -138,12 +140,14 @@ def run(run: harness.Run) -> harness.Outcome:
     device = run.device
     cfg_json, mix = cell.config, cell.mix
     model = cfg_json["model"]
-    flat = weights.make_flat(model, mixes.sub_seed(run.seed, 0), device)
+    fam = harness.family(cell)
+    flat = weights.make_flat(fam.leaf_specs(model), mixes.sub_seed(run.seed, 0), device)
     prog = build_program(run, flat)
     step = planted(prog.step, run.faults)
     state = prog.state
     plans = mixes.plan_batches(mix, cfg_json)
-    batches = mixes.make_batches(plans, run.seed, device)
+    batches = mixes.make_batches(plans, run.seed, device, fam.feature_width(model))
+    rates = fam.dropout_rates(model)
     gen = torch.Generator(device=device).manual_seed(mixes.sub_seed(run.seed, 3))
     tf_rate, lr = cfg_json["tf_rate"], cfg_json["optimizer"]["configs"]["lr"]
     b1 = cfg_json["optimizer"]["configs"].get("betas", (0.9, 0.999))[0]
@@ -151,7 +155,8 @@ def run(run: harness.Run) -> harness.Outcome:
     def one_step(i):
         b = batches[i]
         with record_function("bench.draws"):
-            draws = draw_step(model, len(plans[i].lx), plans[i].l_pad, gen, device, TrainDraws)
+            draws = draw_step(model, rates, len(plans[i].lx), plans[i].l_pad, gen, device,
+                              TrainDraws)
         with record_function("bench.train_step"):
             _, metrics, _ = step(state, b.x, b.lx, b.y, b.ly, tf_rate, lr, draws=draws)
         return metrics, draws
@@ -210,10 +215,10 @@ def run(run: harness.Run) -> harness.Outcome:
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     trace_ctx = None
     if run.trace:
-        launches = [ln for p in plans for ln in counts.train_step_launches(
+        launches = [ln for p in plans for ln in fam.train_step_launches(
             model, cfg_json["compute_dtype"], p.t_pad, p.l_pad, p.lx)]
         delta = {k: after[k] - before[k] for k in after}
-        flops = sum(counts.train_step_flops(model, p.lx, p.ly) for p in plans)
+        flops = sum(fam.train_step_flops(model, p.lx, p.ly) for p in plans)
         lo, hi = traced.window_us()
         trace_ctx = traces.TraceContext(traced.events, (lo, hi), len(plans), launches, delta,
                                         flops, (hi - lo) / 1e6, cell.chips, "train")
@@ -226,7 +231,8 @@ def run(run: harness.Run) -> harness.Outcome:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    numbers = reference_numbers(cfg_json, flat, [(batches[i], d) for i, d in zip(checked, kept_draws)],
+    numbers = reference_numbers(fam, cfg_json, flat,
+                                [(batches[i], d) for i, d in zip(checked, kept_draws)],
                                 prog_losses, grad_norms, change)
     print(f"reference: {time.perf_counter() - t_ref:.4f} s", file=sys.stderr)
     checks_out = [harness.Check(name, value, cell.limits.get(name, float("nan")))
@@ -236,21 +242,21 @@ def run(run: harness.Run) -> harness.Outcome:
                            checks_out, peak, trace_ctx, notes)
 
 
-def reference_numbers(cfg_json, flat, steps, prog_losses, prog_grad, prog_change):
-    """The float32 reference's run of the checked steps from the same
-    weights, and the compared numbers."""
-    ref_losses, ref_grad, ref_change = reference_readings(cfg_json, flat, steps, None)
+def reference_numbers(fam, cfg_json, flat, steps, prog_losses, prog_grad, prog_change):
+    """The family's float32 reference's run of the checked steps from the
+    same weights, and the compared numbers."""
+    ref_losses, ref_grad, ref_change = reference_readings(fam, cfg_json, flat, steps, None)
     return checks.train_numbers(prog_losses, ref_losses, prog_grad, ref_grad,
                                 prog_change, ref_change)
 
 
-def reference_readings(cfg_json, flat, steps, precision):
+def reference_readings(fam, cfg_json, flat, steps, precision):
     """(each step's loss, the first gradient's norm a leaf, the change's norm
-    a leaf) of the reference in ``precision`` (``las_ref.precision``)."""
+    a leaf) of the family's reference in ``precision`` (its ``precision``)."""
     p = {n: t.clone() for n, t in flat.items()}
     opt = cfg_json["optimizer"]["configs"]
-    with las_ref.precision(precision) as q:
-        losses, first = las_ref.train_steps(p, cfg_json["model"], steps, cfg_json["tf_rate"],
-                                            opt["lr"], opt, cfg_json["grad_norm"], q)
+    with fam.precision(precision) as q:
+        losses, first = fam.train_steps(p, cfg_json["model"], steps, cfg_json["tf_rate"],
+                                        opt["lr"], opt, cfg_json["grad_norm"], q)
     return (losses, checks.leaf_norms(first),
             {n: float((p[n] - flat[n]).double().norm()) for n in p})

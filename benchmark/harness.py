@@ -2,7 +2,9 @@
 name, the run's context, the traced segment, the checks and the result line.
 
 An entry (``entries/<entry>.py``, named by the mix) gets a ``Run`` and
-returns an ``Outcome``; ``finish`` turns it into the one JSON line.
+returns an ``Outcome``; ``finish`` turns it into the one JSON line. What
+depends on the model's architecture sits in the configuration's family
+(``families/<family>.py``), which the entry asks for by ``family``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # top-level module names that must not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "attention_based_e2e_asr_dnn_tpu")
 TRACE_SPAN = "bench.traced_window"
+# what a family module (``families/<family>.py``) defines
+FAMILY_FUNCTIONS = ("leaf_specs", "feature_width", "dropout_rates", "train_steps", "precision",
+                    "control_precision", "train_step_flops", "train_step_launches")
 
 
 class Cell(NamedTuple):
@@ -75,6 +80,18 @@ def load_file(path: str, label: str):
 def entry(cell: Cell):
     return load_file(os.path.join(cell.root, "benchmark", "entries", f"{cell.mix['entry']}.py"),
                      f"benchmark_entry_{cell.mix['entry']}")
+
+
+def family(cell: Cell):
+    """The family module of the cell's configuration: ``families/<name>.py``,
+    ``name`` being the configuration's ``"family"``, else ``las``."""
+    name = cell.config.get("family", "las")
+    module = load_file(os.path.join(cell.root, "benchmark", "families", f"{name}.py"),
+                       f"benchmark_family_{name}")
+    missing = [f for f in FAMILY_FUNCTIONS if not callable(getattr(module, f, None))]
+    if missing:
+        raise SystemExit(f"family {name!r} does not define {missing}")
+    return module
 
 
 def metric_reader(name: str, root: str = ROOT) -> Callable:

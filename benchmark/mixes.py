@@ -87,27 +87,28 @@ def plan_batches(mix: dict, config: dict) -> List[Plan]:
 
 
 class Batch(NamedTuple):
-    x: torch.Tensor   # (B, T, 15) float32, zero at padded frames
+    x: torch.Tensor   # (B, T, width) float32, zero at padded frames
     lx: torch.Tensor  # (B,) int32
     y: torch.Tensor   # (B, L) int32, PAD_ID past each row's length
     ly: torch.Tensor  # (B,) int32
 
 
-def make_batch(plan: Plan, gen: torch.Generator, device) -> Batch:
-    """Features and labels of one planned batch, drawn on ``device``."""
+def make_batch(plan: Plan, gen: torch.Generator, device, width: int = N_FEATS) -> Batch:
+    """Features (``width`` a frame: the family's ``feature_width``) and labels
+    of one planned batch, drawn on ``device``."""
     b = len(plan.lx)
     lx = torch.as_tensor(plan.lx, device=device)
     ly = torch.as_tensor(plan.ly, device=device)
-    x = torch.randn(b, plan.t_pad, N_FEATS, generator=gen, device=device)
+    x = torch.randn(b, plan.t_pad, width, generator=gen, device=device)
     x = x * (torch.arange(plan.t_pad, device=device)[None, :, None] < lx[:, None, None])
     y = torch.randint(LABEL_LO, LABEL_HI, (b, plan.l_pad), generator=gen, device=device)
     y = torch.where(torch.arange(plan.l_pad, device=device)[None, :] < ly[:, None], y, PAD_ID)
     return Batch(x, lx, y.to(torch.int32), ly)
 
 
-def make_batches(plans: List[Plan], seed: int, device) -> List[Batch]:
+def make_batches(plans: List[Plan], seed: int, device, width: int = N_FEATS) -> List[Batch]:
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 1))
-    return [make_batch(p, gen, device) for p in plans]
+    return [make_batch(p, gen, device, width) for p in plans]
 
 
 def step_order(n_batches: int, seed: int, n_steps: int) -> List[int]:

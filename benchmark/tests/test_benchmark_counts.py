@@ -9,7 +9,7 @@ MODEL = {"listener_configs": {"input_dim": 3, "uniform_hid_dim": 4, "lstm_layers
                               "plstm_layers": 1, "bidirectional": True},
          "speller_configs": {"att_proj_dim": 2, "att_heads": 1, "dec_emb_dim": 4,
                              "dec_lstm_hid_dim": 4, "dec_lstm_out_dim": 2,
-                             "CHR_MAX_STEPS": 5}}
+                             "CHR_MAX_STEPS": 5, "decoder_impl": "pallas"}}
 
 
 def test_forward_flops_by_hand():

@@ -16,8 +16,11 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_cell_resolves_from_its_files(cell):
     c = harness.resolve(cell)
-    assert c.name == cell and c.mix["entry"] == "train"
+    assert c.name == cell
     assert os.path.exists(os.path.join(ROOT, "benchmark", "entries", c.mix["entry"] + ".py"))
+    assert callable(getattr(harness.entry(c), "run", None))
+    family = harness.family(c)
+    assert all(callable(getattr(family, f, None)) for f in harness.FAMILY_FUNCTIONS)
     names = [m["name"] for m in c.end_to_end]
     assert "setup_s" in names and len(names) >= 2
     assert c.per_layer, "every cell reports a per-layer metric"

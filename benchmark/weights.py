@@ -4,11 +4,12 @@ The tree has the layout of the port's parameter module (and of the JAX
 params tree): ``listener.base.<i>.{fwd,bwd}.{w_ih,w_hh,b}``,
 ``listener.pyramid.<i>...``, ``speller.attention.{key_map,value_map,
 query_map}.{w,b}``, ``speller.char_emb``, ``speller.cell{1,2}...``,
-``speller.init_{query,h1,c1,h2,c2}``, ``speller.cls_b``. The distributions are
-``las_init``'s: uniform +-1/sqrt(H) for the LSTMs, +-1/sqrt(fan_in) for the
-linears, a normal embedding with a zero PAD row, a uniform [0, 1) initial
-query, zero initial states and classifier bias. Drawn in two calls (one
-uniform buffer, one normal) on the device, float32.
+``speller.init_{query,h1,c1,h2,c2}``, ``speller.cls_b`` (``leaf_specs``, the
+``las`` family's leaves). The distributions are ``las_init``'s: uniform
++-1/sqrt(H) for the LSTMs, +-1/sqrt(fan_in) for the linears, a normal
+embedding with a zero PAD row, a uniform [0, 1) initial query, zero initial
+states and classifier bias. ``make_flat`` draws any family's leaves in two
+calls (one uniform buffer, one normal) on the device, float32.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ PAD_IDX = 29
 
 def leaf_specs(model: dict) -> List[Tuple[str, tuple, str, float]]:
     """(dotted name, shape, kind, scale) of every leaf; kind is "uniform"
-    (scaled to +-scale), "unit" (uniform [0, 1)), "normal" or "zeros"."""
+    (scaled to +-scale), "unit" (uniform [0, 1)), "normal", "embedding"
+    (normal, its row ``PAD_IDX`` zero) or "zeros"."""
     lc, sc = model["listener_configs"], model["speller_configs"]
     hid, mult = lc["uniform_hid_dim"], 2 if lc["bidirectional"] else 1
     enc_out = hid * mult
@@ -50,7 +52,7 @@ def leaf_specs(model: dict) -> List[Tuple[str, tuple, str, float]]:
         k = 1.0 / math.sqrt(in_dim)
         specs.append((f"speller.attention.{name}.w", (in_dim, proj), "uniform", k))
         specs.append((f"speller.attention.{name}.b", (proj,), "uniform", k))
-    specs.append(("speller.char_emb", (VOCAB, emb), "normal", 1.0))
+    specs.append(("speller.char_emb", (VOCAB, emb), "embedding", 1.0))
     lstm("speller.cell1", emb + proj, h1)
     lstm("speller.cell2", h1, out)
     specs.append(("speller.init_query", (1, out), "unit", 1.0))
@@ -60,12 +62,13 @@ def leaf_specs(model: dict) -> List[Tuple[str, tuple, str, float]]:
     return specs
 
 
-def make_flat(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """{dotted name: float32 tensor on ``device``} drawn from ``seed``."""
-    specs = leaf_specs(model)
+def make_flat(specs: List[Tuple[str, tuple, str, float]], seed: int,
+              device) -> Dict[str, torch.Tensor]:
+    """{dotted name: float32 tensor on ``device``} of the leaves ``specs`` (a
+    family's ``leaf_specs``) drawn from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed % (1 << 63))
     n_uni = sum(math.prod(s) for _, s, kind, _ in specs if kind in ("uniform", "unit"))
-    n_norm = sum(math.prod(s) for _, s, kind, _ in specs if kind == "normal")
+    n_norm = sum(math.prod(s) for _, s, kind, _ in specs if kind in ("normal", "embedding"))
     uni = torch.rand(n_uni, generator=gen, device=device)
     norm = torch.randn(n_norm, generator=gen, device=device)
     flat, iu, inorm = {}, 0, 0
@@ -77,13 +80,14 @@ def make_flat(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         elif kind == "unit":
             leaf = uni[iu:iu + n]
             iu += n
-        elif kind == "normal":
+        elif kind in ("normal", "embedding"):
             leaf = norm[inorm:inorm + n].clone()
             inorm += n
         else:
             leaf = torch.zeros(n, device=device)
         flat[name] = leaf.reshape(shape)
-    flat["speller.char_emb"][PAD_IDX] = 0.0
+        if kind == "embedding":
+            flat[name][PAD_IDX] = 0.0
     return flat
 
 
