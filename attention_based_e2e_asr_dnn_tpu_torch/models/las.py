@@ -19,6 +19,14 @@ training, with dropout, per-step batch-shared teacher-forcing coins and the
 takes the loop for such a pass, says so and records the route, as the JAX
 package does), the decode-route report and ``las_apply``.
 
+Beyond the JAX package, for Chiu et al. 2018's LAS (``configs/chiu-las.yml``):
+a frame-stacking front end (``stack_frames``: ``stack_left``, ``stack_stride``
+in the listener's config), a listener with no pyramid (``plstm_layers: 0``),
+and the additive attention score (``att_score: additive``, the leaf
+``attention.v``), which the fused kernels do not compute either: its decode
+takes the step loop, whose score runs on ``ops/speller_additive.py``; in
+training the loop is one Function (``models/additive_decode.py``).
+
 Randomness of a training pass is one ``TrainDraws`` record, either drawn
 from an explicit ``torch.Generator`` (``draw_train_noise``) or handed in, so
 a test can replay the JAX package's draws.
@@ -33,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
@@ -69,15 +78,26 @@ class ListenerConfig:
     # plain PyTorch loops (ops/lstm.py)
     lstm_impl: str = "scan"
     remat: bool = False      # recompute each layer in the backward pass (ops/lstm.py)
+    # the front end (``stack_frames``): each frame with the ``stack_left``
+    # frames before it, kept at every ``stack_stride``-th frame (0 and 1: the
+    # features as they come)
+    stack_left: int = 0
+    stack_stride: int = 1
 
     @property
     def enc_out_dim(self) -> int:
         return self.uniform_hid_dim * (2 if self.bidirectional else 1)
 
     @property
+    def frame_dim(self) -> int:
+        """The width of a frame the first layer reads: the stacked frames'."""
+        return self.input_dim * (self.stack_left + 1)
+
+    @property
     def time_reduction(self) -> int:
-        """Total time downsampling: 2x per pyramidal layer."""
-        return 2 ** self.plstm_layers
+        """Total time downsampling: the stacking's stride, then 2x per
+        pyramidal layer."""
+        return self.stack_stride * 2 ** self.plstm_layers
 
 
 @dataclass(frozen=True)
@@ -100,8 +120,13 @@ class SpellerConfig:
     # "pallas": the decode on the fused CUDA kernels (ops/speller_cuda.py), in
     # eval and in training; "scan": the step loop of PyTorch ops below
     decoder_impl: str = "scan"
+    # "dot": the scaled dot-product score; "additive": v . tanh(q + k) a head,
+    # with the leaf ``attention.v`` (ops/attention.py)
+    att_score: str = "dot"
 
     def __post_init__(self):
+        if self.att_score not in ("dot", "additive"):
+            raise ValueError(f"att_score must be 'dot' or 'additive', got {self.att_score!r}")
         # weight tying: the classifier input is cat(projected query, context)
         if self.dec_emb_dim != 2 * self.att_proj_dim:
             raise ValueError(
@@ -224,13 +249,18 @@ def _linear_init(in_dim: int, out_dim: int, generator: torch.Generator) -> dict:
 
 def speller_init(sc: SpellerConfig, emb: torch.Tensor, generator: torch.Generator) -> dict:
     """The speller's parameter tree around the embedding ``emb`` (tied with
-    the classifier)."""
+    the classifier); an additive score adds ``attention.v`` (heads, d_head),
+    uniform +-1/sqrt(d_head)."""
+    attention = {
+        "key_map": _linear_init(sc.enc_out_dim, sc.att_proj_dim, generator),
+        "value_map": _linear_init(sc.enc_out_dim, sc.att_proj_dim, generator),
+        "query_map": _linear_init(sc.dec_lstm_out_dim, sc.att_proj_dim, generator),
+    }
+    if sc.att_score == "additive":
+        d_head = sc.att_proj_dim // sc.att_heads
+        attention["v"] = _uniform((sc.att_heads, d_head), 1.0 / math.sqrt(d_head), generator)
     return {
-        "attention": {
-            "key_map": _linear_init(sc.enc_out_dim, sc.att_proj_dim, generator),
-            "value_map": _linear_init(sc.enc_out_dim, sc.att_proj_dim, generator),
-            "query_map": _linear_init(sc.dec_lstm_out_dim, sc.att_proj_dim, generator),
-        },
+        "attention": attention,
         "char_emb": emb,
         "cell1": _lstm_init(sc.dec_emb_dim + sc.att_proj_dim, sc.dec_lstm_hid_dim, generator),
         "cell2": _lstm_init(sc.dec_lstm_hid_dim, sc.dec_lstm_out_dim, generator),
@@ -260,7 +290,7 @@ def las_init(cfg: LASConfig, generator: torch.Generator) -> ListenAttendSpell:
     emb = char_embedding_init(sc, generator)
     tree = {
         "listener": {
-            "base": [lstm_layer_init(lc.input_dim if i == 0 else hid * mult, hid,
+            "base": [lstm_layer_init(lc.frame_dim if i == 0 else hid * mult, hid,
                                      lc.bidirectional, generator)
                      for i in range(lc.lstm_layers)],
             "pyramid": [lstm_layer_init(2 * lc.enc_out_dim, hid, lc.bidirectional, generator)
@@ -310,20 +340,37 @@ def draw_train_noise(cfg: "LASConfig", batch: int, steps: int,
 # Listener
 # ---------------------------------------------------------------------------
 
+def stack_frames(x: torch.Tensor, lengths: torch.Tensor, left: int, stride: int):
+    """Frame stacking and subsampling (Chiu et al. 2018, sec. 3): output
+    frame k is input frames [stride k - left, ..., stride k] side by side,
+    oldest first, zeros before the start: (B, T, F) -> (B, ceil(T / stride),
+    (left + 1) F); lengths ceil(l / stride): the output frames whose newest
+    input frame is valid."""
+    batch, _, feats = x.shape
+    windows = F.pad(x, (0, 0, left, 0)).unfold(1, left + 1, stride)  # (B, T', F, left + 1)
+    out = windows.transpose(2, 3).reshape(batch, -1, (left + 1) * feats)
+    return out, (lengths + stride - 1) // stride
+
+
 def listener_apply(params, cfg: ListenerConfig, x: torch.Tensor,
                    lengths: torch.Tensor, train: bool = False,
                    masks: Optional[list] = None,
                    generator: Optional[torch.Generator] = None):
-    """(B, T, input_dim) -> ((B, T / 2**plstm_layers, enc_out_dim), lengths).
-    In training, locked dropout after every layer from ``masks`` (one per
+    """(B, T, input_dim) -> ((B, T / time_reduction, enc_out_dim), lengths):
+    the frame stacking where configured, the base layers, the pyramid. In
+    training, locked dropout after every layer from ``masks`` (one per
     layer, base then pyramid) or drawn from ``generator``."""
     n_base = cfg.lstm_layers
     with span("las.listener"):
+        if cfg.stack_left or cfg.stack_stride != 1:
+            x, lengths = stack_frames(x, lengths, cfg.stack_left, cfg.stack_stride)
         h, lengths = locked_lstm_stack_apply(
             params["base"], x, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
             init_dropout=cfg.init_dropout, mid_dropout=cfg.mid_dropout, train=train,
             masks=None if masks is None else masks[:n_base], generator=generator,
             remat=cfg.remat)
+        if not cfg.plstm_layers:
+            return h, lengths
         return pyramidal_lstm_stack_apply(
             params["pyramid"], h, lengths, cfg.bidirectional, impl=cfg.lstm_impl,
             mid_dropout=cfg.mid_dropout, final_dropout=cfg.final_dropout, train=train,
@@ -423,7 +470,7 @@ def _decoder_key(cfg) -> str:
     the same shape through different configs."""
     return (f"p{cfg.att_proj_dim}h{cfg.att_heads}"
             f"e{cfg.dec_emb_dim}d{cfg.dec_lstm_hid_dim}"
-            f"o{cfg.dec_lstm_out_dim}")
+            f"o{cfg.dec_lstm_out_dim}" + ("-additive" if cfg.att_score == "additive" else ""))
 
 
 def decode_route_report() -> dict:
@@ -459,11 +506,15 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
 
     ``decoder_impl: pallas`` runs either decode on the fused kernels (their
     plain versions for CPU tensors); a shape a kernel cannot take raises.
-    The kernels compute neither the ``init_force`` prior nor a pass with
-    ``dec_y`` given outside training. Such a pass, on the card as on the
-    CPU, warns once a shape, records the route ``"scan"`` and takes the step
-    loop: the JAX package's own route for a pass its kernel does not compute
-    (its ``models/las.py``; the loop ignores ``dec_y`` outside training).
+    The kernels compute neither the additive score, nor the ``init_force``
+    prior, nor a pass with ``dec_y`` given outside training. Such a pass, on
+    the card as on the CPU, warns once a shape, records the route ``"scan"``
+    and takes the step loop: the JAX package's own route for a pass its
+    kernel does not compute (its ``models/las.py``; the loop ignores
+    ``dec_y`` outside training).
+    A training pass of the additive score (without the prior or a
+    ``final_map``) runs the step loop as one autograd Function with its own
+    adjoint, captured as CUDA graphs on a card (``models/additive_decode.py``).
     Training without ``dec_y`` raises. ``cache_hook`` (the step loop only;
     the JAX package's ``enc_hook`` route refuses the kernels) shards the
     attention cache over time: sequence parallelism."""
@@ -475,7 +526,10 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
                              "requires decoder_impl: scan")
         if train and dec_y is None:
             raise ValueError("training decode requires dec_y")
-        if init_force:
+        if cfg.att_score == "additive":
+            reason = ("additive attention score (the fused kernels compute "
+                      "dot-product scores only)")
+        elif init_force:
             reason = ("init_force epoch (the fused kernels do not compute the "
                       "prior-biased attention)")
         elif dec_y is not None and not train:
@@ -487,50 +541,78 @@ def speller_apply(params, cfg: SpellerConfig, enc_h: torch.Tensor,
                                        train, draws)
         _warn_fused_fallback(batch, enc_len, reason)
     _DECODE_ROUTES[key] = "scan"
-    dtype = enc_h.dtype
-    params = cast_params(params, dtype)
+    params = cast_params(params, enc_h.dtype)
     if train:
         if dec_y is None:
             raise ValueError("training decode requires dec_y")
         steps = dec_y.shape[1]
-        gold_emb = params["char_emb"][dec_y.long()]
-        # gold_prev[:, t] is the gold embedding of step t - 1
-        gold_prev = torch.cat([gold_emb.new_zeros(batch, 1, cfg.dec_emb_dim),
-                               gold_emb[:, :-1]], dim=1)
+        gold_prev, use_gold, keep1, keep2 = teacher_forcing(params, cfg, dec_y, tf_rate, draws)
     else:
         steps = cfg.CHR_MAX_STEPS
-    use_gold = keep1 = keep2 = None
-    if train and draws is not None:
-        coins = draws.coins.to(enc_h.device).clone()
-        coins[0] = 2.0  # step 0 is never teacher-forced
-        use_gold = coins <= tf_rate
-        if cfg.dec_lstm_dropout > 0.0:
-            keep = 1.0 - cfg.dec_lstm_dropout
-            keep1 = draws.m1.to(dtype) / keep
-            keep2 = draws.m2.to(dtype) / keep
+        gold_prev = use_gold = keep1 = keep2 = None
     prior_rows = (block_diagonal_prior(enc_len, steps, device=enc_h.device).T
                   if init_force else None)
 
     with span("las.speller.operands"):
         cache, state, wgts0 = speller_start(params, cfg, enc_h, enc_l, cache_hook)
     with span("las.speller.decode"):  # the whole loop: no span a step
-        char = torch.full((batch,), cfg.CHR_SOS_IDX, dtype=torch.long,
-                          device=enc_h.device)
-        logits_t, wgts_t = [], []
-        for t in range(steps):
-            logits, wgts, state = speller_step(
-                params, cfg, cache, char, state,
-                gold_prev=None if use_gold is None else gold_prev[:, t],
-                use_gold=None if use_gold is None else use_gold[t],
-                keep1=None if keep1 is None else keep1[t],
-                keep2=None if keep2 is None else keep2[t],
-                prior_row=None if prior_rows is None else prior_rows[t])
-            char = torch.argmax(logits, dim=-1)
-            logits_t.append(logits)
-            wgts_t.append(wgts[0])
-        att_map = torch.stack([wgts0[0]] + wgts_t, dim=1)  # (heads, steps+1, T)
-        return SpellerOutput(logits=torch.stack(logits_t, dim=1),
-                             att_map=att_map.transpose(-2, -1))
+        if (train and cfg.att_score == "additive" and prior_rows is None
+                and cache_hook is None and "final_map" not in params["attention"]):
+            # imported here: the Function's forward is speller_step's loop
+            from attention_based_e2e_asr_dnn_tpu_torch.models.additive_decode import (
+                additive_decode_train)
+            return additive_decode_train(params, cfg, cache, state, wgts0, gold_prev,
+                                         use_gold, keep1, keep2)
+        return speller_loop(params, cfg, cache, state, wgts0, steps, gold_prev, use_gold,
+                            keep1, keep2, prior_rows)
+
+
+def teacher_forcing(params, cfg: SpellerConfig, dec_y: torch.Tensor, tf_rate,
+                    draws: Optional[TrainDraws]):
+    """A training decode's feeds, ``params`` in the compute dtype: (gold_prev
+    (B, L, E), step t's gold embedding of step t - 1; use_gold (L,) bool;
+    keep1 / keep2 (L, B, H), the cells' dropout masks scaled by 1 / keep).
+    Without ``draws`` the last three are None: no forcing, no dropout."""
+    batch, dtype = dec_y.shape[0], params["char_emb"].dtype
+    gold_emb = params["char_emb"][dec_y.long()]
+    gold_prev = torch.cat([gold_emb.new_zeros(batch, 1, cfg.dec_emb_dim),
+                           gold_emb[:, :-1]], dim=1)
+    use_gold = keep1 = keep2 = None
+    if draws is not None:
+        coins = draws.coins.to(gold_prev.device).clone()
+        coins[0] = 2.0  # step 0 is never teacher-forced
+        use_gold = coins <= tf_rate
+        if cfg.dec_lstm_dropout > 0.0:
+            keep = 1.0 - cfg.dec_lstm_dropout
+            keep1 = draws.m1.to(dtype) / keep
+            keep2 = draws.m2.to(dtype) / keep
+    return gold_prev, use_gold, keep1, keep2
+
+
+def speller_loop(params, cfg: SpellerConfig, cache, state: DecodeState, wgts0, steps: int,
+                 gold_prev=None, use_gold=None, keep1=None, keep2=None,
+                 prior_rows=None) -> SpellerOutput:
+    """``steps`` of ``speller_step`` from ``speller_start``'s cache, state
+    and weights, with ``teacher_forcing``'s feeds in training and the
+    prior's rows under ``init_force``."""
+    batch = state.context.shape[0]
+    char = torch.full((batch,), cfg.CHR_SOS_IDX, dtype=torch.long,
+                      device=state.context.device)
+    logits_t, wgts_t = [], []
+    for t in range(steps):
+        logits, wgts, state = speller_step(
+            params, cfg, cache, char, state,
+            gold_prev=None if use_gold is None else gold_prev[:, t],
+            use_gold=None if use_gold is None else use_gold[t],
+            keep1=None if keep1 is None else keep1[t],
+            keep2=None if keep2 is None else keep2[t],
+            prior_row=None if prior_rows is None else prior_rows[t])
+        char = torch.argmax(logits, dim=-1)
+        logits_t.append(logits)
+        wgts_t.append(wgts[0])
+    att_map = torch.stack([wgts0[0]] + wgts_t, dim=1)  # (heads, steps+1, T)
+    return SpellerOutput(logits=torch.stack(logits_t, dim=1),
+                         att_map=att_map.transpose(-2, -1))
 
 
 def las_apply(params, cfg: LASConfig, x: torch.Tensor, lx: torch.Tensor,

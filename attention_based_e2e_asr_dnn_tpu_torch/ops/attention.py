@@ -3,8 +3,12 @@
 decode step.
 
 Scaling is the correct ``1/sqrt(d_head)`` unless ``legacy_scale`` (the
-reference multiplies by ``sqrt(d_head)``). Padded frames get the dtype's
-most negative value before the softmax and are re-zeroed after it. With
+reference multiplies by ``sqrt(d_head)``). Where the attention's parameters
+hold the leaf ``v`` (heads, d_head), the score is additive instead (Bahdanau
+et al. 2015, per head as in Chiu et al. 2018): ``v[h] . tanh(q[h] + k[t,
+h])``, unscaled, on ``ops/speller_additive.py`` (a kernel on the card, plain
+ops on the CPU). Padded frames get the dtype's most negative value before
+the softmax and are re-zeroed after it. With
 an ``init_wgts_row`` (the early-epoch alignment forcing) the weights are
 multiplied by the prior's row and renormalised by a second softmax, as the
 reference does; the weights recorded for the attention map stay the
@@ -24,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from attention_based_e2e_asr_dnn_tpu_torch.ops.masking import pad_mask
+from attention_based_e2e_asr_dnn_tpu_torch.ops.speller_additive import additive_scores
 
 
 class AttentionCache(NamedTuple):
@@ -41,13 +46,20 @@ def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
 
 def cross_attention_precompute(params, enc_h: torch.Tensor,
                                enc_l: torch.Tensor, heads: int) -> AttentionCache:
-    """Project encoder outputs (B, T, enc_out_dim) to keys/values once."""
+    """Project encoder outputs (B, T, enc_out_dim) to keys/values once.
+    For the additive score the values are laid out (B, heads, T, d_head) in
+    memory here, once, so that each step's context reads them without a
+    copy; the keys stay a view of the projection's (B, T, heads, d_head),
+    the layout the score's kernel reads."""
     batch, seq_len, _ = enc_h.shape
     proj_dim = params["key_map"]["w"].shape[1]
     d_head = proj_dim // heads
     keys = linear_apply(params["key_map"], enc_h).reshape(batch, seq_len, heads, d_head)
     values = linear_apply(params["value_map"], enc_h).reshape(batch, seq_len, heads, d_head)
-    return AttentionCache(keys=keys.transpose(1, 2), values=values.transpose(1, 2),
+    values = values.transpose(1, 2)
+    if "v" in params:
+        values = values.contiguous()
+    return AttentionCache(keys=keys.transpose(1, 2), values=values,
                           mask=pad_mask(enc_l, seq_len))
 
 
@@ -58,7 +70,11 @@ def cross_attention_step(params, cache: AttentionCache, dec_h: torch.Tensor,
     (context (B, proj_dim), weights (B, heads, T), q_proj (B, proj_dim)).
     ``init_wgts_row`` (T,): this step's row of the diagonal-forcing prior;
     the returned weights are then the pre-forcing ones."""
+    additive = "v" in params
     if not isinstance(cache, AttentionCache):  # time-sharded (parallel/sequence.py)
+        if additive:
+            raise ValueError("the additive score has no time-sharded step "
+                             "(sequence parallelism)")
         return cache.attention_step(params, dec_h, heads, legacy_scale, init_wgts_row)
     batch = dec_h.shape[0]
     proj_dim = params["query_map"]["w"].shape[1]
@@ -67,13 +83,18 @@ def cross_attention_step(params, cache: AttentionCache, dec_h: torch.Tensor,
 
     q_proj = linear_apply(params["query_map"], dec_h)
     q = q_proj.reshape(batch, heads, d_head)
-    scale = math.sqrt(d_head) if legacy_scale else 1.0 / math.sqrt(d_head)
-    # the scale rounded to the compute dtype, as the JAX package multiplies
-    # by it; a Python number, so no host-to-device copy per step
-    scale = torch.tensor(scale, dtype=dtype).item()
-    scores = torch.einsum("bhd,bhtd->bht", q, cache.keys) * scale
     mask = cache.mask[:, None, :]
-    scores = scores.masked_fill(mask, torch.finfo(dtype).min)
+    if additive:  # masked already; the keys in the projection's layout (a
+        # view of it, so no copy, unless the cache was rebuilt, as a beam's is)
+        scores = additive_scores(q, cache.keys.transpose(1, 2).contiguous(),
+                                 params["v"].to(dtype), cache.mask)
+    else:
+        scale = math.sqrt(d_head) if legacy_scale else 1.0 / math.sqrt(d_head)
+        # the scale rounded to the compute dtype, as the JAX package
+        # multiplies by it; a Python number, so no host-to-device copy per step
+        scale = torch.tensor(scale, dtype=dtype).item()
+        scores = torch.einsum("bhd,bhtd->bht", q, cache.keys) * scale
+        scores = scores.masked_fill(mask, torch.finfo(dtype).min)
     wgts = torch.softmax(scores, dim=-1).masked_fill(mask, 0.0)
     used = wgts
     if init_wgts_row is not None:

@@ -63,7 +63,7 @@ from typing import List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build
+from attention_based_e2e_asr_dnn_tpu_torch.ops import cuda_build, speller_additive
 from attention_based_e2e_asr_dnn_tpu_torch.ops.shards import refuse_sharded
 from attention_based_e2e_asr_dnn_tpu_torch.ops.attention import (
     cross_attention_precompute,
@@ -76,7 +76,8 @@ SOURCE = os.path.join(cuda_build.CSRC, "speller_decode.cu")
 TC_SOURCE = os.path.join(cuda_build.CSRC, "speller_decode_tc.cu")
 BWD_SOURCE = os.path.join(cuda_build.CSRC, "speller_bwd.cu")
 BWD_TC_SOURCE = os.path.join(cuda_build.CSRC, "speller_bwd_tc.cu")
-SOURCES = (SOURCE, TC_SOURCE, BWD_SOURCE, BWD_TC_SOURCE)
+# with the additive score of the step loop's attention (ops/speller_additive.py)
+SOURCES = (SOURCE, TC_SOURCE, BWD_SOURCE, BWD_TC_SOURCE, speller_additive.SOURCE)
 
 NEG = -1e9  # additive pad bias; exp(NEG - max) underflows to exactly 0
 
@@ -85,8 +86,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the shared memory a block may use on the card (sm_90)
 _SMEM_LIMIT_F32 = 232448
 
-# launches since the last reset
-LAUNCHES = {"speller_decode": 0, "speller_decode_train": 0, "speller_decode_bwd": 0}
+# launches since the last reset: the fused decode's, in one dict with the
+# additive score's (ops/speller_additive.py counts its own there)
+LAUNCHES = speller_additive.LAUNCHES
+LAUNCHES.update({"speller_decode": 0, "speller_decode_train": 0, "speller_decode_bwd": 0})
 
 
 def reset_launch_counts() -> None:
@@ -372,7 +375,8 @@ def load_bwd_tc_library(defines: tuple = ()) -> ctypes.CDLL:
     return lib
 
 
-LOADERS = (load_library, load_tc_library, load_bwd_library, load_bwd_tc_library)
+LOADERS = (load_library, load_tc_library, load_bwd_library, load_bwd_tc_library,
+           speller_additive.load_library)
 
 
 # the float32 forward's geometry (csrc/speller_decode.cu), mirrored here so

@@ -22,12 +22,14 @@ def lstm_layer_flops(batch: int, time: int, in_dim: int, hid: int,
 
 
 def listener_flops(cfg, batch: int, time: int) -> int:
-    """Forward FLOPs of the Listener (base locked stack + pyramid)."""
+    """Forward FLOPs of the Listener (base locked stack on the stacked
+    frames, then the pyramid)."""
     lc = cfg.listener
     hid = lc.uniform_hid_dim
     enc_out = lc.enc_out_dim
     total = 0
-    in_dim = lc.input_dim
+    in_dim = lc.frame_dim
+    time = -(-time // lc.stack_stride)
     for _ in range(lc.lstm_layers):
         total += lstm_layer_flops(batch, time, in_dim, hid, lc.bidirectional)
         in_dim = enc_out

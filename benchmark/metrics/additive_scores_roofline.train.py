@@ -1,0 +1,15 @@
+"""The additive attention score's forward in the train steps
+(``speller_additive_scores_kernel``, once a decode step of the step loop and
+once for the initial query): the launches' least time over their device
+time."""
+
+import re
+
+from benchmark import traces
+
+PATTERN = re.compile(r"\bspeller_additive_scores_kernel\b")
+COUNTERS = ("speller_additive_scores",)
+
+
+def read(ctx):
+    return traces.roofline_pct(ctx, PATTERN, COUNTERS) if ctx.kind == "train" else None

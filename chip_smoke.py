@@ -543,6 +543,32 @@ def cuda_median_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def queued_ms(torch, fn, calls: int = 50, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` alone: ``calls`` calls back to back between
+    one pair of CUDA events, issued while a sleep kernel holds the stream,
+    so that the host's time to issue them is hidden; the median of
+    ``reps``. For kernels of tens of microseconds, where one call between
+    two events reads the host's checks and allocations too."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+# about 50 ms at the H100's clocks: longer than the host takes to issue 50
+# calls of a kernel wrapper of about 0.1 ms each
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
 def timed_ms(torch, fn) -> tuple:
     """(what ``fn`` returns, its time in ms by CUDA events): one call."""
     start = torch.cuda.Event(enable_timing=True)
@@ -583,7 +609,8 @@ def environment(torch, card: str) -> float:
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.2f} s ({SOURCE}, {STREAMS_SOURCE}, {TC_SOURCE}, "
         f"{TC_STREAMS_SOURCE}, {BWD_SOURCE}, {BWD_TC_SOURCE}, {SPELLER_SOURCE}, "
-        f"{SPELLER_TC_SOURCE}, {SPELLER_BWD_SOURCE}, {SPELLER_BWD_TC_SOURCE}; "
+        f"{SPELLER_TC_SOURCE}, {SPELLER_BWD_SOURCE}, {SPELLER_BWD_TC_SOURCE}, "
+        f"{ADDITIVE_SOURCE}; "
         f"cuda_build.build_all, the call the entry points make)")
     log(f"native batch assembler (native/libasrtpu.so, not tracked): "
         f"{'loaded' if native_available() else 'absent, the numpy assembler serves'}")
@@ -1063,7 +1090,8 @@ def f32_new_shape_check(torch, card: str, label: str) -> None:
     errs.update({"d_" + n: rel_err(a, b) for n, a, b in zip(
         [n for n in OPERAND_NAMES if n != "bias"], grads["kernels"], grads["plain"])})
     if dict(sc.LAUNCHES) != {"speller_decode": 0, "speller_decode_train": 2,
-                             "speller_decode_bwd": 2}:
+                             "speller_decode_bwd": 2, "speller_additive_scores": 0,
+                             "speller_additive_scores_bwd": 0}:
         raise AssertionError(f"speller kernels float32 {label}: {dict(sc.LAUNCHES)} launches, "
                              f"not one a call")
     plan = sc.bwd_f32_plan_for(k, heads, h1, h2)
@@ -1221,7 +1249,8 @@ def bf16_speller_check(torch, card: str, label: str) -> None:
     if len(plan.launches) != fwd_launches:
         raise AssertionError(f"bf16 speller, {label}: plan {plan.launches}")
     want_counts = {"speller_decode": int(eval_form) * fwd_launches,
-                   "speller_decode_train": fwd_launches, "speller_decode_bwd": 2}
+                   "speller_decode_train": fwd_launches, "speller_decode_bwd": 2,
+                   "speller_additive_scores": 0, "speller_additive_scores_bwd": 0}
     if counts != want_counts:
         raise AssertionError(f"bf16 speller, {label}: launches {counts}, not {want_counts}")
     bad = {n: r for n, (_, r) in errs.items() if not r <= SPELLER_TRAIN_TOL["bfloat16"]}
@@ -1290,6 +1319,149 @@ def rel_err(got, ref) -> tuple:
 
 
 CELL_B = 96  # the benchmark cell's batch (benchmark/configs/base-las.json)
+
+
+# Chiu et al. 2018's LAS (configs/chiu-las.yml): the additive score at its
+# cell's shapes (B 128, Te 384 and 512 stacked frames, 4 heads of 256)
+ADDITIVE_SOURCE = "attention_based_e2e_asr_dnn_tpu_torch/csrc/speller_additive.cu"
+ADDITIVE_SHAPES = ((128, 512, 4, 256), (128, 384, 4, 256))
+# bf16, of the largest magnitude: the kernel sums in fp32 in another order
+# than the plain version, its tanh is tanh.approx.f32 (~2^-11 relative) and
+# the outputs are rounded to bf16, so an entry may land one bf16 step off:
+# 2^-7 of a score near 1.5 (measured 5.1e-3 on the scores, 2.4e-3 on dq,
+# 3.3e-3 on dk, 2.8e-4 on dv)
+ADDITIVE_TOL = 2.0 ** -7
+CHIU_STEP = (128, 1536, 256)  # batch, frames, labels: the cell's longer shape
+
+
+def chiu_model() -> dict:
+    """The model block of configs/chiu-las.yml."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "chiu-las.yml")) as fh:
+        return yaml.safe_load(fh)["model"]["configs"]
+
+
+def additive_score_phase(torch, card: str) -> dict:
+    """The additive score's forward and adjoint (ops/speller_additive.py)
+    against their plain versions at the chiu-las cell's shapes, timed by
+    CUDA events over calls issued back to back (``queued_ms``; the
+    adjoint's time holds its wrapper's sum of dv over the batch) beside
+    their bound (bytes over 3.35 TB/s: k at the valid frames, q, v, the
+    scores; the adjoint also dk whole, ds, dq and dv); then 1 + 2 chiu-las
+    train steps at the published widths, which take the step loop
+    (``models/additive_decode.py``: the first step captures its two loops,
+    the others replay them) and launch each kernel once a decode step and
+    once for the initial query. Returns the JSON records."""
+    from attention_based_e2e_asr_dnn_tpu_torch.models import las
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import lstm_cuda
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_additive as sa
+    from attention_based_e2e_asr_dnn_tpu_torch.ops import speller_cuda as sc
+    from attention_based_e2e_asr_dnn_tpu_torch.training.optim import build_optimizer
+    from attention_based_e2e_asr_dnn_tpu_torch.training.steps import (
+        create_train_state, make_train_step)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 26)
+    records = {}
+    for batch, te, heads, d in ADDITIVE_SHAPES:
+        bf = torch.bfloat16
+        q = (torch.rand(batch, heads, d, generator=gen, device=DEVICE) * 2 - 1).to(bf)
+        k = (torch.rand(batch, te, heads, d, generator=gen, device=DEVICE) * 2 - 1).to(bf)
+        v = ((torch.rand(heads, d, generator=gen, device=DEVICE) * 2 - 1) / d ** 0.5).to(bf)
+        lx = torch.randint(te * 237 // 512, te + 1, (batch,), generator=gen, device=DEVICE)
+        lx[0] = te
+        mask = torch.arange(te, device=DEVICE)[None, :] >= lx[:, None]
+        ds = torch.randn(batch, heads, te, generator=gen, device=DEVICE).to(bf)
+        sc.reset_launch_counts()
+        got = (sa.additive_scores_forward(q, k, v, mask),
+               *sa.additive_scores_backward(q, k, v, mask, ds))
+        want = (sa.additive_scores_plain(q, k, v, mask),
+                *sa.additive_scores_bwd_plain(q, k, v, mask, ds))
+        torch.cuda.synchronize()
+        if (sc.LAUNCHES["speller_additive_scores"], sc.LAUNCHES["speller_additive_scores_bwd"]) != (1, 1):
+            raise AssertionError(f"additive score: {dict(sc.LAUNCHES)} launches, not one a call")
+        pad = mask[:, None, :].expand(batch, heads, te)
+        if not bool((got[0][pad] == want[0][pad]).all()) or not bool((got[2][mask] == 0).all()):
+            raise AssertionError("additive score: padded frames not masked as the plain version")
+        errs = {"scores": rel_err(got[0][~pad], want[0][~pad])}
+        errs.update({n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:])})
+        bad = {n: r for n, (_, r) in errs.items() if not r <= ADDITIVE_TOL}
+        if bad:
+            raise AssertionError(f"additive score B={batch} Te={te}: errors over "
+                                 f"{ADDITIVE_TOL} of max: {bad}")
+        valid, small = float(lx.sum()) * heads * d, batch * heads * d + heads * d
+        fwd_bytes = 2 * (valid + small + batch * heads * te)
+        bwd_bytes = 2 * (valid + batch * te * heads * d + 2 * small + batch * heads * te)
+        fwd_ms = queued_ms(torch, lambda: sa.additive_scores_forward(q, k, v, mask))
+        bwd_ms = queued_ms(torch, lambda: sa.additive_scores_backward(q, k, v, mask, ds))
+        once_ms = (cuda_median_ms(torch, lambda: sa.additive_scores_forward(q, k, v, mask), 20),
+                   cuda_median_ms(torch, lambda: sa.additive_scores_backward(q, k, v, mask, ds),
+                                  20))
+        plain_fwd_ms = cuda_median_ms(torch, lambda: sa.additive_scores_plain(q, k, v, mask), 5)
+        plain_bwd_ms = cuda_median_ms(
+            torch, lambda: sa.additive_scores_bwd_plain(q, k, v, mask, ds), 5)
+        bounds = (fwd_bytes / 3.35e9, bwd_bytes / 3.35e9)
+        log(f"  additive score B={batch} Te={te} {heads}x{d} bf16: forward {fwd_ms:.4f} ms "
+            f"(bound {bounds[0]:.4f}, plain {plain_fwd_ms:.4f}), adjoint {bwd_ms:.4f} ms "
+            f"(bound {bounds[1]:.4f}, plain {plain_bwd_ms:.4f}); one call after a sync "
+            f"{once_ms[0]:.4f} / {once_ms[1]:.4f} ms; errors {errs}")
+        if te == ADDITIVE_SHAPES[0][1]:
+            for name, ms, plain_ms, bound, keys in (
+                    ("speller_additive_scores", fwd_ms, plain_fwd_ms, bounds[0], ("scores",)),
+                    ("speller_additive_scores_bwd", bwd_ms, plain_bwd_ms, bounds[1],
+                     ("dq", "dk", "dv"))):
+                records[name] = {"name": name, "route": "cuda", "source": ADDITIVE_SOURCE,
+                                 "replaces": None, "launches": 0,
+                                 "max_abs_err": max(errs[n][0] for n in keys), "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                                 "library_ms": None}
+        del q, k, v, ds, got, want
+        torch.cuda.empty_cache()
+
+    model = chiu_model()
+    cfg = las.las_config_from_dicts(model["listener_configs"], model["speller_configs"])
+    params = las.las_init(cfg, torch.Generator().manual_seed(SEED + 27))
+    opt = build_optimizer("adamw", {"lr": 1e-3, "weight_decay": 5e-6, "amsgrad": True},
+                          grad_norm=5.0)
+    state = create_train_state(params, opt, seed=SEED, device=DEVICE)
+    step = make_train_step(lambda p, x, lx, **kw: las.las_apply(p, cfg, x, lx, **kw), opt,
+                           compute_dtype=torch.bfloat16, use_specaug=True)
+    batch, t_pad, labels = CHIU_STEP
+    x = torch.randn(batch, t_pad, cfg.listener.input_dim, generator=gen, device=DEVICE)
+    lx = torch.randint(t_pad * 3 // 4, t_pad + 1, (batch,), generator=gen, device=DEVICE)
+    x = x * (torch.arange(t_pad, device=DEVICE)[None, :, None] < lx[:, None, None])
+    ly = torch.randint(labels * 3 // 4, labels + 1, (batch,), generator=gen, device=DEVICE)
+    y = torch.randint(1, 29, (batch, labels), generator=gen, device=DEVICE)
+    y = torch.where(torch.arange(labels, device=DEVICE)[None, :] < ly[:, None], y, 29)
+    las.reset_decode_routes()
+    step(state, x, lx.int(), y.int(), ly.int(), 0.9, 1e-3)
+    torch.cuda.synchronize()
+    lstm_cuda.reset_launch_counts()
+    sc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        _, m, _ = step(state, x, lx.int(), y.int(), ly.int(), 0.9, 1e-3)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    counts = {k: n for k, n in {**lstm_cuda.LAUNCHES, **sc.LAUNCHES}.items() if n}
+    layers = 2 * cfg.listener.lstm_layers  # two steps: the x_proj forward and #6 a layer
+    want = {"lstm_scan_train": layers, "lstm_bwd": layers,
+            "speller_additive_scores": 2 * (labels + 1),
+            "speller_additive_scores_bwd": 2 * (labels + 1)}
+    routes = las.decode_route_report()
+    if counts != want or set(routes.values()) != {"scan"} or not bool(torch.isfinite(m["loss"])):
+        raise AssertionError(f"chiu-las steps: launches {counts} != {want}, routes {routes}, "
+                             f"loss {float(m['loss'])}")
+    log(f"  chiu-las train step B={batch} T={t_pad} L={labels}: {step_s:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated()} B, loss {float(m['loss']):.4f}, launches {counts}")
+    for name in records:
+        records[name]["launches"] = counts[name]
+    del state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
 
 
 def cell_adjoint_check(torch, card: str, hidden: int) -> None:
@@ -5096,6 +5268,8 @@ def main() -> int:
         train_records.update(speller_train_kernel_phase(torch, card))
         f32_records["speller_decode_bwd (float32)"] = train_records.pop(
             "speller_decode_bwd (float32)")
+    with phase("26 additive attention score; chiu-las train steps"):
+        additive_records = additive_score_phase(torch, card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         exp = make_experiment(torch, os.path.join(root, "exp"))
@@ -5223,6 +5397,8 @@ def main() -> int:
     # the last two kernels: no YAML key of either package routes to them, so
     # their main path is the op itself, in the driven run at each row's shape
     records.update(fused_records)
+    # the additive score's main path: phase 26's chiu-las train steps
+    records.update(additive_records)
     for name in records:
         if records[name]["launches"] <= 0:
             raise AssertionError(f"{name} never launched on the main path")

@@ -25,6 +25,8 @@ SPELLER = {"att_proj_dim": 64, "att_heads": 2, "dec_emb_dim": 128, "dec_lstm_hid
 # bfloat16 outputs and carries are rounded to bf16, so a flipped rounding
 # propagates (two bf16 steps of the largest logits, and of weights near 1)
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (0.25, 2.0 ** -7)}
+# the additive score's counters share the dict; a dot-product decode moves neither
+NO_ADDITIVE = {"speller_additive_scores": 0, "speller_additive_scores_bwd": 0}
 
 
 @pytest.fixture
@@ -300,7 +302,7 @@ def test_training_speller_apply_on_card_matches_cpu(cuda_device):
         g = torch.autograd.grad(out.logits.float().square().mean(), list(p.parameters()))
         if device == "cuda":
             assert speller_cuda.LAUNCHES == {"speller_decode": 0, "speller_decode_train": 1,
-                                             "speller_decode_bwd": 1}
+                                             "speller_decode_bwd": 1, **NO_ADDITIVE}
         results[device] = (out.logits.detach().cpu(), out.att_map.detach().cpu(),
                            [x.cpu() for x in g])
     torch.testing.assert_close(results["cuda"][0], results["cpu"][0], atol=1e-4, rtol=0)
@@ -477,7 +479,7 @@ def test_bf16_function_grads_through_the_tensor_core_forward_on_card(cuda_device
                 outs, [t for t in leaves if t.requires_grad], [d_logits, d_wgts])
             if route == "kernels":
                 assert speller_cuda.LAUNCHES == {"speller_decode": 0, "speller_decode_train": 1,
-                                                 "speller_decode_bwd": 1}
+                                                 "speller_decode_bwd": 1, **NO_ADDITIVE}
         finally:
             speller_cuda.speller_decode_train, speller_cuda.speller_decode_bwd = saved
     for n, (a, b) in enumerate(zip(grads["kernels"], grads["plain"])):
@@ -740,7 +742,7 @@ def test_bf16_function_grads_at_a_widened_block_on_card(cuda_device):
                 outs, [t for t in leaves if t.requires_grad], [d_logits, d_wgts])
             if route == "kernels":
                 assert speller_cuda.LAUNCHES == {"speller_decode": 0, "speller_decode_train": 1,
-                                                 "speller_decode_bwd": 1}
+                                                 "speller_decode_bwd": 1, **NO_ADDITIVE}
         finally:
             speller_cuda.speller_decode_train, speller_cuda.speller_decode_bwd = saved
     assert len(grads["kernels"]) == 17
